@@ -1,0 +1,396 @@
+"""Shared model-API plumbing (port of cmfrec_tpu/models/base.py): parameter
+handling, input ingestion with ID reindexing, and the predict/topN entry
+points.
+
+Mirrors the reference's `_CMF` base (upstream cmfrec/__init__.py:25):
+pandas DataFrames with arbitrary Id columns are reindexed (pandas is
+imported only for DataFrame input); SciPy sparse and dense NumPy inputs pass
+through with positional indices.  Fitted attributes are NumPy arrays under
+the reference's names (A_, B_, user_bias_, item_bias_, glob_mean_,
+user_mapping_, item_mapping_, is_fitted_); predict/topN score on the
+model's ``device`` from copies uploaded once and then reused.  ``save``/``load`` use the same .npz format
+as cmfrec_tpu, so a model saved by either package loads in the other.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from ..config import resolve_device, resolve_dtype
+from ..ops import predict as predict_ops
+
+
+def _is_df(x):
+    try:
+        import pandas as pd
+
+        return isinstance(x, pd.DataFrame)
+    except ImportError:  # pandas is optional
+        return False
+
+
+def _is_sparse(x):
+    return hasattr(x, "tocoo") and hasattr(x, "shape")
+
+
+def _parse_df_values(X, W):
+    """Rating/Value/Count + Weight columns of an X DataFrame."""
+    val_col = "Rating" if "Rating" in X.columns else (
+        "Value" if "Value" in X.columns else "Count"
+    )
+    if val_col not in X.columns:
+        raise ValueError("X DataFrame needs a Rating/Value/Count column")
+    vals = X[val_col].to_numpy(np.float64)
+    wgt = X["Weight"].to_numpy(np.float64) if "Weight" in X.columns else None
+    if W is not None:
+        wgt = np.asarray(W, np.float64).ravel()
+    return vals, wgt
+
+
+class _BaseModel:
+    """sklearn-style base: set_params/get_params, ingestion, prediction."""
+
+    def __repr__(self):
+        return f"{self.__class__.__name__}({'fitted' if getattr(self, 'is_fitted_', False) else 'unfitted'})"
+
+    __str__ = __repr__
+
+    def get_params(self, deep=True):
+        # sklearn semantics: the constructor's parameters by introspection
+        # (a name filter on __dict__ would drop `lambda_`)
+        import inspect
+
+        names = [p for p in
+                 inspect.signature(type(self).__init__).parameters
+                 if p != "self"]
+        return {nm: getattr(self, nm) for nm in names if hasattr(self, nm)}
+
+    def set_params(self, **params):
+        if getattr(self, "is_fitted_", False):
+            raise ValueError(
+                "Cannot change parameters after the model has been fit."
+            )
+        for k, v in params.items():
+            if not hasattr(self, k):
+                raise ValueError(f"Invalid parameter: {k}")
+            setattr(self, k, v)
+        return self
+
+    def fit_triplets(self, rows, cols, vals, m, n, W=None, **fit_kwargs):
+        """Convenience: fit directly from positional COO triplets."""
+        import scipy.sparse as sp
+
+        X = sp.coo_matrix(
+            (np.asarray(vals, np.float64),
+             (np.asarray(rows, np.int64), np.asarray(cols, np.int64))),
+            shape=(m, n),
+        )
+        if W is not None:
+            fit_kwargs["W"] = W
+        return self.fit(X, **fit_kwargs)
+
+    # ------------------------------------------------------------------ #
+    # input ingestion                                                     #
+    # ------------------------------------------------------------------ #
+
+    def _reset(self):
+        self.A_ = None
+        self.B_ = None
+        self.user_bias_ = None
+        self.item_bias_ = None
+        self.glob_mean_ = 0.0
+        self.scaling_biasA_ = 0.0
+        self.scaling_biasB_ = 0.0
+        self.user_mapping_ = np.array([], dtype=object)
+        self.item_mapping_ = np.array([], dtype=object)
+        self.reindex_ = False
+        self.is_fitted_ = False
+        self.niter_ = None
+        self.user_dict_ = {}
+        self.item_dict_ = {}
+        self._device_cache = {}
+
+    def _ingest_X(self, X, W=None):
+        """Fit-time ingestion: also records X's dims (``_m_orig``/``_n_orig``,
+        the include_all_X gate of topN)."""
+        out = self._ingest_X_inner(X, W)
+        self._m_orig = out[4]
+        self._n_orig = out[5]
+        return out
+
+    def _ingest_X_inner(self, X, W=None):
+        """X as DataFrame(UserId, ItemId, Rating[, Weight]) / scipy sparse /
+        dense ndarray (NaN = missing) -> COO triplets + dims + mappings."""
+        if _is_df(X):
+            import pandas as pd
+
+            need = {"UserId", "ItemId"}
+            if not need.issubset(X.columns):
+                raise ValueError("X DataFrame needs UserId and ItemId columns")
+            ucodes, umap = pd.factorize(X["UserId"], use_na_sentinel=False)
+            icodes, imap = pd.factorize(X["ItemId"], use_na_sentinel=False)
+            self.user_mapping_ = np.asarray(umap)
+            self.item_mapping_ = np.asarray(imap)
+            self.reindex_ = True
+            vals, wgt = _parse_df_values(X, W)
+            return (ucodes.astype(np.int64), icodes.astype(np.int64), vals,
+                    wgt, len(umap), len(imap))
+        if _is_sparse(X):
+            coo = X.tocoo()
+            wgt = None
+            if W is not None:
+                wgt = W.tocoo().data if _is_sparse(W) else np.asarray(W).ravel()
+            self.reindex_ = False
+            return (coo.row.astype(np.int64), coo.col.astype(np.int64),
+                    coo.data.astype(np.float64), wgt, X.shape[0], X.shape[1])
+        X = np.asarray(X, np.float64)
+        if X.ndim != 2:
+            raise ValueError("X must be 2-dimensional")
+        rows, cols = np.nonzero(~np.isnan(X))
+        vals = X[rows, cols]
+        wgt = None
+        if W is not None:
+            W = np.asarray(W, np.float64)
+            wgt = W[rows, cols] if W.ndim == 2 else W.ravel()
+        self.reindex_ = False
+        return rows, cols, vals, wgt, X.shape[0], X.shape[1]
+
+    def _build_dicts(self):
+        """id -> position dicts (the reference's produce_dicts,
+        upstream cmfrec/__init__.py:2727 user_dict_/item_dict_)."""
+        if getattr(self, "produce_dicts", False) and self.reindex_:
+            self.user_dict_ = {u: i for i, u in
+                               enumerate(self.user_mapping_)}
+            self.item_dict_ = {it: i for i, it in
+                               enumerate(self.item_mapping_)}
+
+    # ------------------------------------------------------------------ #
+    # id mapping                                                          #
+    # ------------------------------------------------------------------ #
+
+    def _map_ids(self, ids, mapping, kind="user", allow_missing=False):
+        ids = np.asarray(ids)
+        scalar = ids.ndim == 0
+        ids = np.atleast_1d(ids)
+        if self.reindex_:
+            import pandas as pd
+
+            codes = pd.Index(mapping).get_indexer(ids).astype(np.int64)
+            if (codes < 0).any() and not allow_missing:
+                raise ValueError(f"unknown {kind} id(s): {ids[codes < 0][:5]}")
+        else:
+            codes = ids.astype(np.int64)
+            if allow_missing:
+                mat = self._xA if kind == "user" else self._xB
+                codes = np.where((codes < 0) | (codes >= mat.shape[0]), -1,
+                                 codes)
+        return (codes[0] if scalar else codes), scalar
+
+    def _unmap_items(self, idx):
+        if self.reindex_:
+            return self.item_mapping_[idx]
+        return idx
+
+    # ------------------------------------------------------------------ #
+    # prediction surface                                                  #
+    # ------------------------------------------------------------------ #
+
+    @property
+    def _xA(self):
+        """A columns that participate in X (strips k_user)."""
+        ku = getattr(self, "k_user", 0)
+        return self.A_[:, ku:] if ku else self.A_
+
+    @property
+    def _xB(self):
+        ki = getattr(self, "k_item", 0)
+        return self.B_[:, ki:] if ki else self.B_
+
+    def _on_device(self, name):
+        """f32 copy of the fitted array attribute ``name`` on the model's
+        device.  It is uploaded once and reused for as long as the attribute
+        holds the same array and the device is unchanged; an array modified
+        in place is not seen (assign a new array instead)."""
+        a = getattr(self, name, None)
+        if a is None:
+            return None
+        cache = self.__dict__.setdefault("_device_cache", {})
+        hit = cache.get(name)
+        if hit is None or hit[0] is not a or hit[1] != self.device:
+            dev = resolve_device(self.device)
+            cache[name] = (a, self.device,
+                           torch.as_tensor(np.asarray(a, np.float32),
+                                           device=dev))
+        return cache[name][2]
+
+    def _device_x_factors(self):
+        """(A, B) on the device, restricted to the columns that participate
+        in X (as ``_xA``/``_xB``)."""
+        return (self._on_device("A_")[:, getattr(self, "k_user", 0):],
+                self._on_device("B_")[:, getattr(self, "k_item", 0):])
+
+    # Unknown user/item combinations: the explicit CMF predicts the global
+    # mean plus whichever bias is known; other models yield NaN
+    # (upstream cmfrec/__init__.py:1188-1192).
+    _unknown_pred_mean = False
+
+    def predict(self, user, item):
+        """Predict X[user, item] for arrays or scalars of ids
+        (reference: upstream cmfrec/__init__.py:1183)."""
+        if not self.is_fitted_:
+            raise RuntimeError("Model is not fitted")
+        u, scalar_u = self._map_ids(user, self.user_mapping_, "user",
+                                    allow_missing=True)
+        i, scalar_i = self._map_ids(item, self.item_mapping_, "item",
+                                    allow_missing=True)
+        u = np.atleast_1d(u)
+        i = np.atleast_1d(i)
+        if u.size == 1 and i.size > 1:
+            u = np.repeat(u, i.size)
+        if i.size == 1 and u.size > 1:
+            i = np.repeat(i, u.size)
+        bad = (u < 0) | (i < 0)
+        dev = resolve_device(self.device)
+        A, B = self._device_x_factors()
+        p = predict_ops.predict_pairs(
+            A, B,
+            torch.as_tensor(np.maximum(u, 0), device=dev),
+            torch.as_tensor(np.maximum(i, 0), device=dev),
+            self._on_device("user_bias_"), self._on_device("item_bias_"),
+            float(self.glob_mean_),
+        )
+        p = p.cpu().numpy()
+        if bad.any():
+            if self._unknown_pred_mean:
+                fill = np.full(bad.sum(), self.glob_mean_)
+                if self.user_bias_ is not None:
+                    ub = np.asarray(self.user_bias_)
+                    fill += np.where(u[bad] >= 0, ub[np.maximum(u[bad], 0)], 0.0)
+                if self.item_bias_ is not None:
+                    ib = np.asarray(self.item_bias_)
+                    fill += np.where(i[bad] >= 0, ib[np.maximum(i[bad], 0)], 0.0)
+                p[bad] = fill
+            else:
+                p[bad] = np.nan
+        return float(p[0]) if (scalar_u and scalar_i) else p
+
+    def topN(self, user, n=10, include=None, exclude=None, output_score=False):
+        """Top-N highest-predicted items for an existing user
+        (reference: upstream cmfrec/__init__.py:1355)."""
+        if not self.is_fitted_:
+            raise RuntimeError("Model is not fitted")
+        u, _ = self._map_ids(user, self.user_mapping_, "user")
+        a_vec = self._device_x_factors()[0][int(u)]
+        a_bias = float(self.user_bias_[int(u)]) if self.user_bias_ is not None else 0.0
+        return self._topN_vec(a_vec, a_bias, n, include, exclude, output_score)
+
+    def _topN_vec(self, a_vec, a_bias, n, include, exclude, output_score):
+        """``a_vec`` is the user's factor row, a tensor on the device."""
+        if include is not None:
+            include, _ = self._map_ids(include, self.item_mapping_, "item")
+            include = np.atleast_1d(include)
+        if exclude is not None:
+            exclude, _ = self._map_ids(exclude, self.item_mapping_, "item")
+            exclude = np.atleast_1d(exclude)
+        B, ib = self._device_x_factors()[1], self._on_device("item_bias_")
+        # include_all_X=False: items present only in the side info (rows of
+        # I beyond X's columns) are excluded from recommendation
+        # (upstream cmfrec/__init__.py:2759; ignored under NA_as_zero)
+        lim = getattr(self, "_n_orig", None)
+        if (not getattr(self, "include_all_X", True)
+                and not getattr(self, "NA_as_zero", False)
+                and lim is not None and lim < B.shape[0]):
+            if include is not None and (include >= lim).any():
+                raise ValueError(
+                    "include= contains items absent from X; refit with "
+                    "include_all_X=True to recommend side-info-only items"
+                )
+            if exclude is not None:
+                exclude = exclude[(exclude >= 0) & (exclude < lim)]
+                if exclude.size == 0:
+                    exclude = None
+            B = B[:lim]
+            ib = None if ib is None else ib[:lim]
+        idx, scores = predict_ops.topn(
+            a_vec, B, n, ib, float(self.glob_mean_), a_bias,
+            include, exclude,
+        )
+        items = self._unmap_items(idx)
+        return (items, scores) if output_score else items
+
+    # ------------------------------------------------------------------ #
+    # serialization: the cmfrec_tpu .npz format                           #
+    # ------------------------------------------------------------------ #
+
+    _ARRAY_ATTRS = (
+        "A_", "B_", "C_", "D_", "Ai_", "Bi_", "Am_", "Bm_",
+        "C_bias_", "D_bias_", "Cb_", "Db_",
+        "user_bias_", "item_bias_", "U_colmeans_", "I_colmeans_",
+        "user_mapping_", "item_mapping_",
+    )
+
+    def save(self, path):
+        """Serialize fitted state + hyperparameters to one .npz file.  The
+        device is a placement, not a hyperparameter, and is not written, so
+        cmfrec_tpu can load the file."""
+        import json
+
+        arrays = {}
+        for name in self._ARRAY_ATTRS:
+            v = getattr(self, name, None)
+            if v is not None:
+                v = np.asarray(v)
+                if v.dtype == object:  # string id mappings
+                    v = v.astype(str)
+                arrays[name] = v
+        params = {k: (v.tolist() if isinstance(v, np.ndarray) else v)
+                  for k, v in self.get_params().items() if k != "device"}
+        meta = {
+            "class": self.__class__.__name__,
+            "params": params,
+            "glob_mean": float(getattr(self, "glob_mean_", 0.0)),
+            "reindex": bool(getattr(self, "reindex_", False)),
+            "is_fitted": bool(getattr(self, "is_fitted_", False)),
+            "w_main_multiplier": float(
+                getattr(self, "w_main_multiplier_", 1.0)
+            ),
+            "scaling_biasA": float(getattr(self, "scaling_biasA_", 0.0)),
+            "scaling_biasB": float(getattr(self, "scaling_biasB_", 0.0)),
+            "m_orig": getattr(self, "_m_orig", None),
+            "n_orig": getattr(self, "_n_orig", None),
+        }
+        np.savez_compressed(path, __meta__=json.dumps(meta), **arrays)
+        return self
+
+    @classmethod
+    def load(cls, path, device="cuda"):
+        """Restore a model saved with .save() by either package, placed on
+        ``device`` for predict/topN."""
+        import json
+
+        import cmfrec_torch
+
+        with np.load(path, allow_pickle=False) as data:
+            meta = json.loads(str(data["__meta__"]))
+            klass = getattr(cmfrec_torch, meta["class"], None)
+            if klass is None:
+                raise ValueError(f"cmfrec_torch has no model class "
+                                 f"{meta['class']!r} yet (see ROADMAP.md)")
+            model = klass(**meta["params"], device=device)
+            model._reset()
+            model.dtype_ = resolve_dtype(meta["params"].get("use_float", True))
+            for name in cls._ARRAY_ATTRS:
+                if name in data:
+                    setattr(model, name, data[name])
+        model.glob_mean_ = meta["glob_mean"]
+        model.reindex_ = meta["reindex"]
+        model.is_fitted_ = meta["is_fitted"]
+        model.w_main_multiplier_ = meta["w_main_multiplier"]
+        model.scaling_biasA_ = float(meta.get("scaling_biasA", 0.0))
+        model.scaling_biasB_ = float(meta.get("scaling_biasB", 0.0))
+        if meta.get("m_orig") is not None:
+            model._m_orig = int(meta["m_orig"])
+        if meta.get("n_orig") is not None:
+            model._n_orig = int(meta["n_orig"])
+        return model

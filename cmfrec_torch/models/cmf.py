@@ -1,0 +1,189 @@
+"""CMF — the flagship explicit model (port of cmfrec_tpu/models/cmf.py).
+
+API-compatible with cmfrec_tpu's ``CMF`` (and the reference's class of the
+same name, upstream cmfrec/__init__.py:2446): the same constructor
+hyperparameters plus ``device``, the same fitted attributes, and
+fit/predict/topN/save/load.  This slice fits ratings without side info on
+the dense-masked engine; the other fit branches raise ``ValueError`` naming
+the ROADMAP slice that brings them.
+"""
+
+from __future__ import annotations
+
+import warnings
+
+import numpy as np
+
+from ..config import resolve_dtype, set_handle_interrupt
+from ..solvers import drivers
+from .base import _BaseModel
+
+
+def _check_lambda(lambda_, name="lambda_"):
+    arr = np.atleast_1d(np.asarray(lambda_, np.float64))
+    if arr.size not in (1, 6):
+        raise ValueError(f"'{name}' must be a scalar or an array of size 6")
+    if np.any(arr < 0):
+        raise ValueError(f"'{name}' must be non-negative")
+
+
+def _validate_cmf_params(self):
+    """Unsupported-combination checks matching the reference's _take_params
+    (upstream cmfrec/__init__.py:63-262)."""
+    if self.method not in ("als", "lbfgs"):
+        raise ValueError("'method' must be one of 'als' or 'lbfgs'")
+    if int(self.k) <= 0 and not (self.k_user and self.k_item):
+        raise ValueError("'k' must be a positive integer")
+    for nm in ("k_user", "k_item", "k_main"):
+        if int(getattr(self, nm)) < 0:
+            raise ValueError(f"'{nm}' must be non-negative")
+    _check_lambda(self.lambda_)
+    _check_lambda(self.l1_lambda, "l1_lambda")
+    if int(self.niter) < 0:
+        raise ValueError("'niter' must be non-negative")
+    if self.method == "als" and int(self.max_cg_steps) <= 0:
+        raise ValueError("'max_cg_steps' must be a positive integer")
+    if self.center and self.nonneg:
+        warnings.warn(
+            "Warning: will fit a model with centering and non-negativity "
+            "constraints."
+        )
+
+
+class CMF(_BaseModel):
+    """Collective matrix factorization with explicit feedback.
+
+    Model: X ~ A B^T (+ biases + mean).  ``device`` ("cuda" by default)
+    is where the fit and the predict/topN scoring run.
+    """
+
+    _unknown_pred_mean = True  # unknown ids -> mean+biases (reference note)
+
+    def __init__(self, k=40, lambda_=1e1, method="als", use_cg=True,
+                 user_bias=True, item_bias=True, center=True,
+                 add_implicit_features=False,
+                 scale_lam=False, scale_lam_sideinfo=False,
+                 scale_bias_const=False,
+                 k_user=0, k_item=0, k_main=0,
+                 w_main=1.0, w_user=1.0, w_item=1.0, w_implicit=0.5,
+                 l1_lambda=0.0, center_U=True, center_I=True,
+                 maxiter=800, niter=10, parallelize="separate", corr_pairs=4,
+                 max_cg_steps=3, precondition_cg=False, finalize_chol=True,
+                 NA_as_zero=False, NA_as_zero_user=False, NA_as_zero_item=False,
+                 nonneg=False, nonneg_C=False, nonneg_D=False, max_cd_steps=100,
+                 precompute_for_predictions=True, include_all_X=True,
+                 use_float=True,
+                 random_state=1, verbose=False, print_every=10,
+                 handle_interrupt=True, produce_dicts=False,
+                 nthreads=-1, n_jobs=None,
+                 checkpoint_path=None, checkpoint_every=0, device="cuda"):
+        self.k = k
+        self.lambda_ = lambda_
+        self.checkpoint_path = checkpoint_path
+        self.checkpoint_every = checkpoint_every
+        self.method = method
+        self.use_cg = use_cg
+        self.user_bias = user_bias
+        self.item_bias = item_bias
+        self.center = center
+        self.add_implicit_features = add_implicit_features
+        self.scale_lam = scale_lam
+        # the reference's Python class couples the flags: scale_lam
+        # implies scale_lam_sideinfo (upstream cmfrec/__init__.py:208)
+        self.scale_lam_sideinfo = bool(scale_lam_sideinfo) or bool(scale_lam)
+        self.scale_bias_const = scale_bias_const
+        self.k_user = k_user
+        self.k_item = k_item
+        self.k_main = k_main
+        self.w_main = w_main
+        self.w_user = w_user
+        self.w_item = w_item
+        self.w_implicit = w_implicit
+        self.l1_lambda = l1_lambda
+        self.center_U = center_U
+        self.center_I = center_I
+        self.maxiter = maxiter
+        self.niter = niter
+        self.parallelize = parallelize
+        self.corr_pairs = corr_pairs
+        self.max_cg_steps = max_cg_steps
+        self.precondition_cg = precondition_cg
+        self.finalize_chol = finalize_chol
+        self.NA_as_zero = NA_as_zero
+        self.NA_as_zero_user = NA_as_zero_user
+        self.NA_as_zero_item = NA_as_zero_item
+        self.nonneg = nonneg
+        self.nonneg_C = nonneg_C
+        self.nonneg_D = nonneg_D
+        self.max_cd_steps = max_cd_steps
+        # stored for API parity; its precompute (warm.build_precomputed)
+        # arrives with the warm-serving slice
+        self.precompute_for_predictions = precompute_for_predictions
+        self.include_all_X = include_all_X
+        self.use_float = use_float
+        self.random_state = random_state
+        self.verbose = verbose
+        self.print_every = print_every
+        self.handle_interrupt = handle_interrupt
+        self.produce_dicts = produce_dicts
+        self.nthreads = nthreads
+        self.n_jobs = n_jobs
+        self.device = device
+        self.is_fitted_ = False
+        _validate_cmf_params(self)
+
+    def fit(self, X, U=None, I=None, U_bin=None, I_bin=None, W=None):
+        """Fit to explicit-feedback data (reference:
+        upstream cmfrec/__init__.py:3066)."""
+        _validate_cmf_params(self)  # set_params may have changed options
+        if self.method == "lbfgs" or U_bin is not None or I_bin is not None:
+            raise drivers._unsupported("method='lbfgs' and binary side info",
+                                       "slice 6")
+        if U is not None or I is not None:
+            raise drivers._unsupported("side information (U=, I=)", "slice 2")
+        if self.add_implicit_features:
+            raise drivers._unsupported("add_implicit_features", "slice 2")
+        if self.k_user or self.k_item or self.k_main:
+            raise drivers._unsupported("k_user/k_item/k_main", "slice 2")
+        set_handle_interrupt(bool(self.handle_interrupt))
+        self._reset()
+        self.dtype_ = resolve_dtype(self.use_float)
+        rows, cols, vals, wgt, m, n = self._ingest_X(X, W)
+        if self.scale_lam and self.scale_bias_const:
+            # the constant bias-penalty scaling = mean observation weight
+            # per row/column (common.c:3787 wsum/m)
+            wsum = (float(len(vals)) if wgt is None
+                    else float(np.sum(wgt)))
+            self.scaling_biasA_ = wsum / max(m, 1)
+            self.scaling_biasB_ = wsum / max(n, 1)
+
+        res = drivers.fit_explicit_als(
+            rows, cols, vals, m, n,
+            k=self.k, lambda_=self.lambda_, l1_lambda=self.l1_lambda,
+            niter=self.niter, use_cg=self.use_cg,
+            max_cg_steps=self.max_cg_steps,
+            precondition_cg=self.precondition_cg,
+            finalize_chol=self.finalize_chol,
+            user_bias=self.user_bias, item_bias=self.item_bias,
+            center=self.center, scale_lam=self.scale_lam,
+            scale_bias_const=self.scale_bias_const,
+            NA_as_zero=self.NA_as_zero, nonneg=self.nonneg,
+            weights=wgt, dtype=self.dtype_, seed=self.random_state,
+            verbose=self.verbose,
+            checkpoint_path=self.checkpoint_path,
+            checkpoint_every=self.checkpoint_every,
+            device=self.device,
+        )
+
+        def host(t):
+            return None if t is None else t.cpu().numpy()
+
+        self.A_ = host(res["A"])
+        self.B_ = host(res["B"])
+        self.user_bias_ = host(res["biasA"])
+        self.item_bias_ = host(res["biasB"])
+        self.glob_mean_ = res["glob_mean"]
+        self.is_fitted_ = True
+        self.niter_ = self.niter
+        self._build_dicts()
+        return self

@@ -1,0 +1,84 @@
+"""Build and load the port's CUDA kernels (``cmfrec_torch/csrc/*.cu``).
+
+The sources are compiled with ``nvcc`` for ``sm_90a`` into a shared library
+with a plain C interface, on first use, into ``build/`` at the repository
+root; the file name carries a hash of the sources and flags, so an edited
+source is rebuilt and a stale library is never loaded.  The library is bound
+with ``ctypes``.  Nothing here runs at import time: the CPU path never needs
+``nvcc``.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+from functools import lru_cache
+from pathlib import Path
+
+_PKG = Path(__file__).resolve().parents[1]
+SOURCES = (_PKG / "csrc" / "masked_matmul.cu",)
+BUILD_DIR = _PKG.parent / "build"
+NVCC_FLAGS = ("-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    path = Path(os.environ.get("CUDA_HOME", "/usr/local/cuda")) / "bin" / "nvcc"
+    if not path.exists():
+        raise RuntimeError("nvcc not found (looked on PATH and in $CUDA_HOME/bin); "
+                           "the CUDA kernels cannot be built")
+    return str(path)
+
+
+def library_path() -> Path:
+    h = hashlib.sha256()
+    for src in SOURCES:
+        h.update(src.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"libcmfrec_kernels_{h.hexdigest()[:16]}.so"
+
+
+@lru_cache(maxsize=None)
+def build() -> tuple[Path, str]:
+    """Compile the kernels unless the hashed library exists.  Returns the
+    library's path and nvcc's diagnostics (``-Xptxas -v``: registers, shared
+    memory and spills per kernel; empty when nothing was compiled)."""
+    path = library_path()
+    if path.exists():
+        return path, ""
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = path.with_name(f"{path.name}.{os.getpid()}.tmp")
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, SOURCES)]
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed (exit {proc.returncode}):\n"
+                           f"{' '.join(cmd)}\n{proc.stdout}{proc.stderr}")
+    os.replace(tmp, path)  # atomic: a concurrent loader never sees half a file
+    return path, proc.stdout + proc.stderr
+
+
+@lru_cache(maxsize=None)
+def lib() -> ctypes.CDLL:
+    so = ctypes.CDLL(str(build()[0]))
+    P, I = ctypes.c_void_p, ctypes.c_int
+    so.cmf_masked_gram_matvec.argtypes = [P, P, P, P, I, I, I, I, I, P]
+    so.cmf_masked_gram_matvec.restype = I
+    so.cmf_masked_rhs.argtypes = [P, P, P, P, P, I, I, I, I, I, P]
+    so.cmf_masked_rhs.restype = I
+    so.cmf_error_string.argtypes = [I]
+    so.cmf_error_string.restype = ctypes.c_char_p
+    return so
+
+
+def check(err: int, name: str) -> None:
+    """Raise if a launch returned a CUDA error (a refused launch never runs,
+    and a later synchronize would not report it)."""
+    if err:
+        msg = lib().cmf_error_string(err).decode()
+        raise RuntimeError(f"{name}: CUDA launch failed with error {err} ({msg})")

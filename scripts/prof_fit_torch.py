@@ -1,0 +1,178 @@
+#!/usr/bin/env python3
+"""Where the time of cmfrec_torch's flagship fit goes, on one CUDA card.
+
+Run from the repository root:
+
+    python3 scripts/prof_fit_torch.py [--out DIR]
+
+It fits the flagship configuration of chip_smoke.py (explicit ALS-CG, k=50,
+15 iterations, CG 3, f32 polish) on bench.make_ml10m_shaped() with the same
+5% held out, through CMF.fit_triplets:
+
+  1. one cold fit (CUDA context, cuBLAS and allocator warm-up included);
+  2. two warm fits;
+  3. one warm fit under torch.profiler, which gives the device time per
+     kernel and the idle share = 1 - (union of the device's kernel and copy
+     intervals) / (host wall time of the fit);
+  4. with the profiler off, the host wall time of ingest (_ingest_X), of
+     the engine (fit_explicit_dense_masked, synchronized at its end), and of
+     the rest (COO build, driver checks, result download).
+
+Prints one line per measurement and, last, one JSON object with all of
+them.  With --out, also writes the profiler's per-kernel table there.
+"""
+
+import argparse
+import json
+import pathlib
+import subprocess
+import sys
+import time
+
+import numpy as np
+
+ROOT = pathlib.Path(__file__).resolve().parents[1]
+sys.path.insert(0, str(ROOT))
+
+M, N = 69878, 10677
+FIT = dict(k=50, lambda_=0.05, scale_lam=True, niter=15, use_cg=True,
+           max_cg_steps=3, finalize_chol=True, user_bias=True,
+           item_bias=True, center=True)
+
+
+def _busy_us(intervals):
+    """Length of the union of [start, end) intervals."""
+    busy, end_max = 0.0, -np.inf
+    for s, e in sorted(intervals):
+        if e <= end_max:
+            continue
+        busy += e - max(s, end_max)
+        end_max = e
+    return busy
+
+
+def _device_events(prof):
+    from torch.autograd import DeviceType
+
+    return [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+
+
+def _timed_wrapper(module, name, totals, sync):
+    fn = getattr(module, name)
+
+    def wrapped(*args, **kwargs):
+        t0 = time.perf_counter()
+        out = fn(*args, **kwargs)
+        sync()
+        totals[name] = totals.get(name, 0.0) + time.perf_counter() - t0
+        return out
+
+    setattr(module, name, wrapped)
+    return fn
+
+
+def profile_fit(rows, cols, vals, m, n, device):
+    """Cold, warm, profiled and host-split fits; returns a dict of numbers."""
+    import torch
+
+    import cmfrec_torch
+    from cmfrec_torch.models import base
+    from cmfrec_torch.solvers import drivers
+
+    def sync():
+        if torch.device(device).type == "cuda":
+            torch.cuda.synchronize()
+
+    def fit():
+        sync()
+        t0 = time.perf_counter()
+        model = cmfrec_torch.CMF(**FIT, device=device).fit_triplets(
+            rows, cols, vals, m, n)
+        sync()
+        return model, time.perf_counter() - t0
+
+    out = {}
+    _, out["cold_fit_s"] = fit()
+    out["warm_fit_s"] = [fit()[1] for _ in range(2)]
+    print(f"fits: cold {out['cold_fit_s']:.3f} s, warm "
+          f"{', '.join(f'{t:.3f}' for t in out['warm_fit_s'])} s", flush=True)
+
+    from torch.profiler import ProfilerActivity, profile
+
+    acts = [ProfilerActivity.CPU]
+    if torch.device(device).type == "cuda":
+        acts.append(ProfilerActivity.CUDA)
+    with profile(activities=acts) as prof:
+        _, wall = fit()
+    dev = _device_events(prof)
+    busy = _busy_us((e.time_range.start, e.time_range.end) for e in dev)
+    out["profiled_fit_s"] = wall
+    out["device_busy_ms"] = busy / 1e3
+    out["idle_share"] = 1.0 - busy / 1e6 / wall
+    per_kernel = {}
+    for e in dev:
+        k = per_kernel.setdefault(e.name, [0, 0.0])
+        k[0] += 1
+        k[1] += (e.time_range.end - e.time_range.start) / 1e3
+    out["device_ms_by_kernel"] = {
+        name: {"calls": c, "ms": ms} for name, ms, c in
+        sorted(((nm, v[1], v[0]) for nm, v in per_kernel.items()),
+               key=lambda x: -x[1])[:15]}
+    print(f"profiled fit: {wall:.3f} s, device busy "
+          f"{out['device_busy_ms']:.1f} ms, idle share "
+          f"{out['idle_share']:.3f}", flush=True)
+    for name, v in out["device_ms_by_kernel"].items():
+        print(f"  {v['ms']:9.2f} ms {v['calls']:5d} calls  {name[:90]}")
+
+    totals = {}
+    orig = (_timed_wrapper(base._BaseModel, "_ingest_X", totals, sync),
+            _timed_wrapper(drivers, "fit_explicit_dense_masked", totals, sync))
+    try:
+        _, wall = fit()
+    finally:
+        base._BaseModel._ingest_X = orig[0]
+        drivers.fit_explicit_dense_masked = orig[1]
+    out["host_split_s"] = {
+        "fit": wall, "ingest": totals["_ingest_X"],
+        "engine": totals["fit_explicit_dense_masked"],
+        "rest": wall - totals["_ingest_X"]
+        - totals["fit_explicit_dense_masked"]}
+    print("host split: " + ", ".join(
+        f"{k} {v:.3f} s" for k, v in out["host_split_s"].items()), flush=True)
+    return out, prof
+
+
+def main():
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--out", help="directory for the profiler's table")
+    args = ap.parse_args()
+
+    import torch
+
+    if not torch.cuda.is_available():
+        print("prof_fit_torch: torch sees no CUDA device", file=sys.stderr)
+        return 1
+    from bench import _cached, make_ml10m_shaped
+    from cmfrec_torch.ops import _cuda
+
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"],
+        capture_output=True, text=True, check=True).stdout.strip()
+    print(smi, flush=True)
+    rows, cols, vals = _cached(make_ml10m_shaped,
+                               str(_cuda.BUILD_DIR / "ml10m_shaped.npz"))
+    tr = ~(np.random.default_rng(1).uniform(size=rows.size) < 0.05)
+    out, prof = profile_fit(rows[tr], cols[tr], vals[tr], M, N, "cuda")
+    out["card"] = smi
+    if args.out:
+        d = pathlib.Path(args.out)
+        d.mkdir(parents=True, exist_ok=True)
+        (d / "prof_fit_torch.txt").write_text(
+            prof.key_averages().table(row_limit=40))
+    print(json.dumps(out))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

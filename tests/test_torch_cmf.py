@@ -1,0 +1,252 @@
+"""cmfrec_torch.CMF's fit/predict/topN/save/load surface against
+cmfrec_tpu.CMF on the same inputs, plus the slice's rejections."""
+
+import subprocess
+import sys
+
+import numpy as np
+import pandas as pd
+import pytest
+import scipy.sparse as sp
+import torch
+
+import cmfrec_torch
+import cmfrec_tpu
+from cmfrec_torch.convert import cmf_from_arrays
+from cmfrec_torch.solvers import drivers
+
+
+def _recipe_data():
+    """The drive recipe of the repo's verification notes (verify/SKILL.md)."""
+    rng = np.random.default_rng(0)
+    m, n, k_true = 2000, 500, 8
+    A = rng.normal(size=(m, k_true))
+    B = rng.normal(size=(n, k_true))
+    full = 3.5 + 0.7 * A @ B.T
+    rows, cols = np.nonzero(rng.uniform(size=(m, n)) < 0.06)
+    vals = full[rows, cols] + 0.3 * rng.normal(size=rows.size)
+    test = rng.uniform(size=rows.size) < 0.15
+    return rows, cols, vals, test, m, n
+
+
+def _rmse(model, rows, cols, vals):
+    return float(np.sqrt(np.mean((model.predict(rows, cols) - vals) ** 2)))
+
+
+# At the recipe's 10 iterations truncated CG(3) is still moving and the fit
+# depends on the random init (seed-to-seed spread ~2% in both packages), so
+# the CG case runs 25 iterations, where both have settled; exact mode
+# settles within the recipe's 10.
+@pytest.mark.parametrize("kw", [dict(niter=25), dict(niter=10, use_cg=False)],
+                         ids=["cg", "exact"])
+def test_drive_recipe_matches_jax(kw):
+    rows, cols, vals, test, m, n = _recipe_data()
+    tr = ~test
+    fitted = [
+        pkg.CMF(k=30, lambda_=2.0, **kw, **extra).fit_triplets(
+            rows[tr], cols[tr], vals[tr], m, n)
+        for pkg, extra in ((cmfrec_tpu, {}), (cmfrec_torch, {"device": "cpu"}))
+    ]
+    base = float(np.sqrt(np.mean((vals[tr].mean() - vals[test]) ** 2)))
+    rj, rt = (_rmse(f, rows[test], cols[test], vals[test]) for f in fitted)
+    assert rt < 0.75 * base and rj < 0.75 * base
+    assert abs(rt - rj) / rj < 0.03, (rt, rj)
+    assert fitted[1].A_.shape == (m, 30) and fitted[1].A_.dtype == np.float32
+
+
+@pytest.fixture(scope="module")
+def jax_model():
+    """A cmfrec_tpu CMF fitted on a DataFrame with non-positional ids."""
+    rng = np.random.default_rng(4)
+    m, n = 120, 80
+    rows, cols = np.nonzero(rng.uniform(size=(m, n)) < 0.2)
+    vals = np.round(2 * (3 + rng.normal(size=rows.size))) / 2
+    df = pd.DataFrame({"UserId": [f"u{r}" for r in rows],
+                       "ItemId": cols + 1000, "Rating": vals})
+    return cmfrec_tpu.CMF(k=6, lambda_=1.0, niter=3).fit(df)
+
+
+def _port_of(jm, how, tmp_path):
+    if how == "convert":
+        return cmf_from_arrays(
+            A=jm.A_, B=jm.B_, user_bias=jm.user_bias_,
+            item_bias=jm.item_bias_, glob_mean=jm.glob_mean_,
+            user_mapping=jm.user_mapping_, item_mapping=jm.item_mapping_,
+            params=jm.get_params(), device="cpu")
+    path = str(tmp_path / "jax_model.npz")
+    jm.save(path)
+    return cmfrec_torch.CMF.load(path, device="cpu")
+
+
+@pytest.mark.parametrize("how", ["convert", "load"])
+def test_same_factors_same_answers(jax_model, how, tmp_path):
+    jm = jax_model
+    tm = _port_of(jm, how, tmp_path)
+    assert tm.is_fitted_ and tm.reindex_
+    users = np.asarray(jm.user_mapping_)[:30]
+    items = np.asarray(jm.item_mapping_)[np.arange(30) % 50]
+    np.testing.assert_allclose(tm.predict(users, items),
+                               np.asarray(jm.predict(users, items)),
+                               rtol=0, atol=1e-5)
+    # unknown ids: mean plus the known bias, as cmfrec_tpu does
+    np.testing.assert_allclose(tm.predict(["nobody"], [1000]),
+                               np.asarray(jm.predict(["nobody"], [1000])),
+                               rtol=0, atol=1e-5)
+    some = np.asarray(jm.item_mapping_)[:25]
+    for u in users[:5]:
+        for extra in ({}, {"include": some}, {"exclude": some}):
+            np.testing.assert_array_equal(tm.topN(u, n=7, **extra),
+                                          jm.topN(u, n=7, **extra))
+        ti, ts = tm.topN(u, n=7, output_score=True)
+        ji, js = jm.topN(u, n=7, output_score=True)
+        np.testing.assert_allclose(ts, np.asarray(js), rtol=0, atol=1e-5)
+
+
+def _small_fit_data(seed=9):
+    rng = np.random.default_rng(seed)
+    m, n = 90, 60
+    rows, cols = np.nonzero(rng.uniform(size=(m, n)) < 0.25)
+    vals = np.round(2 * (3 + rng.normal(size=rows.size))) / 2
+    return rows, cols, vals, m, n
+
+
+def test_save_load_roundtrip_and_params(tmp_path):
+    rows, cols, vals, m, n = _small_fit_data()
+    model = cmfrec_torch.CMF(k=5, lambda_=[0.5, 0.6, 1.0, 1.1, 0, 0],
+                             niter=3, device="cpu")
+    params = model.get_params()
+    assert params["device"] == "cpu" and params["lambda_"][2] == 1.0
+    model.set_params(k=6, niter=2)
+    assert model.k == 6
+    with pytest.raises(ValueError, match="Invalid parameter"):
+        model.set_params(not_a_param=1)
+    model.fit_triplets(rows, cols, vals, m, n)
+    with pytest.raises(ValueError, match="after the model has been fit"):
+        model.set_params(k=3)
+    path = str(tmp_path / "torch_model.npz")
+    model.save(path)
+    again = cmfrec_torch.CMF.load(path, device="cpu")
+    assert again.get_params() == model.get_params()
+    np.testing.assert_array_equal(again.predict(rows, cols),
+                                  model.predict(rows, cols))
+    np.testing.assert_array_equal(again.topN(3, n=5), model.topN(3, n=5))
+    # and cmfrec_tpu reads the same file
+    jm = cmfrec_tpu.CMF.load(path)
+    np.testing.assert_allclose(np.asarray(jm.predict(rows, cols)),
+                               model.predict(rows, cols), rtol=0, atol=1e-5)
+
+
+def test_device_factors_uploaded_once_and_follow_new_arrays():
+    rows, cols, vals, m, n = _small_fit_data()
+    model = cmfrec_torch.CMF(k=4, lambda_=1.0, niter=2, device="cpu")
+    model.fit_triplets(rows, cols, vals, m, n)
+    first = model.predict(rows, cols)
+    B_dev = model._on_device("B_")
+    model.topN(0, n=5)
+    assert model._on_device("B_") is B_dev  # reused, not uploaded again
+    # assigning a new array is seen by the next request
+    model.A_ = np.zeros_like(model.A_)
+    np.testing.assert_allclose(
+        model.predict(rows, cols),
+        model.glob_mean_ + model.user_bias_[rows] + model.item_bias_[cols],
+        rtol=0, atol=1e-5)
+    # a refit drops the old copies
+    model.fit_triplets(rows, cols, vals, m, n)
+    assert model._on_device("B_") is not B_dev
+    np.testing.assert_array_equal(model.predict(rows, cols), first)
+
+
+@pytest.mark.parametrize("fmt", ["dense_nan", "dataframe"])
+def test_input_formats_fit_alike(fmt):
+    rows, cols, vals, m, n = _small_fit_data()
+    kw = dict(k=4, lambda_=1.0, niter=2, device="cpu")
+    if fmt == "dense_nan":
+        ref = cmfrec_torch.CMF(**kw).fit(sp.coo_matrix((vals, (rows, cols)),
+                                                       shape=(m, n)))
+        X = np.full((m, n), np.nan)
+        X[rows, cols] = vals
+        got = cmfrec_torch.CMF(**kw).fit(X)
+        np.testing.assert_array_equal(got.predict(rows, cols),
+                                      ref.predict(rows, cols))
+    else:
+        # DataFrame ids are reindexed in first-appearance order: the fit
+        # equals the positional fit on those codes, answered by id
+        uid, iid = np.array([f"u{r}" for r in rows]), cols + 500
+        ucodes, _ = pd.factorize(uid)
+        icodes, _ = pd.factorize(iid)
+        ref = cmfrec_torch.CMF(**kw).fit(sp.coo_matrix(
+            (vals, (ucodes, icodes)), shape=(ucodes.max() + 1,
+                                             icodes.max() + 1)))
+        got = cmfrec_torch.CMF(**kw).fit(pd.DataFrame(
+            {"UserId": uid, "ItemId": iid, "Rating": vals}))
+        assert got.reindex_
+        np.testing.assert_array_equal(got.predict(uid, iid),
+                                      ref.predict(ucodes, icodes))
+        np.testing.assert_array_equal(
+            got.topN(uid[0], n=5),
+            np.asarray(got.item_mapping_)[ref.topN(ucodes[0], n=5)])
+
+
+_TRIPLETS = _small_fit_data()
+
+
+def _fit_beyond_the_device_budget():
+    # the budget is the card's free memory; stand in a 1000-byte card
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(drivers, "_dense_budget", lambda dev: 1000)
+        drivers.fit_explicit_als(*_TRIPLETS, device="cpu")
+
+
+@pytest.mark.parametrize("call,match", [
+    (lambda X: cmfrec_torch.CMF(method="lbfgs", device="cpu").fit(X),
+     "slice 6"),
+    (lambda X: cmfrec_torch.CMF(device="cpu").fit(X, U=np.ones((90, 2))),
+     "slice 2"),
+    (lambda X: cmfrec_torch.CMF(add_implicit_features=True,
+                                device="cpu").fit(X), "slice 2"),
+    (lambda X: cmfrec_torch.CMF(k_user=2, device="cpu").fit(X), "slice 2"),
+    (lambda X: cmfrec_torch.CMF(nonneg=True, center=False,
+                                device="cpu").fit(X), "slice 4"),
+    (lambda X: cmfrec_torch.CMF(l1_lambda=0.1, device="cpu").fit(X),
+     "slice 4"),
+    (lambda X: cmfrec_torch.CMF(NA_as_zero=True, device="cpu").fit(
+        X, W=np.ones(X.nnz)), "slice 4"),
+    (lambda X: cmfrec_torch.CMF(precondition_cg=True, device="cpu").fit(X),
+     "slice 1 item 4"),
+    (lambda X: cmfrec_torch.CMF(use_float=False, device="cpu").fit(X),
+     "slice 1 item 4"),
+    (lambda X: drivers.fit_explicit_als(*_TRIPLETS, mesh=object(),
+                                        device="cpu"), "slice 7"),
+    (lambda X: drivers.fit_explicit_als(*_TRIPLETS, shard_opposing_rows=True,
+                                        device="cpu"), "slice 7"),
+    (lambda X: drivers.fit_explicit_als(*_TRIPLETS, engine="sparse",
+                                        device="cpu"), "slice 4"),
+    (lambda X: _fit_beyond_the_device_budget(), "padded dense form"),
+])
+def test_out_of_slice_options_raise(call, match):
+    rows, cols, vals, m, n = _TRIPLETS
+    X = sp.coo_matrix((vals, (rows, cols)), shape=(m, n))
+    with pytest.raises(ValueError, match=match):
+        call(X)
+
+
+def test_cuda_without_a_card_raises():
+    if torch.cuda.is_available():
+        pytest.skip("this machine has a CUDA device")
+    rows, cols, vals, m, n = _small_fit_data()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        cmfrec_torch.CMF(k=3, niter=1).fit_triplets(rows, cols, vals, m, n)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        drivers.fit_explicit_als(rows, cols, vals, m, n, device="cuda")
+
+
+def test_import_leaves_jax_out():
+    code = ("import sys, cmfrec_torch, cmfrec_torch.convert, "
+            "cmfrec_torch.solvers.drivers, cmfrec_torch.ops.predict; "
+            "bad = [k for k in sys.modules if k.split('.')[0] in "
+            "('jax', 'jaxlib', 'cmfrec_tpu')]; print(bad); "
+            "sys.exit(1 if bad else 0)")
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, cwd=str(__import__("pathlib").Path(
+                             __file__).resolve().parents[1]))
+    assert out.returncode == 0, out.stdout + out.stderr

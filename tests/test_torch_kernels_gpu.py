@@ -1,0 +1,93 @@
+"""cmfrec_torch's CUDA kernels against their plain twins, on the card.
+
+Skipped without a CUDA device.  On a machine with one (and without JAX):
+
+    python -m pytest --noconftest -m gpu tests/test_torch_kernels_gpu.py -q
+
+Tolerances, as max|kernel - twin| <= tol * max|twin|: f32 operands differ
+by summation order only, 1e-5 at these sizes; bf16 operands also flip
+single bf16 roundings of T*W (2**-8 relative each), 1e-3.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from cmfrec_torch.ops import masked_matmul as mm
+from cmfrec_torch.solvers import drivers
+
+pytestmark = pytest.mark.gpu
+REL_TOL = {torch.bfloat16: 1e-3, torch.float32: 1e-5}
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    return torch.device("cuda")
+
+
+def _inputs(dev, R, S, K, op, wdt, seed=0):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    Q = torch.randn(R, K, device=dev, generator=g).to(op)
+    Be = torch.randn(S, K, device=dev, generator=g).to(op)
+    mask = torch.rand(R, S, device=dev, generator=g) < 0.3
+    W = (mask.to(torch.int8) if wdt == torch.int8 else
+         mask * (0.5 + 1.5 * torch.rand(R, S, device=dev, generator=g)))
+    X = (torch.randint(1, 11, (R, S), device=dev, generator=g) / 2).to(
+        torch.bfloat16)
+    mb = torch.randn(S, device=dev, generator=g)
+    return Q, Be, W.contiguous(), X, mb
+
+
+def _rel(out, ref):
+    return ((out - ref).abs().max() / ref.abs().max()).item()
+
+
+@pytest.mark.parametrize("K", [64, 128, 256])
+@pytest.mark.parametrize("wdt", [torch.int8, torch.float32])
+@pytest.mark.parametrize("op", [torch.bfloat16, torch.float32])
+def test_kernels_match_twins(cuda, op, wdt, K):
+    R, S = 192, 320
+    Q, Be, W, X, mb = _inputs(cuda, R, S, K, op, wdt)
+    n_gram, n_rhs = mm.masked_gram_matvec.launches, mm.masked_rhs.launches
+    out = mm.masked_gram_matvec(Q, Be, W)
+    out2 = mm.masked_rhs(X, W, mb, Be)
+    torch.cuda.synchronize()
+    assert mm.masked_gram_matvec.launches == n_gram + 1
+    assert mm.masked_rhs.launches == n_rhs + 1
+    assert _rel(out, mm.masked_gram_matvec_ref(Q, Be, W)) <= REL_TOL[op]
+    assert _rel(out2, mm.masked_rhs_ref(X, W, mb, Be)) <= REL_TOL[op]
+
+
+def test_misaligned_operand_raises(cuda):
+    R, S, K = 64, 64, 64
+    Q, Be, W, _, _ = _inputs(cuda, R, S, K, torch.bfloat16, torch.int8)
+    buf = torch.zeros(R * K + 1, dtype=torch.bfloat16, device=cuda)
+    Qm = buf[1:].view(R, K)
+    Qm.copy_(Q)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        mm.masked_gram_matvec(Qm, Be, W)
+
+
+@pytest.mark.parametrize("use_cg", [True, False])
+def test_fit_on_card_matches_cpu(cuda, use_cg):
+    """The whole engine on the card against the same fit on the CPU twins,
+    from one init: bf16 bulk iterations may flip single roundings, 5e-4."""
+    rng = np.random.default_rng(3)
+    m, n, k = 150, 90, 6
+    pairs = np.unique(rng.integers(0, m * n, 3000))
+    rows, cols = pairs // n, pairs % n
+    vals = np.round(2 * (3 + rng.normal(size=rows.size))) / 2
+    init = dict(A=0.3 * rng.normal(size=(m, k)), B=0.3 * rng.normal(size=(n, k)))
+    kw = dict(k=k, lambda_=0.5, niter=4, use_cg=use_cg, scale_lam=True,
+              init={key: v.astype(np.float32) for key, v in init.items()})
+    on_card = drivers.fit_explicit_als(rows, cols, vals, m, n, device=cuda,
+                                       **kw)
+    on_cpu = drivers.fit_explicit_als(rows, cols, vals, m, n, device="cpu",
+                                      **kw)
+    for key in ("A", "B", "biasA", "biasB"):
+        assert on_card[key].device.type == "cuda"
+        np.testing.assert_allclose(on_card[key].cpu().numpy(),
+                                   on_cpu[key].numpy(), rtol=0, atol=5e-4,
+                                   err_msg=key)

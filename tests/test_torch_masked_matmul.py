@@ -1,0 +1,122 @@
+"""cmfrec_torch masked-Gram ops (CPU path = the plain twins) against the
+cmfrec_tpu Pallas kernels run in interpret mode, and a float64 oracle.
+
+Tolerances, as max|out - ref| <= tol * max|ref|:
+  * f32 operands: 1e-5 -- the same f32 products, summed in another order.
+  * bf16 operands: the rounding of T*W to bf16 can flip by one bf16 ulp
+    (2**-8 relative) on single entries when T's f32 sum differs in its last
+    bits, ~2e-4 of max|ref| per flip at these sizes, so against JAX 1e-3;
+    against the unrounded float64 oracle the rounding itself shows
+    (~8e-4 measured), 3e-3.
+"""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from cmfrec_tpu.ops import masked_matmul as jmm
+from cmfrec_torch.ops import masked_matmul as tmm
+
+K = 64
+TOL_JAX = {"f32": 1e-5, "bf16": 1e-3}
+TOL_F64 = {"f32": 1e-5, "bf16": 3e-3}
+
+
+def _rel_err(out, ref):
+    out = np.asarray(out, np.float64)
+    ref = np.asarray(ref, np.float64)
+    return np.abs(out - ref).max() / np.abs(ref).max()
+
+
+def _operands(seed, R, S, op, w):
+    """Numpy inputs, the torch tensors and the JAX arrays built from them."""
+    rng = np.random.default_rng(seed)
+    Q = rng.normal(size=(R, K)).astype(np.float32)
+    Be = rng.normal(size=(S, K)).astype(np.float32)
+    mask = rng.uniform(size=(R, S)) < 0.3
+    if w == "int8":
+        Wn = mask.astype(np.int8)
+    else:
+        Wn = (mask * rng.uniform(0.5, 2.0, size=(R, S))).astype(np.float32)
+    tdt = torch.bfloat16 if op == "bf16" else torch.float32
+    jdt = jnp.bfloat16 if op == "bf16" else jnp.float32
+    Qt, Bet = torch.from_numpy(Q).to(tdt), torch.from_numpy(Be).to(tdt)
+    # the rounded operands, exactly as both frameworks see them
+    Q64, Be64 = Qt.double().numpy(), Bet.double().numpy()
+    return (Qt, Bet, torch.from_numpy(Wn), jnp.asarray(Q, jdt),
+            jnp.asarray(Be, jdt), jnp.asarray(Wn), Q64, Be64, Wn, rng)
+
+
+@pytest.mark.parametrize("S", [1024, 2048])
+@pytest.mark.parametrize("w", ["int8", "f32"])
+@pytest.mark.parametrize("op", ["bf16", "f32"])
+def test_masked_gram_matvec_twin_matches_pallas(op, w, S):
+    R = jmm.BLOCK_R
+    Qt, Bet, Wt, Qj, Bej, Wj, Q64, Be64, Wn, _ = _operands(1, R, S, op, w)
+    out = tmm.masked_gram_matvec(Qt, Bet, Wt)
+    assert out.dtype == torch.float32 and tuple(out.shape) == (R, K)
+    ref_j = jmm.masked_gram_matvec(Qj, Bej, Wj, block_s=1024, interpret=True)
+    assert _rel_err(out.numpy(), ref_j) <= TOL_JAX[op]
+    ref_64 = ((Q64 @ Be64.T) * Wn) @ Be64
+    assert _rel_err(out.numpy(), ref_64) <= TOL_F64[op]
+    assert tmm.masked_gram_matvec.launches == 0  # CPU tensors: the twin
+
+
+@pytest.mark.parametrize("S", [1024, 2048])
+@pytest.mark.parametrize("w", ["int8", "f32"])
+@pytest.mark.parametrize("op", ["bf16", "f32"])
+def test_masked_rhs_twin_matches_pallas(op, w, S):
+    R = jmm.BLOCK_R
+    _, Bet, Wt, _, Bej, Wj, _, Be64, Wn, rng = _operands(2, R, S, op, w)
+    X = (np.round(rng.uniform(1, 10, size=(R, S))) / 2).astype(np.float32)
+    mb = rng.normal(size=S).astype(np.float32)
+    out = tmm.masked_rhs(torch.from_numpy(X).to(torch.bfloat16), Wt,
+                         torch.from_numpy(mb), Bet)
+    assert out.dtype == torch.float32 and tuple(out.shape) == (R, K)
+    ref_j = jmm.masked_rhs(jnp.asarray(X, jnp.bfloat16), Wj, jnp.asarray(mb),
+                           Bej, block_s=1024, interpret=True)
+    assert _rel_err(out.numpy(), ref_j) <= TOL_JAX[op]
+    ref_64 = ((X.astype(np.float64) - mb[None, :]) * Wn) @ Be64
+    assert _rel_err(out.numpy(), ref_64) <= TOL_F64[op]
+    assert tmm.masked_rhs.launches == 0
+
+
+def _t(shape, dtype):
+    return torch.zeros(shape, dtype=dtype)
+
+
+bf, f32, i8 = torch.bfloat16, torch.float32, torch.int8
+
+
+@pytest.mark.parametrize("args,match", [
+    ((_t((64, 64), torch.float16), _t((64, 64), torch.float16),
+      _t((64, 64), i8)), "bfloat16 or float32"),
+    ((_t((64, 64), bf), _t((64, 64), bf), _t((64, 64), bf)), "W must be"),
+    ((_t((64, 64), bf), _t((64, 64), f32), _t((64, 64), i8)), "one dtype"),
+    ((_t((96, 64), bf), _t((64, 64), bf), _t((96, 64), i8)), "multiples"),
+    ((_t((64, 64), bf), _t((100, 64), bf), _t((64, 100), i8)), "multiples"),
+    ((_t((64, 32), bf), _t((64, 32), bf), _t((64, 64), i8)), "K=32"),
+    ((_t((64, 320), f32), _t((64, 320), f32), _t((64, 64), i8)), "K=320"),
+    ((_t((64, 64), bf), _t((64, 64), bf), _t((64, 128), i8)), "W has shape"),
+    ((_t((64, 64), bf), _t((64, 64), bf), _t((64, 128), i8)[:, ::2]),
+     "W has shape|contiguous"),
+])
+def test_masked_gram_matvec_rejects(args, match):
+    with pytest.raises(ValueError, match=match):
+        tmm.masked_gram_matvec(*args)
+
+
+@pytest.mark.parametrize("args,match", [
+    ((_t((64, 64), f32), _t((64, 64), i8), _t(64, f32), _t((64, 64), bf)),
+     "X must be bfloat16"),
+    ((_t((64, 64), bf), _t((64, 64), i8), _t(64, bf), _t((64, 64), bf)),
+     "mb must be"),
+    ((_t((64, 64), bf), _t((64, 64), i8), _t(64, f32), _t((128, 64), bf)),
+     "Be has 128 rows"),
+    ((_t((64, 64), bf), _t((64, 64), torch.int32), _t(64, f32),
+      _t((64, 64), bf)), "W must be"),
+])
+def test_masked_rhs_rejects(args, match):
+    with pytest.raises(ValueError, match=match):
+        tmm.masked_rhs(*args)
