@@ -15,11 +15,26 @@ Phases, each printing its own line(s):
   4. fit: the flagship explicit ALS-CG fit through the public CMF entry point
      (k=50, lambda 0.05, scale_lam, 15 iterations, CG 3, f32 polish), with its
      kernel launch counts, held-out RMSE against the global-mean baseline;
-  5. serving: predict on the held-out pairs and topN for a few users.
+  5. serving: predict on the held-out pairs and topN for a few users;
+  6. bucket CG: the bucket_cg kernel (K3) against its plain torch twin on
+     the real bucket layout of the LastFM-shaped implicit fit
+     (bench_implicit.make_lastfm_shaped, its train split): every bucket of
+     both sides with implicit coefficients and a bf16 opposing matrix, the
+     widest, middle and narrowest of each side also in f32, and one explicit
+     case with a per-row lambda and a rhs base; errors, how far each case's
+     steps move their start, and CUDA-event times;
+  7. the implicit WRMF fit through the public CMF_implicit entry point (k=50,
+     lambda 5, alpha 1, 15 iterations, CG 3) on that data, with its K3
+     launch count, P@10 / MAP@10 against the popularity baseline on 2,000
+     held-out users, and topN for a few users;
+  8. the explicit fit of phase 4 on the bucketed engine (engine="sparse"),
+     with its K3 launch count and held-out RMSE.
 
-The line before the last is {"kernels": [...]}; the last line is
-{"ok": true, "device": {...}}.  Any failure raises and exits non-zero; so
-does a machine without a CUDA device, or a directory without the package.
+Each fit phase sets every kernel's launch count to 0 just before it and
+reads the counts just after.  The line before the last is
+{"kernels": [...]}; the last line is {"ok": true, "device": {...}}.  Any
+failure raises and exits non-zero; so does a machine without a CUDA
+device, or a directory without the package.
 """
 
 import json
@@ -39,13 +54,49 @@ RMSE_BOUND = 0.73078 + 0.01
 # K1 = 14 bulk iterations x 2 half-steps x (1 + 3 CG steps)
 #      + the polish's 2 x (1 + 16);  K2 = one per half-step
 EXPECTED_LAUNCHES = {"masked_gram_matvec": 14 * 2 * 4 + 2 * 17,
-                     "masked_rhs": 15 * 2}
+                     "masked_rhs": 15 * 2, "bucket_cg": 0}
 # max|kernel - twin| / max|twin|, set about 7x above the largest readings at
 # these shapes (1.4e-4 bf16, 6.5e-6 f32, NVIDIA H100): f32 differs by
 # summation order only; bf16 also flips a few roundings of T*W to bf16
 REL_TOL = {"bf16": 1e-3, "f32": 5e-5}
 REPLACES = {"masked_gram_matvec": "cmfrec_tpu/ops/masked_matmul.py:87",
-            "masked_rhs": "cmfrec_tpu/ops/masked_matmul.py:108"}
+            "masked_rhs": "cmfrec_tpu/ops/masked_matmul.py:108",
+            "bucket_cg": "cmfrec_tpu/ops/sparse_cg.py:52"}
+SOURCES = {"masked_gram_matvec": "cmfrec_torch/csrc/masked_matmul.cu",
+           "masked_rhs": "cmfrec_torch/csrc/masked_matmul.cu",
+           "bucket_cg": "cmfrec_torch/csrc/sparse_cg.cu"}
+# NVIDIA H100 SXM data sheet: HBM bytes/s; dense bf16 tensor-core and plain
+# f32 operations/s.  An operation is costed by its operands' type: a bf16 x
+# bf16 product summed in f32 at the bf16 rate, whatever unit the kernel uses.
+HBM_BPS = 3.35e12
+PEAK_OPS = {"bf16": 989e12, "f32": 67e12}
+
+LFM_M, LFM_N = 359347, 160168  # LastFM-360K's shape (bench_implicit.py:30)
+IMPLICIT_FIT = dict(k=50, lambda_=5.0, alpha=1.0, niter=15, use_cg=True,
+                    max_cg_steps=3)
+# The JAX package's P@10 on the same data and split (BENCH_r05.json,
+# extra.implicit) less 0.01 for a different random init
+P10_BOUND = 0.09387 - 0.01
+K3_STEPS = IMPLICIT_FIT["max_cg_steps"]
+# max|kernel - twin| / max|twin| for K3 by (coefficients, op), set 7-8x
+# above the largest readings over the LastFM-shaped buckets (NVIDIA H100;
+# see check_bucket_cg): log plays 1.4e-4 bf16, 2.8e-5 f32; raw plays one
+# step in 2.5e-4 f32; explicit 2.4e-7.  Summation order only, and in bf16
+# flipped roundings of t = (m . v) * cw
+K3_REL_TOL = {("implicit-log", "bf16"): 1e-3, ("implicit-log", "f32"): 2e-4,
+              ("implicit", "f32"): 2e-3, ("explicit", "bf16"): 2e-6,
+              ("explicit", "f32"): 2e-6}
+# each case's 3 steps must move their start by at least this many limits
+# (max|twin - start| / max|twin|), and stopping one step short must miss
+# the limit, so a kernel that skipped or botched its steps could not pass
+K3_MOVE_FACTOR = 10
+
+def bound(nbytes, ops):
+    """The least time the card could take: (ms, "bytes" | "operations").
+    ``ops`` maps an operand type to the operations done on it."""
+    t_bytes = nbytes / HBM_BPS * 1e3
+    t_ops = sum(n / PEAK_OPS[op] for op, n in ops.items()) * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
 def _timed(fn, reps):
@@ -103,6 +154,15 @@ def check_kernels(rows, cols, vals, weights):
                     ms = _timed(lambda: kern(*args), 5)
                     plain_ms = _timed(lambda: twin(*args), 3)
                     ok = bool(np.isfinite(rel)) and rel <= REL_TOL[op]
+                    esz, wsz = (2 if op == "bf16" else 4), Wv.element_size()
+                    if name == "masked_gram_matvec":
+                        nbytes = (R + S) * Kp * esz + R * S * wsz + R * Kp * 4
+                        ops = 4 * R * S * Kp
+                    else:
+                        nbytes = (R * S * (2 + wsz) + S * 4 + S * Kp * esz
+                                  + R * Kp * 4)
+                        ops = 2 * R * S * Kp
+                    b_ms, b_by = bound(nbytes, {op: ops})
                     print(f"kernel {name} side={side} R={R} S={S} K={Kp} "
                           f"op={op} W={wname}: max_abs_err={err:.3e} "
                           f"rel={rel:.3e} (tol {REL_TOL[op]:.0e}) "
@@ -113,9 +173,216 @@ def check_kernels(rows, cols, vals, weights):
                     results[name].append(dict(
                         side=side, R=R, S=S, K=Kp, op=op, W=wname,
                         max_abs_err=err, rel_err=rel, ms=ms,
-                        plain_ms=plain_ms))
+                        plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by))
                     del out, ref
     return results
+
+
+def _bucket_case(b, mat, gfix, mode, gen):
+    """K3's operands for bucket b: implicit coefficients (alpha 1) of the
+    raw plays x ("implicit", the WRMF fit's) or of log x ("implicit-log",
+    the fit with apply_log_transf), cw = x and cv = 1 + x, with the Gram
+    base in gfix; or explicit ones with a per-row lambda and a rhs base
+    (the scale_lam / NA-as-zero variant)."""
+    import torch
+
+    L = b.width
+    msk = (torch.arange(L, device=mat.device)[None, :]
+           < b.length[:, None]).float()
+    if mode == "explicit":
+        lam_row = (5.0 * torch.clamp(b.length.float(), min=1.0))[:, None]
+        r0 = torch.randn(b.n_rows, mat.shape[1], device=mat.device,
+                         generator=gen)
+        return (msk, (b.val - 3.0) * msk, torch.zeros_like(gfix),
+                lam_row.expand(-1, mat.shape[1]).contiguous(), r0)
+    x = b.val if mode == "implicit" else torch.log(b.val.clamp(min=1.0))
+    return x * msk, (1.0 + x) * msk, gfix, None, None
+
+
+def check_bucket_cg(layouts, k_pad):
+    """Phase 6: K3 against its twin on the LastFM-shaped layout.
+
+    Cases: every bucket with log-play coefficients and a bf16 opposing
+    matrix (the timed set: one iteration's 24 launches); the widest,
+    middle and narrowest bucket of each side also with log-play
+    coefficients in f32 and with the raw plays in f32; the A side's middle
+    bucket with a per-row lambda and a rhs base, bf16 and f32.  Each case
+    starts where 3 steps have far to go: from random factors, or, with the
+    raw plays, after one twin step.  The raw plays (up to 7e6) make 3 CG
+    steps from random factors so ill-conditioned that f32 summation order
+    alone moves the result by up to 0.1 of max|x|, the twin's against f64
+    as the kernel's against the twin; one step in, f32 agrees to 3e-4.  In
+    bf16 the flipped roundings of t keep them apart for several steps, so
+    bf16 is held on the log plays (and the raw plays in bf16 by phase 7's
+    ranking quality).  Every case prints how far its steps move the start,
+    the share of real rows they change, and how far a kernel one step short
+    would be off.  Returns the per-case records."""
+    import torch
+
+    from cmfrec_torch.ops import sparse_cg
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(6)
+    k = IMPLICIT_FIT["k"]
+    lam = torch.ones(k_pad, device=dev)
+    lam[:k] = IMPLICIT_FIT["lambda_"]
+    records = []
+    for side, (bk, S) in layouts.items():
+        mat = torch.randn(S, k_pad, device=dev, generator=gen) / k ** 0.5
+        mat[:, k:] = 0.0
+        gfix = mat.T @ mat + torch.diag(lam)
+        widths = sorted(range(len(bk.buckets)),
+                        key=lambda i: bk.buckets[i].width)
+        chosen = {widths[0]: "narrowest", widths[len(widths) // 2]: "middle",
+                  widths[-1]: "widest"}
+        for i, b in enumerate(bk.buckets):
+            a0 = torch.randn(b.n_rows, k_pad, device=dev, generator=gen) / 8
+            a0[:, k:] = 0.0
+            real = (torch.arange(b.width, device=dev)[None, :]
+                    < b.length[:, None])
+            slots = int(b.length.sum())
+            uniq = int(torch.unique(b.idx[real]).numel())
+            cases = [("implicit-log", "bf16")]
+            if i in chosen:
+                cases += [("implicit-log", "f32"), ("implicit", "f32")]
+            if side == "A" and chosen.get(i) == "middle":
+                cases += [("explicit", "bf16"), ("explicit", "f32")]
+            for mode, op in cases:
+                cw, cv, gf, lam_row, r0 = (
+                    None if t is None else t.contiguous() for t in
+                    _bucket_case(b, mat, gfix, mode, gen))
+                start = a0 if mode != "implicit" else sparse_cg.bucket_cg_ref(
+                    mat, b.idx, cw, cv, gf, lam_row, r0, a0, n_steps=1)
+                matx = mat.to(torch.bfloat16 if op == "bf16" else
+                              torch.float32)
+                args = (matx, b.idx, cw, cv, gf, lam_row, r0, start)
+                out = sparse_cg.bucket_cg(*args, n_steps=K3_STEPS,
+                                          length=b.length)
+                ref = sparse_cg.bucket_cg_ref(*args, n_steps=K3_STEPS)
+                torch.cuda.synchronize()
+                top = ref.abs().max().item()
+                err = (out - ref).abs().max().item()
+                rel = err / top
+                # how far the steps take the start, and the share of real
+                # rows they change (a skipped row stays at its start)
+                moved = (ref - start).abs().max().item() / top
+                live = ((ref - start)[:b.n_real].abs().amax(1) > 0
+                        ).float().mean().item()
+                # what stopping one step early would cost
+                short = (sparse_cg.bucket_cg_ref(*args, n_steps=K3_STEPS - 1)
+                         - ref).abs().max().item() / top
+                ms = _timed(lambda: sparse_cg.bucket_cg(
+                    *args, n_steps=K3_STEPS, length=b.length), 5)
+                plain_ms = _timed(lambda: sparse_cg.bucket_cg_ref(
+                    *args, n_steps=K3_STEPS), 2)
+                # each input read once, the output written once: the rows
+                # of mat the bucket references, idx/cw/cv of its real slots,
+                # the [R, K] and [K, K] operands; operations: the rhs (2K a
+                # slot) and 1 + n_steps matvecs (4K a slot, 2K^2 a row).
+                # The slot products take mat's type (v, t and cv meet m_l
+                # rounded to it); the gfix products are f32.
+                nbytes = (uniq * k_pad * matx.element_size() + slots * 12
+                          + b.n_rows * (4 + 8 * k_pad
+                                        + (8 * k_pad if r0 is not None else 0))
+                          + 4 * k_pad * k_pad)
+                ops = {op: slots * (2 * k_pad + (1 + K3_STEPS) * 4 * k_pad)}
+                ops["f32"] = (ops.get("f32", 0)
+                              + b.n_rows * (1 + K3_STEPS) * 2 * k_pad * k_pad)
+                b_ms, b_by = bound(nbytes, ops)
+                tol = K3_REL_TOL[mode, op]
+                ok = (bool(np.isfinite(rel)) and rel <= tol
+                      and moved >= K3_MOVE_FACTOR * tol and short > tol
+                      and live >= 0.5)
+                exact = ""
+                if op == "f32":
+                    # both f32 results against the same CG in f64: how far
+                    # each one's summation order carries it
+                    ref64 = sparse_cg.bucket_cg_ref(
+                        *(a.double() if a is not None and a.is_floating_point()
+                          else a for a in args), n_steps=K3_STEPS)
+                    top64 = ref64.abs().max().item()
+                    exact = (f" vs f64: kernel "
+                             f"{(out - ref64).abs().max().item() / top64:.3e} "
+                             f"twin {(ref - ref64).abs().max().item() / top64:.3e}")
+                    del ref64
+                print(f"kernel bucket_cg side={side} bucket={i} "
+                      f"({chosen.get(i, '-')}) R={b.n_rows} L={b.width} "
+                      f"slots={slots} K={k_pad} op={op} {mode}: "
+                      f"max_abs_err={err:.3e} rel={rel:.3e} (tol {tol:.0e})"
+                      f"{exact} moved={moved:.3e} (min "
+                      f"{K3_MOVE_FACTOR * tol:.0e}) live={live:.3f} "
+                      f"one_step_short={short:.3e} ms={ms:.3f} "
+                      f"plain_ms={plain_ms:.3f} bound_ms={b_ms:.4f} "
+                      f"({b_by}) {'ok' if ok else 'MISMATCH'}", flush=True)
+                if not ok:
+                    raise AssertionError("bucket_cg disagrees with its twin, "
+                                         "or the case checks too little")
+                records.append(dict(
+                    side=side, bucket=i, R=b.n_rows, L=b.width, slots=slots,
+                    K=k_pad, op=op, mode=mode, max_abs_err=err, rel_err=rel,
+                    moved=moved, live=live, one_step_short=short, ms=ms,
+                    plain_ms=plain_ms, bytes=nbytes, ops=ops, bound_ms=b_ms,
+                    bound_by=b_by))
+                del out, ref, args
+        del mat
+        torch.cuda.empty_cache()
+    return records
+
+
+def ranking_quality(A, B, tr_r, tr_c, te_r, te_c, test_users, n):
+    """P@10, MAP@10 and the popularity P@10 with bench_implicit.py's
+    protocol (:82-151): one matmul and top-k on the card, train items masked
+    out, held-out items of each test user as the relevant set."""
+    import collections
+
+    import torch
+
+    dev = A.device
+    u_index = np.full(max(int(tr_r.max()), int(te_r.max())) + 1, -1, np.int64)
+    u_index[test_users] = np.arange(len(test_users))
+    sel = u_index[tr_r] >= 0
+    tru = torch.as_tensor(u_index[tr_r[sel]], device=dev)
+    trc = torch.as_tensor(tr_c[sel], device=dev)
+
+    def top10(scores):
+        scores[tru, trc] = -torch.inf
+        return torch.topk(scores, 10, dim=1).indices.cpu().numpy()
+
+    top = top10(A[torch.as_tensor(test_users, device=dev)] @ B.T)
+    pop = torch.bincount(torch.as_tensor(tr_c, device=dev), minlength=n)
+    top_pop = top10(pop.float()[None, :].repeat(len(test_users), 1))
+    heldout = collections.defaultdict(set)
+    sel = u_index[te_r] >= 0
+    for u, c in zip(u_index[te_r[sel]], te_c[sel]):
+        heldout[int(u)].add(int(c))
+
+    def p_at_k(topmat):
+        hits, aps = [], []
+        for r in range(len(test_users)):
+            hs = heldout.get(r)
+            if not hs:
+                continue
+            rel = [int(c) in hs for c in topmat[r]]
+            hits.append(sum(rel) / min(10, len(hs)))
+            num_hit, ap = 0, 0.0
+            for i, rv in enumerate(rel):
+                if rv:
+                    num_hit += 1
+                    ap += num_hit / (i + 1)
+            aps.append(ap / min(10, len(hs)))
+        return float(np.mean(hits)), float(np.mean(aps))
+
+    p10, map10 = p_at_k(top)
+    return p10, map10, p_at_k(top_pop)[0]
+
+
+def _reset_launches(ops):
+    for op in ops.values():
+        op.launches = 0
+
+
+def _read_launches(ops):
+    return {name: op.launches for name, op in ops.items()}
 
 
 def main():
@@ -126,8 +393,15 @@ def main():
         return 1
     import cmfrec_torch
     from bench import _cached, make_ml10m_shaped
-    from cmfrec_torch.ops import _cuda
+    from bench_implicit import make_lastfm_shaped, split_heldout
+    from cmfrec_torch.data.device_fill import build_bucketed_pair
+    from cmfrec_torch.data.shards import plan_layout
+    from cmfrec_torch.ops import _cuda, sparse_cg
     from cmfrec_torch.ops import masked_matmul as mm
+    from cmfrec_torch.solvers import drivers
+
+    ops = {"masked_gram_matvec": mm.masked_gram_matvec,
+           "masked_rhs": mm.masked_rhs, "bucket_cg": sparse_cg.bucket_cg}
 
     # 1. environment
     smi = subprocess.run(
@@ -161,17 +435,15 @@ def main():
     torch.cuda.empty_cache()
 
     # 4. the flagship fit through the public entry point
-    mm.masked_gram_matvec.launches = 0
-    mm.masked_rhs.launches = 0
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
+    _reset_launches(ops)
     t0 = time.perf_counter()
     model = cmfrec_torch.CMF(**FIT, device="cuda").fit_triplets(
         rows[tr], cols[tr], vals[tr], M, N)
     torch.cuda.synchronize()
     fit_s = time.perf_counter() - t0
-    launches = {"masked_gram_matvec": mm.masked_gram_matvec.launches,
-                "masked_rhs": mm.masked_rhs.launches}
+    launches = _read_launches(ops)
     peak = torch.cuda.max_memory_allocated()
     pred = model.predict(rows[test], cols[test])
     rmse = float(np.sqrt(np.mean((pred - vals[test]) ** 2)))
@@ -213,17 +485,128 @@ def main():
     if pred_err > 1e-4:
         raise AssertionError("predict disagrees with the numpy formula")
 
+    del model
+    torch.cuda.empty_cache()
+
+    # 6. K3 against its twin on the LastFM-shaped bucket layout
+    t0 = time.perf_counter()
+    lrows, lcols, lvals = _cached(make_lastfm_shaped,
+                                  str(_cuda.BUILD_DIR / "lastfm_shaped.npz"))
+    tr_r, tr_c, tr_v, te_r, te_c, test_users = split_heldout(
+        lrows, lcols, lvals, LFM_M)
+    del lrows, lcols, lvals
+    print(f"data: {LFM_M} x {LFM_N}, train {tr_r.size}, held out "
+          f"{te_r.size} of {len(test_users)} users in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    k_pad = -(-IMPLICIT_FIT["k"] // 8) * 8
+    RB, CB = build_bucketed_pair(tr_r, tr_c, tr_v, LFM_M, LFM_N,
+                                 device="cuda")
+    n_buckets = len(RB.buckets) + len(CB.buckets)
+    print(f"layout: {len(RB.buckets)} + {len(CB.buckets)} buckets, widths "
+          f"A {[b.width for b in RB.buckets]} B {[b.width for b in CB.buckets]}",
+          flush=True)
+    k3 = check_bucket_cg({"A": (RB, LFM_N), "B": (CB, LFM_M)}, k_pad)
+    del RB, CB
+    torch.cuda.empty_cache()
+
+    # 7. the implicit WRMF fit through the public entry point
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _reset_launches(ops)
+    t0 = time.perf_counter()
+    imodel = cmfrec_torch.CMF_implicit(**IMPLICIT_FIT, device="cuda")
+    imodel.fit_triplets(tr_r, tr_c, tr_v, LFM_M, LFM_N)
+    torch.cuda.synchronize()
+    ifit_s = time.perf_counter() - t0
+    ilaunches = _read_launches(ops)
+    ipeak = torch.cuda.max_memory_allocated()
+    want = {"masked_gram_matvec": 0, "masked_rhs": 0,
+            "bucket_cg": IMPLICIT_FIT["niter"] * n_buckets}
+    Ad, Bd = imodel._device_x_factors()
+    p10, map10, p10_pop = ranking_quality(Ad, Bd, tr_r, tr_c, te_r, te_c,
+                                          test_users, LFM_N)
+    print(f"implicit fit: {ifit_s:.3f} s, peak device memory "
+          f"{ipeak / 2**30:.2f} GiB, P@10 {p10:.5f} (bound {P10_BOUND:.5f}), "
+          f"MAP@10 {map10:.5f}, popularity P@10 {p10_pop:.5f}, launches "
+          f"{ilaunches} (expected {want})", flush=True)
+    if ilaunches != want:
+        raise AssertionError("the implicit fit did not run the expected "
+                             "kernel launches")
+    if not (np.isfinite(imodel.A_).all() and np.isfinite(imodel.B_).all()
+            and p10 >= P10_BOUND and p10 >= 2 * p10_pop):
+        raise AssertionError("implicit ranking quality out of bounds")
+    users = np.random.default_rng(4).choice(test_users, 8, replace=False)
+    for u in users:
+        seen = tr_c[tr_r == u]
+        items, scores = imodel.topN(u, n=10, exclude=seen, output_score=True)
+        if (len(items) != 10 or np.isin(items, seen).any()
+                or not np.all(np.isfinite(scores))
+                or np.any(np.diff(scores) > 0)):
+            raise AssertionError(f"implicit topN for user {u} is wrong")
+    print(f"implicit serving: topN(n=10, exclude=seen) for {len(users)} "
+          "users: ok", flush=True)
+    del imodel, Ad, Bd
+    torch.cuda.empty_cache()
+
+    # 8. the explicit fit of phase 4 on the bucketed engine
+    def n_chunks(ids, n_rows):
+        counts = np.bincount(ids, minlength=n_rows)
+        return len(plan_layout(counts, np.argsort(-counts, kind="stable"),
+                               n_rows)[0])
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _reset_launches(ops)
+    t0 = time.perf_counter()
+    res = drivers.fit_explicit_als(rows[tr], cols[tr], vals[tr], M, N,
+                                   engine="sparse", device="cuda", **FIT)
+    torch.cuda.synchronize()
+    sfit_s = time.perf_counter() - t0
+    slaunches = _read_launches(ops)
+    speak = torch.cuda.max_memory_allocated()
+    want = {"masked_gram_matvec": 0, "masked_rhs": 0,
+            "bucket_cg": (FIT["niter"] - 1) * (n_chunks(rows[tr], M)
+                                              + n_chunks(cols[tr], N))}
+    rt, ct = (torch.as_tensor(a[test], device="cuda") for a in (rows, cols))
+    spred = (res["glob_mean"] + res["biasA"][rt] + res["biasB"][ct]
+             + (res["A"][rt] * res["B"][ct]).sum(dim=1)).cpu().numpy()
+    srmse = float(np.sqrt(np.mean((spred - vals[test]) ** 2)))
+    print(f"explicit bucketed fit: {sfit_s:.3f} s, peak device memory "
+          f"{speak / 2**30:.2f} GiB, held-out RMSE {srmse:.5f} (bound "
+          f"{RMSE_BOUND:.5f}), launches {slaunches} (expected {want})",
+          flush=True)
+    if slaunches != want:
+        raise AssertionError("the bucketed explicit fit did not run the "
+                             "expected kernel launches")
+    if not (np.all(np.isfinite(spred)) and srmse <= RMSE_BOUND):
+        raise AssertionError("bucketed explicit RMSE out of bounds")
+
     kernels = []
     for name, variants in results.items():
         main_variant = next(v for v in variants if v["side"] == "A"
                             and v["op"] == "bf16" and v["W"] == "int8")
         kernels.append(dict(
-            name=name, route="cuda",
-            source="cmfrec_torch/csrc/masked_matmul.cu",
+            name=name, route="cuda", source=SOURCES[name],
             replaces=REPLACES[name], launches=launches[name],
             max_abs_err=max(v["max_abs_err"] for v in variants),
             ms=main_variant["ms"], plain_ms=main_variant["plain_ms"],
+            bound_ms=main_variant["bound_ms"],
+            bound_by=main_variant["bound_by"], library_ms=None,
             variants=variants))
+    # K3 at the main path's shapes: one implicit iteration's launches (every
+    # bucket of both sides, bf16), summed
+    main = [r for r in k3
+            if r["op"] == "bf16" and r["mode"] == "implicit-log"]
+    k3_bound, k3_by = bound(sum(r["bytes"] for r in main),
+                            {op: sum(r["ops"][op] for r in main)
+                             for op in ("bf16", "f32")})
+    kernels.append(dict(
+        name="bucket_cg", route="cuda", source=SOURCES["bucket_cg"],
+        replaces=REPLACES["bucket_cg"], launches=ilaunches["bucket_cg"],
+        max_abs_err=max(r["max_abs_err"] for r in k3),
+        ms=sum(r["ms"] for r in main),
+        plain_ms=sum(r["plain_ms"] for r in main), bound_ms=k3_bound,
+        bound_by=k3_by, library_ms=None, variants=k3))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -2,8 +2,8 @@
 
 Neither function imports JAX: they take the NumPy arrays (or anything
 ``np.asarray`` accepts) that a cmfrec_tpu fit returns or a fitted
-cmfrec_tpu ``CMF`` holds.  ``CMF.load`` of a file written by
-``cmfrec_tpu.CMF.save`` is the on-disk form of the same hand-over.
+cmfrec_tpu ``CMF`` or ``CMF_implicit`` holds.  ``load`` of a file written
+by cmfrec_tpu's ``save`` is the on-disk form of the same hand-over.
 """
 
 from __future__ import annotations
@@ -12,7 +12,7 @@ import numpy as np
 import torch
 
 from .config import resolve_device
-from .models.cmf import CMF
+from .models.cmf import CMF, CMF_implicit
 
 
 def init_from_arrays(d: dict, device="cuda") -> dict:
@@ -26,11 +26,14 @@ def init_from_arrays(d: dict, device="cuda") -> dict:
 
 def cmf_from_arrays(*, A, B, user_bias=None, item_bias=None, glob_mean=0.0,
                     user_mapping=None, item_mapping=None, params=None,
-                    device="cuda") -> CMF:
-    """A fitted port ``CMF`` from a fitted cmfrec_tpu ``CMF``'s attributes
-    (A_, B_, user_bias_, item_bias_, glob_mean_, user_mapping_,
-    item_mapping_ and get_params())."""
-    model = CMF(**(params or {}), device=device)
+                    w_main_multiplier=1.0, cls=CMF, device="cuda"):
+    """A fitted port model of class ``cls`` (``CMF`` or ``CMF_implicit``)
+    from a fitted cmfrec_tpu model's attributes (A_, B_, user_bias_,
+    item_bias_, glob_mean_, user_mapping_, item_mapping_,
+    w_main_multiplier_ of an implicit model, and get_params())."""
+    if cls not in (CMF, CMF_implicit):
+        raise ValueError(f"cls must be CMF or CMF_implicit, got {cls!r}")
+    model = cls(**(params or {}), device=device)
     model._reset()
     model.dtype_ = np.dtype(np.float32)
 
@@ -40,6 +43,7 @@ def cmf_from_arrays(*, A, B, user_bias=None, item_bias=None, glob_mean=0.0,
     model.A_, model.B_ = arr(A), arr(B)
     model.user_bias_, model.item_bias_ = arr(user_bias), arr(item_bias)
     model.glob_mean_ = float(glob_mean)
+    model.w_main_multiplier_ = float(w_main_multiplier)
     if user_mapping is not None and len(user_mapping):
         model.user_mapping_ = np.asarray(user_mapping)
         model.item_mapping_ = np.asarray(item_mapping)

@@ -3,9 +3,11 @@
 API-compatible with cmfrec_tpu's ``CMF`` (and the reference's class of the
 same name, upstream cmfrec/__init__.py:2446): the same constructor
 hyperparameters plus ``device``, the same fitted attributes, and
-fit/predict/topN/save/load.  This slice fits ratings without side info on
-the dense-masked engine; the other fit branches raise ``ValueError`` naming
-the ROADMAP slice that brings them.
+fit/predict/topN/save/load.  ``CMF_implicit`` (upstream
+cmfrec/__init__.py:4358) likewise.  Both fit ratings without side info
+(``CMF`` on the dense-masked engine unless the data needs the bucketed one,
+``CMF_implicit`` on the bucketed engine); the other fit branches raise
+``ValueError`` naming the ROADMAP slice that brings them.
 """
 
 from __future__ import annotations
@@ -27,10 +29,10 @@ def _check_lambda(lambda_, name="lambda_"):
         raise ValueError(f"'{name}' must be non-negative")
 
 
-def _validate_cmf_params(self):
+def _validate_cmf_params(self, implicit=False):
     """Unsupported-combination checks matching the reference's _take_params
     (upstream cmfrec/__init__.py:63-262)."""
-    if self.method not in ("als", "lbfgs"):
+    if getattr(self, "method", "als") not in ("als", "lbfgs"):
         raise ValueError("'method' must be one of 'als' or 'lbfgs'")
     if int(self.k) <= 0 and not (self.k_user and self.k_item):
         raise ValueError("'k' must be a positive integer")
@@ -41,9 +43,12 @@ def _validate_cmf_params(self):
     _check_lambda(self.l1_lambda, "l1_lambda")
     if int(self.niter) < 0:
         raise ValueError("'niter' must be non-negative")
-    if self.method == "als" and int(self.max_cg_steps) <= 0:
+    if (getattr(self, "method", "als") == "als"
+            and int(self.max_cg_steps) <= 0):
         raise ValueError("'max_cg_steps' must be a positive integer")
-    if self.center and self.nonneg:
+    if implicit and float(self.alpha) <= 0:
+        raise ValueError("'alpha' must be positive")
+    if getattr(self, "center", False) and self.nonneg:
         warnings.warn(
             "Warning: will fit a model with centering and non-negativity "
             "constraints."
@@ -183,6 +188,107 @@ class CMF(_BaseModel):
         self.user_bias_ = host(res["biasA"])
         self.item_bias_ = host(res["biasB"])
         self.glob_mean_ = res["glob_mean"]
+        self.is_fitted_ = True
+        self.niter_ = self.niter
+        self._build_dicts()
+        return self
+
+
+class CMF_implicit(_BaseModel):
+    """Implicit-feedback WRMF/iALS (reference: upstream
+    cmfrec/__init__.py:4358).  ``device`` ("cuda" by default) is where the
+    fit and the predict/topN scoring run."""
+
+    def __init__(self, k=50, lambda_=1e0, alpha=1.0, use_cg=True,
+                 k_user=0, k_item=0, k_main=0,
+                 w_main=1.0, w_user=1.0, w_item=1.0,
+                 l1_lambda=0.0, center_U=True, center_I=True,
+                 niter=10, max_cg_steps=3, precondition_cg=False,
+                 finalize_chol=False,
+                 NA_as_zero_user=False, NA_as_zero_item=False,
+                 nonneg=False, nonneg_C=False, nonneg_D=False,
+                 max_cd_steps=100,
+                 apply_log_transf=False, downweight=False,
+                 precompute_for_predictions=True,
+                 use_float=True, random_state=1, verbose=False,
+                 print_every=10, handle_interrupt=True, produce_dicts=False,
+                 nthreads=-1, n_jobs=None,
+                 checkpoint_path=None, checkpoint_every=0, device="cuda"):
+        self.k = k
+        self.lambda_ = lambda_
+        self.alpha = alpha
+        self.checkpoint_path = checkpoint_path
+        self.checkpoint_every = checkpoint_every
+        self.use_cg = use_cg
+        self.k_user = k_user
+        self.k_item = k_item
+        self.k_main = k_main
+        self.w_main = w_main
+        self.w_user = w_user
+        self.w_item = w_item
+        self.l1_lambda = l1_lambda
+        self.center_U = center_U
+        self.center_I = center_I
+        self.niter = niter
+        self.max_cg_steps = max_cg_steps
+        self.precondition_cg = precondition_cg
+        self.finalize_chol = finalize_chol
+        self.NA_as_zero_user = NA_as_zero_user
+        self.NA_as_zero_item = NA_as_zero_item
+        self.nonneg = nonneg
+        self.nonneg_C = nonneg_C
+        self.nonneg_D = nonneg_D
+        self.max_cd_steps = max_cd_steps
+        self.apply_log_transf = apply_log_transf
+        self.downweight = downweight
+        # stored for API parity; its precompute arrives with the
+        # warm-serving slice
+        self.precompute_for_predictions = precompute_for_predictions
+        self.use_float = use_float
+        self.random_state = random_state
+        self.verbose = verbose
+        self.print_every = print_every
+        self.handle_interrupt = handle_interrupt
+        self.produce_dicts = produce_dicts
+        self.nthreads = nthreads
+        self.n_jobs = n_jobs
+        self.device = device
+        self.is_fitted_ = False
+        _validate_cmf_params(self, implicit=True)
+
+    def fit(self, X, U=None, I=None, mesh=None):
+        """Fit to implicit-feedback data (reference:
+        upstream cmfrec/__init__.py:4816) on the bucketed engine."""
+        _validate_cmf_params(self, implicit=True)
+        if U is not None or I is not None:
+            raise drivers._unsupported("side information (U=, I=)",
+                                       "slice 3")
+        if self.k_user or self.k_item or self.k_main:
+            raise drivers._unsupported("k_user/k_item/k_main", "slice 3")
+        set_handle_interrupt(bool(self.handle_interrupt))
+        self._reset()
+        self.dtype_ = resolve_dtype(self.use_float)
+        rows, cols, vals, _, m, n = self._ingest_X(X)
+        res = drivers.fit_implicit_als(
+            rows, cols, vals, m, n, mesh=mesh,
+            k=self.k, lambda_=self.lambda_, l1_lambda=self.l1_lambda,
+            niter=self.niter, use_cg=self.use_cg,
+            max_cg_steps=self.max_cg_steps,
+            precondition_cg=self.precondition_cg,
+            finalize_chol=self.finalize_chol,
+            alpha=self.alpha, apply_log_transf=self.apply_log_transf,
+            adjust_weight=self.downweight, nonneg=self.nonneg,
+            dtype=self.dtype_, seed=self.random_state, verbose=self.verbose,
+            checkpoint_path=self.checkpoint_path,
+            checkpoint_every=self.checkpoint_every,
+            device=self.device,
+        )
+        self.A_ = res["A"].cpu().numpy()
+        self.B_ = res["B"].cpu().numpy()
+        self.user_bias_ = None
+        self.item_bias_ = None
+        self.glob_mean_ = 0.0
+        self.w_main_multiplier_ = res["w_main_multiplier"]
         self.is_fitted_ = True
         self.niter_ = self.niter
         self._build_dicts()

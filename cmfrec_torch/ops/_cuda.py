@@ -1,9 +1,11 @@
 """Build and load the port's CUDA kernels (``cmfrec_torch/csrc/*.cu``).
 
-The sources are compiled with ``nvcc`` for ``sm_90a`` into a shared library
-with a plain C interface, on first use, into ``build/`` at the repository
-root; the file name carries a hash of the sources and flags, so an edited
-source is rebuilt and a stale library is never loaded.  The library is bound
+Each source is compiled with ``nvcc`` for ``sm_90a`` into an object, all
+of them at once (one ``nvcc`` process per source), and the objects are
+linked into one shared library with a plain C interface, on first use, in
+``build/`` at the repository root; the file name carries a hash of the
+sources and flags, so an edited source is rebuilt and a stale library is
+never loaded.  The library is bound
 with ``ctypes``.  Nothing here runs at import time: the CPU path never needs
 ``nvcc``.
 """
@@ -19,10 +21,10 @@ from functools import lru_cache
 from pathlib import Path
 
 _PKG = Path(__file__).resolve().parents[1]
-SOURCES = (_PKG / "csrc" / "masked_matmul.cu",)
+SOURCES = (_PKG / "csrc" / "masked_matmul.cu", _PKG / "csrc" / "sparse_cg.cu")
 BUILD_DIR = _PKG.parent / "build"
 NVCC_FLAGS = ("-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+              "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 
 def _nvcc() -> str:
@@ -44,6 +46,26 @@ def library_path() -> Path:
     return BUILD_DIR / f"libcmfrec_kernels_{h.hexdigest()[:16]}.so"
 
 
+def _nvcc_all(cmds) -> str:
+    """Run the nvcc commands at once and wait for all; raise if one failed.
+    Returns the diagnostics of all."""
+    procs = [subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                              stderr=subprocess.PIPE, text=True)
+             for cmd in cmds]
+    try:
+        outs = [proc.communicate() for proc in procs]
+    finally:  # an interrupted wait leaves no compiler running
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    for cmd, proc, (out, err) in zip(cmds, procs, outs):
+        if proc.returncode:
+            raise RuntimeError(f"nvcc failed (exit {proc.returncode}):\n"
+                               f"{' '.join(cmd)}\n{out}{err}")
+    return "".join(out + err for out, err in outs)
+
+
 @lru_cache(maxsize=None)
 def build() -> tuple[Path, str]:
     """Compile the kernels unless the hashed library exists.  Returns the
@@ -53,14 +75,20 @@ def build() -> tuple[Path, str]:
     if path.exists():
         return path, ""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = path.with_name(f"{path.name}.{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, SOURCES)]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed (exit {proc.returncode}):\n"
-                           f"{' '.join(cmd)}\n{proc.stdout}{proc.stderr}")
-    os.replace(tmp, path)  # atomic: a concurrent loader never sees half a file
-    return path, proc.stdout + proc.stderr
+    nvcc = _nvcc()
+    tag = f"{path.stem}.{os.getpid()}"
+    objs = [BUILD_DIR / f"{tag}.{src.stem}.o" for src in SOURCES]
+    tmp = BUILD_DIR / f"{tag}.so.tmp"
+    try:
+        log = _nvcc_all([[nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)]
+                         for src, obj in zip(SOURCES, objs)])
+        log += _nvcc_all([[nvcc, NVCC_FLAGS[0], "-shared", "-o", str(tmp),
+                           *map(str, objs)]])
+        os.replace(tmp, path)  # atomic: a loader never sees half a file
+    finally:
+        for f in (*objs, tmp):
+            f.unlink(missing_ok=True)
+    return path, log
 
 
 @lru_cache(maxsize=None)
@@ -71,6 +99,8 @@ def lib() -> ctypes.CDLL:
     so.cmf_masked_gram_matvec.restype = I
     so.cmf_masked_rhs.argtypes = [P, P, P, P, P, I, I, I, I, I, P]
     so.cmf_masked_rhs.restype = I
+    so.cmf_bucket_cg.argtypes = [P] * 10 + [I] * 5 + [P]
+    so.cmf_bucket_cg.restype = I
     so.cmf_error_string.argtypes = [I]
     so.cmf_error_string.restype = ctypes.c_char_p
     return so

@@ -1,0 +1,216 @@
+"""Batched per-row ridge solvers of the bucketed engine
+(port of cmfrec_tpu/ops/rowsolve.py, plain torch).
+
+Every ALS half-iteration solves, for each row i of a bucket,
+
+    (G0 + sum_l cw[i,l] M[idx[i,l]] M[idx[i,l]]^T + diag(lam_i)) a_i
+        = r0_i + sum_l cv[i,l] M[idx[i,l]]
+
+where M is the (extended) opposing factor matrix and (cw, cv) encode the
+model variant (explicit, implicit/WRMF, NA-as-zero; see solvers/als.py).
+The solvers are batched Cholesky (the reference's tposv_, upstream cmfrec
+src/common.c:1045) and warm-started truncated CG with the reference's
+two-tolerance stop (src/common.c:1098,1147,1181).
+
+bf16 operands (``mxu_bf16``, the CG iterations on a card): the opposing
+rows are bf16, every product of two bf16 values is exact in f32 and every
+sum is f32; the CG direction, t = (m . v) * cw and cv are rounded to bf16
+where they meet the rows, as cmfrec_tpu's ``_part_matvec`` does.  f32
+matrix products on a card need ``torch.backends.cuda.matmul.allow_tf32 =
+False`` (config.resolve_device sets it): TF32 keeps ~3 decimal digits.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple, Optional
+
+import torch
+
+SKIP_TOL = 1e-12  # rows whose initial residual r.r is below are skipped
+FREEZE_TOL = 1e-8  # a live row freezes once its residual falls below
+
+
+class SparsePart(NamedTuple):
+    """One sparse contribution to a batch of row systems.
+
+    mat: [S, K] extended opposing factor matrix (gather source)
+    idx: [R, L] int32 indices into mat (0-padded)
+    cw:  [R, L] Gram coefficients (0 on padding)
+    cv:  [R, L] rhs coefficients  (0 on padding)
+    """
+
+    mat: torch.Tensor
+    idx: torch.Tensor
+    cw: torch.Tensor
+    cv: torch.Tensor
+
+
+def length_mask(length: torch.Tensor, width: int) -> torch.Tensor:
+    """[R] lengths -> [R, width] validity mask."""
+    return (torch.arange(width, device=length.device)[None, :]
+            < length[:, None])
+
+
+def gather_rows(mat: torch.Tensor, idx: torch.Tensor,
+                mxu_bf16: bool = False) -> torch.Tensor:
+    """[S, K], [R, L] -> [R, L, K], in mat's dtype (bf16 with mxu_bf16)."""
+    if mxu_bf16:
+        mat = mat.to(torch.bfloat16)
+    R, L = idx.shape
+    return mat.index_select(0, idx.reshape(-1)).view(R, L, mat.shape[1])
+
+
+def _round(x: torch.Tensor, dtype) -> torch.Tensor:
+    """x rounded to ``dtype`` and held in f32 (a no-op unless bf16)."""
+    return x.to(dtype).float() if dtype == torch.bfloat16 else x
+
+
+def _widen(ms: torch.Tensor) -> torch.Tensor:
+    """Gathered rows for arithmetic: bf16 values held in f32."""
+    return ms.float() if ms.dtype == torch.bfloat16 else ms
+
+
+def part_gram(part: SparsePart, mxu_bf16: bool = False) -> torch.Tensor:
+    """[R, K, K] Gram contribution: sum_l cw * m m^T."""
+    ms = gather_rows(part.mat, part.idx, mxu_bf16)
+    msf = _widen(ms)
+    lhs = msf * _round(part.cw, ms.dtype)[..., None]
+    return torch.einsum("rlk,rlm->rkm", _round(lhs, ms.dtype), msf)
+
+
+def part_rhs(part: SparsePart, mxu_bf16: bool = False) -> torch.Tensor:
+    """[R, K] rhs contribution: sum_l cv * m."""
+    ms = gather_rows(part.mat, part.idx, mxu_bf16)
+    return torch.einsum("rlk,rl->rk", _widen(ms), _round(part.cv, ms.dtype))
+
+
+def _part_matvec(msf: torch.Tensor, cw: torch.Tensor, v: torch.Tensor,
+                 dtype) -> torch.Tensor:
+    """[R, L, K] gathered rows (held in f32, of ``dtype`` values), [R, L]
+    coefficients, [R, K] vectors -> [R, K]."""
+    t = torch.einsum("rlk,rk->rl", msf, _round(v, dtype)) * cw
+    return torch.einsum("rl,rlk->rk", _round(t, dtype), msf)
+
+
+def assemble_system(
+    parts: list,
+    lam_vec: torch.Tensor,  # [K]
+    lam_mult: Optional[torch.Tensor] = None,  # [R] per-row lam scaling
+    G0: Optional[torch.Tensor] = None,  # [K, K] shared Gram base
+    r0: Optional[torch.Tensor] = None,  # [R, K] per-row rhs base
+    mxu_bf16: bool = False,
+):
+    """The dense batched (G [R, K, K], rhs [R, K]) for Cholesky solving."""
+    R, K = parts[0].idx.shape[0], parts[0].mat.shape[1]
+    dev = lam_vec.device
+    G = torch.zeros(R, K, K, dtype=torch.float32, device=dev)
+    rhs = torch.zeros(R, K, dtype=torch.float32, device=dev)
+    for p in parts:
+        G = G + part_gram(p, mxu_bf16)
+        rhs = rhs + part_rhs(p, mxu_bf16)
+    if G0 is not None:
+        G = G + G0[None, :, :]
+    if r0 is not None:
+        rhs = rhs + r0
+    lam_row = (lam_vec[None, :] if lam_mult is None
+               else lam_vec[None, :] * lam_mult[:, None])
+    G = G + torch.diag_embed(lam_row.expand(R, K))
+    return G, rhs
+
+
+def solve_chol(G: torch.Tensor, rhs: torch.Tensor) -> torch.Tensor:
+    """Batched SPD solve via Cholesky: G [R, K, K], rhs [R, K] -> [R, K]."""
+    L = torch.linalg.cholesky(G)
+    y = torch.linalg.solve_triangular(L, rhs[..., None], upper=False)
+    x = torch.linalg.solve_triangular(L.transpose(-1, -2), y, upper=True)
+    return x[..., 0]
+
+
+def solve_shared_chol(G: torch.Tensor, rhs: torch.Tensor) -> torch.Tensor:
+    """All rows share ONE [K, K] SPD matrix (NA-as-zero half-steps,
+    upstream cmfrec src/common.c:3118 optimizeA case 3): one factorization,
+    two triangular solves over the [R, K] rhs."""
+    L = torch.linalg.cholesky(G)
+    y = torch.linalg.solve_triangular(L, rhs.T, upper=False)
+    return torch.linalg.solve_triangular(L.T, y, upper=True).T
+
+
+def cg_iterations(matvec, rhs: torch.Tensor, a0: torch.Tensor, n_steps: int,
+                  inv_diag: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Warm-started truncated (P)CG from a0, all rows at once.
+
+    Without a preconditioner: rows whose initial r.r <= SKIP_TOL are
+    skipped and a live row freezes once its r.r <= FREEZE_TOL (upstream
+    cmfrec src/common.c:1147,1181).  The reference's Jacobi PCG
+    (factors_explicit_pcg, src/common.c:1198) has no stopping tests: every
+    row runs all steps.  A frozen row's step size is 0, so it is a no-op."""
+    r = rhs - matvec(a0)
+    z = r if inv_diag is None else r * inv_diag
+    rz = torch.sum(r * z, dim=-1)
+    live = (torch.ones_like(rz, dtype=torch.bool) if inv_diag is not None
+            else rz > SKIP_TOL)
+    a, p = a0, z
+    for _ in range(n_steps):
+        Ap = matvec(p)
+        denom = torch.sum(p * Ap, dim=-1)
+        alpha = torch.where(live, rz / torch.where(denom == 0, 1.0, denom),
+                            0.0)
+        a = a + alpha[:, None] * p
+        r = r - alpha[:, None] * Ap
+        z = r if inv_diag is None else r * inv_diag
+        rz_new = torch.sum(r * z, dim=-1)
+        if inv_diag is None:
+            live = live & (rz_new > FREEZE_TOL)
+        beta = torch.where(live, rz_new / torch.where(rz == 0, 1.0, rz), 0.0)
+        p = torch.where(live[:, None], z + beta[:, None] * p, p)
+        rz = torch.where(live, rz_new, rz)
+    return a
+
+
+def solve_cg(
+    parts: list,
+    lam_vec: torch.Tensor,
+    a0: torch.Tensor,  # [R, K] warm start (previous factors)
+    n_steps: int,
+    lam_mult: Optional[torch.Tensor] = None,
+    G0: Optional[torch.Tensor] = None,
+    r0: Optional[torch.Tensor] = None,
+    jacobi: bool = False,
+    mxu_bf16: bool = False,
+) -> torch.Tensor:
+    """Batched truncated CG, warm-started, matching the reference's
+    ``max_cg_steps`` truncation (upstream cmfrec src/common.c:1098); with
+    ``jacobi=True`` diagonally-preconditioned PCG (``precondition_cg``,
+    src/common.c:1190)."""
+    R, K = a0.shape
+    lam_row = (lam_vec[None, :] if lam_mult is None
+               else lam_vec[None, :] * lam_mult[:, None])
+    gathered = []
+    for p in parts:
+        ms = gather_rows(p.mat, p.idx, mxu_bf16)
+        gathered.append((_widen(ms), ms.dtype, p.cw, p.cv))
+
+    def matvec(v):
+        out = v * lam_row
+        if G0 is not None:
+            out = out + v @ G0.T  # G0 @ v per row
+        for msf, dt, cw, _ in gathered:
+            out = out + _part_matvec(msf, cw, v, dt)
+        return out
+
+    rhs = torch.zeros(R, K, dtype=torch.float32, device=a0.device)
+    for msf, dt, _, cv in gathered:
+        rhs = rhs + torch.einsum("rlk,rl->rk", msf, _round(cv, dt))
+    if r0 is not None:
+        rhs = rhs + r0
+
+    inv_diag = None
+    if jacobi:
+        diag = lam_row.expand(R, K)
+        if G0 is not None:
+            diag = diag + torch.diagonal(G0)[None, :]
+        for msf, _, cw, _ in gathered:
+            diag = diag + torch.einsum("rlk,rl->rk", msf * msf, cw)
+        inv_diag = torch.where(diag > 0,
+                               1.0 / torch.where(diag > 0, diag, 1.0), 1.0)
+    return cg_iterations(matvec, rhs, a0, n_steps, inv_diag)

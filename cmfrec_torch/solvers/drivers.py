@@ -1,27 +1,40 @@
-"""End-to-end ALS fit of the classic (non-collective) explicit model
-(port of cmfrec_tpu/solvers/drivers.py::fit_explicit_als, dense-engine
-subset).
+"""End-to-end ALS fits of the classic (non-collective) models
+(port of cmfrec_tpu/solvers/drivers.py).
 
-It mirrors the reference's fit path for a plain X-only model
+fit_explicit_als mirrors the reference's fit path for a plain X-only model
 (upstream cmfrec src/collective.c:7263 with no side info): center -> bias
 init -> alternating half-iterations over item/user orientations, with
-CG-until-last-iteration-then-f32-polish (finalize_chol,
-upstream cmfrec src/collective.c:8336-8340).  The port has one engine,
-``dense_masked``; configurations that need another engine raise a
+CG-until-last-iteration-then-f32 (finalize_chol,
+upstream cmfrec src/collective.c:8336-8340).  It runs on one of two
+engines: ``dense_masked`` (the padded dense form, kernels K1/K2) or the
+bucketed sparse engine (degree buckets, kernel K3), which takes
+``engine="sparse"``, weighted ``NA_as_zero`` and, under ``engine="auto"``,
+data whose dense form exceeds the card's memory budget.
+
+fit_implicit_als mirrors fit_collective_implicit_als (upstream cmfrec
+src/collective.c:9375): optional log transform, alpha confidence scaling,
+adjust_weight -> w_main_multiplier = nnz/(m*n) (src/collective.c:9776-9782).
+Every implicit fit runs on the bucketed engine, on a card as on the CPU (the
+dense implicit engine is ROADMAP slice 3).
+
+Configurations that need a solver the port does not have yet raise a
 ``ValueError`` naming the ROADMAP slice that brings them.
 """
 
 from __future__ import annotations
 
+import time
 from typing import Optional
 
 import numpy as np
 import torch
 
-from ..config import resolve_device, resolve_dtype
+from ..config import resolve_device, resolve_dtype, should_handle_interrupt
+from ..data.device_fill import build_bucketed_pair
 from ..utils.checkpoint import FitCheckpointer
 from . import preprocess
-from .dense_masked import fit_explicit_dense_masked, padded_dims
+from .als import SidePlan, blocks_to_orig, gram_matrix, init_blocks, update_side
+from .dense_masked import _round_up, fit_explicit_dense_masked, padded_dims
 
 # CG steps of the f32 polish iteration (finalize_chol)
 FINALIZE_STEPS = 16
@@ -63,6 +76,118 @@ def _unsupported(what: str, slice_: str):
                       f"(ROADMAP {slice_})")
 
 
+def _host(state: dict) -> dict:
+    return {key: None if v is None else v.cpu().numpy()
+            for key, v in state.items()}
+
+
+def _fence(dev: torch.device) -> None:
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+# ----------------------------------------------------------------------- #
+# bucketed-engine helpers                                                  #
+# ----------------------------------------------------------------------- #
+
+
+def _sparse_fit_state(A_blocks, B_blocks, perm_A, perm_B, k, user_bias,
+                      item_bias):
+    """Bucketed-engine state -> the init= dict shape (checkpointing)."""
+    A_orig = blocks_to_orig(A_blocks, perm_A)
+    B_orig = blocks_to_orig(B_blocks, perm_B)
+    return {
+        "A": A_orig[:, :k], "B": B_orig[:, :k],
+        "biasA": A_orig[:, k] if user_bias else None,
+        "biasB": B_orig[:, k] if item_bias else None,
+    }
+
+
+def _with_bias_col(orig: torch.Tensor, col: int, ones: bool) -> torch.Tensor:
+    """A copy with column ``col`` set to ones, or zeros (the bias-column
+    trick, upstream cmfrec src/common.c:561-565)."""
+    out = orig.clone()
+    out[:, col] = 1.0 if ones else 0.0
+    return out
+
+
+def _make_lam_vec(k: int, k_pad: int, lam: float, lam_bias: float,
+                  has_bias: bool, dev) -> torch.Tensor:
+    """Per-coordinate L2: [lam]*k + [lam_bias] + 1s on padding coordinates
+    (a positive diagonal keeps padded coordinates at exactly zero)."""
+    v = np.ones(k_pad, np.float64)
+    v[:k] = lam
+    if has_bias:
+        v[k] = lam_bias
+    return torch.as_tensor(v, dtype=torch.float32, device=dev)
+
+
+def _build_pair(rows, cols, vals_c, m, n, weights, dev):
+    """Both orientations of the bucketed layout, built on the fit's device."""
+    return build_bucketed_pair(rows, cols, vals_c, m, n, weights, device=dev)
+
+
+def _row_index(bucketed, b, dev):
+    """Original row ids of bucket b's rows (-1 on padding rows)."""
+    return torch.as_tensor(bucketed.row_of[b.start:b.start + b.n_rows],
+                           device=dev)
+
+
+def _seed_factor_blocks(blocks, bucketed, M, k):
+    """Write warm-start factor rows into the bucketed block layout
+    (padding rows get zeros)."""
+    dev = blocks[0].device if blocks else None
+    M = torch.as_tensor(M, dtype=torch.float32, device=dev)
+    ext = torch.cat([M[:, :k], torch.zeros(1, k, device=dev)])
+    for b, blk in zip(bucketed.buckets, blocks):
+        blk[:, :k] = ext[_row_index(bucketed, b, dev)]
+    return blocks
+
+
+def _set_bias_coord(blocks, bucketed, bias_vec, coord):
+    """Write biases into each block's bias coordinate."""
+    dev = blocks[0].device if blocks else None
+    bias = torch.as_tensor(bias_vec, dtype=torch.float32, device=dev)
+    ext = torch.cat([bias, torch.zeros(1, device=dev)])
+    for b, blk in zip(bucketed.buckets, blocks):
+        blk[:, coord] = ext[_row_index(bucketed, b, dev)]
+    return blocks
+
+
+def _na0_rhs_base(opp, opp_bias, glob_mean):
+    """opp^T (-mu - opp_bias): rhs contribution of the all-zero entries
+    under NA-as-zero (the reference's BtXbias, upstream cmfrec
+    src/collective.c:303-312)."""
+    t = torch.full((opp.shape[0],), -glob_mean, dtype=opp.dtype,
+                   device=opp.device)
+    if opp_bias is not None:
+        t = t - opp_bias
+    return opp.T @ t
+
+
+def _reject_common(mesh, shard_opposing_rows, nonneg, l16, use_cg,
+                   precondition_cg, dtype):
+    if mesh is not None or shard_opposing_rows:
+        raise _unsupported("multi-device fitting (mesh=, shard_opposing_rows)",
+                           "slice 7")
+    if nonneg:
+        raise _unsupported("nonneg", "slice 4, the coordinate-descent solver")
+    if np.any(l16 > 0):
+        raise _unsupported("l1_lambda",
+                           "slice 4, the coordinate-descent solver")
+    if use_cg and precondition_cg:
+        raise _unsupported("precondition_cg",
+                           "slice 1 item 4, the dense_engine Jacobi PCG")
+    if dtype != np.float32:
+        raise _unsupported(f"dtype {dtype}",
+                           "slice 1 item 4, the float64 dense engine")
+
+
+# ----------------------------------------------------------------------- #
+# explicit                                                                 #
+# ----------------------------------------------------------------------- #
+
+
 def fit_explicit_als(
     rows: np.ndarray,
     cols: np.ndarray,
@@ -89,7 +214,7 @@ def fit_explicit_als(
     dtype=np.float32,
     seed: int = 1,
     verbose: bool = False,
-    engine: str = "auto",  # "auto" | "dense"
+    engine: str = "auto",  # "auto" | "dense" | "sparse"
     mesh=None,
     init=None,  # warm restart: dict(A=, B=[, biasA=, biasB=]) to continue
     # training from (the reference's reset_values=False)
@@ -98,37 +223,28 @@ def fit_explicit_als(
     shard_opposing_rows: bool = False,
     device="cuda",
 ) -> dict:
+    """Explicit ALS.  Returns A [m,k], B [n,k], biasA/biasB (or None) as
+    f32 tensors on ``device``, plus glob_mean and k.  ``engine="auto"``
+    takes the dense-masked engine unless the data is weighted NA_as_zero or
+    its padded dense form exceeds 90% of the card's free memory; then, as
+    with ``engine="sparse"``, the bucketed engine."""
     lam6, l16 = _resolve_lambdas(lambda_, l1_lambda)
     dtype = resolve_dtype(dtype)
     dev = resolve_device(device)
-
-    if mesh is not None or shard_opposing_rows:
-        raise _unsupported("multi-device fitting (mesh=, shard_opposing_rows)",
-                           "slice 7")
-    if engine == "sparse":
-        raise _unsupported("engine='sparse' (the bucketed engine)", "slice 4")
-    if engine not in ("auto", "dense"):
-        raise ValueError(f"engine must be 'auto' or 'dense', got {engine!r}")
-    if nonneg:
-        raise _unsupported("nonneg", "slice 4")
-    if np.any(l16 > 0):
-        raise _unsupported("l1_lambda", "slice 4")
-    if NA_as_zero and weights is not None:
-        raise _unsupported("weighted NA_as_zero", "slice 4")
-    if use_cg and precondition_cg:
-        raise _unsupported("precondition_cg",
-                           "slice 1 item 4, the dense_engine Jacobi PCG")
-    if dtype != np.float32:
-        raise _unsupported(f"dtype {dtype}",
-                           "slice 1 item 4, the float64 dense engine")
-
-    need = dense_bytes(m, n, k, weights is not None)
-    budget = _dense_budget(dev)
-    if budget is not None and need > budget:
-        raise _unsupported(
-            f"data whose padded dense form needs {need / 2**30:.2f} GiB "
-            f"(budget {budget / 2**30:.2f} GiB)",
-            "slice 4, the bucketed sparse engine")
+    if engine not in ("auto", "dense", "sparse"):
+        raise ValueError("engine must be 'auto', 'dense' or 'sparse', "
+                         f"got {engine!r}")
+    _reject_common(mesh, shard_opposing_rows, nonneg, l16, use_cg,
+                   precondition_cg, dtype)
+    weighted_na0 = NA_as_zero and weights is not None
+    if engine == "dense" and weighted_na0:
+        raise ValueError("engine='dense' has no weighted NA_as_zero form; "
+                         "use engine='auto' or 'sparse'")
+    bucketed = engine == "sparse" or weighted_na0
+    if engine == "auto" and not bucketed:
+        budget = _dense_budget(dev)
+        bucketed = (budget is not None
+                    and dense_bytes(m, n, k, weights is not None) > budget)
 
     glob_mean = (
         preprocess.weighted_global_mean(vals, weights) if center else 0.0
@@ -141,6 +257,14 @@ def fit_explicit_als(
         glob_mean *= wsum / (wsum + float(m) * float(n) - float(len(vals)))
 
     ckpt = FitCheckpointer(checkpoint_path, checkpoint_every, niter)
+    if bucketed:
+        return _fit_explicit_bucketed(
+            rows, cols, vals, m, n, weights=weights, k=k, lam6=lam6,
+            niter=niter, use_cg=use_cg, max_cg_steps=max_cg_steps,
+            finalize_chol=finalize_chol, user_bias=user_bias,
+            item_bias=item_bias, glob_mean=glob_mean, scale_lam=scale_lam,
+            scale_bias_const=scale_bias_const, NA_as_zero=NA_as_zero,
+            seed=seed, verbose=verbose, dev=dev, init=init, ckpt=ckpt)
     return fit_explicit_dense_masked(
         rows, cols, vals, m, n, weights=weights,
         k=k, lam6=lam6, niter=niter, max_cg_steps=max_cg_steps,
@@ -153,3 +277,248 @@ def fit_explicit_als(
         # use_cg=False runs exact mode on the same engine, as on the TPU
         exact=not use_cg,
     )
+
+
+def _fit_explicit_bucketed(
+    rows, cols, vals, m, n, *, weights, k, lam6, niter, use_cg, max_cg_steps,
+    finalize_chol, user_bias, item_bias, glob_mean, scale_lam,
+    scale_bias_const, NA_as_zero, seed, verbose, dev, init, ckpt,
+) -> dict:
+    """The bucketed route of fit_explicit_als
+    (cmfrec_tpu/solvers/drivers.py:361-470)."""
+    vals_c = (np.asarray(vals, np.float64) - glob_mean).astype(np.float32)
+    biasA0 = biasB0 = None
+    if user_bias or item_bias:
+        biasA0, biasB0 = preprocess.initialize_biases(
+            rows, cols, vals_c, m, n, lam_user=lam6[0], lam_item=lam6[1],
+            wgt=weights, user_bias=user_bias, item_bias=item_bias,
+            scale_lam=scale_lam)
+    RB, CB = _build_pair(rows, cols, vals_c, m, n, weights, dev)
+    perm_A = torch.as_tensor(RB.perm, device=dev)
+    perm_B = torch.as_tensor(CB.perm, device=dev)
+
+    k_pad = _round_up(k + 1, 8)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(int(seed))
+    A_blocks = init_blocks(gen, RB, k, k_pad)
+    B_blocks = init_blocks(gen, CB, k, k_pad)
+    if user_bias:
+        _set_bias_coord(A_blocks, RB, biasA0, k)
+    if item_bias:
+        _set_bias_coord(B_blocks, CB, biasB0, k)
+    if init is not None:
+        if init.get("A") is not None:
+            _seed_factor_blocks(A_blocks, RB, init["A"], k)
+        if init.get("B") is not None:
+            _seed_factor_blocks(B_blocks, CB, init["B"], k)
+        if user_bias and init.get("biasA") is not None:
+            _set_bias_coord(A_blocks, RB, init["biasA"], k)
+        if item_bias and init.get("biasB") is not None:
+            _set_bias_coord(B_blocks, CB, init["biasB"], k)
+
+    lam_vec_A = _make_lam_vec(k, k_pad, lam6[2], lam6[0], user_bias, dev)
+    lam_vec_B = _make_lam_vec(k, k_pad, lam6[3], lam6[1], item_bias, dev)
+    # scale_bias_const: the bias coordinate's penalty scales with the
+    # average observation count instead of the per-row count
+    # (upstream cmfrec src/common.c:717-722)
+    lam_const_A = lam_const_B = None
+    if scale_lam and scale_bias_const:
+        wsum = float(np.sum(weights)) if weights is not None else float(len(vals))
+        if user_bias:
+            lam_const_A = torch.zeros(k_pad, device=dev)
+            lam_const_A[k] = lam6[0] * (wsum / max(m, 1))
+            lam_vec_A[k] = 0.0
+        if item_bias:
+            lam_const_B = torch.zeros(k_pad, device=dev)
+            lam_const_B[k] = lam6[1] * (wsum / max(n, 1))
+            lam_vec_B[k] = 0.0
+
+    statics = dict(k=k, user_bias=user_bias, item_bias=item_bias,
+                   NA_as_zero=NA_as_zero, max_cg_steps=max_cg_steps,
+                   scale_lam=scale_lam, m=m, n=n)
+    args = (RB, CB, perm_A, perm_B, lam_vec_A, lam_vec_B, lam_const_A,
+            lam_const_B, float(glob_mean))
+
+    def state():
+        return _sparse_fit_state(A_blocks, B_blocks, perm_A, perm_B, k,
+                                 user_bias, item_bias)
+
+    try:
+        for it in range(niter):
+            method = ("cg" if use_cg and not (finalize_chol and it == niter - 1)
+                      else "chol")
+            t0 = time.time()
+            # bf16 copies of the opposing matrix in the CG iterations on a
+            # card, as the JAX package does on the TPU; Cholesky stays f32
+            A_blocks, B_blocks = _explicit_sparse_iteration(
+                A_blocks, B_blocks, *args, method=method,
+                mxu_bf16=dev.type == "cuda" and method == "cg", **statics)
+            if verbose:
+                _fence(dev)
+                print(f"iter {it + 1}/{niter} [{method}] "
+                      f"{time.time() - t0:.3f}s")
+            ckpt.maybe_save(it + 1, lambda: _host(state()))
+    except KeyboardInterrupt:
+        if not should_handle_interrupt():
+            raise
+        print("interrupted — returning partially-fit model")
+
+    out = state()
+    out.update({"glob_mean": float(glob_mean), "k": k})
+    return out
+
+
+def _explicit_sparse_iteration(
+    A_blocks, B_blocks, RB, CB, perm_A, perm_B, lam_vec_A, lam_vec_B,
+    lam_const_A, lam_const_B, glob_mean,
+    *, m, n, k, user_bias, item_bias, NA_as_zero, method, max_cg_steps,
+    scale_lam, mxu_bf16,
+):
+    """One full explicit ALS iteration over bucketed data, B half-step then
+    A (the reference's order, upstream cmfrec src/collective.c:8614 "Updating
+    B" precedes :8802 "Updating A")."""
+    mode = "na0" if NA_as_zero else "explicit"
+    common = dict(mu=glob_mean if NA_as_zero else None, method=method,
+                  n_steps=max_cg_steps, scale_lam=scale_lam,
+                  mxu_bf16=mxu_bf16)
+
+    def half(blocks, plan, opp_orig, opp_bias_on, ones, lam_vec, lam_const):
+        opp = _with_bias_col(opp_orig, k, ones)
+        opp_bias = opp_orig[:, k] if opp_bias_on else None
+        G0 = r0_vec = None
+        if NA_as_zero:
+            G0 = gram_matrix(opp)
+            r0_vec = _na0_rhs_base(opp, opp_bias, glob_mean)
+        return update_side(plan, blocks, opp, opp_bias, lam_vec, G0=G0,
+                           r0_vec=r0_vec, lam_const_vec=lam_const, **common)
+
+    B_blocks = half(B_blocks, SidePlan(CB, mode, m),
+                    blocks_to_orig(A_blocks, perm_A), user_bias, item_bias,
+                    lam_vec_B, lam_const_B)
+    A_blocks = half(A_blocks, SidePlan(RB, mode, n),
+                    blocks_to_orig(B_blocks, perm_B), item_bias, user_bias,
+                    lam_vec_A, lam_const_A)
+    return A_blocks, B_blocks
+
+
+# ----------------------------------------------------------------------- #
+# implicit                                                                 #
+# ----------------------------------------------------------------------- #
+
+
+def fit_implicit_als(
+    rows: np.ndarray,
+    cols: np.ndarray,
+    vals: np.ndarray,
+    m: int,
+    n: int,
+    *,
+    k: int = 50,
+    lambda_=1.0,
+    l1_lambda=0.0,
+    niter: int = 15,
+    use_cg: bool = True,
+    max_cg_steps: int = 3,
+    precondition_cg: bool = False,
+    finalize_chol: bool = False,
+    alpha: float = 1.0,
+    apply_log_transf: bool = False,
+    adjust_weight: bool = False,
+    nonneg: bool = False,
+    dtype=np.float32,
+    seed: int = 1,
+    verbose: bool = False,
+    mesh=None,
+    init=None,  # warm restart: dict(A=, B=)
+    checkpoint_path: Optional[str] = None,  # mid-fit periodic checkpoints
+    checkpoint_every: int = 0,
+    shard_opposing_rows: bool = False,
+    device="cuda",
+) -> dict:
+    """Implicit-feedback ALS (WRMF) on the bucketed engine.  Returns A [m,k]
+    and B [n,k] as f32 tensors on ``device`` plus w_main_multiplier and
+    alpha.  CG iterations launch kernel K3 once per bucket and side on a
+    card (bf16 opposing matrix); Cholesky iterations (use_cg=False, or the
+    last one under finalize_chol) stay f32."""
+    lam6, l16 = _resolve_lambdas(lambda_, l1_lambda)
+    dtype = resolve_dtype(dtype)
+    dev = resolve_device(device)
+    _reject_common(mesh, shard_opposing_rows, nonneg, l16, use_cg,
+                   precondition_cg, dtype)
+    ckpt = FitCheckpointer(checkpoint_path, checkpoint_every, niter)
+
+    vals = np.asarray(vals, np.float64)
+    if apply_log_transf:
+        if np.any(vals <= 0):
+            raise ValueError("apply_log_transf needs every value > 0 (the "
+                             "log of a value <= 0 is -inf or NaN)")
+        vals = np.log(vals)
+    vals = vals.astype(np.float32)
+    w_main = len(vals) / (float(m) * float(n)) if adjust_weight else 1.0
+
+    RB, CB = _build_pair(rows, cols, vals, m, n, None, dev)
+    perm_A = torch.as_tensor(RB.perm, device=dev)
+    perm_B = torch.as_tensor(CB.perm, device=dev)
+
+    k_pad = _round_up(k, 8)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(int(seed))
+    A_blocks = init_blocks(gen, RB, k, k_pad)
+    B_blocks = init_blocks(gen, CB, k, k_pad)
+    if init is not None:
+        if init.get("A") is not None:
+            _seed_factor_blocks(A_blocks, RB, init["A"], k)
+        if init.get("B") is not None:
+            _seed_factor_blocks(B_blocks, CB, init["B"], k)
+
+    lam_vec_A = _make_lam_vec(k, k_pad, lam6[2], 0.0, False, dev)
+    lam_vec_B = _make_lam_vec(k, k_pad, lam6[3], 0.0, False, dev)
+
+    def state():
+        return _sparse_fit_state(A_blocks, B_blocks, perm_A, perm_B, k,
+                                 False, False)
+
+    try:
+        for it in range(niter):
+            method = ("cg" if use_cg and not (finalize_chol and it == niter - 1)
+                      else "chol")
+            t0 = time.time()
+            A_blocks, B_blocks = _implicit_sparse_iteration(
+                A_blocks, B_blocks, RB, CB, perm_A, perm_B, lam_vec_A,
+                lam_vec_B, w_main, alpha, m=m, n=n, method=method,
+                max_cg_steps=max_cg_steps,
+                mxu_bf16=dev.type == "cuda" and method == "cg")
+            if verbose:
+                _fence(dev)
+                print(f"iter {it + 1}/{niter} [{method}] "
+                      f"{time.time() - t0:.3f}s")
+            ckpt.maybe_save(it + 1, lambda: _host(state()))
+    except KeyboardInterrupt:
+        if not should_handle_interrupt():
+            raise
+        print("interrupted — returning partially-fit model")
+
+    out = state()
+    out.update({"glob_mean": 0.0, "k": k, "w_main_multiplier": w_main,
+                "alpha": alpha})
+    return out
+
+
+def _implicit_sparse_iteration(
+    A_blocks, B_blocks, RB, CB, perm_A, perm_B, lam_vec_A, lam_vec_B,
+    w_main, alpha, *, m, n, method, max_cg_steps, mxu_bf16,
+):
+    """One full WRMF iteration over bucketed data, B half-step then A
+    (upstream cmfrec src/collective.c:9927 precedes :9981), with the
+    shared Gram base G0 = w * opp^T opp."""
+    common = dict(w=w_main, alpha=alpha, method=method,
+                  n_steps=max_cg_steps, mxu_bf16=mxu_bf16)
+    A_orig = blocks_to_orig(A_blocks, perm_A)
+    B_blocks = update_side(SidePlan(CB, "implicit", m), B_blocks, A_orig,
+                           None, lam_vec_B, G0=w_main * gram_matrix(A_orig),
+                           **common)
+    B_orig = blocks_to_orig(B_blocks, perm_B)
+    A_blocks = update_side(SidePlan(RB, "implicit", n), A_blocks, B_orig,
+                           None, lam_vec_A, G0=w_main * gram_matrix(B_orig),
+                           **common)
+    return A_blocks, B_blocks

@@ -1,14 +1,15 @@
 """Host-side preprocessing (port of cmfrec_tpu/solvers/preprocess.py).
 
-Only the global mean lives here: the dense-masked engine computes its
-starting biases on the device (dense_masked._device_bias_init).  The mean
-follows the reference's calc_mean_and_center
-(upstream cmfrec src/common.c:3423), accumulated in float64.
+The global mean follows the reference's calc_mean_and_center (upstream
+cmfrec src/common.c:3423), accumulated in float64.  The bucketed engine's
+starting biases come from :func:`initialize_biases` on the host; the
+dense-masked engine computes its own on the device
+(dense_masked._device_bias_init).
 """
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Tuple
 
 import numpy as np
 
@@ -20,3 +21,57 @@ def weighted_global_mean(
         return float(np.mean(vals, dtype=np.float64))
     sw = float(np.sum(wgt, dtype=np.float64))
     return float(np.sum(vals * wgt, dtype=np.float64) / max(sw, 1e-300))
+
+
+def initialize_biases(
+    rows: np.ndarray,
+    cols: np.ndarray,
+    vals_centered: np.ndarray,
+    m: int,
+    n: int,
+    lam_user: float,
+    lam_item: float,
+    wgt: Optional[np.ndarray] = None,
+    user_bias: bool = True,
+    item_bias: bool = True,
+    scale_lam: bool = False,
+) -> Tuple[np.ndarray, np.ndarray]:
+    """Alternating closed-form bias init, in float64.
+
+    With both biases on: the reference's iterated two-sided init
+    (initialize_biases_twosided, upstream cmfrec src/common.c:4410):
+    5 alternating full re-solves, items first --
+    biasB[j] = sum_obs(x - biasA) / (cnt + lam*(scale? cnt : 1)), then the
+    symmetric user pass.  (Its nonneg variant, 15 clipped passes, comes
+    with the nonneg solver.)  With a
+    single bias on: one shrunken-mean pass (initialize_biases_onesided,
+    src/common.c:4130)."""
+    biasA = np.zeros(m, np.float64)
+    biasB = np.zeros(n, np.float64)
+    v = vals_centered.astype(np.float64)
+    w = None if wgt is None else wgt.astype(np.float64)
+
+    if w is None:
+        c_item = np.bincount(cols, minlength=n).astype(np.float64)
+        c_user = np.bincount(rows, minlength=m).astype(np.float64)
+    else:
+        c_item = np.bincount(cols, weights=w, minlength=n)
+        c_user = np.bincount(rows, weights=w, minlength=m)
+    den_item = c_item + lam_item * (np.maximum(c_item, 1.0) if scale_lam else 1.0)
+    den_user = c_user + lam_user * (np.maximum(c_user, 1.0) if scale_lam else 1.0)
+
+    for _ in range(5 if (user_bias and item_bias) else 1):
+        if item_bias:
+            resid = v - biasA[rows]
+            s = np.bincount(cols, weights=resid if w is None else resid * w,
+                            minlength=n)
+            biasB = np.divide(s, den_item, out=np.zeros_like(s),
+                              where=den_item > 0)
+        if user_bias:
+            resid = v - biasB[cols]
+            s = np.bincount(rows, weights=resid if w is None else resid * w,
+                            minlength=m)
+            biasA = np.divide(s, den_user, out=np.zeros_like(s),
+                              where=den_user > 0)
+
+    return biasA, biasB

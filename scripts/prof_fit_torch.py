@@ -1,13 +1,17 @@
 #!/usr/bin/env python3
-"""Where the time of cmfrec_torch's flagship fit goes, on one CUDA card.
+"""Where the time of a cmfrec_torch fit goes, on one CUDA card.
 
 Run from the repository root:
 
-    python3 scripts/prof_fit_torch.py [--out DIR]
+    python3 scripts/prof_fit_torch.py [--fit explicit|implicit] [--out DIR]
 
-It fits the flagship configuration of chip_smoke.py (explicit ALS-CG, k=50,
-15 iterations, CG 3, f32 polish) on bench.make_ml10m_shaped() with the same
-5% held out, through CMF.fit_triplets:
+``--fit explicit`` (the default) fits the flagship configuration of
+chip_smoke.py (explicit ALS-CG, k=50, 15 iterations, CG 3, f32 polish) on
+bench.make_ml10m_shaped() with the same 5% held out, through
+CMF.fit_triplets; ``--fit implicit`` fits chip_smoke.py's WRMF configuration
+(k=50, lambda 5, alpha 1, 15 iterations, CG 3) on the train split of
+bench_implicit.make_lastfm_shaped(), through CMF_implicit.fit_triplets.
+For either:
 
   1. one cold fit (CUDA context, cuBLAS and allocator warm-up included);
   2. two warm fits;
@@ -15,8 +19,10 @@ It fits the flagship configuration of chip_smoke.py (explicit ALS-CG, k=50,
      kernel and the idle share = 1 - (union of the device's kernel and copy
      intervals) / (host wall time of the fit);
   4. with the profiler off, the host wall time of ingest (_ingest_X), of
-     the engine (fit_explicit_dense_masked, synchronized at its end), and of
-     the rest (COO build, driver checks, result download).
+     the engine's spans (explicit: fit_explicit_dense_masked; implicit: the
+     bucket layout build _build_pair and the iterations
+     _implicit_sparse_iteration), each synchronized at its end, and of the
+     rest (COO build, driver checks, result download).
 
 Prints one line per measurement and, last, one JSON object with all of
 them.  With --out, also writes the profiler's per-kernel table there.
@@ -38,6 +44,12 @@ M, N = 69878, 10677
 FIT = dict(k=50, lambda_=0.05, scale_lam=True, niter=15, use_cg=True,
            max_cg_steps=3, finalize_chol=True, user_bias=True,
            item_bias=True, center=True)
+LFM_M, LFM_N = 359347, 160168
+IMPLICIT_FIT = dict(k=50, lambda_=5.0, alpha=1.0, niter=15, use_cg=True,
+                    max_cg_steps=3)
+# the host-split spans of each fit: functions of solvers/drivers.py
+SPANS = {"explicit": ("fit_explicit_dense_masked",),
+         "implicit": ("_build_pair", "_implicit_sparse_iteration")}
 
 
 def _busy_us(intervals):
@@ -71,8 +83,9 @@ def _timed_wrapper(module, name, totals, sync):
     return fn
 
 
-def profile_fit(rows, cols, vals, m, n, device):
-    """Cold, warm, profiled and host-split fits; returns a dict of numbers."""
+def profile_fit(rows, cols, vals, m, n, device, kind):
+    """Cold, warm, profiled and host-split fits of the ``kind`` ("explicit"
+    or "implicit") configuration; returns a dict of numbers."""
     import torch
 
     import cmfrec_torch
@@ -83,10 +96,13 @@ def profile_fit(rows, cols, vals, m, n, device):
         if torch.device(device).type == "cuda":
             torch.cuda.synchronize()
 
+    model_cls, kw = ((cmfrec_torch.CMF, FIT) if kind == "explicit" else
+                     (cmfrec_torch.CMF_implicit, IMPLICIT_FIT))
+
     def fit():
         sync()
         t0 = time.perf_counter()
-        model = cmfrec_torch.CMF(**FIT, device=device).fit_triplets(
+        model = model_cls(**kw, device=device).fit_triplets(
             rows, cols, vals, m, n)
         sync()
         return model, time.perf_counter() - t0
@@ -125,18 +141,17 @@ def profile_fit(rows, cols, vals, m, n, device):
         print(f"  {v['ms']:9.2f} ms {v['calls']:5d} calls  {name[:90]}")
 
     totals = {}
-    orig = (_timed_wrapper(base._BaseModel, "_ingest_X", totals, sync),
-            _timed_wrapper(drivers, "fit_explicit_dense_masked", totals, sync))
+    spans = [(base._BaseModel, "_ingest_X")] + [(drivers, name)
+                                                for name in SPANS[kind]]
+    orig = [_timed_wrapper(mod, name, totals, sync) for mod, name in spans]
     try:
         _, wall = fit()
     finally:
-        base._BaseModel._ingest_X = orig[0]
-        drivers.fit_explicit_dense_masked = orig[1]
-    out["host_split_s"] = {
-        "fit": wall, "ingest": totals["_ingest_X"],
-        "engine": totals["fit_explicit_dense_masked"],
-        "rest": wall - totals["_ingest_X"]
-        - totals["fit_explicit_dense_masked"]}
+        for (mod, name), fn in zip(spans, orig):
+            setattr(mod, name, fn)
+    out["host_split_s"] = {"fit": wall, "ingest": totals["_ingest_X"]}
+    out["host_split_s"].update({name: totals[name] for name in SPANS[kind]})
+    out["host_split_s"]["rest"] = wall - sum(totals.values())
     print("host split: " + ", ".join(
         f"{k} {v:.3f} s" for k, v in out["host_split_s"].items()), flush=True)
     return out, prof
@@ -144,6 +159,8 @@ def profile_fit(rows, cols, vals, m, n, device):
 
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--fit", choices=("explicit", "implicit"),
+                    default="explicit", help="which configuration to fit")
     ap.add_argument("--out", help="directory for the profiler's table")
     args = ap.parse_args()
 
@@ -160,15 +177,24 @@ def main():
          "--format=csv,noheader"],
         capture_output=True, text=True, check=True).stdout.strip()
     print(smi, flush=True)
-    rows, cols, vals = _cached(make_ml10m_shaped,
-                               str(_cuda.BUILD_DIR / "ml10m_shaped.npz"))
-    tr = ~(np.random.default_rng(1).uniform(size=rows.size) < 0.05)
-    out, prof = profile_fit(rows[tr], cols[tr], vals[tr], M, N, "cuda")
+    if args.fit == "explicit":
+        rows, cols, vals = _cached(make_ml10m_shaped,
+                                   str(_cuda.BUILD_DIR / "ml10m_shaped.npz"))
+        tr = ~(np.random.default_rng(1).uniform(size=rows.size) < 0.05)
+        data = (rows[tr], cols[tr], vals[tr], M, N)
+    else:
+        from bench_implicit import make_lastfm_shaped, split_heldout
+
+        rows, cols, vals = _cached(make_lastfm_shaped,
+                                   str(_cuda.BUILD_DIR / "lastfm_shaped.npz"))
+        data = (*split_heldout(rows, cols, vals, LFM_M)[:3], LFM_M, LFM_N)
+    out, prof = profile_fit(*data, "cuda", args.fit)
     out["card"] = smi
+    out["fit"] = args.fit
     if args.out:
         d = pathlib.Path(args.out)
         d.mkdir(parents=True, exist_ok=True)
-        (d / "prof_fit_torch.txt").write_text(
+        (d / f"prof_fit_torch_{args.fit}.txt").write_text(
             prof.key_averages().table(row_limit=40))
     print(json.dumps(out))
     return 0

@@ -194,7 +194,13 @@ def _fit_beyond_the_device_budget():
     # the budget is the card's free memory; stand in a 1000-byte card
     with pytest.MonkeyPatch.context() as mp:
         mp.setattr(drivers, "_dense_budget", lambda dev: 1000)
-        drivers.fit_explicit_als(*_TRIPLETS, device="cpu")
+        return drivers.fit_explicit_als(*_TRIPLETS, device="cpu")
+
+
+# Cases that earlier slices rejected and the bucketed engine now fits: the
+# test asserts that they run, through the bucketed engine (its layout build
+# is called), to finite factors.
+BUCKETED = "runs on the bucketed engine"
 
 
 @pytest.mark.parametrize("call,match", [
@@ -210,7 +216,7 @@ def _fit_beyond_the_device_budget():
     (lambda X: cmfrec_torch.CMF(l1_lambda=0.1, device="cpu").fit(X),
      "slice 4"),
     (lambda X: cmfrec_torch.CMF(NA_as_zero=True, device="cpu").fit(
-        X, W=np.ones(X.nnz)), "slice 4"),
+        X, W=np.ones(X.nnz)), BUCKETED),
     (lambda X: cmfrec_torch.CMF(precondition_cg=True, device="cpu").fit(X),
      "slice 1 item 4"),
     (lambda X: cmfrec_torch.CMF(use_float=False, device="cpu").fit(X),
@@ -220,14 +226,23 @@ def _fit_beyond_the_device_budget():
     (lambda X: drivers.fit_explicit_als(*_TRIPLETS, shard_opposing_rows=True,
                                         device="cpu"), "slice 7"),
     (lambda X: drivers.fit_explicit_als(*_TRIPLETS, engine="sparse",
-                                        device="cpu"), "slice 4"),
-    (lambda X: _fit_beyond_the_device_budget(), "padded dense form"),
+                                        device="cpu"), BUCKETED),
+    (lambda X: _fit_beyond_the_device_budget(), BUCKETED),
 ])
-def test_out_of_slice_options_raise(call, match):
+def test_out_of_slice_options_raise(call, match, monkeypatch):
     rows, cols, vals, m, n = _TRIPLETS
     X = sp.coo_matrix((vals, (rows, cols)), shape=(m, n))
-    with pytest.raises(ValueError, match=match):
-        call(X)
+    if match != BUCKETED:
+        with pytest.raises(ValueError, match=match):
+            call(X)
+        return
+    built = []
+    real = drivers._build_pair
+    monkeypatch.setattr(drivers, "_build_pair",
+                        lambda *a: built.append(a) or real(*a))
+    out = call(X)
+    A = out.A_ if isinstance(out, cmfrec_torch.CMF) else out["A"].numpy()
+    assert len(built) == 1 and A.shape == (m, 40) and np.isfinite(A).all()
 
 
 def test_cuda_without_a_card_raises():
@@ -242,7 +257,10 @@ def test_cuda_without_a_card_raises():
 
 def test_import_leaves_jax_out():
     code = ("import sys, cmfrec_torch, cmfrec_torch.convert, "
-            "cmfrec_torch.solvers.drivers, cmfrec_torch.ops.predict; "
+            "cmfrec_torch.solvers.drivers, cmfrec_torch.solvers.als, "
+            "cmfrec_torch.ops.predict, cmfrec_torch.ops.rowsolve, "
+            "cmfrec_torch.ops.sparse_cg, cmfrec_torch.data.shards, "
+            "cmfrec_torch.data.device_fill; "
             "bad = [k for k in sys.modules if k.split('.')[0] in "
             "('jax', 'jaxlib', 'cmfrec_tpu')]; print(bad); "
             "sys.exit(1 if bad else 0)")

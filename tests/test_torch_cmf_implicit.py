@@ -1,0 +1,138 @@
+"""cmfrec_torch.CMF_implicit against cmfrec_tpu.CMF_implicit: both beat
+popularity on preference-structured data, a port model carried over from a
+JAX one (by arrays, or by the JAX model's .npz) ranks exactly as the JAX
+model does, and the options this slice does not bring raise."""
+
+import numpy as np
+import pytest
+import scipy.sparse as sp
+
+import cmfrec_torch
+import cmfrec_tpu
+from cmfrec_torch.convert import cmf_from_arrays
+
+
+def _preference_data(seed=0, m=240, n=150, k_true=4):
+    """The verify notes' implicit recipe: a preference-structured mask
+    (prob = sigmoid(A B^T - 1.5)) with play counts; 20% of each user's
+    items held out."""
+    rng = np.random.default_rng(seed)
+    A = rng.normal(size=(m, k_true))
+    B = rng.normal(size=(n, k_true))
+    prob = 1.0 / (1.0 + np.exp(-(A @ B.T - 1.5)))
+    rows, cols = np.nonzero(rng.uniform(size=(m, n)) < prob)
+    vals = 1.0 + rng.poisson(3.0, rows.size)
+    test = rng.uniform(size=rows.size) < 0.2
+    return rows, cols, vals, test, m, n
+
+
+def _p_at_10(A, B, rows, cols, test, m, n):
+    """Mean P@10 of the scores A B^T over users with held-out items, train
+    items excluded (the model's own ranking: an implicit model has no
+    biases)."""
+    tr = ~test
+    scores = np.asarray(A, np.float64) @ np.asarray(B, np.float64).T
+    scores[rows[tr], cols[tr]] = -np.inf
+    top = np.argsort(-scores, axis=1, kind="stable")[:, :10]
+    hits = []
+    for u in range(m):
+        held = set(cols[test & (rows == u)])
+        if held:
+            hits.append(len(held.intersection(top[u])) / min(10, len(held)))
+    return float(np.mean(hits))
+
+
+def test_both_beat_popularity_and_carry_over(tmp_path):
+    rows, cols, vals, test, m, n = _preference_data()
+    tr = ~test
+    kw = dict(k=8, lambda_=1.0, alpha=1.0, niter=8)
+    jm = cmfrec_tpu.CMF_implicit(**kw).fit_triplets(
+        rows[tr], cols[tr], vals[tr], m, n)
+    tm = cmfrec_torch.CMF_implicit(**kw, device="cpu").fit_triplets(
+        rows[tr], cols[tr], vals[tr], m, n)
+    assert tm.A_.shape == (m, 8) and tm.A_.dtype == np.float32
+    assert tm.user_bias_ is None and tm.glob_mean_ == 0.0
+
+    pop = np.bincount(cols[tr], minlength=n).astype(np.float64)
+    p_pop = _p_at_10(np.ones((m, 1)), pop[:, None], rows, cols, test, m, n)
+    p_jax = _p_at_10(jm.A_, jm.B_, rows, cols, test, m, n)
+    p_torch = _p_at_10(tm.A_, tm.B_, rows, cols, test, m, n)
+    assert p_jax > 1.2 * p_pop and p_torch > 1.2 * p_pop, (p_jax, p_torch,
+                                                           p_pop)
+    for u in (0, 1, 2):  # topN agrees with the model's own ranking
+        seen = cols[tr & (rows == u)]
+        s = tm.A_[u].astype(np.float64) @ tm.B_.T.astype(np.float64)
+        s[seen] = -np.inf
+        np.testing.assert_array_equal(np.sort(tm.topN(u, n=10, exclude=seen)),
+                                      np.sort(np.argsort(-s)[:10]))
+
+    path = str(tmp_path / "jax_implicit.npz")
+    jm.save(path)
+    carried = [
+        cmf_from_arrays(A=jm.A_, B=jm.B_, params=jm.get_params(),
+                        w_main_multiplier=jm.w_main_multiplier_,
+                        cls=cmfrec_torch.CMF_implicit, device="cpu"),
+        cmfrec_torch.CMF_implicit.load(path, device="cpu"),
+    ]
+    for u in (5, 77, 160):
+        seen = cols[tr & (rows == u)]
+        want = np.asarray(jm.topN(u, n=10, exclude=seen))
+        for port in carried:
+            assert isinstance(port, cmfrec_torch.CMF_implicit)
+            np.testing.assert_array_equal(port.topN(u, n=10, exclude=seen),
+                                          want)
+    for port in carried:
+        np.testing.assert_allclose(port.predict(rows[:50], cols[:50]),
+                                   np.asarray(jm.predict(rows[:50], cols[:50])),
+                                   rtol=0, atol=1e-5)
+
+
+def test_save_load_roundtrip(tmp_path):
+    rows, cols, vals, _, m, n = _preference_data(seed=1, m=60, n=40)
+    model = cmfrec_torch.CMF_implicit(k=4, niter=2, device="cpu")
+    model.fit_triplets(rows, cols, vals, m, n)
+    path = str(tmp_path / "torch_implicit.npz")
+    model.save(path)
+    again = cmfrec_torch.CMF_implicit.load(path, device="cpu")
+    assert again.get_params() == model.get_params()
+    np.testing.assert_array_equal(again.topN(3, n=5), model.topN(3, n=5))
+    jm = cmfrec_tpu.CMF_implicit.load(path)
+    np.testing.assert_array_equal(np.asarray(jm.topN(3, n=5)),
+                                  model.topN(3, n=5))
+
+
+_SMALL = _preference_data(seed=2, m=30, n=20)
+
+
+@pytest.mark.parametrize("call,match", [
+    (lambda X: cmfrec_torch.CMF_implicit(device="cpu").fit(
+        X, U=np.ones((30, 2))), "slice 3"),
+    (lambda X: cmfrec_torch.CMF_implicit(device="cpu").fit(
+        X, I=np.ones((20, 2))), "slice 3"),
+    (lambda X: cmfrec_torch.CMF_implicit(k_user=2, device="cpu").fit(X),
+     "slice 3"),
+    (lambda X: cmfrec_torch.CMF_implicit(nonneg=True, device="cpu").fit(X),
+     "slice 4"),
+    (lambda X: cmfrec_torch.CMF_implicit(l1_lambda=0.1, device="cpu").fit(X),
+     "slice 4"),
+    (lambda X: cmfrec_torch.CMF_implicit(precondition_cg=True,
+                                         device="cpu").fit(X),
+     "slice 1 item 4"),
+    (lambda X: cmfrec_torch.CMF_implicit(use_float=False,
+                                         device="cpu").fit(X),
+     "slice 1 item 4"),
+    (lambda X: cmfrec_torch.CMF_implicit(device="cpu").fit(X, mesh=object()),
+     "slice 7"),
+    (lambda X: cmfrec_torch.CMF_implicit(alpha=0.0, device="cpu"),
+     "'alpha' must be positive"),
+    (lambda X: cmfrec_torch.CMF_implicit(
+        apply_log_transf=True, device="cpu").fit(
+            sp.coo_matrix((np.zeros(X.nnz), (X.row, X.col)), shape=X.shape)),
+     "apply_log_transf"),
+], ids=["U", "I", "k_user", "nonneg", "l1_lambda", "precondition_cg",
+        "float64", "mesh", "alpha", "log_of_zero"])
+def test_out_of_slice_options_raise(call, match):
+    rows, cols, vals, _, m, n = _SMALL
+    X = sp.coo_matrix((vals, (rows, cols)), shape=(m, n))
+    with pytest.raises(ValueError, match=match):
+        call(X)

@@ -6,7 +6,9 @@ Skipped without a CUDA device.  On a machine with one (and without JAX):
 
 Tolerances, as max|kernel - twin| <= tol * max|twin|: f32 operands differ
 by summation order only, 1e-5 at these sizes; bf16 operands also flip
-single bf16 roundings of T*W (2**-8 relative each), 1e-3.
+single bf16 roundings of T*W (2**-8 relative each), 1e-3.  The bucket CG
+(K3) runs 3 CG steps on top of its sums, which carries a summation-order
+difference further: K3_REL_TOL.
 """
 
 import numpy as np
@@ -14,10 +16,12 @@ import pytest
 import torch
 
 from cmfrec_torch.ops import masked_matmul as mm
+from cmfrec_torch.ops import sparse_cg
 from cmfrec_torch.solvers import drivers
 
 pytestmark = pytest.mark.gpu
 REL_TOL = {torch.bfloat16: 1e-3, torch.float32: 1e-5}
+K3_REL_TOL = {torch.bfloat16: 1e-2, torch.float32: 1e-4}
 
 
 @pytest.fixture
@@ -91,3 +95,53 @@ def test_fit_on_card_matches_cpu(cuda, use_cg):
         np.testing.assert_allclose(on_card[key].cpu().numpy(),
                                    on_cpu[key].numpy(), rtol=0, atol=5e-4,
                                    err_msg=key)
+
+
+def _bucket(dev, R, L, S, K, op, explicit, seed=0):
+    """A random bucket: implicit coefficients with a Gram base, or explicit
+    ones with a per-row lambda and a rhs base (the scale_lam/NA-as-zero
+    variant)."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    mat = (torch.randn(S, K, device=dev, generator=g) / K ** 0.5).to(op)
+    idx = torch.randint(0, S, (R, L), device=dev, generator=g,
+                        dtype=torch.int32)
+    length = torch.randint(0, L + 1, (R,), device=dev, generator=g,
+                           dtype=torch.int32)
+    msk = (torch.arange(L, device=dev)[None, :] < length[:, None]).float()
+    a0 = 0.1 * torch.randn(R, K, device=dev, generator=g)
+    if explicit:
+        cw = msk
+        cv = torch.randn(R, L, device=dev, generator=g) * msk
+        gfix = torch.zeros(K, K, device=dev)
+        lam_row = 0.4 * (1 + length.float())[:, None].expand(R, K).contiguous()
+        r0 = torch.randn(R, K, device=dev, generator=g)
+    else:
+        x = 1 + 9 * torch.rand(R, L, device=dev, generator=g)
+        cw, cv = 0.7 * x * msk, (1 + 0.7 * x) * msk
+        matf = mat.float()
+        gfix = matf.T @ matf + 1.3 * torch.eye(K, device=dev)
+        lam_row = r0 = None
+    return (mat, idx, cw, cv, gfix, lam_row, r0, a0), length
+
+
+@pytest.mark.parametrize("K", [8, 56, 64, 136, 256])
+@pytest.mark.parametrize("op", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("explicit", [False, True])
+@pytest.mark.parametrize("L", [40, 700, 5000])
+def test_bucket_cg_matches_twin(cuda, K, op, explicit, L):
+    """Staged (L=40) and re-gathered rows (700, 5000), 4/8/16 warps."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    R = 24 if L == 5000 else 96
+    args, length = _bucket(cuda, R, L, 3 * L + 50, K, op, explicit)
+    before = sparse_cg.bucket_cg.launches
+    out = sparse_cg.bucket_cg(*args, n_steps=3, length=length)
+    torch.cuda.synchronize()
+    assert sparse_cg.bucket_cg.launches == before + 1
+    ref = sparse_cg.bucket_cg_ref(*args, n_steps=3)
+    assert torch.isfinite(out).all()
+    assert _rel(out, ref) <= K3_REL_TOL[op]
+    # with every row at full length the kernel walks the zero-coefficient
+    # padding too
+    full = torch.full_like(length, L)
+    assert _rel(sparse_cg.bucket_cg(*args, n_steps=3, length=full),
+                ref) <= K3_REL_TOL[op]
