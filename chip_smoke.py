@@ -28,10 +28,15 @@ Phases, each printing its own line(s):
      launch count, P@10 / MAP@10 against the popularity baseline on 2,000
      held-out users, and topN for a few users;
   8. the explicit fit of phase 4 on the bucketed engine (engine="sparse"),
-     with its K3 launch count and held-out RMSE.
+     with its K3 launch count and held-out RMSE;
+  9. K1's probes (ops/k1_probes.py, the port of the TPU probes P1-P3):
+     each against its plain version at both sides of phase 3's X/W, with
+     errors and CUDA-event times, and K1/K2 with a bf16 W against their
+     twins at both operand types; then the probe sweep
+     (scripts/sweep_k1_probes_torch.py), with its launch counts.
 
-Each fit phase sets every kernel's launch count to 0 just before it and
-reads the counts just after.  The line before the last is
+Each fit phase, and phase 9's sweep, sets every kernel's launch count to 0
+just before it and reads the counts just after.  The line before the last is
 {"kernels": [...]}; the last line is {"ok": true, "device": {...}}.  Any
 failure raises and exits non-zero; so does a machine without a CUDA
 device, or a directory without the package.
@@ -70,6 +75,25 @@ SOURCES = {"masked_gram_matvec": "cmfrec_torch/csrc/masked_matmul.cu",
 # bf16 product summed in f32 at the bf16 rate, whatever unit the kernel uses.
 HBM_BPS = 3.35e12
 PEAK_OPS = {"bf16": 989e12, "f32": 67e12}
+
+# Phase 9, max|kernel - plain| / max|plain| by the probe's work model
+# (k1_probes.Probe.work): bodies equal to K1's (p_full, p_part, v*) take
+# K1's limit; the W stream sums a 0/1 mask (int8 or bf16) exactly.  The
+# others about 7x above the largest readings at these shapes (NVIDIA H100):
+# p_dots 1.8e-4 (T's bf16 roundings flip, as in K1), p_dot1 2.4e-6 (f32
+# summation order of T's row sums)
+PROBE_REL_TOL = {"k1": REL_TOL["bf16"], "dots": 1.3e-3, "dot1": 2e-5,
+                 "w": 0.0}
+PROBE_REPLACES = {"p1": "scripts/sweep_kernel_probe2.py:72",
+                  "p_part": "scripts/sweep_kernel_probe2.py:95",
+                  "p2": "scripts/sweep_kernel_variants.py:78",
+                  "p3": "scripts/sweep_kernel_probe3.py:96"}
+# each row's headline variant: its first that is not K1 itself
+PROBE_HEADLINE = {"p1": "p_dots", "p2": "vbf_int8", "p3": "wsum_64x64"}
+# each row's wrappers in ops/k1_probes.py (p_full, v0 and vw16 are K1's)
+PROBE_WRAPPERS = {"p1": ("dots", "dot1", "wsum", "part"), "p2": ("bft", "sel"),
+                  "p3": ("w_stream",)}
+PROBE_SWEEP_REPS = 2
 
 LFM_M, LFM_N = 359347, 160168  # LastFM-360K's shape (bench_implicit.py:30)
 IMPLICIT_FIT = dict(k=50, lambda_=5.0, alpha=1.0, niter=15, use_cg=True,
@@ -114,23 +138,32 @@ def _timed(fn, reps):
     return start.elapsed_time(end) / reps
 
 
-def check_kernels(rows, cols, vals, weights):
-    """Phase 3: every kernel variant against its twin at the flagship shapes."""
+def flagship_dense(rows, cols, vals, weights):
+    """The flagship fit's padded dense X and W on the card, both sides:
+    (K, {side: (R, S, X, int8 mask, f32 weights)})."""
     import torch
 
-    from cmfrec_torch.ops import masked_matmul as mm
     from cmfrec_torch.solvers.dense_masked import _setup, padded_dims
 
     m_pad, n_pad, Kp = padded_dims(M, N, FIT["k"])
-    dev = torch.device("cuda")
-    up = {key: torch.as_tensor(a).to(dev) for key, a in
+    up = {key: torch.as_tensor(a).to("cuda") for key, a in
           (("r", rows), ("c", cols), ("v", vals.astype(np.float32)),
            ("w", weights.astype(np.float32)))}
     X, W8, XT, W8T, _, _ = _setup(up["r"], up["c"], up["v"], None, m_pad, n_pad)
     _, Wf, _, WfT, _, _ = _setup(up["r"], up["c"], up["v"], up["w"], m_pad,
                                  n_pad)
+    return Kp, {"A": (m_pad, n_pad, X, W8, Wf), "B": (n_pad, m_pad, XT, W8T, WfT)}
+
+
+def check_kernels(rows, cols, vals, weights):
+    """Phase 3: every kernel variant against its twin at the flagship shapes."""
+    import torch
+
+    from cmfrec_torch.ops import masked_matmul as mm
+
+    Kp, sides = flagship_dense(rows, cols, vals, weights)
+    dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(0)
-    sides = {"A": (m_pad, n_pad, X, W8, Wf), "B": (n_pad, m_pad, XT, W8T, WfT)}
     results = {"masked_gram_matvec": [], "masked_rhs": []}
     for side, (R, S, Xs, W8s, Wfs) in sides.items():
         Q = torch.randn(R, Kp, device=dev, generator=gen) / 8
@@ -176,6 +209,103 @@ def check_kernels(rows, cols, vals, weights):
                         plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by))
                     del out, ref
     return results
+
+
+def check_k1_probes(rows, cols, vals, weights, results):
+    """Phase 9: every K1 probe against its plain version at both sides of
+    phase 3's X/W (Q/Be as there, in bf16; the int8 mask, and the mask in
+    bf16 for the bf16-W probes), and K1/K2 with the f32 weights rounded to
+    bf16 against their twins, bf16 and f32 operands (appended to
+    `results`).  Returns the probe records by row and torch.sum's time over
+    the int8 mask by side."""
+    import torch
+
+    from cmfrec_torch.ops import k1_probes
+    from cmfrec_torch.ops import masked_matmul as mm
+
+    Kp, sides = flagship_dense(rows, cols, vals, weights)
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(9)
+    records = {"p1": [], "p2": [], "p3": []}
+    library = {}
+    for side, (R, S, Xs, W8s, Wfs) in sides.items():
+        Q = torch.randn(R, Kp, device=dev, generator=gen) / 8
+        Be = torch.randn(S, Kp, device=dev, generator=gen) / 8
+        mb = 3.5 + torch.randn(S, device=dev, generator=gen) / 2
+        Qb, Beb = Q.to(torch.bfloat16), Be.to(torch.bfloat16)
+        Wd = {torch.int8: W8s, torch.bfloat16: W8s.to(torch.bfloat16)}
+        for probe in k1_probes.PROBES:
+            Wp = Wd[probe.w_dtype]
+            args = (Qb, Beb, Wp)
+            out, ref = probe.kernel(*args), probe.plain(*args)
+            torch.cuda.synchronize()
+            err = (out - ref).abs().max().item()
+            rel = err / ref.abs().max().item()
+            ms = _timed(lambda: probe.kernel(*args), 5)
+            plain_ms = _timed(lambda: probe.plain(*args), 2)
+            b_ms, b_by = bound(*k1_probes.work(probe, R, S, Kp,
+                                               Wp.element_size()))
+            tol = PROBE_REL_TOL[probe.work]
+            ok = bool(np.isfinite(rel)) and rel <= tol
+            wname = "int8" if probe.w_dtype == torch.int8 else "bf16"
+            print(f"probe {probe.row} {probe.name} side={side} R={R} S={S} "
+                  f"K={Kp} W={wname}: max_abs_err={err:.3e} rel={rel:.3e} "
+                  f"(tol {tol:.0e}) ms={ms:.3f} plain_ms={plain_ms:.3f} "
+                  f"bound_ms={b_ms:.4f} ({b_by}) "
+                  f"{'ok' if ok else 'MISMATCH'}", flush=True)
+            if not ok:
+                raise AssertionError(f"probe {probe.name} disagrees with its "
+                                     "plain version")
+            records[probe.row].append(dict(
+                name=probe.name, side=side, R=R, S=S, K=Kp, W=wname,
+                replaces=PROBE_REPLACES.get(probe.name,
+                                            PROBE_REPLACES[probe.row]),
+                max_abs_err=err, rel_err=rel, ms=ms, plain_ms=plain_ms,
+                bound_ms=b_ms, bound_by=b_by))
+            del out, ref
+        library[side] = _timed(lambda: torch.sum(W8s, dtype=torch.int32), 5)
+        print(f"library torch.sum(W, dtype=int32) side={side}: "
+              f"ms={library[side]:.3f}", flush=True)
+        Wb = Wfs.to(torch.bfloat16)
+        for op, dt in (("bf16", torch.bfloat16), ("f32", torch.float32)):
+            Qo, Beo = Q.to(dt), Be.to(dt)
+            esz = 2 if op == "bf16" else 4
+            cases = {
+                "masked_gram_matvec": (
+                    mm.masked_gram_matvec, mm.masked_gram_matvec_ref,
+                    (Qo, Beo, Wb), (R + S) * Kp * esz + R * S * 2 + R * Kp * 4,
+                    4 * R * S * Kp),
+                "masked_rhs": (
+                    mm.masked_rhs, mm.masked_rhs_ref, (Xs, Wb, mb, Beo),
+                    R * S * 4 + S * 4 + S * Kp * esz + R * Kp * 4,
+                    2 * R * S * Kp),
+            }
+            for name, (kern, twin, args, nbytes, ops) in cases.items():
+                out, ref = kern(*args), twin(*args)
+                torch.cuda.synchronize()
+                err = (out - ref).abs().max().item()
+                rel = err / ref.abs().max().item()
+                ms = _timed(lambda: kern(*args), 5)
+                plain_ms = _timed(lambda: twin(*args), 2)
+                b_ms, b_by = bound(nbytes, {op: ops})
+                ok = bool(np.isfinite(rel)) and rel <= REL_TOL[op]
+                print(f"kernel {name} side={side} R={R} S={S} K={Kp} "
+                      f"op={op} W=bf16: max_abs_err={err:.3e} "
+                      f"rel={rel:.3e} (tol {REL_TOL[op]:.0e}) ms={ms:.3f} "
+                      f"plain_ms={plain_ms:.3f} "
+                      f"{'ok' if ok else 'MISMATCH'}", flush=True)
+                if not ok:
+                    raise AssertionError(f"{name} with a bf16 W disagrees "
+                                         "with its twin")
+                results[name].append(dict(
+                    side=side, R=R, S=S, K=Kp, op=op, W="bf16",
+                    max_abs_err=err, rel_err=rel, ms=ms, plain_ms=plain_ms,
+                    bound_ms=b_ms, bound_by=b_by))
+                del out, ref
+        del Q, Be, Qb, Beb, Wd, Wb
+    del sides
+    torch.cuda.empty_cache()
+    return records, library
 
 
 def _bucket_case(b, mat, gfix, mode, gen):
@@ -396,12 +526,14 @@ def main():
     from bench_implicit import make_lastfm_shaped, split_heldout
     from cmfrec_torch.data.device_fill import build_bucketed_pair
     from cmfrec_torch.data.shards import plan_layout
-    from cmfrec_torch.ops import _cuda, sparse_cg
+    from cmfrec_torch.ops import _cuda, k1_probes, sparse_cg
     from cmfrec_torch.ops import masked_matmul as mm
     from cmfrec_torch.solvers import drivers
+    from scripts.sweep_k1_probes_torch import sweep
 
     ops = {"masked_gram_matvec": mm.masked_gram_matvec,
            "masked_rhs": mm.masked_rhs, "bucket_cg": sparse_cg.bucket_cg}
+    probe_ops = {w.__name__: w for w in k1_probes.WRAPPERS}
 
     # 1. environment
     smi = subprocess.run(
@@ -438,12 +570,14 @@ def main():
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     _reset_launches(ops)
+    _reset_launches(probe_ops)
     t0 = time.perf_counter()
     model = cmfrec_torch.CMF(**FIT, device="cuda").fit_triplets(
         rows[tr], cols[tr], vals[tr], M, N)
     torch.cuda.synchronize()
     fit_s = time.perf_counter() - t0
     launches = _read_launches(ops)
+    fit_probe_launches = _read_launches(probe_ops)
     peak = torch.cuda.max_memory_allocated()
     pred = model.predict(rows[test], cols[test])
     rmse = float(np.sqrt(np.mean((pred - vals[test]) ** 2)))
@@ -581,6 +715,20 @@ def main():
     if not (np.all(np.isfinite(spred)) and srmse <= RMSE_BOUND):
         raise AssertionError("bucketed explicit RMSE out of bounds")
 
+    # 9. K1's probes against their plain versions, then the probe sweep
+    probes, library = check_k1_probes(rows[tr], cols[tr], vals[tr], weights,
+                                      results)
+    _reset_launches(probe_ops)
+    t0 = time.perf_counter()
+    swept = list(sweep(PROBE_SWEEP_REPS))
+    plaunches = _read_launches(probe_ops)
+    print(f"probe sweep: {len(swept)} records in "
+          f"{time.perf_counter() - t0:.1f} s, launches {plaunches} (fit "
+          f"{fit_probe_launches})", flush=True)
+    if not all(plaunches.values()) or any(fit_probe_launches.values()):
+        raise AssertionError("the probe sweep did not launch every probe "
+                             "kernel, or the fit launched one")
+
     kernels = []
     for name, variants in results.items():
         main_variant = next(v for v in variants if v["side"] == "A"
@@ -607,6 +755,23 @@ def main():
         ms=sum(r["ms"] for r in main),
         plain_ms=sum(r["plain_ms"] for r in main), bound_ms=k3_bound,
         bound_by=k3_by, library_ms=None, variants=k3))
+    # the probes: the sweep's launches (the fit's in fit_launches), times at
+    # the A side of phase 9 for the row's headline variant
+    for row, variants in probes.items():
+        head = next(v for v in variants
+                    if v["side"] == "A" and v["name"] == PROBE_HEADLINE[row])
+        kernels.append(dict(
+            name=f"k1_probes_{row}", route="cuda",
+            source="cmfrec_torch/csrc/k1_probes.cu",
+            replaces=PROBE_REPLACES[row],
+            launches=sum(plaunches[w] for w in PROBE_WRAPPERS[row]),
+            fit_launches=sum(fit_probe_launches[w]
+                             for w in PROBE_WRAPPERS[row]),
+            max_abs_err=max(v["max_abs_err"] for v in variants),
+            ms=head["ms"], plain_ms=head["plain_ms"],
+            bound_ms=head["bound_ms"], bound_by=head["bound_by"],
+            library_ms=library["A"] if row == "p3" else None,
+            variants=variants))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

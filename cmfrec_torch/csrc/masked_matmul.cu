@@ -4,8 +4,9 @@
 //   K2  cmf_masked_rhs:          out = ((X - mb) * W) Be     the CG right-hand side
 //
 // Q:[R,K] and Be:[S,K] are bf16 (bulk iterations) or f32 (the polish and exact
-// mode); W:[R,S] is an int8 0/1 mask or f32 weights; X:[R,S] holds the raw bf16
-// ratings and mb:[S] the f32 mean plus opposing bias.  out:[R,K] is f32.
+// mode); W:[R,S] is an int8 0/1 mask, bf16 or f32 weights; X:[R,S] holds the
+// raw bf16 ratings and mb:[S] the f32 mean plus opposing bias.  out:[R,K] is
+// f32.
 //
 // They replace cmfrec_tpu/ops/masked_matmul.py::masked_gram_matvec (Pallas body
 // _matvec_kernel) and ::masked_rhs (_rhs_kernel).  As there, the [R,S]
@@ -13,9 +14,10 @@
 // columns and walks the whole S axis in BS-wide tiles, so the TPU's sequential
 // grid axis becomes a loop inside the block and nothing crosses blocks (no
 // atomics).  With bf16 operands, T*W is formed in f32 and rounded to bf16 once,
-// exactly where the TPU kernel rounds it (masked_matmul.py:96).
+// exactly where the TPU kernel rounds it (masked_matmul.py:96); a bf16 W meets
+// T rounded to bf16 first (:94).  K2 and the f32 K1 widen any W to f32.
 //
-// What bounds them on an H100: one pass over W (1 B/entry int8, 4 B f32), plus X
+// What bounds them on an H100: one pass over W (1 B/entry int8, 2 B bf16, 4 B f32), plus X
 // (2 B/entry) for K2, against 4*R*S*K flops for K1.  At the flagship shape
 // (69888 x 10688, K=64) that is ~0.75 GB and ~191 GFLOP per K1 call, near the
 // bf16 ridge, so K1 wants the tensor cores: the bf16 variants use mma.sync
@@ -24,158 +26,16 @@
 // The f32 variants are plain FMA loops over shared-memory tiles (true f32, no
 // TF32).  This is the simple first version: no cp.async/TMA pipelining, no
 // wgmma, no split-S.  The B half-step has only ~167 row blocks for 132 SMs and a
-// 69878-long S loop, so it underfills the card; split-S is later work.
+// 69878-long S loop, so it underfills the card; split-S is later work.  The
+// bf16 K1 (gram_bf16_kernel) lives in masked_gram.cuh, which k1_probes.cu
+// shares to time its pieces.
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
 //        -Xcompiler -fPIC -o libcmfrec_kernels.so masked_matmul.cu
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "masked_gram.cuh"
 
 namespace {
-
-constexpr int BM = 64;  // rows of Q / X / W per block
-constexpr int BS = 64;  // width of the S tile streamed through shared memory
-constexpr int BN = 64;  // output columns per block; gridDim.y = K / BN
-
-// Padding of a shared-memory W tile row, in elements: spreads the fragment
-// reads of eight rows over distinct banks.
-template <typename WT> struct WPad;
-template <> struct WPad<int8_t> { static constexpr int v = 16; };
-template <> struct WPad<float> { static constexpr int v = 8; };
-
-__device__ __forceinline__ float bf16_bits_to_float(uint16_t x) {
-  return __uint_as_float(static_cast<uint32_t>(x) << 16);
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);  // .x = lo in the low half
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-__device__ __forceinline__ uint32_t pack_bits(uint16_t lo, uint16_t hi) {
-  return static_cast<uint32_t>(lo) | (static_cast<uint32_t>(hi) << 16);
-}
-
-// D += A B for one 16x8x16 bf16 tile, f32 accumulate (PTX fragment layouts).
-__device__ __forceinline__ void mma_bf16(float (&c)[4], uint32_t a0, uint32_t a1,
-                                         uint32_t a2, uint32_t a3, uint32_t b0,
-                                         uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
-}
-
-// Copy `rows` rows of `row_bytes` bytes (a multiple of 16) from global memory
-// into shared memory, 16 bytes a thread.
-template <int NT>
-__device__ __forceinline__ void copy_tile(void* dst, int dst_stride, const void* src,
-                                          size_t src_stride, int rows, int row_bytes) {
-  const int per_row = row_bytes / 16;
-  const int total = rows * per_row;
-  for (int i = threadIdx.x; i < total; i += NT) {
-    const int r = i / per_row;
-    const int c = i - r * per_row;
-    const uint4* s = reinterpret_cast<const uint4*>(
-        static_cast<const char*>(src) + r * src_stride + c * 16);
-    uint4* d = reinterpret_cast<uint4*>(static_cast<char*>(dst) + r * dst_stride + c * 16);
-    *d = *s;
-  }
-}
-
-// out[16 rows of this warp, BN cols] += P[16, BS] Be[s0:s0+BS, n0:n0+BN], where
-// p[j][0] / p[j][1] hold P's rows g / g+8 at columns 8j+2t, 8j+2t+1 as bf16x2
-// (the layout of an m16n8 accumulator fragment, reused as A fragments).
-__device__ __forceinline__ void accumulate_out(float (&acc_o)[8][4], const uint32_t (&p)[8][2],
-                                               const uint16_t* Bs, int ldk, int n0, int g,
-                                               int t) {
-#pragma unroll
-  for (int kk = 0; kk < BS / 16; ++kk) {
-#pragma unroll
-    for (int c = 0; c < BN / 8; ++c) {
-      const uint16_t* bb = Bs + (kk * 16 + 2 * t) * ldk + n0 + c * 8 + g;
-      const uint32_t b0 = pack_bits(bb[0], bb[ldk]);
-      const uint32_t b1 = pack_bits(bb[8 * ldk], bb[9 * ldk]);
-      mma_bf16(acc_o[c], p[2 * kk][0], p[2 * kk][1], p[2 * kk + 1][0], p[2 * kk + 1][1], b0,
-               b1);
-    }
-  }
-}
-
-__device__ __forceinline__ void store_out_bf16(float* out, const float (&acc_o)[8][4],
-                                               size_t row, int K, int n0, int t) {
-#pragma unroll
-  for (int c = 0; c < BN / 8; ++c) {
-    float* o = out + row * K + n0 + c * 8 + 2 * t;
-    *reinterpret_cast<float2*>(o) = make_float2(acc_o[c][0], acc_o[c][1]);
-    *reinterpret_cast<float2*>(o + 8 * static_cast<size_t>(K)) =
-        make_float2(acc_o[c][2], acc_o[c][3]);
-  }
-}
-
-// ---------------------------------------------------------------- K1, bf16
-// 4 warps; warp w owns rows 16w..16w+15 of the block's 64.
-template <typename WT>
-__global__ void __launch_bounds__(128)
-    gram_bf16_kernel(const uint16_t* __restrict__ Q, const uint16_t* __restrict__ Be,
-                     const WT* __restrict__ W, float* __restrict__ out, int S, int K) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  const int ldk = K + 8;
-  constexpr int ldw = BS + WPad<WT>::v;
-  uint16_t* Qs = reinterpret_cast<uint16_t*>(smem);
-  uint16_t* Bs = Qs + BM * ldk;
-  WT* Ws = reinterpret_cast<WT*>(Bs + BS * ldk);
-
-  const int lane = threadIdx.x & 31;
-  const int g = lane >> 2, t = lane & 3;
-  const int wr = (threadIdx.x >> 5) * 16;
-  const size_t row0 = static_cast<size_t>(blockIdx.x) * BM;
-  const int n0 = blockIdx.y * BN;
-
-  copy_tile<128>(Qs, ldk * 2, Q + row0 * K, static_cast<size_t>(K) * 2, BM, K * 2);
-
-  float acc_o[8][4] = {};
-  for (int s0 = 0; s0 < S; s0 += BS) {
-    __syncthreads();  // the previous tile is consumed
-    copy_tile<128>(Bs, ldk * 2, Be + static_cast<size_t>(s0) * K, static_cast<size_t>(K) * 2,
-                   BS, K * 2);
-    copy_tile<128>(Ws, ldw * sizeof(WT), W + row0 * S + s0, static_cast<size_t>(S) * sizeof(WT),
-                   BM, BS * sizeof(WT));
-    __syncthreads();
-
-    // T[16, BS] = Q[16, K] Be_tile^T
-    float acc_t[8][4] = {};
-    for (int kk = 0; kk < K; kk += 16) {
-      const uint16_t* qa = Qs + (wr + g) * ldk + kk + 2 * t;
-      const uint32_t a0 = *reinterpret_cast<const uint32_t*>(qa);
-      const uint32_t a1 = *reinterpret_cast<const uint32_t*>(qa + 8 * ldk);
-      const uint32_t a2 = *reinterpret_cast<const uint32_t*>(qa + 8);
-      const uint32_t a3 = *reinterpret_cast<const uint32_t*>(qa + 8 * ldk + 8);
-#pragma unroll
-      for (int j = 0; j < BS / 8; ++j) {
-        const uint16_t* bb = Bs + (j * 8 + g) * ldk + kk + 2 * t;
-        mma_bf16(acc_t[j], a0, a1, a2, a3, *reinterpret_cast<const uint32_t*>(bb),
-                 *reinterpret_cast<const uint32_t*>(bb + 8));
-      }
-    }
-    // T * W in f32, rounded once to bf16
-    uint32_t p[8][2];
-#pragma unroll
-    for (int j = 0; j < BS / 8; ++j) {
-      const WT* w0 = Ws + (wr + g) * ldw + j * 8 + 2 * t;
-      const WT* w1 = w0 + 8 * ldw;
-      p[j][0] = pack_bf16(acc_t[j][0] * static_cast<float>(w0[0]),
-                          acc_t[j][1] * static_cast<float>(w0[1]));
-      p[j][1] = pack_bf16(acc_t[j][2] * static_cast<float>(w1[0]),
-                          acc_t[j][3] * static_cast<float>(w1[1]));
-    }
-    accumulate_out(acc_o, p, Bs, ldk, n0, g, t);
-  }
-  store_out_bf16(out, acc_o, row0 + wr + g, K, n0, t);
-}
 
 // ---------------------------------------------------------------- K2, bf16
 template <typename WT>
@@ -218,10 +78,10 @@ __global__ void __launch_bounds__(128)
       const uint16_t* x1 = x0 + 8 * ldx;
       const WT* w0 = Ws + (wr + g) * ldw + s;
       const WT* w1 = w0 + 8 * ldw;
-      p[j][0] = pack_bf16((bf16_bits_to_float(x0[0]) - mbs[s]) * static_cast<float>(w0[0]),
-                          (bf16_bits_to_float(x0[1]) - mbs[s + 1]) * static_cast<float>(w0[1]));
-      p[j][1] = pack_bf16((bf16_bits_to_float(x1[0]) - mbs[s]) * static_cast<float>(w1[0]),
-                          (bf16_bits_to_float(x1[1]) - mbs[s + 1]) * static_cast<float>(w1[1]));
+      p[j][0] = pack_bf16((bf16_bits_to_float(x0[0]) - mbs[s]) * to_f32(w0[0]),
+                          (bf16_bits_to_float(x0[1]) - mbs[s + 1]) * to_f32(w0[1]));
+      p[j][1] = pack_bf16((bf16_bits_to_float(x1[0]) - mbs[s]) * to_f32(w1[0]),
+                          (bf16_bits_to_float(x1[1]) - mbs[s + 1]) * to_f32(w1[1]));
     }
     accumulate_out(acc_o, p, Bs, ldk, n0, g, t);
   }
@@ -307,7 +167,7 @@ __global__ void __launch_bounds__(256)
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
         const int r = ty + 16 * i, s = tx + 16 * j;
-        Ts[r * LDT + s] = acc[i][j] * static_cast<float>(W[(row0 + r) * S + s0 + s]);
+        Ts[r * LDT + s] = acc[i][j] * to_f32(W[(row0 + r) * S + s0 + s]);
       }
     __syncthreads();
     accumulate_out_f32(acc_o, Ts, Bs, ldk, n0, ty, tx);
@@ -340,7 +200,7 @@ __global__ void __launch_bounds__(256)
       for (int j = 0; j < 4; ++j) {
         const int r = ty + 16 * i, s = tx + 16 * j;
         const size_t e = (row0 + r) * S + s0 + s;
-        Ts[r * LDT + s] = (bf16_bits_to_float(X[e]) - mb[s0 + s]) * static_cast<float>(W[e]);
+        Ts[r * LDT + s] = (bf16_bits_to_float(X[e]) - mb[s0 + s]) * to_f32(W[e]);
       }
     __syncthreads();
     accumulate_out_f32(acc_o, Ts, Bs, ldk, n0, ty, tx);
@@ -349,44 +209,34 @@ __global__ void __launch_bounds__(256)
 }
 
 // ---------------------------------------------------------------- launch
-template <typename Kernel, typename... Args>
-cudaError_t launch(Kernel kernel, int R, int K, int threads, size_t smem, cudaStream_t stream,
-                   Args... args) {
-  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         static_cast<int>(smem));
-  if (err != cudaSuccess) return err;
-  kernel<<<dim3(R / BM, K / BN), threads, smem, stream>>>(args...);
-  return cudaGetLastError();
-}
-
 template <typename WT>
 cudaError_t gram(const void* Q, const void* Be, const void* W, void* out, int R, int S, int K,
                  bool op_f32, cudaStream_t stream) {
+  const dim3 grid(R / BM, K / BN);
   if (op_f32) {
     const size_t smem = (static_cast<size_t>(BM + BS) * (K + 1) + BM * LDT) * sizeof(float);
-    return launch(gram_f32_kernel<WT>, R, K, 256, smem, stream, static_cast<const float*>(Q),
+    return launch(gram_f32_kernel<WT>, grid, 256, smem, stream, static_cast<const float*>(Q),
                   static_cast<const float*>(Be), static_cast<const WT*>(W),
                   static_cast<float*>(out), S, K);
   }
-  const size_t smem = static_cast<size_t>(BM + BS) * (K + 8) * 2 +
-                      static_cast<size_t>(BM) * (BS + WPad<WT>::v) * sizeof(WT);
-  return launch(gram_bf16_kernel<WT>, R, K, 128, smem, stream, static_cast<const uint16_t*>(Q),
-                static_cast<const uint16_t*>(Be), static_cast<const WT*>(W),
-                static_cast<float*>(out), S, K);
+  return launch(gram_bf16_kernel<WT>, grid, 128, gram_bf16_smem<WT>(K), stream,
+                static_cast<const uint16_t*>(Q), static_cast<const uint16_t*>(Be),
+                static_cast<const WT*>(W), static_cast<float*>(out), R, S, K, 0);
 }
 
 template <typename WT>
 cudaError_t rhs(const void* X, const void* W, const void* mb, const void* Be, void* out, int R,
                 int S, int K, bool op_f32, cudaStream_t stream) {
+  const dim3 grid(R / BM, K / BN);
   if (op_f32) {
     const size_t smem = (static_cast<size_t>(BS) * (K + 1) + BM * LDT) * sizeof(float);
-    return launch(rhs_f32_kernel<WT>, R, K, 256, smem, stream, static_cast<const uint16_t*>(X),
+    return launch(rhs_f32_kernel<WT>, grid, 256, smem, stream, static_cast<const uint16_t*>(X),
                   static_cast<const WT*>(W), static_cast<const float*>(mb),
                   static_cast<const float*>(Be), static_cast<float*>(out), S, K);
   }
   const size_t smem = static_cast<size_t>(BS) * (K + 8) * 2 + static_cast<size_t>(BM) * (BS + 8) * 2 +
                       static_cast<size_t>(BM) * (BS + WPad<WT>::v) * sizeof(WT) + BS * sizeof(float);
-  return launch(rhs_bf16_kernel<WT>, R, K, 128, smem, stream, static_cast<const uint16_t*>(X),
+  return launch(rhs_bf16_kernel<WT>, grid, 128, smem, stream, static_cast<const uint16_t*>(X),
                 static_cast<const WT*>(W), static_cast<const float*>(mb),
                 static_cast<const uint16_t*>(Be), static_cast<float*>(out), S, K);
 }
@@ -395,22 +245,31 @@ cudaError_t rhs(const void* X, const void* W, const void* mb, const void* Be, vo
 
 // C interface (bound with ctypes).  The caller guarantees R % 64 == 0,
 // S % 64 == 0, K % 64 == 0, K <= 256, contiguous row-major tensors on the
-// current device, and 16-byte-aligned base pointers.  Returns the launch's
-// cudaError_t (0 on success); the kernel runs asynchronously on `stream`.
+// current device, and 16-byte-aligned base pointers.  w_type: 0 an int8
+// mask, 1 f32 weights, 2 bf16 weights.  Returns the launch's cudaError_t (0
+// on success); the kernel runs asynchronously on `stream`.
 extern "C" int cmf_masked_gram_matvec(const void* Q, const void* Be, const void* W, void* out,
-                                      int R, int S, int K, int op_f32, int w_f32,
+                                      int R, int S, int K, int op_f32, int w_type,
                                       void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return static_cast<int>(w_f32 ? gram<float>(Q, Be, W, out, R, S, K, op_f32, st)
-                                : gram<int8_t>(Q, Be, W, out, R, S, K, op_f32, st));
+  switch (w_type) {
+    case 0: return static_cast<int>(gram<int8_t>(Q, Be, W, out, R, S, K, op_f32, st));
+    case 1: return static_cast<int>(gram<float>(Q, Be, W, out, R, S, K, op_f32, st));
+    case 2: return static_cast<int>(gram<bf16_t>(Q, Be, W, out, R, S, K, op_f32, st));
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
 }
 
 extern "C" int cmf_masked_rhs(const void* X, const void* W, const void* mb, const void* Be,
-                              void* out, int R, int S, int K, int op_f32, int w_f32,
+                              void* out, int R, int S, int K, int op_f32, int w_type,
                               void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return static_cast<int>(w_f32 ? rhs<float>(X, W, mb, Be, out, R, S, K, op_f32, st)
-                                : rhs<int8_t>(X, W, mb, Be, out, R, S, K, op_f32, st));
+  switch (w_type) {
+    case 0: return static_cast<int>(rhs<int8_t>(X, W, mb, Be, out, R, S, K, op_f32, st));
+    case 1: return static_cast<int>(rhs<float>(X, W, mb, Be, out, R, S, K, op_f32, st));
+    case 2: return static_cast<int>(rhs<bf16_t>(X, W, mb, Be, out, R, S, K, op_f32, st));
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
 }
 
 extern "C" const char* cmf_error_string(int err) {

@@ -21,7 +21,9 @@ from functools import lru_cache
 from pathlib import Path
 
 _PKG = Path(__file__).resolve().parents[1]
-SOURCES = (_PKG / "csrc" / "masked_matmul.cu", _PKG / "csrc" / "sparse_cg.cu")
+SOURCES = tuple(_PKG / "csrc" / name for name in
+                ("masked_matmul.cu", "sparse_cg.cu", "k1_probes.cu"))
+HEADERS = (_PKG / "csrc" / "masked_gram.cuh",)
 BUILD_DIR = _PKG.parent / "build"
 NVCC_FLAGS = ("-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -40,7 +42,7 @@ def _nvcc() -> str:
 
 def library_path() -> Path:
     h = hashlib.sha256()
-    for src in SOURCES:
+    for src in (*SOURCES, *HEADERS):
         h.update(src.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"libcmfrec_kernels_{h.hexdigest()[:16]}.so"
@@ -99,6 +101,10 @@ def lib() -> ctypes.CDLL:
     so.cmf_masked_gram_matvec.restype = I
     so.cmf_masked_rhs.argtypes = [P, P, P, P, P, I, I, I, I, I, P]
     so.cmf_masked_rhs.restype = I
+    so.cmf_k1_probe.argtypes = [P, P, P, P] + [I] * 7 + [P]
+    so.cmf_k1_probe.restype = I
+    so.cmf_w_stream.argtypes = [P, P] + [I] * 6 + [P]
+    so.cmf_w_stream.restype = I
     so.cmf_bucket_cg.argtypes = [P] * 10 + [I] * 5 + [P]
     so.cmf_bucket_cg.restype = I
     so.cmf_error_string.argtypes = [I]

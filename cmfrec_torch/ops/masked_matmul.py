@@ -11,8 +11,10 @@ which keeps the [R, S] intermediate out of device memory; on a CPU tensor it
 runs its plain torch twin.  There is no fallback from one to the other.
 
 Operands: Q/Be bf16 (bulk iterations) or f32 (polish, exact mode); W an
-int8 0/1 mask or f32 weights; X the raw ratings in bf16; mb f32.  With bf16
-operands T*W is formed in f32 and rounded to bf16 once, as on the TPU.
+int8 0/1 mask, bf16 or f32 weights; X the raw ratings in bf16; mb f32.  With
+bf16 operands T*W is formed in f32 and rounded to bf16 once, as on the TPU;
+a bf16 W meets T already rounded to bf16 (the TPU's bf16 multiply).  The
+f32 K1 and K2 widen any W to f32.
 R and S must be multiples of TILE (the engine pads to it), K a multiple of
 TILE up to MAX_K (the kernels' shared-memory tiles).
 """
@@ -27,7 +29,8 @@ TILE = 64
 MAX_K = 256
 
 _OPERAND_DTYPES = (torch.bfloat16, torch.float32)
-_W_DTYPES = (torch.int8, torch.float32)
+# W's dtype -> the kernels' W-type code
+W_TYPES = {torch.int8: 0, torch.float32: 1, torch.bfloat16: 2}
 
 
 def row_chunks(R: int, S: int, max_elems: int = 1 << 26):
@@ -40,13 +43,18 @@ def row_chunks(R: int, S: int, max_elems: int = 1 << 26):
 
 def masked_gram_matvec_ref(Q, Be, W):
     """Plain torch twin of :func:`masked_gram_matvec` (f32 products; with
-    bf16 operands the same single bf16 rounding of T*W)."""
+    bf16 operands the same single bf16 rounding of T*W, and with a bf16 W
+    T's rounding before the multiply)."""
+    bf16 = Be.dtype == torch.bfloat16
     Bef = Be.float()
     out = torch.empty(Q.shape[0], Be.shape[1], dtype=torch.float32,
                       device=Q.device)
     for sl in row_chunks(Q.shape[0], Be.shape[0]):
-        t = (Q[sl].float() @ Bef.T) * W[sl].float()
-        if Be.dtype == torch.bfloat16:
+        t = Q[sl].float() @ Bef.T
+        if bf16 and W.dtype == torch.bfloat16:
+            t = t.to(torch.bfloat16).float()
+        t = t * W[sl].float()
+        if bf16:
             t = t.to(torch.bfloat16).float()
         out[sl] = t @ Bef
     return out
@@ -71,9 +79,9 @@ def _validate(name, R, S, Be, W, tensors):
     if Be.dtype not in _OPERAND_DTYPES:
         raise ValueError(f"{name}: operands must be bfloat16 or float32, "
                          f"got {Be.dtype}")
-    if W.dtype not in _W_DTYPES:
-        raise ValueError(f"{name}: W must be int8 (0/1 mask) or float32 "
-                         f"weights, got {W.dtype}")
+    if W.dtype not in W_TYPES:
+        raise ValueError(f"{name}: W must be int8 (0/1 mask), bfloat16 or "
+                         f"float32 weights, got {W.dtype}")
     if tuple(W.shape) != (R, S):
         raise ValueError(f"{name}: W has shape {tuple(W.shape)}, "
                          f"expected {(R, S)}")
@@ -115,8 +123,8 @@ def masked_gram_matvec(Q, Be, W):
         out = torch.empty(R, K, dtype=torch.float32, device=device)
         err = _cuda.lib().cmf_masked_gram_matvec(
             Q.data_ptr(), Be.data_ptr(), W.data_ptr(), out.data_ptr(),
-            R, S, K, int(Be.dtype == torch.float32),
-            int(W.dtype == torch.float32), stream)
+            R, S, K, int(Be.dtype == torch.float32), W_TYPES[W.dtype],
+            stream)
     _cuda.check(err, "masked_gram_matvec")
     masked_gram_matvec.launches += 1
     return out
@@ -146,7 +154,7 @@ def masked_rhs(X, W, mb, Be):
         err = _cuda.lib().cmf_masked_rhs(
             X.data_ptr(), W.data_ptr(), mb.data_ptr(), Be.data_ptr(),
             out.data_ptr(), R, S, K, int(Be.dtype == torch.float32),
-            int(W.dtype == torch.float32), stream)
+            W_TYPES[W.dtype], stream)
     _cuda.check(err, "masked_rhs")
     masked_rhs.launches += 1
     return out

@@ -8,13 +8,17 @@ Tolerances, as max|kernel - twin| <= tol * max|twin|: f32 operands differ
 by summation order only, 1e-5 at these sizes; bf16 operands also flip
 single bf16 roundings of T*W (2**-8 relative each), 1e-3.  The bucket CG
 (K3) runs 3 CG steps on top of its sums, which carries a summation-order
-difference further: K3_REL_TOL.
+difference further: K3_REL_TOL.  The K1 probes: those that round T*W
+or T to bf16 as K1 does 1e-3; dot1 (f32 row sums of T, which cancel) 1e-4
+of max|twin|; the W stream exact on a 0/1 mask, 1e-5 on bf16 weights (f32
+summation order).
 """
 
 import numpy as np
 import pytest
 import torch
 
+from cmfrec_torch.ops import k1_probes
 from cmfrec_torch.ops import masked_matmul as mm
 from cmfrec_torch.ops import sparse_cg
 from cmfrec_torch.solvers import drivers
@@ -37,7 +41,8 @@ def _inputs(dev, R, S, K, op, wdt, seed=0):
     Be = torch.randn(S, K, device=dev, generator=g).to(op)
     mask = torch.rand(R, S, device=dev, generator=g) < 0.3
     W = (mask.to(torch.int8) if wdt == torch.int8 else
-         mask * (0.5 + 1.5 * torch.rand(R, S, device=dev, generator=g)))
+         (mask * (0.5 + 1.5 * torch.rand(R, S, device=dev, generator=g))
+          ).to(wdt))
     X = (torch.randint(1, 11, (R, S), device=dev, generator=g) / 2).to(
         torch.bfloat16)
     mb = torch.randn(S, device=dev, generator=g)
@@ -49,7 +54,7 @@ def _rel(out, ref):
 
 
 @pytest.mark.parametrize("K", [64, 128, 256])
-@pytest.mark.parametrize("wdt", [torch.int8, torch.float32])
+@pytest.mark.parametrize("wdt", [torch.int8, torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("op", [torch.bfloat16, torch.float32])
 def test_kernels_match_twins(cuda, op, wdt, K):
     R, S = 192, 320
@@ -72,6 +77,53 @@ def test_misaligned_operand_raises(cuda):
     Qm.copy_(Q)
     with pytest.raises(ValueError, match="16-byte aligned"):
         mm.masked_gram_matvec(Qm, Be, W)
+
+
+PROBE_TOL = {"k1": 1e-3, "dots": 1e-3, "dot1": 1e-4, "w": 1e-5}
+
+
+@pytest.mark.parametrize("K", [64, 128, 256])
+@pytest.mark.parametrize("probe", k1_probes.PROBES, ids=lambda p: p.name)
+def test_k1_probes_match_plain(cuda, probe, K):
+    """Every probe of P1-P3 against its plain version; R=192 leaves the
+    128-row blocks (vbig) a ragged last block, S=320 the W-stream tiles and
+    the part chunks (also 128 wide here) a narrow last one."""
+    R, S = 192, 320
+    Q, Be, W, _, _ = _inputs(cuda, R, S, K, torch.bfloat16, probe.w_dtype)
+    counts = [w.launches for w in k1_probes.WRAPPERS]
+    out = probe.kernel(Q, Be, W)
+    torch.cuda.synchronize()
+    assert sum(w.launches for w in k1_probes.WRAPPERS) == sum(counts) + (
+        probe.kernel not in (mm.masked_gram_matvec,))
+    ref = probe.plain(Q, Be, W)
+    tol = 0.0 if probe.work == "w" and W.dtype == torch.int8 else \
+        PROBE_TOL[probe.work]
+    assert tuple(out.shape) == (R, K) and torch.isfinite(out).all()
+    assert _rel(out, ref) <= tol
+    if probe.name == "p_part":
+        for chunk in (128, 64):
+            assert _rel(k1_probes.part(Q, Be, W, chunk=chunk),
+                        k1_probes.part_ref(Q, Be, W, chunk=chunk)) <= tol
+        # up to summation order, K1's own twin
+        assert _rel(ref, mm.masked_gram_matvec_ref(Q, Be, W)) <= 1e-5
+
+
+def test_k1_probes_reject(cuda):
+    R, S, K = 64, 128, 64
+    Q, Be, W, _, _ = _inputs(cuda, R, S, K, torch.bfloat16, torch.int8)
+    with pytest.raises(ValueError, match="W must be int8"):
+        k1_probes.dots(Q, Be, W.float())
+    with pytest.raises(ValueError, match="W must be int8"):
+        k1_probes.w_stream(W.float(), K)
+    with pytest.raises(ValueError, match="bfloat16 Q and Be"):
+        k1_probes.sel(Q.float(), Be.float(), W)
+    buf = torch.zeros(R * S + 1, dtype=torch.int8, device=cuda)
+    Wm = buf[1:].view(R, S)
+    Wm.copy_(W)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        k1_probes.part(Q, Be, Wm)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        k1_probes.w_stream(Wm, K)
 
 
 @pytest.mark.parametrize("use_cg", [True, False])
