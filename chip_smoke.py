@@ -7,11 +7,15 @@ Run from the repository root, with no arguments:
 
 Phases, each printing its own line(s):
   1. environment: the card's name and power limit, torch and CUDA versions;
-  2. build: compiles the CUDA kernels from cmfrec_torch/csrc/ for sm_90a;
+  2. build: compiles the CUDA kernels from cmfrec_torch/csrc/ for sm_90a,
+     and prints ptxas's registers and spills for K1's kernels;
   3. kernels: each variant of masked_gram_matvec (K1) and masked_rhs (K2)
      against its plain torch twin on the card, at both orientations of the
-     flagship fit (X/W built from the ML10M-shaped data), with errors and
-     CUDA-event times;
+     flagship fit (X/W built from the ML10M-shaped data; W as the int8 mask,
+     f32 weights and those weights in bf16), with errors, CUDA-event times
+     and K1's split-S plan; the bf16 K1 on the int8 mask and on the bf16
+     weights is also timed against the first design of K1 (the k1_probes
+     p_full kernel) on the same inputs, in turns (old, new, new, old);
   4. fit: the flagship explicit ALS-CG fit through the public CMF entry point
      (k=50, lambda 0.05, scale_lam, 15 iterations, CG 3, f32 polish), with its
      kernel launch counts, held-out RMSE against the global-mean baseline;
@@ -30,9 +34,8 @@ Phases, each printing its own line(s):
   8. the explicit fit of phase 4 on the bucketed engine (engine="sparse"),
      with its K3 launch count and held-out RMSE;
   9. K1's probes (ops/k1_probes.py, the port of the TPU probes P1-P3):
-     each against its plain version at both sides of phase 3's X/W, with
-     errors and CUDA-event times, and K1/K2 with a bf16 W against their
-     twins at both operand types; then the probe sweep
+     each against its plain version at both sides of phase 3's W, with
+     errors and CUDA-event times; then the probe sweep
      (scripts/sweep_k1_probes_torch.py), with its launch counts.
 
 Each fit phase, and phase 9's sweep, sets every kernel's launch count to 0
@@ -43,6 +46,7 @@ device, or a directory without the package.
 """
 
 import json
+import re
 import subprocess
 import sys
 import time
@@ -90,9 +94,12 @@ PROBE_REPLACES = {"p1": "scripts/sweep_kernel_probe2.py:72",
                   "p3": "scripts/sweep_kernel_probe3.py:96"}
 # each row's headline variant: its first that is not K1 itself
 PROBE_HEADLINE = {"p1": "p_dots", "p2": "vbf_int8", "p3": "wsum_64x64"}
-# each row's wrappers in ops/k1_probes.py (p_full, v0 and vw16 are K1's)
-PROBE_WRAPPERS = {"p1": ("dots", "dot1", "wsum", "part"), "p2": ("bft", "sel"),
-                  "p3": ("w_stream",)}
+# each row's wrappers in ops/k1_probes.py (p_full, v0 and vw16: full)
+PROBE_WRAPPERS = {"p1": ("full", "dots", "dot1", "wsum", "part"),
+                  "p2": ("bft", "sel"), "p3": ("w_stream",)}
+# K1's kernels in csrc/masked_matmul.cu, for the ptxas report
+K1_KERNELS = ("gram_bf16_wgmma_kernel", "gram_f32_tile8_kernel",
+              "gram_f32_ring_kernel", "sum_chunks_kernel")
 PROBE_SWEEP_REPS = 2
 
 LFM_M, LFM_N = 359347, 160168  # LastFM-360K's shape (bench_implicit.py:30)
@@ -121,6 +128,36 @@ def bound(nbytes, ops):
     t_bytes = nbytes / HBM_BPS * 1e3
     t_ops = sum(n / PEAK_OPS[op] for op, n in ops.items()) * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def ptxas_report(log, names=K1_KERNELS):
+    """[(kernel, registers, spill store bytes, spill load bytes)] for the
+    entries of nvcc's -Xptxas -v log whose name holds one of `names`."""
+    rows, fn, spill = [], None, (0, 0)
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            fn = m.group(1)
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m:
+            spill = (int(m.group(1)), int(m.group(2)))
+            continue
+        m = re.search(r"Used (\d+) registers", line)
+        if m and fn and any(n in fn for n in names):
+            rows.append((fn, int(m.group(1)), *spill))
+            fn = None
+    try:  # readable names where binutils is there
+        readable = subprocess.run(
+            ["c++filt"], input="\n".join(r[0] for r in rows),
+            capture_output=True, text=True, check=True).stdout.split("\n")
+        rows = [(re.sub(r"^void |\(.*$", "",
+                        n.replace("(anonymous namespace)::", "")), *r[1:])
+                for n, r in zip(readable, rows)]
+    except (OSError, subprocess.CalledProcessError):
+        pass
+    return rows
 
 
 def _timed(fn, reps):
@@ -159,6 +196,7 @@ def check_kernels(rows, cols, vals, weights):
     """Phase 3: every kernel variant against its twin at the flagship shapes."""
     import torch
 
+    from cmfrec_torch.ops import k1_probes
     from cmfrec_torch.ops import masked_matmul as mm
 
     Kp, sides = flagship_dense(rows, cols, vals, weights)
@@ -169,9 +207,10 @@ def check_kernels(rows, cols, vals, weights):
         Q = torch.randn(R, Kp, device=dev, generator=gen) / 8
         Be = torch.randn(S, Kp, device=dev, generator=gen) / 8
         mb = 3.5 + torch.randn(S, device=dev, generator=gen) / 2
+        Wbs = Wfs.to(torch.bfloat16)
         for op, dt in (("bf16", torch.bfloat16), ("f32", torch.float32)):
             Qo, Beo = Q.to(dt), Be.to(dt)
-            for wname, Wv in (("int8", W8s), ("f32", Wfs)):
+            for wname, Wv in (("int8", W8s), ("f32", Wfs), ("bf16", Wbs)):
                 cases = {
                     "masked_gram_matvec": (mm.masked_gram_matvec,
                                            mm.masked_gram_matvec_ref,
@@ -196,42 +235,62 @@ def check_kernels(rows, cols, vals, weights):
                                   + R * Kp * 4)
                         ops = 2 * R * S * Kp
                     b_ms, b_by = bound(nbytes, {op: ops})
+                    extra, note = {}, ""
+                    if name == "masked_gram_matvec":
+                        plan = mm.gram_plan(R, S, Kp, dt, Wv.dtype, dev)
+                        extra["plan"] = plan
+                        note = (f" split: chunk={plan['chunk']} "
+                                f"({plan['chunks']} chunks; configuration "
+                                f"{plan['variant']}, S tile "
+                                f"{plan['s_tile']}, {plan['row_tile']}-row "
+                                f"blocks, {plan['per_sm']} an SM)")
+                        if op == "bf16" and wname != "f32":
+                            # the first design of K1 on the same inputs, in
+                            # turns: old, new, new, old
+                            turns = [_timed(lambda: f(*args), 5) for f in
+                                     (k1_probes.full, kern, kern,
+                                      k1_probes.full)]
+                            ms = (turns[1] + turns[2]) / 2
+                            extra.update(p_full_ms=(turns[0] + turns[3]) / 2,
+                                         turns=turns)
+                            shown = " ".join(f"{t:.3f}" for t in turns)
+                            note += (f" p_full_ms={extra['p_full_ms']:.3f} "
+                                     f"(turns {shown})")
                     print(f"kernel {name} side={side} R={R} S={S} K={Kp} "
                           f"op={op} W={wname}: max_abs_err={err:.3e} "
                           f"rel={rel:.3e} (tol {REL_TOL[op]:.0e}) "
                           f"ms={ms:.3f} plain_ms={plain_ms:.3f} "
+                          f"bound_ms={b_ms:.4f} ({b_by}){note} "
                           f"{'ok' if ok else 'MISMATCH'}", flush=True)
                     if not ok:
                         raise AssertionError(f"{name} disagrees with its twin")
                     results[name].append(dict(
                         side=side, R=R, S=S, K=Kp, op=op, W=wname,
                         max_abs_err=err, rel_err=rel, ms=ms,
-                        plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by))
+                        plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                        **extra))
                     del out, ref
+        del Wbs
     return results
 
 
-def check_k1_probes(rows, cols, vals, weights, results):
+def check_k1_probes(rows, cols, vals, weights):
     """Phase 9: every K1 probe against its plain version at both sides of
-    phase 3's X/W (Q/Be as there, in bf16; the int8 mask, and the mask in
-    bf16 for the bf16-W probes), and K1/K2 with the f32 weights rounded to
-    bf16 against their twins, bf16 and f32 operands (appended to
-    `results`).  Returns the probe records by row and torch.sum's time over
-    the int8 mask by side."""
+    phase 3's W (Q/Be as there, in bf16; the int8 mask, and the mask in
+    bf16 for the bf16-W probes).  Returns the probe records by row and
+    torch.sum's time over the int8 mask by side."""
     import torch
 
     from cmfrec_torch.ops import k1_probes
-    from cmfrec_torch.ops import masked_matmul as mm
 
     Kp, sides = flagship_dense(rows, cols, vals, weights)
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(9)
     records = {"p1": [], "p2": [], "p3": []}
     library = {}
-    for side, (R, S, Xs, W8s, Wfs) in sides.items():
+    for side, (R, S, _, W8s, _) in sides.items():
         Q = torch.randn(R, Kp, device=dev, generator=gen) / 8
         Be = torch.randn(S, Kp, device=dev, generator=gen) / 8
-        mb = 3.5 + torch.randn(S, device=dev, generator=gen) / 2
         Qb, Beb = Q.to(torch.bfloat16), Be.to(torch.bfloat16)
         Wd = {torch.int8: W8s, torch.bfloat16: W8s.to(torch.bfloat16)}
         for probe in k1_probes.PROBES:
@@ -266,43 +325,7 @@ def check_k1_probes(rows, cols, vals, weights, results):
         library[side] = _timed(lambda: torch.sum(W8s, dtype=torch.int32), 5)
         print(f"library torch.sum(W, dtype=int32) side={side}: "
               f"ms={library[side]:.3f}", flush=True)
-        Wb = Wfs.to(torch.bfloat16)
-        for op, dt in (("bf16", torch.bfloat16), ("f32", torch.float32)):
-            Qo, Beo = Q.to(dt), Be.to(dt)
-            esz = 2 if op == "bf16" else 4
-            cases = {
-                "masked_gram_matvec": (
-                    mm.masked_gram_matvec, mm.masked_gram_matvec_ref,
-                    (Qo, Beo, Wb), (R + S) * Kp * esz + R * S * 2 + R * Kp * 4,
-                    4 * R * S * Kp),
-                "masked_rhs": (
-                    mm.masked_rhs, mm.masked_rhs_ref, (Xs, Wb, mb, Beo),
-                    R * S * 4 + S * 4 + S * Kp * esz + R * Kp * 4,
-                    2 * R * S * Kp),
-            }
-            for name, (kern, twin, args, nbytes, ops) in cases.items():
-                out, ref = kern(*args), twin(*args)
-                torch.cuda.synchronize()
-                err = (out - ref).abs().max().item()
-                rel = err / ref.abs().max().item()
-                ms = _timed(lambda: kern(*args), 5)
-                plain_ms = _timed(lambda: twin(*args), 2)
-                b_ms, b_by = bound(nbytes, {op: ops})
-                ok = bool(np.isfinite(rel)) and rel <= REL_TOL[op]
-                print(f"kernel {name} side={side} R={R} S={S} K={Kp} "
-                      f"op={op} W=bf16: max_abs_err={err:.3e} "
-                      f"rel={rel:.3e} (tol {REL_TOL[op]:.0e}) ms={ms:.3f} "
-                      f"plain_ms={plain_ms:.3f} "
-                      f"{'ok' if ok else 'MISMATCH'}", flush=True)
-                if not ok:
-                    raise AssertionError(f"{name} with a bf16 W disagrees "
-                                         "with its twin")
-                results[name].append(dict(
-                    side=side, R=R, S=S, K=Kp, op=op, W="bf16",
-                    max_abs_err=err, rel_err=rel, ms=ms, plain_ms=plain_ms,
-                    bound_ms=b_ms, bound_by=b_by))
-                del out, ref
-        del Q, Be, Qb, Beb, Wd, Wb
+        del Q, Be, Qb, Beb, Wd
     del sides
     torch.cuda.empty_cache()
     return records, library
@@ -552,6 +575,12 @@ def main():
     print(f"build: {lib_path.name} from {[str(s.name) for s in _cuda.SOURCES]}"
           f" for sm_90a in {time.perf_counter() - t0:.2f} s", flush=True)
     print(log, file=sys.stderr)
+    report = ptxas_report(log)
+    for fn, regs, st, ld in report:
+        print(f"ptxas: {fn}: {regs} registers, spill stores {st} B, spill "
+              f"loads {ld} B", flush=True)
+    if not report:
+        print("ptxas: no report (the library was already built)", flush=True)
 
     t0 = time.perf_counter()
     rows, cols, vals = _cached(make_ml10m_shaped,
@@ -716,8 +745,7 @@ def main():
         raise AssertionError("bucketed explicit RMSE out of bounds")
 
     # 9. K1's probes against their plain versions, then the probe sweep
-    probes, library = check_k1_probes(rows[tr], cols[tr], vals[tr], weights,
-                                      results)
+    probes, library = check_k1_probes(rows[tr], cols[tr], vals[tr], weights)
     _reset_launches(probe_ops)
     t0 = time.perf_counter()
     swept = list(sweep(PROBE_SWEEP_REPS))

@@ -1,5 +1,6 @@
-// Probes of K1's time on Hopper (sm_90a): K1's own bf16 kernel with one
-// piece changed, and a W-stream kernel at several tile geometries.
+// Probes of K1's time on Hopper (sm_90a): the first design of K1's bf16
+// kernel, whole or with one piece changed, and a W-stream kernel at several
+// tile geometries.
 //
 // They replace the TPU probes of the Pallas K1 body:
 //   P1 scripts/sweep_kernel_probe2.py  call3 (p_full, p_dots, p_dot1, p_wsum)
@@ -9,11 +10,13 @@
 //                                      block geometries, int8 and bf16 W)
 //
 // cmf_k1_probe launches gram_bf16_kernel<WT, Body, WARPS> (masked_gram.cuh):
-// the same tiles, copies, mma.sync products and stores as K1, with the body
-// named by `body` (Body's values) and 4 warps (64-row blocks, as K1) or 8
-// (128-row blocks: vbig).  kPart splits S into `chunk`-wide pieces over
-// gridDim.z and writes partial sums to out[R, ceil(S / chunk), K], which the
-// caller sums; the others write out[R, K].
+// the first design of K1 (synchronous 64-wide tiles, mma.sync products, no
+// split-S), whole (Body::kFull, the yardstick of the production K1 in
+// masked_matmul.cu) or with the piece named by `body` changed, with 4 warps
+// (64-row blocks) or 8 (128-row blocks: vbig).  kPart splits S into
+// `chunk`-wide pieces over gridDim.z and writes partial sums to
+// out[R, ceil(S / chunk), K], which the caller sums; the others write
+// out[R, K].
 //
 // cmf_w_stream streams W through shared memory in (TR x TC) tiles, copied
 // as K1 copies its W tiles (synchronously, 16 bytes a thread), and writes
@@ -24,7 +27,7 @@
 // What bounds them on an H100: the W stream (0.75 GB int8 at the flagship
 // shape) at 3.35 TB/s, and for the bodies with products K1's 4*R*S*K bf16
 // operations at 989 TFLOP/s.  These kernels are simple on purpose (no
-// pipelining, no wgmma): they measure where K1's own code spends its time.
+// pipelining, no wgmma): they measure where that design of K1 spends its time.
 
 #include "masked_gram.cuh"
 
@@ -108,7 +111,8 @@ cudaError_t probe_w(const void* Q, const void* Be, const void* W, void* out, int
     return probe<WT, Body::kBft, 8>(Q, Be, W, out, R, S, K, chunk, st);
   }
   if (warps != 4) return cudaErrorInvalidValue;
-  switch (static_cast<Body>(body)) {  // kFull is K1 itself: cmf_masked_gram_matvec
+  switch (static_cast<Body>(body)) {
+    case Body::kFull: return probe<WT, Body::kFull, 4>(Q, Be, W, out, R, S, K, chunk, st);
     case Body::kDots: return probe<WT, Body::kDots, 4>(Q, Be, W, out, R, S, K, chunk, st);
     case Body::kDot1: return probe<WT, Body::kDot1, 4>(Q, Be, W, out, R, S, K, chunk, st);
     case Body::kWsum: return probe<WT, Body::kWsum, 4>(Q, Be, W, out, R, S, K, chunk, st);

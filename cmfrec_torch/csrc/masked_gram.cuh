@@ -1,7 +1,8 @@
-// K1's bf16 kernel and the helpers it shares with K2 and with its probes
-// (masked_matmul.cu instantiates the production kernel, k1_probes.cu the
-// probe variants).  See masked_matmul.cu for what K1 computes and why it is
-// built this way.
+// The first design of K1's bf16 kernel (gram_bf16_kernel: synchronous
+// 64-wide tiles, mma.sync products, no split-S), which k1_probes.cu
+// instantiates whole and with one piece changed, and the helpers it shares
+// with K2 and the production K1 in masked_matmul.cu.  See masked_matmul.cu
+// for what K1 computes.
 
 #pragma once
 
@@ -105,8 +106,9 @@ __device__ __forceinline__ void store_out_bf16(float* out, const float (&acc_o)[
   }
 }
 
-// What the bf16 K1 kernel does with each S tile.  kFull is K1; the others
-// are the probes of its time (k1_probes.cu), each K1 with one piece changed.
+// What gram_bf16_kernel does with each S tile.  kFull is K1 whole; the
+// others are the probes of its time (k1_probes.cu), each with one piece
+// changed.
 enum class Body : int {
   kFull = 0,  // ((Q Be^T) * W) Be, T*W rounded to bf16 once
   kDots = 1,  // both products, no W tile loaded, T rounded to bf16

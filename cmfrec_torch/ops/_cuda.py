@@ -97,8 +97,10 @@ def build() -> tuple[Path, str]:
 def lib() -> ctypes.CDLL:
     so = ctypes.CDLL(str(build()[0]))
     P, I = ctypes.c_void_p, ctypes.c_int
-    so.cmf_masked_gram_matvec.argtypes = [P, P, P, P, I, I, I, I, I, P]
+    so.cmf_masked_gram_matvec.argtypes = [P] * 5 + [I] * 6 + [P]
     so.cmf_masked_gram_matvec.restype = I
+    so.cmf_gram_geometry.argtypes = [I, I, I, ctypes.POINTER(I)]
+    so.cmf_gram_geometry.restype = I
     so.cmf_masked_rhs.argtypes = [P, P, P, P, P, I, I, I, I, I, P]
     so.cmf_masked_rhs.restype = I
     so.cmf_k1_probe.argtypes = [P, P, P, P] + [I] * 7 + [P]

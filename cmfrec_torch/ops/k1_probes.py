@@ -2,9 +2,12 @@
 body: scripts/sweep_kernel_probe2.py, sweep_kernel_variants.py and
 sweep_kernel_probe3.py).
 
-Each gram probe is K1's own bf16 kernel (csrc/masked_gram.cuh) with one
-piece changed, launched from csrc/k1_probes.cu:
+Each gram probe is the first design of K1's bf16 kernel
+(csrc/masked_gram.cuh), whole or with one piece changed, launched from
+csrc/k1_probes.cu:
 
+    full   that design of K1 whole (p_full, v0; vw16 with a bf16 W): the
+           yardstick of the production K1 (masked_matmul.masked_gram_matvec)
     dots   both products, no W tile loaded, T rounded to bf16   (p_dots)
     dot1   the first product only, T's row sums broadcast over K (p_dot1)
     wsum   the W tiles only, as K1 copies them, row sums over K (p_wsum)
@@ -15,11 +18,10 @@ piece changed, launched from csrc/k1_probes.cu:
            [R, S/chunk, K], summed by torch.sum                 (p_part)
 
 and w_stream is the W stream alone at a chosen (rows, columns) tile
-(make_wsum).  p_full, v0 and vw16 are K1 itself
-(masked_matmul.masked_gram_matvec, vw16 with a bf16 W).  Q and Be are bf16,
-W an int8 0/1 mask or bf16 weights, with K1's shape rules.  On a CUDA
-tensor each wrapper launches its kernel and counts the launch; on a CPU
-tensor it runs its plain version.  There is no fallback between the two.
+(make_wsum).  Q and Be are bf16, W an int8 0/1 mask or bf16 weights, with
+K1's shape rules.  On a CUDA tensor each wrapper launches its kernel and
+counts the launch; on a CPU tensor it runs its plain version.  There is
+no fallback between the two.
 
 Hopper has no bf16-accumulating mma for bf16 operands, so where the TPU's
 vbf asked its first product for a bf16 result, bft rounds T to bf16 after
@@ -36,7 +38,8 @@ import torch
 from . import _cuda
 from . import masked_matmul as mm
 
-BODIES = {"dots": 1, "dot1": 2, "wsum": 3, "sel": 4, "bft": 5, "part": 6}
+BODIES = {"full": 0, "dots": 1, "dot1": 2, "wsum": 3, "sel": 4, "bft": 5,
+          "part": 6}
 WARPS = (4, 8)  # 8 warps: bft only
 PART_CHUNK = 4096
 # the (rows, columns) tiles cmf_w_stream is built for; (64, 64) is K1's
@@ -156,6 +159,7 @@ def _gram_probe(name, ref):
     return probe
 
 
+full = _gram_probe("full", mm.masked_gram_matvec_ref)
 dots = _gram_probe("dots", dots_ref)
 dot1 = _gram_probe("dot1", dot1_ref)
 wsum = _gram_probe("wsum", wsum_ref)
@@ -222,7 +226,7 @@ def w_stream(W, K, tile=(64, 64)):
 
 w_stream.launches = 0
 
-WRAPPERS = (dots, dot1, wsum, sel, bft, part, w_stream)
+WRAPPERS = (full, dots, dot1, wsum, sel, bft, part, w_stream)
 
 # One probe under its TPU script's name: the row of the kernel table it
 # belongs to, the kernel and its plain version (both called as f(Q, Be, W)),
@@ -237,7 +241,7 @@ def _stream(tile):
 
 
 i8, bf = torch.int8, torch.bfloat16
-K1 = (mm.masked_gram_matvec, mm.masked_gram_matvec_ref)
+K1 = (full, mm.masked_gram_matvec_ref)
 PROBES = (
     Probe("p1", "p_full", *K1, i8, "k1"),
     Probe("p1", "p_dots", dots, dots_ref, i8, "dots"),

@@ -17,9 +17,19 @@ a bf16 W meets T already rounded to bf16 (the TPU's bf16 multiply).  The
 f32 K1 and K2 widen any W to f32.
 R and S must be multiples of TILE (the engine pads to it), K a multiple of
 TILE up to MAX_K (the kernels' shared-memory tiles).
+
+When K1's row blocks alone would not fill the card, its kernel splits S
+into chunks over the grid (:func:`split_chunk` picks the chunk from R, S,
+the card's SM count and the kernel's resident blocks a SM), each chunk
+writes partial [R, K] sums to scratch,
+and a second kernel adds them in chunk order: no atomics, so two calls on
+the same inputs give the same bits.
 """
 
 from __future__ import annotations
+
+import ctypes
+from functools import lru_cache
 
 import torch
 
@@ -27,6 +37,8 @@ from . import _cuda
 
 TILE = 64
 MAX_K = 256
+# split_chunk: the fewest waves of resident blocks it aims the grid at
+WAVES = 4
 
 _OPERAND_DTYPES = (torch.bfloat16, torch.float32)
 # W's dtype -> the kernels' W-type code
@@ -108,6 +120,61 @@ def _stream_for(tensors, device):
     return torch.cuda.current_stream(device).cuda_stream
 
 
+@lru_cache(maxsize=None)
+def split_chunk(R, S, sms, *, row_tile, s_tile, per_sm, col_blocks=1):
+    """K1's S chunk: a multiple of `s_tile` covering S in ceil(S / chunk)
+    chunks over the grid.
+
+    The grid has R / row_tile row blocks (times `col_blocks`) per chunk,
+    and the card runs sms * per_sm blocks at a time, so a grid of n chunks
+    of `per` S tiles takes about ceil(blocks / slots) waves of `per` tiles
+    each.  Of lo to 2 * lo chunks (lo: the fewest that make WAVES waves of
+    blocks, at least 1) this returns the one with the shortest such time,
+    and of equal times the fewest chunks: one chunk where the row blocks
+    already fill the card evenly, more where a part-filled last wave (or
+    too few row blocks) would leave SMs idle."""
+    tiles = -(-S // s_tile)
+    row_blocks = -(-R // row_tile) * col_blocks
+    slots = sms * per_sm
+    lo = max(1, -(-WAVES * slots // row_blocks))
+    best_cost, best_per = None, tiles
+    for chunks in range(min(lo, tiles), min(2 * lo, tiles) + 1):
+        per = -(-tiles // chunks)  # tiles a chunk
+        blocks = row_blocks * -(-tiles // per)
+        cost = -(-blocks // slots) * per  # waves x tiles a block
+        if best_cost is None or cost < best_cost:
+            best_cost, best_per = cost, per
+    return best_per * s_tile
+
+
+@lru_cache(maxsize=None)
+def _geometry(device_index, K, op_f32, w_type):
+    """(configuration, row tile, S tile, resident blocks a SM, SM count) of
+    K1's kernel on the card, as its launcher picks it (once: this also sets
+    the kernel's shared-memory limit on the device)."""
+    geo = (ctypes.c_int * 4)()
+    with torch.cuda.device(device_index):
+        err = _cuda.lib().cmf_gram_geometry(K, op_f32, w_type, geo)
+    _cuda.check(err, "masked_gram_matvec geometry")
+    props = torch.cuda.get_device_properties(device_index)
+    return geo[0], geo[1], geo[2], max(1, geo[3]), props.multi_processor_count
+
+
+def gram_plan(R, S, K, op_dtype, w_dtype, device):
+    """K1's launch plan on a card: its kernel configuration and tiles,
+    resident blocks a SM, the SM count and the S chunk :func:`split_chunk`
+    picks."""
+    device = torch.device(device)
+    index = (torch.cuda.current_device() if device.index is None
+             else device.index)
+    variant, row_tile, s_tile, per_sm, sms = _geometry(
+        index, K, int(op_dtype == torch.float32), W_TYPES[w_dtype])
+    chunk = split_chunk(R, S, sms, row_tile=row_tile, s_tile=s_tile,
+                        per_sm=per_sm, col_blocks=K // TILE)
+    return dict(variant=variant, row_tile=row_tile, s_tile=s_tile,
+                per_sm=per_sm, sms=sms, chunk=chunk, chunks=-(-S // chunk))
+
+
 def masked_gram_matvec(Q, Be, W):
     """((Q @ Be^T) * W) @ Be, fused.  Q:[R,K] Be:[S,K] W:[R,S] -> [R,K] f32."""
     R, S = Q.shape[0], Be.shape[0]
@@ -120,11 +187,14 @@ def masked_gram_matvec(Q, Be, W):
         return masked_gram_matvec_ref(Q, Be, W)
     with torch.cuda.device(device):
         stream = _stream_for((Q, Be, W), device)
+        plan = gram_plan(R, S, K, Be.dtype, W.dtype, device)
         out = torch.empty(R, K, dtype=torch.float32, device=device)
+        part = (torch.empty(plan["chunks"], R, K, dtype=torch.float32,
+                            device=device) if plan["chunks"] > 1 else out)
         err = _cuda.lib().cmf_masked_gram_matvec(
             Q.data_ptr(), Be.data_ptr(), W.data_ptr(), out.data_ptr(),
-            R, S, K, int(Be.dtype == torch.float32), W_TYPES[W.dtype],
-            stream)
+            part.data_ptr(), R, S, K, plan["chunk"], plan["variant"],
+            W_TYPES[W.dtype], stream)
     _cuda.check(err, "masked_gram_matvec")
     masked_gram_matvec.launches += 1
     return out

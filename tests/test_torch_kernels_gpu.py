@@ -69,6 +69,42 @@ def test_kernels_match_twins(cuda, op, wdt, K):
     assert _rel(out2, mm.masked_rhs_ref(X, W, mb, Be)) <= REL_TOL[op]
 
 
+@pytest.mark.parametrize("K", [64, 128, 192, 256])
+@pytest.mark.parametrize("wdt", [torch.int8, torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("op", [torch.bfloat16, torch.float32])
+def test_k1_split_s_matches_twin(cuda, monkeypatch, op, wdt, K):
+    """K1 over one 64-row block: S smaller than one chunk, S in two full
+    chunks and a ragged 64-wide third (the planner's chunk forced), and S
+    as the planner splits it; each twice, bitwise equal (no atomics)."""
+    R = 64
+    s_tile = mm.gram_plan(R, 64, K, op, wdt, cuda)["s_tile"]
+    chunk = 2 * s_tile
+    planner = mm.split_chunk
+    for S, ch in ((64, 2 * chunk), (2 * chunk + 64, chunk),
+                  (2 * chunk + 64, None)):
+        monkeypatch.setattr(mm, "split_chunk", planner if ch is None else
+                            lambda *a, **kw: ch)
+        chunks = mm.gram_plan(R, S, K, op, wdt, cuda)["chunks"]
+        assert ch is None or chunks == -(-S // ch)
+        Q, Be, W, _, _ = _inputs(cuda, R, S, K, op, wdt, seed=S)
+        before = mm.masked_gram_matvec.launches
+        out = mm.masked_gram_matvec(Q, Be, W)
+        again = mm.masked_gram_matvec(Q, Be, W)
+        torch.cuda.synchronize()
+        assert mm.masked_gram_matvec.launches == before + 2
+        assert torch.isfinite(out).all()
+        assert _rel(out, mm.masked_gram_matvec_ref(Q, Be, W)) <= REL_TOL[op]
+        assert torch.equal(out, again)
+
+
+def test_k1_bf16_ring_keeps_two_blocks_an_sm(cuda):
+    """The flagship's bf16 K1 (K=64, int8 mask) gets the three-stage ring
+    of 128-wide tiles with two blocks resident an SM."""
+    plan = mm.gram_plan(69888, 10688, 64, torch.bfloat16, torch.int8, cuda)
+    assert (plan["variant"], plan["s_tile"]) == (0, 128)
+    assert plan["per_sm"] >= 2
+
+
 def test_misaligned_operand_raises(cuda):
     R, S, K = 64, 64, 64
     Q, Be, W, _, _ = _inputs(cuda, R, S, K, torch.bfloat16, torch.int8)
@@ -93,8 +129,7 @@ def test_k1_probes_match_plain(cuda, probe, K):
     counts = [w.launches for w in k1_probes.WRAPPERS]
     out = probe.kernel(Q, Be, W)
     torch.cuda.synchronize()
-    assert sum(w.launches for w in k1_probes.WRAPPERS) == sum(counts) + (
-        probe.kernel not in (mm.masked_gram_matvec,))
+    assert sum(w.launches for w in k1_probes.WRAPPERS) == sum(counts) + 1
     ref = probe.plain(Q, Be, W)
     tol = 0.0 if probe.work == "w" and W.dtype == torch.int8 else \
         PROBE_TOL[probe.work]

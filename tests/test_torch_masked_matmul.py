@@ -128,3 +128,63 @@ def test_masked_gram_matvec_rejects(args, match):
 def test_masked_rhs_rejects(args, match):
     with pytest.raises(ValueError, match=match):
         tmm.masked_rhs(*args)
+
+
+# K1's split-S planner (pure Python; the card only supplies its inputs)
+PLANS = [  # R, S, SMs, row tile, S tile, resident blocks a SM, column blocks
+    (69888, 10688, 132, 128, 128, 2, 1),  # the flagship fit, bf16, side A
+    (10688, 69888, 132, 128, 128, 2, 1),  # ... side B
+    (69888, 10688, 132, 64, 64, 2, 1),    # f32, side A
+    (10688, 69888, 132, 64, 64, 2, 1),    # f32, side B
+    (64, 320, 132, 64, 64, 2, 4),         # one row block, K = 256
+    (64, 64, 132, 128, 128, 1, 1),        # S under one tile
+    (4096, 1 << 17, 114, 128, 64, 3, 2),  # another card
+]
+
+
+def _chunks(S, chunk):
+    return [(c0, min(S, c0 + chunk)) for c0 in range(0, S, chunk)]
+
+
+@pytest.mark.parametrize("plan", PLANS)
+def test_split_chunk_covers_s_once_in_whole_tiles(plan):
+    R, S, sms, row_tile, s_tile, per_sm, col_blocks = plan
+    chunk = tmm.split_chunk(R, S, sms, row_tile=row_tile, s_tile=s_tile,
+                            per_sm=per_sm, col_blocks=col_blocks)
+    assert chunk > 0 and chunk % s_tile == 0
+    spans = _chunks(S, chunk)
+    assert all(b > a for a, b in spans)  # no empty chunk
+    covered = np.zeros(S, np.int64)
+    for a, b in spans:
+        covered[a:b] += 1
+    assert (covered == 1).all()
+
+
+def test_split_chunk_keeps_one_chunk_where_rows_fill_the_card():
+    # 528 row blocks are exactly 4 waves of 132 SMs: splitting gains nothing
+    S = 84 * 128
+    assert tmm.split_chunk(528 * 128, S, 132, row_tile=128, s_tile=128,
+                           per_sm=1) >= S
+    # and with far more row blocks than waves
+    assert tmm.split_chunk(20000 * 64, 4096, 132, row_tile=64, s_tile=64,
+                           per_sm=2) >= 4096
+
+
+def test_split_chunk_splits_few_row_blocks_into_full_waves():
+    # the flagship fit's B side in bf16: 84 row blocks for 132 SMs
+    R, S = 10688, 69888
+    chunk = tmm.split_chunk(R, S, 132, row_tile=128, s_tile=128, per_sm=1)
+    chunks = len(_chunks(S, chunk))
+    assert chunks * 84 >= tmm.WAVES * 132  # at least WAVES waves of blocks
+    assert (chunks * 84) % 132 == 0  # ... and no part-filled last wave
+    assert S % chunk  # the last chunk is ragged here
+    # one 64-row block takes one chunk a tile
+    assert tmm.split_chunk(64, 320, 132, row_tile=64, s_tile=64,
+                           per_sm=2) == 64
+
+
+def test_split_chunk_splits_a_part_filled_last_wave():
+    # the A side: 546 row blocks are 4.14 waves of 132; two chunks make
+    # 8.27 waves, which lose less to the last one
+    assert tmm.split_chunk(69888, 10688, 132, row_tile=128, s_tile=128,
+                           per_sm=1) == 42 * 128
