@@ -8,12 +8,12 @@ Run from the repository root, with no arguments:
 Phases, each printing its own line(s):
   1. environment: the card's name and power limit, torch and CUDA versions;
   2. build: compiles the CUDA kernels from cmfrec_torch/csrc/ for sm_90a,
-     and prints ptxas's registers and spills for K1's kernels;
+     and prints ptxas's registers and spills for K1's, K2's and K3's kernels;
   3. kernels: each variant of masked_gram_matvec (K1) and masked_rhs (K2)
      against its plain torch twin on the card, at both orientations of the
      flagship fit (X/W built from the ML10M-shaped data; W as the int8 mask,
      f32 weights and those weights in bf16), with errors, CUDA-event times
-     and K1's split-S plan; the bf16 K1 on the int8 mask and on the bf16
+     and each one's split-S plan; the bf16 K1 on the int8 mask and on the bf16
      weights is also timed against the first design of K1 (the k1_probes
      p_full kernel) on the same inputs, in turns (old, new, new, old);
   4. fit: the flagship explicit ALS-CG fit through the public CMF entry point
@@ -25,7 +25,8 @@ Phases, each printing its own line(s):
      (bench_implicit.make_lastfm_shaped, its train split): every bucket of
      both sides with implicit coefficients and a bf16 opposing matrix, the
      widest, middle and narrowest of each side also in f32, and one explicit
-     case with a per-row lambda and a rhs base; errors, how far each case's
+     case with a per-row lambda and a rhs base; each case's bucket class,
+     cluster size and staged slots (sparse_cg.k3_plan), errors, how far its
      steps move their start, and CUDA-event times;
   7. the implicit WRMF fit through the public CMF_implicit entry point (k=50,
      lambda 5, alpha 1, 15 iterations, CG 3) on that data, with its K3
@@ -97,9 +98,17 @@ PROBE_HEADLINE = {"p1": "p_dots", "p2": "vbf_int8", "p3": "wsum_64x64"}
 # each row's wrappers in ops/k1_probes.py (p_full, v0 and vw16: full)
 PROBE_WRAPPERS = {"p1": ("full", "dots", "dot1", "wsum", "part"),
                   "p2": ("bft", "sel"), "p3": ("w_stream",)}
-# K1's kernels in csrc/masked_matmul.cu, for the ptxas report
-K1_KERNELS = ("gram_bf16_wgmma_kernel", "gram_f32_tile8_kernel",
-              "gram_f32_ring_kernel", "sum_chunks_kernel")
+# each kernel's CUDA kernels (csrc/masked_matmul.cu, csrc/sparse_cg.cu), for
+# the ptxas report and the {"kernels": ...} rows
+CUDA_KERNELS = {
+    "masked_gram_matvec": ("gram_bf16_wgmma_kernel", "gram_f32_tile8_kernel",
+                           "gram_f32_ring_kernel", "sum_chunks_kernel"),
+    "masked_rhs": ("rhs_bf16_wgmma_kernel", "rhs_f32_tile8_kernel",
+                   "sum_chunks_kernel"),
+    "bucket_cg": ("bucket_cg_kernel",),
+}
+PTXAS_KERNELS = tuple(dict.fromkeys(k for ks in CUDA_KERNELS.values()
+                                    for k in ks))
 PROBE_SWEEP_REPS = 2
 
 LFM_M, LFM_N = 359347, 160168  # LastFM-360K's shape (bench_implicit.py:30)
@@ -130,7 +139,7 @@ def bound(nbytes, ops):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def ptxas_report(log, names=K1_KERNELS):
+def ptxas_report(log, names=PTXAS_KERNELS):
     """[(kernel, registers, spill store bytes, spill load bytes)] for the
     entries of nvcc's -Xptxas -v log whose name holds one of `names`."""
     rows, fn, spill = [], None, (0, 0)
@@ -236,14 +245,16 @@ def check_kernels(rows, cols, vals, weights):
                         ops = 2 * R * S * Kp
                     b_ms, b_by = bound(nbytes, {op: ops})
                     extra, note = {}, ""
+                    planner = (mm.gram_plan if name == "masked_gram_matvec"
+                               else mm.rhs_plan)
+                    plan = planner(R, S, Kp, dt, Wv.dtype, dev)
+                    extra["plan"] = plan
+                    note = (f" split: chunk={plan['chunk']} "
+                            f"({plan['chunks']} chunks; configuration "
+                            f"{plan['variant']}, S tile "
+                            f"{plan['s_tile']}, {plan['row_tile']}-row "
+                            f"blocks, {plan['per_sm']} an SM)")
                     if name == "masked_gram_matvec":
-                        plan = mm.gram_plan(R, S, Kp, dt, Wv.dtype, dev)
-                        extra["plan"] = plan
-                        note = (f" split: chunk={plan['chunk']} "
-                                f"({plan['chunks']} chunks; configuration "
-                                f"{plan['variant']}, S tile "
-                                f"{plan['s_tile']}, {plan['row_tile']}-row "
-                                f"blocks, {plan['per_sm']} an SM)")
                         if op == "bf16" and wname != "f32":
                             # the first design of K1 on the same inputs, in
                             # turns: old, new, new, old
@@ -424,6 +435,8 @@ def check_bucket_cg(layouts, k_pad):
                 # what stopping one step early would cost
                 short = (sparse_cg.bucket_cg_ref(*args, n_steps=K3_STEPS - 1)
                          - ref).abs().max().item() / top
+                plan = sparse_cg.plan_for(b.n_rows, b.width, k_pad,
+                                          matx.dtype, dev)
                 ms = _timed(lambda: sparse_cg.bucket_cg(
                     *args, n_steps=K3_STEPS, length=b.length), 5)
                 plain_ms = _timed(lambda: sparse_cg.bucket_cg_ref(
@@ -460,7 +473,10 @@ def check_bucket_cg(layouts, k_pad):
                     del ref64
                 print(f"kernel bucket_cg side={side} bucket={i} "
                       f"({chosen.get(i, '-')}) R={b.n_rows} L={b.width} "
-                      f"slots={slots} K={k_pad} op={op} {mode}: "
+                      f"slots={slots} K={k_pad} op={op} {mode} "
+                      f"class={plan['cls']} cluster={plan['cluster']} "
+                      f"threads={plan['threads']} "
+                      f"stage_slots={plan['stage_slots']}: "
                       f"max_abs_err={err:.3e} rel={rel:.3e} (tol {tol:.0e})"
                       f"{exact} moved={moved:.3e} (min "
                       f"{K3_MOVE_FACTOR * tol:.0e}) live={live:.3f} "
@@ -475,7 +491,7 @@ def check_bucket_cg(layouts, k_pad):
                     K=k_pad, op=op, mode=mode, max_abs_err=err, rel_err=rel,
                     moved=moved, live=live, one_step_short=short, ms=ms,
                     plain_ms=plain_ms, bytes=nbytes, ops=ops, bound_ms=b_ms,
-                    bound_by=b_by))
+                    bound_by=b_by, plan=plan))
                 del out, ref, args
         del mat
         torch.cuda.empty_cache()
@@ -763,6 +779,7 @@ def main():
                             and v["op"] == "bf16" and v["W"] == "int8")
         kernels.append(dict(
             name=name, route="cuda", source=SOURCES[name],
+            cuda_kernels=CUDA_KERNELS[name],
             replaces=REPLACES[name], launches=launches[name],
             max_abs_err=max(v["max_abs_err"] for v in variants),
             ms=main_variant["ms"], plain_ms=main_variant["plain_ms"],
@@ -778,6 +795,7 @@ def main():
                              for op in ("bf16", "f32")})
     kernels.append(dict(
         name="bucket_cg", route="cuda", source=SOURCES["bucket_cg"],
+        cuda_kernels=CUDA_KERNELS["bucket_cg"],
         replaces=REPLACES["bucket_cg"], launches=ilaunches["bucket_cg"],
         max_abs_err=max(r["max_abs_err"] for r in k3),
         ms=sum(r["ms"] for r in main),

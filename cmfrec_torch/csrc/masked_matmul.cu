@@ -2,6 +2,7 @@
 //
 //   K1  cmf_masked_gram_matvec:  out = ((Q Be^T) * W) Be     the CG operator
 //   K2  cmf_masked_rhs:          out = ((X - mb) * W) Be     the CG right-hand side
+//       (configurations from cmf_gram_geometry / cmf_rhs_geometry)
 //
 // Q:[R,K] and Be:[S,K] are bf16 (bulk iterations) or f32 (the polish and exact
 // mode); W:[R,S] is an int8 0/1 mask, bf16 or f32 weights; X:[R,S] holds the
@@ -53,6 +54,23 @@
 // Where its tiles do not fit shared memory (K > 128), gram_f32_ring_kernel
 // does the same with 64-row blocks and 8x4 thread tiles.
 //
+// K2 is K1's second product with V = (X - mb) * W as its A operand, bound by
+// bytes in both variants (X at 2 B and an int8 W at 1 B an entry, ~2.24 GB a
+// flagship call, 0.67 ms; its 96 GFLOP take 0.1 ms on tensor cores and 1.43
+// ms in f32 FMA, so the f32 K2 sits near its FMA bound).  Both split S like
+// K1 (split_chunk on K2's own geometry, cmf_rhs_geometry; the same
+// sum_chunks_kernel), which fills the card at the B side's 84 row blocks.
+// rhs_bf16_wgmma_kernel: 128-row blocks of two warpgroups; X, W (rows
+// XOR-permuted by swz), mb and the block's 64 columns of Be stream through a
+// three-stage cp.async ring of 64-wide S tiles (two where three do not
+// leave two blocks an SM); V is formed in f32 from the staged tiles, rounded
+// to bf16 once and packed as the register A operand of wgmma against the Be
+// tile read MN-major.  rhs_f32_tile8_kernel: gram_f32_tile8_kernel's second
+// half, V staged transposed, a cp.async double buffer, 8x8 thread tiles of
+// true f32 FMA.  The first design (rhs_bf16_kernel: synchronous copies,
+// mma.sync, no split; rhs_f32_kernel: 4x4 thread tiles of scalar loads) is
+// gone.
+//
 // The first design of the bf16 K1 (gram_bf16_kernel: synchronous 64-wide
 // tiles, mma.sync, no split-S) stays in masked_gram.cuh as the base of the
 // probes in k1_probes.cu (Body::kFull is that design whole).
@@ -65,96 +83,6 @@
 #include "masked_gram.cuh"
 
 namespace {
-
-// ---------------------------------------------------------------- K2, bf16
-template <typename WT>
-__global__ void __launch_bounds__(128)
-    rhs_bf16_kernel(const uint16_t* __restrict__ X, const WT* __restrict__ W,
-                    const float* __restrict__ mb, const uint16_t* __restrict__ Be,
-                    float* __restrict__ out, int S, int K) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  const int ldk = K + 8;
-  constexpr int ldx = BS + 8;
-  constexpr int ldw = BS + WPad<WT>::v;
-  uint16_t* Bs = reinterpret_cast<uint16_t*>(smem);
-  uint16_t* Xs = Bs + BS * ldk;
-  WT* Ws = reinterpret_cast<WT*>(Xs + BM * ldx);
-  float* mbs = reinterpret_cast<float*>(Ws + BM * ldw);
-
-  const int lane = threadIdx.x & 31;
-  const int g = lane >> 2, t = lane & 3;
-  const int wr = (threadIdx.x >> 5) * 16;
-  const size_t row0 = static_cast<size_t>(blockIdx.x) * BM;
-  const int n0 = blockIdx.y * BN;
-
-  float acc_o[8][4] = {};
-  for (int s0 = 0; s0 < S; s0 += BS) {
-    __syncthreads();
-    copy_tile<128>(Bs, ldk * 2, Be + static_cast<size_t>(s0) * K, static_cast<size_t>(K) * 2,
-                   BS, K * 2);
-    copy_tile<128>(Xs, ldx * 2, X + row0 * S + s0, static_cast<size_t>(S) * 2, BM, BS * 2);
-    copy_tile<128>(Ws, ldw * sizeof(WT), W + row0 * S + s0, static_cast<size_t>(S) * sizeof(WT),
-                   BM, BS * sizeof(WT));
-    copy_tile<128>(mbs, BS * 4, mb + s0, 0, 1, BS * 4);
-    __syncthreads();
-
-    // V = (X - mb) * W in f32, rounded once to bf16, built directly as A fragments
-    uint32_t p[8][2];
-#pragma unroll
-    for (int j = 0; j < BS / 8; ++j) {
-      const int s = j * 8 + 2 * t;
-      const uint16_t* x0 = Xs + (wr + g) * ldx + s;
-      const uint16_t* x1 = x0 + 8 * ldx;
-      const WT* w0 = Ws + (wr + g) * ldw + s;
-      const WT* w1 = w0 + 8 * ldw;
-      p[j][0] = pack_bf16((bf16_bits_to_float(x0[0]) - mbs[s]) * to_f32(w0[0]),
-                          (bf16_bits_to_float(x0[1]) - mbs[s + 1]) * to_f32(w0[1]));
-      p[j][1] = pack_bf16((bf16_bits_to_float(x1[0]) - mbs[s]) * to_f32(w1[0]),
-                          (bf16_bits_to_float(x1[1]) - mbs[s + 1]) * to_f32(w1[1]));
-    }
-    accumulate_out(acc_o, p, Bs, ldk, n0, g, t);
-  }
-  store_out_bf16(out, acc_o, row0 + wr + g, K, n0, t);
-}
-
-// ------------------------------------------------------- f32 (FMA) helpers
-// 256 threads as a 16x16 grid; thread (ty, tx) owns rows ty+16i and columns
-// tx+16j (i, j < 4) of each 64x64 tile.
-constexpr int LDT = BS + 1;
-
-__device__ __forceinline__ void load_f32_tile(float* dst, int ld, const float* src, int rows,
-                                              int K) {
-  for (int i = threadIdx.x; i < rows * K; i += 256) {
-    const int r = i / K;
-    const int c = i - r * K;
-    dst[r * ld + c] = src[static_cast<size_t>(r) * K + c];
-  }
-}
-
-// acc_o += Ts[BM, BS] Bs[BS, n0:n0+BN]
-__device__ __forceinline__ void accumulate_out_f32(float (&acc_o)[4][4], const float* Ts,
-                                                   const float* Bs, int ldk, int n0, int ty,
-                                                   int tx) {
-  for (int s = 0; s < BS; ++s) {
-    float a[4], b[4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i) a[i] = Ts[(ty + 16 * i) * LDT + s];
-#pragma unroll
-    for (int j = 0; j < 4; ++j) b[j] = Bs[s * ldk + n0 + tx + 16 * j];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) acc_o[i][j] = fmaf(a[i], b[j], acc_o[i][j]);
-  }
-}
-
-__device__ __forceinline__ void store_out_f32(float* out, const float (&acc_o)[4][4],
-                                              size_t row0, int K, int n0, int ty, int tx) {
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) out[(row0 + ty + 16 * i) * K + n0 + tx + 16 * j] = acc_o[i][j];
-}
 
 // ------------------------------------------------------------ async copies
 // Stages of the f32 K1's tile rings: the next tile loads while this one is
@@ -737,46 +665,246 @@ __global__ void __launch_bounds__(256)
   }
 }
 
-// ----------------------------------------------------------------- K2, f32
-template <typename WT>
-__global__ void __launch_bounds__(256)
-    rhs_f32_kernel(const uint16_t* __restrict__ X, const WT* __restrict__ W,
-                   const float* __restrict__ mb, const float* __restrict__ Be,
-                   float* __restrict__ out, int S, int K) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  const int ldk = K + 1;
-  float* Bs = reinterpret_cast<float*>(smem);
-  float* Ts = Bs + BS * ldk;
+// ---------------------------------------------------------- K2, bf16 wgmma
+// K1's second product with V = (X - mb) * W as its A operand: 128-row
+// blocks of two warpgroups, BSS columns of S a ring stage (processed 64 at
+// a time), STG stages streamed by cp.async: the X and W tiles row by row,
+// permuted by swz; the 64 output columns of the Be tile (n0..n0+63, the
+// only ones the block uses) as wgmma core matrices, read MN-major; mb's
+// BSS entries.  V is formed in f32 from the staged tiles and rounded to
+// bf16 once (masked_rhs_ref's rounding point), in the register A fragments
+// of wgmma.
+template <typename WT, int BSS, int STG>
+size_t rhs_bf16_wgmma_smem(int) {
+  return static_cast<size_t>(STG) * (static_cast<size_t>(BSS) * BN * 2 +
+                                     static_cast<size_t>(RING_BM) * BSS * (2 + sizeof(WT)) +
+                                     BSS * sizeof(float));
+}
 
-  const int ty = threadIdx.x >> 4, tx = threadIdx.x & 15;
-  const size_t row0 = static_cast<size_t>(blockIdx.x) * BM;
-  const int n0 = blockIdx.y * BN;
-
-  float acc_o[4][4] = {};
-  for (int s0 = 0; s0 < S; s0 += BS) {
-    __syncthreads();
-    load_f32_tile(Bs, ldk, Be + static_cast<size_t>(s0) * K, BS, K);
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int r = ty + 16 * i, s = tx + 16 * j;
-        const size_t e = (row0 + r) * S + s0 + s;
-        Ts[r * LDT + s] = (bf16_bits_to_float(X[e]) - mb[s0 + s]) * to_f32(W[e]);
-      }
-    __syncthreads();
-    accumulate_out_f32(acc_o, Ts, Bs, ldk, n0, ty, tx);
+// rows x 64 bf16 columns (128 bytes a row, src_stride bytes apart) into
+// shared memory as wgmma core matrices: 8 rows x 16 bytes, 128 contiguous
+// bytes each, 8 of them along the columns, then the next 8 rows (1 KB on).
+template <int NT>
+__device__ __forceinline__ void copy_core64_async(void* dst, const void* src, size_t src_stride,
+                                                  int rows) {
+  for (int i = threadIdx.x; i < rows * 8; i += NT) {
+    const int r = i >> 3, c = i & 7;
+    cp_async16(static_cast<char*>(dst) + (r >> 3) * 1024 + c * 128 + (r & 7) * 16,
+               static_cast<const char*>(src) + r * src_stride + c * 16);
   }
-  store_out_f32(out, acc_o, row0, K, n0, ty, tx);
+}
+
+template <typename WT, int BSS, int STG>
+__global__ void __launch_bounds__(RING_NT, 2)
+    rhs_bf16_wgmma_kernel(const uint16_t* __restrict__ X, const WT* __restrict__ W,
+                          const float* __restrict__ mb, const uint16_t* __restrict__ Be,
+                          float* __restrict__ part, int R, int S, int K, int chunk) {
+  static_assert(STG >= 2, "a ring of at least two stages");
+  constexpr int RW = BSS * sizeof(WT);  // bytes of a W tile row
+  constexpr int RX = BSS * 2;           // bytes of an X tile row
+  constexpr int SB = BSS * BN * 2;      // bytes of a Be tile
+  extern __shared__ __align__(16) unsigned char smem[];
+  unsigned char* Bring = smem;
+  unsigned char* Xring = Bring + STG * SB;
+  unsigned char* Wring = Xring + STG * RING_BM * RX;
+  float* Mring = reinterpret_cast<float*>(Wring + STG * RING_BM * RW);
+
+  const int lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int wr = (threadIdx.x >> 5) * 16;
+  const int wgr = (threadIdx.x >> 7) * 64;
+  const size_t row0 = static_cast<size_t>(blockIdx.x) * RING_BM;
+  const int rows = min(RING_BM, R - static_cast<int>(row0));
+  const int n0 = blockIdx.y * BN;
+  const Chunk ch(part, R, S, K, chunk);
+  const int ntiles = (ch.s_end - ch.s_begin + BSS - 1) / BSS;
+
+  auto load = [&](int tile) {
+    const int s0 = ch.s_begin + tile * BSS;
+    const int width = min(BSS, ch.s_end - s0);
+    const int slot = tile % STG;
+    copy_core64_async<RING_NT>(Bring + slot * SB, Be + static_cast<size_t>(s0) * K + n0,
+                               static_cast<size_t>(K) * 2, width);
+    copy_swz_async<RING_NT, RX>(Xring + slot * RING_BM * RX, X + row0 * S + s0,
+                                static_cast<size_t>(S) * 2, rows, width * 2);
+    copy_swz_async<RING_NT, RW>(Wring + slot * RING_BM * RW, W + row0 * S + s0,
+                                static_cast<size_t>(S) * sizeof(WT), rows, width * sizeof(WT));
+    copy_tile_async<RING_NT>(Mring + slot * BSS, 0, mb + s0, 0, 1, width * 4);
+  };
+#pragma unroll
+  for (int st = 0; st < STG - 1; ++st) {
+    if (st < ntiles) load(st);
+    cp_async_commit();
+  }
+
+  const bool active = wgr < rows;
+  float acc_o[8][4] = {};
+  for (int it = 0; it < ntiles; ++it) {
+    cp_async_wait<STG - 2>();
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");  // visible to wgmma
+    asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");  // tile it-1 is read
+    fence_acc(acc_o);
+    __syncthreads();
+    if (it + STG - 1 < ntiles) load(it + STG - 1);
+    cp_async_commit();
+    if (!active) continue;
+    const unsigned char* Bs = Bring + (it % STG) * SB;
+    const unsigned char* Xs = Xring + (it % STG) * RING_BM * RX;
+    const unsigned char* Ws = Wring + (it % STG) * RING_BM * RW;
+    const float* ms = Mring + (it % STG) * BSS;
+    const int width = min(BSS, ch.s_end - ch.s_begin - it * BSS);
+    for (int h = 0; h < width; h += 64) {
+      uint32_t p[8][2];
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const int s = h + j * 8 + 2 * t;
+        const uint16_t* x0 = reinterpret_cast<const uint16_t*>(Xs + swz<RX>(wr + g, 2 * s));
+        const uint16_t* x1 = reinterpret_cast<const uint16_t*>(Xs + swz<RX>(wr + g + 8, 2 * s));
+        const WT* w0 = reinterpret_cast<const WT*>(Ws + swz<RW>(wr + g, s * sizeof(WT)));
+        const WT* w1 = reinterpret_cast<const WT*>(Ws + swz<RW>(wr + g + 8, s * sizeof(WT)));
+        p[j][0] = pack_bf16((bf16_bits_to_float(x0[0]) - ms[s]) * to_f32(w0[0]),
+                            (bf16_bits_to_float(x0[1]) - ms[s + 1]) * to_f32(w0[1]));
+        p[j][1] = pack_bf16((bf16_bits_to_float(x1[0]) - ms[s]) * to_f32(w1[0]),
+                            (bf16_bits_to_float(x1[1]) - ms[s + 1]) * to_f32(w1[1]));
+      }
+      // out[64, 64] += V[64, 64] Be[h:h+64, n0:n0+64]
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+        wgmma_rs(acc_o, p[2 * kk][0], p[2 * kk][1], p[2 * kk + 1][0], p[2 * kk + 1][1],
+                 gmma_desc(Bs + ((h + kk * 16) >> 3) * 1024, 1024, 128));
+      asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+    }
+  }
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+  fence_acc(acc_o);
+  cp_async_wait<0>();
+  if (wr < rows) store_out_bf16(ch.out, acc_o, row0 + wr + g, K, n0, t);
+}
+
+// ------------------------------------------------ K2, f32, 8x8 thread tiles
+// The second half of gram_f32_tile8_kernel: 128-row blocks of 128 threads
+// as 16 x 8; thread (ty, tx) forms V = (X - mb) * W at rows 8ty..8ty+7 and
+// columns 8tx..8tx+7 of a 64-wide S tile, stores it transposed (Pt[s][r],
+// float4s permuted as there), then owns rows 8ty..8ty+7 and output columns
+// n0 + 8tx..n0 + 8tx + 7 of out += V Be_tile.  X, W, mb and the 64 columns
+// of Be the block uses stream by a cp.async double buffer; true f32 FMA.
+template <typename WT>
+size_t rhs_f32_tile8_smem(int) {
+  return static_cast<size_t>(F8_BSS) * F8_BM * 4 +
+         static_cast<size_t>(STAGES) *
+             (static_cast<size_t>(F8_BSS) * BN * 4 +
+              static_cast<size_t>(F8_BM) * F8_BSS * (2 + sizeof(WT)) + F8_BSS * 4);
+}
+
+template <typename WT>
+__global__ void __launch_bounds__(F8_NT, 1)
+    rhs_f32_tile8_kernel(const uint16_t* __restrict__ X, const WT* __restrict__ W,
+                         const float* __restrict__ mb, const float* __restrict__ Be,
+                         float* __restrict__ part, int R, int S, int K, int chunk) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  float* Pt = reinterpret_cast<float*>(smem);          // [F8_BSS][F8_BM], float4s permuted
+  float* Bring = Pt + F8_BSS * F8_BM;                  // STAGES x [F8_BSS][BN]
+  uint16_t* Xring = reinterpret_cast<uint16_t*>(Bring + STAGES * F8_BSS * BN);
+  WT* Wring = reinterpret_cast<WT*>(Xring + STAGES * F8_BM * F8_BSS);
+  float* Mring = reinterpret_cast<float*>(Wring + STAGES * F8_BM * F8_BSS);
+
+  const int tx = threadIdx.x & 7, ty = threadIdx.x >> 3;
+  const size_t row0 = static_cast<size_t>(blockIdx.x) * F8_BM;
+  const int rows = min(F8_BM, R - static_cast<int>(row0));
+  const int n0 = blockIdx.y * BN;
+  const Chunk ch(part, R, S, K, chunk);
+  const int ntiles = (ch.s_end - ch.s_begin) / F8_BSS;  // chunk and S are multiples of 64
+
+  auto load = [&](int tile) {
+    const int s0 = ch.s_begin + tile * F8_BSS;
+    const int slot = tile % STAGES;
+    copy_tile_async<F8_NT>(Bring + slot * F8_BSS * BN, BN * 4,
+                           Be + static_cast<size_t>(s0) * K + n0, static_cast<size_t>(K) * 4,
+                           F8_BSS, BN * 4);
+    copy_tile_async<F8_NT>(Xring + slot * F8_BM * F8_BSS, F8_BSS * 2, X + row0 * S + s0,
+                           static_cast<size_t>(S) * 2, rows, F8_BSS * 2);
+    copy_tile_async<F8_NT>(Wring + slot * F8_BM * F8_BSS, F8_BSS * sizeof(WT), W + row0 * S + s0,
+                           static_cast<size_t>(S) * sizeof(WT), rows, F8_BSS * sizeof(WT));
+    copy_tile_async<F8_NT>(Mring + slot * F8_BSS, 0, mb + s0, 0, 1, F8_BSS * 4);
+  };
+#pragma unroll
+  for (int st = 0; st < STAGES - 1; ++st) {
+    if (st < ntiles) load(st);
+    cp_async_commit();
+  }
+
+  float acc_o[8][8] = {};
+  for (int it = 0; it < ntiles; ++it) {
+    cp_async_wait<STAGES - 2>();
+    __syncthreads();  // tile `it` landed; tile it-1 and its Pt are consumed
+    if (it + STAGES - 1 < ntiles) load(it + STAGES - 1);
+    cp_async_commit();
+    const float* Bs = Bring + (it % STAGES) * F8_BSS * BN;
+    const uint16_t* Xs = Xring + (it % STAGES) * F8_BM * F8_BSS;
+    const WT* Ws = Wring + (it % STAGES) * F8_BM * F8_BSS;
+    const float* ms = Mring + (it % STAGES) * F8_BSS;
+
+    // V = (X - mb) * W, stored transposed: Pt[s][r], float4 of rows r..r+3 at r ^ 4 * (s / 8 % 8)
+    float m8[8];
+#pragma unroll
+    for (int j = 0; j < 8; ++j) m8[j] = ms[8 * tx + j];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      float v[4][8];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int r = 8 * ty + 4 * h + i;
+        float w[8], x[8];
+        load_w8(w, Ws + r * F8_BSS + 8 * tx);
+        load_w8(x, reinterpret_cast<const bf16_t*>(Xs + r * F8_BSS + 8 * tx));
+#pragma unroll
+        for (int j = 0; j < 8; ++j) v[i][j] = (x[j] - m8[j]) * w[j];
+      }
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+        *reinterpret_cast<float4*>(Pt + (8 * tx + j) * F8_BM + ((8 * ty + 4 * h) ^ (4 * tx))) =
+            make_float4(v[0][j], v[1][j], v[2][j], v[3][j]);
+    }
+    __syncthreads();
+
+    // out[8ty + i][n0 + 8tx + j] += sum over s in order of V[.][s] Be[s][.]
+#pragma unroll 8
+    for (int s = 0; s < F8_BSS; ++s) {
+      const int sw = (s >> 3) & 7;
+      const float* prow = Pt + s * F8_BM;
+      const float4 a0 = *reinterpret_cast<const float4*>(prow + ((8 * ty) ^ (4 * sw)));
+      const float4 a1 = *reinterpret_cast<const float4*>(prow + ((8 * ty + 4) ^ (4 * sw)));
+      const float4 b0 = *reinterpret_cast<const float4*>(Bs + s * BN + 8 * tx);
+      const float4 b1 = *reinterpret_cast<const float4*>(Bs + s * BN + 8 * tx + 4);
+      const float av[8] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
+      const float bv[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
+#pragma unroll
+      for (int i = 0; i < 8; ++i)
+#pragma unroll
+        for (int j = 0; j < 8; ++j) acc_o[i][j] = fmaf(av[i], bv[j], acc_o[i][j]);
+    }
+  }
+  cp_async_wait<0>();
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    if (8 * ty + i >= rows) break;
+    float* o = ch.out + (row0 + 8 * ty + i) * K + n0 + 8 * tx;
+    *reinterpret_cast<float4*>(o) = make_float4(acc_o[i][0], acc_o[i][1], acc_o[i][2], acc_o[i][3]);
+    *reinterpret_cast<float4*>(o + 4) =
+        make_float4(acc_o[i][4], acc_o[i][5], acc_o[i][6], acc_o[i][7]);
+  }
 }
 
 // ---------------------------------------------------------------- launch
-// K1's kernel configurations for W type WT, numbered as the C interface
-// numbers them: 0-2 bf16 operands, in the order the geometry query prefers
-// them (three 128-wide stages, three 64-wide, two 64-wide); 3-4 f32
-// operands (8x8 thread tiles, then the 8x4 ring for K > 128).
-constexpr int GRAM_CONFIGS = 5;
-constexpr int GRAM_FIRST_F32 = 3;
+// The kernel configurations of K1 (op 0) and K2 (op 1) for W type WT,
+// numbered as the C interface numbers them, bf16 operands first, each in
+// the order the geometry query prefers them.  K1: 0-2 bf16 (three 128-wide
+// stages, three 64-wide, two 64-wide), 3-4 f32 (8x8 thread tiles, then the
+// 8x4 ring for K > 128).  K2: 0-1 bf16 (three 64-wide stages, two), 2 f32.
+constexpr int OP_GRAM = 0, OP_RHS = 1;
+constexpr int CONFIGS[2] = {5, 3};
+constexpr int FIRST_F32[2] = {3, 2};
 
 struct GramConfig {
   const void* kernel;
@@ -801,21 +929,38 @@ GramConfig gram_config(int variant, int K) {
   }
 }
 
-// The first configuration for these operands that fits the current device
-// with its min_blocks resident an SM (the last one whatever fits): raises
-// its kernel's shared-memory limit there to the device's opt-in maximum
-// (the limit is the kernel's, whatever K it runs at), and writes geo =
-// {configuration, row tile, S tile, resident blocks an SM}.
 template <typename WT>
-cudaError_t gram_geometry(int K, bool op_f32, int* geo) {
+GramConfig rhs_config(int variant, int K) {
+  switch (variant) {
+    case 0: return {reinterpret_cast<const void*>(rhs_bf16_wgmma_kernel<WT, 64, 3>), RING_NT,
+                    RING_BM, 64, 2, rhs_bf16_wgmma_smem<WT, 64, 3>(K)};
+    case 1: return {reinterpret_cast<const void*>(rhs_bf16_wgmma_kernel<WT, 64, 2>), RING_NT,
+                    RING_BM, 64, 0, rhs_bf16_wgmma_smem<WT, 64, 2>(K)};
+    default: return {reinterpret_cast<const void*>(rhs_f32_tile8_kernel<WT>), F8_NT, F8_BM,
+                     F8_BSS, 0, rhs_f32_tile8_smem<WT>(K)};
+  }
+}
+
+template <typename WT>
+GramConfig config(int op, int variant, int K) {
+  return op == OP_GRAM ? gram_config<WT>(variant, K) : rhs_config<WT>(variant, K);
+}
+
+// The first configuration of `op` for these operands that fits the current
+// device with its min_blocks resident an SM (the last one whatever fits):
+// raises its kernel's shared-memory limit there to the device's opt-in
+// maximum (the limit is the kernel's, whatever K it runs at), and writes
+// geo = {configuration, row tile, S tile, resident blocks an SM}.
+template <typename WT>
+cudaError_t geometry(int op, int K, bool op_f32, int* geo) {
   int dev = 0, optin = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err == cudaSuccess)
     err = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
   if (err != cudaSuccess) return err;
-  const int last = op_f32 ? GRAM_CONFIGS - 1 : GRAM_FIRST_F32 - 1;
-  for (int v = op_f32 ? GRAM_FIRST_F32 : 0; v <= last; ++v) {
-    const GramConfig c = gram_config<WT>(v, K);
+  const int last = op_f32 ? CONFIGS[op] - 1 : FIRST_F32[op] - 1;
+  for (int v = op_f32 ? FIRST_F32[op] : 0; v <= last; ++v) {
+    const GramConfig c = config<WT>(op, v, K);
     if (c.smem > static_cast<size_t>(optin)) {
       if (v == last) return cudaErrorInvalidValue;
       continue;
@@ -836,61 +981,39 @@ cudaError_t gram_geometry(int K, bool op_f32, int* geo) {
   return cudaErrorInvalidValue;
 }
 
-// K1 into `part` (out itself for one chunk) with configuration `variant`,
-// whose shared-memory limit gram_geometry has set on this device.
+// K1 or K2 into `part` (out itself for one chunk) with configuration
+// `variant`, whose shared-memory limit geometry() has set on this device;
+// ptrs are the kernel's leading pointers in its order (three for K1).
 template <typename WT>
-cudaError_t gram(int variant, const void* Q, const void* Be, const void* W, float* part, int R,
-                 int S, int K, int chunk, cudaStream_t st) {
-  if (variant < 0 || variant >= GRAM_CONFIGS) return cudaErrorInvalidValue;
-  const GramConfig c = gram_config<WT>(variant, K);
+cudaError_t run(int op, int variant, const void* const (&ptrs)[4], float* part, int R, int S,
+                int K, int chunk, cudaStream_t st) {
+  if (variant < 0 || variant >= CONFIGS[op]) return cudaErrorInvalidValue;
+  const GramConfig c = config<WT>(op, variant, K);
   if (chunk % c.s_tile) return cudaErrorInvalidValue;
   const dim3 grid((R + c.row_tile - 1) / c.row_tile, K / BN, (S + chunk - 1) / chunk);
-  void* args[] = {&Q, &Be, &W, &part, &R, &S, &K, &chunk};
-  return cudaLaunchKernel(c.kernel, grid, dim3(c.threads), args, c.smem, st);
+  const void* p0 = ptrs[0];
+  const void* p1 = ptrs[1];
+  const void* p2 = ptrs[2];
+  const void* p3 = ptrs[3];
+  void* gram_args[] = {&p0, &p1, &p2, &part, &R, &S, &K, &chunk};
+  void* rhs_args[] = {&p0, &p1, &p2, &p3, &part, &R, &S, &K, &chunk};
+  return cudaLaunchKernel(c.kernel, grid, dim3(c.threads), op == OP_GRAM ? gram_args : rhs_args,
+                          c.smem, st);
 }
 
-template <typename WT>
-cudaError_t rhs(const void* X, const void* W, const void* mb, const void* Be, void* out, int R,
-                int S, int K, bool op_f32, cudaStream_t stream) {
-  const dim3 grid(R / BM, K / BN);
-  if (op_f32) {
-    const size_t smem = (static_cast<size_t>(BS) * (K + 1) + BM * LDT) * sizeof(float);
-    return launch(rhs_f32_kernel<WT>, grid, 256, smem, stream, static_cast<const uint16_t*>(X),
-                  static_cast<const WT*>(W), static_cast<const float*>(mb),
-                  static_cast<const float*>(Be), static_cast<float*>(out), S, K);
-  }
-  const size_t smem = static_cast<size_t>(BS) * (K + 8) * 2 + static_cast<size_t>(BM) * (BS + 8) * 2 +
-                      static_cast<size_t>(BM) * (BS + WPad<WT>::v) * sizeof(WT) + BS * sizeof(float);
-  return launch(rhs_bf16_kernel<WT>, grid, 128, smem, stream, static_cast<const uint16_t*>(X),
-                static_cast<const WT*>(W), static_cast<const float*>(mb),
-                static_cast<const uint16_t*>(Be), static_cast<float*>(out), S, K);
-}
-
-}  // namespace
-
-// C interface (bound with ctypes).  The caller guarantees R % 64 == 0,
-// S % 64 == 0, K % 64 == 0, K <= 256, contiguous row-major tensors on the
-// current device, and 16-byte-aligned base pointers.  w_type: 0 an int8
-// mask, 1 f32 weights, 2 bf16 weights.  Returns the launch's cudaError_t (0
-// on success); the kernels run asynchronously on `stream`.
-//
-// K1 runs the configuration `variant` that cmf_gram_geometry chose on this
-// device for the operands' type, W type and K, and splits S into
-// ceil(S / chunk) chunks, chunk a positive multiple of that configuration's
-// S tile; with more than one chunk, `part` holds chunks x R x K f32 partial
-// sums (scratch), else it is not read.
-extern "C" int cmf_masked_gram_matvec(const void* Q, const void* Be, const void* W, void* out,
-                                      void* part, int R, int S, int K, int chunk, int variant,
-                                      int w_type, void* stream) {
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
+// One wrapper call of K1 or K2: the kernel over ceil(S / chunk) chunks of S,
+// then, for more than one, sum_chunks_kernel adding the partial sums in
+// chunk order into out.
+int run_split(int op, const void* const (&ptrs)[4], void* out, void* part, int R, int S, int K,
+              int chunk, int variant, int w_type, cudaStream_t st) {
   if (chunk <= 0) return static_cast<int>(cudaErrorInvalidValue);
   const int chunks = (S + chunk - 1) / chunk;
   float* dst = static_cast<float*>(chunks > 1 ? part : out);
   cudaError_t err;
   switch (w_type) {
-    case 0: err = gram<int8_t>(variant, Q, Be, W, dst, R, S, K, chunk, st); break;
-    case 1: err = gram<float>(variant, Q, Be, W, dst, R, S, K, chunk, st); break;
-    case 2: err = gram<bf16_t>(variant, Q, Be, W, dst, R, S, K, chunk, st); break;
+    case 0: err = run<int8_t>(op, variant, ptrs, dst, R, S, K, chunk, st); break;
+    case 1: err = run<float>(op, variant, ptrs, dst, R, S, K, chunk, st); break;
+    case 2: err = run<bf16_t>(op, variant, ptrs, dst, R, S, K, chunk, st); break;
     default: err = cudaErrorInvalidValue;
   }
   if (err != cudaSuccess || chunks == 1) return static_cast<int>(err);
@@ -901,28 +1024,53 @@ extern "C" int cmf_masked_gram_matvec(const void* Q, const void* Be, const void*
   return static_cast<int>(cudaGetLastError());
 }
 
-// K1's configuration at width K for these operand and W types on the
-// current device (and its shared-memory limit set there): geo =
-// {configuration, row tile, S tile, resident blocks an SM}.
-extern "C" int cmf_gram_geometry(int K, int op_f32, int w_type, int* geo) {
+int geometry_of(int op, int K, int op_f32, int w_type, int* geo) {
   switch (w_type) {
-    case 0: return static_cast<int>(gram_geometry<int8_t>(K, op_f32, geo));
-    case 1: return static_cast<int>(gram_geometry<float>(K, op_f32, geo));
-    case 2: return static_cast<int>(gram_geometry<bf16_t>(K, op_f32, geo));
+    case 0: return static_cast<int>(geometry<int8_t>(op, K, op_f32, geo));
+    case 1: return static_cast<int>(geometry<float>(op, K, op_f32, geo));
+    case 2: return static_cast<int>(geometry<bf16_t>(op, K, op_f32, geo));
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
 
+}  // namespace
+
+// C interface (bound with ctypes).  The caller guarantees R % 64 == 0,
+// S % 64 == 0, K % 64 == 0, K <= 256, contiguous row-major tensors on the
+// current device, and 16-byte-aligned base pointers.  w_type: 0 an int8
+// mask, 1 f32 weights, 2 bf16 weights.  Returns the launch's cudaError_t (0
+// on success); the kernels run asynchronously on `stream`.
+//
+// K1 and K2 run the configuration `variant` that cmf_gram_geometry /
+// cmf_rhs_geometry chose on this device for the operands' type, W type and
+// K, and split S into ceil(S / chunk) chunks, chunk a positive multiple of
+// that configuration's S tile; with more than one chunk, `part` holds
+// chunks x R x K f32 partial sums (scratch), else it is not read.
+extern "C" int cmf_masked_gram_matvec(const void* Q, const void* Be, const void* W, void* out,
+                                      void* part, int R, int S, int K, int chunk, int variant,
+                                      int w_type, void* stream) {
+  const void* const ptrs[4] = {Q, Be, W, nullptr};
+  return run_split(OP_GRAM, ptrs, out, part, R, S, K, chunk, variant, w_type,
+                   static_cast<cudaStream_t>(stream));
+}
+
 extern "C" int cmf_masked_rhs(const void* X, const void* W, const void* mb, const void* Be,
-                              void* out, int R, int S, int K, int op_f32, int w_type,
-                              void* stream) {
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  switch (w_type) {
-    case 0: return static_cast<int>(rhs<int8_t>(X, W, mb, Be, out, R, S, K, op_f32, st));
-    case 1: return static_cast<int>(rhs<float>(X, W, mb, Be, out, R, S, K, op_f32, st));
-    case 2: return static_cast<int>(rhs<bf16_t>(X, W, mb, Be, out, R, S, K, op_f32, st));
-    default: return static_cast<int>(cudaErrorInvalidValue);
-  }
+                              void* out, void* part, int R, int S, int K, int chunk, int variant,
+                              int w_type, void* stream) {
+  const void* const ptrs[4] = {X, W, mb, Be};
+  return run_split(OP_RHS, ptrs, out, part, R, S, K, chunk, variant, w_type,
+                   static_cast<cudaStream_t>(stream));
+}
+
+// K1's (K2's) configuration at width K for these operand and W types on the
+// current device (and its shared-memory limit set there): geo =
+// {configuration, row tile, S tile, resident blocks an SM}.
+extern "C" int cmf_gram_geometry(int K, int op_f32, int w_type, int* geo) {
+  return geometry_of(OP_GRAM, K, op_f32, w_type, geo);
+}
+
+extern "C" int cmf_rhs_geometry(int K, int op_f32, int w_type, int* geo) {
+  return geometry_of(OP_RHS, K, op_f32, w_type, geo);
 }
 
 extern "C" const char* cmf_error_string(int err) {

@@ -137,9 +137,11 @@ class CMF(_BaseModel):
         self.is_fitted_ = False
         _validate_cmf_params(self)
 
-    def fit(self, X, U=None, I=None, U_bin=None, I_bin=None, W=None):
+    def fit(self, X, U=None, I=None, U_bin=None, I_bin=None, W=None,
+            mesh=None):
         """Fit to explicit-feedback data (reference:
-        upstream cmfrec/__init__.py:3066)."""
+        upstream cmfrec/__init__.py:3066).  ``mesh`` (multi-device fitting)
+        must be None until ROADMAP slice 7."""
         _validate_cmf_params(self)  # set_params may have changed options
         if self.method == "lbfgs" or U_bin is not None or I_bin is not None:
             raise drivers._unsupported("method='lbfgs' and binary side info",
@@ -163,7 +165,7 @@ class CMF(_BaseModel):
             self.scaling_biasB_ = wsum / max(n, 1)
 
         res = drivers.fit_explicit_als(
-            rows, cols, vals, m, n,
+            rows, cols, vals, m, n, mesh=mesh,
             k=self.k, lambda_=self.lambda_, l1_lambda=self.l1_lambda,
             niter=self.niter, use_cg=self.use_cg,
             max_cg_steps=self.max_cg_steps,

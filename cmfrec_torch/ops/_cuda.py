@@ -101,13 +101,15 @@ def lib() -> ctypes.CDLL:
     so.cmf_masked_gram_matvec.restype = I
     so.cmf_gram_geometry.argtypes = [I, I, I, ctypes.POINTER(I)]
     so.cmf_gram_geometry.restype = I
-    so.cmf_masked_rhs.argtypes = [P, P, P, P, P, I, I, I, I, I, P]
+    so.cmf_masked_rhs.argtypes = [P] * 6 + [I] * 6 + [P]
     so.cmf_masked_rhs.restype = I
+    so.cmf_rhs_geometry.argtypes = [I, I, I, ctypes.POINTER(I)]
+    so.cmf_rhs_geometry.restype = I
     so.cmf_k1_probe.argtypes = [P, P, P, P] + [I] * 7 + [P]
     so.cmf_k1_probe.restype = I
     so.cmf_w_stream.argtypes = [P, P] + [I] * 6 + [P]
     so.cmf_w_stream.restype = I
-    so.cmf_bucket_cg.argtypes = [P] * 10 + [I] * 5 + [P]
+    so.cmf_bucket_cg.argtypes = [P] * 10 + [I] * 9 + [P]
     so.cmf_bucket_cg.restype = I
     so.cmf_error_string.argtypes = [I]
     so.cmf_error_string.restype = ctypes.c_char_p

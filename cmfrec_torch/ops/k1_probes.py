@@ -134,6 +134,7 @@ def _check(name, Q, Be, W, warps=4, chunk=None):
 def _launch(name, Q, Be, W, K, device, warps=4, chunk=PART_CHUNK):
     R, S = Q.shape[0], Be.shape[0]
     parts = -(-S // chunk) if name == "part" else 1
+    mm._kernel_k(name, K)
     with torch.cuda.device(device):
         stream = mm._stream_for((Q, Be, W), device)
         out = torch.empty(R, parts, K, dtype=torch.float32, device=device)

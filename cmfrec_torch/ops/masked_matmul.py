@@ -15,15 +15,15 @@ int8 0/1 mask, bf16 or f32 weights; X the raw ratings in bf16; mb f32.  With
 bf16 operands T*W is formed in f32 and rounded to bf16 once, as on the TPU;
 a bf16 W meets T already rounded to bf16 (the TPU's bf16 multiply).  The
 f32 K1 and K2 widen any W to f32.
-R and S must be multiples of TILE (the engine pads to it), K a multiple of
-TILE up to MAX_K (the kernels' shared-memory tiles).
+R, S and K must be multiples of TILE (the engine pads to them); the
+kernels take K up to MAX_K (their shared-memory tiles), the twins any K.
 
-When K1's row blocks alone would not fill the card, its kernel splits S
-into chunks over the grid (:func:`split_chunk` picks the chunk from R, S,
+When a kernel's row blocks alone would not fill the card, K1 and K2 split
+S into chunks over the grid (:func:`split_chunk` picks the chunk from R, S,
 the card's SM count and the kernel's resident blocks a SM), each chunk
-writes partial [R, K] sums to scratch,
-and a second kernel adds them in chunk order: no atomics, so two calls on
-the same inputs give the same bits.
+writes partial [R, K] sums to scratch, and a second kernel adds them in
+chunk order: no atomics, so two calls on the same inputs give the same
+bits.
 """
 
 from __future__ import annotations
@@ -100,15 +100,23 @@ def _validate(name, R, S, Be, W, tensors):
     if R % TILE or S % TILE:
         raise ValueError(f"{name}: R={R} and S={S} must be multiples of "
                          f"{TILE} (pad the dense form)")
-    if K % TILE or not 0 < K <= MAX_K:
-        raise ValueError(f"{name}: K={K} must be a multiple of {TILE} "
-                         f"in [{TILE}, {MAX_K}]")
+    if K % TILE or K <= 0:
+        raise ValueError(f"{name}: K={K} must be a positive multiple of "
+                         f"{TILE}")
     devices = {t.device for t in tensors}
     if len(devices) != 1:
         raise ValueError(f"{name}: tensors on several devices {devices}")
     if not all(t.is_contiguous() for t in tensors):
         raise ValueError(f"{name}: tensors must be contiguous")
     return K, devices.pop()
+
+
+def _kernel_k(name, K):
+    """The kernels' own limit on K, checked off the CPU only (the twins
+    take any K)."""
+    if K > MAX_K:
+        raise ValueError(f"{name}: K={K} exceeds the CUDA kernels' {MAX_K} "
+                         "(the plain twin on the CPU takes any K)")
 
 
 def _stream_for(tensors, device):
@@ -122,8 +130,8 @@ def _stream_for(tensors, device):
 
 @lru_cache(maxsize=None)
 def split_chunk(R, S, sms, *, row_tile, s_tile, per_sm, col_blocks=1):
-    """K1's S chunk: a multiple of `s_tile` covering S in ceil(S / chunk)
-    chunks over the grid.
+    """K1's (and K2's) S chunk: a multiple of `s_tile` covering S in
+    ceil(S / chunk) chunks over the grid.
 
     The grid has R / row_tile row blocks (times `col_blocks`) per chunk,
     and the card runs sms * per_sm blocks at a time, so a grid of n chunks
@@ -148,31 +156,54 @@ def split_chunk(R, S, sms, *, row_tile, s_tile, per_sm, col_blocks=1):
 
 
 @lru_cache(maxsize=None)
-def _geometry(device_index, K, op_f32, w_type):
+def _geometry(op, device_index, K, op_f32, w_type):
     """(configuration, row tile, S tile, resident blocks a SM, SM count) of
-    K1's kernel on the card, as its launcher picks it (once: this also sets
-    the kernel's shared-memory limit on the device)."""
+    K1's (op "gram") or K2's (op "rhs") kernel on the card, as its launcher
+    picks it (once: this also sets the kernel's shared-memory limit on the
+    device)."""
     geo = (ctypes.c_int * 4)()
+    query = (_cuda.lib().cmf_gram_geometry if op == "gram"
+             else _cuda.lib().cmf_rhs_geometry)
     with torch.cuda.device(device_index):
-        err = _cuda.lib().cmf_gram_geometry(K, op_f32, w_type, geo)
-    _cuda.check(err, "masked_gram_matvec geometry")
+        err = query(K, op_f32, w_type, geo)
+    _cuda.check(err, f"{op} geometry")
     props = torch.cuda.get_device_properties(device_index)
     return geo[0], geo[1], geo[2], max(1, geo[3]), props.multi_processor_count
+
+
+def _plan(op, R, S, K, op_dtype, w_dtype, device):
+    device = torch.device(device)
+    index = (torch.cuda.current_device() if device.index is None
+             else device.index)
+    variant, row_tile, s_tile, per_sm, sms = _geometry(
+        op, index, K, int(op_dtype == torch.float32), W_TYPES[w_dtype])
+    chunk = split_chunk(R, S, sms, row_tile=row_tile, s_tile=s_tile,
+                        per_sm=per_sm, col_blocks=K // TILE)
+    return dict(variant=variant, row_tile=row_tile, s_tile=s_tile,
+                per_sm=per_sm, sms=sms, chunk=chunk, chunks=-(-S // chunk))
 
 
 def gram_plan(R, S, K, op_dtype, w_dtype, device):
     """K1's launch plan on a card: its kernel configuration and tiles,
     resident blocks a SM, the SM count and the S chunk :func:`split_chunk`
     picks."""
-    device = torch.device(device)
-    index = (torch.cuda.current_device() if device.index is None
-             else device.index)
-    variant, row_tile, s_tile, per_sm, sms = _geometry(
-        index, K, int(op_dtype == torch.float32), W_TYPES[w_dtype])
-    chunk = split_chunk(R, S, sms, row_tile=row_tile, s_tile=s_tile,
-                        per_sm=per_sm, col_blocks=K // TILE)
-    return dict(variant=variant, row_tile=row_tile, s_tile=s_tile,
-                per_sm=per_sm, sms=sms, chunk=chunk, chunks=-(-S // chunk))
+    return _plan("gram", R, S, K, op_dtype, w_dtype, device)
+
+
+def rhs_plan(R, S, K, op_dtype, w_dtype, device):
+    """K2's launch plan on a card, as :func:`gram_plan` gives K1's."""
+    return _plan("rhs", R, S, K, op_dtype, w_dtype, device)
+
+
+def _launch_split(fn, plan, ptrs, R, S, K, w_dtype, device, stream):
+    """One K1 or K2 call over plan["chunks"] chunks of S (partial sums in
+    scratch, added in chunk order by the same C call); returns out and
+    the call's CUDA error code."""
+    out = torch.empty(R, K, dtype=torch.float32, device=device)
+    part = (torch.empty(plan["chunks"], R, K, dtype=torch.float32,
+                        device=device) if plan["chunks"] > 1 else out)
+    return out, fn(*ptrs, out.data_ptr(), part.data_ptr(), R, S, K,
+                   plan["chunk"], plan["variant"], W_TYPES[w_dtype], stream)
 
 
 def masked_gram_matvec(Q, Be, W):
@@ -185,16 +216,14 @@ def masked_gram_matvec(Q, Be, W):
     K, device = _validate("masked_gram_matvec", R, S, Be, W, (Q, Be, W))
     if device.type == "cpu":
         return masked_gram_matvec_ref(Q, Be, W)
+    _kernel_k("masked_gram_matvec", K)
     with torch.cuda.device(device):
         stream = _stream_for((Q, Be, W), device)
         plan = gram_plan(R, S, K, Be.dtype, W.dtype, device)
-        out = torch.empty(R, K, dtype=torch.float32, device=device)
-        part = (torch.empty(plan["chunks"], R, K, dtype=torch.float32,
-                            device=device) if plan["chunks"] > 1 else out)
-        err = _cuda.lib().cmf_masked_gram_matvec(
-            Q.data_ptr(), Be.data_ptr(), W.data_ptr(), out.data_ptr(),
-            part.data_ptr(), R, S, K, plan["chunk"], plan["variant"],
-            W_TYPES[W.dtype], stream)
+        out, err = _launch_split(
+            _cuda.lib().cmf_masked_gram_matvec, plan,
+            (Q.data_ptr(), Be.data_ptr(), W.data_ptr()), R, S, K, W.dtype,
+            device, stream)
     _cuda.check(err, "masked_gram_matvec")
     masked_gram_matvec.launches += 1
     return out
@@ -218,13 +247,14 @@ def masked_rhs(X, W, mb, Be):
     K, device = _validate("masked_rhs", R, S, Be, W, (X, W, mb, Be))
     if device.type == "cpu":
         return masked_rhs_ref(X, W, mb, Be)
+    _kernel_k("masked_rhs", K)
     with torch.cuda.device(device):
         stream = _stream_for((X, W, mb, Be), device)
-        out = torch.empty(R, K, dtype=torch.float32, device=device)
-        err = _cuda.lib().cmf_masked_rhs(
-            X.data_ptr(), W.data_ptr(), mb.data_ptr(), Be.data_ptr(),
-            out.data_ptr(), R, S, K, int(Be.dtype == torch.float32),
-            W_TYPES[W.dtype], stream)
+        plan = rhs_plan(R, S, K, Be.dtype, W.dtype, device)
+        out, err = _launch_split(
+            _cuda.lib().cmf_masked_rhs, plan,
+            (X.data_ptr(), W.data_ptr(), mb.data_ptr(), Be.data_ptr()), R, S,
+            K, W.dtype, device, stream)
     _cuda.check(err, "masked_rhs")
     masked_rhs.launches += 1
     return out

@@ -13,18 +13,26 @@ gathers the opposing rows itself and keeps each row's CG state on chip
 across the rhs build and every step; on a CPU tensor it runs its plain
 twin :func:`bucket_cg_ref`.  There is no fallback from one to the other.
 
+The kernel serves a bucket in one of three classes, which :func:`k3_plan`
+picks from (R, L, K): narrow (a warp a row, 8 rows a block), middle (a
+block a row) and wide (a cluster of 2-8 blocks a row, each over a range of
+the row's slots), each staging a row's gathered slots in shared memory
+where they fit the budget of two blocks an SM.
+
 Operands: mat [S, K] bf16 (CG bulk iterations on a card) or f32; idx
 [R, L] int32 with values in [0, S) (not checked: the kernel would read out
 of bounds); cw/cv [R, L] f32, zero on padding slots; gfix [K, K] f32
 symmetric; lam_row and r0 optional [R, K] f32; a0 [R, K] f32; length
 [R] int32, the real slots of each row (slots beyond it must carry
-cw = cv = 0: the kernel skips them, which is exact).  K is a multiple of 8
-up to 256.  With a bf16 ``mat`` the rounding points are those of
-rowsolve._part_matvec: v, t = (m . v) * cw and cv are rounded to bf16,
-products are exact and sums f32.
+cw = cv = 0: the kernel skips them, which is exact).  K is a multiple of 8,
+up to MAX_K on a card (the twin takes any).  With a bf16 ``mat`` the
+rounding points are those of rowsolve._part_matvec: v, t = (m . v) * cw and
+cv are rounded to bf16, products are exact and sums f32.
 """
 
 from __future__ import annotations
+
+from functools import lru_cache
 
 import torch
 
@@ -33,6 +41,78 @@ from .rowsolve import _part_matvec, _round, _widen, cg_iterations, gather_rows
 
 MAX_K = 256
 _MAT_DTYPES = (torch.bfloat16, torch.float32)
+# k3_plan: rows up to this width take a warp each; the shared memory a
+# block may take (two blocks an SM); the largest portable cluster
+NARROW_L = 128
+BLOCK_SMEM = 104 * 1024
+MAX_CLUSTER = 8
+# gfix is staged in shared memory up to this K (csrc/sparse_cg.cu)
+GFIX_SMEM_MAX_K = 96
+
+
+def _align16(x):
+    return -(-x // 16) * 16
+
+
+def smem_bytes(K, esz, teams, team_warps, stage_slots):
+    """Shared memory of one K3 block (the layout of csrc/sparse_cg.cu):
+    gfix, each team's CG vectors and partial sums, each team's stage."""
+    g = K * K if K <= GFIX_SMEM_MAX_K else 0
+    base = _align16((g + teams * ((8 + 2 * team_warps) * K + 32)) * 4)
+    return base + teams * _align16(stage_slots * (K * esz + 4))
+
+
+@lru_cache(maxsize=None)
+def k3_plan(R, L, K, esz, sms):
+    """K3's launch plan for a bucket of R rows of width L, K coordinates of
+    `esz` bytes, on a card of `sms` SMs: the class, threads a block, whether
+    a warp takes a row (8 rows a block), the cluster size (blocks a row),
+    the slots a row (or a cluster rank's range) may stage, and the block's
+    shared memory.
+
+    narrow (L <= NARROW_L): a warp a row.  Otherwise a block a row, in
+    clusters of 2-8 blocks while the rows alone would not give two blocks an
+    SM (and each rank keeps >= 256 slots), or while a rank's range would not
+    fit the stage budget (up to 8 blocks an SM's worth of the grid).  The
+    stage takes what BLOCK_SMEM leaves; a row whose range is longer
+    re-gathers its slots on every pass."""
+    slot = K * esz + 4
+    if L <= NARROW_L:
+        teams, tw, cluster, per = 8, 1, 1, L
+    else:
+        teams, cluster = 1, 1
+        while (cluster < MAX_CLUSTER and R * cluster < 2 * sms
+               and -(-L // (2 * cluster)) >= 256):
+            cluster *= 2
+        cap = (BLOCK_SMEM - smem_bytes(K, esz, 1, 8, 0)) // slot
+        while (cluster < MAX_CLUSTER and -(-L // cluster) > cap
+               and R * cluster < 8 * sms):
+            cluster *= 2
+        per = -(-L // cluster)
+        tw = 8 if per >= 512 else 4
+    cap = max(0, (BLOCK_SMEM - smem_bytes(K, esz, teams, tw, 0))
+              // (teams * slot))
+    stage = min(per, cap)
+    while stage and smem_bytes(K, esz, teams, tw, stage) > BLOCK_SMEM:
+        stage -= 1
+    cls = "narrow" if teams > 1 else ("wide" if cluster > 1 else "middle")
+    return dict(cls=cls, threads=32 * tw * teams, warp_rows=teams > 1,
+                cluster=cluster, stage_slots=stage,
+                smem=smem_bytes(K, esz, teams, tw, stage))
+
+
+@lru_cache(maxsize=None)
+def _sms(device_index):
+    return torch.cuda.get_device_properties(device_index).multi_processor_count
+
+
+def plan_for(R, L, K, mat_dtype, device):
+    """:func:`k3_plan` on `device`'s SM count."""
+    device = torch.device(device)
+    index = (torch.cuda.current_device() if device.index is None
+             else device.index)
+    esz = 2 if mat_dtype == torch.bfloat16 else 4
+    return k3_plan(R, L, K, esz, _sms(index))
 
 
 def bucket_cg_ref(mat, idx, cw, cv, gfix, lam_row, r0, a0, *, n_steps):
@@ -56,9 +136,9 @@ def _validate(mat, idx, cw, cv, gfix, lam_row, r0, a0, length, n_steps):
         raise ValueError("bucket_cg: mat must be a 2-D bfloat16 or float32 "
                          f"tensor, got {mat.dtype}{tuple(mat.shape)}")
     K = mat.shape[1]
-    if K % 8 or not 0 < K <= MAX_K:
-        raise ValueError(f"bucket_cg: K={K} must be a multiple of 8 in "
-                         f"[8, {MAX_K}]")
+    if K % 8 or K <= 0:
+        raise ValueError(f"bucket_cg: K={K} must be a positive multiple "
+                         "of 8")
     if idx.dtype != torch.int32 or idx.dim() != 2:
         raise ValueError("bucket_cg: idx must be a 2-D int32 tensor, got "
                          f"{idx.dtype}{tuple(idx.shape)}")
@@ -97,6 +177,9 @@ def bucket_cg(mat, idx, cw, cv, gfix, lam_row, r0, a0, *, n_steps, length):
     if device.type == "cpu":
         return bucket_cg_ref(mat, idx, cw, cv, gfix, lam_row, r0, a0,
                              n_steps=n_steps)
+    if K > MAX_K:
+        raise ValueError(f"bucket_cg: K={K} exceeds the CUDA kernel's "
+                         f"{MAX_K} (the plain twin on the CPU takes any K)")
     if device.type != "cuda":
         raise ValueError(f"bucket_cg: no kernel for device {device}")
     if any(t.data_ptr() % 16 for t in tensors):
@@ -107,12 +190,15 @@ def bucket_cg(mat, idx, cw, cv, gfix, lam_row, r0, a0, *, n_steps, length):
 
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
+        plan = plan_for(R, L, K, mat.dtype, device)
         out = torch.empty(R, K, dtype=torch.float32, device=device)
         err = _cuda.lib().cmf_bucket_cg(
             mat.data_ptr(), idx.data_ptr(), cw.data_ptr(), cv.data_ptr(),
             gfix.data_ptr(), ptr(lam_row), ptr(r0), a0.data_ptr(),
             length.data_ptr(), out.data_ptr(), R, L, K, int(n_steps),
-            int(mat.dtype == torch.float32), stream)
+            int(mat.dtype == torch.float32), plan["threads"],
+            int(plan["warp_rows"]), plan["cluster"], plan["stage_slots"],
+            stream)
     _cuda.check(err, "bucket_cg")
     bucket_cg.launches += 1
     return out

@@ -20,12 +20,12 @@ from cmfrec_tpu.solvers import drivers as jax_drivers
 M, N, K = 60, 40, 4
 
 
-def _data(seed=2):
+def _data(seed=2, k=K):
     rng = np.random.default_rng(seed)
     pairs = np.unique(rng.integers(0, M * N, 700))
     rows, cols = pairs // N, pairs % N
-    init = {"A": 0.3 * rng.normal(size=(M, K)),
-            "B": 0.3 * rng.normal(size=(N, K)),
+    init = {"A": 0.3 * rng.normal(size=(M, k)),
+            "B": 0.3 * rng.normal(size=(N, k)),
             "biasA": 0.1 * rng.normal(size=M),
             "biasB": 0.1 * rng.normal(size=N)}
     init = {key: v.astype(np.float32) for key, v in init.items()}
@@ -92,6 +92,30 @@ def test_explicit_sparse_matches_jax(kw, tol):
                                   **common)
     _compare(rj, rt, ("A", "B", "biasA", "biasB"), tol)
     assert rt["glob_mean"] == pytest.approx(rj["glob_mean"])
+
+
+@pytest.mark.parametrize("fit,k", [("explicit", 300), ("implicit", 260)])
+def test_k_beyond_the_kernels_matches_jax(fit, k):
+    """Fault P1: k=300 (explicit, K=304) and k=260 (implicit, K=264) exceed
+    the card kernels' 256; the CPU twins take any K.  Two CG iterations
+    from shared factors; tolerance as above."""
+    rng, rows, cols, init = _data(k=k)
+    if fit == "implicit":
+        vals = rng.uniform(1, 10, rows.size)
+        init = {key: init[key] for key in ("A", "B")}
+        common = dict(k=k, lambda_=0.9, alpha=2.0, niter=2, seed=3)
+        call, jcall = drivers.fit_implicit_als, jax_drivers.fit_implicit_als
+        keys = ("A", "B")
+    else:
+        vals = np.round(2 * (3 + rng.normal(size=rows.size))) / 2
+        common = dict(k=k, lambda_=0.5, niter=2, engine="sparse", seed=3)
+        call, jcall = drivers.fit_explicit_als, jax_drivers.fit_explicit_als
+        keys = ("A", "B", "biasA", "biasB")
+    rj = jcall(rows, cols, vals, M, N, init=init, dtype=np.float32, **common)
+    rt = call(rows, cols, vals, M, N, device="cpu",
+              init=init_from_arrays(init, "cpu"), **common)
+    assert rt["A"].shape == (M, k)
+    _compare(rj, rt, keys, 5e-5)
 
 
 def test_implicit_checkpoint_resume(tmp_path):

@@ -26,7 +26,7 @@ M, N, K = 64, 48, 4
 TOL_F32, TOL_BF16 = 5e-5, 5e-4
 
 
-def _data(seed=5, weighted=False):
+def _data(seed=5, weighted=False, k=K):
     rng = np.random.default_rng(seed)
     pairs = np.unique(rng.integers(0, M * N, 1400))  # the dense scatter dedupes
     ro, co = pairs // N, pairs % N
@@ -36,7 +36,7 @@ def _data(seed=5, weighted=False):
                          + 0.3 * rng.normal(size=ro.size))) / 2
     wts = (np.round(rng.uniform(0.5, 2.0, size=ro.size) * 8) / 8
            if weighted else None)
-    init = dict(A=0.3 * rng.normal(size=(M, K)), B=0.3 * rng.normal(size=(N, K)),
+    init = dict(A=0.3 * rng.normal(size=(M, k)), B=0.3 * rng.normal(size=(N, k)),
                 biasA=0.1 * rng.normal(size=M), biasB=0.1 * rng.normal(size=N))
     init = {key: v.astype(np.float32) for key, v in init.items()}
     return ro, co, vals, wts, init
@@ -100,6 +100,18 @@ def test_dense_fit_matches_pallas(case, kw, weighted, tol):
     rj, rt = _fit_both(ro, co, vals, wts, init, **kw)
     assert rt["A"].device.type == "cpu" and rt["A"].dtype == torch.float32
     _assert_close(rj, rt, ro, co, tol)
+
+
+def test_k_beyond_the_kernels_matches_pallas():
+    """Fault P1: k=300 pads to K=320, past the card kernels' 256; the CPU
+    twins take any K.  One f32 iteration (the polish) from shared factors.
+    16 CG steps on 301-wide systems carry the f32 summation order ~10x as
+    far as at k=4 (4e-5 measured on the factors, 1.6e-4 on predictions,
+    which sum 300 products), hence TOL_BF16."""
+    ro, co, vals, _, init = _data(k=300)
+    rj, rt = _fit_both(ro, co, vals, None, init, niter=1, k=300)
+    assert rt["A"].shape == (M, 300)
+    _assert_close(rj, rt, ro, co, TOL_BF16)
 
 
 def test_device_bias_init_matches_pallas():

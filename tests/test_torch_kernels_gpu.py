@@ -97,6 +97,42 @@ def test_k1_split_s_matches_twin(cuda, monkeypatch, op, wdt, K):
         assert torch.equal(out, again)
 
 
+@pytest.mark.parametrize("K", [64, 128, 192, 256])
+@pytest.mark.parametrize("wdt", [torch.int8, torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("op", [torch.bfloat16, torch.float32])
+def test_k2_split_s_matches_twin(cuda, monkeypatch, op, wdt, K):
+    """K2 as K1's split test: 192 rows (a ragged 128-row block), S under one
+    chunk, two chunks and a ragged third (the chunk forced), and S as the
+    planner splits it; each twice, bitwise equal."""
+    R = 192
+    s_tile = mm.rhs_plan(R, 64, K, op, wdt, cuda)["s_tile"]
+    chunk = 2 * s_tile
+    planner = mm.split_chunk
+    for S, ch in ((64, 2 * chunk), (2 * chunk + 64, chunk),
+                  (2 * chunk + 64, None)):
+        monkeypatch.setattr(mm, "split_chunk", planner if ch is None else
+                            lambda *a, **kw: ch)
+        chunks = mm.rhs_plan(R, S, K, op, wdt, cuda)["chunks"]
+        assert ch is None or chunks == -(-S // ch)
+        _, Be, W, X, mb = _inputs(cuda, R, S, K, op, wdt, seed=S)
+        before = mm.masked_rhs.launches
+        out = mm.masked_rhs(X, W, mb, Be)
+        again = mm.masked_rhs(X, W, mb, Be)
+        torch.cuda.synchronize()
+        assert mm.masked_rhs.launches == before + 2
+        assert torch.isfinite(out).all()
+        assert _rel(out, mm.masked_rhs_ref(X, W, mb, Be)) <= REL_TOL[op]
+        assert torch.equal(out, again)
+
+
+def test_k2_splits_the_flagship_b_side(cuda):
+    """The flagship fit's B side (84 row blocks of 128 for 132 SMs) is split
+    into several chunks in both operand types."""
+    for op in (torch.bfloat16, torch.float32):
+        plan = mm.rhs_plan(10688, 69888, 64, op, torch.int8, cuda)
+        assert plan["chunks"] > 1 and plan["per_sm"] >= 1
+
+
 def test_k1_bf16_ring_keeps_two_blocks_an_sm(cuda):
     """The flagship's bf16 K1 (K=64, int8 mask) gets the three-stage ring
     of 128-wide tiles with two blocks resident an SM."""
@@ -232,3 +268,42 @@ def test_bucket_cg_matches_twin(cuda, K, op, explicit, L):
     full = torch.full_like(length, L)
     assert _rel(sparse_cg.bucket_cg(*args, n_steps=3, length=full),
                 ref) <= K3_REL_TOL[op]
+
+
+# K3's bucket classes at their boundaries (k3_plan at K=56 on a card of 132
+# SMs): (R, L, K, the class expected)
+K3_CLASSES = [
+    (8 * 37 + 3, 128, 56, "narrow"),   # widest narrow rows; a ragged block
+    (300, 1, 56, "narrow"),            # one slot a row
+    (600, 129, 56, "middle"),          # narrowest middle rows
+    (600, 762, 56, "middle"),          # the stage budget's last slot
+    (600, 763, 56, "wide"),            # one slot past it: two blocks a row
+    (3, 31600, 56, "wide"),            # a few LastFM-widest rows, 8 blocks
+    (40, 3000, 256, "wide"),           # K=256: gfix read through L1
+]
+
+
+@pytest.mark.parametrize("explicit", [False, True])
+@pytest.mark.parametrize("op", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("case", K3_CLASSES, ids=lambda c: f"{c[3]}-{c[0]}x{c[1]}-K{c[2]}")
+def test_bucket_cg_classes(cuda, case, op, explicit):
+    """Each bucket class against the twin, with rows of zero length; two
+    calls give the same bits (no atomics, clusters add in rank order)."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    R, L, K, cls = case
+    args, length = _bucket(cuda, R, L, min(3 * L + 50, 200000), K, op, explicit,
+                           seed=L)
+    length[::7] = 0  # rows of zero length carry no coefficients
+    args[2][::7] = 0.0
+    args[3][::7] = 0.0
+    if op == torch.bfloat16:
+        assert sparse_cg.plan_for(R, L, K, op, cuda)["cls"] == cls
+    before = sparse_cg.bucket_cg.launches
+    out = sparse_cg.bucket_cg(*args, n_steps=3, length=length)
+    again = sparse_cg.bucket_cg(*args, n_steps=3, length=length)
+    torch.cuda.synchronize()
+    assert sparse_cg.bucket_cg.launches == before + 2
+    ref = sparse_cg.bucket_cg_ref(*args, n_steps=3)
+    assert torch.isfinite(out).all()
+    assert _rel(out, ref) <= K3_REL_TOL[op]
+    assert torch.equal(out, again)

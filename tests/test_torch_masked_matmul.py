@@ -30,7 +30,7 @@ def _rel_err(out, ref):
     return np.abs(out - ref).max() / np.abs(ref).max()
 
 
-def _operands(seed, R, S, op, w):
+def _operands(seed, R, S, op, w, K=K):
     """Numpy inputs, the torch tensors and the JAX arrays built from them."""
     rng = np.random.default_rng(seed)
     Q = rng.normal(size=(R, K)).astype(np.float32)
@@ -89,8 +89,28 @@ def test_masked_rhs_twin_matches_pallas(op, w, S):
     assert tmm.masked_rhs.launches == 0
 
 
-def _t(shape, dtype):
-    return torch.zeros(shape, dtype=dtype)
+@pytest.mark.parametrize("op", ["bf16", "f32"])
+def test_twins_take_k_beyond_the_kernels(op):
+    """Fault P1: the twins at K=320 (k=300 in the dense engine), past the
+    card kernels' 256, against the Pallas kernels; tolerances as above."""
+    R, S, K320 = jmm.BLOCK_R, 1024, 320
+    Qt, Bet, Wt, Qj, Bej, Wj, _, _, _, rng = _operands(3, R, S, op, "int8",
+                                                       K=K320)
+    out = tmm.masked_gram_matvec(Qt, Bet, Wt)
+    assert tuple(out.shape) == (R, K320)
+    ref_j = jmm.masked_gram_matvec(Qj, Bej, Wj, block_s=1024, interpret=True)
+    assert _rel_err(out.numpy(), ref_j) <= TOL_JAX[op]
+    X = (np.round(rng.uniform(1, 10, size=(R, S))) / 2).astype(np.float32)
+    mb = rng.normal(size=S).astype(np.float32)
+    out = tmm.masked_rhs(torch.from_numpy(X).to(torch.bfloat16), Wt,
+                         torch.from_numpy(mb), Bet)
+    ref_j = jmm.masked_rhs(jnp.asarray(X, jnp.bfloat16), Wj, jnp.asarray(mb),
+                           Bej, block_s=1024, interpret=True)
+    assert _rel_err(out.numpy(), ref_j) <= TOL_JAX[op]
+
+
+def _t(shape, dtype, device="cpu"):
+    return torch.zeros(shape, dtype=dtype, device=device)
 
 
 bf, f32, i8 = torch.bfloat16, torch.float32, torch.int8
@@ -105,7 +125,9 @@ bf, f32, i8 = torch.bfloat16, torch.float32, torch.int8
     ((_t((96, 64), bf), _t((64, 64), bf), _t((96, 64), i8)), "multiples"),
     ((_t((64, 64), bf), _t((100, 64), bf), _t((64, 100), i8)), "multiples"),
     ((_t((64, 32), bf), _t((64, 32), bf), _t((64, 64), i8)), "K=32"),
-    ((_t((64, 320), f32), _t((64, 320), f32), _t((64, 64), i8)), "K=320"),
+    # off the CPU (here a tensor without data), K past the kernels' 256
+    ((_t((64, 320), f32, "meta"), _t((64, 320), f32, "meta"),
+      _t((64, 64), i8, "meta")), "K=320"),
     ((_t((64, 64), bf), _t((64, 64), bf), _t((64, 128), i8)), "W has shape"),
     ((_t((64, 64), bf), _t((64, 64), bf), _t((64, 128), i8)[:, ::2]),
      "W has shape|contiguous"),
@@ -188,3 +210,12 @@ def test_split_chunk_splits_a_part_filled_last_wave():
     # 8.27 waves, which lose less to the last one
     assert tmm.split_chunk(69888, 10688, 132, row_tile=128, s_tile=128,
                            per_sm=1) == 42 * 128
+
+
+def test_split_chunk_splits_k2_at_the_flagship_b_side():
+    # K2's bf16 configuration: 128-row blocks, 64-wide S tiles, two an SM;
+    # the B side's 84 row blocks split into chunks that fill the card
+    R, S = 10688, 69888
+    chunk = tmm.split_chunk(R, S, 132, row_tile=128, s_tile=64, per_sm=2)
+    chunks = len(_chunks(S, chunk))
+    assert chunk % 64 == 0 and chunks * 84 >= tmm.WAVES * 2 * 132

@@ -130,20 +130,21 @@ def test_bf16_twin_matches_solve_cg_mxu_bf16(rng, implicit):
                                atol=1e-4 * np.abs(want).max())
 
 
-def _args(K=8, R=4, L=6, S=10, mat_dtype=torch.float32):
-    return dict(mat=torch.zeros(S, K, dtype=mat_dtype),
-                idx=torch.zeros(R, L, dtype=torch.int32),
-                cw=torch.zeros(R, L), cv=torch.zeros(R, L),
-                gfix=torch.eye(K), lam_row=None, r0=None,
-                a0=torch.zeros(R, K), length=torch.zeros(R, dtype=torch.int32))
+def _args(K=8, R=4, L=6, S=10, mat_dtype=torch.float32, device="cpu"):
+    def z(*shape, dtype=torch.float32):
+        return torch.zeros(shape, dtype=dtype, device=device)
+
+    return dict(mat=z(S, K, dtype=mat_dtype), idx=z(R, L, dtype=torch.int32),
+                cw=z(R, L), cv=z(R, L), gfix=z(K, K), lam_row=None, r0=None,
+                a0=z(R, K), length=z(R, dtype=torch.int32))
 
 
 @pytest.mark.parametrize("change,match", [
     (dict(mat=torch.zeros(10, 8, dtype=torch.float64)), "mat must be"),
     (dict(mat=torch.zeros(10, 12), gfix=torch.eye(12),
           a0=torch.zeros(4, 12)), "multiple of 8"),
-    (dict(mat=torch.zeros(10, 264), gfix=torch.eye(264),
-          a0=torch.zeros(4, 264)), "multiple of 8"),
+    # off the CPU (here tensors without data), K past the kernel's 256
+    (_args(K=264, device="meta"), "K=264 exceeds"),
     (dict(idx=torch.zeros(4, 6, dtype=torch.int64)), "idx must be"),
     (dict(cw=torch.zeros(4, 5)), "cw must be"),
     (dict(cv=torch.zeros(4, 6, dtype=torch.bfloat16)), "cv must be"),
@@ -167,9 +168,75 @@ def test_wrapper_rejects_what_the_kernel_does_not_take(change, match):
     assert sparse_cg.bucket_cg.launches == before
 
 
+@pytest.mark.parametrize("implicit", [False, True])
+def test_twin_takes_k_beyond_the_kernel(rng, implicit):
+    """Fault P1: the twin at K=264 (k=260 implicit), past the card kernel's
+    256, against the Pallas kernel in interpret mode.  Each dot sums 264
+    products of rows with |m|^2 ~ 264: atol 1e-5 (1.3e-6 measured)."""
+    mat, idx, cw, cv, length = make_bucket(rng, R=16, L=8, S=40, K=264,
+                                           implicit=implicit)
+    K, R = mat.shape[1], idx.shape[0]
+    a0 = (0.05 * rng.normal(size=(R, K))).astype(np.float32)
+    gfix = (mat.T @ mat if implicit else np.zeros((K, K), np.float32)
+            ) + np.diag(np.full(K, 1.2, np.float32))
+    ms = jnp.take(jnp.asarray(mat), jnp.asarray(idx), axis=0)
+    pallas = np.asarray(jax_sparse_cg.bucket_cg(
+        ms, jnp.asarray(cw), jnp.asarray(cv), jnp.asarray(gfix), None, None,
+        jnp.asarray(a0), n_steps=3, interpret=True))
+    got = _twin(mat, idx, cw, cv, gfix, None, None, a0, 3, length)
+    np.testing.assert_allclose(got, pallas, rtol=1e-5, atol=1e-5)
+
+
 def test_cpu_runs_the_twin_and_counts_no_launch():
     before = sparse_cg.bucket_cg.launches
     for dt in (torch.float32, torch.bfloat16):
         out = sparse_cg.bucket_cg(**_args(mat_dtype=dt), n_steps=2)
         assert out.dtype == torch.float32 and out.shape == (4, 8)
     assert sparse_cg.bucket_cg.launches == before == 0
+
+
+# K3's launch planner (pure Python; the card supplies only its SM count)
+LASTFM_BUCKETS = [  # (R, L) of the LastFM-shaped layout, both sides
+    (40, 3400), (400, 912), (1496, 376), (3752, 216), (7688, 144),
+    (13360, 104), (21304, 80), (20208, 64), (34392, 56), (61784, 48),
+    (99928, 40), (95040, 32), (40, 31592), (88, 14048), (184, 6632),
+    (392, 3240), (744, 1640), (1536, 904), (3032, 504), (6672, 296),
+    (12680, 176), (26760, 112), (43672, 72), (64392, 48)]
+
+
+@pytest.mark.parametrize("K,esz", [(8, 2), (56, 2), (56, 4), (136, 2),
+                                   (256, 4)])
+@pytest.mark.parametrize("R,L", LASTFM_BUCKETS + [(1, 1), (3, 31600)])
+def test_k3_plan_fits_a_block_and_covers_the_row(R, L, K, esz):
+    plan = sparse_cg.k3_plan(R, L, K, esz, 132)
+    assert plan["smem"] <= sparse_cg.BLOCK_SMEM
+    assert plan["smem"] == sparse_cg.smem_bytes(
+        K, esz, 8 if plan["warp_rows"] else 1,
+        1 if plan["warp_rows"] else plan["threads"] // 32, plan["stage_slots"])
+    assert 1 <= plan["cluster"] <= sparse_cg.MAX_CLUSTER
+    assert plan["threads"] in (128, 256)
+    assert 0 <= plan["stage_slots"] <= -(-L // plan["cluster"])
+    if L <= sparse_cg.NARROW_L:
+        assert plan["cls"] == "narrow" and plan["warp_rows"]
+        assert plan["cluster"] == 1 and plan["threads"] == 256
+    else:
+        assert plan["cls"] == ("wide" if plan["cluster"] > 1 else "middle")
+
+
+def test_k3_plan_classes_at_the_lastfm_shape():
+    """K=56 bf16 on 132 SMs: the narrow buckets take a warp a row and stage
+    whole rows; the few-row wide buckets take clusters that fill the card;
+    the rest a block a row."""
+    plans = {(R, L): sparse_cg.k3_plan(R, L, 56, 2, 132)
+             for R, L in LASTFM_BUCKETS}
+    assert plans[95040, 32]["cls"] == "narrow"
+    assert plans[95040, 32]["stage_slots"] == 32
+    assert plans[40, 31592]["cls"] == "wide"
+    assert plans[40, 31592]["cluster"] == sparse_cg.MAX_CLUSTER
+    assert plans[40, 3400]["cluster"] * 40 >= 2 * 132
+    assert plans[12680, 176]["cls"] == "middle"
+    assert plans[12680, 176]["stage_slots"] == 176
+    # a middle row one slot past the stage budget moves to two blocks a row
+    last = plans[1536, 904]["stage_slots"]
+    assert sparse_cg.k3_plan(600, last, 56, 2, 132)["cls"] == "middle"
+    assert sparse_cg.k3_plan(600, last + 1, 56, 2, 132)["cluster"] == 2
