@@ -37,10 +37,30 @@ Phases, each printing its own line(s):
   9. K1's probes (ops/k1_probes.py, the port of the TPU probes P1-P3):
      each against its plain version at both sides of phase 3's W, with
      errors and CUDA-event times; then the probe sweep
-     (scripts/sweep_k1_probes_torch.py), with its launch counts.
+     (scripts/sweep_k1_probes_torch.py), with its launch counts;
+ 10. the collective fits on phase 4's data and split, through CMF: (a) the
+     flagship configuration with implicit features (w_implicit 0.5; the C
+     reference's "CG + implicit features" row, bench.py:217-228), held-out
+     RMSE and launches K1 146 / K2 30; (b) the same with use_cg=False
+     (exact mode), RMSE and K2 30, K1 printed (its all-frozen exit makes it
+     depend on the data);
+ 11. the flagship configuration with dense side info U [M, 32] and I
+     [N, 32] from a seeded generator: RMSE, C_/D_ [32, 50] finite, the
+     column means stored, launches K1 146 / K2 30;
+ 12. the implicit WRMF configuration of phase 7 on implicit pairs drawn
+     with preference structure at ML10M's shape and number of pairs
+     (make_preference_data, 20% held out): the dense engine
+     (fit_implicit_als(engine="dense"), launches K1 120 / K2 30 / K3 0)
+     against CMF_implicit, whose engine="auto" must keep to the bucketed
+     engine (K3 only): P@10 of both on 2,000 held-out users, above the
+     popularity ranking's and within 0.01 of each other;
+ 13. the collective implicit fit: phase 12's configuration with phase 11's
+     U through CMF_implicit, launches K1 120 / K2 30, C_ finite, P@10 above
+     popularity and within 0.01 of phase 12's dense fit.
 
 Each fit phase, and phase 9's sweep, sets every kernel's launch count to 0
-just before it and reads the counts just after.  The line before the last is
+just before it and reads the counts just after; phases 10-13 print each
+fit's seconds and peak device memory.  The line before the last is
 {"kernels": [...]}; the last line is {"ok": true, "device": {...}}.  Any
 failure raises and exits non-zero; so does a machine without a CUDA
 device, or a directory without the package.
@@ -110,6 +130,29 @@ CUDA_KERNELS = {
 PTXAS_KERNELS = tuple(dict.fromkeys(k for ks in CUDA_KERNELS.values()
                                     for k in ks))
 PROBE_SWEEP_REPS = 2
+
+# phases 10-13 (on phase 4's data and split)
+COLLECTIVE_FIT = dict(FIT, add_implicit_features=True, w_implicit=0.5)
+# the JAX package's held-out RMSE of the "CG + implicit features" and
+# "Cholesky + implicit features" rows on the same data (BENCH_r05.json,
+# cg_implicit_feat_rmse and chol_implicit_feat_rmse) plus 0.01
+RMSE_BOUND_CG_IMPLICIT_FEAT = 0.73073 + 0.01
+RMSE_BOUND_CHOL_IMPLICIT_FEAT = 0.7308 + 0.01
+SIDE_P = 32  # columns of phase 11's U and I
+# the dense implicit engine: 15 iterations x 2 half-steps x (1 + 3 CG steps)
+EXPECTED_DENSE_IMPLICIT = {"masked_gram_matvec": 15 * 2 * 4,
+                           "masked_rhs": 15 * 2, "bucket_cg": 0}
+RANK_USERS = 2000  # held-out users of phases 12-13
+# |P@10 - phase 12's dense P@10| of phase 12's bucketed fit and phase 13's
+P10_ENGINE_TOL = 0.01
+# phases 12-13's data: implicit pairs at ML10M's shape and number of pairs
+# with preference structure (make_preference_data), 20% held out.  With
+# random side info the collective fit's P@10 moves off the plain fit's by
+# +0.017 at k_true 4, +0.003 at 8 and -0.014 at 16 (NVIDIA H100 80GB HBM3;
+# scripts/time_implicit_engines_torch.py --k-true 4 8 16); 8 keeps phase
+# 13 inside P10_ENGINE_TOL
+PREF = dict(k_true=8, nnz=10_000_054, seed=7)
+PREF_HELDOUT = 0.2
 
 LFM_M, LFM_N = 359347, 160168  # LastFM-360K's shape (bench_implicit.py:30)
 IMPLICIT_FIT = dict(k=50, lambda_=5.0, alpha=1.0, niter=15, use_cg=True,
@@ -545,6 +588,62 @@ def ranking_quality(A, B, tr_r, tr_c, te_r, te_c, test_users, n):
     return p10, map10, p_at_k(top_pop)[0]
 
 
+def make_preference_data(m=M, n=N, *, k_true, nnz, seed, device="cuda"):
+    """Implicit-feedback pairs with preference structure, drawn on
+    ``device`` from a seed: P(u sees i) = sigmoid(a_u . b_i + user and item
+    offsets - c), with standard normal a, b of width k_true, offsets
+    N(0, 0.5^2) and N(0, 1), and c set (by bisection on 4,096 rows) so that
+    about ``nnz`` pairs are drawn; plays 1 + Poisson(3).  A ranking that
+    only knows popularity (the item offsets) stays below one that learns
+    a and b.  Returns numpy (rows, cols, vals) in row order."""
+    import torch
+
+    gen = torch.Generator(device=device)
+    gen.manual_seed(seed)
+
+    def randn(*shape, sd=1.0):
+        return sd * torch.randn(shape, generator=gen, device=device)
+
+    A, B = randn(m, k_true), randn(n, k_true)
+    ou, oi = randn(m, sd=0.5), randn(n)
+
+    def logits(sl):
+        return A[sl] @ B.T + ou[sl, None] + oi[None, :]
+
+    sample = logits(slice(0, min(m, 4096)))
+    lo, hi = -50.0, 50.0
+    for _ in range(60):
+        c = (lo + hi) / 2
+        if float(torch.sigmoid(sample - c).mean()) * m * n > nnz:
+            lo = c
+        else:
+            hi = c
+    rows, cols = [], []
+    step = max(1, (1 << 26) // n)
+    for r0 in range(0, m, step):
+        sl = slice(r0, min(m, r0 + step))
+        p = torch.sigmoid(logits(sl) - c)
+        hit = torch.rand(p.shape, generator=gen, device=device) < p
+        r, cc = torch.nonzero(hit, as_tuple=True)
+        rows.append(r + r0)
+        cols.append(cc)
+    rows, cols = torch.cat(rows), torch.cat(cols)
+    vals = 1.0 + torch.poisson(torch.full((rows.numel(),), 3.0,
+                                          device=device), generator=gen)
+    return (rows.cpu().numpy().astype(np.int64),
+            cols.cpu().numpy().astype(np.int64),
+            vals.cpu().numpy().astype(np.float64))
+
+
+def n_chunks(ids, n_rows):
+    """Buckets of one side of the bucketed engine's layout."""
+    from cmfrec_torch.data.shards import plan_layout
+
+    counts = np.bincount(ids, minlength=n_rows)
+    return len(plan_layout(counts, np.argsort(-counts, kind="stable"),
+                           n_rows)[0])
+
+
 def _reset_launches(ops):
     for op in ops.values():
         op.launches = 0
@@ -552,6 +651,175 @@ def _reset_launches(ops):
 
 def _read_launches(ops):
     return {name: op.launches for name, op in ops.items()}
+
+
+def _fit_phase(ops, fit):
+    """fit() with every launch count set to 0 just before it: (its result,
+    the launch counts just after, seconds, peak device memory in bytes)."""
+    import torch
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _reset_launches(ops)
+    t0 = time.perf_counter()
+    out = fit()
+    torch.cuda.synchronize()
+    return (out, _read_launches(ops), time.perf_counter() - t0,
+            torch.cuda.max_memory_allocated())
+
+
+def collective_phases(ops, rows, cols, vals, test):
+    """Phases 10-13; returns each fit's launch counts by phase."""
+    import torch
+
+    import cmfrec_torch
+
+    tr = ~test
+    train = (rows[tr], cols[tr], vals[tr], M, N)
+    base = float(np.sqrt(np.mean((vals[tr].mean() - vals[test]) ** 2)))
+    paths = {}
+
+    def rmse_of(model):
+        pred = model.predict(rows[test], cols[test])
+        if not np.all(np.isfinite(pred)):
+            raise AssertionError("non-finite predictions")
+        return float(np.sqrt(np.mean((pred - vals[test]) ** 2)))
+
+    # 10. the flagship configuration with implicit features, CG and exact
+    for tag, kw, bound_ in (
+            ("10a", {}, RMSE_BOUND_CG_IMPLICIT_FEAT),
+            ("10b", {"use_cg": False}, RMSE_BOUND_CHOL_IMPLICIT_FEAT)):
+        model, launches, s, peak = _fit_phase(ops, lambda: cmfrec_torch.CMF(
+            **{**COLLECTIVE_FIT, **kw}, device="cuda").fit_triplets(*train))
+        rmse = rmse_of(model)
+        want = dict(EXPECTED_LAUNCHES)
+        if tag == "10b":  # the all-frozen exit sets K1's count
+            want["masked_gram_matvec"] = launches["masked_gram_matvec"]
+        print(f"phase {tag} implicit features (use_cg={model.use_cg}): "
+              f"{s:.3f} s, peak device memory {peak / 2**30:.2f} GiB, "
+              f"held-out RMSE {rmse:.5f} (bound {bound_:.5f}, global-mean "
+              f"baseline {base:.5f}), Ai_ {model.Ai_.shape} Bi_ "
+              f"{model.Bi_.shape}, launches {launches} (expected {want})",
+              flush=True)
+        if launches != want or launches["masked_gram_matvec"] <= 30:
+            raise AssertionError(f"phase {tag} did not run the expected "
+                                 "kernel launches")
+        if not (rmse <= bound_ and np.isfinite(model.Ai_).all()
+                and np.isfinite(model.Bi_).all()):
+            raise AssertionError(f"phase {tag}: RMSE out of bounds")
+        paths[tag] = launches
+        del model
+        torch.cuda.empty_cache()
+
+    # 11. dense side info
+    U = np.random.default_rng(11).normal(size=(M, SIDE_P))
+    I = np.random.default_rng(12).normal(size=(N, SIDE_P))
+    model, launches, s, peak = _fit_phase(ops, lambda: cmfrec_torch.CMF(
+        **FIT, device="cuda").fit_triplets(*train, U=U, I=I))
+    rmse = rmse_of(model)
+    shapes = (model.C_.shape, model.D_.shape, model.U_colmeans_.shape,
+              model.I_colmeans_.shape)
+    print(f"phase 11 side info U {U.shape} I {I.shape}: {s:.3f} s, peak "
+          f"device memory {peak / 2**30:.2f} GiB, held-out RMSE {rmse:.5f} "
+          f"(bound {RMSE_BOUND:.5f}), C_ D_ colmeans {shapes}, launches "
+          f"{launches} (expected {EXPECTED_LAUNCHES})", flush=True)
+    if launches != EXPECTED_LAUNCHES:
+        raise AssertionError("phase 11 did not run the expected launches")
+    if not (rmse <= RMSE_BOUND and rmse < base
+            and shapes == ((SIDE_P, FIT["k"]), (SIDE_P, FIT["k"]),
+                           (SIDE_P,), (SIDE_P,))
+            and np.isfinite(model.C_).all() and np.isfinite(model.D_).all()):
+        raise AssertionError("phase 11: RMSE or side factors out of bounds")
+    paths["11"] = launches
+    del model
+    torch.cuda.empty_cache()
+
+    paths.update(implicit_phases(ops, U))
+    return paths
+
+
+def implicit_phases(ops, U):
+    """Phases 12-13 on make_preference_data's pairs; returns each fit's
+    launch counts by phase."""
+    import torch
+
+    import cmfrec_torch
+    from cmfrec_torch.solvers import drivers
+
+    t0 = time.perf_counter()
+    rows, cols, vals = make_preference_data(**PREF)
+    test = np.random.default_rng(8).uniform(size=rows.size) < PREF_HELDOUT
+    tr = ~test
+    train = (rows[tr], cols[tr], vals[tr], M, N)
+    te_r, te_c = rows[test], cols[test]
+    users = np.random.default_rng(5).choice(np.unique(te_r), RANK_USERS,
+                                            replace=False)
+    print(f"data: {M} x {N} implicit with preference structure, train "
+          f"{int(tr.sum())}, held out {int(test.sum())}, in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    quality, paths = {}, {}
+
+    def ranking(A, B):
+        return ranking_quality(A, B, rows[tr], cols[tr], te_r, te_c, users, N)
+
+    # 12. the dense engine, against the bucketed engine that CMF_implicit's
+    # engine="auto" takes on the same data
+    res, launches, s, peak = _fit_phase(
+        ops, lambda: drivers.fit_implicit_als(*train, engine="dense",
+                                              device="cuda", **IMPLICIT_FIT))
+    quality["dense"] = ranking(res["A"], res["B"])
+    del res
+    torch.cuda.empty_cache()
+    print(f"phase 12 dense implicit: {s:.3f} s, peak device memory "
+          f"{peak / 2**30:.2f} GiB, P@10 {quality['dense'][0]:.5f}, MAP@10 "
+          f"{quality['dense'][1]:.5f}, launches {launches} (expected "
+          f"{EXPECTED_DENSE_IMPLICIT})", flush=True)
+    if launches != EXPECTED_DENSE_IMPLICIT:
+        raise AssertionError("phase 12: engine='dense' did not run the "
+                             "expected launches")
+    paths["12"] = launches
+    imodel, blaunches, s, peak = _fit_phase(
+        ops, lambda: cmfrec_torch.CMF_implicit(
+            **IMPLICIT_FIT, device="cuda").fit_triplets(*train))
+    quality["bucketed"] = ranking(*imodel._device_x_factors())
+    del imodel
+    torch.cuda.empty_cache()
+    want = {"masked_gram_matvec": 0, "masked_rhs": 0,
+            "bucket_cg": IMPLICIT_FIT["niter"] * (n_chunks(rows[tr], M)
+                                                  + n_chunks(cols[tr], N))}
+    print(f"phase 12 bucketed implicit (CMF_implicit, engine 'auto'): "
+          f"{s:.3f} s, peak device memory {peak / 2**30:.2f} GiB, P@10 "
+          f"{quality['bucketed'][0]:.5f}, MAP@10 "
+          f"{quality['bucketed'][1]:.5f}, launches {blaunches} (expected "
+          f"{want}); popularity P@10 {quality['dense'][2]:.5f}", flush=True)
+    if blaunches != want:
+        raise AssertionError("phase 12: CMF_implicit did not take the "
+                             "bucketed engine")
+    paths["12 bucketed"] = blaunches
+
+    # 13. collective implicit, with phase 11's U
+    cmodel, launches, s, peak = _fit_phase(
+        ops, lambda: cmfrec_torch.CMF_implicit(
+            **IMPLICIT_FIT, device="cuda").fit_triplets(*train, U=U))
+    quality["collective"] = ranking(*cmodel._device_x_factors())
+    print(f"phase 13 collective implicit U {U.shape}: {s:.3f} s, peak device "
+          f"memory {peak / 2**30:.2f} GiB, P@10 "
+          f"{quality['collective'][0]:.5f}, C_ {cmodel.C_.shape}, launches "
+          f"{launches} (expected {EXPECTED_DENSE_IMPLICIT})", flush=True)
+    if launches != EXPECTED_DENSE_IMPLICIT:
+        raise AssertionError("phase 13 did not run the expected launches")
+    if not np.isfinite(cmodel.C_).all():
+        raise AssertionError("phase 13: non-finite C_")
+    paths["13"] = launches
+    del cmodel
+    torch.cuda.empty_cache()
+    p_dense, p_pop = quality["dense"][0], quality["dense"][2]
+    for name, (p10, _, _) in quality.items():
+        if not (p10 > p_pop and abs(p10 - p_dense) <= P10_ENGINE_TOL):
+            raise AssertionError(f"phases 12-13: the {name} fit's P@10 "
+                                 f"{p10:.5f} is out of bounds (dense "
+                                 f"{p_dense:.5f}, popularity {p_pop:.5f})")
+    return paths
 
 
 def main():
@@ -564,7 +832,6 @@ def main():
     from bench import _cached, make_ml10m_shaped
     from bench_implicit import make_lastfm_shaped, split_heldout
     from cmfrec_torch.data.device_fill import build_bucketed_pair
-    from cmfrec_torch.data.shards import plan_layout
     from cmfrec_torch.ops import _cuda, k1_probes, sparse_cg
     from cmfrec_torch.ops import masked_matmul as mm
     from cmfrec_torch.solvers import drivers
@@ -728,11 +995,6 @@ def main():
     torch.cuda.empty_cache()
 
     # 8. the explicit fit of phase 4 on the bucketed engine
-    def n_chunks(ids, n_rows):
-        counts = np.bincount(ids, minlength=n_rows)
-        return len(plan_layout(counts, np.argsort(-counts, kind="stable"),
-                               n_rows)[0])
-
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     _reset_launches(ops)
@@ -773,6 +1035,10 @@ def main():
         raise AssertionError("the probe sweep did not launch every probe "
                              "kernel, or the fit launched one")
 
+    # 10-13. the collective and dense implicit fits
+    paths = {"4": launches, "7": ilaunches, "8": slaunches}
+    paths.update(collective_phases(ops, rows, cols, vals, test))
+
     kernels = []
     for name, variants in results.items():
         main_variant = next(v for v in variants if v["side"] == "A"
@@ -781,6 +1047,7 @@ def main():
             name=name, route="cuda", source=SOURCES[name],
             cuda_kernels=CUDA_KERNELS[name],
             replaces=REPLACES[name], launches=launches[name],
+            launches_by_phase={ph: c[name] for ph, c in paths.items()},
             max_abs_err=max(v["max_abs_err"] for v in variants),
             ms=main_variant["ms"], plain_ms=main_variant["plain_ms"],
             bound_ms=main_variant["bound_ms"],
@@ -797,6 +1064,7 @@ def main():
         name="bucket_cg", route="cuda", source=SOURCES["bucket_cg"],
         cuda_kernels=CUDA_KERNELS["bucket_cg"],
         replaces=REPLACES["bucket_cg"], launches=ilaunches["bucket_cg"],
+        launches_by_phase={ph: c["bucket_cg"] for ph, c in paths.items()},
         max_abs_err=max(r["max_abs_err"] for r in k3),
         ms=sum(r["ms"] for r in main),
         plain_ms=sum(r["plain_ms"] for r in main), bound_ms=k3_bound,

@@ -5,10 +5,12 @@ reference).  Plain tensor code is PyTorch; the TPU's Pallas kernels become
 hand-written CUDA kernels for sm_90a (csrc/), each with a plain torch twin
 that runs on CPU tensors.  The package never imports JAX.
 
-So far: the explicit ``CMF`` fit without side info (dense-masked engine,
-or the bucketed sparse engine for data whose dense form does not fit) and
-the implicit ``CMF_implicit`` fit without side info (bucketed engine), plus
-predict/topN/save/load.  See ROADMAP.md for what follows.
+So far: the explicit ``CMF`` fit (dense-masked engine, or the bucketed
+sparse engine for data whose dense form does not fit), with dense side
+information and implicit features on the dense-masked engine; the implicit
+``CMF_implicit`` fit (dense-masked engine when a card holds the dense form,
+else bucketed), with dense side information on the dense-masked engine;
+plus predict/topN/save/load.  See ROADMAP.md for what follows.
 """
 
 from .models.cmf import CMF, CMF_implicit

@@ -17,7 +17,9 @@ from .models.cmf import CMF, CMF_implicit
 
 def init_from_arrays(d: dict, device="cuda") -> dict:
     """A cmfrec_tpu fit result, or any dict with A/B[/biasA/biasB], as the
-    port's ``init=`` dict: f32 tensors on ``device`` (None where absent)."""
+    port's ``init=`` dict: f32 tensors on ``device`` (None where absent).
+    A collective result's C/D/Ai/Bi are left out: the dense engine solves
+    them from A/B before their first use."""
     dev = resolve_device(device)
     return {key: None if d.get(key) is None else
             torch.as_tensor(np.asarray(d[key], np.float32), device=dev)
@@ -26,11 +28,14 @@ def init_from_arrays(d: dict, device="cuda") -> dict:
 
 def cmf_from_arrays(*, A, B, user_bias=None, item_bias=None, glob_mean=0.0,
                     user_mapping=None, item_mapping=None, params=None,
-                    w_main_multiplier=1.0, cls=CMF, device="cuda"):
+                    w_main_multiplier=1.0, C=None, D=None, Ai=None, Bi=None,
+                    U_colmeans=None, I_colmeans=None, cls=CMF,
+                    device="cuda"):
     """A fitted port model of class ``cls`` (``CMF`` or ``CMF_implicit``)
     from a fitted cmfrec_tpu model's attributes (A_, B_, user_bias_,
     item_bias_, glob_mean_, user_mapping_, item_mapping_,
-    w_main_multiplier_ of an implicit model, and get_params())."""
+    w_main_multiplier_ of an implicit model, a collective model's C_, D_,
+    Ai_, Bi_, U_colmeans_ and I_colmeans_, and get_params())."""
     if cls not in (CMF, CMF_implicit):
         raise ValueError(f"cls must be CMF or CMF_implicit, got {cls!r}")
     model = cls(**(params or {}), device=device)
@@ -42,6 +47,13 @@ def cmf_from_arrays(*, A, B, user_bias=None, item_bias=None, glob_mean=0.0,
 
     model.A_, model.B_ = arr(A), arr(B)
     model.user_bias_, model.item_bias_ = arr(user_bias), arr(item_bias)
+    model.C_, model.D_, model.Ai_, model.Bi_ = (arr(C), arr(D), arr(Ai),
+                                                arr(Bi))
+    # the side-info column means stay f64, as a fit stores them
+    model.U_colmeans_ = None if U_colmeans is None else np.asarray(
+        U_colmeans, np.float64)
+    model.I_colmeans_ = None if I_colmeans is None else np.asarray(
+        I_colmeans, np.float64)
     model.glob_mean_ = float(glob_mean)
     model.w_main_multiplier_ = float(w_main_multiplier)
     if user_mapping is not None and len(user_mapping):

@@ -19,6 +19,8 @@ import torch
 
 from ..config import resolve_device, resolve_dtype
 from ..ops import predict as predict_ops
+from ..solvers.collective import SLICE_BUCKETED
+from ..solvers.drivers import _unsupported
 
 
 def _is_df(x):
@@ -97,11 +99,19 @@ class _BaseModel:
     def _reset(self):
         self.A_ = None
         self.B_ = None
+        self.C_ = None
+        self.D_ = None
+        self.Ai_ = None
+        self.Bi_ = None
+        self.C_bias_ = None
+        self.D_bias_ = None
         self.user_bias_ = None
         self.item_bias_ = None
         self.glob_mean_ = 0.0
         self.scaling_biasA_ = 0.0
         self.scaling_biasB_ = 0.0
+        self.U_colmeans_ = None
+        self.I_colmeans_ = None
         self.user_mapping_ = np.array([], dtype=object)
         self.item_mapping_ = np.array([], dtype=object)
         self.reindex_ = False
@@ -155,6 +165,61 @@ class _BaseModel:
             wgt = W[rows, cols] if W.ndim == 2 else W.ravel()
         self.reindex_ = False
         return rows, cols, vals, wgt, X.shape[0], X.shape[1]
+
+    def _ingest_side(self, U, mapping, n_main, name="U"):
+        """Side-info matrix: DataFrame with an Id column, sparse, or dense.
+
+        Returns (rows, cols, vals, n_rows, n_cols, is_dense, dense_mat).
+        Rows are aligned to the main matrix's id space.  Ids that X lacks
+        (side-info-only entities, m_u > m in the reference, upstream cmfrec
+        src/collective.c:7263 signature) need the bucketed collective
+        engine, which the port does not have yet: they raise here, before
+        the model's id mappings change.
+        """
+        if U is None:
+            return None
+        if _is_df(U):
+            import pandas as pd
+
+            id_col = "UserId" if name == "U" else "ItemId"
+            if id_col in U.columns:
+                if self.reindex_:
+                    codes = pd.Index(mapping).get_indexer(
+                        np.asarray(U[id_col])).astype(np.int64)
+                else:
+                    codes = U[id_col].to_numpy(np.int64)
+                if (codes < 0).any() or (codes >= n_main).any():
+                    raise _unsupported(
+                        f"side information with ids not in X ({name}= "
+                        "holds side-info-only entities)", SLICE_BUCKETED)
+                feat = U.drop(columns=[id_col]).to_numpy(np.float64)
+                dense = np.full((n_main, feat.shape[1]), np.nan)
+                dense[codes] = feat
+                return self._side_from_dense(dense)
+            U = U.to_numpy(np.float64)
+        if _is_sparse(U):
+            coo = U.tocoo()
+            return (coo.row.astype(np.int64), coo.col.astype(np.int64),
+                    coo.data.astype(np.float64), U.shape[0], U.shape[1],
+                    False, None)
+        return self._side_from_dense(np.asarray(U, np.float64))
+
+    @staticmethod
+    def _side_from_dense(U):
+        if np.isnan(U).any():
+            rows, cols = np.nonzero(~np.isnan(U))
+            return rows, cols, U[rows, cols], U.shape[0], U.shape[1], False, None
+        return None, None, None, U.shape[0], U.shape[1], True, U
+
+    def _store_side(self, res):
+        """The side factors and side-info column means of a collective fit
+        (None where the fit has no such part)."""
+        for attr, key in (("C_", "C"), ("D_", "D"), ("Ai_", "Ai"),
+                          ("Bi_", "Bi")):
+            t = res.get(key)
+            setattr(self, attr, None if t is None else t.cpu().numpy())
+        self.U_colmeans_ = res.get("U_colmeans")
+        self.I_colmeans_ = res.get("I_colmeans")
 
     def _build_dicts(self):
         """id -> position dicts (the reference's produce_dicts,

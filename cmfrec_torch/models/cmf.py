@@ -4,10 +4,14 @@ API-compatible with cmfrec_tpu's ``CMF`` (and the reference's class of the
 same name, upstream cmfrec/__init__.py:2446): the same constructor
 hyperparameters plus ``device``, the same fitted attributes, and
 fit/predict/topN/save/load.  ``CMF_implicit`` (upstream
-cmfrec/__init__.py:4358) likewise.  Both fit ratings without side info
-(``CMF`` on the dense-masked engine unless the data needs the bucketed one,
-``CMF_implicit`` on the bucketed engine); the other fit branches raise
-``ValueError`` naming the ROADMAP slice that brings them.
+cmfrec/__init__.py:4358) likewise.  Without side info ``CMF`` fits on the
+dense-masked engine unless the data needs the bucketed one, and
+``CMF_implicit`` on the bucketed one (``drivers.fit_implicit_als(...,
+engine="dense")`` runs a plain implicit fit on the dense-masked engine).
+With dense side info (``U=``, ``I=``) or implicit features both run the
+collective fits of solvers/collective.py on the dense-masked engine.  The
+other fit branches raise ``ValueError`` naming the ROADMAP slice that
+brings them.
 """
 
 from __future__ import annotations
@@ -17,7 +21,7 @@ import warnings
 import numpy as np
 
 from ..config import resolve_dtype, set_handle_interrupt
-from ..solvers import drivers
+from ..solvers import collective, drivers
 from .base import _BaseModel
 
 
@@ -53,6 +57,10 @@ def _validate_cmf_params(self, implicit=False):
             "Warning: will fit a model with centering and non-negativity "
             "constraints."
         )
+
+
+def _host(t):
+    return None if t is None else t.cpu().numpy()
 
 
 class CMF(_BaseModel):
@@ -146,12 +154,6 @@ class CMF(_BaseModel):
         if self.method == "lbfgs" or U_bin is not None or I_bin is not None:
             raise drivers._unsupported("method='lbfgs' and binary side info",
                                        "slice 6")
-        if U is not None or I is not None:
-            raise drivers._unsupported("side information (U=, I=)", "slice 2")
-        if self.add_implicit_features:
-            raise drivers._unsupported("add_implicit_features", "slice 2")
-        if self.k_user or self.k_item or self.k_main:
-            raise drivers._unsupported("k_user/k_item/k_main", "slice 2")
         set_handle_interrupt(bool(self.handle_interrupt))
         self._reset()
         self.dtype_ = resolve_dtype(self.use_float)
@@ -164,10 +166,9 @@ class CMF(_BaseModel):
             self.scaling_biasA_ = wsum / max(m, 1)
             self.scaling_biasB_ = wsum / max(n, 1)
 
-        res = drivers.fit_explicit_als(
-            rows, cols, vals, m, n, mesh=mesh,
-            k=self.k, lambda_=self.lambda_, l1_lambda=self.l1_lambda,
-            niter=self.niter, use_cg=self.use_cg,
+        common = dict(
+            mesh=mesh, k=self.k, lambda_=self.lambda_,
+            l1_lambda=self.l1_lambda, niter=self.niter, use_cg=self.use_cg,
             max_cg_steps=self.max_cg_steps,
             precondition_cg=self.precondition_cg,
             finalize_chol=self.finalize_chol,
@@ -181,14 +182,30 @@ class CMF(_BaseModel):
             checkpoint_every=self.checkpoint_every,
             device=self.device,
         )
+        if (U is None and I is None and not self.add_implicit_features
+                and not (self.k_user or self.k_item or self.k_main)):
+            res = drivers.fit_explicit_als(rows, cols, vals, m, n, **common)
+        else:
+            res = collective.fit_collective_explicit_als(
+                rows, cols, vals, m, n,
+                side_U=self._ingest_side(U, self.user_mapping_, m, "U"),
+                side_I=self._ingest_side(I, self.item_mapping_, n, "I"),
+                k_user=self.k_user, k_item=self.k_item, k_main=self.k_main,
+                w_main=self.w_main, w_user=self.w_user, w_item=self.w_item,
+                w_implicit=self.w_implicit,
+                add_implicit_features=self.add_implicit_features,
+                center_U=self.center_U, center_I=self.center_I,
+                scale_lam_sideinfo=self.scale_lam_sideinfo,
+                NA_as_zero_user=self.NA_as_zero_user,
+                NA_as_zero_item=self.NA_as_zero_item,
+                nonneg_C=self.nonneg_C, nonneg_D=self.nonneg_D,
+                max_cd_steps=self.max_cd_steps, **common)
+            self._store_side(res)
 
-        def host(t):
-            return None if t is None else t.cpu().numpy()
-
-        self.A_ = host(res["A"])
-        self.B_ = host(res["B"])
-        self.user_bias_ = host(res["biasA"])
-        self.item_bias_ = host(res["biasB"])
+        self.A_ = _host(res["A"])
+        self.B_ = _host(res["B"])
+        self.user_bias_ = _host(res["biasA"])
+        self.item_bias_ = _host(res["biasB"])
         self.glob_mean_ = res["glob_mean"]
         self.is_fitted_ = True
         self.niter_ = self.niter
@@ -260,21 +277,16 @@ class CMF_implicit(_BaseModel):
 
     def fit(self, X, U=None, I=None, mesh=None):
         """Fit to implicit-feedback data (reference:
-        upstream cmfrec/__init__.py:4816) on the bucketed engine."""
+        upstream cmfrec/__init__.py:4816): without side info on the
+        bucketed engine; with dense side info on the dense-masked engine."""
         _validate_cmf_params(self, implicit=True)
-        if U is not None or I is not None:
-            raise drivers._unsupported("side information (U=, I=)",
-                                       "slice 3")
-        if self.k_user or self.k_item or self.k_main:
-            raise drivers._unsupported("k_user/k_item/k_main", "slice 3")
         set_handle_interrupt(bool(self.handle_interrupt))
         self._reset()
         self.dtype_ = resolve_dtype(self.use_float)
         rows, cols, vals, _, m, n = self._ingest_X(X)
-        res = drivers.fit_implicit_als(
-            rows, cols, vals, m, n, mesh=mesh,
-            k=self.k, lambda_=self.lambda_, l1_lambda=self.l1_lambda,
-            niter=self.niter, use_cg=self.use_cg,
+        common = dict(
+            mesh=mesh, k=self.k, lambda_=self.lambda_,
+            l1_lambda=self.l1_lambda, niter=self.niter, use_cg=self.use_cg,
             max_cg_steps=self.max_cg_steps,
             precondition_cg=self.precondition_cg,
             finalize_chol=self.finalize_chol,
@@ -285,8 +297,24 @@ class CMF_implicit(_BaseModel):
             checkpoint_every=self.checkpoint_every,
             device=self.device,
         )
-        self.A_ = res["A"].cpu().numpy()
-        self.B_ = res["B"].cpu().numpy()
+        if (U is None and I is None
+                and not (self.k_user or self.k_item or self.k_main)):
+            res = drivers.fit_implicit_als(rows, cols, vals, m, n, **common)
+        else:
+            res = collective.fit_collective_implicit_als(
+                rows, cols, vals, m, n,
+                side_U=self._ingest_side(U, self.user_mapping_, m, "U"),
+                side_I=self._ingest_side(I, self.item_mapping_, n, "I"),
+                k_user=self.k_user, k_item=self.k_item, k_main=self.k_main,
+                w_main=self.w_main, w_user=self.w_user, w_item=self.w_item,
+                center_U=self.center_U, center_I=self.center_I,
+                NA_as_zero_user=self.NA_as_zero_user,
+                NA_as_zero_item=self.NA_as_zero_item,
+                nonneg_C=self.nonneg_C, nonneg_D=self.nonneg_D,
+                max_cd_steps=self.max_cd_steps, **common)
+            self._store_side(res)
+        self.A_ = _host(res["A"])
+        self.B_ = _host(res["B"])
         self.user_bias_ = None
         self.item_bias_ = None
         self.glob_mean_ = 0.0

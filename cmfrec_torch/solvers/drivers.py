@@ -14,8 +14,14 @@ data whose dense form exceeds the card's memory budget.
 fit_implicit_als mirrors fit_collective_implicit_als (upstream cmfrec
 src/collective.c:9375): optional log transform, alpha confidence scaling,
 adjust_weight -> w_main_multiplier = nnz/(m*n) (src/collective.c:9776-9782).
-Every implicit fit runs on the bucketed engine, on a card as on the CPU (the
-dense implicit engine is ROADMAP slice 3).
+It runs on the bucketed engine (K3) unless the caller asks for the
+dense-masked engine (``engine="dense"``: K1/K2 on the dense confidence
+form).  ``engine="auto"`` stays bucketed: on an H100 at ML10M's shape the
+bucketed fit was the faster with 1.34%, 5% and 20% of the pairs observed,
+and the dense one won only on a small catalogue
+(scripts/time_implicit_engines_torch.py; PERF.md, Findings).  The
+collective fits (side information, implicit features) are in
+solvers/collective.py.
 
 Configurations that need a solver the port does not have yet raise a
 ``ValueError`` naming the ROADMAP slice that brings them.
@@ -35,7 +41,12 @@ from ..ops import masked_matmul, sparse_cg
 from ..utils.checkpoint import FitCheckpointer
 from . import preprocess
 from .als import SidePlan, blocks_to_orig, gram_matrix, init_blocks, update_side
-from .dense_masked import _round_up, fit_explicit_dense_masked, padded_dims
+from .dense_masked import (
+    _round_up,
+    fit_explicit_dense_masked,
+    fit_implicit_dense_masked,
+    padded_dims,
+)
 
 # CG steps of the f32 polish iteration (finalize_chol)
 FINALIZE_STEPS = 16
@@ -56,11 +67,14 @@ def _resolve_lambdas(lambda_, l1_lambda):
     return expand(lambda_), expand(l1_lambda)
 
 
-def dense_bytes(m: int, n: int, k: int, weighted: bool) -> int:
-    """Device bytes of the dense form: bf16 X plus int8 mask (f32 weights),
-    in both orientations, at the padded sizes."""
+def dense_bytes(m: int, n: int, k: int, weighted: bool,
+                implicit: bool = False) -> int:
+    """Device bytes of the dense form, in both orientations at the padded
+    sizes: explicit, bf16 X plus the int8 mask (f32 weights); implicit,
+    bf16 Wx and Xp plus the int8 mask (10 B a padded entry)."""
     m_pad, n_pad, _ = padded_dims(m, n, k)
-    return m_pad * n_pad * (2 + (4 if weighted else 1)) * 2
+    per_entry = 2 + 2 + 1 if implicit else 2 + (4 if weighted else 1)
+    return m_pad * n_pad * per_entry * 2
 
 
 def _dense_budget(dev: torch.device) -> Optional[int]:
@@ -178,6 +192,23 @@ def _na0_rhs_base(opp, opp_bias, glob_mean):
     return opp.T @ t
 
 
+def _check_engine(engine):
+    if engine not in ("auto", "dense", "sparse"):
+        raise ValueError("engine must be 'auto', 'dense' or 'sparse', "
+                         f"got {engine!r}")
+
+
+def implicit_values(vals, apply_log_transf):
+    """The implicit fits' values as f64, log-transformed on request."""
+    vals = np.asarray(vals, np.float64)
+    if apply_log_transf:
+        if np.any(vals <= 0):
+            raise ValueError("apply_log_transf needs every value > 0 (the "
+                             "log of a value <= 0 is -inf or NaN)")
+        vals = np.log(vals)
+    return vals
+
+
 def _reject_common(mesh, shard_opposing_rows, nonneg, l16, use_cg,
                    precondition_cg, dtype):
     if mesh is not None or shard_opposing_rows:
@@ -244,9 +275,7 @@ def fit_explicit_als(
     lam6, l16 = _resolve_lambdas(lambda_, l1_lambda)
     dtype = resolve_dtype(dtype)
     dev = resolve_device(device)
-    if engine not in ("auto", "dense", "sparse"):
-        raise ValueError("engine must be 'auto', 'dense' or 'sparse', "
-                         f"got {engine!r}")
+    _check_engine(engine)
     _reject_common(mesh, shard_opposing_rows, nonneg, l16, use_cg,
                    precondition_cg, dtype)
     weighted_na0 = NA_as_zero and weights is not None
@@ -448,30 +477,41 @@ def fit_implicit_als(
     checkpoint_path: Optional[str] = None,  # mid-fit periodic checkpoints
     checkpoint_every: int = 0,
     shard_opposing_rows: bool = False,
+    engine: str = "auto",  # "auto" | "dense" | "sparse"
     device="cuda",
 ) -> dict:
-    """Implicit-feedback ALS (WRMF) on the bucketed engine.  Returns A [m,k]
-    and B [n,k] as f32 tensors on ``device`` plus w_main_multiplier and
-    alpha.  CG iterations launch kernel K3 once per bucket and side on a
-    card (bf16 opposing matrix); Cholesky iterations (use_cg=False, or the
-    last one under finalize_chol) stay f32."""
+    """Implicit-feedback ALS (WRMF).  Returns A [m,k] and B [n,k] as f32
+    tensors on ``device`` plus w_main_multiplier and alpha.
+
+    ``engine="auto"`` and ``"sparse"`` take the bucketed engine,
+    ``"dense"`` the dense-masked one, whose padded dense form takes 10 B
+    an entry (bf16 Wx and Xp, the int8 mask, both orientations).  The
+    dense engine runs K1 and K2 (bf16 bulk iterations, f32 under
+    finalize_chol's last iteration or use_cg=False's exact mode).  The bucketed engine's CG iterations launch
+    K3 once per bucket and side on a card (bf16 opposing matrix); its
+    Cholesky iterations (use_cg=False, or the last one under finalize_chol)
+    stay f32."""
     lam6, l16 = _resolve_lambdas(lambda_, l1_lambda)
     dtype = resolve_dtype(dtype)
     dev = resolve_device(device)
+    _check_engine(engine)
     _reject_common(mesh, shard_opposing_rows, nonneg, l16, use_cg,
                    precondition_cg, dtype)
-    k_pad = _round_up(k, 8)
-    check_kernel_k(k, k_pad, "bucketed", dev)
+    dense = engine == "dense"
+    k_pad = (padded_dims(m, n, k, bias_col=False)[2] if dense
+             else _round_up(k, 8))
+    check_kernel_k(k, k_pad, "dense" if dense else "bucketed", dev)
     ckpt = FitCheckpointer(checkpoint_path, checkpoint_every, niter)
 
-    vals = np.asarray(vals, np.float64)
-    if apply_log_transf:
-        if np.any(vals <= 0):
-            raise ValueError("apply_log_transf needs every value > 0 (the "
-                             "log of a value <= 0 is -inf or NaN)")
-        vals = np.log(vals)
-    vals = vals.astype(np.float32)
+    vals = implicit_values(vals, apply_log_transf).astype(np.float32)
     w_main = len(vals) / (float(m) * float(n)) if adjust_weight else 1.0
+    if dense:
+        return fit_implicit_dense_masked(
+            rows, cols, vals, m, n, k=k, lam6=lam6, niter=niter,
+            max_cg_steps=max_cg_steps, finalize_steps=FINALIZE_STEPS,
+            finalize_chol=finalize_chol, alpha=alpha,
+            w_main_multiplier=w_main, seed=seed, verbose=verbose, device=dev,
+            init=init, ckpt=ckpt, exact=not use_cg)
 
     RB, CB = _build_pair(rows, cols, vals, m, n, None, dev)
     perm_A = torch.as_tensor(RB.perm, device=dev)

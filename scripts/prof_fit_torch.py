@@ -3,26 +3,33 @@
 
 Run from the repository root:
 
-    python3 scripts/prof_fit_torch.py [--fit explicit|implicit] [--out DIR]
+    python3 scripts/prof_fit_torch.py \
+        [--fit explicit|implicit|collective|implicit-dense] [--out DIR]
 
 ``--fit explicit`` (the default) fits the flagship configuration of
 chip_smoke.py (explicit ALS-CG, k=50, 15 iterations, CG 3, f32 polish) on
 bench.make_ml10m_shaped() with the same 5% held out, through
 CMF.fit_triplets; ``--fit implicit`` fits chip_smoke.py's WRMF configuration
 (k=50, lambda 5, alpha 1, 15 iterations, CG 3) on the train split of
-bench_implicit.make_lastfm_shaped(), through CMF_implicit.fit_triplets.
-For either:
+bench_implicit.make_lastfm_shaped(), through CMF_implicit.fit_triplets (the
+bucketed engine); ``--fit collective`` the flagship configuration with
+implicit features (chip_smoke.py phase 10a) and ``--fit implicit-dense``
+the WRMF configuration on phase 12's training pairs
+(chip_smoke.make_preference_data, 20% held out) through
+drivers.fit_implicit_als(engine="dense"), the dense engine.  For any:
 
   1. one cold fit (CUDA context, cuBLAS and allocator warm-up included);
   2. two warm fits;
   3. one warm fit under torch.profiler, which gives the device time per
      kernel and the idle share = 1 - (union of the device's kernel and copy
      intervals) / (host wall time of the fit);
-  4. with the profiler off, the host wall time of ingest (_ingest_X), of
+  4. with the profiler off, the host wall time of ingest (_ingest_X; none
+     for implicit-dense, which enters at the driver), of
      the engine's spans (explicit: fit_explicit_dense_masked; implicit: the
      bucket layout build _build_pair and the iterations
-     _implicit_sparse_iteration), each synchronized at its end, and of the
-     rest (COO build, driver checks, result download).
+     _implicit_sparse_iteration; collective: fit_collective_dense_masked;
+     implicit-dense: fit_implicit_dense_masked), each synchronized at its
+     end, and of the rest (COO build, driver checks, result download).
 
 Prints one line per measurement and, last, one JSON object with all of
 them.  With --out, also writes the profiler's per-kernel table there.
@@ -47,9 +54,13 @@ FIT = dict(k=50, lambda_=0.05, scale_lam=True, niter=15, use_cg=True,
 LFM_M, LFM_N = 359347, 160168
 IMPLICIT_FIT = dict(k=50, lambda_=5.0, alpha=1.0, niter=15, use_cg=True,
                     max_cg_steps=3)
-# the host-split spans of each fit: functions of solvers/drivers.py
-SPANS = {"explicit": ("fit_explicit_dense_masked",),
-         "implicit": ("_build_pair", "_implicit_sparse_iteration")}
+COLLECTIVE_FIT = dict(FIT, add_implicit_features=True, w_implicit=0.5)
+# the host-split spans of each fit: (module of cmfrec_torch.solvers, function)
+SPANS = {"explicit": (("drivers", "fit_explicit_dense_masked"),),
+         "implicit": (("drivers", "_build_pair"),
+                      ("drivers", "_implicit_sparse_iteration")),
+         "collective": (("collective", "fit_collective_dense_masked"),),
+         "implicit-dense": (("drivers", "fit_implicit_dense_masked"),)}
 
 
 def _busy_us(intervals):
@@ -84,26 +95,38 @@ def _timed_wrapper(module, name, totals, sync):
 
 
 def profile_fit(rows, cols, vals, m, n, device, kind):
-    """Cold, warm, profiled and host-split fits of the ``kind`` ("explicit"
-    or "implicit") configuration; returns a dict of numbers."""
+    """Cold, warm, profiled and host-split fits of the ``kind`` (a key of
+    SPANS) configuration; returns a dict of numbers."""
+    import importlib
+
     import torch
 
     import cmfrec_torch
     from cmfrec_torch.models import base
-    from cmfrec_torch.solvers import drivers
 
     def sync():
         if torch.device(device).type == "cuda":
             torch.cuda.synchronize()
 
-    model_cls, kw = ((cmfrec_torch.CMF, FIT) if kind == "explicit" else
-                     (cmfrec_torch.CMF_implicit, IMPLICIT_FIT))
+    from cmfrec_torch.solvers import drivers
+
+    def run():
+        if kind == "implicit-dense":
+            return drivers.fit_implicit_als(rows, cols, vals, m, n,
+                                            engine="dense", device=device,
+                                            **IMPLICIT_FIT)
+        model_cls, kw = {
+            "explicit": (cmfrec_torch.CMF, FIT),
+            "implicit": (cmfrec_torch.CMF_implicit, IMPLICIT_FIT),
+            "collective": (cmfrec_torch.CMF, COLLECTIVE_FIT),
+        }[kind]
+        return model_cls(**kw, device=device).fit_triplets(rows, cols, vals,
+                                                           m, n)
 
     def fit():
         sync()
         t0 = time.perf_counter()
-        model = model_cls(**kw, device=device).fit_triplets(
-            rows, cols, vals, m, n)
+        model = run()
         sync()
         return model, time.perf_counter() - t0
 
@@ -141,16 +164,19 @@ def profile_fit(rows, cols, vals, m, n, device, kind):
         print(f"  {v['ms']:9.2f} ms {v['calls']:5d} calls  {name[:90]}")
 
     totals = {}
-    spans = [(base._BaseModel, "_ingest_X")] + [(drivers, name)
-                                                for name in SPANS[kind]]
+    spans = [(base._BaseModel, "_ingest_X")] + [
+        (importlib.import_module(f"cmfrec_torch.solvers.{mod}"), name)
+        for mod, name in SPANS[kind]]
     orig = [_timed_wrapper(mod, name, totals, sync) for mod, name in spans]
     try:
         _, wall = fit()
     finally:
         for (mod, name), fn in zip(spans, orig):
             setattr(mod, name, fn)
-    out["host_split_s"] = {"fit": wall, "ingest": totals["_ingest_X"]}
-    out["host_split_s"].update({name: totals[name] for name in SPANS[kind]})
+    out["host_split_s"] = {"fit": wall,
+                           "ingest": totals.get("_ingest_X", 0.0)}
+    out["host_split_s"].update({name: totals[name]
+                                for _, name in SPANS[kind]})
     out["host_split_s"]["rest"] = wall - sum(totals.values())
     print("host split: " + ", ".join(
         f"{k} {v:.3f} s" for k, v in out["host_split_s"].items()), flush=True)
@@ -159,7 +185,7 @@ def profile_fit(rows, cols, vals, m, n, device, kind):
 
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--fit", choices=("explicit", "implicit"),
+    ap.add_argument("--fit", choices=tuple(SPANS),
                     default="explicit", help="which configuration to fit")
     ap.add_argument("--out", help="directory for the profiler's table")
     args = ap.parse_args()
@@ -177,7 +203,13 @@ def main():
          "--format=csv,noheader"],
         capture_output=True, text=True, check=True).stdout.strip()
     print(smi, flush=True)
-    if args.fit == "explicit":
+    if args.fit == "implicit-dense":
+        from chip_smoke import PREF, PREF_HELDOUT, make_preference_data
+
+        rows, cols, vals = make_preference_data(**PREF)
+        tr = ~(np.random.default_rng(8).uniform(size=rows.size) < PREF_HELDOUT)
+        data = (rows[tr], cols[tr], vals[tr], M, N)
+    elif args.fit != "implicit":
         rows, cols, vals = _cached(make_ml10m_shaped,
                                    str(_cuda.BUILD_DIR / "ml10m_shaped.npz"))
         tr = ~(np.random.default_rng(1).uniform(size=rows.size) < 0.05)

@@ -199,18 +199,25 @@ def _fit_beyond_the_device_budget():
 
 # Cases that earlier slices rejected and the bucketed engine now fits: the
 # test asserts that they run, through the bucketed engine (its layout build
-# is called), to finite factors.
+# is called), to finite factors.  DENSE: the same through the dense-masked
+# engine (no layout build).
 BUCKETED = "runs on the bucketed engine"
+DENSE = "runs on the dense engine"
 
 
 @pytest.mark.parametrize("call,match", [
     (lambda X: cmfrec_torch.CMF(method="lbfgs", device="cpu").fit(X),
      "slice 6"),
-    (lambda X: cmfrec_torch.CMF(device="cpu").fit(X, U=np.ones((90, 2))),
-     "slice 2"),
-    (lambda X: cmfrec_torch.CMF(add_implicit_features=True,
-                                device="cpu").fit(X), "slice 2"),
-    (lambda X: cmfrec_torch.CMF(k_user=2, device="cpu").fit(X), "slice 2"),
+    # the three cases of ROADMAP slice 2 keep their ids: dense side info and
+    # implicit features fit now, k_user waits for the bucketed collective
+    # engine
+    pytest.param(lambda X: cmfrec_torch.CMF(device="cpu").fit(
+        X, U=np.ones((90, 2))), DENSE, id="<lambda>-slice 2_0"),
+    pytest.param(lambda X: cmfrec_torch.CMF(
+        add_implicit_features=True, device="cpu").fit(X), DENSE,
+        id="<lambda>-slice 2_1"),
+    pytest.param(lambda X: cmfrec_torch.CMF(k_user=2, device="cpu").fit(X),
+                 "slice 4 item 11", id="<lambda>-slice 2_2"),
     (lambda X: cmfrec_torch.CMF(nonneg=True, center=False,
                                 device="cpu").fit(X), "slice 4"),
     (lambda X: cmfrec_torch.CMF(l1_lambda=0.1, device="cpu").fit(X),
@@ -232,7 +239,7 @@ BUCKETED = "runs on the bucketed engine"
 def test_out_of_slice_options_raise(call, match, monkeypatch):
     rows, cols, vals, m, n = _TRIPLETS
     X = sp.coo_matrix((vals, (rows, cols)), shape=(m, n))
-    if match != BUCKETED:
+    if match not in (BUCKETED, DENSE):
         with pytest.raises(ValueError, match=match):
             call(X)
         return
@@ -242,7 +249,8 @@ def test_out_of_slice_options_raise(call, match, monkeypatch):
                         lambda *a: built.append(a) or real(*a))
     out = call(X)
     A = out.A_ if isinstance(out, cmfrec_torch.CMF) else out["A"].numpy()
-    assert len(built) == 1 and A.shape == (m, 40) and np.isfinite(A).all()
+    assert len(built) == (1 if match == BUCKETED else 0)
+    assert A.shape == (m, 40) and np.isfinite(A).all()
 
 
 def test_cuda_without_a_card_raises():
@@ -300,7 +308,7 @@ def test_kernel_k_check_comes_before_any_upload(fit, monkeypatch):
         raise AssertionError("the fit went past the check")
 
     for name in ("_build_pair", "fit_explicit_dense_masked",
-                 "_fit_explicit_bucketed"):
+                 "_fit_explicit_bucketed", "fit_implicit_dense_masked"):
         monkeypatch.setattr(drivers, name, no_work)
     monkeypatch.setattr(torch.Tensor, "to", no_work)
     monkeypatch.setattr(torch, "as_tensor", no_work)
@@ -323,3 +331,252 @@ def test_cmf_fit_takes_mesh():
                                   ref.predict(rows, cols))
     with pytest.raises(ValueError, match="slice 7"):
         cmfrec_torch.CMF(k=4, niter=1, device="cpu").fit(X, mesh=object())
+
+
+# ----------------------------------------------------------------------- #
+# collective fits (side information, implicit features)                    #
+# ----------------------------------------------------------------------- #
+
+
+def _side_data(seed=12, m=90, n=60, p=4, q=3):
+    rows, cols, vals, m, n = _small_fit_data(seed)
+    rng = np.random.default_rng(seed)
+    U = rng.normal(size=(m, p)) + 0.3
+    I = rng.normal(size=(n, q)) - 0.2
+    return rows, cols, vals, m, n, U, I
+
+
+@pytest.mark.parametrize("fmt", ["ndarray", "dataframe"])
+def test_side_info_surfaces_fit_alike(fmt):
+    """U=/I= as arrays aligned with X's positions, or as DataFrames keyed by
+    UserId/ItemId in any row order, give the same fit; the side-info column
+    means are cmfrec_tpu's, exactly."""
+    rows, cols, vals, m, n, U, I = _side_data()
+    kw = dict(k=4, lambda_=1.0, niter=3, add_implicit_features=True)
+    X = sp.coo_matrix((vals, (rows, cols)), shape=(m, n))
+    ref = cmfrec_torch.CMF(**kw, device="cpu").fit(X, U=U, I=I)
+    assert ref.C_.shape == (4, 4) and ref.D_.shape == (3, 4)
+    assert ref.Ai_.shape == (m, 4) and ref.Bi_.shape == (n, 4)
+    jm = cmfrec_tpu.CMF(**kw).fit(X, U=U, I=I)
+    for attr in ("U_colmeans_", "I_colmeans_"):
+        np.testing.assert_array_equal(getattr(ref, attr), getattr(jm, attr))
+    if fmt == "ndarray":
+        got = cmfrec_torch.CMF(**kw, device="cpu").fit(
+            X, U=U.astype(np.float32), I=I.astype(np.float32))
+        np.testing.assert_allclose(got.C_, ref.C_, rtol=0, atol=1e-6)
+        return
+    uid, iid = np.array([f"u{r}" for r in rows]), cols + 500
+    ucodes, umap = pd.factorize(uid)
+    icodes, imap = pd.factorize(iid)
+    Xc = sp.coo_matrix((vals, (ucodes, icodes)),
+                       shape=(ucodes.max() + 1, icodes.max() + 1))
+    Uc = U[[int(u[1:]) for u in umap]]
+    Ic = I[np.asarray(imap) - 500]
+    want = cmfrec_torch.CMF(**kw, device="cpu").fit(Xc, U=Uc, I=Ic)
+    order = np.random.default_rng(0).permutation(m)
+    Udf = pd.DataFrame(U[order], columns=[f"f{j}" for j in range(4)])
+    Udf.insert(0, "UserId", [f"u{r}" for r in order])
+    Idf = pd.DataFrame(I, columns=["g0", "g1", "g2"])
+    Idf.insert(0, "ItemId", np.arange(n) + 500)
+    got = cmfrec_torch.CMF(**kw, device="cpu").fit(
+        pd.DataFrame({"UserId": uid, "ItemId": iid, "Rating": vals}),
+        U=Udf, I=Idf)
+    np.testing.assert_array_equal(got.predict(uid, iid),
+                                  want.predict(ucodes, icodes))
+    np.testing.assert_array_equal(got.C_, want.C_)
+    np.testing.assert_array_equal(got.U_colmeans_, want.U_colmeans_)
+
+
+@pytest.mark.parametrize("case", ["side_info", "implicit_features"])
+def test_side_factors_match_jax_bucketed_cholesky(case):
+    """At use_cg=False and niter=1 from one init, the port's dense engine
+    against cmfrec_tpu's collective fit on the CPU (its bucketed Cholesky
+    route): C/D/Ai/Bi are solved from the init in both (closed forms, 1e-5),
+    A/B are the converged CG against the Cholesky (2e-4, the JAX package's
+    own bound for this comparison, tests/test_exact_dense.py)."""
+    from cmfrec_torch.solvers import collective
+    from cmfrec_tpu.solvers.collective import fit_collective_explicit_als
+
+    rows, cols, vals, m, n, U, I = _side_data()
+    rng = np.random.default_rng(2)
+    init = dict(A=rng.normal(size=(m, 3)).astype(np.float32),
+                B=rng.normal(size=(n, 3)).astype(np.float32))
+    kw = dict(k=3, niter=1, lambda_=0.5, use_cg=False, user_bias=False,
+              item_bias=False, center=False, w_user=0.7, w_item=1.3,
+              init=init)
+    if case == "side_info":
+        sides = dict(side_U=(None, None, None, m, U.shape[1], True, U),
+                     side_I=(None, None, None, n, I.shape[1], True, I))
+        keys = ("C", "D")
+    else:
+        sides = dict(add_implicit_features=True, w_implicit=0.5)
+        keys = ("Ai", "Bi")
+    rj = fit_collective_explicit_als(rows, cols, vals, m, n, dtype=np.float32,
+                                     **sides, **kw)
+    rt = collective.fit_collective_explicit_als(rows, cols, vals, m, n,
+                                                device="cpu", **sides, **kw)
+    for key in keys:
+        np.testing.assert_allclose(rt[key].numpy(), np.asarray(rj[key]),
+                                   rtol=0, atol=1e-5, err_msg=key)
+    for key in ("A", "B"):
+        np.testing.assert_allclose(rt[key].numpy(), np.asarray(rj[key]),
+                                   rtol=0, atol=2e-4, err_msg=key)
+    if case == "side_info":
+        for key in ("U_colmeans", "I_colmeans"):
+            np.testing.assert_array_equal(rt[key], rj[key])
+
+
+def _port_side_fit(**kw):
+    rows, cols, vals, m, n, U, I = _side_data()
+    X = sp.coo_matrix((vals, (rows, cols)), shape=(m, n))
+    return cmfrec_torch.CMF(k=4, lambda_=1.0, niter=2, device="cpu",
+                            **kw).fit(X, U=U, I=I)
+
+
+SLICE_4_11 = r"ROADMAP slice 4 item 11, the bucketed half of solvers/collective"
+
+
+def _over_budget(call):
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(drivers, "_dense_budget", lambda dev: 1000)
+        return call()
+
+
+def _collective_driver(**kw):
+    from cmfrec_torch.solvers import collective
+
+    rows, cols, vals, m, n, U, _ = _side_data()
+    side_U = (None, None, None, m, U.shape[1], True, U)
+    return collective.fit_collective_explicit_als(
+        rows, cols, vals, m, n, side_U=side_U, k=3, niter=1, device="cpu",
+        **kw)
+
+
+@pytest.mark.parametrize("call,match", [
+    (lambda X, U: cmfrec_torch.CMF(device="cpu").fit(
+        X, U=sp.csr_matrix(U)), SLICE_4_11),
+    (lambda X, U: cmfrec_torch.CMF(device="cpu").fit(
+        X, U=np.where(np.eye(*U.shape) > 0, np.nan, U)), SLICE_4_11),
+    (lambda X, U: cmfrec_torch.CMF(device="cpu").fit(X, U=U[:80]),
+     SLICE_4_11),
+    (lambda X, U: cmfrec_torch.CMF(device="cpu").fit(
+        X, U=np.vstack([U, U[:5]])), SLICE_4_11),
+    (lambda X, U: cmfrec_torch.CMF(k_item=2, device="cpu").fit(X, U=U),
+     SLICE_4_11),
+    (lambda X, U: cmfrec_torch.CMF(k_main=2, device="cpu").fit(X, U=U),
+     SLICE_4_11),
+    (lambda X, U: cmfrec_torch.CMF(w_main=0.5, device="cpu").fit(X, U=U),
+     SLICE_4_11),
+    (lambda X, U: cmfrec_torch.CMF(NA_as_zero=True, add_implicit_features=True,
+                                   device="cpu").fit(X), SLICE_4_11),
+    (lambda X, U: cmfrec_torch.CMF(NA_as_zero_user=True, device="cpu").fit(
+        X, U=U), SLICE_4_11),
+    (lambda X, U: cmfrec_torch.CMF(add_implicit_features=True,
+                                   device="cpu").fit(X, W=np.ones(X.nnz)),
+     SLICE_4_11),
+    (lambda X, U: _collective_driver(init=dict(C=np.ones((U.shape[1], 3)))),
+     SLICE_4_11),
+    (lambda X, U: _over_budget(lambda: cmfrec_torch.CMF(device="cpu").fit(
+        X, U=U)), SLICE_4_11),
+    (lambda X, U: cmfrec_torch.CMF_implicit(device="cpu").fit(
+        X, U=sp.csr_matrix(U)), SLICE_4_11),
+    (lambda X, U: cmfrec_torch.CMF_implicit(NA_as_zero_item=True,
+                                            device="cpu").fit(X, U=U),
+     SLICE_4_11),
+    (lambda X, U: cmfrec_torch.CMF_implicit(k_main=1, device="cpu").fit(
+        X, U=U), SLICE_4_11),
+    (lambda X, U: _over_budget(lambda: cmfrec_torch.CMF_implicit(
+        device="cpu").fit(X, U=U)), SLICE_4_11),
+    # the earlier slices' rejections keep their messages in a collective fit
+    (lambda X, U: cmfrec_torch.CMF(nonneg_C=True, device="cpu").fit(X, U=U),
+     "slice 4, the coordinate-descent solver"),
+    (lambda X, U: cmfrec_torch.CMF(device="cpu").fit(X, U=U, mesh=object()),
+     "slice 7"),
+    (lambda X, U: cmfrec_torch.CMF(use_float=False, device="cpu").fit(
+        X, U=U), "slice 1 item 4"),
+], ids=["sparse_U", "nan_in_U", "fewer_rows_than_X", "more_rows_than_X",
+        "k_item", "k_main", "w_main", "NA_as_zero", "NA_as_zero_user",
+        "implicit_features_weighted", "init_with_C", "over_the_budget",
+        "implicit_sparse_U", "implicit_NA_as_zero_item", "implicit_k_main",
+        "implicit_over_the_budget", "nonneg_C", "mesh", "float64"])
+def test_bucketed_collective_configurations_raise(call, match):
+    rows, cols, vals, m, n, U, _ = _side_data()
+    X = sp.coo_matrix((vals, (rows, cols)), shape=(m, n))
+    with pytest.raises(ValueError, match=match):
+        call(X, U)
+
+
+@pytest.mark.parametrize("model", ["CMF", "CMF_implicit"])
+@pytest.mark.parametrize("reindexed", [True, False])
+def test_side_ids_not_in_x_raise_before_the_mappings_change(model, reindexed):
+    """A side-info DataFrame with an id that X lacks (a side-info-only
+    entity) raises the slice-4-item-11 error and leaves the id mapping that
+    X's ingestion made as it was."""
+    rows, cols, vals, m, n, U, _ = _side_data()
+    off = 1000 if reindexed else 0
+    X = (pd.DataFrame({"UserId": rows + off, "ItemId": cols, "Rating": vals})
+         if reindexed else sp.coo_matrix((vals, (rows, cols)), shape=(m, n)))
+    Udf = pd.DataFrame(np.vstack([U, U[:1]]), columns=list("abcd"))
+    Udf.insert(0, "UserId", np.arange(m + 1) + off)
+    est = getattr(cmfrec_torch, model)(k=3, niter=1, device="cpu")
+    est.fit(X)
+    before = est.user_mapping_.copy()
+    est._reset()
+    est._ingest_X(X)
+    with pytest.raises(ValueError, match=SLICE_4_11):
+        est._ingest_side(Udf, est.user_mapping_, m, "U")
+    np.testing.assert_array_equal(est.user_mapping_, before)
+    with pytest.raises(ValueError, match=SLICE_4_11):
+        est.fit(X, U=Udf)
+
+
+def test_refit_without_side_info_clears_side_state():
+    rows, cols, vals, m, n, U, I = _side_data()
+    X = sp.coo_matrix((vals, (rows, cols)), shape=(m, n))
+    model = cmfrec_torch.CMF(k=4, niter=2, add_implicit_features=True,
+                             device="cpu").fit(X, U=U, I=I)
+    assert model.C_ is not None and model.Ai_ is not None
+    model.add_implicit_features = False
+    model.fit(X)
+    for attr in ("C_", "D_", "Ai_", "Bi_", "U_colmeans_", "I_colmeans_"):
+        assert getattr(model, attr) is None, attr
+
+
+COLLECTIVE_ATTRS = ("A_", "B_", "C_", "D_", "Ai_", "Bi_", "user_bias_",
+                    "item_bias_", "U_colmeans_", "I_colmeans_")
+
+
+@pytest.mark.parametrize("direction", ["jax_to_port", "port_to_jax",
+                                       "convert"])
+def test_collective_model_round_trip_with_jax(direction, tmp_path):
+    """A collective model's state crosses between the packages whole: by
+    .npz either way, or by convert.cmf_from_arrays; both then predict
+    alike."""
+    rows, cols, vals, m, n, U, I = _side_data()
+    X = sp.coo_matrix((vals, (rows, cols)), shape=(m, n))
+    kw = dict(k=4, lambda_=1.0, niter=2, add_implicit_features=True)
+    path = str(tmp_path / "collective.npz")
+    if direction == "port_to_jax":
+        src = cmfrec_torch.CMF(**kw, device="cpu").fit(X, U=U, I=I)
+        src.save(path)
+        dst = cmfrec_tpu.CMF.load(path)
+    else:
+        src = cmfrec_tpu.CMF(**kw).fit(X, U=U, I=I)
+        if direction == "jax_to_port":
+            src.save(path)
+            dst = cmfrec_torch.CMF.load(path, device="cpu")
+        else:
+            dst = cmf_from_arrays(
+                A=src.A_, B=src.B_, user_bias=src.user_bias_,
+                item_bias=src.item_bias_, glob_mean=src.glob_mean_,
+                C=src.C_, D=src.D_, Ai=src.Ai_, Bi=src.Bi_,
+                U_colmeans=src.U_colmeans_, I_colmeans=src.I_colmeans_,
+                params=src.get_params(), device="cpu")
+    for attr in COLLECTIVE_ATTRS:
+        got, want = getattr(dst, attr), getattr(src, attr)
+        assert got is not None, attr
+        np.testing.assert_array_equal(np.asarray(got), np.asarray(want),
+                                      err_msg=attr)
+    np.testing.assert_allclose(np.asarray(dst.predict(rows, cols)),
+                               np.asarray(src.predict(rows, cols)), rtol=0,
+                               atol=1e-5)

@@ -1,7 +1,7 @@
 """cmfrec_torch.CMF_implicit against cmfrec_tpu.CMF_implicit: both beat
 popularity on preference-structured data, a port model carried over from a
 JAX one (by arrays, or by the JAX model's .npz) ranks exactly as the JAX
-model does, and the options this slice does not bring raise."""
+model does, and the options the port does not bring yet raise."""
 
 import numpy as np
 import pytest
@@ -10,6 +10,7 @@ import scipy.sparse as sp
 import cmfrec_torch
 import cmfrec_tpu
 from cmfrec_torch.convert import cmf_from_arrays
+from cmfrec_torch.solvers import drivers
 
 
 def _preference_data(seed=0, m=240, n=150, k_true=4):
@@ -104,13 +105,18 @@ def test_save_load_roundtrip(tmp_path):
 _SMALL = _preference_data(seed=2, m=30, n=20)
 
 
+# dense side info fits now, through the dense-masked engine (ROADMAP slice
+# 3); k_user waits for the bucketed collective engine
+DENSE = "runs on the dense engine"
+
+
 @pytest.mark.parametrize("call,match", [
     (lambda X: cmfrec_torch.CMF_implicit(device="cpu").fit(
-        X, U=np.ones((30, 2))), "slice 3"),
+        X, U=np.ones((30, 2))), DENSE),
     (lambda X: cmfrec_torch.CMF_implicit(device="cpu").fit(
-        X, I=np.ones((20, 2))), "slice 3"),
+        X, I=np.ones((20, 2))), DENSE),
     (lambda X: cmfrec_torch.CMF_implicit(k_user=2, device="cpu").fit(X),
-     "slice 3"),
+     "slice 4 item 11"),
     (lambda X: cmfrec_torch.CMF_implicit(nonneg=True, device="cpu").fit(X),
      "slice 4"),
     (lambda X: cmfrec_torch.CMF_implicit(l1_lambda=0.1, device="cpu").fit(X),
@@ -131,8 +137,64 @@ _SMALL = _preference_data(seed=2, m=30, n=20)
      "apply_log_transf"),
 ], ids=["U", "I", "k_user", "nonneg", "l1_lambda", "precondition_cg",
         "float64", "mesh", "alpha", "log_of_zero"])
-def test_out_of_slice_options_raise(call, match):
+def test_out_of_slice_options_raise(call, match, monkeypatch):
     rows, cols, vals, _, m, n = _SMALL
     X = sp.coo_matrix((vals, (rows, cols)), shape=(m, n))
-    with pytest.raises(ValueError, match=match):
-        call(X)
+    if match != DENSE:
+        with pytest.raises(ValueError, match=match):
+            call(X)
+        return
+    built = []
+    real = drivers._build_pair
+    monkeypatch.setattr(drivers, "_build_pair",
+                        lambda *a: built.append(a) or real(*a))
+    model = call(X)
+    assert not built and model.A_.shape == (m, 50)
+    assert np.isfinite(model.A_).all() and np.isfinite(model.B_).all()
+
+
+@pytest.mark.parametrize("fmt", ["ndarray", "dataframe"])
+def test_side_info_surfaces(fmt, tmp_path):
+    """CMF_implicit with dense side info: U=/I= as arrays or as DataFrames
+    keyed by UserId/ItemId give the same fit, on the dense engine; the
+    column means are cmfrec_tpu's exactly, and a cmfrec_tpu collective
+    implicit model's .npz loads into the port whole."""
+    rows, cols, vals, test, m, n = _preference_data(seed=3, m=80, n=50)
+    rng = np.random.default_rng(3)
+    U, I = rng.normal(size=(m, 3)) + 1.0, rng.normal(size=(n, 2))
+    kw = dict(k=4, lambda_=1.0, niter=3)
+    X = sp.coo_matrix((vals, (rows, cols)), shape=(m, n))
+    ref = cmfrec_torch.CMF_implicit(**kw, device="cpu").fit(X, U=U, I=I)
+    assert ref.C_.shape == (3, 4) and ref.D_.shape == (2, 4)
+    jm = cmfrec_tpu.CMF_implicit(**kw).fit(X, U=U, I=I)
+    for attr in ("U_colmeans_", "I_colmeans_"):
+        np.testing.assert_array_equal(getattr(ref, attr), getattr(jm, attr))
+    if fmt == "ndarray":
+        path = str(tmp_path / "jax_collective_implicit.npz")
+        jm.save(path)
+        port = cmfrec_torch.CMF_implicit.load(path, device="cpu")
+        for attr in ("A_", "B_", "C_", "D_", "U_colmeans_", "I_colmeans_"):
+            np.testing.assert_array_equal(getattr(port, attr),
+                                          np.asarray(getattr(jm, attr)))
+        np.testing.assert_array_equal(port.topN(4, n=5),
+                                      np.asarray(jm.topN(4, n=5)))
+        return
+    import pandas as pd
+
+    # DataFrame ids are reindexed in first-appearance order: the fit equals
+    # the positional fit on those codes
+    ucodes, umap = pd.factorize(rows + 1000)
+    icodes, imap = pd.factorize(cols + 2000)
+    want = cmfrec_torch.CMF_implicit(**kw, device="cpu").fit(
+        sp.coo_matrix((vals, (ucodes, icodes)), shape=(m, n)),
+        U=U[np.asarray(umap) - 1000], I=I[np.asarray(imap) - 2000])
+    order = rng.permutation(m)
+    Udf = pd.DataFrame(U[order], columns=["a", "b", "c"])
+    Udf.insert(0, "UserId", order + 1000)
+    Idf = pd.DataFrame(I[::-1], columns=["d", "e"])
+    Idf.insert(0, "ItemId", np.arange(n)[::-1] + 2000)
+    got = cmfrec_torch.CMF_implicit(**kw, device="cpu").fit(
+        pd.DataFrame({"UserId": rows + 1000, "ItemId": cols + 2000,
+                      "Value": vals}), U=Udf, I=Idf)
+    np.testing.assert_array_equal(got.C_, want.C_)
+    np.testing.assert_array_equal(got.A_, want.A_)

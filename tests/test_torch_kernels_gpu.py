@@ -220,6 +220,79 @@ def test_fit_on_card_matches_cpu(cuda, use_cg):
                                    err_msg=key)
 
 
+def _card_and_cpu(fit, keys, **kw):
+    """``fit`` on the card and on the CPU from one init; the results'
+    ``keys`` side by side as numpy arrays."""
+    on_card = fit(device="cuda", **kw)
+    on_cpu = fit(device="cpu", **kw)
+    for key in keys:
+        assert on_card[key].device.type == "cuda", key
+        yield key, on_card[key].cpu().numpy(), on_cpu[key].numpy()
+
+
+def _small_side_data(seed=4, m=150, n=90, k=6):
+    rng = np.random.default_rng(seed)
+    pairs = np.unique(rng.integers(0, m * n, 3000))
+    rows, cols = pairs // n, pairs % n
+    vals = np.round(2 * (3 + rng.normal(size=rows.size))) / 2
+    U, I = rng.normal(size=(m, 5)), rng.normal(size=(n, 4))
+    init = {key: (0.3 * rng.normal(size=(d, k))).astype(np.float32)
+            for key, d in (("A", m), ("B", n))}
+    return rows, cols, vals, m, n, U, I, init
+
+
+@pytest.mark.parametrize("use_cg", [True, False])
+def test_collective_fit_on_card_matches_cpu(cuda, use_cg):
+    """The collective explicit fit (dense U and I, implicit features) on the
+    card against the CPU from one init.  The CG case runs one bf16
+    iteration and the f32 polish: in the bf16 iteration the card rounds the
+    implicit-features products' factors to bf16, as on the TPU, and the CPU
+    does not (the JAX package's CPU path), which the polish brings within
+    5e-4."""
+    from cmfrec_torch.solvers import collective
+
+    rows, cols, vals, m, n, U, I, init = _small_side_data()
+    kw = dict(side_U=(None, None, None, m, 5, True, U),
+              side_I=(None, None, None, n, 4, True, I),
+              add_implicit_features=True, k=6, lambda_=0.5, scale_lam=True,
+              niter=2 if use_cg else 3, use_cg=use_cg, init=init)
+    for key, card, cpu in _card_and_cpu(
+            lambda **a: collective.fit_collective_explicit_als(
+                rows, cols, vals, m, n, **a),
+            ("A", "B", "biasA", "biasB", "C", "D", "Ai", "Bi"), **kw):
+        np.testing.assert_allclose(card, cpu, rtol=0, atol=5e-4, err_msg=key)
+
+
+@pytest.mark.parametrize("use_cg", [True, False])
+def test_implicit_dense_fit_on_card_matches_cpu(cuda, use_cg):
+    """WRMF on the dense engine (engine="dense"), card against CPU: one bf16
+    CG iteration, or three exact-mode iterations."""
+    rows, cols, vals, m, n, _, _, init = _small_side_data()
+    kw = dict(k=6, lambda_=2.0, alpha=0.5, niter=1 if use_cg else 3,
+              use_cg=use_cg, engine="dense", init=init)
+    before = mm.masked_gram_matvec.launches
+    for key, card, cpu in _card_and_cpu(
+            lambda **a: drivers.fit_implicit_als(rows, cols, vals + 0.5, m, n,
+                                                 **a), ("A", "B"), **kw):
+        np.testing.assert_allclose(card, cpu, rtol=0, atol=5e-4, err_msg=key)
+    assert mm.masked_gram_matvec.launches > before
+
+
+@pytest.mark.parametrize("use_cg", [True, False])
+def test_collective_implicit_fit_on_card_matches_cpu(cuda, use_cg):
+    from cmfrec_torch.solvers import collective
+
+    rows, cols, vals, m, n, U, I, init = _small_side_data()
+    kw = dict(side_U=(None, None, None, m, 5, True, U),
+              side_I=(None, None, None, n, 4, True, I), k=6, lambda_=2.0,
+              alpha=0.5, niter=1 if use_cg else 3, use_cg=use_cg, init=init)
+    for key, card, cpu in _card_and_cpu(
+            lambda **a: collective.fit_collective_implicit_als(
+                rows, cols, vals + 0.5, m, n, **a), ("A", "B", "C", "D"),
+            **kw):
+        np.testing.assert_allclose(card, cpu, rtol=0, atol=5e-4, err_msg=key)
+
+
 def _bucket(dev, R, L, S, K, op, explicit, seed=0):
     """A random bucket: implicit coefficients with a Gram base, or explicit
     ones with a per-row lambda and a rhs base (the scale_lam/NA-as-zero
