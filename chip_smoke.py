@@ -58,6 +58,27 @@ Phases, each printing its own line(s):
      U through CMF_implicit, launches K1 120 / K2 30, C_ finite, P@10 above
      popularity and within 0.01 of phase 12's dense fit.
 
+Serving new users (solvers/warm.py; no hand-written kernel: gathers,
+batched Grams and batched Cholesky), each on the model of the phase it
+follows, with K1, K2 and K3 launched 0 times:
+  5b. explicit warm serving on phase 4's model: 8,192 training users
+     (bench_serving.py's Q_WARM) folded in from their training ratings by
+     factors_multiple (the degree-grouped route), users/s of the second
+     call; factors_warm and topN_warm(exclude=seen) for 8 users, median
+     ms; predict_warm_multiple and transform (256 users, dense rows with
+     NaNs) against the numpy formula; 256 users on the card against a
+     CPU copy of the model (save/load); the fold-in RMSE on the users'
+     held-out ratings (<= 0.7408, within 0.005 of the fitted rows');
+  7b. implicit warm serving on phase 7's model: the 2,000 held-out users
+     folded in from their training plays (the grouped implicit route),
+     users/s; P@10 of the fold-in factors (>= 0.0839, within 0.01 of
+     phase 7's); 256 users card against CPU;
+ 11b. cold serving on phase 11's model: factors_multiple(U=), factors_cold,
+     topN_cold and predict_cold_multiple on 2,000 U rows (TransCtCinvCt),
+     factors_warm with U on a fully observed row (BeTBeChol), and
+     item_factors_cold, predict_new and topN_new on 256 I rows, against
+     their numpy closed forms and the CPU copy; users/s.
+
 Each fit phase, and phase 9's sweep, sets every kernel's launch count to 0
 just before it and reads the counts just after; phases 10-13 print each
 fit's seconds and peak device memory.  The line before the last is
@@ -173,6 +194,28 @@ K3_REL_TOL = {("implicit-log", "bf16"): 1e-3, ("implicit-log", "f32"): 2e-4,
 # (max|twin - start| / max|twin|), and stopping one step short must miss
 # the limit, so a kernel that skipped or botched its steps could not pass
 K3_MOVE_FACTOR = 10
+
+# serving (phases 5b, 7b, 11b)
+SERVE_USERS = 8192  # bench_serving.py's Q_WARM, a warm-factors batch
+SERVE_CHECK = 256  # users held card against CPU, and transform's rows
+SERVE_TOPN = 8
+COLD_ROWS = 2000  # phase 11b's U rows
+FOLDIN_RMSE_TOL = 0.005  # |fold-in RMSE - fitted rows' RMSE|
+FOLDIN_P10_TOL = 0.01  # |fold-in P@10 - phase 7's P@10|
+# max|card - CPU| / max|CPU| of the served factors (the same f32 solves,
+# summed in another order), by phase, about 7x above the readings (NVIDIA
+# H100 80GB HBM3): 5b 1.2e-6 (factors_warm against the batch; card against
+# CPU 5.6e-7), 7b 1.35e-5 (raw LastFM plays up to 7e6 as confidences),
+# 11b 1.7e-6
+SERVE_CPU_TOL = {"5b": 1e-5, "7b": 1e-4, "11b": 1.2e-5}
+# max|port - numpy f64 closed form| / max|closed form| of phase 11b's f32
+# solves: readings <= 2.3e-5 (item_factors_cold, a Cholesky of the
+# swapped model's D^T D system), the others <= 1.3e-6
+SERVE_ORACLE_TOL = 1.5e-4
+# |predict_warm_multiple or transform - the numpy formula| (ratings ~3.5):
+# readings <= 1.1e-6
+SERVE_PRED_TOL = 1e-5
+
 
 def bound(nbytes, ops):
     """The least time the card could take: (ms, "bytes" | "operations").
@@ -668,6 +711,307 @@ def _fit_phase(ops, fit):
             torch.cuda.max_memory_allocated())
 
 
+def _cpu_twin(model):
+    """A copy of ``model`` on the CPU through save/load, caches built."""
+    from cmfrec_torch.ops import _cuda
+
+    _cuda.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    path = _cuda.BUILD_DIR / "chip_smoke_serving.npz"
+    model.save(str(path))
+    try:
+        twin = type(model).load(str(path), device="cpu")
+    finally:
+        path.unlink()
+    return twin.force_precompute_for_predictions()
+
+
+def _rel(port, ref):
+    port, ref = np.asarray(port, np.float64), np.asarray(ref, np.float64)
+    return float(np.abs(port - ref).max() / np.abs(ref).max())
+
+
+def _spy(module, name, calls):
+    """Wrap module.name so that each call appends to ``calls``; returns the
+    function to put back."""
+    real = getattr(module, name)
+    setattr(module, name,
+            lambda *a, **k: calls.append(name) or real(*a, **k))
+    return real
+
+
+def _timed_s(fn):
+    """(result, host seconds) of a call that ends in a download."""
+    import torch
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    return out, time.perf_counter() - t0
+
+
+def _check_topn(items, scores, seen, what):
+    if (len(items) != 10 or np.isin(items, seen).any()
+            or not np.all(np.isfinite(scores)) or np.any(np.diff(scores) > 0)):
+        raise AssertionError(f"{what} is wrong: {items}")
+
+
+def _new_user_coo(users, rows, cols, vals, m, n):
+    """The ratings of ``users`` (of m) as a new-user COO matrix, row i
+    holding users[i]'s; and the local row of each user id (-1 else)."""
+    import scipy.sparse as sp
+
+    local = np.full(m, -1, np.int64)
+    local[users] = np.arange(len(users))
+    sel = local[rows] >= 0
+    X = sp.coo_matrix((vals[sel], (local[rows[sel]], cols[sel])),
+                      shape=(len(users), n))
+    return X, local
+
+
+def serve_explicit(ops, model, rows, cols, vals, test):
+    """Phase 5b on phase 4's model; returns its launch counts."""
+    from cmfrec_torch.models import cmf as tcmf
+    from cmfrec_torch.solvers import warm
+
+    tr = ~test
+    users = np.sort(np.random.default_rng(21).choice(
+        np.unique(rows[tr]), SERVE_USERS, replace=False))
+    X, local = _new_user_coo(users, rows[tr], cols[tr], vals[tr], M, N)
+    if not tcmf._route_grouped(X.row, SERVE_USERS):
+        raise AssertionError("phase 5b: the batch would not take the "
+                             "degree-grouped route")
+    calls = []
+    real = _spy(warm, "factors_explicit_grouped", calls)
+    _reset_launches(ops)
+    try:
+        model.factors_multiple(X=X)
+        (a, bias), s = _timed_s(lambda: model.factors_multiple(
+            X=X, return_bias=True))
+    finally:
+        warm.factors_explicit_grouped = real
+    if calls != ["factors_explicit_grouped"] * 2 or not np.isfinite(a).all():
+        raise AssertionError(f"phase 5b: factors_multiple took {calls}")
+    B = model.B_.astype(np.float64)
+    ib = model.item_bias_.astype(np.float64)
+
+    def formula(ai, bi, items):
+        return model.glob_mean_ + bi + ib[items] + np.sum(
+            ai.astype(np.float64) * B[items], axis=1)
+
+    # factors_warm and topN_warm(exclude=seen) for a few users
+    topn_ms, warm_err = [], 0.0
+    for u in users[:SERVE_TOPN]:
+        sel = tr & (rows == u)
+        seen, xv = cols[sel], vals[sel]
+        aw, bw = model.factors_warm(X_col=seen, X_val=xv, return_bias=True)
+        warm_err = max(warm_err, _rel(np.append(aw, bw),
+                                      np.append(a[local[u]], bias[local[u]])))
+        t0 = time.perf_counter()
+        items, scores = model.topN_warm(n=10, X_col=seen, X_val=xv,
+                                        exclude=seen, output_score=True)
+        topn_ms.append((time.perf_counter() - t0) * 1e3)
+        _check_topn(items, scores, seen, f"phase 5b: topN_warm of user {u}")
+        np.testing.assert_allclose(
+            scores, formula(np.broadcast_to(aw, (10, aw.size)), bw, items),
+            rtol=0, atol=1e-4, err_msg="phase 5b: topN_warm scores")
+    # predict_warm_multiple: each user's first training item
+    first = np.zeros(SERVE_USERS, np.int64)
+    first[X.row[::-1]] = X.col[::-1]
+    p = model.predict_warm_multiple(X, first)
+    pw_err = float(np.abs(p - formula(a, bias, first)).max())
+    # transform: 256 users' dense rows, NaN where unrated
+    Xd = np.full((SERVE_CHECK, N), np.nan)
+    few = X.row < SERVE_CHECK
+    Xd[X.row[few], X.col[few]] = X.data[few]
+    out = model.transform(Xd)
+    obs = ~np.isnan(Xd)
+    r_, c_ = np.nonzero(~obs)
+    tf_err = float(np.abs(out[r_, c_] - formula(a[r_], bias[r_], c_)).max())
+    if not (np.isfinite(out).all() and np.array_equal(out[obs], Xd[obs])):
+        raise AssertionError("phase 5b: transform changed an observed entry")
+    # (i) 256 users on the card against the same call on the CPU
+    X256 = X.tocsr()[:SERVE_CHECK].tocoo()
+    card = np.column_stack(model.factors_multiple(X=X256, return_bias=True))
+    cpu = np.column_stack(_cpu_twin(model).factors_multiple(
+        X=X256, return_bias=True))
+    cpu_err = _rel(card, cpu)
+    # (ii) the fold-in RMSE on the users' held-out ratings
+    sel = test & (local[rows] >= 0)
+    li = local[rows[sel]]
+    rmse_fold = float(np.sqrt(np.mean(
+        (formula(a[li], bias[li], cols[sel]) - vals[sel]) ** 2)))
+    rmse_fit = float(np.sqrt(np.mean(
+        (model.predict(rows[sel], cols[sel]) - vals[sel]) ** 2)))
+    launches = _read_launches(ops)
+    print(f"phase 5b explicit warm serving: {SERVE_USERS} users, "
+          f"{X.nnz} ratings, factors_multiple (grouped) {s:.3f} s = "
+          f"{SERVE_USERS / s:.0f} users/s; factors_warm vs the batch "
+          f"{warm_err:.2e}; topN_warm(n=10, exclude=seen) median "
+          f"{np.median(topn_ms):.2f} ms; predict_warm_multiple |p - formula| "
+          f"{pw_err:.2e}, transform {tf_err:.2e} (tol {SERVE_PRED_TOL:.0e}); "
+          f"card vs CPU {cpu_err:.2e} (limit {SERVE_CPU_TOL['5b']:.1e}); "
+          f"fold-in RMSE "
+          f"{rmse_fold:.5f} on {int(sel.sum())} held-out ratings (bound "
+          f"{RMSE_BOUND:.5f}; fitted rows {rmse_fit:.5f}, tol "
+          f"{FOLDIN_RMSE_TOL}); launches {launches}", flush=True)
+    if any(launches.values()):
+        raise AssertionError("phase 5b: serving launched a fit kernel")
+    if not (warm_err <= SERVE_CPU_TOL["5b"] and pw_err <= SERVE_PRED_TOL
+            and tf_err <= SERVE_PRED_TOL and cpu_err <= SERVE_CPU_TOL["5b"]):
+        raise AssertionError("phase 5b: served factors disagree")
+    if not (rmse_fold <= RMSE_BOUND
+            and abs(rmse_fold - rmse_fit) <= FOLDIN_RMSE_TOL):
+        raise AssertionError("phase 5b: fold-in RMSE out of bounds")
+    return launches
+
+
+def serve_implicit(ops, imodel, p10, tr_r, tr_c, tr_v, te_r, te_c,
+                   test_users):
+    """Phase 7b on phase 7's model; returns its launch counts."""
+    import torch
+
+    from cmfrec_torch.models import cmf as tcmf
+    from cmfrec_torch.solvers import warm
+
+    X, _ = _new_user_coo(test_users, tr_r, tr_c, tr_v, LFM_M, LFM_N)
+    if not tcmf._route_grouped(X.row, len(test_users)):
+        raise AssertionError("phase 7b: the batch would not take the "
+                             "degree-grouped route")
+    calls = []
+    real = _spy(warm, "factors_implicit_grouped", calls)
+    _reset_launches(ops)
+    try:
+        imodel.factors_multiple(X=X)
+        a, s = _timed_s(lambda: imodel.factors_multiple(X=X))
+    finally:
+        warm.factors_implicit_grouped = real
+    if calls != ["factors_implicit_grouped"] * 2 or not np.isfinite(a).all():
+        raise AssertionError(f"phase 7b: factors_multiple took {calls}")
+    Ad, Bd = imodel._device_x_factors()
+    A_fold = Ad.clone()
+    A_fold[torch.as_tensor(test_users, device=Ad.device)] = torch.as_tensor(
+        a, device=Ad.device)
+    p10_fold = ranking_quality(A_fold, Bd, tr_r, tr_c, te_r, te_c,
+                               test_users, LFM_N)[0]
+    X256 = X.tocsr()[:SERVE_CHECK].tocoo()
+    cpu_err = _rel(imodel.factors_multiple(X=X256),
+                   _cpu_twin(imodel).factors_multiple(X=X256))
+    launches = _read_launches(ops)
+    print(f"phase 7b implicit warm serving: {len(test_users)} held-out "
+          f"users, {X.nnz} plays, factors_multiple (grouped) {s:.3f} s = "
+          f"{len(test_users) / s:.0f} users/s; fold-in P@10 {p10_fold:.5f} "
+          f"(bound {P10_BOUND:.5f}; fitted rows {p10:.5f}, tol "
+          f"{FOLDIN_P10_TOL}); card vs CPU {cpu_err:.2e} (limit "
+          f"{SERVE_CPU_TOL['7b']:.1e}); launches {launches}", flush=True)
+    if any(launches.values()):
+        raise AssertionError("phase 7b: serving launched a fit kernel")
+    if cpu_err > SERVE_CPU_TOL["7b"]:
+        raise AssertionError("phase 7b: card and CPU disagree")
+    if not (p10_fold >= P10_BOUND and abs(p10_fold - p10) <= FOLDIN_P10_TOL):
+        raise AssertionError("phase 7b: fold-in P@10 out of bounds")
+    return launches
+
+
+def _cold_closed_form(Cf, colmeans, S, w, lam):
+    """numpy f64: (w C^T C + lam I)^-1 w C^T (s - colmeans) for each row s."""
+    C = Cf.astype(np.float64)
+    T = np.linalg.solve(w * C.T @ C + lam * np.eye(C.shape[1]), w * C.T)
+    return (S - colmeans[None, :]) @ T.T
+
+
+def serve_cold(ops, model, U, I):
+    """Phase 11b on phase 11's model (dense U and I); returns its launch
+    counts."""
+    lam = float(model.lambda_)  # phase 11 fits one scalar lambda
+    # scale_lam implies scale_lam_sideinfo: cold solves scale lambda by the
+    # side-info column count
+    if not model.scale_lam_sideinfo:
+        raise AssertionError("phase 11b: the model should scale lambda by "
+                             "the side-info column count")
+    rng = np.random.default_rng(22)
+    users = rng.choice(M, COLD_ROWS, replace=False)
+    Us = U[users]
+    _reset_launches(ops)
+    model.factors_multiple(U=Us)
+    a, s = _timed_s(lambda: model.factors_multiple(U=Us))
+    a_np = _cold_closed_form(model.C_, model.U_colmeans_, Us, model.w_user,
+                             lam * SIDE_P)
+    errs = {"factors_multiple": _rel(a, a_np)}
+    errs["factors_cold"] = max(_rel(model.factors_cold(U=Us[i]), a_np[i])
+                               for i in range(4))
+    B = model.B_.astype(np.float64)
+    ib = model.item_bias_.astype(np.float64)
+    items = rng.integers(0, N, COLD_ROWS)
+    p_np = model.glob_mean_ + ib[items] + np.sum(a_np * B[items], axis=1)
+    errs["predict_cold_multiple"] = _rel(
+        model.predict_cold_multiple(items, U=Us), p_np)
+    topn = 0.0
+    for i in range(4):
+        got, scores = model.topN_cold(n=10, U=Us[i], output_score=True)
+        want = model.glob_mean_ + ib + B @ a_np[i]
+        _check_topn(got, scores, [], "phase 11b: topN_cold")
+        topn = max(topn, _rel(scores, want[got]),
+                   float(np.sort(want)[-10] - scores.min()) / np.abs(want).max())
+    errs["topN_cold"] = topn
+    # factors_warm with U on a fully observed row: the BeTBeChol path
+    x = 3.5 + 0.5 * rng.normal(size=N)
+    stats = model.__dict__.setdefault("_cache_stats", {})
+    before = stats.get("bechol", 0)
+    aw, bw = model.factors_warm(X=x, U=Us[0], return_bias=True)
+    if stats.get("bechol", 0) != before + 1:
+        raise AssertionError("phase 11b: factors_warm did not take BeTBeChol")
+    ext = np.column_stack([B, np.ones(N)])
+    Ce = np.column_stack([model.C_.astype(np.float64), np.zeros(SIDE_P)])
+    # one scalar lambda on every coordinate, the bias's too, times the
+    # row's multiplier: its N ratings and SIDE_P side-info entries
+    G = (model.w_main * ext.T @ ext + model.w_user * Ce.T @ Ce
+         + lam * (N + SIDE_P) * np.eye(model.k + 1))
+    rhs = (model.w_main * ext.T @ (x - model.glob_mean_ - ib)
+           + model.w_user * Ce.T @ (Us[0] - model.U_colmeans_))
+    sol = np.linalg.solve(G, rhs)
+    errs["factors_warm (BeTBeChol)"] = _rel(np.append(aw, bw), sol)
+    # new items from their side info
+    new_items = I[rng.choice(N, SERVE_CHECK, replace=False)]
+    b_np = _cold_closed_form(model.D_, model.I_colmeans_, new_items,
+                             model.w_item, lam * SIDE_P)
+    errs["item_factors_cold"] = _rel(model.item_factors_cold(I=new_items[0]),
+                                     b_np[0])
+    A = model.A_.astype(np.float64)
+    ub = model.user_bias_.astype(np.float64)
+    us = users[:SERVE_CHECK]
+    pn = model.glob_mean_ + ub[us] + np.sum(A[us] * b_np, axis=1)
+    errs["predict_new"] = _rel(model.predict_new(us, I=new_items), pn)
+    got, scores = model.topN_new(int(us[0]), I=new_items, n=10,
+                                 output_score=True)
+    want = model.glob_mean_ + ub[us[0]] + b_np @ A[us[0]]
+    errs["topN_new"] = max(_rel(scores, want[got]),
+                           float(np.sort(want)[-10] - scores.min())
+                           / np.abs(want).max())
+    # the same calls on the CPU copy
+    twin = _cpu_twin(model)
+    cpu_err = max(
+        _rel(model.factors_multiple(U=Us[:SERVE_CHECK]),
+             twin.factors_multiple(U=Us[:SERVE_CHECK])),
+        _rel(np.append(aw, bw), np.append(*twin.factors_warm(
+            X=x, U=Us[0], return_bias=True))),
+        _rel(model.predict_new(us, I=new_items),
+             twin.predict_new(us, I=new_items)))
+    launches = _read_launches(ops)
+    shown = ", ".join(f"{key} {v:.2e}" for key, v in errs.items())
+    print(f"phase 11b cold serving: {COLD_ROWS} U rows, factors_multiple(U=) "
+          f"{s:.4f} s = {COLD_ROWS / s:.0f} users/s; against the numpy "
+          f"closed forms (tol {SERVE_ORACLE_TOL:.1e}): {shown}; card vs CPU "
+          f"{cpu_err:.2e} (limit {SERVE_CPU_TOL['11b']:.1e}); launches "
+          f"{launches}",
+          flush=True)
+    if any(launches.values()):
+        raise AssertionError("phase 11b: serving launched a fit kernel")
+    if (max(errs.values()) > SERVE_ORACLE_TOL
+            or cpu_err > SERVE_CPU_TOL["11b"]):
+        raise AssertionError("phase 11b: cold serving disagrees")
+    return launches
+
+
 def collective_phases(ops, rows, cols, vals, test):
     """Phases 10-13; returns each fit's launch counts by phase."""
     import torch
@@ -731,6 +1075,8 @@ def collective_phases(ops, rows, cols, vals, test):
             and np.isfinite(model.C_).all() and np.isfinite(model.D_).all()):
         raise AssertionError("phase 11: RMSE or side factors out of bounds")
     paths["11"] = launches
+    # 11b. cold serving: new users and new items from side info
+    paths["11b"] = serve_cold(ops, model, U, I)
     del model
     torch.cuda.empty_cache()
 
@@ -931,6 +1277,8 @@ def main():
     if pred_err > 1e-4:
         raise AssertionError("predict disagrees with the numpy formula")
 
+    # 5b. explicit warm serving of new users
+    serving = {"5b": serve_explicit(ops, model, rows, cols, vals, test)}
     del model
     torch.cuda.empty_cache()
 
@@ -991,6 +1339,9 @@ def main():
             raise AssertionError(f"implicit topN for user {u} is wrong")
     print(f"implicit serving: topN(n=10, exclude=seen) for {len(users)} "
           "users: ok", flush=True)
+    # 7b. implicit warm serving of the held-out users
+    serving["7b"] = serve_implicit(ops, imodel, p10, tr_r, tr_c, tr_v, te_r,
+                                   te_c, test_users)
     del imodel, Ad, Bd
     torch.cuda.empty_cache()
 
@@ -1036,7 +1387,8 @@ def main():
                              "kernel, or the fit launched one")
 
     # 10-13. the collective and dense implicit fits
-    paths = {"4": launches, "7": ilaunches, "8": slaunches}
+    paths = {"4": launches, "5b": serving["5b"], "7": ilaunches,
+             "7b": serving["7b"], "8": slaunches}
     paths.update(collective_phases(ops, rows, cols, vals, test))
 
     kernels = []

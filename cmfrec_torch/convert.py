@@ -13,6 +13,7 @@ import torch
 
 from .config import resolve_device
 from .models.cmf import CMF, CMF_implicit
+from .models.imputer import CMF_imputer
 
 
 def init_from_arrays(d: dict, device="cuda") -> dict:
@@ -29,16 +30,20 @@ def init_from_arrays(d: dict, device="cuda") -> dict:
 def cmf_from_arrays(*, A, B, user_bias=None, item_bias=None, glob_mean=0.0,
                     user_mapping=None, item_mapping=None, params=None,
                     w_main_multiplier=1.0, C=None, D=None, Ai=None, Bi=None,
-                    U_colmeans=None, I_colmeans=None, cls=CMF,
-                    device="cuda"):
-    """A fitted port model of class ``cls`` (``CMF`` or ``CMF_implicit``)
-    from a fitted cmfrec_tpu model's attributes (A_, B_, user_bias_,
-    item_bias_, glob_mean_, user_mapping_, item_mapping_,
+                    U_colmeans=None, I_colmeans=None, scaling_biasA=0.0,
+                    scaling_biasB=0.0, cls=CMF, device="cuda"):
+    """A fitted port model of class ``cls`` (``CMF``, ``CMF_implicit`` or
+    ``CMF_imputer``) from a fitted cmfrec_tpu model's attributes (A_, B_,
+    user_bias_, item_bias_, glob_mean_, user_mapping_, item_mapping_,
     w_main_multiplier_ of an implicit model, a collective model's C_, D_,
-    Ai_, Bi_, U_colmeans_ and I_colmeans_, and get_params())."""
-    if cls not in (CMF, CMF_implicit):
-        raise ValueError(f"cls must be CMF or CMF_implicit, got {cls!r}")
-    model = cls(**(params or {}), device=device)
+    Ai_, Bi_, U_colmeans_ and I_colmeans_, scaling_biasA_ and
+    scaling_biasB_, and get_params(), which carries scale_bias_const).
+    Like ``load``, it builds no prediction caches
+    (``force_precompute_for_predictions`` does)."""
+    if cls not in (CMF, CMF_implicit, CMF_imputer):
+        raise ValueError("cls must be CMF, CMF_implicit or CMF_imputer, "
+                         f"got {cls!r}")
+    model = cls(**{**(params or {}), "device": device})
     model._reset()
     model.dtype_ = np.dtype(np.float32)
 
@@ -56,6 +61,10 @@ def cmf_from_arrays(*, A, B, user_bias=None, item_bias=None, glob_mean=0.0,
         I_colmeans, np.float64)
     model.glob_mean_ = float(glob_mean)
     model.w_main_multiplier_ = float(w_main_multiplier)
+    # the constant bias penalty of scale_bias_const serving (fit-time mean
+    # observation weight a row and a column)
+    model.scaling_biasA_ = float(scaling_biasA)
+    model.scaling_biasB_ = float(scaling_biasB)
     if user_mapping is not None and len(user_mapping):
         model.user_mapping_ = np.asarray(user_mapping)
         model.item_mapping_ = np.asarray(item_mapping)

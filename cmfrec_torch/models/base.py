@@ -19,17 +19,18 @@ import torch
 
 from ..config import resolve_device, resolve_dtype
 from ..ops import predict as predict_ops
+from ..solvers import warm
 from ..solvers.collective import SLICE_BUCKETED
 from ..solvers.drivers import _unsupported
 
 
 def _is_df(x):
-    try:
-        import pandas as pd
-
-        return isinstance(x, pd.DataFrame)
-    except ImportError:  # pandas is optional
+    # pandas is optional, and imported only for what may be a DataFrame
+    if not type(x).__module__.startswith("pandas"):
         return False
+    import pandas as pd
+
+    return isinstance(x, pd.DataFrame)
 
 
 def _is_sparse(x):
@@ -120,6 +121,7 @@ class _BaseModel:
         self.user_dict_ = {}
         self.item_dict_ = {}
         self._device_cache = {}
+        self._precomputed = {}
 
     def _ingest_X(self, X, W=None):
         """Fit-time ingestion: also records X's dims (``_m_orig``/``_n_orig``,
@@ -129,9 +131,37 @@ class _BaseModel:
         self._n_orig = out[5]
         return out
 
-    def _ingest_X_inner(self, X, W=None):
+    def _ingest_X_new(self, X, W=None):
+        """New-data rows (factors_multiple, predict_warm_multiple): the
+        formats of fit, but stateless.  Item ids go through the model's
+        item mapping, the new rows' ids are local to the call, and no
+        attribute of the model is written."""
+        if _is_df(X):
+            import pandas as pd
+
+            need = {"UserId", "ItemId"}
+            if not need.issubset(X.columns):
+                raise ValueError("X DataFrame needs UserId and ItemId columns")
+            ucodes, _ = pd.factorize(X["UserId"], use_na_sentinel=False)
+            icodes, _ = self._map_ids(np.asarray(X["ItemId"]),
+                                      self.item_mapping_, "item")
+            icodes = np.atleast_1d(icodes)
+            n_items = np.asarray(self._xB).shape[0]
+            bad = (icodes < 0) | (icodes >= n_items)
+            if bad.any():
+                raise ValueError("unknown item id(s) in new X: "
+                                 f"{np.asarray(X['ItemId'])[bad][:5]}")
+            vals, wgt = _parse_df_values(X, W)
+            return (ucodes.astype(np.int64), icodes.astype(np.int64), vals,
+                    wgt, int(ucodes.max()) + 1 if ucodes.size else 0,
+                    n_items)
+        # positional formats carry no ids to map
+        return self._ingest_X_inner(X, W, store=False)
+
+    def _ingest_X_inner(self, X, W=None, store=True):
         """X as DataFrame(UserId, ItemId, Rating[, Weight]) / scipy sparse /
-        dense ndarray (NaN = missing) -> COO triplets + dims + mappings."""
+        dense ndarray (NaN = missing) -> COO triplets + dims, and with
+        ``store`` the id mappings."""
         if _is_df(X):
             import pandas as pd
 
@@ -140,9 +170,10 @@ class _BaseModel:
                 raise ValueError("X DataFrame needs UserId and ItemId columns")
             ucodes, umap = pd.factorize(X["UserId"], use_na_sentinel=False)
             icodes, imap = pd.factorize(X["ItemId"], use_na_sentinel=False)
-            self.user_mapping_ = np.asarray(umap)
-            self.item_mapping_ = np.asarray(imap)
-            self.reindex_ = True
+            if store:
+                self.user_mapping_ = np.asarray(umap)
+                self.item_mapping_ = np.asarray(imap)
+                self.reindex_ = True
             vals, wgt = _parse_df_values(X, W)
             return (ucodes.astype(np.int64), icodes.astype(np.int64), vals,
                     wgt, len(umap), len(imap))
@@ -151,7 +182,8 @@ class _BaseModel:
             wgt = None
             if W is not None:
                 wgt = W.tocoo().data if _is_sparse(W) else np.asarray(W).ravel()
-            self.reindex_ = False
+            if store:
+                self.reindex_ = False
             return (coo.row.astype(np.int64), coo.col.astype(np.int64),
                     coo.data.astype(np.float64), wgt, X.shape[0], X.shape[1])
         X = np.asarray(X, np.float64)
@@ -163,7 +195,8 @@ class _BaseModel:
         if W is not None:
             W = np.asarray(W, np.float64)
             wgt = W[rows, cols] if W.ndim == 2 else W.ravel()
-        self.reindex_ = False
+        if store:
+            self.reindex_ = False
         return rows, cols, vals, wgt, X.shape[0], X.shape[1]
 
     def _ingest_side(self, U, mapping, n_main, name="U"):
@@ -252,6 +285,24 @@ class _BaseModel:
                                  codes)
         return (codes[0] if scalar else codes), scalar
 
+    def _item_rows(self, items):
+        i, _ = self._map_ids(items, self.item_mapping_, "item")
+        return np.atleast_1d(i)
+
+    def _new_row_U(self, U, U_col, U_val):
+        """One new row of side info as [1, p] (NaN = missing), or None."""
+        if U is None and U_col is None:
+            return None
+        if U is not None:
+            return np.asarray(U, np.float64).ravel()[None, :]
+        u = np.full(self.C_.shape[0], np.nan)
+        u[np.asarray(U_col, np.int64)] = np.asarray(U_val, np.float64)
+        return u[None, :]
+
+    def _check_fitted(self):
+        if not self.is_fitted_:
+            raise RuntimeError("Model is not fitted")
+
     def _unmap_items(self, idx):
         if self.reindex_:
             return self.item_mapping_[idx]
@@ -293,7 +344,10 @@ class _BaseModel:
         """(A, B) on the device, restricted to the columns that participate
         in X (as ``_xA``/``_xB``)."""
         return (self._on_device("A_")[:, getattr(self, "k_user", 0):],
-                self._on_device("B_")[:, getattr(self, "k_item", 0):])
+                self._device_xB())
+
+    def _device_xB(self):
+        return self._on_device("B_")[:, getattr(self, "k_item", 0):]
 
     # Unknown user/item combinations: the explicit CMF predicts the global
     # mean plus whichever bias is known; other models yield NaN
@@ -350,6 +404,16 @@ class _BaseModel:
         a_bias = float(self.user_bias_[int(u)]) if self.user_bias_ is not None else 0.0
         return self._topN_vec(a_vec, a_bias, n, include, exclude, output_score)
 
+    def _topN_row(self, out, n, include, exclude, output_score,
+                  with_bias=True):
+        """topN over a new user's device result ``out`` [1, w + 2]
+        (solvers/warm.py); its bias and its factorization's status come to
+        the host first."""
+        _, bias = warm.download(out)
+        return self._topN_vec(out[0, self.k_user:warm._width(self)],
+                              float(bias[0]) if with_bias else 0.0, n,
+                              include, exclude, output_score)
+
     def _topN_vec(self, a_vec, a_bias, n, include, exclude, output_score):
         """``a_vec`` is the user's factor row, a tensor on the device."""
         if include is not None:
@@ -358,7 +422,7 @@ class _BaseModel:
         if exclude is not None:
             exclude, _ = self._map_ids(exclude, self.item_mapping_, "item")
             exclude = np.atleast_1d(exclude)
-        B, ib = self._device_x_factors()[1], self._on_device("item_bias_")
+        B, ib = self._device_xB(), self._on_device("item_bias_")
         # include_all_X=False: items present only in the side info (rows of
         # I beyond X's columns) are excluded from recommendation
         # (upstream cmfrec/__init__.py:2759; ignored under NA_as_zero)
@@ -383,6 +447,81 @@ class _BaseModel:
         )
         items = self._unmap_items(idx)
         return (items, scores) if output_score else items
+
+    # ------------------------------------------------------------------ #
+    # model-matrix utilities                                              #
+    # ------------------------------------------------------------------ #
+
+    def swap_users_and_items(self, precompute=True):
+        """A copy with users and items exchanged (reference: upstream
+        cmfrec/__init__.py:2165).  It shares the fitted arrays and starts
+        with empty prediction and device caches."""
+        if not self.is_fitted_:
+            raise RuntimeError("Model is not fitted")
+        import copy
+
+        new = copy.copy(self)
+        new.A_, new.B_ = self.B_, self.A_
+        new.C_, new.D_ = self.D_, self.C_
+        new.Ai_, new.Bi_ = self.Bi_, self.Ai_
+        new.Cb_ = getattr(self, "Db_", None)
+        new.Db_ = getattr(self, "Cb_", None)
+        new.user_bias_, new.item_bias_ = self.item_bias_, self.user_bias_
+        new.user_mapping_, new.item_mapping_ = (self.item_mapping_,
+                                                self.user_mapping_)
+        new.user_dict_, new.item_dict_ = (getattr(self, "item_dict_", {}),
+                                          getattr(self, "user_dict_", {}))
+        # X's fit-time dims swap with the axes (the include_all_X gate)
+        new._m_orig = getattr(self, "_n_orig", None)
+        new._n_orig = getattr(self, "_m_orig", None)
+        new.U_colmeans_, new.I_colmeans_ = self.I_colmeans_, self.U_colmeans_
+        for a, b in (("k_user", "k_item"), ("w_user", "w_item"),
+                     ("user_bias", "item_bias"),
+                     ("NA_as_zero_user", "NA_as_zero_item"),
+                     ("nonneg_C", "nonneg_D"), ("center_U", "center_I")):
+            if hasattr(self, a) and hasattr(self, b):
+                setattr(new, a, getattr(self, b))
+                setattr(new, b, getattr(self, a))
+        new._device_cache = {}
+        new._precomputed = {}
+        new._cache_stats = {}
+        if precompute and hasattr(new, "force_precompute_for_predictions"):
+            new.force_precompute_for_predictions()
+        return new
+
+    def drop_nonessential_matrices(self, drop_precomputed=True):
+        """Free what new-user factors (factors_warm / factors_cold /
+        factors_multiple / topN_warm / topN_cold) do not need, as the
+        reference's production-memory trim (upstream
+        cmfrec/__init__.py:2366-2440): the user-side matrices (A, Ai, D,
+        the user biases and id mapping) go, the item-side ones stay, and
+        so do the device copies of what stays.  ``predict``, ``topN`` and
+        ``swap_users_and_items`` stop working.  With ``drop_precomputed``
+        the less-used solve caches (TransBtBinvBt, TransCtCinvCt,
+        BeTBeChol) go too."""
+        if not self.is_fitted_:
+            raise RuntimeError("Model is not fitted")
+        if not hasattr(self, "force_precompute_for_predictions"):
+            raise ValueError(
+                "Method is only applicable to 'CMF' and 'CMF_implicit'.")
+        self._only_prediction_info = True
+        self.user_mapping_ = np.array([], dtype=object)
+        self.user_dict_ = {}
+        self.item_dict_ = {}
+        self.A_ = None
+        self.Ai_ = None
+        self.D_ = None
+        self.user_bias_ = None
+        self.I_colmeans_ = None
+        dropped = ("TransBtBinvBt", "TransCtCinvCt", "BeTBeChol")
+        cache = self.__dict__.get("_device_cache", {})
+        for name in ("A_", "Ai_", "D_", "user_bias_") + tuple(
+                "warm:" + key for key in dropped if drop_precomputed):
+            cache.pop(name, None)
+        if drop_precomputed:
+            for key in dropped:
+                self._precomputed.pop(key, None)
+        return self
 
     # ------------------------------------------------------------------ #
     # serialization: the cmfrec_tpu .npz format                           #

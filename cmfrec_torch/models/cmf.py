@@ -3,7 +3,9 @@
 API-compatible with cmfrec_tpu's ``CMF`` (and the reference's class of the
 same name, upstream cmfrec/__init__.py:2446): the same constructor
 hyperparameters plus ``device``, the same fitted attributes, and
-fit/predict/topN/save/load.  ``CMF_implicit`` (upstream
+fit/predict/topN/save/load and the warm and cold serving surface
+(factors_warm/cold, *_multiple, transform, predict_new, topN_*; the solves
+are in solvers/warm.py).  ``CMF_implicit`` (upstream
 cmfrec/__init__.py:4358) likewise.  Without side info ``CMF`` fits on the
 dense-masked engine unless the data needs the bucketed one, and
 ``CMF_implicit`` on the bucketed one (``drivers.fit_implicit_als(...,
@@ -20,9 +22,37 @@ import warnings
 
 import numpy as np
 
-from ..config import resolve_dtype, set_handle_interrupt
-from ..solvers import collective, drivers
+from ..config import resolve_device, resolve_dtype, set_handle_interrupt
+from ..solvers import collective, drivers, warm
 from .base import _BaseModel
+
+SLICE_BIN = "slice 6"  # binary side info (per-row L-BFGS)
+
+
+def _route_grouped(rows, m_new, min_rows=256, max_waste=3.0):
+    """Serving-batch routing: the degree-grouped warm path when padding
+    every row to the batch's largest degree would waste more than
+    ``max_waste`` times the entry count (power-law request batches).
+    Small or uniform batches keep the plain padded path and its
+    full-observation caches."""
+    if m_new < min_rows:
+        return False
+    counts = np.bincount(rows, minlength=m_new)
+    waste = m_new * int(counts.max(initial=0)) / max(rows.size, 1)
+    return waste > max_waste
+
+
+def _reject_bin(*arrays):
+    if any(a is not None for a in arrays):
+        raise drivers._unsupported("binary side info (U_bin, I_bin)",
+                                   SLICE_BIN)
+
+
+def _top_of(scores, n, output_score):
+    n = min(n, scores.shape[0])
+    idx = np.argpartition(-scores, n - 1)[:n]
+    idx = idx[np.argsort(-scores[idx])]
+    return (idx, scores[idx]) if output_score else idx
 
 
 def _check_lambda(lambda_, name="lambda_"):
@@ -129,8 +159,6 @@ class CMF(_BaseModel):
         self.nonneg_C = nonneg_C
         self.nonneg_D = nonneg_D
         self.max_cd_steps = max_cd_steps
-        # stored for API parity; its precompute (warm.build_precomputed)
-        # arrives with the warm-serving slice
         self.precompute_for_predictions = precompute_for_predictions
         self.include_all_X = include_all_X
         self.use_float = use_float
@@ -210,7 +238,269 @@ class CMF(_BaseModel):
         self.is_fitted_ = True
         self.niter_ = self.niter
         self._build_dicts()
+        if self.precompute_for_predictions:
+            self.force_precompute_for_predictions()
         return self
+
+    # ------------------------------------------------------------------ #
+    # warm / cold factors                                                 #
+    # ------------------------------------------------------------------ #
+
+    def _warm_row(self, X, X_col, X_val, W, U, U_col, U_val):
+        """One new user's [1, w + 2] result on the device."""
+        cols, vals, wgt = self._new_row_X(X, X_col, X_val, W)
+        return warm.factors_explicit_batch(
+            self, cols[None, :], vals[None, :],
+            None if wgt is None else wgt[None, :],
+            np.array([len(cols)], np.int64),
+            U=self._new_row_U(U, U_col, U_val), return_device=True)
+
+    def factors_warm(self, X=None, X_col=None, X_val=None, W=None,
+                     U=None, U_bin=None, U_col=None, U_val=None,
+                     return_bias=False):
+        """Latent factors of a new user from their interactions (reference:
+        upstream cmfrec/__init__.py:3568)."""
+        self._check_fitted()
+        _reject_bin(U_bin)
+        a, bias = warm.download(self._warm_row(X, X_col, X_val, W, U, U_col,
+                                               U_val))
+        return (a[0], float(bias[0])) if return_bias else a[0]
+
+    def _cold_rows(self, U, R):
+        """R new users' [R, w + 2] result from side info alone."""
+        return warm.factors_explicit_batch(
+            self, np.zeros((R, 0), np.int64), np.zeros((R, 0)), None,
+            np.zeros(R, np.int64), U=U, return_device=True)
+
+    def factors_cold(self, U=None, U_bin=None, U_col=None, U_val=None):
+        """Factors from side info only (reference:
+        upstream cmfrec/__init__.py:3398)."""
+        self._check_fitted()
+        _reject_bin(U_bin)
+        if self.C_ is None:
+            raise ValueError("Model was fit without user side info")
+        return warm.download(self._cold_rows(
+            self._new_row_U(U, U_col, U_val), 1))[0][0]
+
+    def _new_row_X(self, X, X_col, X_val, W):
+        if X is not None:
+            X = np.asarray(X, np.float64).ravel()
+            cols = np.nonzero(~np.isnan(X))[0]
+            vals = X[cols]
+            wgt = None if W is None else np.asarray(W, np.float64).ravel()[cols]
+        else:
+            cols, _ = self._map_ids(np.asarray(X_col), self.item_mapping_,
+                                    "item")
+            cols = np.atleast_1d(cols)
+            vals = np.asarray(X_val, np.float64).ravel()
+            wgt = None if W is None else np.asarray(W, np.float64).ravel()
+        return cols.astype(np.int64), vals, wgt
+
+    def _score_items(self, i, a, bias=0.0):
+        """Predictions for items ``i`` from factor rows ``a`` (one row, or
+        one a item), on the host as cmfrec_tpu does."""
+        B = np.asarray(self._xB)[i]
+        a = np.asarray(a)[..., self.k_user:]
+        p = (B @ a if a.ndim == 1 else np.sum(a * B, axis=1))
+        p = p + self.glob_mean_ + bias
+        if self.item_bias_ is not None:
+            p = p + np.asarray(self.item_bias_)[i]
+        return p
+
+    def predict_warm(self, items, X=None, X_col=None, X_val=None, W=None,
+                     U=None, U_bin=None, U_col=None, U_val=None):
+        a, bias = self.factors_warm(X=X, X_col=X_col, X_val=X_val, W=W, U=U,
+                                    U_bin=U_bin, U_col=U_col, U_val=U_val,
+                                    return_bias=True)
+        return self._score_items(self._item_rows(items), a, bias)
+
+    def topN_warm(self, n=10, X=None, X_col=None, X_val=None, W=None,
+                  U=None, U_bin=None, U_col=None, U_val=None,
+                  include=None, exclude=None, output_score=False):
+        self._check_fitted()
+        _reject_bin(U_bin)
+        out = self._warm_row(X, X_col, X_val, W, U, U_col, U_val)
+        return self._topN_row(out, n, include, exclude, output_score)
+
+    def topN_cold(self, n=10, U=None, U_bin=None, U_col=None, U_val=None,
+                  include=None, exclude=None, output_score=False):
+        self._check_fitted()
+        _reject_bin(U_bin)
+        if self.C_ is None:
+            raise ValueError("Model was fit without user side info")
+        # a cold user is ranked without a bias, as cmfrec_tpu does
+        return self._topN_row(
+            self._cold_rows(self._new_row_U(U, U_col, U_val), 1), n, include,
+            exclude, output_score, with_bias=False)
+
+    def predict_cold(self, items, U=None, U_bin=None, U_col=None, U_val=None):
+        a = self.factors_cold(U=U, U_bin=U_bin, U_col=U_col, U_val=U_val)
+        return self._score_items(self._item_rows(items), a)
+
+    def predict_cold_multiple(self, item, U=None, U_bin=None):
+        """Predict for many (new user, existing item) pairs (reference:
+        upstream cmfrec/__init__.py:3291)."""
+        self._check_fitted()
+        _reject_bin(U_bin)
+        U = np.asarray(U, np.float64)
+        a, _ = warm.download(self._cold_rows(U, U.shape[0]))
+        return self._score_items(self._item_rows(item), a)
+
+    def _new_items(self, I):
+        """Factors (and biases) of new items from their side info, through
+        the swapped model: (b [R, w], bias [R])."""
+        I = np.asarray(I, np.float64)
+        if I.ndim == 1:
+            I = I[None, :]
+        sw = self.swap_users_and_items(precompute=False)
+        return warm.download(sw._cold_rows(I, I.shape[0]))
+
+    def item_factors_cold(self, I=None, I_bin=None, I_col=None, I_val=None):
+        """Factors of a new item from its side info (reference: upstream
+        cmfrec/__init__.py:3434): factors_cold of the swapped model,
+        solved against D."""
+        self._check_fitted()
+        _reject_bin(I_bin)
+        if self.D_ is None:
+            raise ValueError("Model was fit without item side info")
+        return self.swap_users_and_items(precompute=False).factors_cold(
+            U=I, U_col=I_col, U_val=I_val)
+
+    def predict_new(self, user, I=None, I_bin=None):
+        """Predict for (existing user, new item given side info) pairs
+        (reference: upstream cmfrec/__init__.py:3472)."""
+        self._check_fitted()
+        _reject_bin(I_bin)
+        b, _ = self._new_items(I)
+        u, _ = self._map_ids(user, self.user_mapping_, "user")
+        u = np.atleast_1d(u)
+        p = np.sum(np.asarray(self._xA)[u] * b[:, self.k_item:], axis=1)
+        p = p + self.glob_mean_
+        if self.user_bias_ is not None:
+            p = p + np.asarray(self.user_bias_)[u]
+        return p
+
+    def topN_new(self, user, I=None, I_bin=None, n=10, output_score=False):
+        """Rank a pool of new items (given their side info) for an existing
+        user (reference: upstream cmfrec/__init__.py:3511)."""
+        self._check_fitted()
+        _reject_bin(I_bin)
+        b, _ = self._new_items(I)
+        u, _ = self._map_ids(user, self.user_mapping_, "user")
+        scores = b[:, self.k_item:] @ np.asarray(self._xA)[int(u)]
+        scores = scores + self.glob_mean_
+        if self.user_bias_ is not None:
+            scores = scores + float(self.user_bias_[int(u)])
+        return _top_of(scores, n, output_score)
+
+    def factors_multiple(self, X=None, U=None, U_bin=None, W=None,
+                         return_bias=False):
+        """Warm factors of many new users at once (reference: upstream
+        cmfrec/__init__.py:3706): power-law batches through the
+        degree-grouped route (``_route_grouped``), the others padded to
+        their largest degree; one download either way."""
+        self._check_fitted()
+        _reject_bin(U_bin)
+        U = None if U is None else np.asarray(U, np.float64)
+        if X is not None:
+            rows, cols, vals, wgt, m_new, _ = self._ingest_X_new(X, W)
+            if _route_grouped(rows, m_new):
+                a, bias = warm.factors_explicit_grouped(
+                    self, rows, cols, vals, wgt, m_new, U=U)
+                return (a, bias) if return_bias else a
+            idx, vv, ww, counts = warm.pack_padded_rows(rows, cols, vals,
+                                                        wgt, m_new)
+        else:
+            idx, vv, ww, counts = self._pack_new_rows(X, W, U)
+        a, bias = warm.factors_explicit_batch(self, idx, vv, ww, counts, U=U)
+        return (a, bias) if return_bias else a
+
+    def _pack_new_rows(self, X, W, U):
+        """New users' interactions -> padded [R, L] idx / value / weight."""
+        if X is None:
+            m_new = np.asarray(U).shape[0] if U is not None else 0
+            return (np.zeros((m_new, 0), np.int64), np.zeros((m_new, 0)),
+                    None, np.zeros(m_new, np.int64))
+        rows, cols, vals, wgt, m_new, _ = self._ingest_X_new(X, W)
+        return warm.pack_padded_rows(rows, cols, vals, wgt, m_new)
+
+    def predict_warm_multiple(self, X, item, W=None, U=None, U_bin=None):
+        """Predict (new user row i, item[i]) for many new users at once
+        (reference: upstream cmfrec/__init__.py:3654)."""
+        a, bias = self.factors_multiple(X=X, U=U, U_bin=U_bin, W=W,
+                                        return_bias=True)
+        i = self._item_rows(item)
+        if i.shape[0] != a.shape[0]:
+            raise ValueError("item must have one entry per row of X")
+        return self._score_items(i, a, bias)
+
+    def transform(self, X=None, y=None, U=None, U_bin=None, W=None,
+                  replace_existing=False):
+        """Fill the missing entries of new rows of X with predictions
+        (sklearn style; reference: upstream cmfrec/__init__.py:4027)."""
+        X = np.asarray(X, np.float64)
+        a, bias = self.factors_multiple(X=X, U=U, U_bin=U_bin, W=W,
+                                        return_bias=True)
+        pred = a[:, self.k_user:] @ np.asarray(self._xB).T + self.glob_mean_
+        pred = pred + bias[:, None]
+        if self.item_bias_ is not None:
+            pred = pred + np.asarray(self.item_bias_)[None, :]
+        if replace_existing:
+            return pred
+        out = X.copy()
+        nan = np.isnan(out)
+        out[nan] = pred[nan]
+        return out
+
+    def force_precompute_for_predictions(self):
+        """Build the prediction caches (warm.build_precomputed)."""
+        self._precomputed = warm.build_precomputed(self)
+        return self
+
+    @staticmethod
+    def from_model_matrices(A, B, glob_mean=0.0, precompute=True,
+                            user_bias=None, item_bias=None,
+                            lambda_=1e1, scale_lam=False, l1_lambda=0.0,
+                            nonneg=False, NA_as_zero=False,
+                            scaling_biasA=None, scaling_biasB=None,
+                            use_float=True, nthreads=-1, n_jobs=None,
+                            device="cuda"):
+        """A CMF that serves from existing factor matrices (reference:
+        upstream cmfrec/__init__.py:4186).  The arrays are kept as f32."""
+        A = np.asarray(A)
+        B = np.asarray(B)
+        if A.shape[1] != B.shape[1]:
+            raise ValueError("A and B must have the same number of columns")
+        model = CMF(k=A.shape[1], lambda_=lambda_, scale_lam=scale_lam,
+                    l1_lambda=l1_lambda, nonneg=nonneg, NA_as_zero=NA_as_zero,
+                    user_bias=user_bias is not None,
+                    item_bias=item_bias is not None, use_float=use_float,
+                    device=device)
+        _adopt(model, A, B, glob_mean)
+        model.user_bias_ = None if user_bias is None else np.asarray(
+            user_bias, np.float32)
+        model.item_bias_ = None if item_bias is None else np.asarray(
+            item_bias, np.float32)
+        if scaling_biasA is not None:
+            model.scale_bias_const = True
+            model.scaling_biasA_ = float(scaling_biasA)
+        if scaling_biasB is not None:
+            model.scale_bias_const = True
+            model.scaling_biasB_ = float(scaling_biasB)
+        if precompute:
+            model.force_precompute_for_predictions()
+        return model
+
+
+def _adopt(model, A, B, glob_mean):
+    """A fresh model takes A and B (as f32) as its fitted factors."""
+    model._reset()
+    model.dtype_ = np.dtype(np.float32)
+    model.A_ = np.asarray(A, np.float32)
+    model.B_ = np.asarray(B, np.float32)
+    model.glob_mean_ = float(glob_mean)
+    model._m_orig, model._n_orig = model.A_.shape[0], model.B_.shape[0]
+    model.is_fitted_ = True
 
 
 class CMF_implicit(_BaseModel):
@@ -260,8 +550,6 @@ class CMF_implicit(_BaseModel):
         self.max_cd_steps = max_cd_steps
         self.apply_log_transf = apply_log_transf
         self.downweight = downweight
-        # stored for API parity; its precompute arrives with the
-        # warm-serving slice
         self.precompute_for_predictions = precompute_for_predictions
         self.use_float = use_float
         self.random_state = random_state
@@ -322,4 +610,161 @@ class CMF_implicit(_BaseModel):
         self.is_fitted_ = True
         self.niter_ = self.niter
         self._build_dicts()
+        if self.precompute_for_predictions:
+            self.force_precompute_for_predictions()
         return self
+
+    # ------------------------------------------------------------------ #
+    # warm / cold factors                                                 #
+    # ------------------------------------------------------------------ #
+
+    force_precompute_for_predictions = CMF.force_precompute_for_predictions
+
+    def _warm_row(self, X_col, X_val, U, U_col, U_val):
+        cols, _ = self._map_ids(np.asarray(X_col), self.item_mapping_, "item")
+        cols = np.atleast_1d(cols).astype(np.int64)
+        # apply_log_transf raises on values <= 0, as the fit does
+        vals = drivers.implicit_values(np.ravel(X_val),
+                                       self.apply_log_transf)
+        return warm.factors_implicit_batch(
+            self, cols[None, :], vals[None, :],
+            np.array([len(cols)], np.int64),
+            U=self._new_row_U(U, U_col, U_val), return_device=True)
+
+    def factors_warm(self, X_col=None, X_val=None, U=None, U_col=None,
+                     U_val=None):
+        """WRMF factors of a new user (reference: upstream
+        cmfrec/__init__.py:5231)."""
+        self._check_fitted()
+        return warm.download(self._warm_row(X_col, X_val, U, U_col,
+                                            U_val))[0][0]
+
+    def _cold_rows(self, U):
+        if self.C_ is None:
+            raise ValueError("Model was fit without user side info")
+        U = np.asarray(U, np.float64)
+        R = U.shape[0]
+        return warm.factors_implicit_batch(
+            self, np.zeros((R, 1), np.int64), np.zeros((R, 1)),
+            np.zeros(R, np.int64), U=U, return_device=True)
+
+    def factors_cold(self, U=None, U_col=None, U_val=None):
+        self._check_fitted()
+        return warm.download(self._cold_rows(
+            self._new_row_U(U, U_col, U_val)))[0][0]
+
+    def topN_warm(self, n=10, X_col=None, X_val=None, U=None, U_col=None,
+                  U_val=None, include=None, exclude=None, output_score=False):
+        self._check_fitted()
+        return self._topN_row(self._warm_row(X_col, X_val, U, U_col, U_val),
+                              n, include, exclude, output_score)
+
+    def topN_cold(self, n=10, U=None, U_col=None, U_val=None,
+                  include=None, exclude=None, output_score=False):
+        self._check_fitted()
+        return self._topN_row(
+            self._cold_rows(self._new_row_U(U, U_col, U_val)), n, include,
+            exclude, output_score)
+
+    def _score_items(self, i, a):
+        B = np.asarray(self._xB)[i]
+        a = np.asarray(a)[..., self.k_user:]
+        return B @ a if a.ndim == 1 else np.sum(a * B, axis=1)
+
+    def predict_warm(self, items, X_col, X_val, U=None, U_col=None,
+                     U_val=None):
+        a = self.factors_warm(X_col=X_col, X_val=X_val, U=U, U_col=U_col,
+                              U_val=U_val)
+        return self._score_items(self._item_rows(items), a)
+
+    def predict_cold(self, items, U=None, U_col=None, U_val=None):
+        a = self.factors_cold(U=U, U_col=U_col, U_val=U_val)
+        return self._score_items(self._item_rows(items), a)
+
+    def factors_multiple(self, X=None, U=None):
+        """WRMF warm factors of many new users at once (reference: upstream
+        cmfrec/__init__.py:5107); one download."""
+        self._check_fitted()
+        if X is None:
+            return warm.download(self._cold_rows(U))[0]
+        U = None if U is None else np.asarray(U, np.float64)
+        rows, cols, vals, _, m_new, _ = self._ingest_X_new(X, None)
+        vals = drivers.implicit_values(vals, self.apply_log_transf)
+        if _route_grouped(rows, m_new):
+            return warm.factors_implicit_grouped(self, rows, cols, vals,
+                                                 m_new, U=U)
+        idx, vv, _, counts = warm.pack_padded_rows(rows, cols, vals, None,
+                                                   m_new)
+        return warm.factors_implicit_batch(self, idx, vv, counts, U=U)
+
+    def predict_warm_multiple(self, X, item, U=None):
+        """Predict (new user row i, item[i]) pairs (reference: upstream
+        cmfrec/__init__.py:5306)."""
+        a = self.factors_multiple(X=X, U=U)
+        i = self._item_rows(item)
+        if i.shape[0] != a.shape[0]:
+            raise ValueError("item must have one entry per row of X")
+        return self._score_items(i, a)
+
+    def predict_cold_multiple(self, item, U=None):
+        """Predict for many (new user given side info, existing item)
+        pairs (reference: upstream cmfrec/__init__.py:5221)."""
+        self._check_fitted()
+        a = warm.download(self._cold_rows(U))[0]
+        return self._score_items(self._item_rows(item), a)
+
+    def item_factors_cold(self, I=None, I_col=None, I_val=None):
+        """Factors of a new item from its side info: factors_cold of the
+        swapped model (reference: upstream cmfrec/__init__.py:5061)."""
+        self._check_fitted()
+        if self.D_ is None:
+            raise ValueError("Model was fit without item side info")
+        return self.swap_users_and_items(precompute=False).factors_cold(
+            U=I, U_col=I_col, U_val=I_val)
+
+    def _new_items(self, I):
+        I = np.asarray(I, np.float64)
+        if I.ndim == 1:
+            I = I[None, :]
+        sw = self.swap_users_and_items(precompute=False)
+        return warm.download(sw._cold_rows(I))[0]
+
+    def predict_new(self, user, I=None):
+        """Predict for (existing user, new item given side info) pairs
+        (reference: upstream cmfrec/__init__.py:5402)."""
+        self._check_fitted()
+        b = self._new_items(I)
+        u, _ = self._map_ids(user, self.user_mapping_, "user")
+        u = np.atleast_1d(u)
+        return np.sum(np.asarray(self._xA)[u] * b[:, self.k_item:], axis=1)
+
+    def topN_new(self, user, I=None, n=10, output_score=False):
+        """Rank a pool of new items (given side info) for an existing user
+        (reference: upstream cmfrec/__init__.py:5465)."""
+        self._check_fitted()
+        b = self._new_items(I)
+        u, _ = self._map_ids(user, self.user_mapping_, "user")
+        scores = b[:, self.k_item:] @ np.asarray(self._xA)[int(u)]
+        return _top_of(scores, n, output_score)
+
+    @staticmethod
+    def from_model_matrices(A, B, precompute=True, lambda_=1e0,
+                            l1_lambda=0.0, nonneg=False,
+                            apply_log_transf=False, alpha=1.0,
+                            use_float=True, nthreads=-1, n_jobs=None,
+                            device="cuda"):
+        """A CMF_implicit that serves from existing factor matrices; the
+        arrays are kept as f32."""
+        A = np.asarray(A)
+        B = np.asarray(B)
+        if A.shape[1] != B.shape[1]:
+            raise ValueError("A and B must have the same number of columns")
+        model = CMF_implicit(k=A.shape[1], lambda_=lambda_,
+                             l1_lambda=l1_lambda, nonneg=nonneg,
+                             apply_log_transf=apply_log_transf, alpha=alpha,
+                             use_float=use_float, device=device)
+        _adopt(model, A, B, 0.0)
+        model.w_main_multiplier_ = 1.0
+        if precompute:
+            model.force_precompute_for_predictions()
+        return model

@@ -126,6 +126,18 @@ def solve_chol(G: torch.Tensor, rhs: torch.Tensor) -> torch.Tensor:
     return x[..., 0]
 
 
+def solve_chol_ex(G: torch.Tensor, rhs: torch.Tensor):
+    """``solve_chol`` without its host sync: (x [R, K], info [R] int32).
+
+    ``torch.linalg.cholesky`` checks ``info`` on the host after every call,
+    which on a card waits for the device; ``cholesky_ex`` leaves it on the
+    device, so a caller solving several batches checks all of them once.
+    A row whose ``info`` is not 0 failed (its G is not positive definite)
+    and its x is meaningless."""
+    L, info = torch.linalg.cholesky_ex(G)
+    return torch.cholesky_solve(rhs[..., None], L)[..., 0], info
+
+
 def solve_shared_chol(G: torch.Tensor, rhs: torch.Tensor) -> torch.Tensor:
     """All rows share ONE [K, K] SPD matrix (NA-as-zero half-steps,
     upstream cmfrec src/common.c:3118 optimizeA case 3): one factorization,

@@ -380,3 +380,85 @@ def test_bucket_cg_classes(cuda, case, op, explicit):
     assert torch.isfinite(out).all()
     assert _rel(out, ref) <= K3_REL_TOL[op]
     assert torch.equal(out, again)
+
+
+def _serving_models(implicit, devices=("cuda", "cpu"), seed=15, m=300,
+                    n=200, k=12, p=9):
+    """The same fitted arrays as a model on each of ``devices`` (side info
+    C with column means, built precomputes)."""
+    from cmfrec_torch.models.cmf import CMF, CMF_implicit
+
+    rng = np.random.default_rng(seed)
+    A, B, C, ub, ib = ((s * rng.normal(size=shape)).astype(np.float32)
+                       for s, shape in ((0.5, (m, k)), (0.5, (n, k)),
+                                        (0.4, (p, k)), (0.3, m), (0.3, n)))
+    models = []
+    for dev in devices:
+        if implicit:
+            model = CMF_implicit.from_model_matrices(
+                A, B, lambda_=2.0, alpha=2.0, precompute=False, device=dev)
+        else:
+            model = CMF.from_model_matrices(
+                A, B, glob_mean=3.0, user_bias=ub, item_bias=ib,
+                lambda_=1.5, scale_lam=True, precompute=False, device=dev)
+        model.C_, model.U_colmeans_ = C, np.linspace(-1, 1, p)
+        models.append(model.force_precompute_for_predictions())
+    return models, rng
+
+
+@pytest.mark.parametrize("route", ["padded", "grouped"])
+@pytest.mark.parametrize("implicit", [False, True])
+def test_warm_serving_on_card_matches_cpu(cuda, implicit, route):
+    """factors_multiple (X, X and U, U alone) on the card against the same
+    model on the CPU: f32 sums in another order, 1e-5 of max|a|."""
+    import scipy.sparse as sp
+
+    from cmfrec_torch.models import cmf as tcmf
+
+    (card, cpu), rng = _serving_models(implicit)
+    R = 40 if route == "padded" else 600
+    deg = np.minimum((rng.pareto(1.0, R) * 4).astype(np.int64) + 1, 200)
+    rows = np.repeat(np.arange(R), deg)
+    cols = np.concatenate([rng.choice(200, d, replace=False) for d in deg])
+    X = sp.coo_matrix((1.0 + rng.poisson(3.0, rows.size), (rows, cols)),
+                      shape=(R, 200))
+    assert tcmf._route_grouped(X.row, R) == (route == "grouped")
+    U = rng.normal(size=(R, 9))
+    for kw in (dict(X=X), dict(X=X, U=U), dict(U=U)):
+        a, b = (model.factors_multiple(**kw) for model in (card, cpu))
+        if not implicit:
+            a, b = (model.factors_multiple(**kw, return_bias=True)[0]
+                    for model in (card, cpu))
+        assert np.isfinite(a).all()
+        assert np.abs(a - b).max() <= 1e-5 * np.abs(b).max()
+    assert card._device_cache["warm:extB"][2].device.type == "cuda"
+
+
+def test_warm_gram_card_matches_f64(cuda):
+    """The warm Gram of the serving path on the card is a true f32 product
+    (TF32 would be ~1e-3 off): against f64, 1e-5 of max|G|."""
+    from cmfrec_torch.config import resolve_device
+    from cmfrec_torch.ops import rowsolve
+
+    resolve_device("cuda")  # as every serving call does
+    g = torch.Generator(device=cuda).manual_seed(16)
+    R, L, S, K = 64, 700, 5000, 56
+    mat = torch.randn(S, K, device=cuda, generator=g)
+    idx = torch.randint(0, S, (R, L), device=cuda, generator=g,
+                        dtype=torch.int32)
+    cw = torch.rand(R, L, device=cuda, generator=g)
+    cv = torch.randn(R, L, device=cuda, generator=g)
+    lam = torch.full((K,), 0.5, device=cuda)
+    G, rhs = rowsolve.assemble_system(
+        [rowsolve.SparsePart(mat, idx, cw, cv)], lam)
+    part64 = rowsolve.SparsePart(mat.double().cpu(), idx.long().cpu(),
+                                 cw.double().cpu(), cv.double().cpu())
+    G64 = torch.einsum("rlk,rlm->rkm",
+                       rowsolve.gather_rows(part64.mat, part64.idx)
+                       * part64.cw[..., None],
+                       rowsolve.gather_rows(part64.mat, part64.idx))
+    G64 = G64 + torch.diag(lam.double().cpu())
+    rhs64 = rowsolve.part_rhs(part64)
+    assert ((G.cpu().double() - G64).abs().max() / G64.abs().max()) <= 1e-5
+    assert ((rhs.cpu().double() - rhs64).abs().max()
+            / rhs64.abs().max()) <= 1e-5
