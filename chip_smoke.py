@@ -57,6 +57,27 @@ Phases, each printing its own line(s):
  13. the collective implicit fit: phase 12's configuration with phase 11's
      U through CMF_implicit, launches K1 120 / K2 30, C_ finite, P@10 above
      popularity and within 0.01 of phase 12's dense fit.
+ 14. the bucketed collective route, explicit: phase 4's data and
+     configuration through CMF.fit(X, U=, I=), U user tags at the shape of
+     MovieLens 10M's tags.dat (a sparse [M + 2,000, 15,000] matrix of tag
+     counts, 4,009 rated users and 2,000 side-only users, Zipf-like tags)
+     and I item genres at the shape of its movies.dat (a one-hot
+     [N, 20], 1-6 genres an item, NA_as_zero_item), from seeded
+     generators: the route, warm fit seconds and peak memory, held-out
+     RMSE, C_/D_ and the side-only users' rows, K3 launches by side; then
+     K3 over the stacked parts of the fit's real A buckets (X + tags) and
+     over its C buckets against rowsolve.solve_cg over the separate parts,
+     with each A bucket's CUDA-event time beside K3 on its X part alone;
+ 15. the bucketed collective route, implicit: phase 7's WRMF through
+     CMF_implicit.fit(X, U=) with U one-hot user profiles at the shape of
+     Last.fm-360K's usersha1-profile.tsv (gender, age bucket, country;
+     15% of users without a profile) under NA_as_zero_user: P@10 against
+     phase 7's, K3 launches;
+ 16. the other bucketed branches on phase 4's data at 3 iterations: k
+     splits (8/8/8) with phase 14's U and I, w_main 0.5 with seeded
+     weights, implicit features with those weights, NA_as_zero with I,
+     and a warm restart through the driver from phase 14's factors: each
+     fit's route, K3 launches and finite factors.
 
 Serving new users (solvers/warm.py; no hand-written kernel: gathers,
 batched Grams and batched Cholesky), each on the model of the phase it
@@ -78,10 +99,15 @@ follows, with K1, K2 and K3 launched 0 times:
      factors_warm with U on a fully observed row (BeTBeChol), and
      item_factors_cold, predict_new and topN_new on 256 I rows, against
      their numpy closed forms and the CPU copy; users/s.
+ 14b. serving on phase 14's model: factors_cold of the 2,000 side-only
+     users' tag rows as U_col/U_val, topN_cold, factors_warm with ratings
+     and a tag row, predict for the side-only users, against their numpy
+     closed forms and the CPU copy.
 
 Each fit phase, and phase 9's sweep, sets every kernel's launch count to 0
-just before it and reads the counts just after; phases 10-13 print each
-fit's seconds and peak device memory.  The line before the last is
+just before it and reads the counts just after; phases 10-16 print each
+fit's seconds (14-15 of a warm fit, after a first one) and peak device
+memory.  The line before the last is
 {"kernels": [...]}; the last line is {"ok": true, "device": {...}}.  Any
 failure raises and exits non-zero; so does a machine without a CUDA
 device, or a directory without the package.
@@ -1168,6 +1194,568 @@ def implicit_phases(ops, U):
     return paths
 
 
+
+# --------------------------------------------------------------------- #
+# phases 14-16: the bucketed collective route                           #
+# --------------------------------------------------------------------- #
+
+# phase 14's side info, at the shape of MovieLens 10M (the synthetic
+# ratings have none; drawn from a seeded generator, not downloaded):
+# tags.dat's vocabulary, the 4,009 users who tagged (about 24 tag
+# applications each), and movies.dat's genres (1-6 an item)
+TAG_P = 15000
+TAG_USERS = 4009
+TAG_MEAN = 24
+SIDE_ONLY_USERS = 2000  # users with tags and no ratings (m_u > m)
+GENRES = 20
+GENRE_COUNT_P = (0.35, 0.33, 0.19, 0.09, 0.03, 0.01)  # 1-6 genres an item
+# phase 15's: Last.fm-360K's usersha1-profile.tsv as a one-hot of gender
+# (2), age bucket (8) and country (239); 15% of users carry no field
+PROFILE_FIELDS = (2, 8, 239)
+NO_PROFILE = 0.15
+# max|K3 over the stacked parts - rowsolve.solve_cg over the separate
+# parts| / max|a| of phase 14's multi-part check (f32 summation order)
+MULTIPART_TOL = 1e-4
+DEPTH_16 = 3  # phase 16's iterations
+
+
+def make_user_tags(seed=14):
+    """U [M + SIDE_ONLY_USERS, TAG_P]: tag-application counts (1-10, mostly
+    1) of TAG_USERS rated users and SIDE_ONLY_USERS users without ratings,
+    tags drawn Zipf-like over the vocabulary, missing entries missing."""
+    import scipy.sparse as sp
+
+    rng = np.random.default_rng(seed)
+    taggers = np.concatenate([np.sort(rng.choice(M, TAG_USERS, replace=False)),
+                              M + np.arange(SIDE_ONLY_USERS)])
+    counts = np.minimum(rng.geometric(1.0 / TAG_MEAN, taggers.size), TAG_P)
+    zipf = 1.0 / np.arange(1, TAG_P + 1)
+    tags = rng.choice(TAG_P, int(counts.sum()), p=zipf / zipf.sum())
+    pairs = np.unique(np.repeat(taggers, counts) * TAG_P + tags)
+    r, c = pairs // TAG_P, pairs % TAG_P
+    v = np.minimum(rng.geometric(0.7, r.size), 10).astype(np.float64)
+    return sp.csr_matrix((v, (r, c)), shape=(M + SIDE_ONLY_USERS, TAG_P))
+
+
+def make_item_genres(seed=15):
+    """I [N, GENRES]: a one-hot of 1-6 genres an item."""
+    import scipy.sparse as sp
+
+    rng = np.random.default_rng(seed)
+    n_g = rng.choice(np.arange(1, 7), N, p=GENRE_COUNT_P)
+    order = np.argsort(rng.random((N, GENRES)), axis=1)
+    c = order[np.arange(GENRES)[None, :] < n_g[:, None]]
+    return sp.csr_matrix((np.ones(c.size), (np.repeat(np.arange(N), n_g), c)),
+                         shape=(N, GENRES))
+
+
+def make_profiles(seed=16):
+    """U [LFM_M, sum(PROFILE_FIELDS)]: a one-hot of one value a field for
+    the users with a profile (countries Zipf-like)."""
+    import scipy.sparse as sp
+
+    rng = np.random.default_rng(seed)
+    users = np.nonzero(rng.random(LFM_M) >= NO_PROFILE)[0]
+    g, a, c = PROFILE_FIELDS
+    zipf = 1.0 / np.arange(1, c + 1)
+    cols = np.stack([rng.integers(0, g, users.size),
+                     g + rng.integers(0, a, users.size),
+                     g + a + rng.choice(c, users.size, p=zipf / zipf.sum())],
+                    axis=1).ravel()
+    return sp.csr_matrix((np.ones(cols.size), (np.repeat(users, 3), cols)),
+                         shape=(LFM_M, g + a + c))
+
+
+def _side_tuple(S):
+    """A sparse side matrix as _BaseModel._ingest_side gives it."""
+    coo = S.tocoo()
+    return (coo.row.astype(np.int64), coo.col.astype(np.int64),
+            coo.data.astype(np.float64), S.shape[0], S.shape[1], False, None)
+
+
+class _Route:
+    """Records which collective route each fit takes, and the K3 launches
+    of each side's half-steps (the rows of the updated side: A, B, C, D),
+    those of half-steps with several sparse parts apart."""
+
+    def __init__(self, sides):
+        from cmfrec_torch.solvers import collective
+
+        self.sides, self.bucketed, self.k3 = sides, 0, {}
+        self._mod = collective
+        self._real = {}
+
+    def __enter__(self):
+        from cmfrec_torch.ops import sparse_cg
+
+        mod = self._mod
+
+        def body(name):
+            real = self._real[name] = getattr(mod, name)
+
+            def wrapped(*a, **kw):
+                self.bucketed += 1
+                return real(*a, **kw)
+            return wrapped
+
+        def update_side(plan, *a, **kw):
+            before = sparse_cg.bucket_cg.launches
+            out = self._real["update_side"](plan, *a, **kw)
+            side = self.sides[plan.bucketed.n_rows]
+            if kw.get("extra_parts") is not None:
+                side += " (several parts)"
+            n = sparse_cg.bucket_cg.launches - before
+            if n:
+                self.k3[side] = self.k3.get(side, 0) + n
+            return out
+
+        for name in ("_fit_collective_explicit_bucketed",
+                     "_fit_collective_implicit_bucketed"):
+            setattr(mod, name, body(name))
+        self._real["update_side"] = mod.update_side
+        mod.update_side = update_side
+        return self
+
+    def __exit__(self, *exc):
+        for name, fn in self._real.items():
+            setattr(self._mod, name, fn)
+
+    @property
+    def name(self):
+        return "bucketed" if self.bucketed else "dense"
+
+
+def _cuda_ms(fn, reps=5):
+    """Mean CUDA-event time of fn() in ms (after one warm-up call)."""
+    import torch
+
+    fn()
+    start, stop = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    start.record()
+    for _ in range(reps):
+        fn()
+    stop.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(stop) / reps
+
+
+def check_multipart(model, tr_r, tr_c, tr_v, Ucsr):
+    """K3 over the stacked parts of phase 14's real A buckets (the X part
+    and the tag part) and over its C buckets (the tags' single part),
+    against rowsolve.solve_cg over the separate parts, on the card, from a
+    seeded random start; CUDA-event times of each A bucket's stacked
+    launch beside K3 on its X part alone."""
+    import torch
+
+    from cmfrec_torch.data.device_fill import (build_bucketed_pair,
+                                               build_bucketed_rows)
+    from cmfrec_torch.ops import rowsolve, sparse_cg
+    from cmfrec_torch.solvers import als, collective, drivers
+
+    dev = "cuda"
+    k, lam = model.k, float(model.lambda_)
+    K = -(-(k + 1) // 8) * 8
+    m_eff = Ucsr.shape[0]
+    S = collective.prepare_side(_side_tuple(Ucsr), model.center_U)
+    vals_c = (tr_v - model.glob_mean_).astype(np.float32)
+    RB, _ = build_bucketed_pair(tr_r, tr_c, vals_c, M, N, device=dev,
+                                m_eff=m_eff)
+    aligned = collective.build_aligned_parts(RB, *S.coo, S.n_ent, dev)
+    opp = torch.zeros(N, K, device=dev)
+    opp[:, :k] = torch.as_tensor(model.B_, device=dev)
+    opp[:, k] = 1.0
+    ob = torch.as_tensor(model.item_bias_, device=dev)
+    Ce = torch.zeros(TAG_P, K, device=dev)
+    Ce[:, :k] = torch.as_tensor(model.C_, device=dev)
+    mat = torch.cat([opp, Ce])
+    lam_vec = drivers._make_lam_vec(k, K, lam, lam, True, dev)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(141)
+    plain = None
+
+    def run(parts, stacked, modes, n_totals, twin=True):
+        """(K3, twin, start) for one bucket's parts, with the lambda
+        multiplier of the fit (scale_lam, which implies
+        scale_lam_sideinfo: every part's entries count)."""
+        sparse = [als._coefficients(p, md) for p, md in zip(parts, modes)]
+        mult = torch.clamp(sum(als._lam_multiplier(p, md, nt) for p, md, nt
+                                   in zip(parts, modes, n_totals)), min=1.0)
+        a0 = 0.1 * torch.randn(mult.shape[0], parts[0].opp.shape[1],
+                               generator=gen, device=dev)
+        lam_v = lam_vec[:parts[0].opp.shape[1]]
+        lam_row = (lam_v[None, :] * mult[:, None]).contiguous()
+        gfix = torch.zeros(lam_v.shape[0], lam_v.shape[0], device=dev)
+        if stacked is None:
+            sp, length = sparse[0], parts[0].length
+        else:
+            sp, length = als.stacked_part(sparse, *stacked), stacked[1].length
+
+        def k3():
+            return sparse_cg.bucket_cg(sp.mat, sp.idx, sp.cw, sp.cv, gfix,
+                                       lam_row, None, a0, n_steps=K3_STEPS,
+                                       length=length)
+        nonlocal plain
+        plain = (sparse, lam_v, a0, K3_STEPS, mult)
+        want = rowsolve.solve_cg(*plain) if twin else None
+        return k3, want, a0
+
+    out = {"A": [], "C": []}
+    err = {"A": [0.0, 0.0, 0.0], "C": [0.0, 0.0, 0.0]}  # err, max|a|, moved
+    for b, (idx_s, val_s, len_s) in zip(RB.buckets, aligned):
+        X = als.PartData(idx=b.idx, val=b.val, length=b.length, wgt=None,
+                         opp=opp, opp_bias=ob, w=1.0, alpha=None, mu=None)
+        Up = als.PartData(idx=idx_s, val=val_s, length=len_s, wgt=None,
+                          opp=Ce, opp_bias=None, w=float(model.w_user),
+                          alpha=None, mu=None)
+        st = als.stack_slots((X, Up))
+        k3, want, a0 = run((X, Up), (mat, st), ("explicit",) * 2, (N, TAG_P))
+        got = k3()
+        separate = plain  # the plain solve over the separate parts
+        single = run((X,), None, ("explicit",), (N,), twin=False)[0]
+        # the bound of phase 6's cost model (f32 slots, lam_row, no r0)
+        real = rowsolve.length_mask(st.length, st.idx.shape[1])
+        slots = int(st.length.sum())
+        nbytes = (int(torch.unique(st.idx[real]).numel()) * K * 4
+                  + slots * 12 + b.n_rows * (4 + 12 * K) + 4 * K * K)
+        ops = slots * (2 * K + (1 + K3_STEPS) * 4 * K) + (
+            b.n_rows * (1 + K3_STEPS) * 2 * K * K)
+        e = err["A"]
+        e[0] = max(e[0], float((got - want).abs().max()))
+        e[1] = max(e[1], float(want.abs().max()))
+        e[2] = max(e[2], float((want - a0).abs().max()))
+        out["A"].append(dict(R=b.n_rows, L_x=b.width, L_u=idx_s.shape[1],
+                             L_stacked=st.idx.shape[1], bytes=nbytes,
+                             ops=ops,
+                             ms=_cuda_ms(k3), single_ms=_cuda_ms(single),
+                             plain_ms=_cuda_ms(lambda: rowsolve.solve_cg(
+                                 *separate), reps=2)))
+    featb = build_bucketed_rows(S.coo[1], S.coo[0], S.coo[2], TAG_P, m_eff,
+                                device=dev)
+    A1 = torch.zeros(m_eff, -(-k // 8) * 8, device=dev)
+    A1[:, :k] = torch.as_tensor(model.A_, device=dev)
+    for b in featb.buckets:
+        part = als.PartData(idx=b.idx, val=b.val, length=b.length, wgt=None,
+                            opp=A1, opp_bias=None, w=float(model.w_user),
+                            alpha=None, mu=None)
+        k3, want, a0 = run((part,), None, ("explicit",), (m_eff,))
+        got = k3()
+        e = err["C"]
+        e[0] = max(e[0], float((got - want).abs().max()))
+        e[1] = max(e[1], float(want.abs().max()))
+        e[2] = max(e[2], float((want - a0).abs().max()))
+        out["C"].append(dict(R=b.n_rows, L=b.width, ms=_cuda_ms(k3)))
+    rel = {side: e[0] / e[1] for side, e in err.items()}
+    moved = {side: e[2] / e[1] for side, e in err.items()}
+    # A's stacked buckets as one set: summed times, and the bound of their
+    # summed bytes and operations
+    total = {key: sum(r[key] for r in out["A"])
+             for key in ("ms", "single_ms", "plain_ms")}
+    b_ms, b_by = bound(sum(r["bytes"] for r in out["A"]),
+                       {"f32": sum(r["ops"] for r in out["A"])})
+    for row in out["A"]:
+        print(f"phase 14 multi-part K3: A bucket R={row['R']} L x {row['L_x']}"
+              f" + tags {row['L_u']} -> stacked {row['L_stacked']}: "
+              f"{row['ms']} ms (X part alone, width {row['L_x']}: "
+              f"{row['single_ms']} ms)", flush=True)
+    print(f"phase 14 multi-part K3, A's {len(out['A'])} stacked buckets: "
+          f"{total['ms']} ms against {total['single_ms']} ms for their X "
+          f"parts alone, plain solve_cg {total['plain_ms']} ms, bound "
+          f"{b_ms:.4f} ms ({b_by})", flush=True)
+    print(f"phase 14 multi-part K3 vs solve_cg over the separate parts: "
+          f"max|err|/max|a| A {rel['A']:.2e}, C {rel['C']:.2e} (limit "
+          f"{MULTIPART_TOL:.0e}); moved A {moved['A']:.2e} C "
+          f"{moved['C']:.2e}; C buckets "
+          f"{[(r['R'], r['L'], r['ms']) for r in out['C']]}", flush=True)
+    if max(rel.values()) > MULTIPART_TOL:
+        raise AssertionError("phase 14: K3 over stacked parts disagrees "
+                             "with solve_cg over the separate parts")
+    if min(moved.values()) < 10 * MULTIPART_TOL:
+        raise AssertionError("phase 14: the multi-part check's steps did "
+                             "not move their start")
+    return dict(rel=rel, moved=moved, bound_ms=b_ms, bound_by=b_by,
+                **total, A=out["A"], C=out["C"])
+
+
+def _cold_sparse(Cf, cols, vals, w, lam):
+    """numpy f64 cold factors of one sparse side-info row, its values
+    centered: (w C_o^T C_o + lam I)^-1 w C_o^T u_o over its observed
+    entries."""
+    C = Cf[cols].astype(np.float64)
+    G = w * C.T @ C + lam * np.eye(C.shape[1])
+    return np.linalg.solve(G, w * C.T @ vals)
+
+
+def serve_bucketed(ops, model, Ucsr, tr_r, tr_c, tr_v):
+    """Phase 14b on phase 14's model: cold factors and topN from 2,000 tag
+    rows as U_col/U_val, factors_warm with ratings and a sparse U row,
+    predict for the side-only users, each against its numpy closed form
+    and a CPU copy of the model; returns the launch counts."""
+    lam = float(model.lambda_)
+    w_u = float(model.w_user)
+    # the fit centers U by each tag's mean over its observed entries, and
+    # serving centers a new row's entries by the same means
+    means = (np.zeros(Ucsr.shape[1]) if model.U_colmeans_ is None
+             else np.asarray(model.U_colmeans_, np.float64))
+    C = np.asarray(model.C_, np.float64)
+    B = np.asarray(model.B_, np.float64)
+    ib = np.asarray(model.item_bias_, np.float64)
+    side_only = M + np.arange(SIDE_ONLY_USERS)
+    rows_of = [(Ucsr.indices[Ucsr.indptr[u]:Ucsr.indptr[u + 1]],
+                Ucsr.data[Ucsr.indptr[u]:Ucsr.indptr[u + 1]])
+               for u in side_only]
+    _reset_launches(ops)
+    import torch
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    got = np.stack([model.factors_cold(U_col=c, U_val=v) for c, v in rows_of])
+    cold_s = time.perf_counter() - t0
+    # scale_lam implies scale_lam_sideinfo: a cold row's lambda scales with
+    # its side-info entries
+    if not model.scale_lam_sideinfo:
+        raise AssertionError("phase 14b: the model should scale lambda by "
+                             "the side-info entries")
+    want = np.stack([_cold_sparse(C, c, v - means[c], w_u, lam * c.size)
+                     for c, v in rows_of])
+    errs = {"factors_cold": _rel(got, want)}
+    topn = 0.0
+    for i in range(4):
+        items, scores = model.topN_cold(n=10, U_col=rows_of[i][0],
+                                        U_val=rows_of[i][1],
+                                        output_score=True)
+        full = model.glob_mean_ + ib + B @ want[i]
+        _check_topn(items, scores, [], "phase 14b: topN_cold")
+        topn = max(topn, _rel(scores, full[items]),
+                   float(np.sort(full)[-10] - scores.min())
+                   / np.abs(full).max())
+    errs["topN_cold"] = topn
+    # factors_warm: a tagging rated user's training ratings and tags
+    taggers = np.unique(Ucsr.tocoo().row)
+    u = int(taggers[taggers < M][0])
+    sel = tr_r == u
+    xc, xv = tr_c[sel], tr_v[sel]
+    uc = Ucsr.indices[Ucsr.indptr[u]:Ucsr.indptr[u + 1]]
+    uv = Ucsr.data[Ucsr.indptr[u]:Ucsr.indptr[u + 1]]
+    aw, bw = model.factors_warm(X_col=xc, X_val=xv, U_col=uc, U_val=uv,
+                                return_bias=True)
+    k = model.k
+    ext = np.column_stack([B[xc], np.ones(xc.size)])
+    Ce = np.column_stack([C[uc], np.zeros(uc.size)])
+    # one scalar lambda, the bias's too, times the row's ratings and tags
+    G = (ext.T @ ext + w_u * Ce.T @ Ce
+         + lam * (xc.size + uc.size) * np.eye(k + 1))
+    rhs = (ext.T @ (xv - model.glob_mean_ - ib[xc])
+           + w_u * Ce.T @ (uv - means[uc]))
+    errs["factors_warm"] = _rel(np.append(aw, bw), np.linalg.solve(G, rhs))
+    # predict for the side-only users
+    rng = np.random.default_rng(141)
+    items = rng.integers(0, N, side_only.size)
+    A = np.asarray(model.A_, np.float64)
+    ub = np.asarray(model.user_bias_, np.float64)
+    p_np = (model.glob_mean_ + ub[side_only] + ib[items]
+            + np.sum(A[side_only] * B[items], axis=1))
+    pred = model.predict(side_only, items)
+    errs["predict (side-only users)"] = _rel(pred, p_np)
+    twin = _cpu_twin(model)
+    cpu_err = max(
+        _rel(got[:SERVE_CHECK], np.stack([
+            twin.factors_cold(U_col=c, U_val=v)
+            for c, v in rows_of[:SERVE_CHECK]])),
+        _rel(np.append(aw, bw), np.append(*twin.factors_warm(
+            X_col=xc, X_val=xv, U_col=uc, U_val=uv, return_bias=True))),
+        _rel(pred, twin.predict(side_only, items)))
+    launches = _read_launches(ops)
+    shown = ", ".join(f"{key} {v:.2e}" for key, v in errs.items())
+    print(f"phase 14b serving: factors_cold of {len(rows_of)} tag rows "
+          f"(U_col/U_val) in {cold_s:.3f} s = {len(rows_of) / cold_s:.0f} "
+          f"users/s; against the numpy closed forms (tol "
+          f"{SERVE_ORACLE_TOL:.1e}): {shown}; card vs "
+          f"CPU {cpu_err:.2e} (limit {SERVE_CPU_TOL['11b']:.1e}); launches "
+          f"{launches}", flush=True)
+    if any(launches.values()):
+        raise AssertionError("phase 14b: serving launched a fit kernel")
+    if (max(errs.values()) > SERVE_ORACLE_TOL
+            or cpu_err > SERVE_CPU_TOL["11b"]):
+        raise AssertionError("phase 14b: serving disagrees")
+    return launches
+
+
+def bucketed_collective_phases(ops, rows, cols, vals, test, lastfm, p10_7):
+    """Phases 14-16; returns each fit's launch counts by phase."""
+    import scipy.sparse as sp
+    import torch
+
+    import cmfrec_torch
+    from cmfrec_torch.solvers import collective
+
+    tr = ~test
+    tr_r, tr_c, tr_v = rows[tr], cols[tr], vals[tr]
+    base = float(np.sqrt(np.mean((tr_v.mean() - vals[test]) ** 2)))
+    paths = {}
+
+    def rmse_of(model):
+        pred = model.predict(rows[test], cols[test])
+        if not np.all(np.isfinite(pred)):
+            raise AssertionError("non-finite predictions")
+        return float(np.sqrt(np.mean((pred - vals[test]) ** 2)))
+
+    # 14. collective explicit, bucketed: user tags with side-only users,
+    # item genres under NA_as_zero_item
+    t0 = time.perf_counter()
+    U, I = make_user_tags(), make_item_genres()
+    m_eff = U.shape[0]
+    print(f"phase 14 data: U {U.shape} nnz {U.nnz} ({TAG_USERS} rated + "
+          f"{SIDE_ONLY_USERS} side-only users), I {I.shape} nnz {I.nnz} in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    n_b = {"A": n_chunks(tr_r, m_eff), "B": n_chunks(tr_c, N),
+           "C": n_chunks(U.tocoo().col, TAG_P),
+           "D": n_chunks(I.tocoo().col, GENRES)}
+    sides = {M: "A", m_eff: "A", N: "B", TAG_P: "C", GENRES: "D"}
+    fit14 = dict(FIT, NA_as_zero_item=True)
+
+    def fit():
+        return cmfrec_torch.CMF(**fit14, device="cuda").fit_triplets(
+            tr_r, tr_c, tr_v, M, N, U=U, I=I)
+
+    with _Route(sides) as route:
+        fit()  # cold (layout built, kernels loaded)
+    torch.cuda.synchronize()
+    with _Route(sides) as route:
+        model, launches, s, peak = _fit_phase(ops, fit)
+    rmse = rmse_of(model)
+    want = {"masked_gram_matvec": 0, "masked_rhs": 0,
+            "bucket_cg": (FIT["niter"] - 1) * sum(n_b.values())}
+    # centering U by each tag's observed mean zeroes a tag seen once (or
+    # always with one count): a side-only user whose every tag is such has
+    # no side information left, and its A row solves to zero
+    centered = sp.csr_matrix(
+        (U.data - model.U_colmeans_[U.indices], U.indices, U.indptr),
+        shape=U.shape)
+    informed = abs(centered[M:]).max(axis=1).toarray().ravel() > 0
+    A_so = model.A_[M:][informed]
+    print(f"phase 14 collective bucketed (U tags, I genres NA_as_zero_item):"
+          f" route {route.name}, warm fit {s:.3f} s, peak device memory "
+          f"{peak / 2**30:.2f} GiB, held-out RMSE {rmse:.5f} (bound "
+          f"{RMSE_BOUND:.5f}), C_ {model.C_.shape} D_ {model.D_.shape}, "
+          f"A_ {model.A_.shape}, side-only users with a nonzero centered "
+          f"tag row {A_so.shape[0]} of {SIDE_ONLY_USERS}, their rows finite "
+          f"{bool(np.isfinite(A_so).all())} nonzero "
+          f"{bool((np.abs(A_so).max(axis=1) > 0).all())}; K3 by side "
+          f"{route.k3} (buckets {n_b}); launches {launches} (expected "
+          f"{want})", flush=True)
+    if route.name != "bucketed" or launches != want:
+        raise AssertionError("phase 14 did not take the bucketed route with "
+                             "the expected launches")
+    if not (rmse <= RMSE_BOUND and model.C_.shape == (TAG_P, FIT["k"])
+            and model.D_.shape == (GENRES, FIT["k"])
+            and np.isfinite(model.C_).all() and np.isfinite(model.D_).all()
+            and np.isfinite(model.A_).all() and A_so.shape[0] > 0
+            and (np.abs(A_so).max(axis=1) > 0).all()):
+        raise AssertionError("phase 14: RMSE or factors out of bounds")
+    paths["14"] = launches
+    multipart = check_multipart(model, tr_r, tr_c, tr_v, U)
+    # 14b. serving on phase 14's model
+    paths["14b"] = serve_bucketed(ops, model, U, tr_r, tr_c, tr_v)
+    init = dict(A=model.A_, B=model.B_, C=model.C_, D=model.D_,
+                biasA=model.user_bias_, biasB=model.item_bias_)
+    del model
+    torch.cuda.empty_cache()
+
+    # 15. collective implicit, bucketed: LastFM-shaped plays with one-hot
+    # profiles under NA_as_zero_user
+    l_r, l_c, l_v, l_te_r, l_te_c, test_users = lastfm
+    P = make_profiles()
+    n_b15 = (n_chunks(l_r, LFM_M) + n_chunks(l_c, LFM_N)
+             + n_chunks(P.tocoo().col, sum(PROFILE_FIELDS)))
+
+    def ifit():
+        return cmfrec_torch.CMF_implicit(
+            **IMPLICIT_FIT, NA_as_zero_user=True, device="cuda"
+        ).fit_triplets(l_r, l_c, l_v, LFM_M, LFM_N, U=P)
+
+    ifit()
+    torch.cuda.synchronize()
+    with _Route({LFM_M: "A", LFM_N: "B", sum(PROFILE_FIELDS): "C"}) as route:
+        imodel, launches, s, peak = _fit_phase(ops, ifit)
+    Ad, Bd = imodel._device_x_factors()
+    p10, map10, p10_pop = ranking_quality(Ad, Bd, l_r, l_c, l_te_r, l_te_c,
+                                          test_users, LFM_N)
+    want = {"masked_gram_matvec": 0, "masked_rhs": 0,
+            "bucket_cg": IMPLICIT_FIT["niter"] * n_b15}
+    print(f"phase 15 collective implicit bucketed (U profiles {P.shape} nnz "
+          f"{P.nnz}, NA_as_zero_user): route {route.name}, warm fit "
+          f"{s:.3f} s, peak device memory {peak / 2**30:.2f} GiB, P@10 "
+          f"{p10:.5f} (bound {P10_BOUND:.5f}; phase 7 {p10_7:.5f}), MAP@10 "
+          f"{map10:.5f}, popularity {p10_pop:.5f}, C_ finite "
+          f"{bool(np.isfinite(imodel.C_).all())}; K3 by side {route.k3}; "
+          f"launches {launches} (expected {want})", flush=True)
+    if route.name != "bucketed" or launches != want:
+        raise AssertionError("phase 15 did not take the bucketed route with "
+                             "the expected launches")
+    if not (p10 >= P10_BOUND and abs(p10 - p10_7) <= P10_ENGINE_TOL
+            and np.isfinite(imodel.C_).all()):
+        raise AssertionError("phase 15: P@10 out of bounds")
+    paths["15"] = launches
+    del imodel, Ad, Bd
+    torch.cuda.empty_cache()
+
+    # 16. the other bucketed branches at reduced depth (DEPTH_16 iterations)
+    w = np.random.default_rng(16).uniform(0.5, 2.0, tr_r.size)
+    short = dict(FIT, niter=DEPTH_16)
+    cases = [
+        ("k splits", dict(short, k_user=8, k_item=8, k_main=8),
+         dict(U=U, I=I), True),
+        ("w_main 0.5, weights", dict(short, w_main=0.5),
+         dict(U=U, I=I, W=w), False),
+        ("implicit features, weights",
+         dict(short, add_implicit_features=True), dict(W=w), False),
+        ("NA_as_zero", dict(short, NA_as_zero=True), dict(I=I), False),
+    ]
+    total = {}
+    for tag, kw, data, with_rmse in cases:
+        with _Route(sides) as route:
+            model, launches, s, peak = _fit_phase(ops, lambda: (
+                cmfrec_torch.CMF(**kw, device="cuda").fit_triplets(
+                    tr_r, tr_c, tr_v, M, N, **data)))
+        facs = [getattr(model, a) for a in ("A_", "B_", "C_", "D_", "Ai_",
+                                            "Bi_") if getattr(model, a)
+                is not None]
+        finite = all(np.isfinite(f).all() for f in facs)
+        rmse = rmse_of(model) if with_rmse else None
+        print(f"phase 16 {tag}: route {route.name}, {s:.3f} s, K3 "
+              f"{launches['bucket_cg']} by side {route.k3}, factors finite "
+              f"{finite}" + ("" if rmse is None else
+                             f", held-out RMSE {rmse:.5f} (global-mean "
+                             f"baseline {base:.5f})"), flush=True)
+        if route.name != "bucketed" or not finite or not launches[
+                "bucket_cg"] or launches["masked_gram_matvec"]:
+            raise AssertionError(f"phase 16 {tag}: not a finite bucketed fit")
+        if with_rmse and not rmse < base:
+            raise AssertionError(f"phase 16 {tag}: RMSE out of bounds")
+        for key, v in launches.items():
+            total[key] = total.get(key, 0) + v
+        del model
+    # a warm restart from phase 14's factors, through the driver
+    with _Route(sides) as route:
+        res, launches, s, peak = _fit_phase(
+            ops, lambda: collective.fit_collective_explicit_als(
+                tr_r, tr_c, tr_v, M, N, side_U=_side_tuple(U),
+                side_I=_side_tuple(I), NA_as_zero_item=True, init=init,
+                device="cuda", **short))
+    finite = all(torch.isfinite(res[key]).all() for key in
+                 ("A", "B", "C", "D", "biasA", "biasB"))
+    print(f"phase 16 warm restart (init= A, B, C, D, biases of phase 14): "
+          f"route {route.name}, {s:.3f} s, K3 {launches['bucket_cg']}, "
+          f"factors finite {finite}", flush=True)
+    if route.name != "bucketed" or not finite or not launches["bucket_cg"]:
+        raise AssertionError("phase 16 warm restart: not a finite bucketed "
+                             "fit")
+    for key, v in launches.items():
+        total[key] = total.get(key, 0) + v
+    paths["16"] = total
+    return paths, multipart
+
+
 def main():
     import torch
 
@@ -1391,6 +1979,12 @@ def main():
              "7b": serving["7b"], "8": slaunches}
     paths.update(collective_phases(ops, rows, cols, vals, test))
 
+    # 14-16. the bucketed collective route
+    bpaths, multipart = bucketed_collective_phases(
+        ops, rows, cols, vals, test, (tr_r, tr_c, tr_v, te_r, te_c,
+                                      test_users), p10)
+    paths.update(bpaths)
+
     kernels = []
     for name, variants in results.items():
         main_variant = next(v for v in variants if v["side"] == "A"
@@ -1420,7 +2014,8 @@ def main():
         max_abs_err=max(r["max_abs_err"] for r in k3),
         ms=sum(r["ms"] for r in main),
         plain_ms=sum(r["plain_ms"] for r in main), bound_ms=k3_bound,
-        bound_by=k3_by, library_ms=None, variants=k3))
+        bound_by=k3_by, library_ms=None, variants=k3,
+        multipart_check=multipart))
     # the probes: the sweep's launches (the fit's in fit_launches), times at
     # the A side of phase 9 for the row's headline variant
     for row, variants in probes.items():

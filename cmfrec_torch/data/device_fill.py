@@ -100,37 +100,60 @@ def _attach(out: BucketedRows, meta, counts_dev, idx_f, val_f, wgt_f):
     return out
 
 
-def build_bucketed_pair(
-    rows, cols, vals, m: int, n: int,
-    weights: Optional[np.ndarray] = None, *, device,
-):
-    """(row-oriented, column-oriented) BucketedRows of the COO triplets,
-    with f32 values (and weights) and int32 column ids on ``device``."""
-    dev = torch.device(device)
-
+def _upload_sorted(rows, cols, vals, weights, dev):
     def up(a, dt):
         return torch.as_tensor(np.asarray(a, dt)).to(dev)
 
     rows_d, cols_d = up(rows, np.int64), up(cols, np.int64)
     wgt_d = None if weights is None else up(weights, np.float32)
-    row_e, ids, svals, swgt = _device_sort_coo(
-        rows_d, cols_d, up(vals, np.float32), wgt_d)
-    counts_r = torch.bincount(rows_d, minlength=m)
-    counts_c = torch.bincount(cols_d, minlength=n)
-    del rows_d, cols_d, wgt_d
+    return rows_d, cols_d, _device_sort_coo(rows_d, cols_d,
+                                           up(vals, np.float32), wgt_d)
 
-    RB, meta_r = _one_side(counts_r, m, n)
-    CB, meta_c = _one_side(counts_c, n, m)
 
-    def fill(row_e, ids, vals, wgt, counts, meta):
-        return _fill_device(row_e, ids, vals, wgt, counts, meta["perm"],
-                            meta["pos_starts"], meta["widths"],
-                            meta["flat_offsets"], meta["F"])
+def _fill(row_e, ids, vals, wgt, counts, meta):
+    return _fill_device(row_e, ids, vals, wgt, counts, meta["perm"],
+                        meta["pos_starts"], meta["widths"],
+                        meta["flat_offsets"], meta["F"])
 
+
+def build_bucketed_pair(
+    rows, cols, vals, m: int, n: int,
+    weights: Optional[np.ndarray] = None, *, device,
+    m_eff: Optional[int] = None, n_eff: Optional[int] = None,
+):
+    """(row-oriented, column-oriented) BucketedRows of the COO triplets,
+    with f32 values (and weights) and int32 column ids on ``device``.
+    ``m_eff`` >= m and ``n_eff`` >= n give either side extra rows with no
+    entries (side-info-only entities of a collective fit); the other side's
+    column count stays m or n."""
+    dev = torch.device(device)
+    m_eff = m if m_eff is None else m_eff
+    n_eff = n if n_eff is None else n_eff
+    rows_d, cols_d, (row_e, ids, svals, swgt) = _upload_sorted(
+        rows, cols, vals, weights, dev)
+    counts_r = torch.bincount(rows_d, minlength=m_eff)
+    counts_c = torch.bincount(cols_d, minlength=n_eff)
+    del rows_d, cols_d
+
+    RB, meta_r = _one_side(counts_r, m_eff, n)
+    CB, meta_c = _one_side(counts_c, n_eff, m)
     _attach(RB, meta_r, counts_r,
-            *fill(row_e, ids, svals, swgt, counts_r, meta_r))
+            *_fill(row_e, ids, svals, swgt, counts_r, meta_r))
     order2 = _transpose_order(ids)
     _attach(CB, meta_c, counts_c,
-            *fill(ids[order2], row_e[order2], svals[order2],
-                  None if swgt is None else swgt[order2], counts_c, meta_c))
+            *_fill(ids[order2], row_e[order2], svals[order2],
+                   None if swgt is None else swgt[order2], counts_c, meta_c))
     return RB, CB
+
+
+def build_bucketed_rows(rows, cols, vals, n_rows: int, n_cols: int, *,
+                        device) -> BucketedRows:
+    """The row-oriented BucketedRows alone (the feature side of sparse side
+    information: rows are features, columns entities)."""
+    dev = torch.device(device)
+    rows_d, _, (row_e, ids, svals, _) = _upload_sorted(rows, cols, vals,
+                                                        None, dev)
+    counts = torch.bincount(rows_d, minlength=n_rows)
+    out, meta = _one_side(counts, n_rows, n_cols)
+    return _attach(out, meta, counts,
+                   *_fill(row_e, ids, svals, None, counts, meta))

@@ -20,8 +20,6 @@ import torch
 from ..config import resolve_device, resolve_dtype
 from ..ops import predict as predict_ops
 from ..solvers import warm
-from ..solvers.collective import SLICE_BUCKETED
-from ..solvers.drivers import _unsupported
 
 
 def _is_df(x):
@@ -53,6 +51,8 @@ def _parse_df_values(X, W):
 
 class _BaseModel:
     """sklearn-style base: set_params/get_params, ingestion, prediction."""
+
+    _supports_extra_side_rows = False  # side info may hold ids X lacks
 
     def __repr__(self):
         return f"{self.__class__.__name__}({'fitted' if getattr(self, 'is_fitted_', False) else 'unfitted'})"
@@ -203,11 +203,13 @@ class _BaseModel:
         """Side-info matrix: DataFrame with an Id column, sparse, or dense.
 
         Returns (rows, cols, vals, n_rows, n_cols, is_dense, dense_mat).
-        Rows are aligned to the main matrix's id space.  Ids that X lacks
-        (side-info-only entities, m_u > m in the reference, upstream cmfrec
-        src/collective.c:7263 signature) need the bucketed collective
-        engine, which the port does not have yet: they raise here, before
-        the model's id mappings change.
+        Rows are aligned to the main matrix's id space; side info may add
+        rows beyond n_main (side-info-only entities, m_u > m in the
+        reference, upstream cmfrec src/collective.c:7263 signature), whose
+        factors the fit solves from side info alone.  A DataFrame's ids that
+        X lacks are appended to the id mapping (the reference's _append_NAs,
+        upstream cmfrec/__init__.py:342) in models that take them
+        (``_supports_extra_side_rows``).
         """
         if U is None:
             return None
@@ -216,17 +218,28 @@ class _BaseModel:
 
             id_col = "UserId" if name == "U" else "ItemId"
             if id_col in U.columns:
+                ids = np.asarray(U[id_col])
                 if self.reindex_:
-                    codes = pd.Index(mapping).get_indexer(
-                        np.asarray(U[id_col])).astype(np.int64)
+                    codes = pd.Index(mapping).get_indexer(ids).astype(np.int64)
+                    if (codes < 0).any():
+                        self._check_extra_side_rows(name)
+                        mapping = np.concatenate(
+                            [np.asarray(mapping), np.unique(ids[codes < 0])])
+                        if name == "U":
+                            self.user_mapping_ = mapping
+                        else:
+                            self.item_mapping_ = mapping
+                        codes = pd.Index(mapping).get_indexer(ids).astype(
+                            np.int64)
+                    n_rows = len(mapping)
                 else:
-                    codes = U[id_col].to_numpy(np.int64)
-                if (codes < 0).any() or (codes >= n_main).any():
-                    raise _unsupported(
-                        f"side information with ids not in X ({name}= "
-                        "holds side-info-only entities)", SLICE_BUCKETED)
+                    codes = ids.astype(np.int64)
+                    n_ids = int(codes.max()) + 1 if codes.size else 0
+                    if n_ids > n_main:
+                        self._check_extra_side_rows(name)
+                    n_rows = max(n_main, n_ids)
                 feat = U.drop(columns=[id_col]).to_numpy(np.float64)
-                dense = np.full((n_main, feat.shape[1]), np.nan)
+                dense = np.full((n_rows, feat.shape[1]), np.nan)
                 dense[codes] = feat
                 return self._side_from_dense(dense)
             U = U.to_numpy(np.float64)
@@ -236,6 +249,12 @@ class _BaseModel:
                     coo.data.astype(np.float64), U.shape[0], U.shape[1],
                     False, None)
         return self._side_from_dense(np.asarray(U, np.float64))
+
+    def _check_extra_side_rows(self, name):
+        if not self._supports_extra_side_rows:
+            raise ValueError(f"{name} contains ids not present in X; this "
+                             "model does not support side-info-only "
+                             "entities")
 
     @staticmethod
     def _side_from_dense(U):

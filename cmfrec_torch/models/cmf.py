@@ -10,10 +10,12 @@ cmfrec/__init__.py:4358) likewise.  Without side info ``CMF`` fits on the
 dense-masked engine unless the data needs the bucketed one, and
 ``CMF_implicit`` on the bucketed one (``drivers.fit_implicit_als(...,
 engine="dense")`` runs a plain implicit fit on the dense-masked engine).
-With dense side info (``U=``, ``I=``) or implicit features both run the
-collective fits of solvers/collective.py on the dense-masked engine.  The
-other fit branches raise ``ValueError`` naming the ROADMAP slice that
-brings them.
+With side info (``U=``, ``I=``), k splits or implicit features both run
+the collective fits of solvers/collective.py: fully dense side info on the
+dense-masked engine, the rest (sparse or partial side info, side-info-only
+entities, k splits, ``w_main``, the ``NA_as_zero*`` options, weighted
+implicit features) on the bucketed collective route.  The other fit
+branches raise ``ValueError`` naming the ROADMAP slice that brings them.
 """
 
 from __future__ import annotations
@@ -99,6 +101,8 @@ class CMF(_BaseModel):
     Model: X ~ A B^T (+ biases + mean).  ``device`` ("cuda" by default)
     is where the fit and the predict/topN scoring run.
     """
+
+    _supports_extra_side_rows = True  # m_u > m via the collective fits
 
     _unknown_pred_mean = True  # unknown ids -> mean+biases (reference note)
 
@@ -229,6 +233,12 @@ class CMF(_BaseModel):
                 nonneg_C=self.nonneg_C, nonneg_D=self.nonneg_D,
                 max_cd_steps=self.max_cd_steps, **common)
             self._store_side(res)
+            # the bucketed route's side-count-inclusive values
+            # (upstream cmfrec src/collective.c:8070)
+            for attr, key in (("scaling_biasA_", "scaling_biasA"),
+                              ("scaling_biasB_", "scaling_biasB")):
+                if res.get(key) is not None:
+                    setattr(self, attr, float(res[key]))
 
         self.A_ = _host(res["A"])
         self.B_ = _host(res["B"])
@@ -508,6 +518,8 @@ class CMF_implicit(_BaseModel):
     cmfrec/__init__.py:4358).  ``device`` ("cuda" by default) is where the
     fit and the predict/topN scoring run."""
 
+    _supports_extra_side_rows = True  # m_u > m via the collective fits
+
     def __init__(self, k=50, lambda_=1e0, alpha=1.0, use_cg=True,
                  k_user=0, k_item=0, k_main=0,
                  w_main=1.0, w_user=1.0, w_item=1.0,
@@ -566,7 +578,8 @@ class CMF_implicit(_BaseModel):
     def fit(self, X, U=None, I=None, mesh=None):
         """Fit to implicit-feedback data (reference:
         upstream cmfrec/__init__.py:4816): without side info on the
-        bucketed engine; with dense side info on the dense-masked engine."""
+        bucketed engine; with side info on the collective routes (dense
+        side info on the dense-masked engine, the rest bucketed)."""
         _validate_cmf_params(self, implicit=True)
         set_handle_interrupt(bool(self.handle_interrupt))
         self._reset()

@@ -7,11 +7,17 @@ src/common.c:2742,3305).  Each degree bucket of rows is one batched solve:
 coefficient prep -> batched Cholesky, or truncated CG through the fused
 bucket-CG op (ops/sparse_cg.py: kernel K3 on a card, its twin on the CPU).
 
+A row system may have several sparse parts (the X part, a sparse side-info
+part, the implicit-features part of the collective fits) beside a shared
+Gram base G0 and rhs bases.  CG over several parts runs the bucket-CG op
+once a bucket over the parts' opposing matrices stacked, through a slot
+map built once per fit (:func:`stack_slots`); rowsolve.solve_cg over the
+separate parts is its reference.
+
 Not ported from the JAX package: ``defer_solve`` and the cross-bucket
 Cholesky concatenation (a TPU compile-time measure: here each bucket
 factors its own systems), the K = 128 lane padding of the CG operands, the
-coordinate-descent solver (nonneg/L1), the ring-sharded assembly, and the
-collective models' extra parts and rhs bases.
+coordinate-descent solver (nonneg/L1) and the ring-sharded assembly.
 """
 
 from __future__ import annotations
@@ -95,10 +101,59 @@ def _lam_multiplier(p: PartData, mode: str, n_total: int) -> torch.Tensor:
     return torch.sum(p.wgt * msk, dim=1)
 
 
+class SlotStack(NamedTuple):
+    """The slots of a bucket's sparse parts laid out as one part of the
+    stacked opposing matrix (each part's matrix below the previous one's):
+    a row's real slots of part 1, then of part 2, ..., then padding."""
+
+    idx: torch.Tensor  # [R, Ls] int32 rows of the stacked matrix
+    src: torch.Tensor  # [R, Ls] int64 columns of the parts' coefficients
+    # side by side; padding slots point at one zero column past them
+    length: torch.Tensor  # [R] int32 real slots a row (the parts' sum)
+
+
+def stack_slots(parts: tuple) -> SlotStack:
+    """The slot map of ``parts`` (PartData of one bucket), built once per
+    fit and bucket on the parts' device.  Its width is the longest row's
+    slot count rounded up to 8."""
+    R = parts[0].idx.shape[0]
+    dev = parts[0].idx.device
+    lens = [p.length.long() for p in parts]
+    total = sum(lens)
+    width = -(-max(int(total.max()), 1) // 8) * 8
+    idx = torch.zeros(R, width, dtype=torch.int32, device=dev)
+    src = torch.full((R, width), sum(p.idx.shape[1] for p in parts),
+                     dtype=torch.int64, device=dev)
+    before = torch.zeros(R, dtype=torch.int64, device=dev)
+    col0 = row0 = 0
+    for p, ln in zip(parts, lens):
+        L = p.idx.shape[1]
+        r, sl = torch.nonzero(length_mask(ln, L), as_tuple=True)
+        pos = before[r] + sl
+        idx[r, pos] = p.idx[r, sl] + row0
+        src[r, pos] = col0 + sl
+        before = before + ln
+        col0 += L
+        row0 += p.opp.shape[0]
+    return SlotStack(idx, src, total.to(torch.int32))
+
+
+def stacked_part(sparse_parts: list, mat: torch.Tensor,
+                 st: SlotStack) -> SparsePart:
+    """The parts' coefficients moved into the slot map: one gather each for
+    cw and cv.  ``mat`` is the parts' matrices stacked in order."""
+    z = torch.zeros(st.idx.shape[0], 1, dtype=torch.float32,
+                    device=st.idx.device)
+    cw = torch.cat([sp.cw for sp in sparse_parts] + [z], 1).gather(1, st.src)
+    cv = torch.cat([sp.cv for sp in sparse_parts] + [z], 1).gather(1, st.src)
+    return SparsePart(mat, st.idx, cw, cv)
+
+
 def solve_bucket(
     parts: tuple,  # of PartData
     a_prev: torch.Tensor,  # [R, K] warm start
     G0: Optional[torch.Tensor],  # [K, K]
+    r0: Optional[torch.Tensor],  # [R, K] per-row rhs base
     r0_vec: Optional[torch.Tensor],  # [K] shared rhs base
     lam_vec: torch.Tensor,  # [K] (per-row-scaled under scale_lam)
     lam_const_vec: Optional[torch.Tensor],  # [K] additional unscaled diagonal
@@ -108,23 +163,34 @@ def solve_bucket(
     n_steps: int,
     scale_lam: bool,
     n_totals: tuple,  # per part: total column count (na0 scaling)
+    scale_parts: tuple = (),  # per part: counts toward the lam multiplier
+    lam_mult_add: float = 0.0,  # added to the multiplier (the observation
+    # count of dense side info, upstream cmfrec src/common.c:689-724)
     mxu_bf16: bool = False,
+    stacked: Optional[tuple] = None,  # (stacked matrix, SlotStack) of CG
+    # over several parts, built here when not given
 ) -> torch.Tensor:
     sparse_parts = [_coefficients(p, m) for p, m in zip(parts, modes)]
     R, K = a_prev.shape
+    if r0_vec is not None:
+        base = r0_vec[None, :].expand(R, K)
+        r0 = base if r0 is None else r0 + base
+    if not scale_parts:
+        scale_parts = (True,) * len(parts)
 
     lam_mult = None
     if scale_lam:
         lam_mult = sum(_lam_multiplier(p, m, nt)
-                       for p, m, nt in zip(parts, modes, n_totals))
+                       for p, m, nt, sc in zip(parts, modes, n_totals,
+                                               scale_parts) if sc)
         # empty (or padding) rows would make the system singular; they are
         # zeroed below anyway (the reference's zero_out, common.c:676-681)
-        lam_mult = torch.clamp(lam_mult, min=1.0)
+        lam_mult = torch.clamp(lam_mult + lam_mult_add, min=1.0)
 
     # Rows with no observations solve to exactly zero -- unless an
     # NA-as-zero part or a rhs base makes every row live.
     live = None
-    if r0_vec is None and "na0" not in modes:
+    if r0 is None and "na0" not in modes:
         for p in parts:
             lv = p.length > 0
             live = lv if live is None else (live | lv)
@@ -137,21 +203,23 @@ def solve_bucket(
         # Shared-Gram fast path: every per-row Gram correction vanishes
         # (cw == 0) and the scale_lam multiplier is row-constant, so all
         # rows share one [K, K] system (unweighted NA-as-zero).
-        mult = max(float(sum(n_totals)), 1.0) if scale_lam else 1.0
+        mult = 1.0
+        if scale_lam:
+            mult = max(float(sum(nt for nt, sc in zip(n_totals, scale_parts)
+                                 if sc)) + lam_mult_add, 1.0)
         G = torch.diag(lam_vec * mult)
         if G0 is not None:
             G = G + G0
         if lam_const_vec is not None:
             G = G + torch.diag(lam_const_vec)
         rhs = sum(rowsolve.part_rhs(p, mxu_bf16) for p in sparse_parts)
-        if r0_vec is not None:
-            rhs = rhs + r0_vec[None, :]
+        if r0 is not None:
+            rhs = rhs + r0
         return rowsolve.solve_shared_chol(G, rhs)
 
     if method == "chol":
         G, rhs = rowsolve.assemble_system(
-            sparse_parts, lam_vec, lam_mult=lam_mult, G0=G0,
-            r0=None if r0_vec is None else r0_vec[None, :].expand(R, K),
+            sparse_parts, lam_vec, lam_mult=lam_mult, G0=G0, r0=r0,
             mxu_bf16=mxu_bf16)
         if lam_const_vec is not None:
             G = G + torch.diag(lam_const_vec)[None, :, :]
@@ -163,15 +231,12 @@ def solve_bucket(
         G0_eff = torch.diag(lam_const_vec) if G0 is None else (
             G0 + torch.diag(lam_const_vec))
     if len(parts) != 1:
-        if a_prev.device.type != "cpu":
-            raise ValueError("CG over several sparse parts has no kernel "
-                             "yet (ROADMAP slice 4, collective bucketed)")
-        return finish(rowsolve.solve_cg(
-            sparse_parts, lam_vec, a_prev, n_steps=n_steps,
-            lam_mult=lam_mult, G0=G0_eff,
-            r0=None if r0_vec is None else r0_vec[None, :].expand(R, K),
-            mxu_bf16=mxu_bf16))
-    sp = sparse_parts[0]
+        if stacked is None:
+            stacked = (torch.cat([p.opp for p in parts]), stack_slots(parts))
+        sp = stacked_part(sparse_parts, *stacked)
+        length = stacked[1].length
+    else:
+        sp, length = sparse_parts[0], parts[0].length
     if lam_mult is not None:
         lam_row = (lam_vec[None, :] * lam_mult[:, None]).contiguous()
         gfix = (torch.zeros(K, K, dtype=torch.float32, device=lam_vec.device)
@@ -181,11 +246,11 @@ def solve_bucket(
         gfix = torch.diag(lam_vec)
         if G0_eff is not None:
             gfix = G0_eff + gfix
-    r0 = None if r0_vec is None else r0_vec[None, :].expand(R, K).contiguous()
+    r0 = None if r0 is None else r0.contiguous()
     mat = sp.mat.to(torch.bfloat16) if mxu_bf16 else sp.mat
     return finish(sparse_cg.bucket_cg(
-        mat, sp.idx, sp.cw, sp.cv, gfix, lam_row, r0, a_prev,
-        n_steps=n_steps, length=parts[0].length))
+        mat, sp.idx, sp.cw, sp.cv, gfix, lam_row, r0, a_prev.contiguous(),
+        n_steps=n_steps, length=length))
 
 
 class SidePlan(NamedTuple):
@@ -208,24 +273,56 @@ def update_side(
     mu: Optional[float] = None,
     G0: Optional[torch.Tensor] = None,
     r0_vec: Optional[torch.Tensor] = None,  # [K] shared rhs base
+    r0_blocks: Optional[list] = None,  # per-bucket [R, K] rhs bases
+    extra_parts: Optional[list] = None,  # per bucket: list of
+    #   (PartData, mode, n_total, counts_toward_scale_lam)
+    ones_val: bool = False,  # values 1.0 (Xones, the implicit features)
     lam_const_vec: Optional[torch.Tensor] = None,
     method: str = "chol",
     n_steps: int = 3,
     scale_lam: bool = False,
+    lam_mult_add: float = 0.0,
     mxu_bf16: bool = False,
+    stacks: Optional[list] = None,  # per-bucket SlotStack cache (None
+    # entries are filled on first use) for CG over several parts
 ) -> list:
     """Solve all buckets of one side; returns the new block list.  Under
-    ``mxu_bf16`` the opposing matrix is rounded to bf16 once per side."""
+    ``mxu_bf16`` the opposing matrix is rounded to bf16 once per side.  A
+    CG bucket with several parts runs the bucket-CG op once over the parts'
+    matrices stacked (built once per call) and the bucket's slot map."""
     mat = opp.to(torch.bfloat16) if mxu_bf16 else opp
+    mat_cat = None
     out = []
-    for b, blk in zip(plan.bucketed.buckets, blocks):
-        part = PartData(idx=b.idx, val=b.val, length=b.length, wgt=b.wgt,
-                        opp=mat, opp_bias=opp_bias, w=w, alpha=alpha, mu=mu)
+    for bi, (b, blk) in enumerate(zip(plan.bucketed.buckets, blocks)):
+        part = PartData(idx=b.idx, length=b.length, opp=mat,
+                        val=torch.ones_like(b.val) if ones_val else b.val,
+                        # the Xones solves are unweighted even in a weighted
+                        # fit (upstream cmfrec src/collective.c:8458-8530)
+                        wgt=None if ones_val else b.wgt,
+                        opp_bias=opp_bias, w=w, alpha=alpha, mu=mu)
+        parts, modes = (part,), (plan.mode,)
+        n_totals, scale_parts = (plan.n_total,), (True,)
+        for pd, pmode, pn, psc in ([] if extra_parts is None
+                                   else extra_parts[bi]):
+            parts, modes = parts + (pd,), modes + (pmode,)
+            n_totals, scale_parts = n_totals + (pn,), scale_parts + (psc,)
+        stacked = None
+        if method == "cg" and len(parts) > 1:
+            if mat_cat is None:
+                mat_cat = torch.cat([p.opp for p in parts])
+                if mxu_bf16:
+                    mat_cat = mat_cat.to(torch.bfloat16)
+            if stacks is None:
+                stacks = [None] * len(blocks)
+            if stacks[bi] is None:
+                stacks[bi] = stack_slots(parts)
+            stacked = (mat_cat, stacks[bi])
         out.append(solve_bucket(
-            (part,), blk, G0, r0_vec, lam_vec, lam_const_vec,
-            modes=(plan.mode,), method=method, n_steps=n_steps,
-            scale_lam=scale_lam, n_totals=(plan.n_total,),
-            mxu_bf16=mxu_bf16))
+            parts, blk, G0, None if r0_blocks is None else r0_blocks[bi],
+            r0_vec, lam_vec, lam_const_vec, modes=modes, method=method,
+            n_steps=n_steps, scale_lam=scale_lam, n_totals=n_totals,
+            scale_parts=scale_parts, lam_mult_add=lam_mult_add,
+            mxu_bf16=mxu_bf16, stacked=stacked))
     return out
 
 

@@ -1,74 +1,113 @@
-"""Collective matrix factorization ALS drivers, the dense route (port of the
-dense-engine half of cmfrec_tpu/solvers/collective.py).
+"""Collective matrix factorization ALS drivers
+(port of cmfrec_tpu/solvers/collective.py, without the ring branch).
 
-The joint model (upstream cmfrec src/collective.c:78-355), with k_user =
-k_item = k_main = 0:
+The joint model (upstream cmfrec src/collective.c:78-355):
 
-    X[m,n]  ~  A B^T (+ biases + mean)
-    U[m,p]  ~  A C^T                              (weight w_user)
-    I[n,q]  ~  B D^T                              (weight w_item)
-    Xones   ~  A Bi^T,  Xones^T ~ B Ai^T          (weight w_implicit)
+    X[m,n]  ~  A[:, k_user:] . B[:, k_item:]^T   (+ biases + mean)
+    U[m,p]  ~  A[:, :k_user+k] . C^T             (weight w_user)
+    I[n,q]  ~  B[:, :k_item+k] . D^T             (weight w_item)
+    Xones   ~  A[:, k_user:] . Bi^T,  Xones^T ~ B[:, k_item:] . Ai^T
+                                                  (weight w_implicit)
 
-These fits run on the dense-masked engine (solvers/dense_masked.py, kernels
-K1/K2), on a card as on the CPU: fully dense side info contributes a shared
-Gram (C^T C) and a dense rhs (U @ C), and C/D/Ai/Bi are whole-matrix
-closed-form solves.  Every configuration the JAX package sends to its
-bucketed collective engine raises a ``ValueError`` naming the ROADMAP item
-that brings it (SLICE_BUCKETED).
+Two routes, chosen as the JAX package chooses them (:func:`_dense_route`):
+
+- the dense-masked engine (solvers/dense_masked.py, kernels K1/K2) for
+  fully dense side information with no k splits, w_main = 1, no
+  NA-as-zero option, unweighted implicit features, no warm C/D/Ai/Bi, and a
+  dense form within the card's budget: fully dense side info contributes
+  a shared Gram (C^T C) and a dense rhs (U @ C), and C/D/Ai/Bi are
+  whole-matrix closed-form solves;
+- the bucketed engine (solvers/als.py, kernel K3) for everything else.  A
+  row's system is assembled from sparse parts sharing one coordinate space
+  (the reference's extended Be = [[0, Bs, Bm], [Cu, Cs, 0]],
+  src/collective.c:179-214): the X part on coordinates [k_user:], a sparse
+  side-info part on [:k_user+k], the implicit-features part on [k_user:],
+  the bias on the last coordinate; dense side info adds a shared Gram and
+  per-bucket rhs bases instead of a part.  Side-info-only entities (side
+  matrices with more rows than X) get rows with no X part.  The update
+  order per iteration is the reference's (src/collective.c:8334-8860):
+  C, D, Bi, Ai, B, A.  The bucketed route runs in f32, as the JAX
+  package's does.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Optional
+from typing import NamedTuple, Optional
+
+import time
 
 import numpy as np
+import torch
 
-from ..config import resolve_device, resolve_dtype
+from ..config import resolve_device, resolve_dtype, should_handle_interrupt
+from ..data.device_fill import build_bucketed_pair, build_bucketed_rows
+from ..data.shards import BucketedRows
+from ..utils.checkpoint import FitCheckpointer
 from . import drivers, preprocess
+from .als import (
+    PartData,
+    SidePlan,
+    blocks_to_orig,
+    gram_matrix,
+    init_blocks,
+    update_side,
+)
 from .dense_masked import (
+    _round_up,
     fit_collective_dense_masked,
     fit_collective_implicit_dense_masked,
     padded_dims,
 )
 
-SLICE_BUCKETED = "slice 4 item 11, the bucketed half of solvers/collective.py"
+
+# --------------------------------------------------------------------- #
+# side-info preparation                                                  #
+# --------------------------------------------------------------------- #
 
 
 @dataclass
 class PreparedSide:
     p: int  # number of features (columns of U)
     n_ent: int  # number of entities (rows of U); may exceed the X dimension
+    na0: bool  # NA_as_zero_user / NA_as_zero_item
     colmeans: Optional[np.ndarray]  # f64 [p] when centered
-    # centered f32 [n_ent, p] when fully observed; None for sparse side info
-    # (sparse, NaNs or fewer rows than X), which only the bucketed route takes
-    dense: Optional[np.ndarray]
+    dense: Optional[np.ndarray]  # centered f32 [n_ent, p] when fully observed
+    coo: Optional[tuple]  # (rows, cols, vals) otherwise: centered unless na0
 
 
-def prepare_side(side, center: bool, dtype=np.float32
+def prepare_side(side, center: bool, na0: bool = False, dtype=np.float32
                  ) -> Optional[PreparedSide]:
     """Normalize an ingested side-info matrix (see _BaseModel._ingest_side):
     a fully observed one is column-centered (means over its rows, kept as
-    colmeans).  The port has the dense branch only: a sparse one keeps its
-    shape and no data, for the driver to reject."""
+    colmeans); a sparse one keeps its triplets, centered over the observed
+    entries, or under NA-as-zero raw, with means over all n_ent rows that
+    the fit subtracts through the part's opp_bias."""
     if side is None:
         return None
-    _, _, _, n_ent, p, is_dense, dense = side
-    if not is_dense:
-        return PreparedSide(p=p, n_ent=n_ent, colmeans=None, dense=None)
-    dense = np.asarray(dense, np.float64)
+    rows, cols, vals, n_ent, p, is_dense, dense = side
     colmeans = None
+    if is_dense:
+        dense = np.asarray(dense, np.float64)
+        if center:
+            colmeans = dense.mean(axis=0)
+            dense = dense - colmeans[None, :]
+        return PreparedSide(p=p, n_ent=n_ent, na0=na0, colmeans=colmeans,
+                            dense=dense.astype(dtype), coo=None)
+    vals = np.asarray(vals, np.float64)
+    centered = vals
     if center:
-        colmeans = dense.mean(axis=0)
-        dense = dense - colmeans[None, :]
-    return PreparedSide(p=p, n_ent=n_ent, colmeans=colmeans,
-                        dense=dense.astype(dtype))
+        centered, colmeans = preprocess.center_columns(
+            rows, cols, vals, p, na_as_zero=na0, n_rows=n_ent)
+    return PreparedSide(p=p, n_ent=n_ent, na0=na0, colmeans=colmeans,
+                        dense=None,
+                        coo=(rows, cols, vals if na0 else centered))
 
 
 def _sparsify_short_dense_side(side, xdim):
     """A dense side matrix with fewer rows than the main dimension
     (m_u < m) is re-expressed as sparse triplets over its rows: the dense
-    routes assume every main row has a side row (shared CtC Gram +
+    paths assume every main row has a side row (shared CtC Gram +
     whole-matrix solves), but entities beyond n_ent must get no side
     contribution at all (the reference solves them X-only)."""
     if side is None:
@@ -79,6 +118,79 @@ def _sparsify_short_dense_side(side, xdim):
     dense = np.asarray(dense, np.float64)
     rr, cc = np.nonzero(~np.isnan(dense))
     return (rr, cc, dense[rr, cc], n_ent, p, False, None)
+
+
+def build_aligned_parts(bucketed: BucketedRows, rows_s, cols_s, vals_s,
+                        n_ent: int, dev):
+    """Pad a second sparse matrix's rows in the exact row order of an
+    existing bucketing (so the X part and the side part of one row system
+    sit in the same batch slot): per bucket (idx [R, L] int32, val [R, L]
+    f32, length [R] int32) on ``dev``, L the bucket's longest side row
+    rounded up to 8.  The sort and scatter run on the host."""
+    rows_s = np.asarray(rows_s, np.int64)
+    order = np.argsort(rows_s, kind="stable")
+    sc = np.asarray(cols_s, np.int64)[order]
+    sv = np.asarray(vals_s, np.float64)[order]
+    counts = np.bincount(rows_s, minlength=max(n_ent, bucketed.n_rows))
+    indptr = np.zeros(len(counts) + 1, np.int64)
+    np.cumsum(counts, out=indptr[1:])
+
+    out = []
+    for b in bucketed.buckets:
+        ids = bucketed.row_of[b.start:b.start + b.n_rows]  # -1 on padding
+        valid = ids >= 0
+        ns = np.where(valid, counts[np.maximum(ids, 0)], 0)
+        L = _round_up(max(int(ns.max()), 1), 8)
+        idx = np.zeros((b.n_rows, L), np.int32)
+        val = np.zeros((b.n_rows, L), np.float32)
+        total = int(ns.sum())
+        if total:
+            starts = np.where(valid, indptr[np.maximum(ids, 0)], 0)
+            seg_off = np.repeat(np.cumsum(ns) - ns, ns)
+            within = np.arange(total, dtype=np.int64) - seg_off
+            src = np.repeat(starts, ns) + within
+            dest_r = np.repeat(np.arange(b.n_rows, dtype=np.int64), ns)
+            idx[dest_r, within] = sc[src]
+            val[dest_r, within] = sv[src]
+        out.append(tuple(torch.as_tensor(a, device=dev)
+                         for a in (idx, val, ns.astype(np.int32))))
+    return out
+
+
+def _bucket_dense_slices(bucketed: BucketedRows, M: np.ndarray, dev):
+    """Per-bucket dense row slices of M (rows beyond M -> zeros)."""
+    out = []
+    for b in bucketed.buckets:
+        ids = bucketed.row_of[b.start:b.start + b.n_rows]
+        sl = np.zeros((b.n_rows, M.shape[1]), np.float32)
+        ok = (ids >= 0) & (ids < M.shape[0])
+        sl[ok] = M[ids[ok]]
+        out.append(torch.as_tensor(sl, device=dev))
+    return out
+
+
+def _pad_cols(M: torch.Tensor, k_pad: int, offset: int) -> torch.Tensor:
+    """M's columns at [offset : offset + width] of a k_pad-wide matrix."""
+    out = torch.zeros(M.shape[0], k_pad, dtype=M.dtype, device=M.device)
+    out[:, offset:offset + M.shape[1]] = M
+    return out
+
+
+def _dense_rhs(U_slice, Ce, w):
+    """w * U_bucket @ Ce: per-row rhs base from fully dense side info."""
+    return w * (U_slice @ Ce)
+
+
+def _dense_full_solve(A1, U, lam_vec, w, lam_scale=1.0):
+    """Whole-matrix update of C (or D) from fully dense side info:
+    (w A1^T A1 + diag(lam)) C^T = w A1^T U, by one Cholesky (the
+    reference's optimizeA case-1 fast path, upstream cmfrec
+    src/common.c:2787).  ``lam_scale``: the scale_lam multiplier, the
+    number of side-info rows (case 1 uses lam * n).  Its coordinate-descent
+    branch (nonneg_C/D, l1) is ROADMAP slice 4 item 10."""
+    G = w * gram_matrix(A1) + torch.diag(lam_vec * lam_scale)
+    rhs = w * (A1.T @ U)  # [K, p]
+    return torch.cholesky_solve(rhs, torch.linalg.cholesky(G)).T
 
 
 def _init_dense_ok(init):
@@ -92,38 +204,216 @@ def _init_dense_ok(init):
     return all(init.get(key) is None for key in ("C", "D", "Ai", "Bi"))
 
 
-def _reject_bucketed(U, I, m, n, *, k_user, k_item, k_main, w_main,
-                     NA_as_zero, add_implicit_features, weights, init,
-                     dense_bytes, dev):
-    """Raise for a configuration that the JAX package fits on its bucketed
-    collective engine, which the port does not have yet."""
-    def no(what):
-        return drivers._unsupported(what, SLICE_BUCKETED)
-
-    for side, name, dim in ((U, "U", m), (I, "I", n)):
-        if side is None:
-            continue
-        if side.n_ent > dim:
-            raise no(f"side information with more rows than X ({name}= has "
-                     f"{side.n_ent}, X {dim}: side-info-only entities)")
-        if side.dense is None:
-            raise no(f"side information with missing entries ({name}= "
-                     "sparse, with NaNs, or with fewer rows than X)")
-    if k_user or k_item or k_main:
-        raise no("k_user/k_item/k_main")
-    if w_main != 1.0:
-        raise no("w_main != 1 in an explicit collective fit")
-    if NA_as_zero:
-        raise no("NA_as_zero, NA_as_zero_user or NA_as_zero_item in a "
-                 "collective fit")
-    if add_implicit_features and weights is not None:
-        raise no("add_implicit_features with weights")
-    if not _init_dense_ok(init):
-        raise no("a warm start (init=) that carries C, D, Ai or Bi")
+def _dense_route(U, I, m, n, *, k_user, k_item, k_main, w_main, na0,
+                 add_implicit_features, weights, init, dense_bytes, dev):
+    """Whether a collective fit takes the dense-masked engine: where the
+    JAX package's ``use_dense_pallas`` would (cmfrec_tpu/solvers/
+    collective.py:382-414, :1088-1113), with the card's budget
+    (drivers._dense_budget; none on the CPU) in place of the TPU's."""
+    if not (k_user == 0 and k_item == 0 and k_main == 0 and w_main == 1.0
+            and not na0 and _init_dense_ok(init)
+            and not (add_implicit_features and weights is not None)):
+        return False
+    for side, dim in ((U, m), (I, n)):
+        if side is not None and (side.dense is None or side.n_ent != dim):
+            return False
     budget = drivers._dense_budget(dev)
-    if budget is not None and dense_bytes > budget:
-        raise no(f"a collective fit whose dense form ({dense_bytes} B) "
-                 f"exceeds the card's budget ({budget} B)")
+    return budget is None or dense_bytes <= budget
+
+
+def _side_layout(S: Optional[PreparedSide], main: BucketedRows, dev):
+    """The bucketed route's structures of one side matrix: its feature
+    bucketing (rows = features, for the C/D update), its parts aligned to
+    the main bucketing, its dense slices, and (NA-as-zero with centering)
+    the column means of the feature buckets' rows."""
+    if S is None:
+        return None, None, None, None
+    if S.dense is not None:
+        return None, None, _bucket_dense_slices(main, S.dense, dev), None
+    r_s, c_s, v_s = S.coo
+    feat_b = build_bucketed_rows(c_s, r_s, v_s, S.p, S.n_ent, device=dev)
+    aligned = build_aligned_parts(main, r_s, c_s, v_s, S.n_ent, dev)
+    mean_slices = None
+    if S.na0 and S.colmeans is not None:
+        mean_slices = []
+        for b in feat_b.buckets:
+            ids = feat_b.row_of[b.start:b.start + b.n_rows]
+            ms = np.zeros(b.n_rows, np.float32)
+            ok = ids >= 0
+            ms[ok] = S.colmeans[ids[ok]]
+            mean_slices.append(torch.as_tensor(ms, device=dev))
+    return feat_b, aligned, None, mean_slices
+
+
+def _side_init(S, featb, kx, kx_pad, gen, init_M, dev):
+    """C (or D) at the start of a bucketed fit: for dense side info a
+    [p, kx_pad] matrix of N(0, 0.01^2), else bucket blocks over the
+    features; ``init_M`` ([p, kx]) overrides.  Returns (blocks, orig)."""
+    if S.dense is not None:
+        M = 0.01 * torch.randn(S.p, kx_pad, generator=gen, device=dev)
+        M[:, kx:] = 0.0
+        if init_M is not None:
+            M[:, :kx] = torch.as_tensor(init_M, dtype=torch.float32,
+                                        device=dev)
+        return None, M
+    blocks = init_blocks(gen, featb, kx, kx_pad)
+    if init_M is not None:
+        drivers._seed_factor_blocks(blocks, featb, init_M, kx)
+    return blocks, blocks_to_orig(blocks, torch.as_tensor(featb.perm,
+                                                          device=dev))
+
+
+def _xdim_mask(limit, total, dev):
+    """1 on the first ``limit`` of ``total`` rows: the shared Gram and rhs
+    bases of the opposing side sum over the X (or side) rows only.  With
+    side-info-only entities the factor matrices carry live rows beyond X's
+    dimension, which the reference's opposing row counts exclude (its
+    optimizeA calls pass m/n, upstream cmfrec src/collective.c:8461/9924)."""
+    return torch.as_tensor((np.arange(total) < limit).astype(np.float32),
+                           device=dev)
+
+
+def _side_factor_update(S, featb, blocks, A1, lam_vec, w_side, method,
+                        mean_slices, *, n_steps, scale_lam):
+    """Update C (or D): rows = side-info features, opposing = A[:, :k_off+k].
+    Under scale_lam (or scale_lam_sideinfo) the lambda scales with each
+    feature's observed count too (upstream cmfrec src/collective.c:8373)."""
+    plan = SidePlan(featb, "na0" if S.na0 else "explicit", S.n_ent)
+    G0 = r0_blocks = None
+    if S.na0:
+        G0 = w_side * gram_matrix(A1)
+        if mean_slices is not None:
+            colsum = A1.sum(dim=0)
+            r0_blocks = [-w_side * ms[:, None] * colsum[None, :]
+                         for ms in mean_slices]
+    return update_side(plan, blocks, A1, None, lam_vec, w=w_side, G0=G0,
+                       r0_blocks=r0_blocks, method=method, n_steps=n_steps,
+                       scale_lam=scale_lam)
+
+
+def _side_parts(S, aligned, Ce, w_side, n_buckets, scale_flag, dev):
+    """A sparse side matrix's parts of the A (or B) systems, one list per
+    bucket, and its shared bases under NA-as-zero: (extra, G0, r0_vec)."""
+    extra = [[] for _ in range(n_buckets)]
+    G0 = r0_vec = cm = None
+    if S.na0:
+        G0 = w_side * gram_matrix(Ce)
+        if S.colmeans is not None:
+            cm = torch.as_tensor(S.colmeans.astype(np.float32), device=dev)
+        r0_vec = w_side * drivers._na0_rhs_base(Ce, cm, 0.0)
+    for bi, (idx_s, val_s, len_s) in enumerate(aligned):
+        pd = PartData(idx=idx_s, val=val_s, length=len_s, wgt=None, opp=Ce,
+                      opp_bias=cm, w=w_side, alpha=None,
+                      mu=0.0 if S.na0 else None)
+        extra[bi].append((pd, "na0" if S.na0 else "explicit", S.p,
+                          scale_flag))
+    return extra, G0, r0_vec
+
+
+def _add(a, b):
+    return b if a is None else (a if b is None else a + b)
+
+
+def _update_C(S, featb, blocks, A_orig, kc, kc_pad, lam_vec, w_side,
+              method, mean_slices, perm_S, xmask, lam_scale, **kw):
+    """One C (or D) half-step from A_orig (or B_orig); returns (blocks,
+    orig)."""
+    A1 = _pad_cols(A_orig[:, :kc], kc_pad, 0)
+    if S.dense is not None:
+        A1u = A1[:S.n_ent] if S.n_ent < A1.shape[0] else A1
+        dense = torch.as_tensor(S.dense, device=A1.device)
+        return None, _dense_full_solve(A1u, dense, lam_vec, w_side,
+                                       lam_scale)
+    if xmask is not None and not S.na0:
+        # under NA-as-zero the rows beyond the side matrix are genuine
+        # all-zero side rows (kept)
+        A1 = A1 * xmask[:, None]
+    blocks = _side_factor_update(S, featb, blocks, A1, lam_vec, w_side,
+                                 method, mean_slices, **kw)
+    return blocks, blocks_to_orig(blocks, perm_S)
+
+
+class _Sides(NamedTuple):
+    """The side-info structures both bucketed bodies build around their
+    main bucketings: each side matrix's layout (_side_layout) and start
+    (_side_init), the row permutations, the X-row masks, and the slot maps
+    of the several-part CG buckets (filled on the first CG half-step, kept
+    for the fit)."""
+
+    U_lay: tuple  # (feature bucketing, aligned parts, dense slices, means)
+    I_lay: tuple
+    C0: tuple  # (blocks, orig) of C at the start; (None, None) without U
+    D0: tuple
+    perm_A: torch.Tensor
+    perm_B: torch.Tensor
+    perm_U: Optional[torch.Tensor]
+    perm_I: Optional[torch.Tensor]
+    xmask_A: torch.Tensor
+    xmask_B: torch.Tensor
+    xmask_AU: Optional[torch.Tensor]
+    xmask_BI: Optional[torch.Tensor]
+    stacks_A: list
+    stacks_B: list
+
+
+def _sides(U, I, RB, CB, m, n, m_eff, n_eff, widths, seed, init, dev):
+    """The _Sides of a bucketed fit; ``widths`` is (kc, kc_pad, kd, kd_pad).
+    C and D start from their own generator (seed + 1)."""
+    kc, kc_pad, kd, kd_pad = widths
+    U_lay, I_lay = _side_layout(U, RB, dev), _side_layout(I, CB, dev)
+    gen2 = torch.Generator(device=dev)
+    gen2.manual_seed(int(seed) + 1)
+    C0 = D0 = (None, None)
+    if U is not None:
+        C0 = _side_init(U, U_lay[0], kc, kc_pad, gen2, init.get("C"), dev)
+    if I is not None:
+        D0 = _side_init(I, I_lay[0], kd, kd_pad, gen2, init.get("D"), dev)
+
+    def perm(featb):
+        return None if featb is None else torch.as_tensor(featb.perm,
+                                                          device=dev)
+
+    return _Sides(
+        U_lay, I_lay, C0, D0, perm(RB), perm(CB), perm(U_lay[0]),
+        perm(I_lay[0]), _xdim_mask(m, m_eff, dev), _xdim_mask(n, n_eff, dev),
+        None if U is None or U.n_ent >= m_eff
+        else _xdim_mask(U.n_ent, m_eff, dev),
+        None if I is None or I.n_ent >= n_eff
+        else _xdim_mask(I.n_ent, n_eff, dev),
+        [None] * len(RB.buckets), [None] * len(CB.buckets))
+
+
+def _update_sides(sd, U, I, C, D, A_orig, B_orig, widths, lam_vec_C,
+                  lam_vec_D, w_user, w_item, method, *, n_steps, scale_lam):
+    """The C and D half-steps of one iteration; C and D are (blocks, orig)
+    pairs, returned updated."""
+    kc, kc_pad, kd, kd_pad = widths
+    kw = dict(n_steps=n_steps, scale_lam=scale_lam)
+    if U is not None:
+        C = _update_C(U, sd.U_lay[0], C[0], A_orig, kc, kc_pad, lam_vec_C,
+                      w_user, method, sd.U_lay[3], sd.perm_U, sd.xmask_AU,
+                      float(U.n_ent) if scale_lam else 1.0, **kw)
+    if I is not None:
+        D = _update_C(I, sd.I_lay[0], D[0], B_orig, kd, kd_pad, lam_vec_D,
+                      w_item, method, sd.I_lay[3], sd.perm_I, sd.xmask_BI,
+                      float(I.n_ent) if scale_lam else 1.0, **kw)
+    return C, D
+
+
+def _opposing(F_orig, k_from, k_to, width, k_pad, ones_col, xmask):
+    """The extended opposing matrix of a main half-step: F's shared
+    coordinates moved to [k_to : k_to + width], ones on the bias column
+    ``ones_col`` (or none), rows outside ``xmask`` zeroed (or kept)."""
+    opp = torch.zeros(F_orig.shape[0], k_pad, device=F_orig.device)
+    opp[:, k_to:k_to + width] = F_orig[:, k_from:k_from + width]
+    if ones_col is not None:
+        opp[:, ones_col] = 1.0
+    return opp if xmask is None else opp * xmask[:, None]
+
+
+# --------------------------------------------------------------------- #
+# explicit collective fit                                                #
+# --------------------------------------------------------------------- #
 
 
 def fit_collective_explicit_als(
@@ -144,32 +434,49 @@ def fit_collective_explicit_als(
     mesh=None, init=None, checkpoint_path=None, checkpoint_every=0,
     shard_opposing_rows=False, device="cuda",
 ) -> dict:
-    """Collective explicit ALS on the dense-masked engine.  side_U/side_I
-    are _BaseModel._ingest_side tuples.  Returns A, B, biasA/biasB, C, D,
-    Ai, Bi (None where absent) as f32 tensors on ``device``, plus
-    U_colmeans/I_colmeans, glob_mean and k.  As on the JAX package's dense
-    route, the fit writes no mid-fit checkpoints (checkpoint_path and
-    checkpoint_every are accepted and unused)."""
+    """Collective explicit ALS.  side_U/side_I are _BaseModel._ingest_side
+    tuples.  Returns A, B, biasA/biasB, C, D, Ai, Bi (None where absent) as
+    f32 tensors on ``device``, plus U_colmeans/I_colmeans, glob_mean and k;
+    the bucketed route also scaling_biasA/B (None unless scale_bias_const)
+    and writes mid-fit checkpoints.  The dense route, as the JAX package's,
+    writes none (checkpoint_path and checkpoint_every are unused there)."""
     lam6, l16 = drivers._resolve_lambdas(lambda_, l1_lambda)
     dtype = resolve_dtype(dtype)
     dev = resolve_device(device)
     drivers._reject_common(mesh, shard_opposing_rows,
                            nonneg or nonneg_C or nonneg_D, l16, use_cg,
                            precondition_cg, dtype)
-    scale_lam = scale_lam or scale_lam_sideinfo
-    U = prepare_side(_sparsify_short_dense_side(side_U, m), center_U, dtype)
-    I = prepare_side(_sparsify_short_dense_side(side_I, n), center_I, dtype)
-    Kp = padded_dims(m, n, k)[2]
-    drivers.check_kernel_k(k, Kp, "dense", dev)
-    _reject_bucketed(
+    U = prepare_side(_sparsify_short_dense_side(side_U, m), center_U,
+                     NA_as_zero_user, dtype)
+    I = prepare_side(_sparsify_short_dense_side(side_I, n), center_I,
+                     NA_as_zero_item, dtype)
+    dense = _dense_route(
         U, I, m, n, k_user=k_user, k_item=k_item, k_main=k_main,
         w_main=w_main,
-        NA_as_zero=NA_as_zero or NA_as_zero_user or NA_as_zero_item,
+        na0=NA_as_zero or NA_as_zero_user or NA_as_zero_item,
         add_implicit_features=add_implicit_features, weights=weights,
         init=init, dense_bytes=drivers.dense_bytes(m, n, k,
                                                    weights is not None),
         dev=dev)
+    if not dense:
+        drivers.check_kernel_k(
+            k, _round_up(max(k_user, k_item) + k + k_main + 1, 8),
+            "bucketed", dev)
+        return _fit_collective_explicit_bucketed(
+            rows, cols, vals, m, n, U=U, I=I, k=k, k_user=k_user,
+            k_item=k_item, k_main=k_main, lam6=lam6, w_main=w_main,
+            w_user=w_user, w_item=w_item, w_implicit=w_implicit,
+            add_implicit_features=add_implicit_features, niter=niter,
+            use_cg=use_cg, max_cg_steps=max_cg_steps,
+            finalize_chol=finalize_chol, user_bias=user_bias,
+            item_bias=item_bias, center=center, scale_lam=scale_lam,
+            scale_lam_sideinfo=scale_lam_sideinfo,
+            scale_bias_const=scale_bias_const, NA_as_zero=NA_as_zero,
+            weights=weights, seed=seed, verbose=verbose, device=dev,
+            init=init, checkpoint_path=checkpoint_path,
+            checkpoint_every=checkpoint_every)
 
+    drivers.check_kernel_k(k, padded_dims(m, n, k)[2], "dense", dev)
     glob_mean = (preprocess.weighted_global_mean(vals, weights) if center
                  else 0.0)
     res = fit_collective_dense_masked(
@@ -179,7 +486,8 @@ def fit_collective_explicit_als(
         weights=weights, k=k, lam6=lam6, w_user=w_user, w_item=w_item,
         niter=niter, max_cg_steps=max_cg_steps, finalize_chol=finalize_chol,
         finalize_steps=drivers.FINALIZE_STEPS, user_bias=user_bias,
-        item_bias=item_bias, glob_mean=glob_mean, scale_lam=scale_lam,
+        item_bias=item_bias, glob_mean=glob_mean,
+        scale_lam=scale_lam or scale_lam_sideinfo,
         scale_lam_sideinfo=scale_lam_sideinfo,
         scale_bias_const=scale_bias_const, seed=seed, verbose=verbose,
         device=dev, init=init, add_implicit_features=add_implicit_features,
@@ -187,6 +495,278 @@ def fit_collective_explicit_als(
     res["U_colmeans"] = None if U is None else U.colmeans
     res["I_colmeans"] = None if I is None else I.colmeans
     return res
+
+
+def _fit_collective_explicit_bucketed(
+    rows, cols, vals, m, n, *, U, I, k, k_user, k_item, k_main, lam6,
+    w_main, w_user, w_item, w_implicit, add_implicit_features, niter,
+    use_cg, max_cg_steps, finalize_chol, user_bias, item_bias, center,
+    scale_lam, scale_lam_sideinfo, scale_bias_const, NA_as_zero, weights,
+    seed, verbose, device, init, checkpoint_path, checkpoint_every,
+) -> dict:
+    """The bucketed route of fit_collective_explicit_als
+    (cmfrec_tpu/solvers/collective.py:440-1019, without the ring branch).
+    ``U``/``I`` are PreparedSide (prepare_side) or None, ``lam6`` the six
+    lambdas (drivers._resolve_lambdas)."""
+    dev = torch.device(device)
+    ckpt = FitCheckpointer(checkpoint_path, checkpoint_every, niter)
+    scale_lam = scale_lam or scale_lam_sideinfo
+    m_eff = max(m, U.n_ent if U else 0)
+    n_eff = max(n, I.n_ent if I else 0)
+
+    glob_mean = (preprocess.weighted_global_mean(vals, weights) if center
+                 else 0.0)
+    if NA_as_zero and center:
+        # the mean over all m*n cells (unobserved = 0, weight 1), as in
+        # drivers.fit_explicit_als
+        wsum = (float(len(vals)) if weights is None
+                else float(np.sum(weights)))
+        glob_mean *= wsum / (wsum + float(m) * float(n) - float(len(vals)))
+    vals_c = (np.asarray(vals, np.float64) - glob_mean).astype(np.float32)
+
+    biasA0 = biasB0 = None
+    if user_bias or item_bias:
+        biasA0, biasB0 = preprocess.initialize_biases(
+            rows, cols, vals_c, m_eff, n_eff, lam_user=lam6[0],
+            lam_item=lam6[1], wgt=weights, user_bias=user_bias,
+            item_bias=item_bias, scale_lam=scale_lam)
+    RB, CB = build_bucketed_pair(rows, cols, vals_c, m, n, weights,
+                                 device=dev, m_eff=m_eff, n_eff=n_eff)
+
+    ka, kb = k_user + k + k_main, k_item + k + k_main  # A/B widths, no bias
+    ka_pad, kb_pad = _round_up(ka + 1, 8), _round_up(kb + 1, 8)
+    kc, kd = k_user + k, k_item + k
+    kc_pad, kd_pad = _round_up(kc, 8), _round_up(kd, 8)
+    ki_w = k + k_main  # implicit-features width
+    ki_pad = _round_up(ki_w, 8)
+    init = init or {}
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(int(seed))
+    A_blocks = init_blocks(gen, RB, ka, ka_pad)
+    B_blocks = init_blocks(gen, CB, kb, kb_pad)
+    if user_bias:
+        drivers._set_bias_coord(A_blocks, RB, biasA0, ka)
+    if item_bias:
+        drivers._set_bias_coord(B_blocks, CB, biasB0, kb)
+    for key, blocks, bk, kx, has_bias in (
+            ("A", A_blocks, RB, ka, user_bias),
+            ("B", B_blocks, CB, kb, item_bias)):
+        if init.get(key) is not None:
+            drivers._seed_factor_blocks(blocks, bk, init[key], kx)
+        if has_bias and init.get("bias" + key) is not None:
+            drivers._set_bias_coord(blocks, bk, init["bias" + key], kx)
+
+    widths = (kc, kc_pad, kd, kd_pad)
+    sd = _sides(U, I, RB, CB, m, n, m_eff, n_eff, widths, seed, init, dev)
+    (C_blocks, C_orig), (D_blocks, D_orig) = sd.C0, sd.D0
+    Ai_blocks = Bi_blocks = None
+    if add_implicit_features:
+        Bi_blocks = init_blocks(gen, CB, ki_w, ki_pad)
+        Ai_blocks = init_blocks(gen, RB, ki_w, ki_pad)
+        if init.get("Bi") is not None:
+            drivers._seed_factor_blocks(Bi_blocks, CB, init["Bi"], ki_w)
+        if init.get("Ai") is not None:
+            drivers._seed_factor_blocks(Ai_blocks, RB, init["Ai"], ki_w)
+
+    mk = drivers._make_lam_vec
+    lam_vec_A = mk(ka, ka_pad, lam6[2], lam6[0], user_bias, dev)
+    lam_vec_B = mk(kb, kb_pad, lam6[3], lam6[1], item_bias, dev)
+    lam_vec_C = mk(kc, kc_pad, lam6[4], 0.0, False, dev)
+    lam_vec_D = mk(kd, kd_pad, lam6[5], 0.0, False, dev)
+    lam_vec_Bi = mk(ki_w, ki_pad, lam6[3] / w_implicit, 0.0, False, dev)
+    lam_vec_Ai = mk(ki_w, ki_pad, lam6[2] / w_implicit, 0.0, False, dev)
+
+    # scale_bias_const: the bias coordinate's penalty scales with the
+    # average observation count instead of the per-row count
+    # (upstream cmfrec src/common.c:717-722); the mean runs over the X
+    # dimension (src/collective.c:8114) and, under scale_lam_sideinfo,
+    # counts the side entries (src/collective.c:8070)
+    lam_const_A = lam_const_B = None
+    scaling_biasA = scaling_biasB = None
+    if scale_lam and scale_bias_const:
+        wsum_total = (float(np.sum(weights)) if weights is not None
+                      else float(len(vals)))
+
+        def side_wsum(S, lim):
+            if S is None or not scale_lam_sideinfo:
+                return 0.0
+            if S.na0:
+                return float(S.p) * lim
+            if S.dense is not None:
+                return float(min(S.n_ent, lim)) * S.p
+            return float(np.count_nonzero(np.asarray(S.coo[0]) < lim))
+
+        if user_bias:
+            scaling_biasA = (wsum_total + side_wsum(U, m)) / max(m, 1)
+            lam_const_A = torch.zeros(ka_pad, device=dev)
+            lam_const_A[ka] = lam6[0] * scaling_biasA
+            lam_vec_A[ka] = 0.0
+        if item_bias:
+            scaling_biasB = (wsum_total + side_wsum(I, n)) / max(n, 1)
+            lam_const_B = torch.zeros(kb_pad, device=dev)
+            lam_const_B[kb] = lam6[1] * scaling_biasB
+            lam_vec_B[kb] = 0.0
+
+    mode = "na0" if NA_as_zero else "explicit"
+    plan_A, plan_B = SidePlan(RB, mode, n), SidePlan(CB, mode, m)
+    perm_A, perm_B, xmask_A, xmask_B = (sd.perm_A, sd.perm_B, sd.xmask_A,
+                                        sd.xmask_B)
+
+    def factor_update(blocks, plan, opp, opp_bias, lam_vec, method, S, S_al,
+                      S_ds, C_mat, kx, w_side, Xones_opp, k_off, lam_const,
+                      stacks):
+        """One A- or B-style update with optional side-info and implicit
+        features parts."""
+        K = lam_vec.shape[0]
+        G0 = r0_vec = r0_blocks = extra = None
+        n_buckets = len(plan.bucketed.buckets)
+        if plan.mode == "na0":
+            G0 = w_main * gram_matrix(opp)
+            r0_vec = w_main * drivers._na0_rhs_base(opp, opp_bias, glob_mean)
+        lam_mult_add = 0.0
+        if S is not None:
+            Ce = _pad_cols(C_mat[:, :kx], K, 0)
+            if S.dense is not None:
+                G0 = _add(G0, w_side * gram_matrix(Ce))
+                r0_blocks = [_dense_rhs(sl, Ce, w_side) for sl in S_ds]
+                if scale_lam_sideinfo:
+                    # dense side info adds p observations per row to the
+                    # lambda multiplier (src/common.c:689-724)
+                    lam_mult_add = float(S.p)
+            else:
+                extra, Gs, rv = _side_parts(S, S_al, Ce, w_side, n_buckets,
+                                            scale_lam_sideinfo, dev)
+                G0, r0_vec = _add(G0, Gs), _add(r0_vec, rv)
+        if add_implicit_features:
+            # Xones ~ A[:, k_off:] . Bi^T
+            Bi_e = _pad_cols(Xones_opp[:, :ki_w], K, k_off)
+            G0 = _add(G0, w_implicit * gram_matrix(Bi_e))
+            extra = extra or [[] for _ in range(n_buckets)]
+            for bi, b in enumerate(plan.bucketed.buckets):
+                pd = PartData(idx=b.idx, val=torch.ones_like(b.val),
+                              length=b.length, wgt=None, opp=Bi_e,
+                              opp_bias=None, w=w_implicit, alpha=None,
+                              mu=0.0)
+                extra[bi].append((pd, "na0", plan.n_total, False))
+        return update_side(
+            plan, blocks, opp, opp_bias, lam_vec, w=w_main,
+            mu=glob_mean if plan.mode == "na0" else None, G0=G0,
+            r0_vec=r0_vec, r0_blocks=r0_blocks, extra_parts=extra,
+            lam_const_vec=lam_const, method=method, n_steps=max_cg_steps,
+            scale_lam=scale_lam, lam_mult_add=lam_mult_add, stacks=stacks)
+
+    def iteration(method, st):
+        A_blocks, B_blocks, C_blocks, D_blocks, C_orig, D_orig, Ai_blocks, \
+            Bi_blocks = st
+        A_orig = blocks_to_orig(A_blocks, perm_A)
+        B_orig = blocks_to_orig(B_blocks, perm_B)
+        Ai_orig = Bi_orig = None
+        (C_blocks, C_orig), (D_blocks, D_orig) = _update_sides(
+            sd, U, I, (C_blocks, C_orig), (D_blocks, D_orig), A_orig, B_orig,
+            widths, lam_vec_C, lam_vec_D, w_user, w_item, method,
+            n_steps=max_cg_steps, scale_lam=scale_lam)
+        if add_implicit_features:
+            # always closed form: the reference hard-codes use_cg=false for
+            # these half-steps (src/collective.c:8479/8520)
+            A_x = _pad_cols(A_orig[:, k_user:k_user + ki_w], ki_pad, 0)
+            A_x = A_x * xmask_A[:, None]  # Gram over the X rows only
+            Bi_blocks = update_side(
+                SidePlan(CB, "na0", m), Bi_blocks, A_x, None, lam_vec_Bi,
+                G0=gram_matrix(A_x), ones_val=True, method="chol",
+                scale_lam=scale_lam)
+            Bi_orig = blocks_to_orig(Bi_blocks, perm_B)
+            B_x = _pad_cols(B_orig[:, k_item:k_item + ki_w], ki_pad, 0)
+            B_x = B_x * xmask_B[:, None]
+            Ai_blocks = update_side(
+                SidePlan(RB, "na0", n), Ai_blocks, B_x, None, lam_vec_Ai,
+                G0=gram_matrix(B_x), ones_val=True, method="chol",
+                scale_lam=scale_lam)
+            Ai_orig = blocks_to_orig(Ai_blocks, perm_A)
+
+        # B (items; opposing A, D, Ai).  The shared bases sum the X rows
+        # only, except under NA_as_zero, where side-only entities are
+        # genuine all-zero X rows
+        opp = _opposing(A_orig, k_user, k_item, k + k_main, kb_pad,
+                        kb if item_bias else None,
+                        None if NA_as_zero else xmask_A)
+        B_blocks = factor_update(
+            B_blocks, plan_B, opp, A_orig[:, ka] if user_bias else None,
+            lam_vec_B, method, I, sd.I_lay[1], sd.I_lay[2], D_orig, kd,
+            w_item, None if Ai_orig is None else Ai_orig * xmask_A[:, None],
+            k_item, lam_const_B, sd.stacks_B)
+        B_orig = blocks_to_orig(B_blocks, perm_B)
+
+        # A (users; opposing B, C, Bi)
+        opp = _opposing(B_orig, k_item, k_user, k + k_main, ka_pad,
+                        ka if user_bias else None,
+                        None if NA_as_zero else xmask_B)
+        A_blocks = factor_update(
+            A_blocks, plan_A, opp, B_orig[:, kb] if item_bias else None,
+            lam_vec_A, method, U, sd.U_lay[1], sd.U_lay[2], C_orig, kc,
+            w_user, None if Bi_orig is None else Bi_orig * xmask_B[:, None],
+            k_user, lam_const_A, sd.stacks_A)
+        return (A_blocks, B_blocks, C_blocks, D_blocks, C_orig, D_orig,
+                Ai_blocks, Bi_blocks)
+
+    def state_dict(st):
+        Ab, Bb, _Cb, _Db, Co, Do, Aib, Bib = st
+        Ao, Bo = blocks_to_orig(Ab, perm_A), blocks_to_orig(Bb, perm_B)
+        return {
+            "A": Ao[:, :ka], "B": Bo[:, :kb],
+            "biasA": Ao[:, ka] if user_bias else None,
+            "biasB": Bo[:, kb] if item_bias else None,
+            "C": None if Co is None else Co[:, :kc],
+            "D": None if Do is None else Do[:, :kd],
+            "Ai": (None if Aib is None
+                   else blocks_to_orig(Aib, perm_A)[:, :ki_w]),
+            "Bi": (None if Bib is None
+                   else blocks_to_orig(Bib, perm_B)[:, :ki_w]),
+        }
+
+    st = (A_blocks, B_blocks, C_blocks, D_blocks, C_orig, D_orig,
+          Ai_blocks, Bi_blocks)
+    st = _run(iteration, st, state_dict, niter, use_cg, finalize_chol,
+              verbose, dev, ckpt)
+    # the return layout is the checkpoint layout (1:1 with init=)
+    out = state_dict(st)
+    out.update({
+        "U_colmeans": None if U is None else U.colmeans,
+        "I_colmeans": None if I is None else I.colmeans,
+        "scaling_biasA": scaling_biasA, "scaling_biasB": scaling_biasB,
+        "glob_mean": float(glob_mean), "k": k,
+    })
+    return out
+
+
+def _run(iteration, st, state_dict, niter, use_cg, finalize_chol, verbose,
+         dev, ckpt):
+    """The iterations of a bucketed collective fit: CG until the last one
+    under finalize_chol, Cholesky otherwise; mid-fit checkpoints; on
+    KeyboardInterrupt the partial state (the reference's handle_interrupt,
+    upstream cmfrec src/helpers.c:1493)."""
+    try:
+        for it in range(niter):
+            method = ("cg" if use_cg and not (finalize_chol
+                                              and it == niter - 1)
+                      else "chol")
+            t0 = time.time()
+            st = iteration(method, st)
+            if verbose:
+                drivers._fence(dev)
+                print(f"iter {it + 1}/{niter} [{method}] "
+                      f"{time.time() - t0:.3f}s")
+            ckpt.maybe_save(it + 1, lambda: drivers._host(state_dict(st)))
+    except KeyboardInterrupt:
+        if not should_handle_interrupt():
+            raise
+        print("interrupted — returning partially-fit model")
+    return st
+
+
+# --------------------------------------------------------------------- #
+# implicit collective fit                                                #
+# --------------------------------------------------------------------- #
 
 
 def fit_collective_implicit_als(
@@ -205,12 +785,12 @@ def fit_collective_implicit_als(
     mesh=None, init=None, checkpoint_path=None, checkpoint_every=0,
     shard_opposing_rows=False, device="cuda",
 ) -> dict:
-    """WRMF with side info (upstream cmfrec src/collective.c:9375) on the
-    dense-masked engine.  The main part's weight is w_main times the
-    adjust_weight multiplier nnz/(m*n) (src/collective.c:9776-9782).
-    Returns A, B, C, D (or None) as f32 tensors on ``device``, plus
-    U_colmeans/I_colmeans, w_main_multiplier and alpha; no mid-fit
-    checkpoints, as on the JAX package's dense route."""
+    """WRMF with side info (upstream cmfrec src/collective.c:9375).  The
+    main part's weight is w_main times the adjust_weight multiplier
+    nnz/(m*n) (src/collective.c:9776-9782).  Returns A, B, C, D (or None)
+    as f32 tensors on ``device``, plus U_colmeans/I_colmeans,
+    w_main_multiplier and alpha; the bucketed route writes mid-fit
+    checkpoints, the dense one none (as the JAX package's)."""
     lam6, l16 = drivers._resolve_lambdas(lambda_, l1_lambda)
     dtype = resolve_dtype(dtype)
     dev = resolve_device(device)
@@ -219,17 +799,31 @@ def fit_collective_implicit_als(
                            precondition_cg, dtype)
     vals = drivers.implicit_values(vals, apply_log_transf)
     w_mult = len(vals) / (float(m) * float(n)) if adjust_weight else 1.0
-    U = prepare_side(_sparsify_short_dense_side(side_U, m), center_U, dtype)
-    I = prepare_side(_sparsify_short_dense_side(side_I, n), center_I, dtype)
-    Kp = padded_dims(m, n, k, bias_col=False)[2]
-    drivers.check_kernel_k(k, Kp, "dense", dev)
-    _reject_bucketed(
+    U = prepare_side(_sparsify_short_dense_side(side_U, m), center_U,
+                     NA_as_zero_user, dtype)
+    I = prepare_side(_sparsify_short_dense_side(side_I, n), center_I,
+                     NA_as_zero_item, dtype)
+    dense = _dense_route(
         U, I, m, n, k_user=k_user, k_item=k_item, k_main=k_main,
-        w_main=1.0, NA_as_zero=NA_as_zero_user or NA_as_zero_item,
+        w_main=1.0, na0=NA_as_zero_user or NA_as_zero_item,
         add_implicit_features=False, weights=None, init=init,
         dense_bytes=drivers.dense_bytes(m, n, k, False, implicit=True),
         dev=dev)
+    if not dense:
+        drivers.check_kernel_k(
+            k, _round_up(max(k_user, k_item) + k + k_main, 8), "bucketed",
+            dev)
+        return _fit_collective_implicit_bucketed(
+            rows, cols, vals, m, n, U=U, I=I, k=k, k_user=k_user,
+            k_item=k_item, k_main=k_main, lam6=lam6, w_x=w_main * w_mult,
+            w_mult=w_mult, w_user=w_user, w_item=w_item, alpha=alpha,
+            niter=niter, use_cg=use_cg, max_cg_steps=max_cg_steps,
+            finalize_chol=finalize_chol, seed=seed, verbose=verbose,
+            device=dev, init=init, checkpoint_path=checkpoint_path,
+            checkpoint_every=checkpoint_every)
 
+    drivers.check_kernel_k(k, padded_dims(m, n, k, bias_col=False)[2],
+                           "dense", dev)
     res = fit_collective_implicit_dense_masked(
         rows, cols, vals, m, n,
         U_dense=None if U is None else U.dense,
@@ -242,3 +836,111 @@ def fit_collective_implicit_als(
     res["U_colmeans"] = None if U is None else U.colmeans
     res["I_colmeans"] = None if I is None else I.colmeans
     return res
+
+
+def _fit_collective_implicit_bucketed(
+    rows, cols, vals, m, n, *, U, I, k, k_user, k_item, k_main, lam6, w_x,
+    w_mult, w_user, w_item, alpha, niter, use_cg, max_cg_steps,
+    finalize_chol, seed, verbose, device, init, checkpoint_path,
+    checkpoint_every,
+) -> dict:
+    """The bucketed route of fit_collective_implicit_als
+    (cmfrec_tpu/solvers/collective.py:1134-1500, without the ring branch).
+    ``vals`` are the implicit values (log-transformed where asked), ``w_x``
+    the main part's weight w_main * w_mult."""
+    dev = torch.device(device)
+    ckpt = FitCheckpointer(checkpoint_path, checkpoint_every, niter)
+    m_eff = max(m, U.n_ent if U else 0)
+    n_eff = max(n, I.n_ent if I else 0)
+    RB, CB = build_bucketed_pair(rows, cols,
+                                 np.asarray(vals).astype(np.float32), m, n,
+                                 device=dev, m_eff=m_eff, n_eff=n_eff)
+    ka, kb = k_user + k + k_main, k_item + k + k_main
+    ka_pad, kb_pad = _round_up(ka, 8), _round_up(kb, 8)
+    kc, kd = k_user + k, k_item + k
+    kc_pad, kd_pad = _round_up(kc, 8), _round_up(kd, 8)
+    init = init or {}
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(int(seed))
+    A_blocks = init_blocks(gen, RB, ka, ka_pad)
+    B_blocks = init_blocks(gen, CB, kb, kb_pad)
+    if init.get("A") is not None:
+        drivers._seed_factor_blocks(A_blocks, RB, init["A"], ka)
+    if init.get("B") is not None:
+        drivers._seed_factor_blocks(B_blocks, CB, init["B"], kb)
+
+    widths = (kc, kc_pad, kd, kd_pad)
+    sd = _sides(U, I, RB, CB, m, n, m_eff, n_eff, widths, seed, init, dev)
+    (C_blocks, C_orig), (D_blocks, D_orig) = sd.C0, sd.D0
+
+    mk = drivers._make_lam_vec
+    lam_vec_A = mk(ka, ka_pad, lam6[2], 0.0, False, dev)
+    lam_vec_B = mk(kb, kb_pad, lam6[3], 0.0, False, dev)
+    lam_vec_C = mk(kc, kc_pad, lam6[4], 0.0, False, dev)
+    lam_vec_D = mk(kd, kd_pad, lam6[5], 0.0, False, dev)
+    plan_A, plan_B = SidePlan(RB, "implicit", n), SidePlan(CB, "implicit", m)
+    perm_A, perm_B = sd.perm_A, sd.perm_B
+
+    def factor_update(blocks, plan, opp, lam_vec, method, S, S_al, S_ds,
+                      C_mat, kx, w_side, stacks):
+        K = lam_vec.shape[0]
+        G0 = w_x * gram_matrix(opp)
+        r0_vec = r0_blocks = extra = None
+        if S is not None:
+            Ce = _pad_cols(C_mat[:, :kx], K, 0)
+            if S.dense is not None:
+                G0 = G0 + w_side * gram_matrix(Ce)
+                r0_blocks = [_dense_rhs(sl, Ce, w_side) for sl in S_ds]
+            else:
+                extra, Gs, r0_vec = _side_parts(
+                    S, S_al, Ce, w_side, len(plan.bucketed.buckets), False,
+                    dev)
+                G0 = _add(G0, Gs)
+        return update_side(
+            plan, blocks, opp, None, lam_vec, w=w_x, alpha=alpha, G0=G0,
+            r0_vec=r0_vec, r0_blocks=r0_blocks, extra_parts=extra,
+            method=method, n_steps=max_cg_steps, stacks=stacks)
+
+    def iteration(method, st):
+        A_blocks, B_blocks, C_blocks, D_blocks, C_orig, D_orig = st
+        A_orig = blocks_to_orig(A_blocks, perm_A)
+        B_orig = blocks_to_orig(B_blocks, perm_B)
+        (C_blocks, C_orig), (D_blocks, D_orig) = _update_sides(
+            sd, U, I, (C_blocks, C_orig), (D_blocks, D_orig), A_orig, B_orig,
+            widths, lam_vec_C, lam_vec_D, w_user, w_item, method,
+            n_steps=max_cg_steps, scale_lam=False)
+        # the shared Gram sums the X rows only
+        opp = _opposing(A_orig, k_user, k_item, k + k_main, kb_pad, None,
+                        sd.xmask_A)
+        B_blocks = factor_update(B_blocks, plan_B, opp, lam_vec_B, method, I,
+                                 sd.I_lay[1], sd.I_lay[2], D_orig, kd, w_item,
+                                 sd.stacks_B)
+        B_orig = blocks_to_orig(B_blocks, perm_B)
+        opp = _opposing(B_orig, k_item, k_user, k + k_main, ka_pad, None,
+                        sd.xmask_B)
+        A_blocks = factor_update(A_blocks, plan_A, opp, lam_vec_A, method, U,
+                                 sd.U_lay[1], sd.U_lay[2], C_orig, kc, w_user,
+                                 sd.stacks_A)
+        return A_blocks, B_blocks, C_blocks, D_blocks, C_orig, D_orig
+
+    def state_dict(st):
+        Ab, Bb, _Cb, _Db, Co, Do = st
+        return {
+            "A": blocks_to_orig(Ab, perm_A)[:, :ka],
+            "B": blocks_to_orig(Bb, perm_B)[:, :kb],
+            "C": None if Co is None else Co[:, :kc],
+            "D": None if Do is None else Do[:, :kd],
+        }
+
+    st = (A_blocks, B_blocks, C_blocks, D_blocks, C_orig, D_orig)
+    st = _run(iteration, st, state_dict, niter, use_cg, finalize_chol,
+              verbose, dev, ckpt)
+    out = state_dict(st)
+    out.update({
+        "U_colmeans": None if U is None else U.colmeans,
+        "I_colmeans": None if I is None else I.colmeans,
+        "glob_mean": 0.0, "w_main_multiplier": w_mult, "alpha": alpha,
+        "k": k,
+    })
+    return out

@@ -215,16 +215,17 @@ def _reject_common(mesh, shard_opposing_rows, nonneg, l16, use_cg,
         raise _unsupported("multi-device fitting (mesh=, shard_opposing_rows)",
                            "slice 7")
     if nonneg:
-        raise _unsupported("nonneg", "slice 4, the coordinate-descent solver")
+        raise _unsupported("nonneg",
+                           "slice 4 item 10, the coordinate-descent solver")
     if np.any(l16 > 0):
         raise _unsupported("l1_lambda",
-                           "slice 4, the coordinate-descent solver")
+                           "slice 4 item 10, the coordinate-descent solver")
     if use_cg and precondition_cg:
         raise _unsupported("precondition_cg",
-                           "slice 1 item 4, the dense_engine Jacobi PCG")
+                           "slice 1 item 1, the dense_engine Jacobi PCG")
     if dtype != np.float32:
         raise _unsupported(f"dtype {dtype}",
-                           "slice 1 item 4, the float64 dense engine")
+                           "slice 1 item 1, the float64 dense engine")
 
 
 # ----------------------------------------------------------------------- #

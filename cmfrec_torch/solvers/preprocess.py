@@ -75,3 +75,24 @@ def initialize_biases(
                               where=den_user > 0)
 
     return biasA, biasB
+
+
+def center_columns(
+    rows: np.ndarray,
+    cols: np.ndarray,
+    vals: np.ndarray,
+    n_cols: int,
+    na_as_zero: bool,
+    n_rows: int,
+) -> Tuple[np.ndarray, np.ndarray]:
+    """Column-mean centering of sparse side information (center_U /
+    center_I; upstream cmfrec src/common.c:4911 center_by_cols).  Under
+    NA-as-zero the mean divides by the full row count (missing entries count
+    as zeros).  Returns the centered values and the f64 column means."""
+    s = np.bincount(cols, weights=vals.astype(np.float64), minlength=n_cols)
+    if na_as_zero:
+        c = np.full(n_cols, float(n_rows))
+    else:
+        c = np.bincount(cols, minlength=n_cols).astype(np.float64)
+    means = np.divide(s, c, out=np.zeros_like(s), where=c > 0)
+    return vals - means[cols].astype(vals.dtype), means

@@ -4,7 +4,8 @@
 Run from the repository root:
 
     python3 scripts/prof_fit_torch.py \
-        [--fit explicit|implicit|collective|implicit-dense] [--out DIR]
+        [--fit explicit|implicit|collective|collective-bucketed|implicit-dense]
+        [--out DIR]
 
 ``--fit explicit`` (the default) fits the flagship configuration of
 chip_smoke.py (explicit ALS-CG, k=50, 15 iterations, CG 3, f32 polish) on
@@ -13,7 +14,9 @@ CMF.fit_triplets; ``--fit implicit`` fits chip_smoke.py's WRMF configuration
 (k=50, lambda 5, alpha 1, 15 iterations, CG 3) on the train split of
 bench_implicit.make_lastfm_shaped(), through CMF_implicit.fit_triplets (the
 bucketed engine); ``--fit collective`` the flagship configuration with
-implicit features (chip_smoke.py phase 10a) and ``--fit implicit-dense``
+implicit features (chip_smoke.py phase 10a), ``--fit collective-bucketed``
+chip_smoke.py phase 14's (the flagship configuration with its user tags
+and item genres, the bucketed collective route) and ``--fit implicit-dense``
 the WRMF configuration on phase 12's training pairs
 (chip_smoke.make_preference_data, 20% held out) through
 drivers.fit_implicit_als(engine="dense"), the dense engine.  For any:
@@ -28,6 +31,8 @@ drivers.fit_implicit_als(engine="dense"), the dense engine.  For any:
      the engine's spans (explicit: fit_explicit_dense_masked; implicit: the
      bucket layout build _build_pair and the iterations
      _implicit_sparse_iteration; collective: fit_collective_dense_masked;
+     collective-bucketed: the layout builds build_bucketed_pair,
+     build_aligned_parts and build_bucketed_rows, and the iterations _run;
      implicit-dense: fit_implicit_dense_masked), each synchronized at its
      end, and of the rest (COO build, driver checks, result download).
 
@@ -55,11 +60,16 @@ LFM_M, LFM_N = 359347, 160168
 IMPLICIT_FIT = dict(k=50, lambda_=5.0, alpha=1.0, niter=15, use_cg=True,
                     max_cg_steps=3)
 COLLECTIVE_FIT = dict(FIT, add_implicit_features=True, w_implicit=0.5)
+COLLECTIVE_BUCKETED_FIT = dict(FIT, NA_as_zero_item=True)  # phase 14's
 # the host-split spans of each fit: (module of cmfrec_torch.solvers, function)
 SPANS = {"explicit": (("drivers", "fit_explicit_dense_masked"),),
          "implicit": (("drivers", "_build_pair"),
                       ("drivers", "_implicit_sparse_iteration")),
          "collective": (("collective", "fit_collective_dense_masked"),),
+         "collective-bucketed": (("collective", "build_bucketed_pair"),
+                                 ("collective", "build_aligned_parts"),
+                                 ("collective", "build_bucketed_rows"),
+                                 ("collective", "_run")),
          "implicit-dense": (("drivers", "fit_implicit_dense_masked"),)}
 
 
@@ -94,9 +104,10 @@ def _timed_wrapper(module, name, totals, sync):
     return fn
 
 
-def profile_fit(rows, cols, vals, m, n, device, kind):
+def profile_fit(rows, cols, vals, m, n, device, kind, side=None):
     """Cold, warm, profiled and host-split fits of the ``kind`` (a key of
-    SPANS) configuration; returns a dict of numbers."""
+    SPANS) configuration, with side information ``side`` (U=, I=) if
+    given; returns a dict of numbers."""
     import importlib
 
     import torch
@@ -119,9 +130,11 @@ def profile_fit(rows, cols, vals, m, n, device, kind):
             "explicit": (cmfrec_torch.CMF, FIT),
             "implicit": (cmfrec_torch.CMF_implicit, IMPLICIT_FIT),
             "collective": (cmfrec_torch.CMF, COLLECTIVE_FIT),
+            "collective-bucketed": (cmfrec_torch.CMF,
+                                    COLLECTIVE_BUCKETED_FIT),
         }[kind]
-        return model_cls(**kw, device=device).fit_triplets(rows, cols, vals,
-                                                           m, n)
+        return model_cls(**kw, device=device).fit_triplets(
+            rows, cols, vals, m, n, **(side or {}))
 
     def fit():
         sync()
@@ -220,7 +233,12 @@ def main():
         rows, cols, vals = _cached(make_lastfm_shaped,
                                    str(_cuda.BUILD_DIR / "lastfm_shaped.npz"))
         data = (*split_heldout(rows, cols, vals, LFM_M)[:3], LFM_M, LFM_N)
-    out, prof = profile_fit(*data, "cuda", args.fit)
+    side = None
+    if args.fit == "collective-bucketed":
+        from chip_smoke import make_item_genres, make_user_tags
+
+        side = dict(U=make_user_tags(), I=make_item_genres())
+    out, prof = profile_fit(*data, "cuda", args.fit, side)
     out["card"] = smi
     out["fit"] = args.fit
     if args.out:

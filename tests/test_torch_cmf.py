@@ -200,24 +200,26 @@ def _fit_beyond_the_device_budget():
 # Cases that earlier slices rejected and the bucketed engine now fits: the
 # test asserts that they run, through the bucketed engine (its layout build
 # is called), to finite factors.  DENSE: the same through the dense-masked
-# engine (no layout build).
+# engine (no layout build); COLLECTIVE: through the bucketed collective
+# route.
 BUCKETED = "runs on the bucketed engine"
 DENSE = "runs on the dense engine"
+COLLECTIVE = "runs on the bucketed collective route"
 
 
 @pytest.mark.parametrize("call,match", [
     (lambda X: cmfrec_torch.CMF(method="lbfgs", device="cpu").fit(X),
      "slice 6"),
     # the three cases of ROADMAP slice 2 keep their ids: dense side info and
-    # implicit features fit now, k_user waits for the bucketed collective
-    # engine
+    # implicit features fit on the dense engine, k_user on the bucketed
+    # collective route
     pytest.param(lambda X: cmfrec_torch.CMF(device="cpu").fit(
         X, U=np.ones((90, 2))), DENSE, id="<lambda>-slice 2_0"),
     pytest.param(lambda X: cmfrec_torch.CMF(
         add_implicit_features=True, device="cpu").fit(X), DENSE,
         id="<lambda>-slice 2_1"),
     pytest.param(lambda X: cmfrec_torch.CMF(k_user=2, device="cpu").fit(X),
-                 "slice 4 item 11", id="<lambda>-slice 2_2"),
+                 COLLECTIVE, id="<lambda>-slice 2_2"),
     (lambda X: cmfrec_torch.CMF(nonneg=True, center=False,
                                 device="cpu").fit(X), "slice 4"),
     (lambda X: cmfrec_torch.CMF(l1_lambda=0.1, device="cpu").fit(X),
@@ -225,9 +227,9 @@ DENSE = "runs on the dense engine"
     (lambda X: cmfrec_torch.CMF(NA_as_zero=True, device="cpu").fit(
         X, W=np.ones(X.nnz)), BUCKETED),
     (lambda X: cmfrec_torch.CMF(precondition_cg=True, device="cpu").fit(X),
-     "slice 1 item 4"),
+     "slice 1 item 1"),
     (lambda X: cmfrec_torch.CMF(use_float=False, device="cpu").fit(X),
-     "slice 1 item 4"),
+     "slice 1 item 1"),
     (lambda X: drivers.fit_explicit_als(*_TRIPLETS, mesh=object(),
                                         device="cpu"), "slice 7"),
     (lambda X: drivers.fit_explicit_als(*_TRIPLETS, shard_opposing_rows=True,
@@ -239,18 +241,26 @@ DENSE = "runs on the dense engine"
 def test_out_of_slice_options_raise(call, match, monkeypatch):
     rows, cols, vals, m, n = _TRIPLETS
     X = sp.coo_matrix((vals, (rows, cols)), shape=(m, n))
-    if match not in (BUCKETED, DENSE):
+    if match not in (BUCKETED, DENSE, COLLECTIVE):
         with pytest.raises(ValueError, match=match):
             call(X)
         return
-    built = []
+    from cmfrec_torch.solvers import collective
+
+    built, routed = [], []
     real = drivers._build_pair
     monkeypatch.setattr(drivers, "_build_pair",
                         lambda *a: built.append(a) or real(*a))
+    real_collective = collective._fit_collective_explicit_bucketed
+    monkeypatch.setattr(collective, "_fit_collective_explicit_bucketed",
+                        lambda *a, **kw: routed.append(a)
+                        or real_collective(*a, **kw))
     out = call(X)
     A = out.A_ if isinstance(out, cmfrec_torch.CMF) else out["A"].numpy()
     assert len(built) == (1 if match == BUCKETED else 0)
-    assert A.shape == (m, 40) and np.isfinite(A).all()
+    assert len(routed) == (1 if match == COLLECTIVE else 0)
+    width = 42 if match == COLLECTIVE else 40
+    assert A.shape == (m, width) and np.isfinite(A).all()
 
 
 def test_cuda_without_a_card_raises():
@@ -433,72 +443,155 @@ def _port_side_fit(**kw):
                             **kw).fit(X, U=U, I=I)
 
 
-SLICE_4_11 = r"ROADMAP slice 4 item 11, the bucketed half of solvers/collective"
-
-
 def _over_budget(call):
     with pytest.MonkeyPatch.context() as mp:
         mp.setattr(drivers, "_dense_budget", lambda dev: 1000)
         return call()
 
 
-def _collective_driver(**kw):
-    from cmfrec_torch.solvers import collective
+def _seeded_init(m, n, kw):
+    """init= for every key a collective fit with the arguments ``kw`` has,
+    from a fixed seed, so that both packages start from the same factors
+    (jax.random and torch draw different numbers)."""
+    rng = np.random.default_rng(0)
+    sU, sI = kw.get("side_U"), kw.get("side_I")
+    m_eff, n_eff = max(m, sU[3] if sU else 0), max(n, sI[3] if sI else 0)
+    k, ku, ki, km = (kw.get(key, 0) for key in ("k", "k_user", "k_item",
+                                                 "k_main"))
+    shapes = dict(A=(m_eff, ku + k + km), B=(n_eff, ki + k + km))
+    if sU:
+        shapes["C"] = (sU[4], ku + k)
+    if sI:
+        shapes["D"] = (sI[4], ki + k)
+    if "alpha" not in kw:  # explicit
+        shapes.update(biasA=(m_eff,), biasB=(n_eff,))
+        if kw.get("add_implicit_features"):
+            shapes.update(Ai=(m_eff, k + km), Bi=(n_eff, k + km))
+    init = {key: (0.3 * rng.normal(size=shape)).astype(np.float32)
+            for key, shape in shapes.items()}
+    init.update(kw.get("init") or {})
+    return init
 
+
+def _hand_over_init(mp):
+    """Both packages' collective drivers get _seeded_init's init=."""
+    from cmfrec_torch.solvers import collective as port_collective
+    from cmfrec_tpu.solvers import collective as jax_collective
+
+    for mod in (port_collective, jax_collective):
+        for name in ("fit_collective_explicit_als",
+                     "fit_collective_implicit_als"):
+            fn = getattr(mod, name)
+
+            def wrapped(rows, cols, vals, m, n, _fn=fn, **kw):
+                kw["init"] = _seeded_init(m, n, kw)
+                return _fn(rows, cols, vals, m, n, **kw)
+
+            mp.setattr(mod, name, wrapped)
+
+
+def _collective_driver(pkg, **kw):
+    """The explicit collective driver of ``pkg`` on _side_data's dense U."""
     rows, cols, vals, m, n, U, _ = _side_data()
     side_U = (None, None, None, m, U.shape[1], True, U)
-    return collective.fit_collective_explicit_als(
-        rows, cols, vals, m, n, side_U=side_U, k=3, niter=1, device="cpu",
-        **kw)
+    if pkg == "port":
+        from cmfrec_torch.solvers.collective import (
+            fit_collective_explicit_als)
+        kw["device"] = "cpu"
+    else:
+        from cmfrec_tpu.solvers.collective import fit_collective_explicit_als
+    return fit_collective_explicit_als(rows, cols, vals, m, n, side_U=side_U,
+                                       k=3, niter=1, **kw)
+
+
+def _fit_model(pkg, cls, kw, X, U, W=None):
+    mod = cmfrec_torch if pkg == "port" else cmfrec_tpu
+    extra = dict(device="cpu") if pkg == "port" else {}
+    args = dict(k=3, niter=2)
+    args.update(kw)
+    model = getattr(mod, cls)(**args, **extra)
+    fit = dict(U=U) if U is not None else {}
+    if W is not None:
+        fit["W"] = W
+    return model.fit(X, **fit)
+
+
+# The configurations that only the bucketed collective route takes: a model
+# class, its arguments, what U= becomes (from _side_data's dense U), and
+# whether the fit is weighted
+BUCKETED_CASES = {
+    "sparse_U": ("CMF", {}, sp.csr_matrix, False),
+    "nan_in_U": ("CMF", {}, lambda U: np.where(np.eye(*U.shape) > 0, np.nan,
+                                                U), False),
+    "fewer_rows_than_X": ("CMF", {}, lambda U: U[:80], False),
+    "more_rows_than_X": ("CMF", {}, lambda U: np.vstack([U, U[:5]]), False),
+    "k_item": ("CMF", dict(k_item=2), lambda U: U, False),
+    "k_main": ("CMF", dict(k_main=2), lambda U: U, False),
+    "w_main": ("CMF", dict(w_main=0.5), lambda U: U, False),
+    "NA_as_zero": ("CMF", dict(NA_as_zero=True, add_implicit_features=True),
+                   lambda U: None, False),
+    "NA_as_zero_user": ("CMF", dict(NA_as_zero_user=True), lambda U: U,
+                        False),
+    "implicit_features_weighted": ("CMF", dict(add_implicit_features=True),
+                                   lambda U: None, True),
+    "init_with_C": (None, {}, None, False),
+    "over_the_budget": ("CMF", {}, lambda U: U, False),
+    "implicit_sparse_U": ("CMF_implicit", {}, sp.csr_matrix, False),
+    "implicit_NA_as_zero_item": ("CMF_implicit", dict(NA_as_zero_item=True),
+                                 lambda U: U, False),
+    "implicit_k_main": ("CMF_implicit", dict(k_main=1), lambda U: U, False),
+    "implicit_over_the_budget": ("CMF_implicit", {}, lambda U: U, False),
+}
+MODEL_ATTRS = ("A_", "B_", "C_", "D_", "Ai_", "Bi_", "user_bias_",
+               "item_bias_")
+
+
+@pytest.mark.parametrize("case", list(BUCKETED_CASES))
+def test_bucketed_collective_configurations_fit(case):
+    """Each configuration that the dense engine does not take fits through
+    the public model on the bucketed collective route and matches
+    cmfrec_tpu's model (its bucketed route on the CPU) from the same init=:
+    every fitted factor and the predictions within 1e-5."""
+    rows, cols, vals, m, n, U, _ = _side_data()
+    X = sp.coo_matrix((vals, (rows, cols)), shape=(m, n))
+    cls, kw, side, weighted = BUCKETED_CASES[case]
+    if cls is None:  # the driver, with a warm start that carries C
+        init = _seeded_init(m, n, dict(
+            k=3, side_U=(None, None, None, m, U.shape[1], True, U)))
+        got = _collective_driver("port", init=init)
+        want = _collective_driver("jax", init=init, dtype=np.float32)
+        assert "scaling_biasA" in got  # the bucketed route's result
+        for key in ("A", "B", "C", "biasA", "biasB"):
+            np.testing.assert_allclose(got[key].numpy(), want[key], rtol=0,
+                                       atol=1e-5, err_msg=key)
+        return
+    W = np.linspace(0.5, 2.0, X.nnz) if weighted else None
+    with pytest.MonkeyPatch.context() as mp:
+        _hand_over_init(mp)
+        fit = (_over_budget if "over_the_budget" in case
+               else lambda call: call())
+        got = fit(lambda: _fit_model("port", cls, kw, X, side(U), W))
+        want = _fit_model("jax", cls, kw, X, side(U), W)
+    for attr in MODEL_ATTRS:
+        g, w = getattr(got, attr), getattr(want, attr)
+        if w is None:
+            assert g is None, attr
+            continue
+        np.testing.assert_allclose(g, w, rtol=0, atol=1e-5, err_msg=attr)
+    assert got.A_.shape[0] == (m + 5 if case == "more_rows_than_X" else m)
+    np.testing.assert_allclose(got.predict(rows, cols),
+                               want.predict(rows, cols), rtol=0, atol=1e-5)
 
 
 @pytest.mark.parametrize("call,match", [
-    (lambda X, U: cmfrec_torch.CMF(device="cpu").fit(
-        X, U=sp.csr_matrix(U)), SLICE_4_11),
-    (lambda X, U: cmfrec_torch.CMF(device="cpu").fit(
-        X, U=np.where(np.eye(*U.shape) > 0, np.nan, U)), SLICE_4_11),
-    (lambda X, U: cmfrec_torch.CMF(device="cpu").fit(X, U=U[:80]),
-     SLICE_4_11),
-    (lambda X, U: cmfrec_torch.CMF(device="cpu").fit(
-        X, U=np.vstack([U, U[:5]])), SLICE_4_11),
-    (lambda X, U: cmfrec_torch.CMF(k_item=2, device="cpu").fit(X, U=U),
-     SLICE_4_11),
-    (lambda X, U: cmfrec_torch.CMF(k_main=2, device="cpu").fit(X, U=U),
-     SLICE_4_11),
-    (lambda X, U: cmfrec_torch.CMF(w_main=0.5, device="cpu").fit(X, U=U),
-     SLICE_4_11),
-    (lambda X, U: cmfrec_torch.CMF(NA_as_zero=True, add_implicit_features=True,
-                                   device="cpu").fit(X), SLICE_4_11),
-    (lambda X, U: cmfrec_torch.CMF(NA_as_zero_user=True, device="cpu").fit(
-        X, U=U), SLICE_4_11),
-    (lambda X, U: cmfrec_torch.CMF(add_implicit_features=True,
-                                   device="cpu").fit(X, W=np.ones(X.nnz)),
-     SLICE_4_11),
-    (lambda X, U: _collective_driver(init=dict(C=np.ones((U.shape[1], 3)))),
-     SLICE_4_11),
-    (lambda X, U: _over_budget(lambda: cmfrec_torch.CMF(device="cpu").fit(
-        X, U=U)), SLICE_4_11),
-    (lambda X, U: cmfrec_torch.CMF_implicit(device="cpu").fit(
-        X, U=sp.csr_matrix(U)), SLICE_4_11),
-    (lambda X, U: cmfrec_torch.CMF_implicit(NA_as_zero_item=True,
-                                            device="cpu").fit(X, U=U),
-     SLICE_4_11),
-    (lambda X, U: cmfrec_torch.CMF_implicit(k_main=1, device="cpu").fit(
-        X, U=U), SLICE_4_11),
-    (lambda X, U: _over_budget(lambda: cmfrec_torch.CMF_implicit(
-        device="cpu").fit(X, U=U)), SLICE_4_11),
-    # the earlier slices' rejections keep their messages in a collective fit
+    # the later slices' rejections keep their messages in a collective fit
     (lambda X, U: cmfrec_torch.CMF(nonneg_C=True, device="cpu").fit(X, U=U),
-     "slice 4, the coordinate-descent solver"),
+     "slice 4 item 10, the coordinate-descent solver"),
     (lambda X, U: cmfrec_torch.CMF(device="cpu").fit(X, U=U, mesh=object()),
      "slice 7"),
     (lambda X, U: cmfrec_torch.CMF(use_float=False, device="cpu").fit(
-        X, U=U), "slice 1 item 4"),
-], ids=["sparse_U", "nan_in_U", "fewer_rows_than_X", "more_rows_than_X",
-        "k_item", "k_main", "w_main", "NA_as_zero", "NA_as_zero_user",
-        "implicit_features_weighted", "init_with_C", "over_the_budget",
-        "implicit_sparse_U", "implicit_NA_as_zero_item", "implicit_k_main",
-        "implicit_over_the_budget", "nonneg_C", "mesh", "float64"])
+        X, U=U), "slice 1 item 1"),
+], ids=["nonneg_C", "mesh", "float64"])
 def test_bucketed_collective_configurations_raise(call, match):
     rows, cols, vals, m, n, U, _ = _side_data()
     X = sp.coo_matrix((vals, (rows, cols)), shape=(m, n))
@@ -508,26 +601,27 @@ def test_bucketed_collective_configurations_raise(call, match):
 
 @pytest.mark.parametrize("model", ["CMF", "CMF_implicit"])
 @pytest.mark.parametrize("reindexed", [True, False])
-def test_side_ids_not_in_x_raise_before_the_mappings_change(model, reindexed):
+def test_side_ids_not_in_x_extend_the_mapping(model, reindexed):
     """A side-info DataFrame with an id that X lacks (a side-info-only
-    entity) raises the slice-4-item-11 error and leaves the id mapping that
-    X's ingestion made as it was."""
+    entity) extends the user mapping and the factor matrix as cmfrec_tpu's
+    model does; the side-only user's factors are solved from side info."""
     rows, cols, vals, m, n, U, _ = _side_data()
     off = 1000 if reindexed else 0
     X = (pd.DataFrame({"UserId": rows + off, "ItemId": cols, "Rating": vals})
          if reindexed else sp.coo_matrix((vals, (rows, cols)), shape=(m, n)))
     Udf = pd.DataFrame(np.vstack([U, U[:1]]), columns=list("abcd"))
     Udf.insert(0, "UserId", np.arange(m + 1) + off)
-    est = getattr(cmfrec_torch, model)(k=3, niter=1, device="cpu")
-    est.fit(X)
-    before = est.user_mapping_.copy()
-    est._reset()
-    est._ingest_X(X)
-    with pytest.raises(ValueError, match=SLICE_4_11):
-        est._ingest_side(Udf, est.user_mapping_, m, "U")
-    np.testing.assert_array_equal(est.user_mapping_, before)
-    with pytest.raises(ValueError, match=SLICE_4_11):
-        est.fit(X, U=Udf)
+    with pytest.MonkeyPatch.context() as mp:
+        _hand_over_init(mp)
+        got = getattr(cmfrec_torch, model)(k=3, niter=1, device="cpu").fit(
+            X, U=Udf)
+        want = getattr(cmfrec_tpu, model)(k=3, niter=1).fit(X, U=Udf)
+    if reindexed:
+        np.testing.assert_array_equal(got.user_mapping_, want.user_mapping_)
+        assert got.user_mapping_[-1] == m + off
+    assert got.A_.shape[0] == want.A_.shape[0] == m + 1
+    assert np.abs(got.A_[m]).max() > 0
+    np.testing.assert_allclose(got.A_, want.A_, rtol=0, atol=1e-5)
 
 
 def test_refit_without_side_info_clears_side_state():

@@ -106,8 +106,9 @@ _SMALL = _preference_data(seed=2, m=30, n=20)
 
 
 # dense side info fits now, through the dense-masked engine (ROADMAP slice
-# 3); k_user waits for the bucketed collective engine
+# 3); k_user through the bucketed collective route
 DENSE = "runs on the dense engine"
+COLLECTIVE = "runs on the bucketed collective route"
 
 
 @pytest.mark.parametrize("call,match", [
@@ -116,17 +117,17 @@ DENSE = "runs on the dense engine"
     (lambda X: cmfrec_torch.CMF_implicit(device="cpu").fit(
         X, I=np.ones((20, 2))), DENSE),
     (lambda X: cmfrec_torch.CMF_implicit(k_user=2, device="cpu").fit(X),
-     "slice 4 item 11"),
+     COLLECTIVE),
     (lambda X: cmfrec_torch.CMF_implicit(nonneg=True, device="cpu").fit(X),
      "slice 4"),
     (lambda X: cmfrec_torch.CMF_implicit(l1_lambda=0.1, device="cpu").fit(X),
      "slice 4"),
     (lambda X: cmfrec_torch.CMF_implicit(precondition_cg=True,
                                          device="cpu").fit(X),
-     "slice 1 item 4"),
+     "slice 1 item 1"),
     (lambda X: cmfrec_torch.CMF_implicit(use_float=False,
                                          device="cpu").fit(X),
-     "slice 1 item 4"),
+     "slice 1 item 1"),
     (lambda X: cmfrec_torch.CMF_implicit(device="cpu").fit(X, mesh=object()),
      "slice 7"),
     (lambda X: cmfrec_torch.CMF_implicit(alpha=0.0, device="cpu"),
@@ -140,16 +141,24 @@ DENSE = "runs on the dense engine"
 def test_out_of_slice_options_raise(call, match, monkeypatch):
     rows, cols, vals, _, m, n = _SMALL
     X = sp.coo_matrix((vals, (rows, cols)), shape=(m, n))
-    if match != DENSE:
+    if match not in (DENSE, COLLECTIVE):
         with pytest.raises(ValueError, match=match):
             call(X)
         return
-    built = []
+    from cmfrec_torch.solvers import collective
+
+    built, routed = [], []
     real = drivers._build_pair
     monkeypatch.setattr(drivers, "_build_pair",
                         lambda *a: built.append(a) or real(*a))
+    real_collective = collective._fit_collective_implicit_bucketed
+    monkeypatch.setattr(collective, "_fit_collective_implicit_bucketed",
+                        lambda *a, **kw: routed.append(a)
+                        or real_collective(*a, **kw))
     model = call(X)
-    assert not built and model.A_.shape == (m, 50)
+    assert len(routed) == (1 if match == COLLECTIVE else 0)
+    width = 52 if match == COLLECTIVE else 50
+    assert not built and model.A_.shape == (m, width)
     assert np.isfinite(model.A_).all() and np.isfinite(model.B_).all()
 
 

@@ -462,3 +462,100 @@ def test_warm_gram_card_matches_f64(cuda):
     assert ((G.cpu().double() - G64).abs().max() / G64.abs().max()) <= 1e-5
     assert ((rhs.cpu().double() - rhs64).abs().max()
             / rhs64.abs().max()) <= 1e-5
+
+
+def _stacked_bucket(dev, R, Ls, K, seed):
+    """Three sparse parts of one bucket over their own opposing matrices (the
+    X, side-info and implicit-features parts of a collective row system),
+    with ragged lengths and empty rows, and their slot map."""
+    from cmfrec_torch.ops import rowsolve
+    from cmfrec_torch.solvers import als
+
+    g = torch.Generator(device=dev).manual_seed(seed)
+    parts, sparse = [], []
+    for S, L in zip((900, 150, 900), Ls):
+        mat = torch.randn(S, K, device=dev, generator=g) / K ** 0.5
+        length = torch.randint(0, L + 1, (R,), device=dev, generator=g,
+                               dtype=torch.int32)
+        length[:3] = 0
+        idx = torch.randint(0, S, (R, L), device=dev, generator=g,
+                            dtype=torch.int32)
+        mask = rowsolve.length_mask(length, L).float()
+        cw = torch.rand(R, L, device=dev, generator=g) * mask
+        cv = torch.randn(R, L, device=dev, generator=g) * mask
+        parts.append(als.PartData(idx=idx, val=cv, length=length, wgt=None,
+                                  opp=mat, opp_bias=None, w=1.0, alpha=None,
+                                  mu=None))
+        sparse.append(rowsolve.SparsePart(mat, idx, cw, cv))
+    st = als.stack_slots(tuple(parts))
+    return parts, sparse, st, g
+
+
+@pytest.mark.parametrize("K", [8, 56, 136])
+@pytest.mark.parametrize("Ls", [(24, 8, 24), (600, 16, 600), (3000, 64, 8)],
+                         ids=["narrow", "middle", "wide"])
+def test_bucket_cg_stacked_parts_match_separate_parts(cuda, K, Ls):
+    """K3 over the stacked parts of one bucket (the collective route's CG
+    with several parts) against the plain solve_cg over the separate parts,
+    and against K3's twin on the same stacked part."""
+    from cmfrec_torch.ops import rowsolve
+    from cmfrec_torch.solvers import als
+
+    R = 40
+    parts, sparse, st, g = _stacked_bucket(cuda, R, Ls, K, seed=K)
+    mat = torch.cat([p.opp for p in parts])
+    sp = als.stacked_part(sparse, mat, st)
+    lam = torch.rand(K, device=cuda, generator=g) + 0.5
+    mult = torch.rand(R, device=cuda, generator=g) * 5 + 1
+    lam_row = (lam[None, :] * mult[:, None]).contiguous()
+    G0 = torch.randn(K, K, device=cuda, generator=g)
+    G0 = (G0 @ G0.T / K).contiguous()
+    r0 = torch.randn(R, K, device=cuda, generator=g)
+    a0 = torch.randn(R, K, device=cuda, generator=g)
+    got = sparse_cg.bucket_cg(mat, sp.idx, sp.cw, sp.cv, G0, lam_row, r0, a0,
+                              n_steps=3, length=st.length)
+    separate = rowsolve.solve_cg(sparse, lam, a0, 3, lam_mult=mult, G0=G0,
+                                 r0=r0)
+    twin = sparse_cg.bucket_cg_ref(mat, sp.idx, sp.cw, sp.cv, G0, lam_row,
+                                   r0, a0, n_steps=3)
+    assert _rel(got, separate) <= K3_REL_TOL[torch.float32]
+    assert _rel(got, twin) <= K3_REL_TOL[torch.float32]
+    assert _rel(separate, a0) > 10 * K3_REL_TOL[torch.float32]
+
+
+@pytest.mark.parametrize("use_cg", [True, False])
+def test_bucketed_collective_fit_on_card_matches_cpu(cuda, use_cg):
+    """The bucketed collective route (sparse U with side-only users, I
+    under NA_as_zero_item, implicit features) on the card, its CG through
+    K3 over stacked parts, against the same fit on the CPU from one init."""
+    import scipy.sparse as spm
+
+    from cmfrec_torch.solvers import collective
+
+    rng = np.random.default_rng(3)
+    m, n, p, q, k = 300, 200, 40, 6, 8
+    pairs = np.unique(rng.integers(0, m * n, 6000))
+    rows, cols = pairs // n, pairs % n
+    vals = rng.normal(3, 1, rows.size)
+    U = spm.random(m + 20, p, density=0.1, random_state=1, format="coo")
+    I = (spm.random(n, q, density=0.4, random_state=2, format="coo") > 0
+         ).astype(np.float64).tocoo()
+    side_U = (U.row, U.col, U.data, m + 20, p, False, None)
+    side_I = (I.row, I.col, I.data, n, q, False, None)
+    init = {"A": rng.normal(size=(m + 20, k)), "B": rng.normal(size=(n, k)),
+            "C": rng.normal(size=(p, k)), "D": rng.normal(size=(q, k)),
+            "Ai": rng.normal(size=(m + 20, k)), "Bi": rng.normal(size=(n, k)),
+            "biasA": rng.normal(size=m + 20), "biasB": rng.normal(size=n)}
+    init = {key: 0.3 * v for key, v in init.items()}
+    kw = dict(side_U=side_U, side_I=side_I, k=k, niter=3, lambda_=0.5,
+              use_cg=use_cg, NA_as_zero_item=True, add_implicit_features=True,
+              scale_lam=True, init=init)
+    before = sparse_cg.bucket_cg.launches
+    card = collective.fit_collective_explicit_als(rows, cols, vals, m, n,
+                                                  device="cuda", **kw)
+    assert (sparse_cg.bucket_cg.launches > before) == use_cg
+    cpu = collective.fit_collective_explicit_als(rows, cols, vals, m, n,
+                                                 device="cpu", **kw)
+    for key in ("A", "B", "C", "D", "Ai", "Bi", "biasA", "biasB"):
+        np.testing.assert_allclose(card[key].cpu().numpy(), cpu[key].numpy(),
+                                   rtol=0, atol=1e-4, err_msg=key)
