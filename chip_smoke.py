@@ -122,6 +122,7 @@ import time
 import numpy as np
 
 M, N = 69878, 10677  # ML10M's shape (bench.make_ml10m_shaped)
+ML10M_NNZ = 10_000_054  # bench.make_ml10m_shaped's nnz
 FIT = dict(k=50, lambda_=0.05, scale_lam=True, niter=15, use_cg=True,
            max_cg_steps=3, finalize_chol=True, user_bias=True,
            item_bias=True, center=True)
@@ -935,7 +936,7 @@ def serve_implicit(ops, imodel, p10, tr_r, tr_c, tr_v, te_r, te_c,
         raise AssertionError("phase 7b: card and CPU disagree")
     if not (p10_fold >= P10_BOUND and abs(p10_fold - p10) <= FOLDIN_P10_TOL):
         raise AssertionError("phase 7b: fold-in P@10 out of bounds")
-    return launches
+    return launches, p10_fold
 
 
 def _cold_closed_form(Cf, colmeans, S, w, lam):
@@ -1756,6 +1757,548 @@ def bucketed_collective_phases(ops, rows, cols, vals, test, lastfm, p10_7):
     return paths, multipart
 
 
+# --------------------------------------------------------------------- #
+# phases 17-21: the L-BFGS family and the other models                   #
+# --------------------------------------------------------------------- #
+
+# phase 17: CMF(method="lbfgs") at phase 4's k and CMF's maxiter (800) and
+# corr_pairs (4), with lambda 30: at CMF's default 10 the fit overfits
+# (held-out RMSE 0.791 after 200 iterations, 0.848 after 800, 0.852 after
+# 1600; train RMSE 0.546), at 30 it reads 0.778, at 100 0.794 (NVIDIA H100
+# 80GB HBM3, 700 W; scripts/sweep_lbfgs_torch.py)
+LBFGS_FIT = dict(k=50, method="lbfgs", lambda_=30.0)
+# phase 18a: OMF_explicit's L-BFGS at phase 17's lambda, its maxiter
+# (10,000) cut to CMF's 800
+OMF_FIT = dict(k=50, method="lbfgs", lambda_=30.0, maxiter=800)
+# phase 18b: the arguments of phase 4's fit that fit_offsets_als forwards
+# (it forwards no scale_lam)
+OMF_ALS_FIT = dict(k=50, lambda_=0.05, niter=15, use_cg=True, max_cg_steps=3,
+                   finalize_chol=True, user_bias=True, item_bias=True,
+                   center=True, method="als", use_float=True)
+# phase 20: ContentBased at its defaults (k=20, start_with_ALS), its
+# maxiter (3,000) cut to 800
+CB_FIT = dict(maxiter=800)
+CB_ALS_NITER = 5  # ContentBased's start_with_ALS iterations
+CB_MARGIN = 0.02  # phase 20's RMSE at least this far below the baseline
+ATTR_NOISE = 0.5  # sd of the noise on phases 18a and 20's attributes
+NEW_GENRE_ROWS = 256  # phase 17b's cold item rows
+CB_NEW_ROWS = 2000  # phase 20's new attribute rows
+# the dense-engine launches of an ALS fit with CG and the f32 polish:
+# (niter - 1) x 2 half-steps x (1 + 3 CG steps) + 2 x (1 + 16); K2 one a
+# half-step
+
+
+def dense_launches(niter):
+    return {"masked_gram_matvec": (niter - 1) * 2 * 4 + 2 * 17,
+            "masked_rhs": 2 * niter, "bucket_cg": 0}
+
+
+NO_LAUNCHES = {"masked_gram_matvec": 0, "masked_rhs": 0, "bucket_cg": 0}
+# phase 17: the card's f32 objective and gradient at the fit's result
+# against the CPU's f64 evaluation; 17b: the objective alone
+LBFGS_F32_TOL = 1e-4
+LBFGS_F32_OBJ_TOL = 1e-5
+BIN_CPU_TOL = 1e-3  # 17b: factors_bin_batch card vs CPU, of max|a|
+OMF_AM_TOL = 1e-5  # 18a: Am_ against construct_Am(A_, U C_ + C_bias_)
+OMF_CPU_TOL = {"18a": 1e-5, "19b": 1e-4}  # card vs CPU, of max|a|
+ALS_AGREE_TOL = 1e-5  # 18b: fit_offsets_als against fit_explicit_als
+P10_OMF_TOL = 0.005  # 19: |P@10 - phase 7's|
+MP_BIAS_TOL = 1e-12  # 21: card vs CPU biases (f64 sums in another order)
+MP_P10_TOL = 0.01  # 21: |P@10 - phase 7's popularity P@10|
+# the degree groups of phase 18a's serving: rows x largest degree at most
+SLOT_BUDGET = 1 << 22
+
+
+def make_ml10m_attributes():
+    """U [M, 13] and I [N, 13] that carry the ratings' signal: replays the
+    draws of bench.make_ml10m_shaped(seed=0) (bench.py:26-54) to recover
+    its true factors and biases A, B [., 12] and bA, bB, checks that the
+    replay gives the cached ratings exactly, and returns U = [A | bA] and
+    I = [B | bB], each with N(0, ATTR_NOISE^2) noise added.  Cached in
+    build/ next to the ratings."""
+    from bench import _cached, make_ml10m_shaped
+    from cmfrec_torch.ops import _cuda
+
+    path = _cuda.BUILD_DIR / "ml10m_attributes.npz"
+    if path.exists():
+        with np.load(path) as z:
+            return z["U"], z["I"]
+    rows, cols, vals = _cached(make_ml10m_shaped,
+                               str(_cuda.BUILD_DIR / "ml10m_shaped.npz"))
+    m, n, nnz = M, N, ML10M_NNZ
+    rng = np.random.default_rng(0)
+    item_p = 1.0 / np.arange(1, n + 1) ** 0.8
+    item_p /= item_p.sum()
+    user_p = 1.0 / np.arange(1, m + 1) ** 0.55
+    user_p /= user_p.sum()
+    r = rng.choice(m, size=int(nnz * 1.25), p=user_p)
+    c = rng.choice(n, size=int(nnz * 1.25), p=item_p)
+    pairs = np.unique(r.astype(np.int64) * n + c)
+    rng.shuffle(pairs)
+    pairs = pairs[:nnz]
+    r, c = (pairs // n).astype(np.int64), (pairs % n).astype(np.int64)
+    A = rng.normal(size=(m, 12)).astype(np.float32) * 0.35
+    B = rng.normal(size=(n, 12)).astype(np.float32) * 0.35
+    bA = (rng.normal(size=m) * 0.4).astype(np.float32)
+    bB = (rng.normal(size=n) * 0.4).astype(np.float32)
+    v = (3.5 + bA[r] + bB[c] + np.einsum("nk,nk->n", A[r], B[c])
+         + 0.7 * rng.normal(size=r.size).astype(np.float32))
+    v = np.clip(np.round(v * 2) / 2, 0.5, 5.0).astype(np.float64)
+    if not (np.array_equal(r, rows) and np.array_equal(c, cols)
+            and np.array_equal(v, vals)):
+        raise AssertionError("the replay of make_ml10m_shaped does not give "
+                             "the cached ratings")
+    noise = np.random.default_rng(18)
+    U = np.column_stack([A, bA]) + ATTR_NOISE * noise.normal(size=(m, 13))
+    I = np.column_stack([B, bB]) + ATTR_NOISE * noise.normal(size=(n, 13))
+    np.savez(path, U=U, I=I)
+    return U, I
+
+
+def _new_genre_rows(R, seed=17):
+    """R one-hot genre rows, drawn as make_item_genres draws its items'."""
+    rng = np.random.default_rng(seed)
+    n_g = rng.choice(np.arange(1, 7), R, p=GENRE_COUNT_P)
+    order = np.argsort(rng.random((R, GENRES)), axis=1)
+    return (order < n_g[:, None]).astype(np.float64)
+
+
+def _timed_fns(module, names, totals):
+    """Wrap module.name for each name so that its host seconds add up in
+    ``totals``; returns the functions to put back."""
+    real = {}
+    for name in names:
+        fn = real[name] = getattr(module, name)
+
+        def wrapped(*a, _fn=fn, _name=name, **kw):
+            t0 = time.perf_counter()
+            try:
+                return _fn(*a, **kw)
+            finally:
+                totals[_name] = totals.get(_name, 0.0) + (
+                    time.perf_counter() - t0)
+        setattr(module, name, wrapped)
+    return real
+
+
+def _lbfgs_stats(model, what):
+    """Iterations, evaluations and host syncs of an L-BFGS fit, and the
+    check that its objective trace does not rise between chunks (by more
+    than the approximate-Wolfe allowance, 1e-6 of |f| a step)."""
+    st = model.fit_stats_
+    ends = np.asarray(st["values"][24::25], np.float64)
+    rise = float(np.max(np.diff(ends) / np.abs(ends[:-1]), initial=0.0))
+    if rise > 25e-6 or not np.isfinite(ends).all():
+        raise AssertionError(f"{what}: the objective rose between chunks by "
+                             f"{rise:.2e} of |f|")
+    return (f"{len(st['values'])} iterations, {st['n_evals']} evaluations, "
+            f"{st['host_syncs']} host syncs, f {st['values'][0]:.6g} -> "
+            f"{st['values'][-1]:.6g} (largest rise between chunks "
+            f"{rise:.1e})")
+
+
+def lbfgs_family_phases(ops, rows, cols, vals, test, lastfm, ctx):
+    """Phases 21, 17, 17b, 18a, 18b, 19, 19b and 20; returns each one's
+    launch counts.  ``ctx``: rmse_4 (phase 4's held-out RMSE), p10_7 and
+    p10_pop_7 (phase 7's P@10 and its popularity baseline), p10_7b (phase
+    7b's fold-in P@10), n_buckets_7 (phase 7's layout)."""
+    import torch
+
+    import cmfrec_torch
+    from cmfrec_torch.solvers import drivers, lbfgs, offsets, warm
+
+    tr = ~test
+    tr_r, tr_c, tr_v = rows[tr], cols[tr], vals[tr]
+    base = float(np.sqrt(np.mean((tr_v.mean() - vals[test]) ** 2)))
+    l_r, l_c, l_v, l_te_r, l_te_c, test_users = lastfm
+    paths = {}
+
+    def rmse_of(model):
+        pred = model.predict(rows[test], cols[test])
+        if not np.all(np.isfinite(pred)):
+            raise AssertionError("non-finite predictions")
+        return float(np.sqrt(np.mean((pred - vals[test]) ** 2)))
+
+    def mem(peak):
+        return f"peak device memory {peak / 2**30:.2f} GiB"
+
+    # 21. MostPopular: explicit with user biases on phase 4's split, then
+    # implicit on phase 7's; each against a CPU fit
+    mp, launches, s, peak = _fit_phase(ops, lambda: cmfrec_torch.MostPopular(
+        user_bias=True, device="cuda").fit_triplets(tr_r, tr_c, tr_v, M, N))
+    mp_cpu = cmfrec_torch.MostPopular(user_bias=True, device="cpu"
+                                      ).fit_triplets(tr_r, tr_c, tr_v, M, N)
+    rmse_mp = rmse_of(mp)
+    mp_err = max(_rel(mp.item_bias_, mp_cpu.item_bias_),
+                 _rel(mp.user_bias_, mp_cpu.user_bias_))
+    ones = torch.ones(LFM_M, 1, device="cuda")
+
+    def p10_by(bias):
+        return ranking_quality(
+            ones, torch.as_tensor(bias, dtype=torch.float32,
+                                  device="cuda")[:, None],
+            l_r, l_c, l_te_r, l_te_c, test_users, LFM_N)[0]
+
+    # implicit, at its defaults and with apply_log_transf; each against
+    # its CPU fit and against the numpy closed form's ranking
+    # (src/common.c:5804-5809), the log one against popularity
+    lp = {}
+    for log in (False, True):
+        kw = dict(implicit=True, apply_log_transf=log)
+        imp, ilaunches, s_i, _ = _fit_phase(
+            ops, lambda: cmfrec_torch.MostPopular(**kw, device="cuda"
+                                                  ).fit_triplets(
+                l_r, l_c, l_v, LFM_M, LFM_N))
+        cpu_bias = cmfrec_torch.MostPopular(**kw, device="cpu").fit_triplets(
+            l_r, l_c, l_v, LFM_M, LFM_N).item_bias_
+        v = np.log(l_v) if log else l_v
+        S = np.bincount(l_c, weights=v + 1.0, minlength=LFM_N)
+        cnt = np.bincount(l_c, minlength=LFM_N)
+        a, lam = float(imp.alpha), float(imp.lambda_)
+        formula = a * S / (a * S + (LFM_M - cnt) + lam)
+        lp[log] = dict(s=s_i, launches=ilaunches, p10=p10_by(imp.item_bias_),
+                       p10_formula=p10_by(formula),
+                       err=max(_rel(imp.item_bias_, cpu_bias),
+                               _rel(imp.item_bias_, formula)))
+    print(f"phase 21 MostPopular: explicit (user_bias) fit {s:.3f} s, "
+          f"{mem(peak)}, held-out RMSE {rmse_mp:.5f} (global-mean baseline "
+          f"{base:.5f}), card vs CPU biases {mp_err:.1e} (limit "
+          f"{MP_BIAS_TOL:.0e}); implicit fit {lp[False]['s']:.3f} s, P@10 "
+          f"{lp[False]['p10']:.5f} (the closed form's ranking "
+          f"{lp[False]['p10_formula']:.5f}: raw plays, summed, rank the "
+          f"few heavy listeners' items first), with apply_log_transf "
+          f"{lp[True]['p10']:.5f} (phase 7's popularity "
+          f"{ctx['p10_pop_7']:.5f}, tol {MP_P10_TOL}); implicit biases card "
+          f"vs CPU and vs the closed form {lp[False]['err']:.1e} / "
+          f"{lp[True]['err']:.1e}; launches {launches} / "
+          f"{lp[False]['launches']} / {lp[True]['launches']}", flush=True)
+    if launches != NO_LAUNCHES or any(v["launches"] != NO_LAUNCHES
+                                      for v in lp.values()):
+        raise AssertionError("phase 21 launched a fit kernel")
+    if not (rmse_mp < base and mp_err <= MP_BIAS_TOL
+            and all(v["err"] <= MP_BIAS_TOL
+                    and abs(v["p10"] - v["p10_formula"]) <= 1e-4
+                    for v in lp.values())
+            and abs(lp[True]["p10"] - ctx["p10_pop_7"]) <= MP_P10_TOL):
+        raise AssertionError("phase 21: MostPopular out of bounds")
+    paths["21"] = {key: launches[key] + sum(v["launches"][key]
+                                            for v in lp.values())
+                   for key in launches}
+    del ones
+
+    # 17. CMF(method="lbfgs") on phase 4's split
+    model, launches, s, peak = _fit_phase(ops, lambda: cmfrec_torch.CMF(
+        **LBFGS_FIT, device="cuda").fit_triplets(tr_r, tr_c, tr_v, M, N))
+    rmse = rmse_of(model)
+    stats = _lbfgs_stats(model, "phase 17")
+    params = {"A": model.A_, "B": model.B_, "biasA": model.user_bias_,
+              "biasB": model.item_bias_}
+    prob_kw = dict(k=LBFGS_FIT["k"], lambda_=model.lambda_)
+    t0 = time.perf_counter()
+    card = lbfgs.CollectiveProblem(tr_r, tr_c, tr_v, M, N, dtype=np.float32,
+                                   device="cuda", **prob_kw)
+    vd, gd = card.value_and_grad(card.init_params(1, params))
+    del card
+    cpu = lbfgs.CollectiveProblem(tr_r, tr_c, tr_v, M, N, dtype=np.float64,
+                                  device="cpu", **prob_kw)
+    vc, gc = cpu.value_and_grad(cpu.init_params(1, params))
+    del cpu
+    f_err = abs(float(vd) - float(vc)) / abs(float(vc))
+    # the gradient as one vector, as L-BFGS uses it: ||card - CPU|| /
+    # ||CPU||; and, for information, each block's max|card - CPU| /
+    # max|CPU|, which near the optimum divides f32 rounding by a small
+    # max|g| (1.7e-5 at lambda 10, 1.0e-4 at 30)
+    diff = {key: gd[key].cpu().double() - gc[key] for key in gc}
+    g_err = float(np.sqrt(sum(float(torch.sum(d * d)) for d in diff.values())
+                          / sum(float(torch.sum(g * g)) for g in gc.values())))
+    g_max = {key: f"{float(diff[key].abs().max() / gc[key].abs().max()):.1e}"
+             for key in gc}
+    del gd, gc, diff
+    print(f"phase 17 CMF(method='lbfgs', k={LBFGS_FIT['k']}, lambda "
+          f"{LBFGS_FIT['lambda_']}): fit {s:.3f} s, "
+          f"{mem(peak)}, {stats}; held-out RMSE {rmse:.5f} (bar: phase 21's "
+          f"MostPopular {rmse_mp:.5f}; phase 4's flagship {ctx['rmse_4']:.5f});"
+          f" at the result the card's f32 objective vs the CPU's f64 "
+          f"{f_err:.1e}, gradient {g_err:.1e} of ||g|| (limit "
+          f"{LBFGS_F32_TOL:.0e}; by block, of max|g|: {g_max}; evaluated in "
+          f"{time.perf_counter() - t0:.1f} s); launches {launches}",
+          flush=True)
+    if launches != NO_LAUNCHES:
+        raise AssertionError("phase 17 launched a fit kernel")
+    if not (rmse < rmse_mp and f_err <= LBFGS_F32_TOL
+            and g_err <= LBFGS_F32_TOL):
+        raise AssertionError("phase 17: out of bounds")
+    paths["17"] = launches
+    del model
+    torch.cuda.empty_cache()
+
+    # 17b. the same with binary item side info (phase 14's genres, 0/1)
+    Ib = make_item_genres().toarray()
+    model, launches, s, peak = _fit_phase(ops, lambda: cmfrec_torch.CMF(
+        **LBFGS_FIT, device="cuda").fit_triplets(tr_r, tr_c, tr_v, M, N,
+                                                 I_bin=Ib))
+    rmse = rmse_of(model)
+    stats = _lbfgs_stats(model, "phase 17b")
+    params = {"A": model.A_, "B": model.B_, "biasA": model.user_bias_,
+              "biasB": model.item_bias_, "Db": model.Db_}
+    side_Ib = (None, None, None, N, GENRES, True, Ib)
+    with torch.no_grad():
+        vd = float(lbfgs.CollectiveProblem(
+            tr_r, tr_c, tr_v, M, N, side_Ib=side_Ib, dtype=np.float32,
+            device="cuda", **prob_kw).loss(
+                {key: torch.as_tensor(np.asarray(v, np.float32),
+                                      device="cuda")
+                 for key, v in params.items()}))
+        vc = float(lbfgs.CollectiveProblem(
+            tr_r, tr_c, tr_v, M, N, side_Ib=side_Ib, dtype=np.float64,
+            device="cpu", **prob_kw).loss(
+                {key: torch.as_tensor(np.asarray(v, np.float64))
+                 for key, v in params.items()}))
+    f_err = abs(vd - vc) / abs(vc)
+    G = _new_genre_rows(NEW_GENRE_ROWS)
+    _reset_launches(ops)
+    cold = dict(idx=np.zeros((NEW_GENRE_ROWS, 0), np.int64),
+                vals=np.zeros((NEW_GENRE_ROWS, 0)), wgt=None,
+                lengths=np.zeros(NEW_GENRE_ROWS, np.int64), U_bin=G,
+                cold=True)
+    sw = model.swap_users_and_items(precompute=False)
+    b, s_b = _timed_s(lambda: warm.factors_bin_batch(sw, **cold))
+    b_cpu = warm.factors_bin_batch(
+        _cpu_twin(model).swap_users_and_items(precompute=False), **cold)
+    b_err = _rel(b, b_cpu)
+    one_err = _rel(model.item_factors_cold(I_bin=G[0]), b_cpu[0])
+    slaunches = _read_launches(ops)
+    print(f"phase 17b CMF(method='lbfgs') + I_bin genres {Ib.shape}: fit "
+          f"{s:.3f} s, {mem(peak)}, {stats}; held-out RMSE {rmse:.5f} (bar "
+          f"{rmse_mp:.5f}); Db_ {model.Db_.shape} finite "
+          f"{bool(np.isfinite(model.Db_).all())}; objective card f32 vs CPU "
+          f"f64 {f_err:.1e} (limit {LBFGS_F32_OBJ_TOL:.0e}); "
+          f"factors_bin_batch of {NEW_GENRE_ROWS} new genre rows {s_b:.3f} s, "
+          f"card vs CPU {b_err:.1e}, item_factors_cold of row 0 {one_err:.1e} "
+          f"(limit {BIN_CPU_TOL:.0e}); launches {launches}, serving "
+          f"{slaunches}", flush=True)
+    if launches != NO_LAUNCHES or slaunches != NO_LAUNCHES:
+        raise AssertionError("phase 17b launched a fit kernel")
+    if not (model.Db_.shape == (GENRES, LBFGS_FIT["k"])
+            and np.isfinite(model.Db_).all() and rmse < rmse_mp
+            and f_err <= LBFGS_F32_OBJ_TOL and b_err <= BIN_CPU_TOL
+            and one_err <= BIN_CPU_TOL):
+        raise AssertionError("phase 17b: out of bounds")
+    paths["17b"] = {key: launches[key] + slaunches[key] for key in launches}
+    del model, sw
+    torch.cuda.empty_cache()
+
+    # 18a. OMF_explicit's L-BFGS with the attributes that carry signal
+    t0 = time.perf_counter()
+    Ua, Ia = make_ml10m_attributes()
+    print(f"phase 18 data: U {Ua.shape}, I {Ia.shape} (true factors and "
+          f"biases + N(0, {ATTR_NOISE}^2)) in {time.perf_counter() - t0:.1f} "
+          "s", flush=True)
+    omf, launches, s, peak = _fit_phase(ops, lambda: cmfrec_torch.OMF_explicit(
+        **OMF_FIT, device="cuda").fit_triplets(tr_r, tr_c, tr_v, M, N, U=Ua,
+                                               I=Ia))
+    rmse = rmse_of(omf)
+    stats = _lbfgs_stats(omf, "phase 18a")
+    UC = (Ua - omf.U_colmeans_[None, :]) @ omf.C_ + omf.C_bias_
+    am_err = _rel(omf.Am_, offsets.construct_Am(omf.A_, UC, 0, OMF_FIT["k"],
+                                                0, 1.0))
+    # phase 5b's users, in groups of similar degree
+    users = np.sort(np.random.default_rng(21).choice(
+        np.unique(tr_r), SERVE_USERS, replace=False))
+    X, _ = _new_user_coo(users, tr_r, tr_c, tr_v, M, N)
+    X = X.tocsr()
+    deg = np.diff(X.indptr)
+    order = np.argsort(deg, kind="stable")
+    groups, start = [], 0
+    while start < order.size:
+        stop = start + 1
+        while (stop < order.size
+               and (stop + 1 - start) * deg[order[stop]] <= SLOT_BUDGET):
+            stop += 1
+        groups.append(order[start:stop])
+        start = stop
+
+    def dense_rows(sel):
+        Xd = np.full((sel.size, N), np.nan)
+        sub = X[sel].tocoo()
+        Xd[sub.row, sub.col] = sub.data
+        return Xd
+
+    dense = [dense_rows(g) for g in groups]
+    _reset_launches(ops)
+    calls = []
+    real = _spy(warm, "offsets_warm_batch", calls)
+    try:
+        omf.factors_warm_multiple(dense[0][:8])
+        out, s_w = _timed_s(lambda: [omf.factors_warm_multiple(Xd)
+                                     for Xd in dense])
+    finally:
+        warm.offsets_warm_batch = real
+    twin = _cpu_twin(omf)
+    check = dense[0][:SERVE_CHECK]
+    w_err = _rel(omf.factors_warm_multiple(check),
+                 twin.factors_warm_multiple(check))
+    slaunches = _read_launches(ops)
+    print(f"phase 18a OMF_explicit(method='lbfgs', k={OMF_FIT['k']}, maxiter "
+          f"{OMF_FIT['maxiter']}, float64): fit {s:.3f} s, {mem(peak)}, "
+          f"{stats}; held-out RMSE {rmse:.5f} (bar: phase 21's "
+          f"{rmse_mp:.5f}); Am_ vs construct_Am(A_, U C_ + C_bias_) "
+          f"{am_err:.1e} (limit {OMF_AM_TOL:.0e}); factors_warm_multiple of "
+          f"phase 5b's {SERVE_USERS} users in {len(groups)} degree groups "
+          f"{s_w:.3f} s = {SERVE_USERS / s_w:.0f} users/s, finite "
+          f"{all(np.isfinite(a).all() for a in out)}; card vs CPU "
+          f"{w_err:.1e} (limit {OMF_CPU_TOL['18a']:.0e}); launches "
+          f"{launches}, serving {slaunches}", flush=True)
+    if launches != NO_LAUNCHES or slaunches != NO_LAUNCHES:
+        raise AssertionError("phase 18a launched a fit kernel")
+    if not (rmse < rmse_mp and am_err <= OMF_AM_TOL
+            and w_err <= OMF_CPU_TOL["18a"]
+            and len(calls) == len(groups) + 1
+            and all(np.isfinite(a).all() for a in out)):
+        raise AssertionError("phase 18a: out of bounds")
+    paths["18a"] = {key: launches[key] + slaunches[key] for key in launches}
+    del omf, twin, out, dense
+    torch.cuda.empty_cache()
+
+    # 18b. OMF_explicit(method="als"): phase 4's arguments through the
+    # public model, then fit_offsets_als against drivers.fit_explicit_als,
+    # both from one init
+    omf, launches, s, peak = _fit_phase(ops, lambda: cmfrec_torch.OMF_explicit(
+        **OMF_ALS_FIT, device="cuda").fit_triplets(tr_r, tr_c, tr_v, M, N,
+                                                   U=Ua, I=Ia))
+    rmse = rmse_of(omf)
+    del omf
+    gen = np.random.default_rng(19)
+    k = OMF_ALS_FIT["k"]
+    init = {"A": (0.1 * gen.normal(size=(M, k))).astype(np.float32),
+            "B": (0.1 * gen.normal(size=(N, k))).astype(np.float32)}
+    als_kw = {key: OMF_ALS_FIT[key] for key in (
+        "k", "lambda_", "niter", "use_cg", "max_cg_steps", "finalize_chol",
+        "user_bias", "item_bias", "center")}
+    res = offsets.fit_offsets_als(
+        tr_r, tr_c, tr_v, M, N, side_U=(None, None, None, M, 13, True, Ua),
+        side_I=(None, None, None, N, 13, True, Ia), init=init,
+        device="cuda", **als_kw)
+    drv = drivers.fit_explicit_als(tr_r, tr_c, tr_v, M, N, init=init,
+                                   device="cuda", **als_kw)
+    agree = max(_rel(res["Am"], drv["A"].cpu().numpy()),
+                _rel(res["Bm"], drv["B"].cpu().numpy()))
+    Ud = Ua - res["U_colmeans"][None, :]
+    reg_err = _rel(res["A"], res["Am"] - Ud @ res["C"] - res["C_bias"])
+    want = dense_launches(OMF_ALS_FIT["niter"])
+    print(f"phase 18b OMF_explicit(method='als', phase 4's k, lambda, "
+          f"niter, CG, polish): fit {s:.3f} s, {mem(peak)}, held-out RMSE "
+          f"{rmse:.5f} (no bar: fit_offsets_als forwards no scale_lam); "
+          f"fit_offsets_als vs fit_explicit_als from one init {agree:.1e}, "
+          f"A = Am - U C - C_bias {reg_err:.1e} (limit {ALS_AGREE_TOL:.0e}); "
+          f"launches {launches} (expected {want})", flush=True)
+    if launches != want:
+        raise AssertionError("phase 18b did not run the expected launches")
+    if not (agree <= ALS_AGREE_TOL and reg_err <= ALS_AGREE_TOL
+            and np.isfinite(rmse)):
+        raise AssertionError("phase 18b: out of bounds")
+    paths["18b"] = launches
+    del res, drv
+    torch.cuda.empty_cache()
+
+    # 19. OMF_implicit on phase 7's split with phase 15's profiles
+    P = make_profiles()
+    host = {}
+    real = _timed_fns(offsets, ("densify_side", "_regress_side"), host)
+    try:
+        iomf, launches, s, peak = _fit_phase(
+            ops, lambda: cmfrec_torch.OMF_implicit(
+                **IMPLICIT_FIT, use_float=True, device="cuda").fit_triplets(
+                    l_r, l_c, l_v, LFM_M, LFM_N, U=P))
+    finally:
+        for name, fn in real.items():
+            setattr(offsets, name, fn)
+    Am_d, Bm_d = iomf._device_x_factors()
+    p10, map10, _ = ranking_quality(Am_d, Bm_d, l_r, l_c, l_te_r, l_te_c,
+                                    test_users, LFM_N)
+    want = {"masked_gram_matvec": 0, "masked_rhs": 0,
+            "bucket_cg": IMPLICIT_FIT["niter"] * ctx["n_buckets_7"]}
+    print(f"phase 19 OMF_implicit (phase 7's hyperparameters, U profiles "
+          f"{P.shape}): fit {s:.3f} s (host: densify_side "
+          f"{host.get('densify_side', 0):.3f} s, _regress_side "
+          f"{host.get('_regress_side', 0):.3f} s), {mem(peak)}, P@10 "
+          f"{p10:.5f} (bound {P10_BOUND:.5f}; phase 7 {ctx['p10_7']:.5f}, tol "
+          f"{P10_OMF_TOL}), MAP@10 {map10:.5f}, C_ {iomf.C_.shape}; launches "
+          f"{launches} (expected {want})", flush=True)
+    if launches != want:
+        raise AssertionError("phase 19 did not run the expected launches")
+    if not (p10 >= P10_BOUND and abs(p10 - ctx["p10_7"]) <= P10_OMF_TOL
+            and np.isfinite(iomf.C_).all()):
+        raise AssertionError("phase 19: P@10 out of bounds")
+    paths["19"] = launches
+
+    # 19b. phase 7b's held-out users through factors_warm_multiple
+    Xh, _ = _new_user_coo(test_users, l_r, l_c, l_v, LFM_M, LFM_N)
+    _reset_launches(ops)
+    iomf.factors_warm_multiple(Xh.tocsr()[:8])
+    a, s_w = _timed_s(lambda: iomf.factors_warm_multiple(Xh))
+    A_fold = Am_d.clone()
+    A_fold[torch.as_tensor(test_users, device="cuda")] = torch.as_tensor(
+        a, dtype=A_fold.dtype, device="cuda")
+    p10_fold = ranking_quality(A_fold, Bm_d, l_r, l_c, l_te_r, l_te_c,
+                               test_users, LFM_N)[0]
+    X256 = Xh.tocsr()[:SERVE_CHECK].tocoo()
+    w_err = _rel(iomf.factors_warm_multiple(X256),
+                 _cpu_twin(iomf).factors_warm_multiple(X256))
+    slaunches = _read_launches(ops)
+    print(f"phase 19b OMF_implicit warm serving: {len(test_users)} held-out "
+          f"users, {Xh.nnz} plays, factors_warm_multiple {s_w:.3f} s = "
+          f"{len(test_users) / s_w:.0f} users/s; fold-in P@10 {p10_fold:.5f} "
+          f"(phase 7b {ctx['p10_7b']:.5f}, tol {FOLDIN_P10_TOL}); card vs CPU "
+          f"{w_err:.1e} (limit {OMF_CPU_TOL['19b']:.0e}); launches "
+          f"{slaunches}", flush=True)
+    if slaunches != NO_LAUNCHES:
+        raise AssertionError("phase 19b: serving launched a fit kernel")
+    if not (abs(p10_fold - ctx["p10_7b"]) <= FOLDIN_P10_TOL
+            and w_err <= OMF_CPU_TOL["19b"]):
+        raise AssertionError("phase 19b: out of bounds")
+    paths["19b"] = slaunches
+    del iomf, Am_d, Bm_d, A_fold
+    torch.cuda.empty_cache()
+
+    # 20. ContentBased at its defaults (maxiter cut) on the attributes
+    cb, launches, s, peak = _fit_phase(ops, lambda: cmfrec_torch.ContentBased(
+        **CB_FIT, device="cuda").fit_triplets(tr_r, tr_c, tr_v, M, N, U=Ua,
+                                              I=Ia))
+    rmse = rmse_of(cb)
+    stats = _lbfgs_stats(cb, "phase 20")
+    want = dense_launches(CB_ALS_NITER)
+    rng = np.random.default_rng(20)
+    Un = Ua[rng.choice(M, CB_NEW_ROWS, replace=False)]
+    In = Ia[rng.choice(N, CB_NEW_ROWS)]
+    _reset_launches(ops)
+    cb.predict_new(Un[:8], In[:8])
+    pn, s_p = _timed_s(lambda: cb.predict_new(Un, In))
+    t0 = time.perf_counter()
+    tops = [cb.topN_new(n=10, U=u, I=Ia, output_score=True) for u in Un]
+    s_t = time.perf_counter() - t0
+    twin = _cpu_twin(cb)
+    p_err = _rel(pn, twin.predict_new(Un, In))
+    t_err = max(_rel(tops[i][1], twin.topN_new(n=10, U=Un[i], I=Ia,
+                                                output_score=True)[1])
+                for i in range(SERVE_TOPN))
+    slaunches = _read_launches(ops)
+    print(f"phase 20 ContentBased (k={cb.k}, start_with_ALS, maxiter "
+          f"{CB_FIT['maxiter']}): fit {s:.3f} s, {mem(peak)}, {stats}; "
+          f"held-out RMSE {rmse:.5f} (bar: baseline {base:.5f} - "
+          f"{CB_MARGIN}); predict_new {CB_NEW_ROWS} pairs {s_p * 1e3:.1f} ms, "
+          f"topN_new over {N} new items {CB_NEW_ROWS / s_t:.0f} users/s; "
+          f"card vs CPU {max(p_err, t_err):.1e} (limit 1e-05); launches "
+          f"{launches} (expected {want}), serving {slaunches}", flush=True)
+    if launches != want or slaunches != NO_LAUNCHES:
+        raise AssertionError("phase 20 did not run the expected launches")
+    if not (rmse <= base - CB_MARGIN and p_err <= 1e-5 and t_err <= 1e-5):
+        raise AssertionError("phase 20: out of bounds")
+    paths["20"] = launches
+    paths["20b"] = slaunches
+    return paths
+
+
 def main():
     import torch
 
@@ -1928,8 +2471,8 @@ def main():
     print(f"implicit serving: topN(n=10, exclude=seen) for {len(users)} "
           "users: ok", flush=True)
     # 7b. implicit warm serving of the held-out users
-    serving["7b"] = serve_implicit(ops, imodel, p10, tr_r, tr_c, tr_v, te_r,
-                                   te_c, test_users)
+    serving["7b"], p10_fold = serve_implicit(ops, imodel, p10, tr_r, tr_c,
+                                             tr_v, te_r, te_c, test_users)
     del imodel, Ad, Bd
     torch.cuda.empty_cache()
 
@@ -1984,6 +2527,14 @@ def main():
         ops, rows, cols, vals, test, (tr_r, tr_c, tr_v, te_r, te_c,
                                       test_users), p10)
     paths.update(bpaths)
+
+    # 17-21. the L-BFGS family, the offsets models, ContentBased and
+    # MostPopular
+    paths.update(lbfgs_family_phases(
+        ops, rows, cols, vals, test,
+        (tr_r, tr_c, tr_v, te_r, te_c, test_users),
+        dict(rmse_4=rmse, p10_7=p10, p10_pop_7=p10_pop, p10_7b=p10_fold,
+             n_buckets_7=n_buckets)))
 
     kernels = []
     for name, variants in results.items():

@@ -104,6 +104,10 @@ class _BaseModel:
         self.D_ = None
         self.Ai_ = None
         self.Bi_ = None
+        self.Cb_ = None
+        self.Db_ = None
+        self.Am_ = None
+        self.Bm_ = None
         self.C_bias_ = None
         self.D_bias_ = None
         self.user_bias_ = None
@@ -359,6 +363,11 @@ class _BaseModel:
                                            device=dev))
         return cache[name][2]
 
+    def _to_device(self, a):
+        """A host array (a new row's factors) as f32 on the model's device."""
+        return torch.as_tensor(np.asarray(a, np.float32),
+                               device=resolve_device(self.device))
+
     def _device_x_factors(self):
         """(A, B) on the device, restricted to the columns that participate
         in X (as ``_xA``/``_xB``)."""
@@ -520,7 +529,9 @@ class _BaseModel:
         BeTBeChol) go too."""
         if not self.is_fitted_:
             raise RuntimeError("Model is not fitted")
-        if not hasattr(self, "force_precompute_for_predictions"):
+        from .cmf import CMF, CMF_implicit
+
+        if not isinstance(self, (CMF, CMF_implicit)):
             raise ValueError(
                 "Method is only applicable to 'CMF' and 'CMF_implicit'.")
         self._only_prediction_info = True

@@ -14,7 +14,10 @@ With side info (``U=``, ``I=``), k splits or implicit features both run
 the collective fits of solvers/collective.py: fully dense side info on the
 dense-masked engine, the rest (sparse or partial side info, side-info-only
 entities, k splits, ``w_main``, the ``NA_as_zero*`` options, weighted
-implicit features) on the bucketed collective route.  The other fit
+implicit features) on the bucketed collective route.  ``method="lbfgs"``
+fits the joint objective by L-BFGS (solvers/lbfgs.py), binary side info
+(``U_bin``, ``I_bin``) included, and serves new rows with binary side info
+through one L-BFGS over the rows (warm.factors_bin_batch).  The other fit
 branches raise ``ValueError`` naming the ROADMAP slice that brings them.
 """
 
@@ -25,11 +28,8 @@ import warnings
 import numpy as np
 
 from ..config import resolve_device, resolve_dtype, set_handle_interrupt
-from ..solvers import collective, drivers, warm
+from ..solvers import collective, drivers, lbfgs, warm
 from .base import _BaseModel
-
-SLICE_BIN = "slice 6"  # binary side info (per-row L-BFGS)
-
 
 def _route_grouped(rows, m_new, min_rows=256, max_waste=3.0):
     """Serving-batch routing: the degree-grouped warm path when padding
@@ -42,12 +42,6 @@ def _route_grouped(rows, m_new, min_rows=256, max_waste=3.0):
     counts = np.bincount(rows, minlength=m_new)
     waste = m_new * int(counts.max(initial=0)) / max(rows.size, 1)
     return waste > max_waste
-
-
-def _reject_bin(*arrays):
-    if any(a is not None for a in arrays):
-        raise drivers._unsupported("binary side info (U_bin, I_bin)",
-                                   SLICE_BIN)
 
 
 def _top_of(scores, n, output_score):
@@ -79,8 +73,27 @@ def _validate_cmf_params(self, implicit=False):
     _check_lambda(self.l1_lambda, "l1_lambda")
     if int(self.niter) < 0:
         raise ValueError("'niter' must be non-negative")
-    if (getattr(self, "method", "als") == "als"
-            and int(self.max_cg_steps) <= 0):
+    if getattr(self, "method", "als") == "lbfgs":
+        if (getattr(self, "NA_as_zero", False) or self.NA_as_zero_user
+                or self.NA_as_zero_item):
+            raise ValueError(
+                "Option 'NA_as_zero' not supported with method='lbfgs'.")
+        if getattr(self, "add_implicit_features", False):
+            raise ValueError(
+                "Option 'add_implicit_features' not supported with "
+                "method='lbfgs'.")
+        if self.nonneg or self.nonneg_C or self.nonneg_D:
+            raise ValueError(
+                "non-negativity constraints not supported with "
+                "method='lbfgs'.")
+        if getattr(self, "scale_lam", False) or getattr(
+                self, "scale_lam_sideinfo", False):
+            raise ValueError("'scale_lam' not supported with method='lbfgs'.")
+        if np.any(np.atleast_1d(np.asarray(self.l1_lambda,
+                                           np.float64)) != 0.0):
+            raise ValueError(
+                "L1 regularization not supported with method='lbfgs'.")
+    elif int(self.max_cg_steps) <= 0:
         raise ValueError("'max_cg_steps' must be a positive integer")
     if implicit and float(self.alpha) <= 0:
         raise ValueError("'alpha' must be positive")
@@ -180,12 +193,11 @@ class CMF(_BaseModel):
     def fit(self, X, U=None, I=None, U_bin=None, I_bin=None, W=None,
             mesh=None):
         """Fit to explicit-feedback data (reference:
-        upstream cmfrec/__init__.py:3066).  ``mesh`` (multi-device fitting)
-        must be None until ROADMAP slice 7."""
+        upstream cmfrec/__init__.py:3066).  ``method="lbfgs"`` fits the
+        joint objective by L-BFGS (solvers/lbfgs.py), the only fit that
+        takes binary side info (``U_bin``, ``I_bin``).  ``mesh``
+        (multi-device fitting) must be None until ROADMAP slice 7."""
         _validate_cmf_params(self)  # set_params may have changed options
-        if self.method == "lbfgs" or U_bin is not None or I_bin is not None:
-            raise drivers._unsupported("method='lbfgs' and binary side info",
-                                       "slice 6")
         set_handle_interrupt(bool(self.handle_interrupt))
         self._reset()
         self.dtype_ = resolve_dtype(self.use_float)
@@ -197,6 +209,11 @@ class CMF(_BaseModel):
                     else float(np.sum(wgt)))
             self.scaling_biasA_ = wsum / max(m, 1)
             self.scaling_biasB_ = wsum / max(n, 1)
+        if (U_bin is not None or I_bin is not None) and self.method != "lbfgs":
+            raise ValueError("Binary side info requires method='lbfgs'")
+        if self.method == "lbfgs":
+            return self._fit_lbfgs(rows, cols, vals, wgt, m, n, U, I, U_bin,
+                                   I_bin, mesh)
 
         common = dict(
             mesh=mesh, k=self.k, lambda_=self.lambda_,
@@ -252,9 +269,67 @@ class CMF(_BaseModel):
             self.force_precompute_for_predictions()
         return self
 
+    def _fit_lbfgs(self, rows, cols, vals, wgt, m, n, U, I, U_bin, I_bin,
+                   mesh):
+        res = lbfgs.fit_collective_explicit_lbfgs(
+            rows, cols, vals, m, n,
+            side_U=self._ingest_side(U, self.user_mapping_, m, "U"),
+            side_I=self._ingest_side(I, self.item_mapping_, n, "I"),
+            side_Ub=self._ingest_side(U_bin, self.user_mapping_, m, "U"),
+            side_Ib=self._ingest_side(I_bin, self.item_mapping_, n, "I"),
+            k=self.k, k_user=self.k_user, k_item=self.k_item,
+            k_main=self.k_main, lambda_=self.lambda_,
+            w_main=self.w_main, w_user=self.w_user, w_item=self.w_item,
+            user_bias=self.user_bias, item_bias=self.item_bias,
+            center=self.center, center_U=self.center_U,
+            center_I=self.center_I, maxiter=self.maxiter,
+            corr_pairs=self.corr_pairs, weights=wgt, dtype=self.dtype_,
+            seed=self.random_state, verbose=self.verbose,
+            print_every=self.print_every, mesh=mesh, device=self.device)
+        for attr in ("A", "B", "C", "D", "Cb", "Db"):
+            setattr(self, attr + "_", res[attr])
+        self.user_bias_ = res["biasA"]
+        self.item_bias_ = res["biasB"]
+        self.glob_mean_ = res["glob_mean"]
+        self.U_colmeans_ = res["U_colmeans"]
+        self.I_colmeans_ = res["I_colmeans"]
+        self.nfev_ = res["nfev"]
+        self.niter_ = res["niter"]
+        self.fit_stats_ = {key: res[key] for key in
+                           ("n_evals", "host_syncs", "linesearch_steps",
+                            "values")}
+        self.is_fitted_ = True
+        self._build_dicts()
+        if self.precompute_for_predictions:
+            self.force_precompute_for_predictions()
+        return self
+
     # ------------------------------------------------------------------ #
     # warm / cold factors                                                 #
     # ------------------------------------------------------------------ #
+
+    def _bin_rows(self, idx, vals, wgt, lengths, U, U_bin, cold=False):
+        """New rows with binary side info: factors_bin_batch's L-BFGS
+        (no closed form; upstream cmfrec src/collective.c:1146)."""
+        return warm.factors_bin_batch(
+            self, idx, vals, wgt, lengths,
+            U=None if U is None else np.asarray(U, np.float64),
+            U_bin=np.asarray(U_bin, np.float64).reshape(
+                np.asarray(lengths).shape[0], -1),
+            cold=cold, return_bias=not cold)
+
+    def _bin_warm_row(self, X, X_col, X_val, W, U, U_bin, U_col, U_val):
+        cols, vals, wgt = self._new_row_X(X, X_col, X_val, W)
+        a, bias = self._bin_rows(cols[None, :], vals[None, :],
+                                 None if wgt is None else wgt[None, :],
+                                 np.array([len(cols)], np.int64),
+                                 self._new_row_U(U, U_col, U_val), U_bin)
+        return a[0], float(bias[0])
+
+    def _bin_cold_rows(self, U, U_bin, R):
+        return self._bin_rows(np.zeros((R, 0), np.int64), np.zeros((R, 0)),
+                              None, np.zeros(R, np.int64), U, U_bin,
+                              cold=True)
 
     def _warm_row(self, X, X_col, X_val, W, U, U_col, U_val):
         """One new user's [1, w + 2] result on the device."""
@@ -269,9 +344,13 @@ class CMF(_BaseModel):
                      U=None, U_bin=None, U_col=None, U_val=None,
                      return_bias=False):
         """Latent factors of a new user from their interactions (reference:
-        upstream cmfrec/__init__.py:3568)."""
+        upstream cmfrec/__init__.py:3568).  With binary side info there is
+        no closed form: the reference's per-row L-BFGS."""
         self._check_fitted()
-        _reject_bin(U_bin)
+        if U_bin is not None:
+            a, bias = self._bin_warm_row(X, X_col, X_val, W, U, U_bin, U_col,
+                                         U_val)
+            return (a, bias) if return_bias else a
         a, bias = warm.download(self._warm_row(X, X_col, X_val, W, U, U_col,
                                                U_val))
         return (a[0], float(bias[0])) if return_bias else a[0]
@@ -284,11 +363,15 @@ class CMF(_BaseModel):
 
     def factors_cold(self, U=None, U_bin=None, U_col=None, U_val=None):
         """Factors from side info only (reference:
-        upstream cmfrec/__init__.py:3398)."""
+        upstream cmfrec/__init__.py:3398).  With binary side info: the
+        per-row L-BFGS with the k_main coordinates held at zero
+        (upstream cmfrec src/collective.c:3412)."""
         self._check_fitted()
-        _reject_bin(U_bin)
-        if self.C_ is None:
+        if self.C_ is None and getattr(self, "Cb_", None) is None:
             raise ValueError("Model was fit without user side info")
+        if U_bin is not None:
+            return self._bin_cold_rows(self._new_row_U(U, U_col, U_val),
+                                       U_bin, 1)[0]
         return warm.download(self._cold_rows(
             self._new_row_U(U, U_col, U_val), 1))[0][0]
 
@@ -328,14 +411,21 @@ class CMF(_BaseModel):
                   U=None, U_bin=None, U_col=None, U_val=None,
                   include=None, exclude=None, output_score=False):
         self._check_fitted()
-        _reject_bin(U_bin)
+        if U_bin is not None:
+            a, bias = self._bin_warm_row(X, X_col, X_val, W, U, U_bin, U_col,
+                                         U_val)
+            return self._topN_vec(self._to_device(a[self.k_user:]), bias, n,
+                                  include, exclude, output_score)
         out = self._warm_row(X, X_col, X_val, W, U, U_col, U_val)
         return self._topN_row(out, n, include, exclude, output_score)
 
     def topN_cold(self, n=10, U=None, U_bin=None, U_col=None, U_val=None,
                   include=None, exclude=None, output_score=False):
         self._check_fitted()
-        _reject_bin(U_bin)
+        if U_bin is not None:
+            a = self.factors_cold(U=U, U_bin=U_bin, U_col=U_col, U_val=U_val)
+            return self._topN_vec(self._to_device(a[self.k_user:]), 0.0, n,
+                                  include, exclude, output_score)
         if self.C_ is None:
             raise ValueError("Model was fit without user side info")
         # a cold user is ranked without a bias, as cmfrec_tpu does
@@ -351,7 +441,9 @@ class CMF(_BaseModel):
         """Predict for many (new user, existing item) pairs (reference:
         upstream cmfrec/__init__.py:3291)."""
         self._check_fitted()
-        _reject_bin(U_bin)
+        if U_bin is not None:
+            a = self._bin_cold_rows(U, U_bin, np.asarray(U_bin).shape[0])
+            return self._score_items(self._item_rows(item), a)
         U = np.asarray(U, np.float64)
         a, _ = warm.download(self._cold_rows(U, U.shape[0]))
         return self._score_items(self._item_rows(item), a)
@@ -370,17 +462,16 @@ class CMF(_BaseModel):
         cmfrec/__init__.py:3434): factors_cold of the swapped model,
         solved against D."""
         self._check_fitted()
-        _reject_bin(I_bin)
-        if self.D_ is None:
+        if self.D_ is None and getattr(self, "Db_", None) is None:
             raise ValueError("Model was fit without item side info")
         return self.swap_users_and_items(precompute=False).factors_cold(
-            U=I, U_col=I_col, U_val=I_val)
+            U=I, U_bin=I_bin, U_col=I_col, U_val=I_val)
 
     def predict_new(self, user, I=None, I_bin=None):
         """Predict for (existing user, new item given side info) pairs
-        (reference: upstream cmfrec/__init__.py:3472)."""
+        (reference: upstream cmfrec/__init__.py:3472).  ``I_bin`` is
+        accepted and, as in cmfrec_tpu, not used."""
         self._check_fitted()
-        _reject_bin(I_bin)
         b, _ = self._new_items(I)
         u, _ = self._map_ids(user, self.user_mapping_, "user")
         u = np.atleast_1d(u)
@@ -392,9 +483,9 @@ class CMF(_BaseModel):
 
     def topN_new(self, user, I=None, I_bin=None, n=10, output_score=False):
         """Rank a pool of new items (given their side info) for an existing
-        user (reference: upstream cmfrec/__init__.py:3511)."""
+        user (reference: upstream cmfrec/__init__.py:3511).  ``I_bin`` is
+        accepted and, as in cmfrec_tpu, not used."""
         self._check_fitted()
-        _reject_bin(I_bin)
         b, _ = self._new_items(I)
         u, _ = self._map_ids(user, self.user_mapping_, "user")
         scores = b[:, self.k_item:] @ np.asarray(self._xA)[int(u)]
@@ -408,10 +499,13 @@ class CMF(_BaseModel):
         """Warm factors of many new users at once (reference: upstream
         cmfrec/__init__.py:3706): power-law batches through the
         degree-grouped route (``_route_grouped``), the others padded to
-        their largest degree; one download either way."""
+        their largest degree; one download either way.  With binary side
+        info: factors_bin_batch's L-BFGS over all the rows."""
         self._check_fitted()
-        _reject_bin(U_bin)
         U = None if U is None else np.asarray(U, np.float64)
+        if U_bin is not None:
+            a, bias = self._bin_rows(*self._pack_new_rows(X, W, U), U, U_bin)
+            return (a, bias) if return_bias else a
         if X is not None:
             rows, cols, vals, wgt, m_new, _ = self._ingest_X_new(X, W)
             if _route_grouped(rows, m_new):

@@ -22,9 +22,14 @@ k_user + k + k_main factors, the user bias, and the Cholesky ``info`` of
 each row (0 where its factorization succeeded).  ``download`` copies it to
 the host once and raises if a row failed.
 
+The offsets models (OMF_explicit, OMF_implicit, ContentBased) serve
+through ``offsets_warm_batch`` and binary side information through
+``factors_bin_batch`` (one L-BFGS over all the rows, solvers/lbfgs_core.py);
+both run in the model's dtype (float64 for a float64 model, as cmfrec_tpu)
+on the model's device.
+
 Not here yet: nonneg and l1_lambda, which need rowsolve.solve_cd (ROADMAP
-slice 4 item 10); binary side info (factors_bin_batch, per-row L-BFGS) and
-the OMF offsets models (slice 6).
+slice 4 item 10).
 """
 
 from __future__ import annotations
@@ -71,17 +76,19 @@ def precomputed(model) -> dict:
     return pre
 
 
-def _dev(model, name, arr, token=None):
-    """f32 copy of the host array ``arr`` on the model's device, kept in
-    the model's device cache under ``name`` while ``token`` (default: the
-    array itself, by identity) and the device are unchanged."""
+def _dev(model, name, arr, token=None, dtype=np.float32):
+    """Copy of the host array ``arr`` on the model's device (f32 unless
+    ``dtype`` says otherwise), kept in the model's device cache under
+    ``name`` while ``token`` (default: the array itself, by identity) and
+    the device are unchanged."""
     token = (arr,) if token is None else token
     cache = model.__dict__.setdefault("_device_cache", {})
-    key = "warm:" + name
+    key = "warm:" + name + ("" if np.dtype(dtype) == np.float32
+                            else ":" + np.dtype(dtype).name)
     hit = cache.get(key)
     if hit is None or hit[1] != model.device or not _same(hit[0], token):
         cache[key] = (token, model.device, torch.as_tensor(
-            np.asarray(arr, np.float32), device=resolve_device(model.device)))
+            np.asarray(arr, dtype), device=resolve_device(model.device)))
     return cache[key][2]
 
 
@@ -821,3 +828,324 @@ def build_precomputed(model) -> dict:
         out["B_plus_bias"] = ext
     out["sources"] = _sources(model)
     return out
+
+
+# ----------------------------------------------------------------------- #
+# the offsets models (OMF_explicit, OMF_implicit, ContentBased)            #
+# ----------------------------------------------------------------------- #
+
+
+def _model_dtype(model):
+    """(numpy dtype, torch dtype) the model's own solves run in."""
+    if np.dtype(getattr(model, "dtype_", np.float32)) == np.float64:
+        return np.float64, torch.float64
+    return np.float32, torch.float32
+
+
+def offsets_warm_batch(model, idx, vals, lengths, wgt=None, base=None,
+                       implicit=False, alpha=1.0, return_bias=False,
+                       exact=None):
+    """Batched warm factors of the offsets models
+    (offsets_factors_warm, upstream cmfrec src/offsets.c:578).
+
+    Three cases matching the reference:
+      * implicit: a plain WRMF solve over the full Am width, attributes
+        ignored (offsets.c:654 takes the ``|| implicit`` branch);
+      * explicit, not exact and k_sec == 0: a plain ridge over the
+        observed entries on the full Am width, attributes ignored (the
+        regularization lands on Am rather than the free A, offsets.c:665);
+      * explicit, exact or k_sec > 0: X' = X - uc Bm[:, :ks+k]^T taken as
+        fully dense (an unobserved entry is 0 minus the projection, weight
+        1), the free A solved over columns [k_sec : k_sec+k+k_main] of Bm,
+        then Am[:ks+k] += uc (offsets.c:747-852).
+
+    base: [R, ks+k+k_main] attribute-projection rows (only the first ks+k
+    columns are used, and only on the exact / k_sec path).  Batched Grams
+    and Cholesky on the model's device in the model's dtype.  Returns Am
+    rows [R, ks+k+k_main] as numpy (and the warm bias with
+    ``return_bias`` on the explicit paths: zeros without user biases)."""
+    ndt, tdt = _model_dtype(model)
+    dev = resolve_device(model.device)
+    Bm = np.asarray(model.Bm_, np.float64)
+    n, kk = Bm.shape
+    ks = int(getattr(model, "k_sec", 0))
+    k = int(getattr(model, "k", 0))
+    km = int(getattr(model, "k_main", 0))
+    if exact is None:
+        exact = bool(getattr(model, "exact", False))
+    lam6, _ = _resolve_lambdas(model.lambda_, 0.0)
+    lam = float(lam6[2])
+    lam_bias = float(lam6[0])
+    idx = np.asarray(idx, np.int64)
+    R, L = idx.shape
+    lengths = np.asarray(lengths)
+    msk = (np.arange(max(L, 1))[None, :] < lengths[:, None]).astype(float)
+    v = np.asarray(vals, np.float64)
+    append_bias = (not implicit and return_bias
+                   and model.user_bias_ is not None)
+    idx_d = _upload(idx, np.int64, dev)
+
+    def up(a):
+        return _upload(a, ndt, dev)
+
+    def solve(parts, lam_vec, G0=None, r0=None):
+        G, rhs = rowsolve.assemble_system(parts, up(lam_vec), G0=G0, r0=r0)
+        return rowsolve.solve_chol(G, rhs).cpu().numpy()
+
+    if implicit:
+        # WRMF warm solve on Bm, attributes ignored (offsets.c:707-729)
+        k_pad = _round_up(kk, 8)
+        ext = np.zeros((n, k_pad))
+        ext[:, :kk] = Bm
+        av = alpha * v
+        BmtBm, _, _ = _omf_gram_pieces(model, kk, ks, k, False)
+        lam_vec = np.full(k_pad, lam)
+        lam_vec[kk:] = 1.0  # padded coords stay zero even at lam = 0
+        part = SparsePart(
+            _dev(model, "omf_ext_implicit", ext, token=(model.Bm_, k_pad),
+                 dtype=ndt),
+            idx_d, up(av * msk), up((1.0 + av) * msk))
+        a = solve([part], lam_vec, G0=up(_pad_sq(BmtBm, k_pad)))[:, :kk]
+        a[lengths == 0] = 0.0
+        return a
+
+    vv = v - model.glob_mean_
+    if model.item_bias_ is not None and L > 0:
+        vv = vv - np.asarray(model.item_bias_, np.float64)[idx]
+    ww = np.ones((R, L)) if wgt is None else np.asarray(wgt, np.float64)
+
+    if not exact and ks == 0:
+        # ridge over the observed entries on the full Am width
+        width = kk + append_bias
+        k_pad = _round_up(width, 8)
+        ext = np.zeros((n, k_pad))
+        ext[:, :kk] = Bm
+        if append_bias:
+            ext[:, kk] = 1.0
+        cw = ww * msk
+        lam_vec = np.full(k_pad, lam)
+        lam_vec[width:] = 1.0  # padding guard (singular at lam = 0)
+        if append_bias:
+            lam_vec[kk] = lam_bias
+        part = SparsePart(
+            _dev(model, "omf_ext_ridge", ext,
+                 token=(model.Bm_, k_pad, append_bias), dtype=ndt),
+            idx_d, up(cw), up(cw * vv))
+        a = solve([part], lam_vec)
+        a[lengths == 0] = 0.0
+        bias = a[:, kk] if append_bias else np.zeros(R)
+        return (a[:, :kk], bias) if return_bias else a[:, :kk]
+
+    # exact / k_sec: the full-dense transformed solve on the free block
+    if base is None:
+        base = np.zeros((R, kk))
+    uc = np.asarray(base, np.float64)[:, :ks + k]
+    out = np.zeros((R, kk))
+    out[:, :ks + k] = uc
+    kf = k + km
+    if kf == 0:
+        return (out, np.zeros(R)) if return_bias else out
+    width = kf + append_bias
+    k_pad = _round_up(width, 8)
+    ext = np.zeros((n, k_pad))
+    ext[:, :kf] = Bm[:, ks:]
+    if append_bias:
+        ext[:, kf] = 1.0
+    # the full-dense Gram ext^T ext: observed entries carry weight w (the
+    # sparse correction uses w - 1); the rhs gets -Bf^T Bc uc from the
+    # unobserved projection plus the observed-entry terms.  The blocks
+    # come from the BmtBm / colsum cache when precomputed (offsets.c:870).
+    BmtBm, colsum, n_cache = _omf_gram_pieces(model, kk, ks, k, append_bias)
+    G0 = np.zeros((k_pad, k_pad))
+    G0[:kf, :kf] = BmtBm[ks:, ks:]
+    if append_bias:
+        G0[kf, :kf] = colsum[ks:]
+        G0[:kf, kf] = colsum[ks:]
+        G0[kf, kf] = float(n_cache)
+    M = np.zeros((ks + k, k_pad))  # Bc^T ext
+    M[:, :kf] = BmtBm[:ks + k, ks:]
+    if append_bias:
+        M[:, kf] = colsum[:ks + k]
+    uc_d = up(uc)
+    Bc = _dev(model, "omf_Bc", Bm[:, :ks + k], token=(model.Bm_, ks + k),
+              dtype=ndt)
+    proj = torch.einsum("rlk,rk->rl", rowsolve.gather_rows(Bc, idx_d), uc_d)
+    msk_d, ww_d = up(msk[:, :L]), up(ww)
+    cw = (ww_d - 1.0) * msk_d
+    cv = (ww_d * up(vv) - (ww_d - 1.0) * proj) * msk_d
+    lam_vec = np.full(k_pad, lam)
+    lam_vec[width:] = 1.0  # padding guard
+    if append_bias:
+        lam_vec[kf] = lam_bias
+    part = SparsePart(
+        _dev(model, "omf_ext_exact", ext,
+             token=(model.Bm_, ks, k_pad, append_bias), dtype=ndt),
+        idx_d, cw, cv)
+    a = solve([part], lam_vec, G0=up(G0), r0=-(uc_d @ up(M)))
+    out[:, ks:] += a[:, :kf]
+    bias = a[:, kf] if append_bias else np.zeros(R)
+    return (out, bias) if return_bias else out
+
+
+def build_precomputed_offsets(model) -> dict:
+    """Prediction caches of the offsets models (precompute_offsets_both,
+    upstream cmfrec src/offsets.c:870), f64 on the host: Bm, its Gram and
+    column sums, from which every offsets_warm_batch branch takes its
+    shared base without a per-call O(n k^2) product."""
+    model._precomputed = {}
+    Bm = np.asarray(model.Bm_, np.float64)
+    return {"Bm": Bm, "BmtBm": Bm.T @ Bm, "Bm_colsum": Bm.sum(axis=0),
+            "n": Bm.shape[0]}
+
+
+def _omf_gram_pieces(model, kk, ks, k, append_bias):
+    """(BmtBm, colsum, n) from the cache, or computed afresh."""
+    pre = getattr(model, "_precomputed", None) or {}
+    if "BmtBm" in pre:
+        _count(model, "omf_gram")
+        return pre["BmtBm"], pre["Bm_colsum"], pre["n"]
+    Bm = np.asarray(model.Bm_, np.float64)
+    return Bm.T @ Bm, Bm.sum(axis=0), Bm.shape[0]
+
+
+# ----------------------------------------------------------------------- #
+# binary side information: one L-BFGS over all the rows                    #
+# ----------------------------------------------------------------------- #
+
+LBFGS_ROWS_MEMORY = 5
+LBFGS_ROWS_TOL = 1e-7
+
+
+def _lbfgs_rows(a0, loss_fn, n_steps, memory=LBFGS_ROWS_MEMORY):
+    """Minimize the summed per-row objective ``loss_fn({"a": a})`` from a0
+    with the L-BFGS of solvers/lbfgs_core.py.  Rows are independent, so
+    the joint minimizer is the per-row minimizers (the batched form of the
+    reference's per-row liblbfgs, upstream cmfrec src/collective.c:1146).
+    Stops after ``n_steps`` iterations, or once the sup-norm of the
+    gradient an iteration started from is below
+    ``LBFGS_ROWS_TOL * max(1, max|a|)``; each iteration reads both on the
+    host in one sync.  Returns (a, the Lbfgs object with its counters)."""
+    from .lbfgs import value_and_grad_of
+    from .lbfgs_core import FlatParams, Lbfgs
+
+    layout = FlatParams({"a": a0})
+    a = a0.reshape(-1)
+    core = Lbfgs(value_and_grad_of(loss_fn, layout), a, memory)
+    for _ in range(int(n_steps)):
+        a, _ = core.step(a)
+        gnorm, anorm = core.read(torch.stack([
+            torch.max(torch.abs(core.prev_grad)),
+            torch.clamp(torch.max(torch.abs(a)), min=1.0)]))
+        if gnorm < LBFGS_ROWS_TOL * anorm:
+            break
+    return a.view(a0.shape), core
+
+
+def factors_bin_batch(model, idx, vals, wgt, lengths, U=None, U_bin=None,
+                      cold=False, return_bias=False, maxiter=None):
+    """Warm or cold factors where binary side information takes part: no
+    closed form exists, so the reference's per-row gradient solve
+    (collective_factors_lbfgs, upstream cmfrec src/collective.c:1146,
+    gated at :3825-3862) runs as ONE L-BFGS over all R rows, started from
+    zeros, on the model's device in the model's dtype.
+
+    idx/vals/wgt: [R, L] padded X observations (ignored when cold); U:
+    [R, p] dense (NaN = missing) or None; U_bin: [R, pbin] dense.  Runs
+    ``maxiter`` iterations at most (the model's ``maxiter``, else 200).
+    Returns numpy a [R, k_user+k+k_main] (and the bias with
+    ``return_bias`` when warm; zeros without user biases)."""
+    ndt, tdt = _model_dtype(model)
+    dev = resolve_device(model.device)
+    k = model.k
+    ku = getattr(model, "k_user", 0)
+    km = getattr(model, "k_main", 0)
+    ki = getattr(model, "k_item", 0)
+    kc = ku + k
+    lam6, _ = _resolve_lambdas(model.lambda_, 0.0)
+    w_main = float(getattr(model, "w_main", 1.0))
+    w_user = float(getattr(model, "w_user", 1.0))
+    R = int(np.asarray(lengths).shape[0])
+    append_bias = (not cold and return_bias and model.user_bias_ is not None)
+
+    def up(a):
+        return _upload(a, ndt, dev)
+
+    Bg = cw = cv = None
+    if cold:
+        width = kc  # k_main coordinates stay zero (collective.c:3412)
+        w_main = 1.0
+    else:
+        width = ku + k + km + (1 if append_bias else 0)
+        B = np.asarray(model.B_, np.float64)
+        # the X part sees a[:, ku:]: B[:, ki:] (+ ones) placed at those
+        # coordinates of a full-width matrix
+        Bfull = np.zeros((B.shape[0], width))
+        Bfull[:, ku:ku + k + km] = B[:, ki:]
+        if append_bias:
+            Bfull[:, ku + k + km] = 1.0
+        idx = np.asarray(idx, np.int64)
+        L = idx.shape[1]
+        msk = (np.arange(max(L, 1))[None, :]
+               < np.asarray(lengths)[:, None]).astype(np.float64)
+        v = np.asarray(vals, np.float64) - model.glob_mean_
+        if model.item_bias_ is not None and L > 0:
+            v = v - np.asarray(model.item_bias_, np.float64)[idx]
+        ww = msk if wgt is None else np.asarray(wgt, np.float64) * msk
+        Bg = rowsolve.gather_rows(
+            _dev(model, "bin_Bx", Bfull,
+                 token=(model.B_, ku, width, append_bias), dtype=ndt),
+            _upload(idx, np.int64, dev))
+        cw, cv = up(ww), up(v * msk)
+
+    Cm = u = umask = None
+    if U is not None and model.C_ is not None:
+        Uarr = np.asarray(U, np.float64)
+        if model.U_colmeans_ is not None:
+            Uarr = Uarr - np.asarray(model.U_colmeans_)[None, :]
+        umask = up((~np.isnan(Uarr)).astype(np.float64))
+        u = up(np.nan_to_num(Uarr))
+        Cm = _dev(model, "bin_C", model.C_, dtype=ndt)
+    Cb = ub = ubmask = None
+    if U_bin is not None:
+        if getattr(model, "Cb_", None) is None:
+            raise ValueError("Model was fit without binary user side info")
+        Ub = np.asarray(U_bin, np.float64)
+        ubmask = up((~np.isnan(Ub)).astype(np.float64))
+        ub = up(np.nan_to_num(Ub))
+        Cb = _dev(model, "bin_Cb", model.Cb_, dtype=ndt)
+
+    lam_np = np.full(width, float(lam6[2]))
+    if append_bias:
+        lam_np[width - 1] = float(lam6[0])
+    lam_vec = up(lam_np)
+
+    def loss_fn(p):
+        a = p["a"]
+        f = torch.zeros((), dtype=tdt, device=dev)
+        if Bg is not None:
+            r = cv - torch.einsum("rlk,rk->rl", Bg, a)
+            f = f + 0.5 * w_main * torch.sum(cw * r * r)
+        au = a[:, :kc]
+        if Cm is not None:
+            ru = (u - au @ Cm.T) * umask
+            f = f + 0.5 * w_user * torch.sum(ru * ru)
+        if Cb is not None:
+            rb = (ub - torch.sigmoid(au @ Cb.T)) * ubmask
+            f = f + 0.5 * w_user * torch.sum(rb * rb)
+        return f + 0.5 * torch.sum(lam_vec[None, :] * a * a)
+
+    # an explicit maxiter= wins; else the model's (the reference's
+    # collective_factors_lbfgs inherits the fit setting), else 200
+    if maxiter is None:
+        maxiter = getattr(model, "maxiter", None)
+    n_steps = int(maxiter) if maxiter is not None else 200
+    a, _ = _lbfgs_rows(torch.zeros(R, width, dtype=tdt, device=dev), loss_fn,
+                       n_steps)
+    a = a.cpu().numpy()
+    if cold:
+        out = np.zeros((R, ku + k + km), a.dtype)
+        out[:, :kc] = a
+        return out
+    bias = a[:, width - 1] if append_bias else np.zeros(R)
+    out = a[:, :ku + k + km]
+    return (out, bias) if return_bias else out

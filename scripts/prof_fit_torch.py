@@ -4,7 +4,7 @@
 Run from the repository root:
 
     python3 scripts/prof_fit_torch.py \
-        [--fit explicit|implicit|collective|collective-bucketed|implicit-dense]
+        [--fit explicit|implicit|collective|collective-bucketed|implicit-dense|lbfgs]
         [--out DIR]
 
 ``--fit explicit`` (the default) fits the flagship configuration of
@@ -19,7 +19,9 @@ chip_smoke.py phase 14's (the flagship configuration with its user tags
 and item genres, the bucketed collective route) and ``--fit implicit-dense``
 the WRMF configuration on phase 12's training pairs
 (chip_smoke.make_preference_data, 20% held out) through
-drivers.fit_implicit_als(engine="dense"), the dense engine.  For any:
+drivers.fit_implicit_als(engine="dense"), the dense engine; ``--fit lbfgs``
+chip_smoke.py phase 17's CMF(method="lbfgs", k=50, lambda 30; maxiter 800
+and corr_pairs 4, CMF's defaults) on the flagship's split.  For any:
 
   1. one cold fit (CUDA context, cuBLAS and allocator warm-up included);
   2. two warm fits;
@@ -33,8 +35,12 @@ drivers.fit_implicit_als(engine="dense"), the dense engine.  For any:
      _implicit_sparse_iteration; collective: fit_collective_dense_masked;
      collective-bucketed: the layout builds build_bucketed_pair,
      build_aligned_parts and build_bucketed_rows, and the iterations _run;
-     implicit-dense: fit_implicit_dense_masked), each synchronized at its
-     end, and of the rest (COO build, driver checks, result download).
+     implicit-dense: fit_implicit_dense_masked; lbfgs: the objective and
+     its gradient, Lbfgs.evaluate, and the line search's host reads,
+     Lbfgs.read, which wait for the device no longer since evaluate ends
+     synchronized), each synchronized at its end, and of the rest (COO
+     build, driver checks, the line search's host arithmetic, the two-loop
+     recursion, result download).
 
 Prints one line per measurement and, last, one JSON object with all of
 them.  With --out, also writes the profiler's per-kernel table there.
@@ -61,6 +67,7 @@ IMPLICIT_FIT = dict(k=50, lambda_=5.0, alpha=1.0, niter=15, use_cg=True,
                     max_cg_steps=3)
 COLLECTIVE_FIT = dict(FIT, add_implicit_features=True, w_implicit=0.5)
 COLLECTIVE_BUCKETED_FIT = dict(FIT, NA_as_zero_item=True)  # phase 14's
+LBFGS_FIT = dict(k=50, method="lbfgs", lambda_=30.0)  # phase 17's
 # the host-split spans of each fit: (module of cmfrec_torch.solvers, function)
 SPANS = {"explicit": (("drivers", "fit_explicit_dense_masked"),),
          "implicit": (("drivers", "_build_pair"),
@@ -70,7 +77,9 @@ SPANS = {"explicit": (("drivers", "fit_explicit_dense_masked"),),
                                  ("collective", "build_aligned_parts"),
                                  ("collective", "build_bucketed_rows"),
                                  ("collective", "_run")),
-         "implicit-dense": (("drivers", "fit_implicit_dense_masked"),)}
+         "implicit-dense": (("drivers", "fit_implicit_dense_masked"),),
+         "lbfgs": (("lbfgs_core.Lbfgs", "evaluate"),
+                   ("lbfgs_core.Lbfgs", "read"))}
 
 
 def _busy_us(intervals):
@@ -132,6 +141,7 @@ def profile_fit(rows, cols, vals, m, n, device, kind, side=None):
             "collective": (cmfrec_torch.CMF, COLLECTIVE_FIT),
             "collective-bucketed": (cmfrec_torch.CMF,
                                     COLLECTIVE_BUCKETED_FIT),
+            "lbfgs": (cmfrec_torch.CMF, LBFGS_FIT),
         }[kind]
         return model_cls(**kw, device=device).fit_triplets(
             rows, cols, vals, m, n, **(side or {}))
@@ -176,10 +186,15 @@ def profile_fit(rows, cols, vals, m, n, device, kind, side=None):
     for name, v in out["device_ms_by_kernel"].items():
         print(f"  {v['ms']:9.2f} ms {v['calls']:5d} calls  {name[:90]}")
 
+    def owner(path):
+        """A module of cmfrec_torch.solvers, or a class in one."""
+        mod, _, cls = path.partition(".")
+        mod = importlib.import_module(f"cmfrec_torch.solvers.{mod}")
+        return getattr(mod, cls) if cls else mod
+
     totals = {}
     spans = [(base._BaseModel, "_ingest_X")] + [
-        (importlib.import_module(f"cmfrec_torch.solvers.{mod}"), name)
-        for mod, name in SPANS[kind]]
+        (owner(mod), name) for mod, name in SPANS[kind]]
     orig = [_timed_wrapper(mod, name, totals, sync) for mod, name in spans]
     try:
         _, wall = fit()

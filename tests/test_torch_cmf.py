@@ -13,7 +13,7 @@ import torch
 import cmfrec_torch
 import cmfrec_tpu
 from cmfrec_torch.convert import cmf_from_arrays
-from cmfrec_torch.solvers import drivers
+from cmfrec_torch.solvers import drivers, lbfgs
 
 
 def _recipe_data():
@@ -205,11 +205,15 @@ def _fit_beyond_the_device_budget():
 BUCKETED = "runs on the bucketed engine"
 DENSE = "runs on the dense engine"
 COLLECTIVE = "runs on the bucketed collective route"
+LBFGS = "runs the L-BFGS fit"
 
 
 @pytest.mark.parametrize("call,match", [
-    (lambda X: cmfrec_torch.CMF(method="lbfgs", device="cpu").fit(X),
-     "slice 6"),
+    # ROADMAP slice 6's case keeps its id: method="lbfgs" fits by L-BFGS
+    # (its default maxiter cut to 50 here)
+    pytest.param(lambda X: cmfrec_torch.CMF(method="lbfgs", maxiter=50,
+                                            device="cpu").fit(X), LBFGS,
+                 id="<lambda>-slice 6"),
     # the three cases of ROADMAP slice 2 keep their ids: dense side info and
     # implicit features fit on the dense engine, k_user on the bucketed
     # collective route
@@ -241,7 +245,7 @@ COLLECTIVE = "runs on the bucketed collective route"
 def test_out_of_slice_options_raise(call, match, monkeypatch):
     rows, cols, vals, m, n = _TRIPLETS
     X = sp.coo_matrix((vals, (rows, cols)), shape=(m, n))
-    if match not in (BUCKETED, DENSE, COLLECTIVE):
+    if match not in (BUCKETED, DENSE, COLLECTIVE, LBFGS):
         with pytest.raises(ValueError, match=match):
             call(X)
         return
@@ -255,7 +259,13 @@ def test_out_of_slice_options_raise(call, match, monkeypatch):
     monkeypatch.setattr(collective, "_fit_collective_explicit_bucketed",
                         lambda *a, **kw: routed.append(a)
                         or real_collective(*a, **kw))
+    calls = []
+    real_lbfgs = lbfgs.run_lbfgs
+    monkeypatch.setattr(lbfgs, "run_lbfgs",
+                        lambda *a, **kw: calls.append(a) or real_lbfgs(*a,
+                                                                       **kw))
     out = call(X)
+    assert len(calls) == (1 if match == LBFGS else 0)
     A = out.A_ if isinstance(out, cmfrec_torch.CMF) else out["A"].numpy()
     assert len(built) == (1 if match == BUCKETED else 0)
     assert len(routed) == (1 if match == COLLECTIVE else 0)

@@ -559,3 +559,136 @@ def test_bucketed_collective_fit_on_card_matches_cpu(cuda, use_cg):
     for key in ("A", "B", "C", "D", "Ai", "Bi", "biasA", "biasB"):
         np.testing.assert_allclose(card[key].cpu().numpy(), cpu[key].numpy(),
                                    rtol=0, atol=1e-4, err_msg=key)
+
+
+# --------------------------------------------------------------------- #
+# the L-BFGS family, MostPopular and the offsets serving (plain torch on  #
+# the card; no CUDA kernel of their own)                                 #
+# --------------------------------------------------------------------- #
+
+
+def _lbfgs_problem(dtype, device, seed=5):
+    from cmfrec_torch.solvers import lbfgs
+
+    rng = np.random.default_rng(seed)
+    m, n, k = 300, 200, 8
+    pairs = np.unique(rng.integers(0, m * n, 6000))
+    rows, cols = pairs // n, pairs % n
+    vals = rng.normal(3, 1, rows.size)
+    U = rng.normal(size=(m, 12))
+    r, c = np.nonzero(rng.uniform(size=(n, 10)) < 0.3)
+    side_I = (r, c, np.ones(r.size), n, 10, False, None)
+    Ib = (rng.uniform(size=(n, 5)) < 0.4).astype(np.float64)
+    prob = lbfgs.CollectiveProblem(
+        rows, cols, vals, m, n, k=k, k_user=2, k_main=1, lambda_=2.0,
+        side_U=(None, None, None, m, 12, True, U), side_I=side_I,
+        side_Ib=(None, None, None, n, 5, True, Ib), w_user=0.7,
+        weights=rng.uniform(0.5, 2, rows.size), dtype=dtype, device=device)
+    init = {key: v.cpu().numpy() for key, v in
+            lbfgs.CollectiveProblem.init_params(prob, 1).items()}
+    return prob, init, (rows, cols, vals, m, n)
+
+
+@pytest.mark.parametrize("dtype,tol", [(np.float64, 1e-10),
+                                       (np.float32, 1e-5)],
+                         ids=["f64", "f32"])
+def test_lbfgs_objective_on_card_matches_cpu(cuda, dtype, tol):
+    prob_cpu, init, _ = _lbfgs_problem(dtype, "cpu")
+    prob_card, _, _ = _lbfgs_problem(dtype, "cuda")
+    vc, gc = prob_cpu.value_and_grad(prob_cpu.init_params(1, init))
+    vd, gd = prob_card.value_and_grad(prob_card.init_params(1, init))
+    assert abs(float(vd) - float(vc)) <= tol * abs(float(vc))
+    for key in gc:
+        assert _rel(gd[key].cpu(), gc[key]) <= tol, key
+
+
+def test_lbfgs_fit_on_card_matches_cpu(cuda):
+    """A small collective L-BFGS fit with binary side info, float64, card
+    against CPU from one init: the same iterations, parameters within
+    1e-8 of max|param| (summation order only)."""
+    from cmfrec_torch.solvers import lbfgs
+
+    _, init, args = _lbfgs_problem(np.float64, "cpu")
+    prob, _, _ = _lbfgs_problem(np.float64, "cpu")
+    kw = dict(k=8, k_user=2, k_main=1, lambda_=2.0, w_user=0.7,
+              side_U=prob_side(prob, "U"), side_Ib=prob_side(prob, "Ib"),
+              dtype=np.float64, maxiter=30,
+              init={key: v for key, v in init.items() if key != "D"})
+    card = lbfgs.fit_collective_explicit_lbfgs(*args, device="cuda", **kw)
+    cpu = lbfgs.fit_collective_explicit_lbfgs(*args, device="cpu", **kw)
+    assert card["niter"] == cpu["niter"]
+    assert card["host_syncs"] > 30
+    for key in ("A", "B", "C", "Db", "biasA", "biasB"):
+        np.testing.assert_allclose(card[key], cpu[key], rtol=0,
+                                   atol=1e-8 * np.abs(cpu[key]).max(),
+                                   err_msg=key)
+
+
+def prob_side(prob, name):
+    """A dense side of a CollectiveProblem back in the ingested form."""
+    M = prob.sides[name][2].cpu().numpy()
+    return (None, None, None, M.shape[0], M.shape[1], True, M)
+
+
+@pytest.mark.parametrize("kw", [dict(user_bias=True),
+                                dict(NA_as_zero=True, user_bias=True),
+                                dict(implicit=True)],
+                         ids=["user_bias", "na_as_zero", "implicit"])
+def test_most_popular_on_card_matches_cpu(cuda, kw):
+    import scipy.sparse as spm
+
+    import cmfrec_torch
+
+    rng = np.random.default_rng(7)
+    X = spm.random(400, 300, density=0.05, random_state=3, format="coo")
+    X.data = np.round(10 * X.data) / 2 + 0.5
+    card = cmfrec_torch.MostPopular(**kw, device="cuda").fit(X)
+    cpu = cmfrec_torch.MostPopular(**kw, device="cpu").fit(X)
+    np.testing.assert_allclose(card.item_bias_, cpu.item_bias_, rtol=1e-12,
+                               atol=0)
+    if cpu.user_bias_ is not None:
+        np.testing.assert_allclose(card.user_bias_, cpu.user_bias_,
+                                   rtol=1e-12, atol=0)
+    users, items = rng.integers(0, 400, 50), rng.integers(0, 300, 50)
+    np.testing.assert_allclose(card.predict(users, items),
+                               cpu.predict(users, items), rtol=1e-12, atol=0)
+    np.testing.assert_array_equal(card.topN(n=10, exclude=[1, 2]),
+                                  cpu.topN(n=10, exclude=[1, 2]))
+
+
+@pytest.mark.parametrize("branch", ["ridge", "exact", "implicit"])
+def test_offsets_serving_on_card_matches_cpu(cuda, branch, tmp_path):
+    """offsets_warm_batch's three branches on the card against a CPU copy
+    of one model (save/load), f32: 1e-4 of max|a|."""
+    import scipy.sparse as spm
+
+    import cmfrec_torch
+    from cmfrec_torch.solvers import warm
+
+    rng = np.random.default_rng(8)
+    m, n = 300, 200
+    X = spm.random(m, n, density=0.08, random_state=4, format="coo")
+    X.data = np.round(10 * X.data) / 2 + 0.5
+    U = rng.normal(size=(m, 7))
+    I = rng.normal(size=(n, 6))
+    if branch == "implicit":
+        model = cmfrec_torch.OMF_implicit(k=8, niter=3, use_float=True,
+                                          device="cuda").fit(X, U=U)
+    else:
+        model = cmfrec_torch.OMF_explicit(
+            k=8, k_sec=2 if branch == "exact" else 0, maxiter=60,
+            use_float=True, device="cuda").fit(X, U=U, I=I)
+    path = str(tmp_path / "omf.npz")
+    model.save(path)
+    twin = type(model).load(path, device="cpu")
+    twin.force_precompute_for_predictions()
+    R, L = 64, 12
+    idx = rng.integers(0, n, size=(R, L))
+    vals = np.round(2 * (3 + rng.normal(size=(R, L)))) / 2
+    lengths = rng.integers(0, L + 1, R)
+    base = (model.factors_cold_multiple(U[:R]).astype(np.float64)
+            if branch == "exact" else None)
+    kw = dict(base=base, implicit=branch == "implicit", alpha=1.0)
+    got = warm.offsets_warm_batch(model, idx, vals, lengths, **kw)
+    want = warm.offsets_warm_batch(twin, idx, vals, lengths, **kw)
+    assert _rel(torch.as_tensor(got), torch.as_tensor(want)) <= 1e-4

@@ -456,12 +456,20 @@ def test_coordinate_descent_options_raise(kw, implicit):
 
 
 def test_binary_side_info_raises():
-    _, tm = carried("side")
-    for call in (lambda: tm.factors_warm(X_col=[0], X_val=[3.0],
-                                         U_bin=np.ones(3)),
-                 lambda: tm.factors_cold(U=np.ones(P), U_bin=np.ones(3)),
-                 lambda: tm.factors_multiple(U=np.ones((2, P)),
-                                             U_bin=np.ones((2, 3))),
-                 lambda: tm.predict_new(0, I=np.ones(P), I_bin=np.ones(3))):
-        with pytest.raises(ValueError, match=r"binary side info.*slice 6"):
-            call()
+    """A model fit without binary side info raises on U_bin, with
+    cmfrec_tpu's message; predict_new takes I_bin and, as cmfrec_tpu,
+    does not use it."""
+    jm, tm = carried("side")
+    for model in (jm, tm):
+        for call in (lambda: model.factors_warm(X_col=[0], X_val=[3.0],
+                                                U_bin=np.ones(3)),
+                     lambda: model.factors_cold(U=np.ones(P),
+                                                U_bin=np.ones(3)),
+                     lambda: model.factors_multiple(U=np.ones((2, P)),
+                                                    U_bin=np.ones((2, 3)))):
+            with pytest.raises(ValueError,
+                               match="fit without binary user side info"):
+                call()
+    np.testing.assert_array_equal(
+        tm.predict_new(0, I=np.ones(P), I_bin=np.ones(3)),
+        tm.predict_new(0, I=np.ones(P)))
