@@ -104,6 +104,29 @@ follows, with K1, K2 and K3 launched 0 times:
      and a tag row, predict for the side-only users, against their numpy
      closed forms and the CPU copy.
 
+Float64 and Jacobi PCG (no kernel of their own: the plain dense engine
+solvers/dense_engine.py, the bucketed engine's plain solves, float64
+serving), each printing seconds, peak device memory, the card's name and
+power limit, and K1-K3 launches, which must be 0:
+ 22. the flagship fit in float64 (CMF(use_float=False), phase 4's
+     arguments and split): the route (the plain dense engine), its
+     dense-bytes estimate beside the measured peak (not below it),
+     held-out RMSE (<= 0.7408, within 0.002 of phase 4's), float64 A_;
+     then phase 5b's 8,192 users folded in by factors_multiple in float64:
+     users/s, fold-in RMSE within 0.005 of the fitted rows', 256 users card
+     against the CPU copy within 1e-9;
+ 23. phase 4's fit with precondition_cg=True in float32, on the auto route
+     (which must be the plain dense engine) and with engine="sparse"
+     (plain solves in the bucketed engine): RMSE <= 0.7408 each;
+ 24. the offsets models at their float64 defaults: OMF_implicit() with
+     phase 19's arguments and data (P@10 within 0.005 of phase 19's
+     float32 fit), OMF_explicit(method="als") with phase 18b's (RMSE
+     within 0.002 of 18b's);
+ 25. phase 16's warm restart (phase 14's U and I and factors, 3
+     iterations) in float64 on the bucketed route against the same fit in
+     float32 from the same init=: held-out RMSE within 0.002, C_/D_
+     finite.
+
 Each fit phase, and phase 9's sweep, sets every kernel's launch count to 0
 just before it and reads the counts just after; phases 10-16 print each
 fit's seconds (14-15 of a warm fit, after a first one) and peak device
@@ -1754,6 +1777,46 @@ def bucketed_collective_phases(ops, rows, cols, vals, test, lastfm, p10_7):
     for key, v in launches.items():
         total[key] = total.get(key, 0) + v
     paths["16"] = total
+
+    # 25. phase 16's warm restart in float64 against the same fit in
+    # float32, from the same init=
+    def restart(dtype):
+        return collective.fit_collective_explicit_als(
+            tr_r, tr_c, tr_v, M, N, side_U=_side_tuple(U),
+            side_I=_side_tuple(I), NA_as_zero_item=True, init=init,
+            dtype=dtype, device="cuda", **short)
+
+    def rmse_res(res):
+        r, c = (torch.as_tensor(a[test], device="cuda") for a in (rows, cols))
+        pred = (res["glob_mean"] + res["biasA"][r] + res["biasB"][c]
+                + (res["A"][r] * res["B"][c]).sum(dim=1)).cpu().numpy()
+        return float(np.sqrt(np.mean((pred - vals[test]) ** 2)))
+
+    res32 = restart(np.float32)
+    rmse32 = rmse_res(res32)
+    del res32
+    with _Route(sides) as route:
+        res, launches, s, peak = _fit_phase(ops, lambda: restart(np.float64))
+    rmse64 = rmse_res(res)
+    dtypes = {res[key].dtype for key in ("A", "B", "C", "D", "biasA",
+                                         "biasB")}
+    finite = all(torch.isfinite(res[key]).all() for key in ("C", "D"))
+    print(f"phase 25 float64 collective (phase 16's warm restart, U tags, I "
+          f"genres NA_as_zero_item, {DEPTH_16} iterations) on {card()}: "
+          f"route {route.name}, {s:.3f} s, peak device memory "
+          f"{peak / 2**30:.2f} GiB, held-out RMSE {rmse64:.5f} (float32 from "
+          f"the same init= {rmse32:.5f}, tol {RMSE_F64_TOL}), dtypes "
+          f"{sorted(str(d) for d in dtypes)}, C_/D_ finite {finite}; "
+          f"launches {launches} (expected {NO_LAUNCHES})", flush=True)
+    if route.name != "bucketed" or launches != NO_LAUNCHES:
+        raise AssertionError("phase 25 did not take the bucketed route's "
+                             "plain solves")
+    if not (abs(rmse64 - rmse32) <= RMSE_F64_TOL and finite
+            and dtypes == {torch.float64}):
+        raise AssertionError("phase 25: out of bounds")
+    paths["25"] = launches
+    del res
+    torch.cuda.empty_cache()
     return paths, multipart
 
 
@@ -1985,6 +2048,19 @@ def lbfgs_family_phases(ops, rows, cols, vals, test, lastfm, ctx):
                                             for v in lp.values())
                    for key in launches}
     del ones
+    # fault P3: a play of 0 under apply_log_transf raises, on the card too
+    zero = l_v.copy()
+    zero[0] = 0.0
+    try:
+        cmfrec_torch.MostPopular(implicit=True, apply_log_transf=True,
+                                 device="cuda").fit_triplets(
+            l_r, l_c, zero, LFM_M, LFM_N)
+    except ValueError as e:
+        print(f"phase 21 MostPopular(apply_log_transf=True) with a 0 play: "
+              f"ValueError ({e})", flush=True)
+    else:
+        raise AssertionError("phase 21: a 0 play under apply_log_transf did "
+                             "not raise")
 
     # 17. CMF(method="lbfgs") on phase 4's split
     model, launches, s, peak = _fit_phase(ops, lambda: cmfrec_torch.CMF(
@@ -2090,7 +2166,7 @@ def lbfgs_family_phases(ops, rows, cols, vals, test, lastfm, ctx):
 
     # 18a. OMF_explicit's L-BFGS with the attributes that carry signal
     t0 = time.perf_counter()
-    Ua, Ia = make_ml10m_attributes()
+    Ua, Ia = ctx["attributes"] = make_ml10m_attributes()
     print(f"phase 18 data: U {Ua.shape}, I {Ia.shape} (true factors and "
           f"biases + N(0, {ATTR_NOISE}^2)) in {time.perf_counter() - t0:.1f} "
           "s", flush=True)
@@ -2198,6 +2274,10 @@ def lbfgs_family_phases(ops, rows, cols, vals, test, lastfm, ctx):
             and np.isfinite(rmse)):
         raise AssertionError("phase 18b: out of bounds")
     paths["18b"] = launches
+    ctx["rmse_18b"] = rmse
+    # phase 24 refits this driver call in float64 from the same init
+    ctx["als_18b"] = dict(init=init, kw=als_kw, rmse=_offsets_rmse(
+        res, rows, cols, vals, test))
     del res, drv
     torch.cuda.empty_cache()
 
@@ -2231,6 +2311,7 @@ def lbfgs_family_phases(ops, rows, cols, vals, test, lastfm, ctx):
             and np.isfinite(iomf.C_).all()):
         raise AssertionError("phase 19: P@10 out of bounds")
     paths["19"] = launches
+    ctx["p10_19"] = p10
 
     # 19b. phase 7b's held-out users through factors_warm_multiple
     Xh, _ = _new_user_coo(test_users, l_r, l_c, l_v, LFM_M, LFM_N)
@@ -2299,6 +2380,213 @@ def lbfgs_family_phases(ops, rows, cols, vals, test, lastfm, ctx):
     return paths
 
 
+# --------------------------------------------------------------------- #
+# phases 22-25: float64 and Jacobi PCG                                   #
+# --------------------------------------------------------------------- #
+
+RMSE_F64_TOL = 0.002  # 22: |RMSE - phase 4's|; 24: - 18b's; 25: - f32's
+P10_F64_TOL = 0.005  # 24: |OMF_implicit() P@10 - phase 19's|
+F64_CPU_TOL = 1e-9  # 22: 256 users card vs CPU, of max|a|
+
+
+def card():
+    """The card's name and power limit, as nvidia-smi reads them."""
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"],
+        capture_output=True, text=True, check=True).stdout.strip()
+
+
+def _offsets_rmse(res, rows, cols, vals, test):
+    """Held-out RMSE of a fit_offsets_als result (Am, Bm, biases)."""
+    r, c = rows[test], cols[test]
+    pred = (res["glob_mean"] + np.sum(np.asarray(res["Am"], np.float64)[r]
+                                      * res["Bm"][c], axis=1)
+            + res["biasA"][r] + res["biasB"][c])
+    return float(np.sqrt(np.mean((pred - vals[test]) ** 2)))
+
+
+def float64_phases(ops, rows, cols, vals, test, lastfm, ctx):
+    """Phases 22, 23 and 24; returns each one's launch counts.  ``ctx``:
+    rmse_4, rmse_18b, als_18b, p10_19, attributes and n_buckets_7 of the
+    earlier phases."""
+    import torch
+
+    import cmfrec_torch
+    from cmfrec_torch.solvers import dense_engine, drivers, offsets
+
+    tr = ~test
+    tr_r, tr_c, tr_v = rows[tr], cols[tr], vals[tr]
+    l_r, l_c, l_v, l_te_r, l_te_c, test_users = lastfm
+    paths = {}
+
+    def rmse_of(model):
+        pred = model.predict(rows[test], cols[test])
+        if not np.all(np.isfinite(pred)):
+            raise AssertionError("non-finite predictions")
+        return float(np.sqrt(np.mean((pred - vals[test]) ** 2)))
+
+    def dense_route(fit):
+        """fit()'s _fit_phase, and whether it ran drivers._fit_explicit_dense
+        (the plain dense engine)."""
+        calls = []
+        real = _spy(drivers, "_fit_explicit_dense", calls)
+        try:
+            return _fit_phase(ops, fit), bool(calls)
+        finally:
+            drivers._fit_explicit_dense = real
+
+    # 22. the flagship fit in float64, then phase 5b's users folded in
+    torch.cuda.empty_cache()
+    before = torch.cuda.memory_allocated()
+    (model, launches, s, peak), plain = dense_route(
+        lambda: cmfrec_torch.CMF(**FIT, use_float=False, device="cuda"
+                                 ).fit_triplets(tr_r, tr_c, tr_v, M, N))
+    used = peak - before
+    estimate = dense_engine.estimate_dense_bytes(M, N, tr_r.size, FIT["k"],
+                                                 8, False)
+    rmse = rmse_of(model)
+    users = np.sort(np.random.default_rng(21).choice(
+        np.unique(tr_r), SERVE_USERS, replace=False))
+    X, local = _new_user_coo(users, tr_r, tr_c, tr_v, M, N)
+    _reset_launches(ops)
+    model.factors_multiple(X=X)
+    (a, bias), s_serve = _timed_s(lambda: model.factors_multiple(
+        X=X, return_bias=True))
+    sel = test & (local[rows] >= 0)
+    li = local[rows[sel]]
+    B = model.B_[cols[sel]]
+    fold = (model.glob_mean_ + bias[li] + model.item_bias_[cols[sel]]
+            + np.sum(a[li] * B, axis=1))
+    rmse_fold = float(np.sqrt(np.mean((fold - vals[sel]) ** 2)))
+    rmse_fit = float(np.sqrt(np.mean(
+        (model.predict(rows[sel], cols[sel]) - vals[sel]) ** 2)))
+    X256 = X.tocsr()[:SERVE_CHECK].tocoo()
+    card_a = np.column_stack(model.factors_multiple(X=X256,
+                                                    return_bias=True))
+    cpu_err = _rel(card_a, np.column_stack(_cpu_twin(
+        model).factors_multiple(X=X256, return_bias=True)))
+    slaunches = _read_launches(ops)
+    print(f"phase 22 float64 flagship (CMF(use_float=False), phase 4's "
+          f"arguments) on {card()}: route "
+          f"{'plain dense engine' if plain else 'other'}, fit {s:.3f} s, "
+          f"peak device memory {used / 2**30:.2f} GiB above the "
+          f"{before / 2**30:.2f} GiB held before it (dense-bytes estimate "
+          f"{estimate / 2**30:.2f} GiB), held-out RMSE {rmse:.5f} (bound "
+          f"{RMSE_BOUND:.5f}; phase 4 {ctx['rmse_4']:.5f}, tol "
+          f"{RMSE_F64_TOL}), A_ {model.A_.dtype}; launches {launches} "
+          f"(expected {NO_LAUNCHES})", flush=True)
+    print(f"phase 22 float64 serving: {SERVE_USERS} users, {X.nnz} ratings, "
+          f"factors_multiple {s_serve:.3f} s = {SERVE_USERS / s_serve:.0f} "
+          f"users/s, factors {a.dtype}; fold-in RMSE {rmse_fold:.5f} on "
+          f"{int(sel.sum())} held-out ratings (fitted rows {rmse_fit:.5f}, "
+          f"tol {FOLDIN_RMSE_TOL}); card vs CPU {cpu_err:.2e} (limit "
+          f"{F64_CPU_TOL:.0e}); launches {slaunches}", flush=True)
+    if not plain or launches != NO_LAUNCHES or slaunches != NO_LAUNCHES:
+        raise AssertionError("phase 22 did not take the plain dense engine "
+                             "with no kernel launch")
+    if not (used <= estimate and rmse <= RMSE_BOUND
+            and abs(rmse - ctx["rmse_4"]) <= RMSE_F64_TOL
+            and model.A_.dtype == np.float64 and a.dtype == np.float64
+            and abs(rmse_fold - rmse_fit) <= FOLDIN_RMSE_TOL
+            and cpu_err <= F64_CPU_TOL):
+        raise AssertionError("phase 22: out of bounds")
+    paths["22"] = {key: launches[key] + slaunches[key] for key in launches}
+    del model, X, a, bias
+    torch.cuda.empty_cache()
+
+    # 23. Jacobi PCG in float32: the auto route, then engine="sparse"
+    (model, launches, s, peak), plain = dense_route(
+        lambda: cmfrec_torch.CMF(**FIT, precondition_cg=True, device="cuda"
+                                 ).fit_triplets(tr_r, tr_c, tr_v, M, N))
+    rmse = rmse_of(model)
+    del model
+    res, slaunches, s_s, speak = _fit_phase(
+        ops, lambda: drivers.fit_explicit_als(
+            tr_r, tr_c, tr_v, M, N, engine="sparse", precondition_cg=True,
+            device="cuda", **FIT))
+    rt, ct = (torch.as_tensor(x[test], device="cuda") for x in (rows, cols))
+    spred = (res["glob_mean"] + res["biasA"][rt] + res["biasB"][ct]
+             + (res["A"][rt] * res["B"][ct]).sum(dim=1)).cpu().numpy()
+    srmse = float(np.sqrt(np.mean((spred - vals[test]) ** 2)))
+    print(f"phase 23 Jacobi PCG (precondition_cg=True, float32, phase 4's "
+          f"arguments) on {card()}: auto route "
+          f"{'plain dense engine' if plain else 'other'} fit {s:.3f} s, peak "
+          f"device memory {peak / 2**30:.2f} GiB, held-out RMSE {rmse:.5f}; "
+          f"engine='sparse' fit {s_s:.3f} s, peak device memory "
+          f"{speak / 2**30:.2f} GiB, held-out RMSE {srmse:.5f} (bound "
+          f"{RMSE_BOUND:.5f}); launches {launches} / {slaunches} (expected "
+          f"{NO_LAUNCHES})", flush=True)
+    if not plain or launches != NO_LAUNCHES or slaunches != NO_LAUNCHES:
+        raise AssertionError("phase 23 did not take the plain routes with "
+                             "no kernel launch")
+    if not (rmse <= RMSE_BOUND and np.isfinite(spred).all()
+            and srmse <= RMSE_BOUND):
+        raise AssertionError("phase 23: RMSE out of bounds")
+    paths["23"] = {key: launches[key] + slaunches[key] for key in launches}
+    del res, rt, ct
+    torch.cuda.empty_cache()
+
+    # 24. the offsets models at their float64 defaults
+    P = make_profiles()
+    iomf, launches, s, peak = _fit_phase(
+        ops, lambda: cmfrec_torch.OMF_implicit(
+            **IMPLICIT_FIT, device="cuda").fit_triplets(
+                l_r, l_c, l_v, LFM_M, LFM_N, U=P))
+    Am_d, Bm_d = iomf._device_x_factors()
+    p10 = ranking_quality(Am_d, Bm_d, l_r, l_c, l_te_r, l_te_c, test_users,
+                          LFM_N)[0]
+    dt_i = (iomf.dtype_, iomf.Am_.dtype, iomf.C_.dtype)
+    del iomf, Am_d, Bm_d
+    torch.cuda.empty_cache()
+    Ua, Ia = ctx["attributes"]
+    omf, elaunches, s_e, epeak = _fit_phase(
+        ops, lambda: cmfrec_torch.OMF_explicit(
+            **{**OMF_ALS_FIT, "use_float": False}, device="cuda"
+        ).fit_triplets(tr_r, tr_c, tr_v, M, N, U=Ua, I=Ia))
+    rmse = rmse_of(omf)
+    dt_e = (omf.dtype_, omf.Am_.dtype, omf.C_.dtype)
+    del omf
+    # 18b's configuration (lambda 0.05, unscaled) overfits: its held-out
+    # RMSE moves with the random start.  The bar holds 18b's driver call
+    # from its own init in float64 against the same call in float32
+    als = ctx["als_18b"]
+    res, rlaunches, s_r, _ = _fit_phase(ops, lambda: offsets.fit_offsets_als(
+        tr_r, tr_c, tr_v, M, N, side_U=(None, None, None, M, 13, True, Ua),
+        side_I=(None, None, None, N, 13, True, Ia), init=als["init"],
+        dtype=np.float64, device="cuda", **als["kw"]))
+    rmse_init = _offsets_rmse(res, rows, cols, vals, test)
+    dt_r = res["Am"].dtype
+    del res
+    # and the spread of 18b's own float32 fit over another random start
+    rmse_seed = rmse_of(cmfrec_torch.OMF_explicit(
+        **OMF_ALS_FIT, random_state=2, device="cuda").fit_triplets(
+            tr_r, tr_c, tr_v, M, N, U=Ua, I=Ia))
+    print(f"phase 24 offsets models at their float64 defaults on {card()}: "
+          f"OMF_implicit() fit {s:.3f} s, peak device memory "
+          f"{peak / 2**30:.2f} GiB, P@10 {p10:.5f} (phase 19's float32 "
+          f"{ctx['p10_19']:.5f}, tol {P10_F64_TOL}), dtypes {dt_i}; "
+          f"OMF_explicit(method='als') fit {s_e:.3f} s, peak device memory "
+          f"{epeak / 2**30:.2f} GiB, held-out RMSE {rmse:.5f} (phase 18b "
+          f"{ctx['rmse_18b']:.5f}; 18b's float32 fit at random_state 2 "
+          f"{rmse_seed:.5f}), dtypes {dt_e}; 18b's fit_offsets_als from its "
+          f"init in float64 {s_r:.3f} s, RMSE {rmse_init:.5f} (float32 "
+          f"{als['rmse']:.5f}, tol {RMSE_F64_TOL}), Am {dt_r}; launches "
+          f"{launches} / {elaunches} / {rlaunches} (expected {NO_LAUNCHES})",
+          flush=True)
+    if any(x != NO_LAUNCHES for x in (launches, elaunches, rlaunches)):
+        raise AssertionError("phase 24 launched a fit kernel")
+    if not (abs(p10 - ctx["p10_19"]) <= P10_F64_TOL
+            and abs(rmse_init - als["rmse"]) <= RMSE_F64_TOL
+            and np.isfinite(rmse) and dt_r == np.float64
+            and all(np.dtype(d) == np.float64 for d in dt_i + dt_e)):
+        raise AssertionError("phase 24: out of bounds")
+    paths["24"] = {key: launches[key] + elaunches[key] + rlaunches[key]
+                   for key in launches}
+    torch.cuda.empty_cache()
+    return paths
+
+
 def main():
     import torch
 
@@ -2319,11 +2607,7 @@ def main():
     probe_ops = {w.__name__: w for w in k1_probes.WRAPPERS}
 
     # 1. environment
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"],
-        capture_output=True, text=True, check=True).stdout.strip()
-    print(smi)
+    print(card())
     print(f"env: python {sys.version.split()[0]} torch {torch.__version__} "
           f"cuda {torch.version.cuda} device {torch.cuda.get_device_name(0)}",
           flush=True)
@@ -2530,11 +2814,14 @@ def main():
 
     # 17-21. the L-BFGS family, the offsets models, ContentBased and
     # MostPopular
-    paths.update(lbfgs_family_phases(
-        ops, rows, cols, vals, test,
-        (tr_r, tr_c, tr_v, te_r, te_c, test_users),
-        dict(rmse_4=rmse, p10_7=p10, p10_pop_7=p10_pop, p10_7b=p10_fold,
-             n_buckets_7=n_buckets)))
+    lastfm = (tr_r, tr_c, tr_v, te_r, te_c, test_users)
+    ctx = dict(rmse_4=rmse, p10_7=p10, p10_pop_7=p10_pop, p10_7b=p10_fold,
+               n_buckets_7=n_buckets)
+    paths.update(lbfgs_family_phases(ops, rows, cols, vals, test, lastfm,
+                                     ctx))
+
+    # 22-24. float64 and Jacobi PCG (25 ran after 16)
+    paths.update(float64_phases(ops, rows, cols, vals, test, lastfm, ctx))
 
     kernels = []
     for name, variants in results.items():

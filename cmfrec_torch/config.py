@@ -19,6 +19,11 @@ def resolve_dtype(use_float: bool | str | np.dtype) -> np.dtype:
     return np.dtype(np.dtype(use_float).type)
 
 
+def torch_dtype(dtype) -> torch.dtype:
+    """The torch dtype of a fit's numpy dtype (float32 or float64)."""
+    return torch.float64 if np.dtype(dtype) == np.float64 else torch.float32
+
+
 def resolve_device(device: str | torch.device = "cuda") -> torch.device:
     """The torch device a fit or model runs on; raises if it is unusable."""
     dev = torch.device(device)

@@ -21,12 +21,13 @@ from .models.omf import OMF_explicit, OMF_implicit, ContentBased
 
 def init_from_arrays(d: dict, device="cuda") -> dict:
     """A cmfrec_tpu fit result, or any dict with A/B[/biasA/biasB], as the
-    port's ``init=`` dict: f32 tensors on ``device`` (None where absent).
-    A collective result's C/D/Ai/Bi are left out: the dense engine solves
-    them from A/B before their first use."""
+    port's ``init=`` dict: tensors on ``device`` in the arrays' own dtype
+    (None where absent), which the fit drivers cast to the fit's dtype, as
+    cmfrec_tpu's do.  A collective result's C/D/Ai/Bi are left out: the
+    dense engine solves them from A/B before their first use."""
     dev = resolve_device(device)
     return {key: None if d.get(key) is None else
-            torch.as_tensor(np.asarray(d[key], np.float32), device=dev)
+            torch.as_tensor(np.asarray(d[key]), device=dev)
             for key in ("A", "B", "biasA", "biasB")}
 
 
@@ -42,18 +43,19 @@ def cmf_from_arrays(*, A, B, user_bias=None, item_bias=None, glob_mean=0.0,
     w_main_multiplier_ of an implicit model, a collective model's C_, D_,
     Ai_, Bi_, U_colmeans_ and I_colmeans_, an L-BFGS model's binary side
     factors Cb_ and Db_, scaling_biasA_ and scaling_biasB_, and
-    get_params(), which carries scale_bias_const).
-    Like ``load``, it builds no prediction caches
-    (``force_precompute_for_predictions`` does)."""
+    get_params(), which carries scale_bias_const).  ``dtype_`` follows
+    ``params["use_float"]`` (the class default without it), as in ``load``,
+    and the arrays are kept in it.  Like ``load``, it builds no prediction
+    caches (``force_precompute_for_predictions`` does)."""
     if cls not in (CMF, CMF_implicit, CMF_imputer):
         raise ValueError("cls must be CMF, CMF_implicit or CMF_imputer, "
                          f"got {cls!r}")
     model = cls(**{**(params or {}), "device": device})
     model._reset()
-    model.dtype_ = np.dtype(np.float32)
+    model.dtype_ = resolve_dtype(model.use_float)
 
     def arr(a):
-        return None if a is None else np.asarray(a, np.float32)
+        return None if a is None else np.asarray(a, model.dtype_)
 
     model.A_, model.B_ = arr(A), arr(B)
     model.user_bias_, model.item_bias_ = arr(user_bias), arr(item_bias)

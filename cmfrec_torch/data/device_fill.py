@@ -48,11 +48,11 @@ def _fill_device(row_e, ids, vals, wgt, counts, perm, pos_starts, widths,
     dest = flat_offsets[b] + (p - pos_starts[b]) * widths[b] + within  # int64
     idx_flat = torch.zeros(F, dtype=torch.int32, device=ids.device)
     idx_flat[dest] = ids.to(torch.int32)
-    val_flat = torch.zeros(F, dtype=torch.float32, device=ids.device)
+    val_flat = torch.zeros(F, dtype=vals.dtype, device=ids.device)
     val_flat[dest] = vals
     wgt_flat = None
     if wgt is not None:
-        wgt_flat = torch.zeros(F, dtype=torch.float32, device=ids.device)
+        wgt_flat = torch.zeros(F, dtype=wgt.dtype, device=ids.device)
         wgt_flat[dest] = wgt
     return idx_flat, val_flat, wgt_flat
 
@@ -100,14 +100,14 @@ def _attach(out: BucketedRows, meta, counts_dev, idx_f, val_f, wgt_f):
     return out
 
 
-def _upload_sorted(rows, cols, vals, weights, dev):
+def _upload_sorted(rows, cols, vals, weights, dev, dtype):
     def up(a, dt):
         return torch.as_tensor(np.asarray(a, dt)).to(dev)
 
     rows_d, cols_d = up(rows, np.int64), up(cols, np.int64)
-    wgt_d = None if weights is None else up(weights, np.float32)
+    wgt_d = None if weights is None else up(weights, dtype)
     return rows_d, cols_d, _device_sort_coo(rows_d, cols_d,
-                                           up(vals, np.float32), wgt_d)
+                                           up(vals, dtype), wgt_d)
 
 
 def _fill(row_e, ids, vals, wgt, counts, meta):
@@ -120,9 +120,11 @@ def build_bucketed_pair(
     rows, cols, vals, m: int, n: int,
     weights: Optional[np.ndarray] = None, *, device,
     m_eff: Optional[int] = None, n_eff: Optional[int] = None,
+    dtype=np.float32,
 ):
     """(row-oriented, column-oriented) BucketedRows of the COO triplets,
-    with f32 values (and weights) and int32 column ids on ``device``.
+    with values (and weights) of ``dtype`` (the fit's) and int32 column
+    ids on ``device``.
     ``m_eff`` >= m and ``n_eff`` >= n give either side extra rows with no
     entries (side-info-only entities of a collective fit); the other side's
     column count stays m or n."""
@@ -130,7 +132,7 @@ def build_bucketed_pair(
     m_eff = m if m_eff is None else m_eff
     n_eff = n if n_eff is None else n_eff
     rows_d, cols_d, (row_e, ids, svals, swgt) = _upload_sorted(
-        rows, cols, vals, weights, dev)
+        rows, cols, vals, weights, dev, dtype)
     counts_r = torch.bincount(rows_d, minlength=m_eff)
     counts_c = torch.bincount(cols_d, minlength=n_eff)
     del rows_d, cols_d
@@ -147,12 +149,13 @@ def build_bucketed_pair(
 
 
 def build_bucketed_rows(rows, cols, vals, n_rows: int, n_cols: int, *,
-                        device) -> BucketedRows:
+                        device, dtype=np.float32) -> BucketedRows:
     """The row-oriented BucketedRows alone (the feature side of sparse side
-    information: rows are features, columns entities)."""
+    information: rows are features, columns entities), values of
+    ``dtype``."""
     dev = torch.device(device)
     rows_d, _, (row_e, ids, svals, _) = _upload_sorted(rows, cols, vals,
-                                                        None, dev)
+                                                        None, dev, dtype)
     counts = torch.bincount(rows_d, minlength=n_rows)
     out, meta = _one_side(counts, n_rows, n_cols)
     return _attach(out, meta, counts,

@@ -17,7 +17,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ..config import resolve_device, resolve_dtype
+from ..config import resolve_device, resolve_dtype, torch_dtype
 from ..ops import predict as predict_ops
 from ..solvers import warm
 
@@ -346,26 +346,36 @@ class _BaseModel:
         ki = getattr(self, "k_item", 0)
         return self.B_[:, ki:] if ki else self.B_
 
+    @property
+    def _torch_dtype(self):
+        """The dtype the model serves in: its own (``dtype_``), float32 or
+        float64, as cmfrec_tpu serves a model."""
+        return torch_dtype(getattr(self, "dtype_", np.float32))
+
     def _on_device(self, name):
-        """f32 copy of the fitted array attribute ``name`` on the model's
-        device.  It is uploaded once and reused for as long as the attribute
-        holds the same array and the device is unchanged; an array modified
-        in place is not seen (assign a new array instead)."""
+        """Copy of the fitted array attribute ``name`` on the model's device,
+        in the model's dtype.  It is uploaded once and reused for as long as
+        the attribute holds the same array and the device and dtype are
+        unchanged; an array modified in place is not seen (assign a new
+        array instead)."""
         a = getattr(self, name, None)
         if a is None:
             return None
         cache = self.__dict__.setdefault("_device_cache", {})
         hit = cache.get(name)
-        if hit is None or hit[0] is not a or hit[1] != self.device:
+        dt = self._torch_dtype
+        if (hit is None or hit[0] is not a or hit[1] != self.device
+                or hit[2].dtype != dt):
             dev = resolve_device(self.device)
             cache[name] = (a, self.device,
-                           torch.as_tensor(np.asarray(a, np.float32),
+                           torch.as_tensor(np.asarray(a), dtype=dt,
                                            device=dev))
         return cache[name][2]
 
     def _to_device(self, a):
-        """A host array (a new row's factors) as f32 on the model's device."""
-        return torch.as_tensor(np.asarray(a, np.float32),
+        """A host array (a new row's factors) on the model's device, in the
+        model's dtype."""
+        return torch.as_tensor(np.asarray(a), dtype=self._torch_dtype,
                                device=resolve_device(self.device))
 
     def _device_x_factors(self):

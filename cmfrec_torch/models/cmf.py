@@ -570,7 +570,9 @@ class CMF(_BaseModel):
                             use_float=True, nthreads=-1, n_jobs=None,
                             device="cuda"):
         """A CMF that serves from existing factor matrices (reference:
-        upstream cmfrec/__init__.py:4186).  The arrays are kept as f32."""
+        upstream cmfrec/__init__.py:4186).  The arrays are kept in the
+        model's dtype (float64 with ``use_float=False``), as cmfrec_tpu
+        keeps them."""
         A = np.asarray(A)
         B = np.asarray(B)
         if A.shape[1] != B.shape[1]:
@@ -582,9 +584,9 @@ class CMF(_BaseModel):
                     device=device)
         _adopt(model, A, B, glob_mean)
         model.user_bias_ = None if user_bias is None else np.asarray(
-            user_bias, np.float32)
+            user_bias, model.dtype_)
         model.item_bias_ = None if item_bias is None else np.asarray(
-            item_bias, np.float32)
+            item_bias, model.dtype_)
         if scaling_biasA is not None:
             model.scale_bias_const = True
             model.scaling_biasA_ = float(scaling_biasA)
@@ -597,11 +599,12 @@ class CMF(_BaseModel):
 
 
 def _adopt(model, A, B, glob_mean):
-    """A fresh model takes A and B (as f32) as its fitted factors."""
+    """A fresh model takes A and B, in the dtype its ``use_float`` names,
+    as its fitted factors."""
     model._reset()
-    model.dtype_ = np.dtype(np.float32)
-    model.A_ = np.asarray(A, np.float32)
-    model.B_ = np.asarray(B, np.float32)
+    model.dtype_ = resolve_dtype(model.use_float)
+    model.A_ = np.asarray(A, model.dtype_)
+    model.B_ = np.asarray(B, model.dtype_)
     model.glob_mean_ = float(glob_mean)
     model._m_orig, model._n_orig = model.A_.shape[0], model.B_.shape[0]
     model.is_fitted_ = True
@@ -861,7 +864,7 @@ class CMF_implicit(_BaseModel):
                             use_float=True, nthreads=-1, n_jobs=None,
                             device="cuda"):
         """A CMF_implicit that serves from existing factor matrices; the
-        arrays are kept as f32."""
+        arrays are kept in the model's dtype, as cmfrec_tpu keeps them."""
         A = np.asarray(A)
         B = np.asarray(B)
         if A.shape[1] != B.shape[1]:

@@ -17,6 +17,7 @@ import torch
 
 from ..config import resolve_device, resolve_dtype
 from ..solvers import preprocess, warm
+from ..solvers.drivers import implicit_values
 from .base import _BaseModel
 
 F64 = torch.float64
@@ -81,9 +82,8 @@ class MostPopular(_BaseModel):
             return torch.as_tensor(np.asarray(a, np.float64), device=dev)
 
         if self.implicit:
-            v = up(vals)
-            if self.apply_log_transf:
-                v = torch.log(v)
+            # values <= 0 under apply_log_transf raise (ROADMAP F4)
+            v = up(implicit_values(vals, self.apply_log_transf))
             cnt = _bincount(c, n)
             S = _bincount(c, n, v + 1.0)
             a = self.alpha

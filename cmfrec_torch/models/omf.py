@@ -7,10 +7,8 @@ Predictions use the combined matrices Am/Bm; cold factors are the
 attribute projection (Am_new = w_user (u C + C_bias)), warm factors add a
 ridge offset against Bm (src/offsets.c:538,578;
 solvers/warm.py::offsets_warm_batch, in the model's dtype).  The
-attribute projections and the scoring run in f32 on the model's
-``device``, from copies of the fitted arrays uploaded once.  The ALS fits
-(``method="als"``, OMF_implicit, ContentBased's ``start_with_ALS``) take
-float32 only until ROADMAP slice 1 item 1.
+attribute projections and the scoring run in the model's dtype on the
+model's ``device``, from copies of the fitted arrays uploaded once.
 """
 
 from __future__ import annotations
@@ -21,6 +19,7 @@ import torch
 from ..config import resolve_device, resolve_dtype, set_handle_interrupt
 from ..solvers import offsets as offsets_solver
 from ..solvers import warm
+from ..solvers.drivers import implicit_values
 from .base import _BaseModel
 
 
@@ -79,7 +78,7 @@ class _OMFBase(_BaseModel):
         M = np.asarray(M, np.float64)
         if M.ndim == 1:
             M = M[None, :]
-        Md = torch.as_tensor(M, dtype=torch.float32, device=dev)
+        Md = torch.as_tensor(M, dtype=self._torch_dtype, device=dev)
         if getattr(self, colmeans) is not None:
             Md = Md - self._on_device(colmeans)[None, :]
         out = w * (torch.nan_to_num(Md, nan=0.0) @ self._on_device(C))
@@ -478,9 +477,9 @@ class OMF_implicit(_OMFBase):
                      return_raw_A=False):
         self._check_fitted()
         cols = self._item_rows(np.asarray(X_col))
-        vals = np.asarray(X_val, np.float64).ravel()
-        if self.apply_log_transf:
-            vals = np.log(vals)
+        # values <= 0 under apply_log_transf raise (ROADMAP F4)
+        vals = implicit_values(np.asarray(X_val, np.float64).ravel(),
+                               self.apply_log_transf)
         base = self._warm_base(U, U_col, U_val)
         a = self._warm_offset(base, cols, vals, implicit=True,
                               alpha=self.alpha)
@@ -506,9 +505,7 @@ class OMF_implicit(_OMFBase):
 
         self._check_fitted()
         Xc = sp.coo_matrix(X)
-        vals = np.asarray(Xc.data, np.float64)
-        if self.apply_log_transf:
-            vals = np.log(vals)
+        vals = implicit_values(Xc.data, self.apply_log_transf)
         idx, vv, _, counts = warm.pack_padded_rows(Xc.row, Xc.col, vals,
                                                    None, Xc.shape[0])
         base = self._warm_base_multiple(idx.shape[0], U=U)

@@ -26,8 +26,11 @@ from typing import NamedTuple, Optional
 
 import torch
 
-SKIP_TOL = 1e-12  # rows whose initial residual r.r is below are skipped
-FREEZE_TOL = 1e-8  # a live row freezes once its residual falls below
+# rows whose initial residual r.r is below are skipped, and a live row
+# freezes once its residual falls below; both compare in the rows' own
+# dtype (a Python float against a tensor), as the JAX package's do
+SKIP_TOL = 1e-12
+FREEZE_TOL = 1e-8
 
 
 class SparsePart(NamedTuple):
@@ -103,8 +106,11 @@ def assemble_system(
     """The dense batched (G [R, K, K], rhs [R, K]) for Cholesky solving."""
     R, K = parts[0].idx.shape[0], parts[0].mat.shape[1]
     dev = lam_vec.device
-    G = torch.zeros(R, K, K, dtype=torch.float32, device=dev)
-    rhs = torch.zeros(R, K, dtype=torch.float32, device=dev)
+    dt = parts[0].mat.dtype
+    if dt == torch.bfloat16:  # bf16 rows accumulate in f32
+        dt = torch.float32
+    G = torch.zeros(R, K, K, dtype=dt, device=dev)
+    rhs = torch.zeros(R, K, dtype=dt, device=dev)
     for p in parts:
         G = G + part_gram(p, mxu_bf16)
         rhs = rhs + part_rhs(p, mxu_bf16)
@@ -210,7 +216,7 @@ def solve_cg(
             out = out + _part_matvec(msf, cw, v, dt)
         return out
 
-    rhs = torch.zeros(R, K, dtype=torch.float32, device=a0.device)
+    rhs = torch.zeros(R, K, dtype=a0.dtype, device=a0.device)
     for msf, dt, _, cv in gathered:
         rhs = rhs + torch.einsum("rlk,rl->rk", msf, _round(cv, dt))
     if r0 is not None:

@@ -14,6 +14,11 @@ once a bucket over the parts' opposing matrices stacked, through a slot
 map built once per fit (:func:`stack_slots`); rowsolve.solve_cg over the
 separate parts is its reference.
 
+The blocks, the coefficients and the solves run in the fit's dtype.  The
+bucket-CG op takes float32 without a preconditioner only, as the JAX
+package's fused CG (its ``can_fuse_cg``): float64 and Jacobi PCG
+(``precondition_cg``) buckets run rowsolve.solve_cg in plain torch.
+
 Not ported from the JAX package: ``defer_solve`` and the cross-bucket
 Cholesky concatenation (a TPU compile-time measure: here each bucket
 factors its own systems), the K = 128 lane padding of the CG operands, the
@@ -142,11 +147,18 @@ def stacked_part(sparse_parts: list, mat: torch.Tensor,
                  st: SlotStack) -> SparsePart:
     """The parts' coefficients moved into the slot map: one gather each for
     cw and cv.  ``mat`` is the parts' matrices stacked in order."""
-    z = torch.zeros(st.idx.shape[0], 1, dtype=torch.float32,
+    z = torch.zeros(st.idx.shape[0], 1, dtype=sparse_parts[0].cw.dtype,
                     device=st.idx.device)
     cw = torch.cat([sp.cw for sp in sparse_parts] + [z], 1).gather(1, st.src)
     cv = torch.cat([sp.cv for sp in sparse_parts] + [z], 1).gather(1, st.src)
     return SparsePart(mat, st.idx, cw, cv)
+
+
+def takes_k3(dtype, precondition: bool) -> bool:
+    """Whether a CG bucket runs the bucket-CG op (kernel K3 on a card): f32
+    without Jacobi preconditioning, the JAX package's ``can_fuse_cg``
+    gate.  Otherwise rowsolve.solve_cg runs it."""
+    return dtype == torch.float32 and not precondition
 
 
 def solve_bucket(
@@ -167,6 +179,7 @@ def solve_bucket(
     lam_mult_add: float = 0.0,  # added to the multiplier (the observation
     # count of dense side info, upstream cmfrec src/common.c:689-724)
     mxu_bf16: bool = False,
+    precondition: bool = False,  # Jacobi PCG (precondition_cg)
     stacked: Optional[tuple] = None,  # (stacked matrix, SlotStack) of CG
     # over several parts, built here when not given
 ) -> torch.Tensor:
@@ -230,6 +243,10 @@ def solve_bucket(
     if lam_const_vec is not None:
         G0_eff = torch.diag(lam_const_vec) if G0 is None else (
             G0 + torch.diag(lam_const_vec))
+    if not takes_k3(a_prev.dtype, precondition):
+        return finish(rowsolve.solve_cg(
+            sparse_parts, lam_vec, a_prev, n_steps, lam_mult=lam_mult,
+            G0=G0_eff, r0=r0, jacobi=precondition, mxu_bf16=mxu_bf16))
     if len(parts) != 1:
         if stacked is None:
             stacked = (torch.cat([p.opp for p in parts]), stack_slots(parts))
@@ -239,7 +256,7 @@ def solve_bucket(
         sp, length = sparse_parts[0], parts[0].length
     if lam_mult is not None:
         lam_row = (lam_vec[None, :] * lam_mult[:, None]).contiguous()
-        gfix = (torch.zeros(K, K, dtype=torch.float32, device=lam_vec.device)
+        gfix = (torch.zeros(K, K, dtype=lam_vec.dtype, device=lam_vec.device)
                 if G0_eff is None else G0_eff.contiguous())
     else:
         lam_row = None
@@ -283,13 +300,15 @@ def update_side(
     scale_lam: bool = False,
     lam_mult_add: float = 0.0,
     mxu_bf16: bool = False,
+    precondition: bool = False,  # Jacobi PCG (precondition_cg)
     stacks: Optional[list] = None,  # per-bucket SlotStack cache (None
     # entries are filled on first use) for CG over several parts
 ) -> list:
     """Solve all buckets of one side; returns the new block list.  Under
     ``mxu_bf16`` the opposing matrix is rounded to bf16 once per side.  A
-    CG bucket with several parts runs the bucket-CG op once over the parts'
-    matrices stacked (built once per call) and the bucket's slot map."""
+    CG bucket with several parts that takes the bucket-CG op
+    (:func:`takes_k3`) runs it once over the parts' matrices stacked (built
+    once per call) and the bucket's slot map."""
     mat = opp.to(torch.bfloat16) if mxu_bf16 else opp
     mat_cat = None
     out = []
@@ -307,7 +326,8 @@ def update_side(
             parts, modes = parts + (pd,), modes + (pmode,)
             n_totals, scale_parts = n_totals + (pn,), scale_parts + (psc,)
         stacked = None
-        if method == "cg" and len(parts) > 1:
+        if (method == "cg" and len(parts) > 1
+                and takes_k3(blk.dtype, precondition)):
             if mat_cat is None:
                 mat_cat = torch.cat([p.opp for p in parts])
                 if mxu_bf16:
@@ -322,7 +342,7 @@ def update_side(
             r0_vec, lam_vec, lam_const_vec, modes=modes, method=method,
             n_steps=n_steps, scale_lam=scale_lam, n_totals=n_totals,
             scale_parts=scale_parts, lam_mult_add=lam_mult_add,
-            mxu_bf16=mxu_bf16, stacked=stacked))
+            mxu_bf16=mxu_bf16, precondition=precondition, stacked=stacked))
     return out
 
 
@@ -332,14 +352,15 @@ def blocks_to_orig(blocks: list, perm: torch.Tensor) -> torch.Tensor:
 
 
 def init_blocks(gen: torch.Generator, bucketed: BucketedRows, k_tot: int,
-                k_pad: int) -> list:
+                k_pad: int, dtype=torch.float32) -> list:
     """Random normal init scaled like the reference's random_parallel
-    (upstream cmfrec src/helpers.c:927), zero on coordinates >= k_tot."""
+    (upstream cmfrec src/helpers.c:927), zero on coordinates >= k_tot, in
+    the fit's ``dtype``."""
     scale = float(1.0 / np.sqrt(max(k_tot, 1)))
     blocks = []
     for b in bucketed.buckets:
         blk = scale * torch.randn(b.n_rows, k_pad, generator=gen,
-                                  dtype=torch.float32, device=gen.device)
+                                  dtype=dtype, device=gen.device)
         blk[:, k_tot:] = 0.0
         blocks.append(blk)
     return blocks

@@ -26,8 +26,12 @@ Two routes, chosen as the JAX package chooses them (:func:`_dense_route`):
   per-bucket rhs bases instead of a part.  Side-info-only entities (side
   matrices with more rows than X) get rows with no X part.  The update
   order per iteration is the reference's (src/collective.c:8334-8860):
-  C, D, Bi, Ai, B, A.  The bucketed route runs in f32, as the JAX
-  package's does.
+  C, D, Bi, Ai, B, A.
+
+A float64 fit, or one with Jacobi PCG (``precondition_cg``), never takes
+the dense-masked route: it runs the bucketed route's plain-torch solves in
+the fit's dtype, as the JAX package's routes send it to its XLA code
+(cmfrec_tpu/solvers/collective.py:382-416, :1088-1114).
 """
 
 from __future__ import annotations
@@ -40,7 +44,8 @@ import time
 import numpy as np
 import torch
 
-from ..config import resolve_device, resolve_dtype, should_handle_interrupt
+from ..config import (resolve_device, resolve_dtype, should_handle_interrupt,
+                      torch_dtype)
 from ..data.device_fill import build_bucketed_pair, build_bucketed_rows
 from ..data.shards import BucketedRows
 from ..utils.checkpoint import FitCheckpointer
@@ -72,7 +77,8 @@ class PreparedSide:
     n_ent: int  # number of entities (rows of U); may exceed the X dimension
     na0: bool  # NA_as_zero_user / NA_as_zero_item
     colmeans: Optional[np.ndarray]  # f64 [p] when centered
-    dense: Optional[np.ndarray]  # centered f32 [n_ent, p] when fully observed
+    dense: Optional[np.ndarray]  # centered [n_ent, p] in the fit's dtype
+    # when fully observed
     coo: Optional[tuple]  # (rows, cols, vals) otherwise: centered unless na0
 
 
@@ -121,12 +127,12 @@ def _sparsify_short_dense_side(side, xdim):
 
 
 def build_aligned_parts(bucketed: BucketedRows, rows_s, cols_s, vals_s,
-                        n_ent: int, dev):
+                        n_ent: int, dev, dtype=np.float32):
     """Pad a second sparse matrix's rows in the exact row order of an
     existing bucketing (so the X part and the side part of one row system
     sit in the same batch slot): per bucket (idx [R, L] int32, val [R, L]
-    f32, length [R] int32) on ``dev``, L the bucket's longest side row
-    rounded up to 8.  The sort and scatter run on the host."""
+    of ``dtype``, length [R] int32) on ``dev``, L the bucket's longest side
+    row rounded up to 8.  The sort and scatter run on the host."""
     rows_s = np.asarray(rows_s, np.int64)
     order = np.argsort(rows_s, kind="stable")
     sc = np.asarray(cols_s, np.int64)[order]
@@ -142,7 +148,7 @@ def build_aligned_parts(bucketed: BucketedRows, rows_s, cols_s, vals_s,
         ns = np.where(valid, counts[np.maximum(ids, 0)], 0)
         L = _round_up(max(int(ns.max()), 1), 8)
         idx = np.zeros((b.n_rows, L), np.int32)
-        val = np.zeros((b.n_rows, L), np.float32)
+        val = np.zeros((b.n_rows, L), dtype)
         total = int(ns.sum())
         if total:
             starts = np.where(valid, indptr[np.maximum(ids, 0)], 0)
@@ -158,11 +164,12 @@ def build_aligned_parts(bucketed: BucketedRows, rows_s, cols_s, vals_s,
 
 
 def _bucket_dense_slices(bucketed: BucketedRows, M: np.ndarray, dev):
-    """Per-bucket dense row slices of M (rows beyond M -> zeros)."""
+    """Per-bucket dense row slices of M in its dtype (rows beyond M ->
+    zeros)."""
     out = []
     for b in bucketed.buckets:
         ids = bucketed.row_of[b.start:b.start + b.n_rows]
-        sl = np.zeros((b.n_rows, M.shape[1]), np.float32)
+        sl = np.zeros((b.n_rows, M.shape[1]), M.dtype)
         ok = (ids >= 0) & (ids < M.shape[0])
         sl[ok] = M[ids[ok]]
         out.append(torch.as_tensor(sl, device=dev))
@@ -221,60 +228,62 @@ def _dense_route(U, I, m, n, *, k_user, k_item, k_main, w_main, na0,
     return budget is None or dense_bytes <= budget
 
 
-def _side_layout(S: Optional[PreparedSide], main: BucketedRows, dev):
-    """The bucketed route's structures of one side matrix: its feature
-    bucketing (rows = features, for the C/D update), its parts aligned to
-    the main bucketing, its dense slices, and (NA-as-zero with centering)
-    the column means of the feature buckets' rows."""
+def _side_layout(S: Optional[PreparedSide], main: BucketedRows, dev, dtype):
+    """The bucketed route's structures of one side matrix, in the fit's
+    ``dtype``: its feature bucketing (rows = features, for the C/D update),
+    its parts aligned to the main bucketing, its dense slices, and
+    (NA-as-zero with centering) the column means of the feature buckets'
+    rows."""
     if S is None:
         return None, None, None, None
     if S.dense is not None:
         return None, None, _bucket_dense_slices(main, S.dense, dev), None
     r_s, c_s, v_s = S.coo
-    feat_b = build_bucketed_rows(c_s, r_s, v_s, S.p, S.n_ent, device=dev)
-    aligned = build_aligned_parts(main, r_s, c_s, v_s, S.n_ent, dev)
+    feat_b = build_bucketed_rows(c_s, r_s, v_s, S.p, S.n_ent, device=dev,
+                                 dtype=dtype)
+    aligned = build_aligned_parts(main, r_s, c_s, v_s, S.n_ent, dev, dtype)
     mean_slices = None
     if S.na0 and S.colmeans is not None:
         mean_slices = []
         for b in feat_b.buckets:
             ids = feat_b.row_of[b.start:b.start + b.n_rows]
-            ms = np.zeros(b.n_rows, np.float32)
+            ms = np.zeros(b.n_rows, dtype)
             ok = ids >= 0
             ms[ok] = S.colmeans[ids[ok]]
             mean_slices.append(torch.as_tensor(ms, device=dev))
     return feat_b, aligned, None, mean_slices
 
 
-def _side_init(S, featb, kx, kx_pad, gen, init_M, dev):
-    """C (or D) at the start of a bucketed fit: for dense side info a
-    [p, kx_pad] matrix of N(0, 0.01^2), else bucket blocks over the
-    features; ``init_M`` ([p, kx]) overrides.  Returns (blocks, orig)."""
+def _side_init(S, featb, kx, kx_pad, gen, init_M, dev, tdt):
+    """C (or D) at the start of a bucketed fit, of torch dtype ``tdt``: for
+    dense side info a [p, kx_pad] matrix of N(0, 0.01^2), else bucket
+    blocks over the features; ``init_M`` ([p, kx]) overrides.  Returns
+    (blocks, orig)."""
     if S.dense is not None:
-        M = 0.01 * torch.randn(S.p, kx_pad, generator=gen, device=dev)
+        M = 0.01 * torch.randn(S.p, kx_pad, generator=gen, dtype=tdt,
+                               device=dev)
         M[:, kx:] = 0.0
         if init_M is not None:
-            M[:, :kx] = torch.as_tensor(init_M, dtype=torch.float32,
-                                        device=dev)
+            M[:, :kx] = torch.as_tensor(init_M, dtype=tdt, device=dev)
         return None, M
-    blocks = init_blocks(gen, featb, kx, kx_pad)
+    blocks = init_blocks(gen, featb, kx, kx_pad, tdt)
     if init_M is not None:
         drivers._seed_factor_blocks(blocks, featb, init_M, kx)
     return blocks, blocks_to_orig(blocks, torch.as_tensor(featb.perm,
                                                           device=dev))
 
 
-def _xdim_mask(limit, total, dev):
+def _xdim_mask(limit, total, dev, tdt):
     """1 on the first ``limit`` of ``total`` rows: the shared Gram and rhs
     bases of the opposing side sum over the X (or side) rows only.  With
     side-info-only entities the factor matrices carry live rows beyond X's
     dimension, which the reference's opposing row counts exclude (its
     optimizeA calls pass m/n, upstream cmfrec src/collective.c:8461/9924)."""
-    return torch.as_tensor((np.arange(total) < limit).astype(np.float32),
-                           device=dev)
+    return torch.as_tensor(np.arange(total) < limit, dtype=tdt, device=dev)
 
 
 def _side_factor_update(S, featb, blocks, A1, lam_vec, w_side, method,
-                        mean_slices, *, n_steps, scale_lam):
+                        mean_slices, *, n_steps, scale_lam, precondition):
     """Update C (or D): rows = side-info features, opposing = A[:, :k_off+k].
     Under scale_lam (or scale_lam_sideinfo) the lambda scales with each
     feature's observed count too (upstream cmfrec src/collective.c:8373)."""
@@ -288,7 +297,7 @@ def _side_factor_update(S, featb, blocks, A1, lam_vec, w_side, method,
                          for ms in mean_slices]
     return update_side(plan, blocks, A1, None, lam_vec, w=w_side, G0=G0,
                        r0_blocks=r0_blocks, method=method, n_steps=n_steps,
-                       scale_lam=scale_lam)
+                       scale_lam=scale_lam, precondition=precondition)
 
 
 def _side_parts(S, aligned, Ce, w_side, n_buckets, scale_flag, dev):
@@ -299,7 +308,7 @@ def _side_parts(S, aligned, Ce, w_side, n_buckets, scale_flag, dev):
     if S.na0:
         G0 = w_side * gram_matrix(Ce)
         if S.colmeans is not None:
-            cm = torch.as_tensor(S.colmeans.astype(np.float32), device=dev)
+            cm = torch.as_tensor(S.colmeans, dtype=Ce.dtype, device=dev)
         r0_vec = w_side * drivers._na0_rhs_base(Ce, cm, 0.0)
     for bi, (idx_s, val_s, len_s) in enumerate(aligned):
         pd = PartData(idx=idx_s, val=val_s, length=len_s, wgt=None, opp=Ce,
@@ -356,18 +365,24 @@ class _Sides(NamedTuple):
     stacks_B: list
 
 
-def _sides(U, I, RB, CB, m, n, m_eff, n_eff, widths, seed, init, dev):
-    """The _Sides of a bucketed fit; ``widths`` is (kc, kc_pad, kd, kd_pad).
-    C and D start from their own generator (seed + 1)."""
+def _sides(U, I, RB, CB, m, n, m_eff, n_eff, widths, seed, init, dev,
+           dtype):
+    """The _Sides of a bucketed fit in the fit's ``dtype``; ``widths`` is
+    (kc, kc_pad, kd, kd_pad).  C and D start from their own generator
+    (seed + 1)."""
     kc, kc_pad, kd, kd_pad = widths
-    U_lay, I_lay = _side_layout(U, RB, dev), _side_layout(I, CB, dev)
+    tdt = torch_dtype(dtype)
+    U_lay = _side_layout(U, RB, dev, dtype)
+    I_lay = _side_layout(I, CB, dev, dtype)
     gen2 = torch.Generator(device=dev)
     gen2.manual_seed(int(seed) + 1)
     C0 = D0 = (None, None)
     if U is not None:
-        C0 = _side_init(U, U_lay[0], kc, kc_pad, gen2, init.get("C"), dev)
+        C0 = _side_init(U, U_lay[0], kc, kc_pad, gen2, init.get("C"), dev,
+                        tdt)
     if I is not None:
-        D0 = _side_init(I, I_lay[0], kd, kd_pad, gen2, init.get("D"), dev)
+        D0 = _side_init(I, I_lay[0], kd, kd_pad, gen2, init.get("D"), dev,
+                        tdt)
 
     def perm(featb):
         return None if featb is None else torch.as_tensor(featb.perm,
@@ -375,20 +390,23 @@ def _sides(U, I, RB, CB, m, n, m_eff, n_eff, widths, seed, init, dev):
 
     return _Sides(
         U_lay, I_lay, C0, D0, perm(RB), perm(CB), perm(U_lay[0]),
-        perm(I_lay[0]), _xdim_mask(m, m_eff, dev), _xdim_mask(n, n_eff, dev),
+        perm(I_lay[0]), _xdim_mask(m, m_eff, dev, tdt),
+        _xdim_mask(n, n_eff, dev, tdt),
         None if U is None or U.n_ent >= m_eff
-        else _xdim_mask(U.n_ent, m_eff, dev),
+        else _xdim_mask(U.n_ent, m_eff, dev, tdt),
         None if I is None or I.n_ent >= n_eff
-        else _xdim_mask(I.n_ent, n_eff, dev),
+        else _xdim_mask(I.n_ent, n_eff, dev, tdt),
         [None] * len(RB.buckets), [None] * len(CB.buckets))
 
 
 def _update_sides(sd, U, I, C, D, A_orig, B_orig, widths, lam_vec_C,
-                  lam_vec_D, w_user, w_item, method, *, n_steps, scale_lam):
+                  lam_vec_D, w_user, w_item, method, *, n_steps, scale_lam,
+                  precondition):
     """The C and D half-steps of one iteration; C and D are (blocks, orig)
     pairs, returned updated."""
     kc, kc_pad, kd, kd_pad = widths
-    kw = dict(n_steps=n_steps, scale_lam=scale_lam)
+    kw = dict(n_steps=n_steps, scale_lam=scale_lam,
+              precondition=precondition)
     if U is not None:
         C = _update_C(U, sd.U_lay[0], C[0], A_orig, kc, kc_pad, lam_vec_C,
                       w_user, method, sd.U_lay[3], sd.perm_U, sd.xmask_AU,
@@ -404,7 +422,8 @@ def _opposing(F_orig, k_from, k_to, width, k_pad, ones_col, xmask):
     """The extended opposing matrix of a main half-step: F's shared
     coordinates moved to [k_to : k_to + width], ones on the bias column
     ``ones_col`` (or none), rows outside ``xmask`` zeroed (or kept)."""
-    opp = torch.zeros(F_orig.shape[0], k_pad, device=F_orig.device)
+    opp = torch.zeros(F_orig.shape[0], k_pad, dtype=F_orig.dtype,
+                      device=F_orig.device)
     opp[:, k_to:k_to + width] = F_orig[:, k_from:k_from + width]
     if ones_col is not None:
         opp[:, ones_col] = 1.0
@@ -436,7 +455,8 @@ def fit_collective_explicit_als(
 ) -> dict:
     """Collective explicit ALS.  side_U/side_I are _BaseModel._ingest_side
     tuples.  Returns A, B, biasA/biasB, C, D, Ai, Bi (None where absent) as
-    f32 tensors on ``device``, plus U_colmeans/I_colmeans, glob_mean and k;
+    tensors of the fit's dtype on ``device``, plus U_colmeans/I_colmeans,
+    glob_mean and k;
     the bucketed route also scaling_biasA/B (None unless scale_bias_const)
     and writes mid-fit checkpoints.  The dense route, as the JAX package's,
     writes none (checkpoint_path and checkpoint_every are unused there)."""
@@ -444,13 +464,13 @@ def fit_collective_explicit_als(
     dtype = resolve_dtype(dtype)
     dev = resolve_device(device)
     drivers._reject_common(mesh, shard_opposing_rows,
-                           nonneg or nonneg_C or nonneg_D, l16, use_cg,
-                           precondition_cg, dtype)
+                           nonneg or nonneg_C or nonneg_D, l16)
     U = prepare_side(_sparsify_short_dense_side(side_U, m), center_U,
                      NA_as_zero_user, dtype)
     I = prepare_side(_sparsify_short_dense_side(side_I, n), center_I,
                      NA_as_zero_item, dtype)
-    dense = _dense_route(
+    plain = drivers.plain_route(dtype, use_cg, precondition_cg)
+    dense = not plain and _dense_route(
         U, I, m, n, k_user=k_user, k_item=k_item, k_main=k_main,
         w_main=w_main,
         na0=NA_as_zero or NA_as_zero_user or NA_as_zero_item,
@@ -459,9 +479,10 @@ def fit_collective_explicit_als(
                                                    weights is not None),
         dev=dev)
     if not dense:
-        drivers.check_kernel_k(
-            k, _round_up(max(k_user, k_item) + k + k_main + 1, 8),
-            "bucketed", dev)
+        if not plain:  # the plain solves take any k
+            drivers.check_kernel_k(
+                k, _round_up(max(k_user, k_item) + k + k_main + 1, 8),
+                "bucketed", dev)
         return _fit_collective_explicit_bucketed(
             rows, cols, vals, m, n, U=U, I=I, k=k, k_user=k_user,
             k_item=k_item, k_main=k_main, lam6=lam6, w_main=w_main,
@@ -474,7 +495,8 @@ def fit_collective_explicit_als(
             scale_bias_const=scale_bias_const, NA_as_zero=NA_as_zero,
             weights=weights, seed=seed, verbose=verbose, device=dev,
             init=init, checkpoint_path=checkpoint_path,
-            checkpoint_every=checkpoint_every)
+            checkpoint_every=checkpoint_every, dtype=dtype,
+            precondition_cg=precondition_cg)
 
     drivers.check_kernel_k(k, padded_dims(m, n, k)[2], "dense", dev)
     glob_mean = (preprocess.weighted_global_mean(vals, weights) if center
@@ -491,7 +513,8 @@ def fit_collective_explicit_als(
         scale_lam_sideinfo=scale_lam_sideinfo,
         scale_bias_const=scale_bias_const, seed=seed, verbose=verbose,
         device=dev, init=init, add_implicit_features=add_implicit_features,
-        w_implicit=w_implicit, exact=not use_cg)
+        w_implicit=w_implicit, exact=not use_cg, dtype=dtype,
+        precondition_cg=use_cg and precondition_cg)
     res["U_colmeans"] = None if U is None else U.colmeans
     res["I_colmeans"] = None if I is None else I.colmeans
     return res
@@ -503,12 +526,14 @@ def _fit_collective_explicit_bucketed(
     use_cg, max_cg_steps, finalize_chol, user_bias, item_bias, center,
     scale_lam, scale_lam_sideinfo, scale_bias_const, NA_as_zero, weights,
     seed, verbose, device, init, checkpoint_path, checkpoint_every,
+    dtype=np.float32, precondition_cg=False,
 ) -> dict:
     """The bucketed route of fit_collective_explicit_als
-    (cmfrec_tpu/solvers/collective.py:440-1019, without the ring branch).
-    ``U``/``I`` are PreparedSide (prepare_side) or None, ``lam6`` the six
-    lambdas (drivers._resolve_lambdas)."""
+    (cmfrec_tpu/solvers/collective.py:440-1019, without the ring branch),
+    in the fit's ``dtype``.  ``U``/``I`` are PreparedSide (prepare_side) or
+    None, ``lam6`` the six lambdas (drivers._resolve_lambdas)."""
     dev = torch.device(device)
+    tdt = torch_dtype(dtype)
     ckpt = FitCheckpointer(checkpoint_path, checkpoint_every, niter)
     scale_lam = scale_lam or scale_lam_sideinfo
     m_eff = max(m, U.n_ent if U else 0)
@@ -522,7 +547,7 @@ def _fit_collective_explicit_bucketed(
         wsum = (float(len(vals)) if weights is None
                 else float(np.sum(weights)))
         glob_mean *= wsum / (wsum + float(m) * float(n) - float(len(vals)))
-    vals_c = (np.asarray(vals, np.float64) - glob_mean).astype(np.float32)
+    vals_c = (np.asarray(vals, np.float64) - glob_mean).astype(dtype)
 
     biasA0 = biasB0 = None
     if user_bias or item_bias:
@@ -531,7 +556,8 @@ def _fit_collective_explicit_bucketed(
             lam_item=lam6[1], wgt=weights, user_bias=user_bias,
             item_bias=item_bias, scale_lam=scale_lam)
     RB, CB = build_bucketed_pair(rows, cols, vals_c, m, n, weights,
-                                 device=dev, m_eff=m_eff, n_eff=n_eff)
+                                 device=dev, m_eff=m_eff, n_eff=n_eff,
+                                 dtype=dtype)
 
     ka, kb = k_user + k + k_main, k_item + k + k_main  # A/B widths, no bias
     ka_pad, kb_pad = _round_up(ka + 1, 8), _round_up(kb + 1, 8)
@@ -543,8 +569,8 @@ def _fit_collective_explicit_bucketed(
 
     gen = torch.Generator(device=dev)
     gen.manual_seed(int(seed))
-    A_blocks = init_blocks(gen, RB, ka, ka_pad)
-    B_blocks = init_blocks(gen, CB, kb, kb_pad)
+    A_blocks = init_blocks(gen, RB, ka, ka_pad, tdt)
+    B_blocks = init_blocks(gen, CB, kb, kb_pad, tdt)
     if user_bias:
         drivers._set_bias_coord(A_blocks, RB, biasA0, ka)
     if item_bias:
@@ -558,24 +584,27 @@ def _fit_collective_explicit_bucketed(
             drivers._set_bias_coord(blocks, bk, init["bias" + key], kx)
 
     widths = (kc, kc_pad, kd, kd_pad)
-    sd = _sides(U, I, RB, CB, m, n, m_eff, n_eff, widths, seed, init, dev)
+    sd = _sides(U, I, RB, CB, m, n, m_eff, n_eff, widths, seed, init, dev,
+                dtype)
     (C_blocks, C_orig), (D_blocks, D_orig) = sd.C0, sd.D0
     Ai_blocks = Bi_blocks = None
     if add_implicit_features:
-        Bi_blocks = init_blocks(gen, CB, ki_w, ki_pad)
-        Ai_blocks = init_blocks(gen, RB, ki_w, ki_pad)
+        Bi_blocks = init_blocks(gen, CB, ki_w, ki_pad, tdt)
+        Ai_blocks = init_blocks(gen, RB, ki_w, ki_pad, tdt)
         if init.get("Bi") is not None:
             drivers._seed_factor_blocks(Bi_blocks, CB, init["Bi"], ki_w)
         if init.get("Ai") is not None:
             drivers._seed_factor_blocks(Ai_blocks, RB, init["Ai"], ki_w)
 
-    mk = drivers._make_lam_vec
-    lam_vec_A = mk(ka, ka_pad, lam6[2], lam6[0], user_bias, dev)
-    lam_vec_B = mk(kb, kb_pad, lam6[3], lam6[1], item_bias, dev)
-    lam_vec_C = mk(kc, kc_pad, lam6[4], 0.0, False, dev)
-    lam_vec_D = mk(kd, kd_pad, lam6[5], 0.0, False, dev)
-    lam_vec_Bi = mk(ki_w, ki_pad, lam6[3] / w_implicit, 0.0, False, dev)
-    lam_vec_Ai = mk(ki_w, ki_pad, lam6[2] / w_implicit, 0.0, False, dev)
+    def mk(*a):
+        return drivers._make_lam_vec(*a, dev, tdt)
+
+    lam_vec_A = mk(ka, ka_pad, lam6[2], lam6[0], user_bias)
+    lam_vec_B = mk(kb, kb_pad, lam6[3], lam6[1], item_bias)
+    lam_vec_C = mk(kc, kc_pad, lam6[4], 0.0, False)
+    lam_vec_D = mk(kd, kd_pad, lam6[5], 0.0, False)
+    lam_vec_Bi = mk(ki_w, ki_pad, lam6[3] / w_implicit, 0.0, False)
+    lam_vec_Ai = mk(ki_w, ki_pad, lam6[2] / w_implicit, 0.0, False)
 
     # scale_bias_const: the bias coordinate's penalty scales with the
     # average observation count instead of the per-row count
@@ -599,12 +628,12 @@ def _fit_collective_explicit_bucketed(
 
         if user_bias:
             scaling_biasA = (wsum_total + side_wsum(U, m)) / max(m, 1)
-            lam_const_A = torch.zeros(ka_pad, device=dev)
+            lam_const_A = torch.zeros(ka_pad, dtype=tdt, device=dev)
             lam_const_A[ka] = lam6[0] * scaling_biasA
             lam_vec_A[ka] = 0.0
         if item_bias:
             scaling_biasB = (wsum_total + side_wsum(I, n)) / max(n, 1)
-            lam_const_B = torch.zeros(kb_pad, device=dev)
+            lam_const_B = torch.zeros(kb_pad, dtype=tdt, device=dev)
             lam_const_B[kb] = lam6[1] * scaling_biasB
             lam_vec_B[kb] = 0.0
 
@@ -654,7 +683,8 @@ def _fit_collective_explicit_bucketed(
             mu=glob_mean if plan.mode == "na0" else None, G0=G0,
             r0_vec=r0_vec, r0_blocks=r0_blocks, extra_parts=extra,
             lam_const_vec=lam_const, method=method, n_steps=max_cg_steps,
-            scale_lam=scale_lam, lam_mult_add=lam_mult_add, stacks=stacks)
+            scale_lam=scale_lam, lam_mult_add=lam_mult_add,
+            precondition=precondition_cg, stacks=stacks)
 
     def iteration(method, st):
         A_blocks, B_blocks, C_blocks, D_blocks, C_orig, D_orig, Ai_blocks, \
@@ -665,7 +695,8 @@ def _fit_collective_explicit_bucketed(
         (C_blocks, C_orig), (D_blocks, D_orig) = _update_sides(
             sd, U, I, (C_blocks, C_orig), (D_blocks, D_orig), A_orig, B_orig,
             widths, lam_vec_C, lam_vec_D, w_user, w_item, method,
-            n_steps=max_cg_steps, scale_lam=scale_lam)
+            n_steps=max_cg_steps, scale_lam=scale_lam,
+            precondition=precondition_cg)
         if add_implicit_features:
             # always closed form: the reference hard-codes use_cg=false for
             # these half-steps (src/collective.c:8479/8520)
@@ -788,31 +819,32 @@ def fit_collective_implicit_als(
     """WRMF with side info (upstream cmfrec src/collective.c:9375).  The
     main part's weight is w_main times the adjust_weight multiplier
     nnz/(m*n) (src/collective.c:9776-9782).  Returns A, B, C, D (or None)
-    as f32 tensors on ``device``, plus U_colmeans/I_colmeans,
+    as tensors of the fit's dtype on ``device``, plus U_colmeans/I_colmeans,
     w_main_multiplier and alpha; the bucketed route writes mid-fit
     checkpoints, the dense one none (as the JAX package's)."""
     lam6, l16 = drivers._resolve_lambdas(lambda_, l1_lambda)
     dtype = resolve_dtype(dtype)
     dev = resolve_device(device)
     drivers._reject_common(mesh, shard_opposing_rows,
-                           nonneg or nonneg_C or nonneg_D, l16, use_cg,
-                           precondition_cg, dtype)
+                           nonneg or nonneg_C or nonneg_D, l16)
     vals = drivers.implicit_values(vals, apply_log_transf)
     w_mult = len(vals) / (float(m) * float(n)) if adjust_weight else 1.0
     U = prepare_side(_sparsify_short_dense_side(side_U, m), center_U,
                      NA_as_zero_user, dtype)
     I = prepare_side(_sparsify_short_dense_side(side_I, n), center_I,
                      NA_as_zero_item, dtype)
-    dense = _dense_route(
+    plain = drivers.plain_route(dtype, use_cg, precondition_cg)
+    dense = not plain and _dense_route(
         U, I, m, n, k_user=k_user, k_item=k_item, k_main=k_main,
         w_main=1.0, na0=NA_as_zero_user or NA_as_zero_item,
         add_implicit_features=False, weights=None, init=init,
         dense_bytes=drivers.dense_bytes(m, n, k, False, implicit=True),
         dev=dev)
     if not dense:
-        drivers.check_kernel_k(
-            k, _round_up(max(k_user, k_item) + k + k_main, 8), "bucketed",
-            dev)
+        if not plain:  # the plain solves take any k
+            drivers.check_kernel_k(
+                k, _round_up(max(k_user, k_item) + k + k_main, 8),
+                "bucketed", dev)
         return _fit_collective_implicit_bucketed(
             rows, cols, vals, m, n, U=U, I=I, k=k, k_user=k_user,
             k_item=k_item, k_main=k_main, lam6=lam6, w_x=w_main * w_mult,
@@ -820,7 +852,8 @@ def fit_collective_implicit_als(
             niter=niter, use_cg=use_cg, max_cg_steps=max_cg_steps,
             finalize_chol=finalize_chol, seed=seed, verbose=verbose,
             device=dev, init=init, checkpoint_path=checkpoint_path,
-            checkpoint_every=checkpoint_every)
+            checkpoint_every=checkpoint_every, dtype=dtype,
+            precondition_cg=precondition_cg)
 
     drivers.check_kernel_k(k, padded_dims(m, n, k, bias_col=False)[2],
                            "dense", dev)
@@ -832,7 +865,8 @@ def fit_collective_implicit_als(
         max_cg_steps=max_cg_steps, finalize_steps=drivers.FINALIZE_STEPS,
         finalize_chol=finalize_chol, alpha=alpha,
         w_main_multiplier=w_main * w_mult, seed=seed, verbose=verbose,
-        device=dev, init=init, exact=not use_cg)
+        device=dev, init=init, exact=not use_cg, dtype=dtype,
+        precondition_cg=use_cg and precondition_cg)
     res["U_colmeans"] = None if U is None else U.colmeans
     res["I_colmeans"] = None if I is None else I.colmeans
     return res
@@ -842,19 +876,21 @@ def _fit_collective_implicit_bucketed(
     rows, cols, vals, m, n, *, U, I, k, k_user, k_item, k_main, lam6, w_x,
     w_mult, w_user, w_item, alpha, niter, use_cg, max_cg_steps,
     finalize_chol, seed, verbose, device, init, checkpoint_path,
-    checkpoint_every,
+    checkpoint_every, dtype=np.float32, precondition_cg=False,
 ) -> dict:
     """The bucketed route of fit_collective_implicit_als
-    (cmfrec_tpu/solvers/collective.py:1134-1500, without the ring branch).
-    ``vals`` are the implicit values (log-transformed where asked), ``w_x``
-    the main part's weight w_main * w_mult."""
+    (cmfrec_tpu/solvers/collective.py:1134-1500, without the ring branch),
+    in the fit's ``dtype``.  ``vals`` are the implicit values
+    (log-transformed where asked), ``w_x`` the main part's weight
+    w_main * w_mult."""
     dev = torch.device(device)
+    tdt = torch_dtype(dtype)
     ckpt = FitCheckpointer(checkpoint_path, checkpoint_every, niter)
     m_eff = max(m, U.n_ent if U else 0)
     n_eff = max(n, I.n_ent if I else 0)
-    RB, CB = build_bucketed_pair(rows, cols,
-                                 np.asarray(vals).astype(np.float32), m, n,
-                                 device=dev, m_eff=m_eff, n_eff=n_eff)
+    RB, CB = build_bucketed_pair(rows, cols, np.asarray(vals).astype(dtype),
+                                 m, n, device=dev, m_eff=m_eff, n_eff=n_eff,
+                                 dtype=dtype)
     ka, kb = k_user + k + k_main, k_item + k + k_main
     ka_pad, kb_pad = _round_up(ka, 8), _round_up(kb, 8)
     kc, kd = k_user + k, k_item + k
@@ -863,22 +899,25 @@ def _fit_collective_implicit_bucketed(
 
     gen = torch.Generator(device=dev)
     gen.manual_seed(int(seed))
-    A_blocks = init_blocks(gen, RB, ka, ka_pad)
-    B_blocks = init_blocks(gen, CB, kb, kb_pad)
+    A_blocks = init_blocks(gen, RB, ka, ka_pad, tdt)
+    B_blocks = init_blocks(gen, CB, kb, kb_pad, tdt)
     if init.get("A") is not None:
         drivers._seed_factor_blocks(A_blocks, RB, init["A"], ka)
     if init.get("B") is not None:
         drivers._seed_factor_blocks(B_blocks, CB, init["B"], kb)
 
     widths = (kc, kc_pad, kd, kd_pad)
-    sd = _sides(U, I, RB, CB, m, n, m_eff, n_eff, widths, seed, init, dev)
+    sd = _sides(U, I, RB, CB, m, n, m_eff, n_eff, widths, seed, init, dev,
+                dtype)
     (C_blocks, C_orig), (D_blocks, D_orig) = sd.C0, sd.D0
 
-    mk = drivers._make_lam_vec
-    lam_vec_A = mk(ka, ka_pad, lam6[2], 0.0, False, dev)
-    lam_vec_B = mk(kb, kb_pad, lam6[3], 0.0, False, dev)
-    lam_vec_C = mk(kc, kc_pad, lam6[4], 0.0, False, dev)
-    lam_vec_D = mk(kd, kd_pad, lam6[5], 0.0, False, dev)
+    def mk(*a):
+        return drivers._make_lam_vec(*a, 0.0, False, dev, tdt)
+
+    lam_vec_A = mk(ka, ka_pad, lam6[2])
+    lam_vec_B = mk(kb, kb_pad, lam6[3])
+    lam_vec_C = mk(kc, kc_pad, lam6[4])
+    lam_vec_D = mk(kd, kd_pad, lam6[5])
     plan_A, plan_B = SidePlan(RB, "implicit", n), SidePlan(CB, "implicit", m)
     perm_A, perm_B = sd.perm_A, sd.perm_B
 
@@ -900,7 +939,8 @@ def _fit_collective_implicit_bucketed(
         return update_side(
             plan, blocks, opp, None, lam_vec, w=w_x, alpha=alpha, G0=G0,
             r0_vec=r0_vec, r0_blocks=r0_blocks, extra_parts=extra,
-            method=method, n_steps=max_cg_steps, stacks=stacks)
+            method=method, n_steps=max_cg_steps,
+            precondition=precondition_cg, stacks=stacks)
 
     def iteration(method, st):
         A_blocks, B_blocks, C_blocks, D_blocks, C_orig, D_orig = st
@@ -909,7 +949,8 @@ def _fit_collective_implicit_bucketed(
         (C_blocks, C_orig), (D_blocks, D_orig) = _update_sides(
             sd, U, I, (C_blocks, C_orig), (D_blocks, D_orig), A_orig, B_orig,
             widths, lam_vec_C, lam_vec_D, w_user, w_item, method,
-            n_steps=max_cg_steps, scale_lam=False)
+            n_steps=max_cg_steps, scale_lam=False,
+            precondition=precondition_cg)
         # the shared Gram sums the X rows only
         opp = _opposing(A_orig, k_user, k_item, k + k_main, kb_pad, None,
                         sd.xmask_A)

@@ -10,6 +10,11 @@ ridge systems of upstream cmfrec src/common.c:2742 optimizeA (explicit) or
 :3305 optimizeA_implicit for all rows at once by truncated CG whose operator
 and right-hand side are the kernels of ops/masked_matmul.py.
 
+The engine is float32 without a preconditioner, as the JAX package's
+Pallas engine: every entry point raises on ``dtype=float64`` or a Jacobi
+PCG fit (``precondition_cg``), which take the plain engines
+(solvers/dense_engine.py, the bucketed engine's plain solves).
+
 Numerics: explicit X stays uncentered in bf16 (half-point rating grids are
 exact), with the global mean and opposing bias folded into the f32 ``mb``
 vector of the rhs kernel.  Factors are f32 and rounded to bf16 only at the
@@ -37,6 +42,15 @@ from ..ops.masked_matmul import TILE, masked_gram_matvec, masked_rhs, row_chunks
 
 def _round_up(x, mult):
     return -(-x // mult) * mult
+
+
+def _require_f32_plain_cg(dtype, precondition_cg):
+    """The entry points' guard: K1/K2 take float32 and plain CG only."""
+    if np.dtype(dtype) != np.float32 or precondition_cg:
+        raise ValueError(
+            "the dense-masked engine (kernels K1/K2) takes float32 without "
+            f"precondition_cg, got dtype {np.dtype(dtype)} and "
+            f"precondition_cg={bool(precondition_cg)}")
 
 
 def padded_dims(m: int, n: int, k: int, bias_col: bool = True
@@ -443,10 +457,11 @@ def fit_explicit_dense_masked(
     k, lam6, niter, max_cg_steps, finalize_chol, finalize_steps,
     user_bias, item_bias, glob_mean, scale_lam, scale_bias_const,
     seed, verbose, device, init=None, na_as_zero=False, ckpt=None,
-    exact=False,
+    exact=False, dtype=np.float32, precondition_cg=False,
 ) -> dict:
     """Fit explicit ALS on the dense-masked engine.  Returns A [m,k], B [n,k],
     biasA/biasB (or None), glob_mean and k; tensors stay on ``device``."""
+    _require_f32_plain_cg(dtype, precondition_cg)
     Kp = padded_dims(m, n, k)[2]
     weighted = weights is not None
     dev = torch.device(device)
@@ -580,7 +595,7 @@ def fit_collective_dense_masked(
     finalize_steps, user_bias, item_bias, glob_mean, scale_lam,
     scale_lam_sideinfo=False, scale_bias_const=False, seed=1, verbose=False,
     device="cpu", init=None, add_implicit_features=False, w_implicit=0.5,
-    exact=False,
+    exact=False, dtype=np.float32, precondition_cg=False,
 ) -> dict:
     """Collective explicit ALS with fully dense side info (U_dense [m, p],
     I_dense [n, q], centered) and/or implicit features on the dense-masked
@@ -591,6 +606,7 @@ def fit_collective_dense_masked(
     [q, k], Ai [m, k], Bi [n, k] (or None), glob_mean and k; the returned
     C/D/Ai/Bi are those solved at the last iteration's start, and with
     niter=0 those of the starting factors."""
+    _require_f32_plain_cg(dtype, precondition_cg)
     m_pad, n_pad, Kp = padded_dims(m, n, k)
     dev = torch.device(device)
     has_impl = bool(add_implicit_features)
@@ -826,13 +842,15 @@ def _fit_implicit(rows, cols, vals, m, n, *, k, lam6, niter, max_cg_steps,
 def fit_implicit_dense_masked(
     rows, cols, vals, m, n, *, k, lam6, niter, max_cg_steps, finalize_steps,
     finalize_chol, alpha, w_main_multiplier, seed, verbose, device,
-    init=None, ckpt=None, exact=False,
+    init=None, ckpt=None, exact=False, dtype=np.float32,
+    precondition_cg=False,
 ) -> dict:
     """WRMF on the dense-masked engine (the dense confidence form); the same
     systems as the bucketed implicit engine.  K1 runs on W = bf16(alpha*x),
     K2 on X = bf16(1 + alpha*x) with the int8 mask.  exact=True (use_cg=False)
     runs each half-step's CG to the per-row freeze under the Krylov cap.
     Returns A [m, k], B [n, k] on ``device``, w_main_multiplier and alpha."""
+    _require_f32_plain_cg(dtype, precondition_cg)
     return _fit_implicit(
         rows, cols, vals, m, n, k=k, lam6=lam6, niter=niter,
         max_cg_steps=max_cg_steps, finalize_steps=finalize_steps,
@@ -845,12 +863,14 @@ def fit_collective_implicit_dense_masked(
     rows, cols, vals, m, n, *, U_dense, I_dense, k, lam6, w_user, w_item,
     niter, max_cg_steps, finalize_steps, finalize_chol, alpha,
     w_main_multiplier, seed, verbose, device, init=None, exact=False,
+    dtype=np.float32, precondition_cg=False,
 ) -> dict:
     """Collective WRMF with fully dense side info on the dense-masked engine
     (k_user = k_item = k_main = 0): C and D are solved whole-matrix at each
     iteration's start, then B, then A.  Returns what
     fit_implicit_dense_masked does plus C [p, k] and D [q, k] (or None), the
     last iteration's (with niter=0, those of the starting factors)."""
+    _require_f32_plain_cg(dtype, precondition_cg)
     return _fit_implicit(
         rows, cols, vals, m, n, k=k, lam6=lam6, niter=niter,
         max_cg_steps=max_cg_steps, finalize_steps=finalize_steps,

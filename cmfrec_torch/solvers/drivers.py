@@ -5,18 +5,24 @@ fit_explicit_als mirrors the reference's fit path for a plain X-only model
 (upstream cmfrec src/collective.c:7263 with no side info): center -> bias
 init -> alternating half-iterations over item/user orientations, with
 CG-until-last-iteration-then-f32 (finalize_chol,
-upstream cmfrec src/collective.c:8336-8340).  It runs on one of two
-engines: ``dense_masked`` (the padded dense form, kernels K1/K2) or the
+upstream cmfrec src/collective.c:8336-8340).  A float32 fit runs on one of
+two engines: ``dense_masked`` (the padded dense form, kernels K1/K2) or the
 bucketed sparse engine (degree buckets, kernel K3), which takes
 ``engine="sparse"``, weighted ``NA_as_zero`` and, under ``engine="auto"``,
-data whose dense form exceeds the card's memory budget.
+data whose dense form exceeds the card's memory budget.  A float64 fit, or
+one with Jacobi PCG (``precondition_cg``), takes no kernel, as in the JAX
+package (cmfrec_tpu/solvers/drivers.py:285-293): the plain dense engine
+(solvers/dense_engine.py, :func:`_fit_explicit_dense`) when its dense form
+fits the budget, the bucketed engine's plain-torch solves otherwise.
 
 fit_implicit_als mirrors fit_collective_implicit_als (upstream cmfrec
 src/collective.c:9375): optional log transform, alpha confidence scaling,
 adjust_weight -> w_main_multiplier = nnz/(m*n) (src/collective.c:9776-9782).
-It runs on the bucketed engine (K3) unless the caller asks for the
-dense-masked engine (``engine="dense"``: K1/K2 on the dense confidence
-form).  ``engine="auto"`` stays bucketed: on an H100 at ML10M's shape the
+It runs on the bucketed engine (K3; plain-torch solves in float64 and
+under Jacobi PCG) unless the caller asks for the dense-masked engine
+(``engine="dense"``: K1/K2 on the dense confidence form, float32 without
+a preconditioner).  ``engine="auto"`` stays bucketed: on an H100 at
+ML10M's shape the
 bucketed fit was the faster with 1.34%, 5% and 20% of the pairs observed,
 and the dense one won only on a small catalogue
 (scripts/time_implicit_engines_torch.py; PERF.md, Findings).  The
@@ -35,11 +41,12 @@ from typing import Optional
 import numpy as np
 import torch
 
-from ..config import resolve_device, resolve_dtype, should_handle_interrupt
+from ..config import (resolve_device, resolve_dtype, should_handle_interrupt,
+                      torch_dtype)
 from ..data.device_fill import build_bucketed_pair
 from ..ops import masked_matmul, sparse_cg
 from ..utils.checkpoint import FitCheckpointer
-from . import preprocess
+from . import dense_engine, preprocess
 from .als import SidePlan, blocks_to_orig, gram_matrix, init_blocks, update_side
 from .dense_masked import (
     _round_up,
@@ -139,19 +146,21 @@ def _with_bias_col(orig: torch.Tensor, col: int, ones: bool) -> torch.Tensor:
 
 
 def _make_lam_vec(k: int, k_pad: int, lam: float, lam_bias: float,
-                  has_bias: bool, dev) -> torch.Tensor:
+                  has_bias: bool, dev, dtype=torch.float32) -> torch.Tensor:
     """Per-coordinate L2: [lam]*k + [lam_bias] + 1s on padding coordinates
     (a positive diagonal keeps padded coordinates at exactly zero)."""
     v = np.ones(k_pad, np.float64)
     v[:k] = lam
     if has_bias:
         v[k] = lam_bias
-    return torch.as_tensor(v, dtype=torch.float32, device=dev)
+    return torch.as_tensor(v, dtype=dtype, device=dev)
 
 
 def _build_pair(rows, cols, vals_c, m, n, weights, dev):
-    """Both orientations of the bucketed layout, built on the fit's device."""
-    return build_bucketed_pair(rows, cols, vals_c, m, n, weights, device=dev)
+    """Both orientations of the bucketed layout, built on the fit's device
+    with the values' dtype."""
+    return build_bucketed_pair(rows, cols, vals_c, m, n, weights, device=dev,
+                               dtype=np.asarray(vals_c).dtype)
 
 
 def _row_index(bucketed, b, dev):
@@ -161,11 +170,12 @@ def _row_index(bucketed, b, dev):
 
 
 def _seed_factor_blocks(blocks, bucketed, M, k):
-    """Write warm-start factor rows into the bucketed block layout
-    (padding rows get zeros)."""
+    """Write warm-start factor rows into the bucketed block layout, in the
+    blocks' dtype (padding rows get zeros)."""
     dev = blocks[0].device if blocks else None
-    M = torch.as_tensor(M, dtype=torch.float32, device=dev)
-    ext = torch.cat([M[:, :k], torch.zeros(1, k, device=dev)])
+    dt = blocks[0].dtype if blocks else None
+    M = torch.as_tensor(M, dtype=dt, device=dev)
+    ext = torch.cat([M[:, :k], torch.zeros(1, k, dtype=dt, device=dev)])
     for b, blk in zip(bucketed.buckets, blocks):
         blk[:, :k] = ext[_row_index(bucketed, b, dev)]
     return blocks
@@ -174,8 +184,9 @@ def _seed_factor_blocks(blocks, bucketed, M, k):
 def _set_bias_coord(blocks, bucketed, bias_vec, coord):
     """Write biases into each block's bias coordinate."""
     dev = blocks[0].device if blocks else None
-    bias = torch.as_tensor(bias_vec, dtype=torch.float32, device=dev)
-    ext = torch.cat([bias, torch.zeros(1, device=dev)])
+    dt = blocks[0].dtype if blocks else None
+    bias = torch.as_tensor(bias_vec, dtype=dt, device=dev)
+    ext = torch.cat([bias, torch.zeros(1, dtype=dt, device=dev)])
     for b, blk in zip(bucketed.buckets, blocks):
         blk[:, coord] = ext[_row_index(bucketed, b, dev)]
     return blocks
@@ -199,7 +210,8 @@ def _check_engine(engine):
 
 
 def implicit_values(vals, apply_log_transf):
-    """The implicit fits' values as f64, log-transformed on request."""
+    """The implicit fits' values as f64, log-transformed on request; values
+    <= 0 under ``apply_log_transf`` raise (ROADMAP F4)."""
     vals = np.asarray(vals, np.float64)
     if apply_log_transf:
         if np.any(vals <= 0):
@@ -209,8 +221,14 @@ def implicit_values(vals, apply_log_transf):
     return vals
 
 
-def _reject_common(mesh, shard_opposing_rows, nonneg, l16, use_cg,
-                   precondition_cg, dtype):
+def plain_route(dtype, use_cg, precondition_cg) -> bool:
+    """Whether a fit takes no kernel: float64, or CG with Jacobi
+    preconditioning (the JAX package's Pallas gates need f32 without PCG,
+    cmfrec_tpu/solvers/drivers.py:285-291)."""
+    return np.dtype(dtype) == np.float64 or bool(use_cg and precondition_cg)
+
+
+def _reject_common(mesh, shard_opposing_rows, nonneg, l16):
     if mesh is not None or shard_opposing_rows:
         raise _unsupported("multi-device fitting (mesh=, shard_opposing_rows)",
                            "slice 7")
@@ -220,12 +238,6 @@ def _reject_common(mesh, shard_opposing_rows, nonneg, l16, use_cg,
     if np.any(l16 > 0):
         raise _unsupported("l1_lambda",
                            "slice 4 item 10, the coordinate-descent solver")
-    if use_cg and precondition_cg:
-        raise _unsupported("precondition_cg",
-                           "slice 1 item 1, the dense_engine Jacobi PCG")
-    if dtype != np.float32:
-        raise _unsupported(f"dtype {dtype}",
-                           "slice 1 item 1, the float64 dense engine")
 
 
 # ----------------------------------------------------------------------- #
@@ -269,27 +281,42 @@ def fit_explicit_als(
     device="cuda",
 ) -> dict:
     """Explicit ALS.  Returns A [m,k], B [n,k], biasA/biasB (or None) as
-    f32 tensors on ``device``, plus glob_mean and k.  ``engine="auto"``
-    takes the dense-masked engine unless the data is weighted NA_as_zero or
+    tensors of the fit's dtype on ``device``, plus glob_mean and k.
+
+    float32 without ``precondition_cg``: ``engine="auto"`` takes the
+    dense-masked engine (K1/K2) unless the data is weighted NA_as_zero or
     its padded dense form exceeds 90% of the card's free memory; then, as
-    with ``engine="sparse"``, the bucketed engine."""
+    with ``engine="sparse"``, the bucketed engine (K3).  float64, or CG
+    under ``precondition_cg``: ``engine="auto"`` takes the plain dense
+    engine for CG fits without NA_as_zero whose dense form fits that
+    budget, the bucketed engine's plain solves otherwise; ``"dense"``
+    forces the plain dense engine (30 CG steps a half-step without
+    ``use_cg``), as the JAX package's routes do."""
     lam6, l16 = _resolve_lambdas(lambda_, l1_lambda)
     dtype = resolve_dtype(dtype)
     dev = resolve_device(device)
     _check_engine(engine)
-    _reject_common(mesh, shard_opposing_rows, nonneg, l16, use_cg,
-                   precondition_cg, dtype)
+    _reject_common(mesh, shard_opposing_rows, nonneg, l16)
     weighted_na0 = NA_as_zero and weights is not None
     if engine == "dense" and weighted_na0:
         raise ValueError("engine='dense' has no weighted NA_as_zero form; "
                          "use engine='auto' or 'sparse'")
-    bucketed = engine == "sparse" or weighted_na0
+    plain = plain_route(dtype, use_cg, precondition_cg)
+    if plain and engine == "dense" and NA_as_zero:
+        raise ValueError("engine='dense' has no NA_as_zero form in float64 "
+                         "or under precondition_cg; use engine='auto' or "
+                         "'sparse'")
+    bucketed = engine == "sparse" or weighted_na0 or (
+        plain and engine == "auto" and (NA_as_zero or not use_cg))
     if engine == "auto" and not bucketed:
         budget = _dense_budget(dev)
-        bucketed = (budget is not None
-                    and dense_bytes(m, n, k, weights is not None) > budget)
-    k_pad = _round_up(k + 1, 8) if bucketed else padded_dims(m, n, k)[2]
-    check_kernel_k(k, k_pad, "bucketed" if bucketed else "dense", dev)
+        need = (dense_engine.estimate_dense_bytes(
+                    m, n, len(vals), k, dtype.itemsize, weights is not None)
+                if plain else dense_bytes(m, n, k, weights is not None))
+        bucketed = budget is not None and need > budget
+    if not plain:  # the plain solves take any k
+        k_pad = _round_up(k + 1, 8) if bucketed else padded_dims(m, n, k)[2]
+        check_kernel_k(k, k_pad, "bucketed" if bucketed else "dense", dev)
 
     glob_mean = (
         preprocess.weighted_global_mean(vals, weights) if center else 0.0
@@ -302,14 +329,22 @@ def fit_explicit_als(
         glob_mean *= wsum / (wsum + float(m) * float(n) - float(len(vals)))
 
     ckpt = FitCheckpointer(checkpoint_path, checkpoint_every, niter)
+    common = dict(weights=weights, k=k, lam6=lam6, niter=niter,
+                  finalize_chol=finalize_chol, user_bias=user_bias,
+                  item_bias=item_bias, glob_mean=glob_mean,
+                  scale_lam=scale_lam, scale_bias_const=scale_bias_const,
+                  seed=seed, verbose=verbose, dev=dev, init=init, ckpt=ckpt,
+                  dtype=dtype, precondition_cg=precondition_cg)
     if bucketed:
         return _fit_explicit_bucketed(
-            rows, cols, vals, m, n, weights=weights, k=k, lam6=lam6,
-            niter=niter, use_cg=use_cg, max_cg_steps=max_cg_steps,
-            finalize_chol=finalize_chol, user_bias=user_bias,
-            item_bias=item_bias, glob_mean=glob_mean, scale_lam=scale_lam,
-            scale_bias_const=scale_bias_const, NA_as_zero=NA_as_zero,
-            seed=seed, verbose=verbose, dev=dev, init=init, ckpt=ckpt)
+            rows, cols, vals, m, n, use_cg=use_cg, max_cg_steps=max_cg_steps,
+            NA_as_zero=NA_as_zero, **common)
+    if plain:
+        return _fit_explicit_dense(
+            rows, cols, vals, m, n,
+            # use_cg=False (engine="dense"): every half-step's CG runs 30
+            # steps, converged on these k x k systems
+            max_cg_steps=max_cg_steps if use_cg else 30, **common)
     return fit_explicit_dense_masked(
         rows, cols, vals, m, n, weights=weights,
         k=k, lam6=lam6, niter=niter, max_cg_steps=max_cg_steps,
@@ -320,24 +355,40 @@ def fit_explicit_als(
         seed=seed, verbose=verbose, device=dev,
         init=init, na_as_zero=NA_as_zero, ckpt=ckpt,
         # use_cg=False runs exact mode on the same engine, as on the TPU
-        exact=not use_cg,
+        exact=not use_cg, dtype=dtype,
+        precondition_cg=use_cg and precondition_cg,
     )
+
+
+def _centered(vals, glob_mean, dtype):
+    """The values minus the global mean, in the fit's dtype."""
+    return (np.asarray(vals, np.float64) - glob_mean).astype(dtype)
+
+
+def _initial_biases(rows, cols, vals_c, m, n, lam6, weights, user_bias,
+                    item_bias, scale_lam):
+    """preprocess.initialize_biases of the centered values, or (None, None)
+    without biases."""
+    if not (user_bias or item_bias):
+        return None, None
+    return preprocess.initialize_biases(
+        rows, cols, vals_c, m, n, lam_user=lam6[0], lam_item=lam6[1],
+        wgt=weights, user_bias=user_bias, item_bias=item_bias,
+        scale_lam=scale_lam)
 
 
 def _fit_explicit_bucketed(
     rows, cols, vals, m, n, *, weights, k, lam6, niter, use_cg, max_cg_steps,
     finalize_chol, user_bias, item_bias, glob_mean, scale_lam,
-    scale_bias_const, NA_as_zero, seed, verbose, dev, init, ckpt,
+    scale_bias_const, NA_as_zero, seed, verbose, dev, init, ckpt, dtype,
+    precondition_cg,
 ) -> dict:
     """The bucketed route of fit_explicit_als
-    (cmfrec_tpu/solvers/drivers.py:361-470)."""
-    vals_c = (np.asarray(vals, np.float64) - glob_mean).astype(np.float32)
-    biasA0 = biasB0 = None
-    if user_bias or item_bias:
-        biasA0, biasB0 = preprocess.initialize_biases(
-            rows, cols, vals_c, m, n, lam_user=lam6[0], lam_item=lam6[1],
-            wgt=weights, user_bias=user_bias, item_bias=item_bias,
-            scale_lam=scale_lam)
+    (cmfrec_tpu/solvers/drivers.py:361-470), in the fit's dtype."""
+    tdt = torch_dtype(dtype)
+    vals_c = _centered(vals, glob_mean, dtype)
+    biasA0, biasB0 = _initial_biases(rows, cols, vals_c, m, n, lam6, weights,
+                                     user_bias, item_bias, scale_lam)
     RB, CB = _build_pair(rows, cols, vals_c, m, n, weights, dev)
     perm_A = torch.as_tensor(RB.perm, device=dev)
     perm_B = torch.as_tensor(CB.perm, device=dev)
@@ -345,8 +396,8 @@ def _fit_explicit_bucketed(
     k_pad = _round_up(k + 1, 8)
     gen = torch.Generator(device=dev)
     gen.manual_seed(int(seed))
-    A_blocks = init_blocks(gen, RB, k, k_pad)
-    B_blocks = init_blocks(gen, CB, k, k_pad)
+    A_blocks = init_blocks(gen, RB, k, k_pad, tdt)
+    B_blocks = init_blocks(gen, CB, k, k_pad, tdt)
     if user_bias:
         _set_bias_coord(A_blocks, RB, biasA0, k)
     if item_bias:
@@ -361,26 +412,14 @@ def _fit_explicit_bucketed(
         if item_bias and init.get("biasB") is not None:
             _set_bias_coord(B_blocks, CB, init["biasB"], k)
 
-    lam_vec_A = _make_lam_vec(k, k_pad, lam6[2], lam6[0], user_bias, dev)
-    lam_vec_B = _make_lam_vec(k, k_pad, lam6[3], lam6[1], item_bias, dev)
-    # scale_bias_const: the bias coordinate's penalty scales with the
-    # average observation count instead of the per-row count
-    # (upstream cmfrec src/common.c:717-722)
-    lam_const_A = lam_const_B = None
-    if scale_lam and scale_bias_const:
-        wsum = float(np.sum(weights)) if weights is not None else float(len(vals))
-        if user_bias:
-            lam_const_A = torch.zeros(k_pad, device=dev)
-            lam_const_A[k] = lam6[0] * (wsum / max(m, 1))
-            lam_vec_A[k] = 0.0
-        if item_bias:
-            lam_const_B = torch.zeros(k_pad, device=dev)
-            lam_const_B[k] = lam6[1] * (wsum / max(n, 1))
-            lam_vec_B[k] = 0.0
+    lam_vec_A, lam_vec_B, lam_const_A, lam_const_B = _lam_vecs(
+        k, k_pad, lam6, user_bias, item_bias, scale_lam, scale_bias_const,
+        weights, len(vals), m, n, dev, tdt)
 
     statics = dict(k=k, user_bias=user_bias, item_bias=item_bias,
                    NA_as_zero=NA_as_zero, max_cg_steps=max_cg_steps,
-                   scale_lam=scale_lam, m=m, n=n)
+                   scale_lam=scale_lam, m=m, n=n,
+                   precondition=precondition_cg)
     args = (RB, CB, perm_A, perm_B, lam_vec_A, lam_vec_B, lam_const_A,
             lam_const_B, float(glob_mean))
 
@@ -393,11 +432,12 @@ def _fit_explicit_bucketed(
             method = ("cg" if use_cg and not (finalize_chol and it == niter - 1)
                       else "chol")
             t0 = time.time()
-            # bf16 copies of the opposing matrix in the CG iterations on a
-            # card, as the JAX package does on the TPU; Cholesky stays f32
+            # bf16 copies of the opposing matrix in the f32 CG iterations
+            # on a card, as the JAX package does on the TPU; Cholesky stays
+            # in the fit's dtype
             A_blocks, B_blocks = _explicit_sparse_iteration(
                 A_blocks, B_blocks, *args, method=method,
-                mxu_bf16=dev.type == "cuda" and method == "cg", **statics)
+                mxu_bf16=_bf16_rows(dev, method, tdt), **statics)
             if verbose:
                 _fence(dev)
                 print(f"iter {it + 1}/{niter} [{method}] "
@@ -413,11 +453,39 @@ def _fit_explicit_bucketed(
     return out
 
 
+def _lam_vecs(k, K, lam6, user_bias, item_bias, scale_lam, scale_bias_const,
+              weights, nnz, m, n, dev, tdt):
+    """(lam_vec_A, lam_vec_B, lam_const_A, lam_const_B) of an explicit fit
+    with K coordinates, the bias at k.  scale_bias_const: the bias
+    coordinate's penalty scales with the average observation count instead
+    of the per-row count (upstream cmfrec src/common.c:717-722)."""
+    lam_vec_A = _make_lam_vec(k, K, lam6[2], lam6[0], user_bias, dev, tdt)
+    lam_vec_B = _make_lam_vec(k, K, lam6[3], lam6[1], item_bias, dev, tdt)
+    lam_const_A = lam_const_B = None
+    if scale_lam and scale_bias_const:
+        wsum = float(np.sum(weights)) if weights is not None else float(nnz)
+        if user_bias:
+            lam_const_A = torch.zeros(K, dtype=tdt, device=dev)
+            lam_const_A[k] = lam6[0] * (wsum / max(m, 1))
+            lam_vec_A[k] = 0.0
+        if item_bias:
+            lam_const_B = torch.zeros(K, dtype=tdt, device=dev)
+            lam_const_B[k] = lam6[1] * (wsum / max(n, 1))
+            lam_vec_B[k] = 0.0
+    return lam_vec_A, lam_vec_B, lam_const_A, lam_const_B
+
+
+def _bf16_rows(dev, method, tdt) -> bool:
+    """bf16 opposing rows: the f32 CG iterations on a card, as the JAX
+    package's bf16 MXU operands on the TPU (never in float64)."""
+    return dev.type == "cuda" and method == "cg" and tdt == torch.float32
+
+
 def _explicit_sparse_iteration(
     A_blocks, B_blocks, RB, CB, perm_A, perm_B, lam_vec_A, lam_vec_B,
     lam_const_A, lam_const_B, glob_mean,
     *, m, n, k, user_bias, item_bias, NA_as_zero, method, max_cg_steps,
-    scale_lam, mxu_bf16,
+    scale_lam, mxu_bf16, precondition,
 ):
     """One full explicit ALS iteration over bucketed data, B half-step then
     A (the reference's order, upstream cmfrec src/collective.c:8614 "Updating
@@ -425,7 +493,7 @@ def _explicit_sparse_iteration(
     mode = "na0" if NA_as_zero else "explicit"
     common = dict(mu=glob_mean if NA_as_zero else None, method=method,
                   n_steps=max_cg_steps, scale_lam=scale_lam,
-                  mxu_bf16=mxu_bf16)
+                  mxu_bf16=mxu_bf16, precondition=precondition)
 
     def half(blocks, plan, opp_orig, opp_bias_on, ones, lam_vec, lam_const):
         opp = _with_bias_col(opp_orig, k, ones)
@@ -444,6 +512,91 @@ def _explicit_sparse_iteration(
                     blocks_to_orig(B_blocks, perm_B), item_bias, user_bias,
                     lam_vec_A, lam_const_A)
     return A_blocks, B_blocks
+
+
+def _fit_explicit_dense(
+    rows, cols, vals, m, n, *, weights, k, lam6, niter, max_cg_steps,
+    finalize_chol, user_bias, item_bias, glob_mean, scale_lam,
+    scale_bias_const, seed, verbose, dev, init, ckpt, dtype,
+    precondition_cg,
+) -> dict:
+    """The plain dense route of fit_explicit_als
+    (cmfrec_tpu/solvers/drivers.py:862-966): float64 and Jacobi-PCG fits
+    on solvers/dense_engine.py, in the fit's dtype on ``dev``.  K = k + 1
+    coordinates, the bias at k.  finalize_chol runs the last iteration as
+    30 CG steps without the preconditioner, converged on these k x k
+    systems, in place of the reference's Cholesky
+    (upstream cmfrec src/collective.c:8336-8340)."""
+    tdt = torch_dtype(dtype)
+    vals_c = _centered(vals, glob_mean, dtype)
+    biasA0, biasB0 = _initial_biases(rows, cols, vals_c, m, n, lam6, weights,
+                                     user_bias, item_bias, scale_lam)
+    X, W = dense_engine.dense_from_coo(rows, cols, vals_c, m, n, weights,
+                                       dtype=tdt, device=dev)
+    K = k + 1  # the bias coordinate, zero with lambda 1 when unused
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(int(seed))
+    scale = 1.0 / np.sqrt(max(k, 1))
+    A = scale * torch.randn(m, K, generator=gen, dtype=tdt, device=dev)
+    B = scale * torch.randn(n, K, generator=gen, dtype=tdt, device=dev)
+
+    def up(a):
+        return torch.as_tensor(a, dtype=tdt, device=dev)
+
+    init = init or {}
+    if init.get("A") is not None:
+        A[:, :k] = up(init["A"])
+    if init.get("B") is not None:
+        B[:, :k] = up(init["B"])
+    if user_bias and init.get("biasA") is not None:
+        biasA0 = init["biasA"]
+    if item_bias and init.get("biasB") is not None:
+        biasB0 = init["biasB"]
+    A[:, k] = up(biasA0) if user_bias else 0.0
+    B[:, k] = up(biasB0) if item_bias else 0.0
+
+    lam_vec_A, lam_vec_B, lam_const_A, lam_const_B = _lam_vecs(
+        k, K, lam6, user_bias, item_bias, scale_lam, scale_bias_const,
+        weights, len(vals), m, n, dev, tdt)
+    lam_mult_A = lam_mult_B = None
+    if scale_lam:
+        lam_mult_A = dense_engine.weight_sums(W, 1, tdt)
+        lam_mult_B = dense_engine.weight_sums(W, 0, tdt)
+
+    def state():
+        return {"A": A[:, :k], "B": B[:, :k],
+                "biasA": A[:, k] if user_bias else None,
+                "biasB": B[:, k] if item_bias else None}
+
+    try:
+        for it in range(niter):
+            final = finalize_chol and it == niter - 1
+            steps = 30 if final else max_cg_steps
+            jacobi = precondition_cg and not final
+            t0 = time.time()
+            # B before A, the reference's order (src/collective.c:8614/8802)
+            B = dense_engine.dense_cg_update(
+                B, X, W, _with_bias_col(A, k, item_bias),
+                A[:, k] if user_bias else None, lam_vec_B, lam_mult_B,
+                lam_const_B, steps, 1, jacobi=jacobi)
+            A = dense_engine.dense_cg_update(
+                A, X, W, _with_bias_col(B, k, user_bias),
+                B[:, k] if item_bias else None, lam_vec_A, lam_mult_A,
+                lam_const_A, steps, 0, jacobi=jacobi)
+            if verbose:
+                _fence(dev)
+                tag = "dense-cg*" if final else "dense-cg"
+                print(f"iter {it + 1}/{niter} [{tag}] "
+                      f"{time.time() - t0:.3f}s")
+            ckpt.maybe_save(it + 1, lambda: _host(state()))
+    except KeyboardInterrupt:
+        if not should_handle_interrupt():
+            raise
+        print("interrupted — returning partially-fit model")
+
+    out = state()
+    out.update({"glob_mean": float(glob_mean), "k": k})
+    return out
 
 
 # ----------------------------------------------------------------------- #
@@ -481,30 +634,39 @@ def fit_implicit_als(
     engine: str = "auto",  # "auto" | "dense" | "sparse"
     device="cuda",
 ) -> dict:
-    """Implicit-feedback ALS (WRMF).  Returns A [m,k] and B [n,k] as f32
-    tensors on ``device`` plus w_main_multiplier and alpha.
+    """Implicit-feedback ALS (WRMF).  Returns A [m,k] and B [n,k] as
+    tensors of the fit's dtype on ``device`` plus w_main_multiplier and
+    alpha.
 
     ``engine="auto"`` and ``"sparse"`` take the bucketed engine,
     ``"dense"`` the dense-masked one, whose padded dense form takes 10 B
     an entry (bf16 Wx and Xp, the int8 mask, both orientations).  The
     dense engine runs K1 and K2 (bf16 bulk iterations, f32 under
-    finalize_chol's last iteration or use_cg=False's exact mode).  The bucketed engine's CG iterations launch
-    K3 once per bucket and side on a card (bf16 opposing matrix); its
-    Cholesky iterations (use_cg=False, or the last one under finalize_chol)
-    stay f32."""
+    finalize_chol's last iteration or use_cg=False's exact mode), in float32
+    without ``precondition_cg`` only.  The bucketed engine's f32 CG
+    iterations launch K3 once per bucket and side on a card (bf16 opposing
+    matrix); its float64 and Jacobi-PCG iterations run rowsolve.solve_cg,
+    and its Cholesky iterations (use_cg=False, or the last one under
+    finalize_chol) stay in the fit's dtype."""
     lam6, l16 = _resolve_lambdas(lambda_, l1_lambda)
     dtype = resolve_dtype(dtype)
     dev = resolve_device(device)
     _check_engine(engine)
-    _reject_common(mesh, shard_opposing_rows, nonneg, l16, use_cg,
-                   precondition_cg, dtype)
+    _reject_common(mesh, shard_opposing_rows, nonneg, l16)
+    plain = plain_route(dtype, use_cg, precondition_cg)
     dense = engine == "dense"
+    if dense and plain:
+        raise ValueError("engine='dense' (kernels K1/K2) takes float32 "
+                         "without precondition_cg; use engine='auto' or "
+                         "'sparse'")
     k_pad = (padded_dims(m, n, k, bias_col=False)[2] if dense
              else _round_up(k, 8))
-    check_kernel_k(k, k_pad, "dense" if dense else "bucketed", dev)
+    if not plain:  # the plain solves take any k
+        check_kernel_k(k, k_pad, "dense" if dense else "bucketed", dev)
     ckpt = FitCheckpointer(checkpoint_path, checkpoint_every, niter)
+    tdt = torch_dtype(dtype)
 
-    vals = implicit_values(vals, apply_log_transf).astype(np.float32)
+    vals = implicit_values(vals, apply_log_transf).astype(dtype)
     w_main = len(vals) / (float(m) * float(n)) if adjust_weight else 1.0
     if dense:
         return fit_implicit_dense_masked(
@@ -512,7 +674,8 @@ def fit_implicit_als(
             max_cg_steps=max_cg_steps, finalize_steps=FINALIZE_STEPS,
             finalize_chol=finalize_chol, alpha=alpha,
             w_main_multiplier=w_main, seed=seed, verbose=verbose, device=dev,
-            init=init, ckpt=ckpt, exact=not use_cg)
+            init=init, ckpt=ckpt, exact=not use_cg, dtype=dtype,
+            precondition_cg=use_cg and precondition_cg)
 
     RB, CB = _build_pair(rows, cols, vals, m, n, None, dev)
     perm_A = torch.as_tensor(RB.perm, device=dev)
@@ -520,16 +683,16 @@ def fit_implicit_als(
 
     gen = torch.Generator(device=dev)
     gen.manual_seed(int(seed))
-    A_blocks = init_blocks(gen, RB, k, k_pad)
-    B_blocks = init_blocks(gen, CB, k, k_pad)
+    A_blocks = init_blocks(gen, RB, k, k_pad, tdt)
+    B_blocks = init_blocks(gen, CB, k, k_pad, tdt)
     if init is not None:
         if init.get("A") is not None:
             _seed_factor_blocks(A_blocks, RB, init["A"], k)
         if init.get("B") is not None:
             _seed_factor_blocks(B_blocks, CB, init["B"], k)
 
-    lam_vec_A = _make_lam_vec(k, k_pad, lam6[2], 0.0, False, dev)
-    lam_vec_B = _make_lam_vec(k, k_pad, lam6[3], 0.0, False, dev)
+    lam_vec_A = _make_lam_vec(k, k_pad, lam6[2], 0.0, False, dev, tdt)
+    lam_vec_B = _make_lam_vec(k, k_pad, lam6[3], 0.0, False, dev, tdt)
 
     def state():
         return _sparse_fit_state(A_blocks, B_blocks, perm_A, perm_B, k,
@@ -544,7 +707,8 @@ def fit_implicit_als(
                 A_blocks, B_blocks, RB, CB, perm_A, perm_B, lam_vec_A,
                 lam_vec_B, w_main, alpha, m=m, n=n, method=method,
                 max_cg_steps=max_cg_steps,
-                mxu_bf16=dev.type == "cuda" and method == "cg")
+                mxu_bf16=_bf16_rows(dev, method, tdt),
+                precondition=precondition_cg)
             if verbose:
                 _fence(dev)
                 print(f"iter {it + 1}/{niter} [{method}] "
@@ -563,13 +727,14 @@ def fit_implicit_als(
 
 def _implicit_sparse_iteration(
     A_blocks, B_blocks, RB, CB, perm_A, perm_B, lam_vec_A, lam_vec_B,
-    w_main, alpha, *, m, n, method, max_cg_steps, mxu_bf16,
+    w_main, alpha, *, m, n, method, max_cg_steps, mxu_bf16, precondition,
 ):
     """One full WRMF iteration over bucketed data, B half-step then A
     (upstream cmfrec src/collective.c:9927 precedes :9981), with the
     shared Gram base G0 = w * opp^T opp."""
     common = dict(w=w_main, alpha=alpha, method=method,
-                  n_steps=max_cg_steps, mxu_bf16=mxu_bf16)
+                  n_steps=max_cg_steps, mxu_bf16=mxu_bf16,
+                  precondition=precondition)
     A_orig = blocks_to_orig(A_blocks, perm_A)
     B_blocks = update_side(SidePlan(CB, "implicit", m), B_blocks, A_orig,
                            None, lam_vec_B, G0=w_main * gram_matrix(A_orig),

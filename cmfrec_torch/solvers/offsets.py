@@ -256,9 +256,9 @@ def fit_offsets_als(
     mesh=None,
     device="cuda",
 ) -> dict:
-    """ALS approximation: the port's ALS fit for Am/Bm on ``device``, then
-    the attribute regression (upstream cmfrec src/offsets.c:1773).  The
-    ALS drivers take float32 only (ROADMAP slice 1 item 1)."""
+    """ALS approximation: the port's ALS fit for Am/Bm on ``device`` in
+    ``dtype``, then the attribute regression (upstream cmfrec
+    src/offsets.c:1773)."""
     U, U_colmeans = densify_side(side_U, center=True)
     I, I_colmeans = densify_side(side_I, center=True)
     common = dict(k=k, lambda_=lambda_, niter=niter, use_cg=use_cg,

@@ -11,16 +11,17 @@ and ``torch.linalg.cholesky_ex`` on the model's ``device``.
 
 build_precomputed assembles the prediction caches of
 precompute_collective_explicit (src/collective.c:10209) in float64 on the
-host, as the JAX package does.  Each matrix a solve needs is uploaded to
-the device once, as f32, and reused for as long as the model holds the
-array it was made from (compared by identity, never by ``id()``).  Serving
-runs in f32 whatever the model's ``dtype_``: a model loaded from a
-cmfrec_tpu float64 checkpoint is served in f32 too.
+host, as the JAX package does.  Every warm and cold solve runs in the
+model's dtype (``dtype_``: float64 for a ``use_float=False`` model, f32
+otherwise), as cmfrec_tpu's (cmfrec_tpu/solvers/warm.py:211, :641).  Each
+matrix a solve needs is uploaded to the device once, in that dtype, and
+reused for as long as the model holds the array it was made from (compared
+by identity, never by ``id()``) and the device and dtype are unchanged.
 
-A batch's result on the device is one [R, w + 2] f32 tensor: the w =
-k_user + k + k_main factors, the user bias, and the Cholesky ``info`` of
-each row (0 where its factorization succeeded).  ``download`` copies it to
-the host once and raises if a row failed.
+A batch's result on the device is one [R, w + 2] tensor of the model's
+dtype: the w = k_user + k + k_main factors, the user bias, and the
+Cholesky ``info`` of each row (0 where its factorization succeeded).
+``download`` copies it to the host once and raises if a row failed.
 
 The offsets models (OMF_explicit, OMF_implicit, ContentBased) serve
 through ``offsets_warm_batch`` and binary side information through
@@ -37,7 +38,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ..config import resolve_device
+from ..config import resolve_device, torch_dtype
 from ..ops import rowsolve
 from ..ops.rowsolve import SparsePart, length_mask
 from .dense_masked import _round_up
@@ -76,24 +77,35 @@ def precomputed(model) -> dict:
     return pre
 
 
-def _dev(model, name, arr, token=None, dtype=np.float32):
-    """Copy of the host array ``arr`` on the model's device (f32 unless
-    ``dtype`` says otherwise), kept in the model's device cache under
-    ``name`` while ``token`` (default: the array itself, by identity) and
-    the device are unchanged."""
+def _model_dtype(model):
+    """(numpy dtype, torch dtype) the model's own solves run in."""
+    if np.dtype(getattr(model, "dtype_", np.float32)) == np.float64:
+        return np.float64, torch.float64
+    return np.float32, torch.float32
+
+
+def _dev(model, name, arr, token=None, dtype=None):
+    """Copy of the host array ``arr`` on the model's device in ``dtype``
+    (default: the model's), kept in the model's device cache under
+    ``name`` while ``token`` (default: the array itself, by identity), the
+    device and the dtype are unchanged."""
     token = (arr,) if token is None else token
+    ndt, tdt = _model_dtype(model)
+    if dtype is not None:
+        ndt, tdt = np.dtype(dtype), torch_dtype(dtype)
     cache = model.__dict__.setdefault("_device_cache", {})
-    key = "warm:" + name + ("" if np.dtype(dtype) == np.float32
-                            else ":" + np.dtype(dtype).name)
+    key = "warm:" + name
     hit = cache.get(key)
-    if hit is None or hit[1] != model.device or not _same(hit[0], token):
+    if (hit is None or hit[1] != model.device or hit[2].dtype != tdt
+            or not _same(hit[0], token)):
         cache[key] = (token, model.device, torch.as_tensor(
-            np.asarray(arr, dtype), device=resolve_device(model.device)))
+            np.asarray(arr, ndt), device=resolve_device(model.device)))
     return cache[key][2]
 
 
 def _small(model, name, arr):
-    """A small f32 vector on the device, cached by value."""
+    """A small vector on the device in the model's dtype, cached by
+    value."""
     arr = np.asarray(arr, np.float64)
     return _dev(model, name, arr, token=(arr.tobytes(),))
 
@@ -183,7 +195,8 @@ def _result(a, kw, bias_col, info=None):
 
 def download(out: torch.Tensor):
     """One device-to-host copy of a batch result -> (a [R, w], bias [R]) as
-    f32 numpy; raises if any row's Cholesky factorization failed."""
+    numpy in the result's dtype; raises if any row's Cholesky factorization
+    failed."""
     h = out.cpu().numpy()
     bad = np.flatnonzero(h[:, -1])
     if bad.size:
@@ -235,6 +248,7 @@ def _u_part(model, U, k_pad, dev):
     (minus the column means): the part carries only the observed entries'
     corrections (cw = 0, cv = w_u * raw value) on top of the shared bases
     w_u CtC and CtUbias (src/collective.c:3389, :10466)."""
+    ndt, _ = _model_dtype(model)
     na0_u = bool(getattr(model, "NA_as_zero_user", False))
     U = np.asarray(U, np.float64)
     if model.U_colmeans_ is not None and not na0_u:
@@ -266,8 +280,8 @@ def _u_part(model, U, k_pad, dev):
         cw = w_user * msk
     part = SparsePart(
         _dev(model, "extC", Ce, token=(model.C_, k_pad)),
-        _upload(idx, np.int32, dev), _upload(cw, np.float32, dev),
-        _upload(cv, np.float32, dev))
+        _upload(idx, np.int32, dev), _upload(cw, ndt, dev),
+        _upload(cv, ndt, dev))
     return part, counts, G0x, r0x
 
 
@@ -283,6 +297,7 @@ def factors_explicit_batch(model, idx, vals, wgt, lengths, U=None,
     batches downloads once.  ``_no_fused=True`` forces the eager path
     (tests hold the fused one against it)."""
     dev = resolve_device(model.device)
+    ndt, tdt = _model_dtype(model)
     ext, width, k_pad, user_bias = _ext_B(model)
     lam6, l16 = _resolve_lambdas(model.lambda_,
                                  getattr(model, "l1_lambda", 0.0))
@@ -315,8 +330,8 @@ def factors_explicit_batch(model, idx, vals, wgt, lengths, U=None,
             if model.U_colmeans_ is not None:
                 Uarr = Uarr - np.asarray(model.U_colmeans_)[None, :]
             T = _dev(model, "TransCtCinvCt", pre["TransCtCinvCt"])  # [kc, p]
-            a = torch.zeros(R, kw, device=dev)
-            a[:, :T.shape[0]] = _upload(Uarr, np.float32, dev) @ T.T
+            a = torch.zeros(R, kw, dtype=tdt, device=dev)
+            a[:, :T.shape[0]] = _upload(Uarr, ndt, dev) @ T.T
             _count(model, "cold_matmul")
             return finish(_result(a, kw, None))
 
@@ -346,7 +361,7 @@ def factors_explicit_batch(model, idx, vals, wgt, lengths, U=None,
         ib = (np.zeros(n) if model.item_bias_ is None else model.item_bias_)
         a, info = _warm_plain(
             _ext_B_dev(model, ext, k_pad, user_bias),
-            _upload(idx, np.int32, dev), _upload(vals, np.float32, dev),
+            _upload(idx, np.int32, dev), _upload(vals, ndt, dev),
             _upload(lengths, np.int32, dev),
             _dev(model, "item_bias", ib, token=(model.item_bias_, n)),
             float(model.glob_mean_), _small(model, "lam_warm", lam_np),
@@ -363,7 +378,7 @@ def factors_explicit_batch(model, idx, vals, wgt, lengths, U=None,
 
     if dense_trans:
         T = _trans_btb_inv_bt(model)
-        a = _upload(v, np.float32, dev) @ _dev(model, "TransBtBinvBt", T).T
+        a = _upload(v, ndt, dev) @ _dev(model, "TransBtBinvBt", T).T
         _count(model, "warm_dense_matmul")
         return finish(_result(a, kw, bias_col))
 
@@ -382,8 +397,8 @@ def factors_explicit_batch(model, idx, vals, wgt, lengths, U=None,
             cw = w_main * ww * msk
             cv = cw * v
         parts.append(SparsePart(ext_d, _upload(idx, np.int32, dev),
-                                _upload(cw, np.float32, dev),
-                                _upload(cv, np.float32, dev)))
+                                _upload(cw, ndt, dev),
+                                _upload(cv, ndt, dev)))
     if na0:
         if "BtBw" in pre and "BtXbias" in pre:
             # served from the precompute (src/collective.c:10300-10352)
@@ -418,8 +433,8 @@ def factors_explicit_batch(model, idx, vals, wgt, lengths, U=None,
         if L > 0:
             parts.append(SparsePart(
                 _dev(model, "extBi", ext_bi, token=(model.Bi_, k_pad)),
-                parts[0].idx, torch.zeros(R, L, device=dev),
-                _upload(wi * msk, np.float32, dev)))
+                parts[0].idx, torch.zeros(R, L, dtype=tdt, device=dev),
+                _upload(wi * msk, ndt, dev)))
 
     u_counts = 0
     up = _u_part(model, U, k_pad, dev) if (
@@ -476,11 +491,11 @@ def factors_explicit_batch(model, idx, vals, wgt, lengths, U=None,
             and not np.isnan(np.asarray(U, np.float64)).any()
             and ((not na0 and wgt is None and _full_rows(idx, lengths, n))
                  or (na0 and wgt is None))):
-        rhs = torch.zeros(R, k_pad, device=dev)
+        rhs = torch.zeros(R, k_pad, dtype=tdt, device=dev)
         for prt in parts:
             rhs = rhs + rowsolve.part_rhs(prt)
         if r0 is not None:
-            rhs = rhs + _upload(r0, np.float32, dev)
+            rhs = rhs + _upload(r0, ndt, dev)
         Lc = _dev(model, "BeTBeChol", pre["BeTBeChol"])
         y = torch.linalg.solve_triangular(Lc, rhs.T, upper=False)
         a = torch.linalg.solve_triangular(Lc.T, y, upper=True).T
@@ -490,14 +505,14 @@ def factors_explicit_batch(model, idx, vals, wgt, lengths, U=None,
     if not parts:  # no rows' data at all: a zero-length X part
         parts.append(SparsePart(ext_d, torch.zeros(R, 1, dtype=torch.int32,
                                                    device=dev),
-                                torch.zeros(R, 1, device=dev),
-                                torch.zeros(R, 1, device=dev)))
+                                torch.zeros(R, 1, dtype=tdt, device=dev),
+                                torch.zeros(R, 1, dtype=tdt, device=dev)))
     G, rhs = rowsolve.assemble_system(
         parts, _small(model, "lam_eager", lam_vec),
-        lam_mult=None if lam_mult is None else _upload(lam_mult, np.float32,
+        lam_mult=None if lam_mult is None else _upload(lam_mult, ndt,
                                                        dev),
-        G0=None if G0 is None else _upload(G0, np.float32, dev),
-        r0=None if r0 is None else _upload(r0, np.float32, dev)[None, :])
+        G0=None if G0 is None else _upload(G0, ndt, dev),
+        r0=None if r0 is None else _upload(r0, ndt, dev)[None, :])
     a, info = rowsolve.solve_chol_ex(G, rhs)
     if not na0 and U is None:
         # rows with no data anywhere -> zeros (the reference's zero_out)
@@ -520,8 +535,9 @@ def factors_explicit_grouped(model, rows, cols, vals, wgt, R, U=None,
     cols = np.asarray(cols, np.int64)
     vals = np.asarray(vals, np.float64)
     kw = _width(model)
+    ndt, _ = _model_dtype(model)
     if R == 0:
-        return np.zeros((0, kw), np.float32), np.zeros(0, np.float32)
+        return np.zeros((0, kw), ndt), np.zeros(0, ndt)
     counts = np.bincount(rows, minlength=R)
     order = np.argsort(-counts, kind="stable")
     c2 = -2 * counts[order]  # non-decreasing
@@ -582,8 +598,8 @@ def factors_explicit_grouped(model, rows, cols, vals, wgt, R, U=None,
         outs.append(out[:Rg])
         spans.append(g_rows)
 
-    a_out = np.zeros((R, kw), np.float32)
-    bias_out = np.zeros(R, np.float32)
+    a_out = np.zeros((R, kw), ndt)
+    bias_out = np.zeros(R, ndt)
     if spans:
         a_all, b_all = download(torch.cat(outs))  # one download, all groups
         at = np.concatenate(spans)
@@ -621,6 +637,7 @@ def factors_implicit_batch(model, idx, vals, lengths, U=None,
     Returns a [R, k_user+k+k_main] as numpy, or with ``return_device=True``
     the [R, w + 2] device result (bias 0)."""
     dev = resolve_device(model.device)
+    ndt, _ = _model_dtype(model)
     ext, _, k_pad, user_bias = _ext_B(model)
     width = _width(model)
     lam6, l16 = _resolve_lambdas(model.lambda_,
@@ -649,7 +666,7 @@ def factors_implicit_batch(model, idx, vals, lengths, U=None,
     if not _no_fused and L > 0 and U is None:
         a, info = _warm_implicit(
             ext_d, _upload(idx, np.int32, dev),
-            _upload(vals, np.float32, dev), _upload(lengths, np.int32, dev),
+            _upload(vals, ndt, dev), _upload(lengths, np.int32, dev),
             G0, lam_d, float(model.alpha), w_mult)
         _count(model, "warm_fused_implicit")
         return finish(a, info)
@@ -658,16 +675,16 @@ def factors_implicit_batch(model, idx, vals, lengths, U=None,
            < np.asarray(lengths)[:, None]).astype(float)
     av = float(model.alpha) * np.asarray(vals, np.float64)
     parts = [SparsePart(ext_d, _upload(idx, np.int32, dev),
-                        _upload(w_mult * av * msk, np.float32, dev),
-                        _upload(w_mult * (1.0 + av) * msk, np.float32, dev))]
+                        _upload(w_mult * av * msk, ndt, dev),
+                        _upload(w_mult * (1.0 + av) * msk, ndt, dev))]
     r0 = None
     if U is not None and getattr(model, "C_", None) is not None:
         up, _, G0x, r0x = _u_part(model, U, k_pad, dev)
         parts.append(up)
         if G0x is not None:
-            G0 = G0 + _upload(G0x, np.float32, dev)
+            G0 = G0 + _upload(G0x, ndt, dev)
         if r0x is not None:
-            r0 = _upload(r0x, np.float32, dev)[None, :]
+            r0 = _upload(r0x, ndt, dev)[None, :]
     G, rhs = rowsolve.assemble_system(parts, lam_d, G0=G0, r0=r0)
     a, info = rowsolve.solve_chol_ex(G, rhs)
     if U is None:
@@ -835,13 +852,6 @@ def build_precomputed(model) -> dict:
 # ----------------------------------------------------------------------- #
 
 
-def _model_dtype(model):
-    """(numpy dtype, torch dtype) the model's own solves run in."""
-    if np.dtype(getattr(model, "dtype_", np.float32)) == np.float64:
-        return np.float64, torch.float64
-    return np.float32, torch.float32
-
-
 def offsets_warm_batch(model, idx, vals, lengths, wgt=None, base=None,
                        implicit=False, alpha=1.0, return_bias=False,
                        exact=None):
@@ -902,8 +912,7 @@ def offsets_warm_batch(model, idx, vals, lengths, wgt=None, base=None,
         lam_vec = np.full(k_pad, lam)
         lam_vec[kk:] = 1.0  # padded coords stay zero even at lam = 0
         part = SparsePart(
-            _dev(model, "omf_ext_implicit", ext, token=(model.Bm_, k_pad),
-                 dtype=ndt),
+            _dev(model, "omf_ext_implicit", ext, token=(model.Bm_, k_pad)),
             idx_d, up(av * msk), up((1.0 + av) * msk))
         a = solve([part], lam_vec, G0=up(_pad_sq(BmtBm, k_pad)))[:, :kk]
         a[lengths == 0] = 0.0
@@ -929,7 +938,7 @@ def offsets_warm_batch(model, idx, vals, lengths, wgt=None, base=None,
             lam_vec[kk] = lam_bias
         part = SparsePart(
             _dev(model, "omf_ext_ridge", ext,
-                 token=(model.Bm_, k_pad, append_bias), dtype=ndt),
+                 token=(model.Bm_, k_pad, append_bias)),
             idx_d, up(cw), up(cw * vv))
         a = solve([part], lam_vec)
         a[lengths == 0] = 0.0
@@ -967,8 +976,7 @@ def offsets_warm_batch(model, idx, vals, lengths, wgt=None, base=None,
     if append_bias:
         M[:, kf] = colsum[:ks + k]
     uc_d = up(uc)
-    Bc = _dev(model, "omf_Bc", Bm[:, :ks + k], token=(model.Bm_, ks + k),
-              dtype=ndt)
+    Bc = _dev(model, "omf_Bc", Bm[:, :ks + k], token=(model.Bm_, ks + k))
     proj = torch.einsum("rlk,rk->rl", rowsolve.gather_rows(Bc, idx_d), uc_d)
     msk_d, ww_d = up(msk[:, :L]), up(ww)
     cw = (ww_d - 1.0) * msk_d
@@ -979,7 +987,7 @@ def offsets_warm_batch(model, idx, vals, lengths, wgt=None, base=None,
         lam_vec[kf] = lam_bias
     part = SparsePart(
         _dev(model, "omf_ext_exact", ext,
-             token=(model.Bm_, ks, k_pad, append_bias), dtype=ndt),
+             token=(model.Bm_, ks, k_pad, append_bias)),
         idx_d, cw, cv)
     a = solve([part], lam_vec, G0=up(G0), r0=-(uc_d @ up(M)))
     out[:, ks:] += a[:, :kf]
@@ -1093,7 +1101,7 @@ def factors_bin_batch(model, idx, vals, wgt, lengths, U=None, U_bin=None,
         ww = msk if wgt is None else np.asarray(wgt, np.float64) * msk
         Bg = rowsolve.gather_rows(
             _dev(model, "bin_Bx", Bfull,
-                 token=(model.B_, ku, width, append_bias), dtype=ndt),
+                 token=(model.B_, ku, width, append_bias)),
             _upload(idx, np.int64, dev))
         cw, cv = up(ww), up(v * msk)
 
@@ -1104,7 +1112,7 @@ def factors_bin_batch(model, idx, vals, wgt, lengths, U=None, U_bin=None,
             Uarr = Uarr - np.asarray(model.U_colmeans_)[None, :]
         umask = up((~np.isnan(Uarr)).astype(np.float64))
         u = up(np.nan_to_num(Uarr))
-        Cm = _dev(model, "bin_C", model.C_, dtype=ndt)
+        Cm = _dev(model, "bin_C", model.C_)
     Cb = ub = ubmask = None
     if U_bin is not None:
         if getattr(model, "Cb_", None) is None:
@@ -1112,7 +1120,7 @@ def factors_bin_batch(model, idx, vals, wgt, lengths, U=None, U_bin=None,
         Ub = np.asarray(U_bin, np.float64)
         ubmask = up((~np.isnan(Ub)).astype(np.float64))
         ub = up(np.nan_to_num(Ub))
-        Cb = _dev(model, "bin_Cb", model.Cb_, dtype=ndt)
+        Cb = _dev(model, "bin_Cb", model.Cb_)
 
     lam_np = np.full(width, float(lam6[2]))
     if append_bias:

@@ -201,11 +201,46 @@ def _fit_beyond_the_device_budget():
 # test asserts that they run, through the bucketed engine (its layout build
 # is called), to finite factors.  DENSE: the same through the dense-masked
 # engine (no layout build); COLLECTIVE: through the bucketed collective
-# route.
+# route.  PLAIN: float64 and Jacobi PCG (ROADMAP slice 1 item 1) fit on the
+# plain dense engine and match cmfrec_tpu's from one init=.
 BUCKETED = "runs on the bucketed engine"
 DENSE = "runs on the dense engine"
 COLLECTIVE = "runs on the bucketed collective route"
 LBFGS = "runs the L-BFGS fit"
+PLAIN = "runs on the plain dense engine as cmfrec_tpu"
+
+
+def _plain_matches_cmfrec_tpu(call, X, mp):
+    """``call(X, pkg=, **kw)`` fits a CMF of ``pkg``: the port's fit takes
+    the plain dense engine (drivers._fit_explicit_dense), both packages'
+    drivers start from one init=, and every factor and bias of the port's
+    model matches cmfrec_tpu's in the model's dtype: float64 within 1e-8,
+    float32 (Jacobi PCG) within 1e-4 of max|.|."""
+    from cmfrec_tpu.solvers import drivers as jdrivers
+
+    m, n = X.shape
+    rng = np.random.default_rng(0)
+    init = {"A": 0.3 * rng.normal(size=(m, 40)),
+            "B": 0.3 * rng.normal(size=(n, 40)),
+            "biasA": 0.1 * rng.normal(size=m),
+            "biasB": 0.1 * rng.normal(size=n)}
+    for mod in (drivers, jdrivers):
+        real = mod.fit_explicit_als
+        mp.setattr(mod, "fit_explicit_als",
+                   lambda *a, _r=real, **kw: _r(*a, **{**kw, "init": init}))
+    routed = []
+    real_dense = drivers._fit_explicit_dense
+    mp.setattr(drivers, "_fit_explicit_dense",
+               lambda *a, **kw: routed.append(kw["dtype"])
+               or real_dense(*a, **kw))
+    got = call(X, device="cpu")
+    want = call(X, pkg=cmfrec_tpu)
+    assert routed == [got.dtype_]
+    tol = 1e-8 if got.dtype_ == np.float64 else 1e-4
+    for attr in ("A_", "B_", "user_bias_", "item_bias_"):
+        g, w = getattr(got, attr), np.asarray(getattr(want, attr))
+        assert g.dtype == got.dtype_, attr
+        assert np.abs(g - w).max() <= tol * np.abs(w).max(), attr
 
 
 @pytest.mark.parametrize("call,match", [
@@ -230,10 +265,14 @@ LBFGS = "runs the L-BFGS fit"
      "slice 4"),
     (lambda X: cmfrec_torch.CMF(NA_as_zero=True, device="cpu").fit(
         X, W=np.ones(X.nnz)), BUCKETED),
-    (lambda X: cmfrec_torch.CMF(precondition_cg=True, device="cpu").fit(X),
-     "slice 1 item 1"),
-    (lambda X: cmfrec_torch.CMF(use_float=False, device="cpu").fit(X),
-     "slice 1 item 1"),
+    # the two cases of ROADMAP slice 1 item 1 keep their ids: Jacobi PCG in
+    # float32 and float64 fit on the plain dense engine
+    pytest.param(lambda X, pkg=cmfrec_torch, **kw: pkg.CMF(
+        precondition_cg=True, **kw).fit(X), PLAIN,
+        id="<lambda>-slice 1 item 1_0"),
+    pytest.param(lambda X, pkg=cmfrec_torch, **kw: pkg.CMF(
+        use_float=False, **kw).fit(X), PLAIN,
+        id="<lambda>-slice 1 item 1_1"),
     (lambda X: drivers.fit_explicit_als(*_TRIPLETS, mesh=object(),
                                         device="cpu"), "slice 7"),
     (lambda X: drivers.fit_explicit_als(*_TRIPLETS, shard_opposing_rows=True,
@@ -245,6 +284,9 @@ LBFGS = "runs the L-BFGS fit"
 def test_out_of_slice_options_raise(call, match, monkeypatch):
     rows, cols, vals, m, n = _TRIPLETS
     X = sp.coo_matrix((vals, (rows, cols)), shape=(m, n))
+    if match == PLAIN:
+        _plain_matches_cmfrec_tpu(call, X, monkeypatch)
+        return
     if match not in (BUCKETED, DENSE, COLLECTIVE, LBFGS):
         with pytest.raises(ValueError, match=match):
             call(X)
@@ -599,14 +641,36 @@ def test_bucketed_collective_configurations_fit(case):
      "slice 4 item 10, the coordinate-descent solver"),
     (lambda X, U: cmfrec_torch.CMF(device="cpu").fit(X, U=U, mesh=object()),
      "slice 7"),
-    (lambda X, U: cmfrec_torch.CMF(use_float=False, device="cpu").fit(
-        X, U=U), "slice 1 item 1"),
+    # float64 (ROADMAP slice 1 item 1) fits on the bucketed collective
+    # route: match is None
+    (lambda X, U: ("CMF", dict(use_float=False)), None),
 ], ids=["nonneg_C", "mesh", "float64"])
 def test_bucketed_collective_configurations_raise(call, match):
     rows, cols, vals, m, n, U, _ = _side_data()
     X = sp.coo_matrix((vals, (rows, cols)), shape=(m, n))
-    with pytest.raises(ValueError, match=match):
-        call(X, U)
+    if match is not None:
+        with pytest.raises(ValueError, match=match):
+            call(X, U)
+        return
+    # the float64 collective fit from one init= handed to both packages:
+    # every factor in float64 and within 1e-8 of max|.| of cmfrec_tpu's
+    cls, kw = call(X, U)
+    routed = []
+    from cmfrec_torch.solvers import collective
+
+    with pytest.MonkeyPatch.context() as mp:
+        _hand_over_init(mp)
+        real = collective._fit_collective_explicit_bucketed
+        mp.setattr(collective, "_fit_collective_explicit_bucketed",
+                   lambda *a, **k: routed.append(k["dtype"])
+                   or real(*a, **k))
+        got = _fit_model("port", cls, kw, X, U)
+        want = _fit_model("jax", cls, kw, X, U)
+    assert routed == [np.float64] and got.dtype_ == np.float64
+    for attr in ("A_", "B_", "C_", "user_bias_", "item_bias_"):
+        g, w = getattr(got, attr), np.asarray(getattr(want, attr))
+        assert g.dtype == np.float64, attr
+        assert np.abs(g - w).max() <= 1e-8 * np.abs(w).max(), attr
 
 
 @pytest.mark.parametrize("model", ["CMF", "CMF_implicit"])

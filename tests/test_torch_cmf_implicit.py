@@ -106,9 +106,43 @@ _SMALL = _preference_data(seed=2, m=30, n=20)
 
 
 # dense side info fits now, through the dense-masked engine (ROADMAP slice
-# 3); k_user through the bucketed collective route
+# 3); k_user through the bucketed collective route; Jacobi PCG and float64
+# (ROADMAP slice 1 item 1) through the bucketed engine's plain solves,
+# matching cmfrec_tpu from one init=
 DENSE = "runs on the dense engine"
 COLLECTIVE = "runs on the bucketed collective route"
+PLAIN = "runs the bucketed engine's plain solves as cmfrec_tpu"
+
+
+def _plain_matches_cmfrec_tpu(call, X, mp):
+    """``call(X, pkg=, **kw)`` fits a CMF_implicit of ``pkg``: both
+    packages' drivers start from one init=, the port's solves never call
+    the bucket-CG op (K3's wrapper), and A_/B_ match cmfrec_tpu's in the
+    model's dtype: float64 within 1e-8, float32 (Jacobi PCG) within 1e-4 of
+    max|.|."""
+    from cmfrec_torch.ops import sparse_cg
+    from cmfrec_tpu.solvers import drivers as jdrivers
+
+    m, n = X.shape
+    rng = np.random.default_rng(0)
+    init = {"A": 0.3 * rng.normal(size=(m, 50)),
+            "B": 0.3 * rng.normal(size=(n, 50))}
+    for mod in (drivers, jdrivers):
+        real = mod.fit_implicit_als
+        mp.setattr(mod, "fit_implicit_als",
+                   lambda *a, _r=real, **kw: _r(*a, **{**kw, "init": init}))
+    k3 = []
+    real_k3 = sparse_cg.bucket_cg
+    mp.setattr(sparse_cg, "bucket_cg",
+               lambda *a, **kw: k3.append(1) or real_k3(*a, **kw))
+    got = call(X, device="cpu")
+    want = call(X, pkg=cmfrec_tpu)
+    assert not k3
+    tol = 1e-8 if got.dtype_ == np.float64 else 1e-4
+    for attr in ("A_", "B_"):
+        g, w = getattr(got, attr), np.asarray(getattr(want, attr))
+        assert g.dtype == got.dtype_, attr
+        assert np.abs(g - w).max() <= tol * np.abs(w).max(), attr
 
 
 @pytest.mark.parametrize("call,match", [
@@ -122,12 +156,10 @@ COLLECTIVE = "runs on the bucketed collective route"
      "slice 4"),
     (lambda X: cmfrec_torch.CMF_implicit(l1_lambda=0.1, device="cpu").fit(X),
      "slice 4"),
-    (lambda X: cmfrec_torch.CMF_implicit(precondition_cg=True,
-                                         device="cpu").fit(X),
-     "slice 1 item 1"),
-    (lambda X: cmfrec_torch.CMF_implicit(use_float=False,
-                                         device="cpu").fit(X),
-     "slice 1 item 1"),
+    (lambda X, pkg=cmfrec_torch, **kw: pkg.CMF_implicit(
+        precondition_cg=True, **kw).fit(X), PLAIN),
+    (lambda X, pkg=cmfrec_torch, **kw: pkg.CMF_implicit(
+        use_float=False, **kw).fit(X), PLAIN),
     (lambda X: cmfrec_torch.CMF_implicit(device="cpu").fit(X, mesh=object()),
      "slice 7"),
     (lambda X: cmfrec_torch.CMF_implicit(alpha=0.0, device="cpu"),
@@ -141,6 +173,9 @@ COLLECTIVE = "runs on the bucketed collective route"
 def test_out_of_slice_options_raise(call, match, monkeypatch):
     rows, cols, vals, _, m, n = _SMALL
     X = sp.coo_matrix((vals, (rows, cols)), shape=(m, n))
+    if match == PLAIN:
+        _plain_matches_cmfrec_tpu(call, X, monkeypatch)
+        return
     if match not in (DENSE, COLLECTIVE):
         with pytest.raises(ValueError, match=match):
             call(X)

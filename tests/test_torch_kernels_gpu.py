@@ -692,3 +692,116 @@ def test_offsets_serving_on_card_matches_cpu(cuda, branch, tmp_path):
     got = warm.offsets_warm_batch(model, idx, vals, lengths, **kw)
     want = warm.offsets_warm_batch(twin, idx, vals, lengths, **kw)
     assert _rel(torch.as_tensor(got), torch.as_tensor(want)) <= 1e-4
+
+
+# --------------------------------------------------------------------- #
+# float64 and Jacobi PCG: plain torch on the card, no kernel             #
+# --------------------------------------------------------------------- #
+
+PLAIN_FITS = {
+    "explicit-f64-dense": ("explicit", dict(dtype=np.float64)),
+    "explicit-f64-sparse": ("explicit", dict(dtype=np.float64,
+                                             engine="sparse")),
+    "explicit-pcg-dense": ("explicit", dict(precondition_cg=True)),
+    "explicit-pcg-sparse": ("explicit", dict(precondition_cg=True,
+                                             engine="sparse")),
+    "implicit-f64": ("implicit", dict(dtype=np.float64)),
+    "implicit-pcg": ("implicit", dict(precondition_cg=True)),
+    "collective-f64": ("collective", dict(dtype=np.float64)),
+}
+
+
+@pytest.mark.parametrize("case", list(PLAIN_FITS))
+def test_plain_fits_launch_no_kernel(cuda, case, monkeypatch):
+    """float64 and Jacobi-PCG fits on the card launch K1, K2 and K3 0 times
+    and equal the same fit on the CPU from one init: float64 1e-10, f32 PCG
+    on the plain dense engine 1e-4 (true f32 products); f32 PCG on the
+    bucketed engine takes bf16 opposing rows on the card (as the JAX
+    package's on the TPU), and the CPU fit it is held against is made to
+    take them too: K3_REL_TOL's bf16 limit for three CG steps on bf16 rows
+    (f32 sums in another order flip single bf16 roundings; readings
+    1e-3 .. 2e-3 after three iterations)."""
+    from cmfrec_torch.solvers import collective
+
+    fit, kw = PLAIN_FITS[case]
+    rng = np.random.default_rng(9)
+    m, n, k = 300, 200, 8
+    pairs = np.unique(rng.integers(0, m * n, 6000))
+    rows, cols = pairs // n, pairs % n
+    vals = np.round(2 * (3 + rng.normal(size=rows.size))) / 2
+    init = {"A": 0.3 * rng.normal(size=(m, k)),
+            "B": 0.3 * rng.normal(size=(n, k))}
+    common = dict(k=k, niter=3, lambda_=1.0, init=init, **kw)
+    if fit == "implicit":
+        call, vals = drivers.fit_implicit_als, np.abs(vals) + 1.0
+    elif fit == "collective":
+        U = rng.normal(size=(m, 5))
+        init["C"] = 0.3 * rng.normal(size=(5, k))
+        common["side_U"] = (None, None, None, m, 5, True, U)
+        call = collective.fit_collective_explicit_als
+    else:
+        call = drivers.fit_explicit_als
+    ops = (mm.masked_gram_matvec, mm.masked_rhs, sparse_cg.bucket_cg)
+    before = [op.launches for op in ops]
+    got = call(rows, cols, vals, m, n, device="cuda", **common)
+    assert [op.launches for op in ops] == before
+    f64 = kw.get("dtype") == np.float64
+    bf16_rows = not f64 and (kw.get("engine") == "sparse"
+                             or fit == "implicit")
+    if bf16_rows:
+        monkeypatch.setattr(drivers, "_bf16_rows",
+                            lambda dev, method, tdt: method == "cg")
+    want = call(rows, cols, vals, m, n, device="cpu", **common)
+    tol = 1e-10 if f64 else (K3_REL_TOL[torch.bfloat16] if bf16_rows
+                              else 1e-4)
+    for key in init:
+        assert got[key].dtype == (torch.float64 if f64 else torch.float32)
+        assert _rel(got[key].cpu(), want[key]) <= tol, key
+
+
+def test_kernel_wrappers_raise_on_float64(cuda):
+    """K1-K3's wrappers refuse a float64 tensor on the card; they never
+    hand it to their plain twins."""
+    Q, Be, W, X, mb = _inputs(cuda, 64, 64, 64, torch.float32,
+                              torch.int8)
+    with pytest.raises(ValueError, match="bfloat16 or float32"):
+        mm.masked_gram_matvec(Q.double(), Be.double(), W)
+    with pytest.raises(ValueError, match="bfloat16 or float32"):
+        mm.masked_rhs(X, W, mb, Be.double())
+    R, L, K = 8, 16, 64
+    idx = torch.zeros(R, L, dtype=torch.int32, device=cuda)
+    f = torch.zeros(R, L, dtype=torch.float64, device=cuda)
+    with pytest.raises(ValueError, match="bfloat16 or float32"):
+        sparse_cg.bucket_cg(
+            Be.double(), idx, f, f, torch.eye(K, dtype=torch.float64,
+                                              device=cuda), None, None,
+            torch.zeros(R, K, dtype=torch.float64, device=cuda), n_steps=3,
+            length=torch.full((R,), L, dtype=torch.int32, device=cuda))
+
+
+def test_float64_factors_warm_card_matches_cpu(cuda, tmp_path):
+    """A float64 model's warm factors on the card equal the CPU copy's
+    within 1e-10 of max|a|, in float64."""
+    import scipy.sparse as spm
+
+    import cmfrec_torch
+
+    rng = np.random.default_rng(10)
+    m, n = 300, 200
+    X = spm.random(m, n, density=0.08, random_state=5, format="coo")
+    X.data = np.round(10 * X.data) / 2 + 0.5
+    U = rng.normal(size=(m, 6))
+    model = cmfrec_torch.CMF(k=8, niter=3, lambda_=2.0, use_float=False,
+                             device="cuda").fit(X, U=U)
+    path = str(tmp_path / "f64.npz")
+    model.save(path)
+    twin = cmfrec_torch.CMF.load(path, device="cpu")
+    twin.force_precompute_for_predictions()
+    cols, xv = np.array([2, 5, 9, 40]), np.array([3.5, 1.0, 4.5, 2.0])
+    pairs = [(model.factors_warm(X_col=cols, X_val=xv, U=U[0]),
+              twin.factors_warm(X_col=cols, X_val=xv, U=U[0])),
+             (model.factors_multiple(X=X.tocsr()[:40]),
+              twin.factors_multiple(X=X.tocsr()[:40]))]
+    for got, want in pairs:
+        assert got.dtype == np.float64
+        assert np.abs(got - want).max() <= 1e-10 * np.abs(want).max()

@@ -14,8 +14,9 @@ ContentBased) against cmfrec_tpu's on the same inputs.
   ``_cache_stats["omf_gram"]``;
 - the serving surface (cold, warm, new items, topN) at 1e-5 (the port
   projects attributes and scores in f32);
-- save/load both ways, convert.model_from_arrays, and the float64-under-ALS
-  rejection (ROADMAP slice 1 item 1).
+- save/load both ways, convert.model_from_arrays, and the ALS fits at
+  their float64 defaults (ROADMAP slice 1 item 1) against cmfrec_tpu from
+  one init (1e-8 of max|param|).
 """
 
 import numpy as np
@@ -420,14 +421,31 @@ def test_model_from_arrays_rejects_what_it_cannot_carry():
     lambda: cmfrec_torch.OMF_implicit(k=3, device="cpu"),
     lambda: cmfrec_torch.ContentBased(k=3, use_float=False, device="cpu"),
 ], ids=["omf_explicit_als", "omf_implicit", "content_based_als"])
-def test_float64_under_als_raises(make):
-    """The ALS fits take float32 only (ROADMAP slice 1 item 1); the
-    L-BFGS fits take float64."""
-    _, X, U, I = _data(11)
+def test_float64_under_als_raises(make, monkeypatch):
+    """The ALS fits at their float64 defaults (ROADMAP slice 1 item 1; the
+    name is the earlier rejection's): OMF_explicit(method="als"),
+    OMF_implicit() and ContentBased(use_float=False)'s ALS start fit in
+    float64 from one init handed to both packages' fit_offsets_als, and
+    every fitted array matches cmfrec_tpu's within 1e-8 of max|.|."""
+    rng, X, U, I = _data(11)
+    _with_init(monkeypatch, "fit_offsets_als", _als_init(rng, 3), "init")
     model = make()
-    Xf = _plays(X) if isinstance(model, cmfrec_torch.OMF_implicit) else X
-    with pytest.raises(ValueError, match="slice 1 item 1"):
-        model.fit(Xf, U=U, I=I)
+    implicit = isinstance(model, cmfrec_torch.OMF_implicit)
+    Xf = _plays(X) if implicit else X
+    params = model.get_params()
+    params.pop("device")
+    if isinstance(model, cmfrec_torch.ContentBased):
+        # the L-BFGS after the ALS start; at the default lambda (100) it
+        # takes C and D to ~1e-12, where a relative comparison reads noise
+        params.update(maxiter=20, lambda_=1.0)
+    want = type(model).__name__
+    jm = getattr(cmfrec_tpu, want)(**params)
+    tm = type(model)(**params, device="cpu")
+    fit = dict(U=U) if implicit else dict(U=U, I=I)
+    jm.fit(Xf, **fit)
+    tm.fit(Xf, **fit)
+    assert tm.dtype_ == np.float64 and tm.Am_.dtype == np.float64
+    _same_fit(tm, jm, 1e-8)
 
 
 def test_option_checks_as_cmfrec_tpu():
