@@ -127,6 +127,32 @@ power limit, and K1-K3 launches, which must be 0:
      float32 from the same init=: held-out RMSE within 0.002, C_/D_
      finite.
 
+Coordinate descent (nonneg, nonneg_C/D, l1_lambda; the CD kernel of
+csrc/cd_solve.cu), each printing seconds, peak device memory, the card's
+name and power limit, K1-K3 launches (0) and solve_cd launches against
+the count the code implies, and the sweeps a row took (mean, p99, share
+at max_cd_steps):
+ 26. phase 4's arguments with nonneg=True, center=False on the bucketed
+     Cholesky/CD route: A_, B_ and the biases >= 0, held-out RMSE below
+     the global mean's; one bucket of each side's last half-step (at most
+     4,096 rows) through the kernel against rowsolve.solve_cd on the card
+     in f32 and f64, both timed, and the whole A half-step timed;
+ 27. phase 7's WRMF with nonneg=True: P@10 >= 2x popularity, factors >= 0;
+ 28. phase 11's dense U and I with nonneg, nonneg_C and nonneg_D
+     (center=False): the dense C/D updates by CD with one G shared by
+     every side column, C_ and D_ >= 0, and the last iteration's C and D
+     solves (G of row stride 0) through the kernel against
+     rowsolve.solve_cd in f32 and f64; 28b. phase 4's arguments with
+     l1_lambda=0.1 (scaled by each row's count under scale_lam): the share
+     of exact zeros in A_ and B_ (> 0); RMSE below the global mean's; then
+     with l1_lambda=L1_KEEP, where factors stay: zeros in A_ and B_ between
+     0 and 100%, RMSE below the global mean's, and one A bucket of the
+     last half-step (the soft threshold with a per-row l1, its result
+     part zero, part not) through the kernel against its twin;
+ 29. serving: phase 5b's 8,192 users folded into phase 26's model
+     (users/s, factors >= 0, 256 card against the CPU copy), and 2,000 U
+     rows through cold factors of phase 28's model against its CPU copy.
+
 Each fit phase, and phase 9's sweep, sets every kernel's launch count to 0
 just before it and reads the counts just after; phases 10-16 print each
 fit's seconds (14-15 of a warm fit, after a first one) and peak device
@@ -154,7 +180,8 @@ FIT = dict(k=50, lambda_=0.05, scale_lam=True, niter=15, use_cg=True,
 RMSE_BOUND = 0.73078 + 0.01
 # K1 = 14 bulk iterations x 2 half-steps x (1 + 3 CG steps)
 #      + the polish's 2 x (1 + 16);  K2 = one per half-step
-EXPECTED_LAUNCHES = {"masked_gram_matvec": 14 * 2 * 4 + 2 * 17,
+EXPECTED_LAUNCHES = {"solve_cd": 0,
+                     "masked_gram_matvec": 14 * 2 * 4 + 2 * 17,
                      "masked_rhs": 15 * 2, "bucket_cg": 0}
 # max|kernel - twin| / max|twin|, set about 7x above the largest readings at
 # these shapes (1.4e-4 bf16, 6.5e-6 f32, NVIDIA H100): f32 differs by
@@ -162,15 +189,20 @@ EXPECTED_LAUNCHES = {"masked_gram_matvec": 14 * 2 * 4 + 2 * 17,
 REL_TOL = {"bf16": 1e-3, "f32": 5e-5}
 REPLACES = {"masked_gram_matvec": "cmfrec_tpu/ops/masked_matmul.py:87",
             "masked_rhs": "cmfrec_tpu/ops/masked_matmul.py:108",
-            "bucket_cg": "cmfrec_tpu/ops/sparse_cg.py:52"}
+            "bucket_cg": "cmfrec_tpu/ops/sparse_cg.py:52",
+            # XLA in the JAX package (a fori_loop in a scan), not Pallas
+            "solve_cd": "cmfrec_tpu/ops/rowsolve.py:279"}
 SOURCES = {"masked_gram_matvec": "cmfrec_torch/csrc/masked_matmul.cu",
            "masked_rhs": "cmfrec_torch/csrc/masked_matmul.cu",
-           "bucket_cg": "cmfrec_torch/csrc/sparse_cg.cu"}
-# NVIDIA H100 SXM data sheet: HBM bytes/s; dense bf16 tensor-core and plain
-# f32 operations/s.  An operation is costed by its operands' type: a bf16 x
-# bf16 product summed in f32 at the bf16 rate, whatever unit the kernel uses.
+           "bucket_cg": "cmfrec_torch/csrc/sparse_cg.cu",
+           "solve_cd": "cmfrec_torch/csrc/cd_solve.cu"}
+# NVIDIA H100 SXM data sheet: HBM bytes/s; dense bf16 tensor-core, plain
+# f32 and f64 tensor-core operations/s (full f64 precision).  An operation
+# is costed by its operands' type at the fastest unit that keeps their
+# precision: a bf16 x bf16 product summed in f32 at the bf16 rate, whatever
+# unit the kernel uses.
 HBM_BPS = 3.35e12
-PEAK_OPS = {"bf16": 989e12, "f32": 67e12}
+PEAK_OPS = {"bf16": 989e12, "f32": 67e12, "f64": 67e12}
 
 # Phase 9, max|kernel - plain| / max|plain| by the probe's work model
 # (k1_probes.Probe.work): bodies equal to K1's (p_full, p_part, v*) take
@@ -197,6 +229,7 @@ CUDA_KERNELS = {
     "masked_rhs": ("rhs_bf16_wgmma_kernel", "rhs_f32_tile8_kernel",
                    "sum_chunks_kernel"),
     "bucket_cg": ("bucket_cg_kernel",),
+    "solve_cd": ("cd_solve_kernel",),
 }
 PTXAS_KERNELS = tuple(dict.fromkeys(k for ks in CUDA_KERNELS.values()
                                     for k in ks))
@@ -211,7 +244,7 @@ RMSE_BOUND_CG_IMPLICIT_FEAT = 0.73073 + 0.01
 RMSE_BOUND_CHOL_IMPLICIT_FEAT = 0.7308 + 0.01
 SIDE_P = 32  # columns of phase 11's U and I
 # the dense implicit engine: 15 iterations x 2 half-steps x (1 + 3 CG steps)
-EXPECTED_DENSE_IMPLICIT = {"masked_gram_matvec": 15 * 2 * 4,
+EXPECTED_DENSE_IMPLICIT = {"solve_cd": 0, "masked_gram_matvec": 15 * 2 * 4,
                            "masked_rhs": 15 * 2, "bucket_cg": 0}
 RANK_USERS = 2000  # held-out users of phases 12-13
 # |P@10 - phase 12's dense P@10| of phase 12's bucketed fit and phase 13's
@@ -1180,7 +1213,7 @@ def implicit_phases(ops, U):
     quality["bucketed"] = ranking(*imodel._device_x_factors())
     del imodel
     torch.cuda.empty_cache()
-    want = {"masked_gram_matvec": 0, "masked_rhs": 0,
+    want = {"solve_cd": 0, "masked_gram_matvec": 0, "masked_rhs": 0,
             "bucket_cg": IMPLICIT_FIT["niter"] * (n_chunks(rows[tr], M)
                                                   + n_chunks(cols[tr], N))}
     print(f"phase 12 bucketed implicit (CMF_implicit, engine 'auto'): "
@@ -1647,7 +1680,7 @@ def bucketed_collective_phases(ops, rows, cols, vals, test, lastfm, p10_7):
     with _Route(sides) as route:
         model, launches, s, peak = _fit_phase(ops, fit)
     rmse = rmse_of(model)
-    want = {"masked_gram_matvec": 0, "masked_rhs": 0,
+    want = {"solve_cd": 0, "masked_gram_matvec": 0, "masked_rhs": 0,
             "bucket_cg": (FIT["niter"] - 1) * sum(n_b.values())}
     # centering U by each tag's observed mean zeroes a tag seen once (or
     # always with one count): a side-only user whose every tag is such has
@@ -1704,7 +1737,7 @@ def bucketed_collective_phases(ops, rows, cols, vals, test, lastfm, p10_7):
     Ad, Bd = imodel._device_x_factors()
     p10, map10, p10_pop = ranking_quality(Ad, Bd, l_r, l_c, l_te_r, l_te_c,
                                           test_users, LFM_N)
-    want = {"masked_gram_matvec": 0, "masked_rhs": 0,
+    want = {"solve_cd": 0, "masked_gram_matvec": 0, "masked_rhs": 0,
             "bucket_cg": IMPLICIT_FIT["niter"] * n_b15}
     print(f"phase 15 collective implicit bucketed (U profiles {P.shape} nnz "
           f"{P.nnz}, NA_as_zero_user): route {route.name}, warm fit "
@@ -1852,11 +1885,13 @@ CB_NEW_ROWS = 2000  # phase 20's new attribute rows
 
 
 def dense_launches(niter):
-    return {"masked_gram_matvec": (niter - 1) * 2 * 4 + 2 * 17,
+    return {"solve_cd": 0,
+            "masked_gram_matvec": (niter - 1) * 2 * 4 + 2 * 17,
             "masked_rhs": 2 * niter, "bucket_cg": 0}
 
 
-NO_LAUNCHES = {"masked_gram_matvec": 0, "masked_rhs": 0, "bucket_cg": 0}
+NO_LAUNCHES = {"solve_cd": 0, "masked_gram_matvec": 0, "masked_rhs": 0,
+               "bucket_cg": 0}
 # phase 17: the card's f32 objective and gradient at the fit's result
 # against the CPU's f64 evaluation; 17b: the objective alone
 LBFGS_F32_TOL = 1e-4
@@ -2296,7 +2331,7 @@ def lbfgs_family_phases(ops, rows, cols, vals, test, lastfm, ctx):
     Am_d, Bm_d = iomf._device_x_factors()
     p10, map10, _ = ranking_quality(Am_d, Bm_d, l_r, l_c, l_te_r, l_te_c,
                                     test_users, LFM_N)
-    want = {"masked_gram_matvec": 0, "masked_rhs": 0,
+    want = {"solve_cd": 0, "masked_gram_matvec": 0, "masked_rhs": 0,
             "bucket_cg": IMPLICIT_FIT["niter"] * ctx["n_buckets_7"]}
     print(f"phase 19 OMF_implicit (phase 7's hyperparameters, U profiles "
           f"{P.shape}): fit {s:.3f} s (host: densify_side "
@@ -2587,6 +2622,408 @@ def float64_phases(ops, rows, cols, vals, test, lastfm, ctx):
     return paths
 
 
+# phases 26-29: coordinate descent
+NONNEG_FIT = dict(FIT, nonneg=True, center=False)
+L1_FIT = dict(FIT, l1_lambda=0.1)
+# an l1 penalty at which the fit keeps part of its factors: 0.1 zeroes
+# them all (phase 28b's first reading), and scripts/sweep_l1_torch.py shows
+# the collapse already at 0.003 (NVIDIA H100 80GB HBM3, 700 W)
+L1_KEEP = 0.001
+L1_KEEP_FIT = dict(FIT, l1_lambda=L1_KEEP)
+CD_CHECK_ROWS = 4096  # rows of a bucket held kernel against twin
+CD_REPS = 5  # CUDA-event repetitions of a kernel timing
+# max|kernel - twin| / max|twin| of the CD kernel (the same sweeps over
+# sums in another order; the iteration contracts), about 7x above the
+# readings on phase 26's buckets (NVIDIA H100 80GB HBM3, 700 W): f32
+# 1.33e-6, f64 2.60e-15
+CD_REL_TOL = {"f32": 1e-5, "f64": 2e-14}
+# max|card - CPU| / max|CPU| of CD-served factors (phase 29), about 6x
+# above the readings (same card): warm 1.57e-5, cold 8.7e-8
+CD_SERVE_TOL = 1e-4
+
+
+class _CDSpy:
+    """The solvers' CD op wrapped for the CD phases: every call also asks
+    for the sweeps each row ran (kept on the card, read at the end), and
+    the calls for which ``keep(call number, G)`` is true keep their inputs.
+    The wrapper takes ops.coord_descent's place in the solver modules only,
+    so the op and its launch count stay as they are."""
+
+    def __init__(self, keep=lambda i, G: False):
+        self.keep, self.kept, self.sweeps = keep, {}, []
+        self.calls, self.max_steps = 0, None
+
+    def __enter__(self):
+        import types
+
+        from cmfrec_torch.ops import coord_descent
+        from cmfrec_torch.solvers import als, collective, warm
+
+        real = coord_descent.solve_cd
+
+        def spy(G, rhs, l1, *, nonneg, max_steps, tol=1e-9,
+                return_sweeps=False):
+            if self.keep(self.calls, G):
+                self.kept[self.calls] = (G, rhs, l1, nonneg, max_steps)
+            self.calls += 1
+            out, sw = real(G, rhs, l1, nonneg=nonneg, max_steps=max_steps,
+                           tol=tol, return_sweeps=True)
+            self.sweeps.append(sw)
+            self.max_steps = max_steps
+            return (out, sw) if return_sweeps else out
+
+        self.modules = (als, collective, warm)
+        for mod in self.modules:
+            mod.coord_descent = types.SimpleNamespace(solve_cd=spy)
+        return self
+
+    def __exit__(self, *exc):
+        from cmfrec_torch.ops import coord_descent
+
+        for mod in self.modules:
+            mod.coord_descent = coord_descent
+
+    def stats(self):
+        return sweep_stats(self.sweeps, self.max_steps)
+
+
+def sweep_stats(sweeps, max_steps):
+    """The sweeps rows ran: mean, p99, share at max_steps, rows."""
+    import torch
+
+    if not sweeps:
+        return dict(mean=0.0, p99=0.0, at_max=0.0, rows=0)
+    sw = torch.cat(sweeps).cpu().numpy()
+    return dict(mean=float(sw.mean()), p99=float(np.percentile(sw, 99)),
+                at_max=float(np.mean(sw == max_steps)), rows=int(sw.size))
+
+
+def _fmt_sweeps(st):
+    return (f"sweeps a row mean {st['mean']:.2f}, p99 {st['p99']:.0f}, "
+            f"{100 * st['at_max']:.1f}% at the cap, over {st['rows']} rows")
+
+
+def _cd_work(G, rhs, l1, sweeps, dt):
+    """(bytes, {type: operations}) of one CD call: G, rhs and l1 read once
+    (a shared G once), the result and the sweeps written once; 2K^2
+    operations a row and sweep."""
+    import torch
+
+    K = rhs.shape[1]
+    esz = rhs.element_size()
+    g_bytes = (K * K if G.stride(0) == 0 else G.shape[0] * K * K) * esz
+    nbytes = g_bytes + 2 * rhs.numel() * esz + l1.numel() * esz \
+        + sweeps.numel() * 4
+    ops = 2.0 * K * K * float(sweeps.to(torch.float64).sum())
+    return nbytes, {dt: ops}
+
+
+def check_cd(phase, sides):
+    """A phase's CD kernel against rowsolve.solve_cd on the card: for each
+    side's kept call (its first CD_CHECK_ROWS rows; a G shared by the rows
+    stays shared), in f32 and f64, the error, the share of exact zeros in
+    the twin's result, the kernel's CUDA-event time, the twin's host-clock
+    time (one call, ending in a synchronize) and the bound from the sweeps
+    the rows ran.  Returns one record a side and type."""
+    import torch
+
+    from cmfrec_torch.ops import coord_descent, rowsolve
+
+    out = []
+    for side, (G, rhs, l1, nonneg, steps) in sides.items():
+        R, K = min(G.shape[0], CD_CHECK_ROWS), G.shape[1]
+        rhs = rhs[:R].contiguous()
+        l1 = (l1[:R] if l1.dim() == 2 else l1).contiguous()
+        for name, dt in (("f32", torch.float32), ("f64", torch.float64)):
+            Gd = (G[0].to(dt).expand(R, K, K) if G.stride(0) == 0
+                  else G[:R].contiguous().to(dt))
+            args = (Gd, rhs.to(dt), l1.to(dt))
+            got, sw = coord_descent.solve_cd(*args, nonneg=nonneg,
+                                             max_steps=steps,
+                                             return_sweeps=True)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            want, wsw = rowsolve.solve_cd(*args, nonneg, steps,
+                                          return_sweeps=True)
+            torch.cuda.synchronize()
+            plain_ms = (time.perf_counter() - t0) * 1e3
+            err = float((got - want).abs().max())
+            rel = err / float(want.abs().max())
+            ms = _timed(lambda: coord_descent.solve_cd(
+                *args, nonneg=nonneg, max_steps=steps), CD_REPS)
+            nbytes, ops = _cd_work(*args, sw, name)
+            b_ms, b_by = bound(nbytes, ops)
+            st = sweep_stats([sw], steps)
+            rec = dict(phase=phase, side=side, dtype=name, shape=[R, K],
+                       shared_G=G.stride(0) == 0, l1_rows=l1.dim() == 2,
+                       nonneg=bool(nonneg), max_abs_err=err, rel=rel,
+                       zeros=float((want == 0).double().mean()), ms=ms,
+                       plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                       sweeps=st,
+                       same_sweeps=float((sw == wsw).float().mean()))
+            out.append(rec)
+            print(f"phase {phase} CD kernel side={side} {name} [{R}, {K}]"
+                  f"{' G shared' if rec['shared_G'] else ''}, "
+                  f"{'nonneg' if nonneg else 'soft threshold'}, l1 "
+                  f"{'[R, K]' if rec['l1_rows'] else '[K]'} (max "
+                  f"{float(l1.abs().max()):.4g}): max|err| {err:.3e}, rel "
+                  f"{rel:.2e} (limit {CD_REL_TOL[name]:.0e}), zeros "
+                  f"{100 * rec['zeros']:.1f}%, kernel {ms:.3f} ms, twin "
+                  f"{plain_ms:.1f} ms, bound {b_ms:.4f} ms ({b_by}); "
+                  f"{_fmt_sweeps(st)}; sweeps equal to the twin's on "
+                  f"{100 * rec['same_sweeps']:.1f}% of rows", flush=True)
+            if not (rel <= CD_REL_TOL[name] and torch.isfinite(got).all()):
+                raise AssertionError(f"phase {phase}: the CD kernel "
+                                     f"disagrees with its twin on side "
+                                     f"{side} {name}")
+            if nonneg and float(got.min()) < 0:
+                raise AssertionError(f"phase {phase}: negative CD output")
+    return out
+
+
+def cd_phases(ops, rows, cols, vals, test, lastfm, ctx):
+    """Phases 26-29; returns (each one's launch counts, the CD kernel's
+    records: check_cd's and the whole A half-step)."""
+    import torch
+
+    import cmfrec_torch
+    from cmfrec_torch.ops import coord_descent
+    from cmfrec_torch.solvers import warm
+
+    tr = ~test
+    tr_r, tr_c, tr_v = rows[tr], cols[tr], vals[tr]
+    l_r, l_c, l_v, l_te_r, l_te_c, test_users = lastfm
+    base = float(np.sqrt(np.mean((tr_v.mean() - vals[test]) ** 2)))
+    n_rb, n_cb = n_chunks(tr_r, M), n_chunks(tr_c, N)
+    niter = FIT["niter"]
+    paths = {}
+
+    def rmse_of(model):
+        pred = model.predict(rows[test], cols[test])
+        if not np.all(np.isfinite(pred)):
+            raise AssertionError("non-finite predictions")
+        return float(np.sqrt(np.mean((pred - vals[test]) ** 2)))
+
+    def expect(cd):
+        return dict(NO_LAUNCHES, solve_cd=cd)
+
+    # 26. the flagship with nonneg: the last iteration's calls are kept
+    last = (niter - 1) * (n_cb + n_rb)
+    with _CDSpy(keep=lambda i, G: i >= last) as spy:
+        model, launches, s, peak = _fit_phase(
+            ops, lambda: cmfrec_torch.CMF(**NONNEG_FIT, device="cuda"
+                                          ).fit_triplets(tr_r, tr_c, tr_v,
+                                                         M, N))
+    rmse = rmse_of(model)
+    want = expect(niter * (n_rb + n_cb))
+    mins = {key: float(np.min(getattr(model, key))) for key in
+            ("A_", "B_", "user_bias_", "item_bias_")}
+    st = spy.stats()
+    print(f"phase 26 nonneg flagship (phase 4's arguments, nonneg=True, "
+          f"center=False) on {card()}: fit {s:.3f} s, peak device memory "
+          f"{peak / 2**30:.2f} GiB, held-out RMSE {rmse:.5f} (global-mean "
+          f"baseline {base:.5f}), minima {mins}; {_fmt_sweeps(st)}; "
+          f"launches {launches} (expected {want})", flush=True)
+    if launches != want:
+        raise AssertionError("phase 26 did not run the expected launches")
+    if not (rmse < base and min(mins.values()) >= 0.0
+            and all(np.isfinite(getattr(model, key)).all() for key in mins)):
+        raise AssertionError("phase 26: out of bounds")
+    paths["26"] = launches
+    kept = [spy.kept[i] for i in sorted(spy.kept)]
+    kept_B, kept_A = kept[:n_cb], kept[n_cb:]
+
+    def widest(calls):
+        return max(calls, key=lambda c: c[0].shape[0])
+
+    records = check_cd("26", {"A": widest(kept_A), "B": widest(kept_B)})
+    # the whole A half-step of the last iteration, bucket by bucket
+    half_ms, half_bytes, half_ops, half_sw = 0.0, 0, 0.0, []
+    for G, rhs, l1, nonneg, steps in kept_A:
+        half_ms += _timed(lambda: coord_descent.solve_cd(
+            G, rhs, l1, nonneg=nonneg, max_steps=steps), 2)
+        _, sw = coord_descent.solve_cd(G, rhs, l1, nonneg=nonneg,
+                                       max_steps=steps, return_sweeps=True)
+        nb, op = _cd_work(G, rhs, l1, sw, "f32")
+        half_bytes, half_ops = half_bytes + nb, half_ops + op["f32"]
+        half_sw.append(sw)
+    half_bound, half_by = bound(half_bytes, {"f32": half_ops})
+    half = dict(rows=sum(c[0].shape[0] for c in kept_A), buckets=len(kept_A),
+                ms=half_ms, bound_ms=half_bound, bound_by=half_by,
+                sweeps=sweep_stats(half_sw, kept_A[0][4]))
+    print(f"phase 26 CD kernel, the whole A half-step: {half['rows']} rows in "
+          f"{half['buckets']} buckets, K={kept_A[0][1].shape[1]}, f32: "
+          f"{half_ms:.3f} ms, bound {half_bound:.3f} ms ({half_by}); "
+          f"{_fmt_sweeps(half['sweeps'])}", flush=True)
+    del kept, kept_A, kept_B, spy
+    torch.cuda.empty_cache()
+
+    # 27. phase 7's WRMF with nonneg
+    with _CDSpy() as spy:
+        imodel, launches, s, peak = _fit_phase(
+            ops, lambda: cmfrec_torch.CMF_implicit(
+                **IMPLICIT_FIT, nonneg=True, device="cuda").fit_triplets(
+                    l_r, l_c, l_v, LFM_M, LFM_N))
+    Ad, Bd = imodel._device_x_factors()
+    p10, map10, _ = ranking_quality(Ad, Bd, l_r, l_c, l_te_r, l_te_c,
+                                    test_users, LFM_N)
+    mins = (float(imodel.A_.min()), float(imodel.B_.min()))
+    want = expect(IMPLICIT_FIT["niter"] * ctx["n_buckets_7"])
+    print(f"phase 27 nonneg WRMF (phase 7's arguments, nonneg=True) on "
+          f"{card()}: fit {s:.3f} s, peak device memory {peak / 2**30:.2f} "
+          f"GiB, P@10 {p10:.5f} (phase 7 {ctx['p10_7']:.5f}, bar 2 x "
+          f"popularity {2 * ctx['p10_pop_7']:.5f}), MAP@10 {map10:.5f}, "
+          f"minima A_ B_ {mins}; {_fmt_sweeps(spy.stats())}; launches "
+          f"{launches} (expected {want})", flush=True)
+    if launches != want:
+        raise AssertionError("phase 27 did not run the expected launches")
+    if not (p10 >= 2 * ctx["p10_pop_7"] and min(mins) >= 0.0
+            and np.isfinite(imodel.A_).all() and np.isfinite(imodel.B_).all()):
+        raise AssertionError("phase 27: out of bounds")
+    paths["27"] = launches
+    del imodel, Ad, Bd, spy
+    torch.cuda.empty_cache()
+
+    # 28. dense side info with nonneg, nonneg_C and nonneg_D
+    U = np.random.default_rng(11).normal(size=(M, SIDE_P))
+    I = np.random.default_rng(12).normal(size=(N, SIDE_P))
+    with _CDSpy(keep=lambda i, G: G.stride(0) == 0) as spy:
+        cmodel, launches, s, peak = _fit_phase(
+            ops, lambda: cmfrec_torch.CMF(
+                **NONNEG_FIT, nonneg_C=True, nonneg_D=True, device="cuda"
+            ).fit_triplets(tr_r, tr_c, tr_v, M, N, U=U, I=I))
+    rmse = rmse_of(cmodel)
+    mins = {key: float(np.min(getattr(cmodel, key))) for key in
+            ("A_", "B_", "C_", "D_", "user_bias_", "item_bias_")}
+    # the A and B buckets, and one shared-G solve for each of C and D
+    want = expect(niter * (n_rb + n_cb + 2))
+    print(f"phase 28 nonneg collective (phase 11's U {U.shape} and I "
+          f"{I.shape}, nonneg, nonneg_C, nonneg_D, center=False) on "
+          f"{card()}: fit {s:.3f} s, peak device memory {peak / 2**30:.2f} "
+          f"GiB, held-out RMSE {rmse:.5f} (global-mean baseline {base:.5f}),"
+          f" C_ {cmodel.C_.shape} D_ {cmodel.D_.shape}, minima {mins}; "
+          f"{_fmt_sweeps(spy.stats())}; launches {launches} (expected "
+          f"{want})", flush=True)
+    if launches != want:
+        raise AssertionError("phase 28 did not run the expected launches")
+    if not (rmse < base and min(mins.values()) >= 0.0):
+        raise AssertionError("phase 28: out of bounds")
+    paths["28"] = launches
+    # the last iteration's C and D solves, each one G shared by the columns
+    shared = [spy.kept[i] for i in sorted(spy.kept)]
+    if len(shared) != 2 * niter:
+        raise AssertionError(f"phase 28: {len(shared)} shared-G CD calls, "
+                             f"expected {2 * niter}")
+    records += check_cd("28", {"C": shared[-2], "D": shared[-1]})
+    del spy, shared
+    torch.cuda.empty_cache()
+
+    # 28b. l1_lambda: the soft threshold with a per-row l1
+    with _CDSpy() as spy:
+        lmodel, launches, s, peak = _fit_phase(
+            ops, lambda: cmfrec_torch.CMF(**L1_FIT, device="cuda"
+                                          ).fit_triplets(tr_r, tr_c, tr_v,
+                                                         M, N))
+    rmse = rmse_of(lmodel)
+    zeros = (float(np.mean(lmodel.A_ == 0)), float(np.mean(lmodel.B_ == 0)))
+    want = expect(niter * (n_rb + n_cb))
+    print(f"phase 28b l1_lambda=0.1 (phase 4's arguments, scale_lam) on "
+          f"{card()}: fit {s:.3f} s, peak device memory {peak / 2**30:.2f} "
+          f"GiB, held-out RMSE {rmse:.5f} (global-mean baseline {base:.5f}),"
+          f" exact zeros in A_ {100 * zeros[0]:.1f}% B_ "
+          f"{100 * zeros[1]:.1f}%; {_fmt_sweeps(spy.stats())}; launches "
+          f"{launches} (expected {want})", flush=True)
+    if launches != want:
+        raise AssertionError("phase 28b did not run the expected launches")
+    if not (rmse < base and min(zeros) > 0.0
+            and np.isfinite(lmodel.A_).all()):
+        raise AssertionError("phase 28b: out of bounds")
+    paths["28b"] = launches
+    del lmodel, spy
+    torch.cuda.empty_cache()
+    # 28b, second reading: an l1 at which factors stay; the last iteration's
+    # calls are kept, one A bucket held against the twin
+    with _CDSpy(keep=lambda i, G: i >= last) as spy:
+        kmodel, klaunches, s, peak = _fit_phase(
+            ops, lambda: cmfrec_torch.CMF(**L1_KEEP_FIT, device="cuda"
+                                          ).fit_triplets(tr_r, tr_c, tr_v,
+                                                         M, N))
+    rmse = rmse_of(kmodel)
+    zeros = (float(np.mean(kmodel.A_ == 0)), float(np.mean(kmodel.B_ == 0)))
+    print(f"phase 28b l1_lambda={L1_KEEP} (phase 4's arguments, scale_lam) "
+          f"on {card()}: fit {s:.3f} s, peak device memory "
+          f"{peak / 2**30:.2f} GiB, held-out RMSE {rmse:.5f} (global-mean "
+          f"baseline {base:.5f}), exact zeros in A_ {100 * zeros[0]:.1f}% "
+          f"B_ {100 * zeros[1]:.1f}%; {_fmt_sweeps(spy.stats())}; launches "
+          f"{klaunches} (expected {want})", flush=True)
+    if klaunches != want:
+        raise AssertionError("phase 28b did not run the expected launches")
+    if not (rmse < base and 0.0 < min(zeros) and max(zeros) < 1.0
+            and np.isfinite(kmodel.A_).all()):
+        raise AssertionError("phase 28b: out of bounds")
+    kept_A = [spy.kept[i] for i in sorted(spy.kept)][n_cb:]
+    l1_rec = check_cd("28b", {"A": widest(kept_A)})
+    if not all(0.0 < r["zeros"] < 1.0 for r in l1_rec):
+        raise AssertionError("phase 28b: the checked bucket's result is not "
+                             "part zero, part nonzero")
+    records += l1_rec
+    paths["28b"] = {key: launches[key] + klaunches[key] for key in launches}
+    del kmodel, spy, kept_A
+    torch.cuda.empty_cache()
+
+    # 29. serving the nonneg models
+    users = np.sort(np.random.default_rng(21).choice(
+        np.unique(tr_r), SERVE_USERS, replace=False))
+    X, _ = _new_user_coo(users, tr_r, tr_c, tr_v, M, N)
+    model.factors_multiple(X=X)  # warm-up: caches on the card
+    torch.cuda.reset_peak_memory_stats()
+    batches = []
+    real = _spy(warm, "factors_explicit_batch", batches)
+    try:
+        _reset_launches(ops)
+        with _CDSpy() as spy:
+            (a, bias), s_serve = _timed_s(lambda: model.factors_multiple(
+                X=X, return_bias=True))
+        launches = _read_launches(ops)
+    finally:
+        warm.factors_explicit_batch = real
+    X256 = X.tocsr()[:SERVE_CHECK].tocoo()
+    card_a = np.column_stack(model.factors_multiple(X=X256,
+                                                    return_bias=True))
+    cpu_err = _rel(card_a, np.column_stack(_cpu_twin(
+        model).factors_multiple(X=X256, return_bias=True)))
+    Uc = U[:COLD_ROWS]
+    _reset_launches(ops)
+    cold, s_cold = _timed_s(lambda: cmodel.factors_multiple(U=Uc))
+    one = cmodel.factors_cold(U=Uc[0])
+    claunches = _read_launches(ops)
+    peak = torch.cuda.max_memory_allocated()
+    ctwin = _cpu_twin(cmodel)
+    cold_err = max(_rel(cold, ctwin.factors_multiple(U=Uc)),
+                   _rel(one, ctwin.factors_cold(U=Uc[0])))
+    want = expect(len(batches))
+    print(f"phase 29 nonneg serving on {card()}: phase 5b's {SERVE_USERS} "
+          f"users into phase 26's model, {X.nnz} ratings, {len(batches)} "
+          f"degree groups: factors_multiple {s_serve:.3f} s = "
+          f"{SERVE_USERS / s_serve:.0f} users/s, min factor "
+          f"{float(a.min()):.3g}, {SERVE_CHECK} users card vs CPU "
+          f"{cpu_err:.2e} (limit {CD_SERVE_TOL:.0e}); "
+          f"{_fmt_sweeps(spy.stats())}; launches {launches} (expected "
+          f"{want}); cold factors of {COLD_ROWS} U rows on phase 28's model "
+          f"{s_cold:.3f} s, card vs CPU {cold_err:.2e}, launches "
+          f"{claunches} (expected {expect(2)}); peak device memory "
+          f"{peak / 2**30:.2f} GiB", flush=True)
+    if launches != want or claunches != expect(2):
+        raise AssertionError("phase 29 did not run the expected launches")
+    if not (float(a.min()) >= 0.0 and float(cold.min()) >= 0.0
+            and cpu_err <= CD_SERVE_TOL and cold_err <= CD_SERVE_TOL):
+        raise AssertionError("phase 29: out of bounds")
+    paths["29"] = {key: launches[key] + claunches[key] for key in launches}
+    del model, cmodel, X, a, bias
+    torch.cuda.empty_cache()
+    return paths, records, half
+
+
 def main():
     import torch
 
@@ -2597,13 +3034,14 @@ def main():
     from bench import _cached, make_ml10m_shaped
     from bench_implicit import make_lastfm_shaped, split_heldout
     from cmfrec_torch.data.device_fill import build_bucketed_pair
-    from cmfrec_torch.ops import _cuda, k1_probes, sparse_cg
+    from cmfrec_torch.ops import _cuda, coord_descent, k1_probes, sparse_cg
     from cmfrec_torch.ops import masked_matmul as mm
     from cmfrec_torch.solvers import drivers
     from scripts.sweep_k1_probes_torch import sweep
 
     ops = {"masked_gram_matvec": mm.masked_gram_matvec,
-           "masked_rhs": mm.masked_rhs, "bucket_cg": sparse_cg.bucket_cg}
+           "masked_rhs": mm.masked_rhs, "bucket_cg": sparse_cg.bucket_cg,
+           "solve_cd": coord_descent.solve_cd}
     probe_ops = {w.__name__: w for w in k1_probes.WRAPPERS}
 
     # 1. environment
@@ -2729,7 +3167,7 @@ def main():
     ifit_s = time.perf_counter() - t0
     ilaunches = _read_launches(ops)
     ipeak = torch.cuda.max_memory_allocated()
-    want = {"masked_gram_matvec": 0, "masked_rhs": 0,
+    want = {"solve_cd": 0, "masked_gram_matvec": 0, "masked_rhs": 0,
             "bucket_cg": IMPLICIT_FIT["niter"] * n_buckets}
     Ad, Bd = imodel._device_x_factors()
     p10, map10, p10_pop = ranking_quality(Ad, Bd, tr_r, tr_c, te_r, te_c,
@@ -2771,7 +3209,7 @@ def main():
     sfit_s = time.perf_counter() - t0
     slaunches = _read_launches(ops)
     speak = torch.cuda.max_memory_allocated()
-    want = {"masked_gram_matvec": 0, "masked_rhs": 0,
+    want = {"solve_cd": 0, "masked_gram_matvec": 0, "masked_rhs": 0,
             "bucket_cg": (FIT["niter"] - 1) * (n_chunks(rows[tr], M)
                                               + n_chunks(cols[tr], N))}
     rt, ct = (torch.as_tensor(a[test], device="cuda") for a in (rows, cols))
@@ -2823,6 +3261,11 @@ def main():
     # 22-24. float64 and Jacobi PCG (25 ran after 16)
     paths.update(float64_phases(ops, rows, cols, vals, test, lastfm, ctx))
 
+    # 26-29. coordinate descent
+    cd_paths, cd_records, cd_half = cd_phases(ops, rows, cols, vals, test,
+                                              lastfm, ctx)
+    paths.update(cd_paths)
+
     kernels = []
     for name, variants in results.items():
         main_variant = next(v for v in variants if v["side"] == "A"
@@ -2871,6 +3314,20 @@ def main():
             bound_ms=head["bound_ms"], bound_by=head["bound_by"],
             library_ms=library["A"] if row == "p3" else None,
             variants=variants))
+    # the CD kernel: times on the A side's kept bucket in f32 (phase 26);
+    # no single PyTorch call solves a batch of box- or l1-constrained
+    # quadratic programs
+    head = next(r for r in cd_records if r["phase"] == "26"
+                and r["side"] == "A" and r["dtype"] == "f32")
+    kernels.append(dict(
+        name="solve_cd", route="cuda", source=SOURCES["solve_cd"],
+        cuda_kernels=CUDA_KERNELS["solve_cd"], replaces=REPLACES["solve_cd"],
+        launches=paths["26"]["solve_cd"],
+        launches_by_phase={ph: c["solve_cd"] for ph, c in paths.items()},
+        max_abs_err=max(r["max_abs_err"] for r in cd_records),
+        ms=head["ms"], plain_ms=head["plain_ms"], bound_ms=head["bound_ms"],
+        bound_by=head["bound_by"], library_ms=None, shape=head["shape"],
+        sweeps=head["sweeps"], half_step=cd_half, variants=cd_records))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -17,8 +17,11 @@ entities, k splits, ``w_main``, the ``NA_as_zero*`` options, weighted
 implicit features) on the bucketed collective route.  ``method="lbfgs"``
 fits the joint objective by L-BFGS (solvers/lbfgs.py), binary side info
 (``U_bin``, ``I_bin``) included, and serves new rows with binary side info
-through one L-BFGS over the rows (warm.factors_bin_batch).  The other fit
-branches raise ``ValueError`` naming the ROADMAP slice that brings them.
+through one L-BFGS over the rows (warm.factors_bin_batch).  ``nonneg``,
+``nonneg_C``, ``nonneg_D`` and ``l1_lambda`` fit and serve by coordinate
+descent on every ALS route (``method="lbfgs"`` rejects them, as cmfrec_tpu).
+Multi-device fitting (``mesh=``) raises ``ValueError`` naming the ROADMAP
+slice that brings it.
 """
 
 from __future__ import annotations
@@ -225,6 +228,7 @@ class CMF(_BaseModel):
             center=self.center, scale_lam=self.scale_lam,
             scale_bias_const=self.scale_bias_const,
             NA_as_zero=self.NA_as_zero, nonneg=self.nonneg,
+            max_cd_steps=self.max_cd_steps,
             weights=wgt, dtype=self.dtype_, seed=self.random_state,
             verbose=self.verbose,
             checkpoint_path=self.checkpoint_path,
@@ -247,8 +251,7 @@ class CMF(_BaseModel):
                 scale_lam_sideinfo=self.scale_lam_sideinfo,
                 NA_as_zero_user=self.NA_as_zero_user,
                 NA_as_zero_item=self.NA_as_zero_item,
-                nonneg_C=self.nonneg_C, nonneg_D=self.nonneg_D,
-                max_cd_steps=self.max_cd_steps, **common)
+                nonneg_C=self.nonneg_C, nonneg_D=self.nonneg_D, **common)
             self._store_side(res)
             # the bucketed route's side-count-inclusive values
             # (upstream cmfrec src/collective.c:8070)
@@ -690,6 +693,7 @@ class CMF_implicit(_BaseModel):
             finalize_chol=self.finalize_chol,
             alpha=self.alpha, apply_log_transf=self.apply_log_transf,
             adjust_weight=self.downweight, nonneg=self.nonneg,
+            max_cd_steps=self.max_cd_steps,
             dtype=self.dtype_, seed=self.random_state, verbose=self.verbose,
             checkpoint_path=self.checkpoint_path,
             checkpoint_every=self.checkpoint_every,
@@ -708,8 +712,7 @@ class CMF_implicit(_BaseModel):
                 center_U=self.center_U, center_I=self.center_I,
                 NA_as_zero_user=self.NA_as_zero_user,
                 NA_as_zero_item=self.NA_as_zero_item,
-                nonneg_C=self.nonneg_C, nonneg_D=self.nonneg_D,
-                max_cd_steps=self.max_cd_steps, **common)
+                nonneg_C=self.nonneg_C, nonneg_D=self.nonneg_D, **common)
             self._store_side(res)
         self.A_ = _host(res["A"])
         self.B_ = _host(res["B"])

@@ -22,7 +22,8 @@ from pathlib import Path
 
 _PKG = Path(__file__).resolve().parents[1]
 SOURCES = tuple(_PKG / "csrc" / name for name in
-                ("masked_matmul.cu", "sparse_cg.cu", "k1_probes.cu"))
+                ("masked_matmul.cu", "sparse_cg.cu", "k1_probes.cu",
+                 "cd_solve.cu"))
 HEADERS = (_PKG / "csrc" / "masked_gram.cuh",)
 BUILD_DIR = _PKG.parent / "build"
 NVCC_FLAGS = ("-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -111,6 +112,9 @@ def lib() -> ctypes.CDLL:
     so.cmf_w_stream.restype = I
     so.cmf_bucket_cg.argtypes = [P] * 10 + [I] * 9 + [P]
     so.cmf_bucket_cg.restype = I
+    so.cmf_cd_solve.argtypes = ([P, ctypes.c_longlong, P, P, I, P, P]
+                                + [I] * 4 + [ctypes.c_double, I, P])
+    so.cmf_cd_solve.restype = I
     so.cmf_error_string.argtypes = [I]
     so.cmf_error_string.restype = ctypes.c_char_p
     return so

@@ -1,0 +1,83 @@
+"""Batched coordinate descent of the nonneg and l1 solves (the op behind
+rowsolve.solve_cd on a card).
+
+For every row r it minimises 0.5 a^T G_r a - rhs_r^T a + l1_r^T |a| from
+a = 0 (under ``nonneg`` subject to a >= 0) by cyclic sweeps, as
+cmfrec_tpu/ops/rowsolve.py::solve_cd (:279), which is XLA code, not a
+Pallas kernel.  On a CUDA tensor the op launches the hand-written kernel in
+csrc/cd_solve.cu (a warp a row, the row's a in shared memory); on a CPU
+tensor it runs its plain twin rowsolve.solve_cd.  There is no fallback from
+one to the other.
+
+Operands: G [R, K, K] with unit strides within a row's matrix and row
+stride K*K, or 0 (``G1.expand(R, K, K)``: one G shared by every row);
+rhs [R, K] contiguous; l1 [K] or [R, K] contiguous; all float32 or all
+float64, on one device.  Any K.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from . import _cuda
+from .rowsolve import solve_cd as solve_cd_ref
+
+_DTYPES = (torch.float32, torch.float64)
+
+
+def _validate(G, rhs, l1, max_steps):
+    if rhs.dtype not in _DTYPES or rhs.dim() != 2:
+        raise ValueError("solve_cd: rhs must be a 2-D float32 or float64 "
+                         f"tensor, got {rhs.dtype}{tuple(rhs.shape)}")
+    R, K = rhs.shape
+    if R == 0 or K == 0:
+        raise ValueError(f"solve_cd: empty system {(R, K)}")
+    if G.dtype != rhs.dtype or tuple(G.shape) != (R, K, K):
+        raise ValueError(f"solve_cd: G must be {rhs.dtype} of shape "
+                         f"{(R, K, K)}, got {G.dtype}{tuple(G.shape)}")
+    if G.stride()[1:] != (K, 1) or G.stride(0) not in (K * K, 0):
+        raise ValueError("solve_cd: G must be contiguous, or one [K, K] "
+                         f"matrix expanded over the rows; strides "
+                         f"{G.stride()}")
+    if l1.dtype != rhs.dtype or tuple(l1.shape) not in ((K,), (R, K)):
+        raise ValueError(f"solve_cd: l1 must be {rhs.dtype} of shape {(K,)} "
+                         f"or {(R, K)}, got {l1.dtype}{tuple(l1.shape)}")
+    if int(max_steps) != max_steps or max_steps < 0:
+        raise ValueError("solve_cd: max_steps must be an integer >= 0, "
+                         f"got {max_steps!r}")
+    devices = {t.device for t in (G, rhs, l1)}
+    if len(devices) != 1:
+        raise ValueError(f"solve_cd: tensors on several devices {devices}")
+    if not (rhs.is_contiguous() and l1.is_contiguous()):
+        raise ValueError("solve_cd: rhs and l1 must be contiguous")
+    return R, K, devices.pop()
+
+
+def solve_cd(G, rhs, l1, *, nonneg: bool, max_steps: int, tol: float = 1e-9,
+             return_sweeps: bool = False):
+    """Coordinate descent over every row from a = 0; returns a [R, K] in
+    rhs's dtype, with ``return_sweeps`` also the sweeps each row ran
+    (int32 [R])."""
+    R, K, device = _validate(G, rhs, l1, max_steps)
+    if device.type == "cpu":
+        return solve_cd_ref(G, rhs, l1, nonneg, int(max_steps), tol=tol,
+                            return_sweeps=return_sweeps)
+    if device.type != "cuda":
+        raise ValueError(f"solve_cd: no kernel for device {device}")
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        out = torch.empty(R, K, dtype=rhs.dtype, device=device)
+        sweeps = (torch.empty(R, dtype=torch.int32, device=device)
+                  if return_sweeps else None)
+        err = _cuda.lib().cmf_cd_solve(
+            G.data_ptr(), G.stride(0), rhs.data_ptr(), l1.data_ptr(),
+            K if l1.dim() == 2 else 0, out.data_ptr(),
+            None if sweeps is None else sweeps.data_ptr(), R, K,
+            int(bool(nonneg)), int(max_steps), float(tol),
+            int(rhs.dtype == torch.float64), stream)
+    _cuda.check(err, "solve_cd")
+    solve_cd.launches += 1
+    return (out, sweeps) if return_sweeps else out
+
+
+solve_cd.launches = 0

@@ -9,8 +9,9 @@ Every ALS half-iteration solves, for each row i of a bucket,
 where M is the (extended) opposing factor matrix and (cw, cv) encode the
 model variant (explicit, implicit/WRMF, NA-as-zero; see solvers/als.py).
 The solvers are batched Cholesky (the reference's tposv_, upstream cmfrec
-src/common.c:1045) and warm-started truncated CG with the reference's
-two-tolerance stop (src/common.c:1098,1147,1181).
+src/common.c:1045), warm-started truncated CG with the reference's
+two-tolerance stop (src/common.c:1098,1147,1181) and cyclic coordinate
+descent for non-negative and L1-penalised rows (src/common.c:2131,2228).
 
 bf16 operands (``mxu_bf16``, the CG iterations on a card): the opposing
 rows are bf16, every product of two bf16 values is exact in f32 and every
@@ -232,3 +233,58 @@ def solve_cg(
         inv_diag = torch.where(diag > 0,
                                1.0 / torch.where(diag > 0, diag, 1.0), 1.0)
     return cg_iterations(matvec, rhs, a0, n_steps, inv_diag)
+
+
+def solve_cd(
+    G: torch.Tensor,  # [R, K, K] without l1, with lam on the diagonal
+    rhs: torch.Tensor,  # [R, K]
+    l1_vec: torch.Tensor,  # [K] or [R, K] l1 penalty a coordinate (may be
+    # 0; [R, K] for the per-row scaling of scale_lam, common.c:717-722)
+    nonneg: bool,
+    max_steps: int,
+    a0: Optional[torch.Tensor] = None,
+    tol: float = 1e-9,
+    return_sweeps: bool = False,
+    stop_early: bool = True,
+):
+    """Batched cyclic coordinate descent: non-negative least squares and/or
+    elastic net, as the reference's solve_nonneg / solve_elasticnet
+    (upstream cmfrec src/common.c:2131,2228) and cmfrec_tpu's solve_cd.
+
+    Minimizes 0.5 a^T G a - rhs^T a + l1^T |a| (under ``nonneg`` subject to
+    a >= 0), in the inputs' dtype.  A row is done once a sweep moves no
+    coordinate by more than ``tol``, and is frozen from then on; the loop
+    ends once every row is done (``stop_early=False`` runs all
+    ``max_steps``, as the JAX package's scan does, to the same bits).
+    ``G`` may be a view with row stride 0 (one G shared by every row).
+    With ``return_sweeps`` also returns the sweeps each row ran, int32 [R].
+    """
+    R, K = rhs.shape
+    a = (torch.zeros(R, K, dtype=rhs.dtype, device=rhs.device)
+         if a0 is None else a0.clone())
+    diag = torch.diagonal(G, dim1=-2, dim2=-1)
+    safe_diag = torch.where(diag <= 0, 1.0, diag)
+    done = torch.zeros(R, dtype=torch.bool, device=rhs.device)
+    sweeps = torch.zeros(R, dtype=torch.int32, device=rhs.device)
+    for _ in range(max_steps):
+        if stop_early and bool(done.all()):
+            break
+        sweeps += (~done).to(torch.int32)
+        max_delta = torch.zeros(R, dtype=rhs.dtype, device=rhs.device)
+        for kk in range(K):
+            g_k = G[:, kk, :]  # [R, K]
+            a_k = a[:, kk].clone()
+            l1_k = l1_vec[:, kk] if l1_vec.dim() == 2 else l1_vec[kk]
+            # gradient without the coordinate's own term
+            num = rhs[:, kk] - torch.sum(g_k * a, dim=-1) + a_k * g_k[:, kk]
+            if nonneg:
+                new = torch.clamp(num - l1_k, min=0.0) / safe_diag[:, kk]
+            else:
+                new = (torch.sign(num) * torch.clamp(num.abs() - l1_k,
+                                                     min=0.0)
+                       / safe_diag[:, kk])
+            new = torch.where(done, a_k, new)
+            a[:, kk] = new
+            max_delta = torch.maximum(max_delta, torch.abs(new - a_k))
+        done = done | (max_delta <= tol)
+    return (a, sweeps) if return_sweeps else a

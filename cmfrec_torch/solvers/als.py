@@ -4,8 +4,11 @@
 One half-iteration solves every row of one factor matrix given the other
 (the reference's optimizeA / optimizeA_implicit, upstream cmfrec
 src/common.c:2742,3305).  Each degree bucket of rows is one batched solve:
-coefficient prep -> batched Cholesky, or truncated CG through the fused
-bucket-CG op (ops/sparse_cg.py: kernel K3 on a card, its twin on the CPU).
+coefficient prep -> batched Cholesky, truncated CG through the fused
+bucket-CG op (ops/sparse_cg.py: kernel K3 on a card, its twin on the CPU),
+or, under ``nonneg`` or an l1 penalty, coordinate descent on the assembled
+systems (ops/coord_descent.py: the CD kernel on a card, rowsolve.solve_cd on
+the CPU).
 
 A row system may have several sparse parts (the X part, a sparse side-info
 part, the implicit-features part of the collective fits) beside a shared
@@ -21,8 +24,8 @@ package's fused CG (its ``can_fuse_cg``): float64 and Jacobi PCG
 
 Not ported from the JAX package: ``defer_solve`` and the cross-bucket
 Cholesky concatenation (a TPU compile-time measure: here each bucket
-factors its own systems), the K = 128 lane padding of the CG operands, the
-coordinate-descent solver (nonneg/L1) and the ring-sharded assembly.
+factors its own systems), the K = 128 lane padding of the CG operands and
+the ring-sharded assembly.
 """
 
 from __future__ import annotations
@@ -33,7 +36,7 @@ import numpy as np
 import torch
 
 from ..data.shards import BucketedRows
-from ..ops import rowsolve, sparse_cg
+from ..ops import coord_descent, rowsolve, sparse_cg
 from ..ops.rowsolve import SparsePart, length_mask
 
 
@@ -169,10 +172,13 @@ def solve_bucket(
     r0_vec: Optional[torch.Tensor],  # [K] shared rhs base
     lam_vec: torch.Tensor,  # [K] (per-row-scaled under scale_lam)
     lam_const_vec: Optional[torch.Tensor],  # [K] additional unscaled diagonal
+    l1_vec: Optional[torch.Tensor] = None,  # [K] l1 penalties
     *,
     modes: tuple,  # one mode string per part
     method: str,  # "chol" | "cg"
     n_steps: int,
+    nonneg: bool = False,
+    max_cd_steps: int = 100,
     scale_lam: bool,
     n_totals: tuple,  # per part: total column count (na0 scaling)
     scale_parts: tuple = (),  # per part: counts toward the lam multiplier
@@ -211,8 +217,9 @@ def solve_bucket(
     def finish(a):
         return a if live is None else torch.where(live[:, None], a, 0.0)
 
-    if method == "chol" and all(m == "na0" and p.wgt is None
-                                for p, m in zip(parts, modes)):
+    use_cd = nonneg or l1_vec is not None
+    if method == "chol" and not use_cd and all(
+            m == "na0" and p.wgt is None for p, m in zip(parts, modes)):
         # Shared-Gram fast path: every per-row Gram correction vanishes
         # (cw == 0) and the scale_lam multiplier is row-constant, so all
         # rows share one [K, K] system (unweighted NA-as-zero).
@@ -230,13 +237,22 @@ def solve_bucket(
             rhs = rhs + r0
         return rowsolve.solve_shared_chol(G, rhs)
 
-    if method == "chol":
+    if method == "chol" or use_cd:
         G, rhs = rowsolve.assemble_system(
             sparse_parts, lam_vec, lam_mult=lam_mult, G0=G0, r0=r0,
             mxu_bf16=mxu_bf16)
         if lam_const_vec is not None:
             G = G + torch.diag(lam_const_vec)[None, :, :]
-        return finish(rowsolve.solve_chol(G, rhs))
+        if not use_cd:
+            return finish(rowsolve.solve_chol(G, rhs))
+        l1 = torch.zeros_like(lam_vec) if l1_vec is None else l1_vec
+        if lam_mult is not None:
+            # l1 scales with the same per-row multiplier as the L2 penalty
+            # (upstream cmfrec src/common.c:717-722)
+            l1 = l1[None, :] * lam_mult[:, None]
+        return finish(coord_descent.solve_cd(
+            G, rhs.contiguous(), l1.contiguous(), nonneg=nonneg,
+            max_steps=max_cd_steps))
 
     # CG path
     G0_eff = G0
@@ -295,8 +311,11 @@ def update_side(
     #   (PartData, mode, n_total, counts_toward_scale_lam)
     ones_val: bool = False,  # values 1.0 (Xones, the implicit features)
     lam_const_vec: Optional[torch.Tensor] = None,
+    l1_vec: Optional[torch.Tensor] = None,
     method: str = "chol",
     n_steps: int = 3,
+    nonneg: bool = False,
+    max_cd_steps: int = 100,
     scale_lam: bool = False,
     lam_mult_add: float = 0.0,
     mxu_bf16: bool = False,
@@ -308,7 +327,10 @@ def update_side(
     ``mxu_bf16`` the opposing matrix is rounded to bf16 once per side.  A
     CG bucket with several parts that takes the bucket-CG op
     (:func:`takes_k3`) runs it once over the parts' matrices stacked (built
-    once per call) and the bucket's slot map."""
+    once per call) and the bucket's slot map.  Under ``nonneg`` or an
+    ``l1_vec`` every bucket is solved by coordinate descent, whatever
+    ``method`` says, as in the JAX package."""
+    use_cd = nonneg or l1_vec is not None
     mat = opp.to(torch.bfloat16) if mxu_bf16 else opp
     mat_cat = None
     out = []
@@ -326,7 +348,7 @@ def update_side(
             parts, modes = parts + (pd,), modes + (pmode,)
             n_totals, scale_parts = n_totals + (pn,), scale_parts + (psc,)
         stacked = None
-        if (method == "cg" and len(parts) > 1
+        if (method == "cg" and not use_cd and len(parts) > 1
                 and takes_k3(blk.dtype, precondition)):
             if mat_cat is None:
                 mat_cat = torch.cat([p.opp for p in parts])
@@ -339,8 +361,9 @@ def update_side(
             stacked = (mat_cat, stacks[bi])
         out.append(solve_bucket(
             parts, blk, G0, None if r0_blocks is None else r0_blocks[bi],
-            r0_vec, lam_vec, lam_const_vec, modes=modes, method=method,
-            n_steps=n_steps, scale_lam=scale_lam, n_totals=n_totals,
+            r0_vec, lam_vec, lam_const_vec, l1_vec, modes=modes,
+            method=method, n_steps=n_steps, nonneg=nonneg,
+            max_cd_steps=max_cd_steps, scale_lam=scale_lam, n_totals=n_totals,
             scale_parts=scale_parts, lam_mult_add=lam_mult_add,
             mxu_bf16=mxu_bf16, precondition=precondition, stacked=stacked))
     return out

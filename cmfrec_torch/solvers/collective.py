@@ -13,7 +13,8 @@ Two routes, chosen as the JAX package chooses them (:func:`_dense_route`):
 
 - the dense-masked engine (solvers/dense_masked.py, kernels K1/K2) for
   fully dense side information with no k splits, w_main = 1, no
-  NA-as-zero option, unweighted implicit features, no warm C/D/Ai/Bi, and a
+  NA-as-zero option, unweighted implicit features, no warm C/D/Ai/Bi, no
+  nonneg, nonneg_C, nonneg_D or l1_lambda, and a
   dense form within the card's budget: fully dense side info contributes
   a shared Gram (C^T C) and a dense rhs (U @ C), and C/D/Ai/Bi are
   whole-matrix closed-form solves;
@@ -27,6 +28,11 @@ Two routes, chosen as the JAX package chooses them (:func:`_dense_route`):
   matrices with more rows than X) get rows with no X part.  The update
   order per iteration is the reference's (src/collective.c:8334-8860):
   C, D, Bi, Ai, B, A.
+
+Under ``nonneg``, ``nonneg_C``, ``nonneg_D`` or ``l1_lambda`` the
+half-steps they constrain solve by coordinate descent (solvers/als.py; the
+CD kernel on a card), the dense C/D update with one G shared by every side
+column; ``nonneg`` turns CG off, as in the JAX package.
 
 A float64 fit, or one with Jacobi PCG (``precondition_cg``), never takes
 the dense-masked route: it runs the bucketed route's plain-torch solves in
@@ -49,6 +55,7 @@ from ..config import (resolve_device, resolve_dtype, should_handle_interrupt,
 from ..data.device_fill import build_bucketed_pair, build_bucketed_rows
 from ..data.shards import BucketedRows
 from ..utils.checkpoint import FitCheckpointer
+from ..ops import coord_descent
 from . import drivers, preprocess
 from .als import (
     PartData,
@@ -188,14 +195,23 @@ def _dense_rhs(U_slice, Ce, w):
     return w * (U_slice @ Ce)
 
 
-def _dense_full_solve(A1, U, lam_vec, w, lam_scale=1.0):
+def _dense_full_solve(A1, U, lam_vec, w, nonneg, l1_vec, max_cd_steps,
+                      lam_scale=1.0):
     """Whole-matrix update of C (or D) from fully dense side info:
     (w A1^T A1 + diag(lam)) C^T = w A1^T U, by one Cholesky (the
     reference's optimizeA case-1 fast path, upstream cmfrec
     src/common.c:2787).  ``lam_scale``: the scale_lam multiplier, the
-    number of side-info rows (case 1 uses lam * n).  Its coordinate-descent
-    branch (nonneg_C/D, l1) is ROADMAP slice 4 item 10."""
+    number of side-info rows (case 1 uses lam * n).  Under ``nonneg`` or an
+    ``l1_vec`` (scaled by ``lam_scale`` too) every side column is solved by
+    coordinate descent against the one G, passed with row stride 0."""
     G = w * gram_matrix(A1) + torch.diag(lam_vec * lam_scale)
+    if nonneg or l1_vec is not None:
+        rhs = w * (U.T @ A1)  # [p, K]
+        l1 = torch.zeros_like(lam_vec) if l1_vec is None else l1_vec
+        return coord_descent.solve_cd(
+            G.expand(rhs.shape[0], *G.shape), rhs.contiguous(),
+            (l1 * lam_scale).contiguous(), nonneg=nonneg,
+            max_steps=max_cd_steps)
     rhs = w * (A1.T @ U)  # [K, p]
     return torch.cholesky_solve(rhs, torch.linalg.cholesky(G)).T
 
@@ -212,13 +228,15 @@ def _init_dense_ok(init):
 
 
 def _dense_route(U, I, m, n, *, k_user, k_item, k_main, w_main, na0,
-                 add_implicit_features, weights, init, dense_bytes, dev):
+                 add_implicit_features, weights, init, dense_bytes, dev,
+                 cd=False):
     """Whether a collective fit takes the dense-masked engine: where the
     JAX package's ``use_dense_pallas`` would (cmfrec_tpu/solvers/
     collective.py:382-414, :1088-1113), with the card's budget
-    (drivers._dense_budget; none on the CPU) in place of the TPU's."""
+    (drivers._dense_budget; none on the CPU) in place of the TPU's.  ``cd``:
+    nonneg, nonneg_C, nonneg_D or an l1_lambda, which it never takes."""
     if not (k_user == 0 and k_item == 0 and k_main == 0 and w_main == 1.0
-            and not na0 and _init_dense_ok(init)
+            and not na0 and not cd and _init_dense_ok(init)
             and not (add_implicit_features and weights is not None)):
         return False
     for side, dim in ((U, m), (I, n)):
@@ -283,7 +301,8 @@ def _xdim_mask(limit, total, dev, tdt):
 
 
 def _side_factor_update(S, featb, blocks, A1, lam_vec, w_side, method,
-                        mean_slices, *, n_steps, scale_lam, precondition):
+                        mean_slices, *, n_steps, scale_lam, precondition,
+                        l1_vec, nonneg, max_cd_steps):
     """Update C (or D): rows = side-info features, opposing = A[:, :k_off+k].
     Under scale_lam (or scale_lam_sideinfo) the lambda scales with each
     feature's observed count too (upstream cmfrec src/collective.c:8373)."""
@@ -296,8 +315,10 @@ def _side_factor_update(S, featb, blocks, A1, lam_vec, w_side, method,
             r0_blocks = [-w_side * ms[:, None] * colsum[None, :]
                          for ms in mean_slices]
     return update_side(plan, blocks, A1, None, lam_vec, w=w_side, G0=G0,
-                       r0_blocks=r0_blocks, method=method, n_steps=n_steps,
-                       scale_lam=scale_lam, precondition=precondition)
+                       r0_blocks=r0_blocks, l1_vec=l1_vec, method=method,
+                       n_steps=n_steps, nonneg=nonneg,
+                       max_cd_steps=max_cd_steps, scale_lam=scale_lam,
+                       precondition=precondition)
 
 
 def _side_parts(S, aligned, Ce, w_side, n_buckets, scale_flag, dev):
@@ -332,7 +353,8 @@ def _update_C(S, featb, blocks, A_orig, kc, kc_pad, lam_vec, w_side,
         A1u = A1[:S.n_ent] if S.n_ent < A1.shape[0] else A1
         dense = torch.as_tensor(S.dense, device=A1.device)
         return None, _dense_full_solve(A1u, dense, lam_vec, w_side,
-                                       lam_scale)
+                                       kw["nonneg"], kw["l1_vec"],
+                                       kw["max_cd_steps"], lam_scale)
     if xmask is not None and not S.na0:
         # under NA-as-zero the rows beyond the side matrix are genuine
         # all-zero side rows (kept)
@@ -401,20 +423,24 @@ def _sides(U, I, RB, CB, m, n, m_eff, n_eff, widths, seed, init, dev,
 
 def _update_sides(sd, U, I, C, D, A_orig, B_orig, widths, lam_vec_C,
                   lam_vec_D, w_user, w_item, method, *, n_steps, scale_lam,
-                  precondition):
+                  precondition, cd):
     """The C and D half-steps of one iteration; C and D are (blocks, orig)
-    pairs, returned updated."""
+    pairs, returned updated.  ``cd``: (nonneg_C, nonneg_D, l1_vec_C,
+    l1_vec_D, max_cd_steps)."""
     kc, kc_pad, kd, kd_pad = widths
+    nonneg_C, nonneg_D, l1_vec_C, l1_vec_D, max_cd_steps = cd
     kw = dict(n_steps=n_steps, scale_lam=scale_lam,
-              precondition=precondition)
+              precondition=precondition, max_cd_steps=max_cd_steps)
     if U is not None:
         C = _update_C(U, sd.U_lay[0], C[0], A_orig, kc, kc_pad, lam_vec_C,
                       w_user, method, sd.U_lay[3], sd.perm_U, sd.xmask_AU,
-                      float(U.n_ent) if scale_lam else 1.0, **kw)
+                      float(U.n_ent) if scale_lam else 1.0, nonneg=nonneg_C,
+                      l1_vec=l1_vec_C, **kw)
     if I is not None:
         D = _update_C(I, sd.I_lay[0], D[0], B_orig, kd, kd_pad, lam_vec_D,
                       w_item, method, sd.I_lay[3], sd.perm_I, sd.xmask_BI,
-                      float(I.n_ent) if scale_lam else 1.0, **kw)
+                      float(I.n_ent) if scale_lam else 1.0, nonneg=nonneg_D,
+                      l1_vec=l1_vec_D, **kw)
     return C, D
 
 
@@ -463,8 +489,9 @@ def fit_collective_explicit_als(
     lam6, l16 = drivers._resolve_lambdas(lambda_, l1_lambda)
     dtype = resolve_dtype(dtype)
     dev = resolve_device(device)
-    drivers._reject_common(mesh, shard_opposing_rows,
-                           nonneg or nonneg_C or nonneg_D, l16)
+    drivers._reject_common(mesh, shard_opposing_rows)
+    if nonneg:
+        use_cg = False
     U = prepare_side(_sparsify_short_dense_side(side_U, m), center_U,
                      NA_as_zero_user, dtype)
     I = prepare_side(_sparsify_short_dense_side(side_I, n), center_I,
@@ -477,7 +504,7 @@ def fit_collective_explicit_als(
         add_implicit_features=add_implicit_features, weights=weights,
         init=init, dense_bytes=drivers.dense_bytes(m, n, k,
                                                    weights is not None),
-        dev=dev)
+        dev=dev, cd=bool(nonneg or nonneg_C or nonneg_D or np.any(l16 > 0)))
     if not dense:
         if not plain:  # the plain solves take any k
             drivers.check_kernel_k(
@@ -496,7 +523,8 @@ def fit_collective_explicit_als(
             weights=weights, seed=seed, verbose=verbose, device=dev,
             init=init, checkpoint_path=checkpoint_path,
             checkpoint_every=checkpoint_every, dtype=dtype,
-            precondition_cg=precondition_cg)
+            precondition_cg=precondition_cg, l16=l16, nonneg=nonneg,
+            nonneg_C=nonneg_C, nonneg_D=nonneg_D, max_cd_steps=max_cd_steps)
 
     drivers.check_kernel_k(k, padded_dims(m, n, k)[2], "dense", dev)
     glob_mean = (preprocess.weighted_global_mean(vals, weights) if center
@@ -526,7 +554,8 @@ def _fit_collective_explicit_bucketed(
     use_cg, max_cg_steps, finalize_chol, user_bias, item_bias, center,
     scale_lam, scale_lam_sideinfo, scale_bias_const, NA_as_zero, weights,
     seed, verbose, device, init, checkpoint_path, checkpoint_every,
-    dtype=np.float32, precondition_cg=False,
+    dtype=np.float32, precondition_cg=False, l16=(0.0,) * 6, nonneg=False,
+    nonneg_C=False, nonneg_D=False, max_cd_steps=100,
 ) -> dict:
     """The bucketed route of fit_collective_explicit_als
     (cmfrec_tpu/solvers/collective.py:440-1019, without the ring branch),
@@ -547,6 +576,9 @@ def _fit_collective_explicit_bucketed(
         wsum = (float(len(vals)) if weights is None
                 else float(np.sum(weights)))
         glob_mean *= wsum / (wsum + float(m) * float(n) - float(len(vals)))
+    if nonneg:
+        # centred like any other, the mean clamped at 0 (common.c:3599)
+        glob_mean = max(glob_mean, 0.0)
     vals_c = (np.asarray(vals, np.float64) - glob_mean).astype(dtype)
 
     biasA0 = biasB0 = None
@@ -554,7 +586,7 @@ def _fit_collective_explicit_bucketed(
         biasA0, biasB0 = preprocess.initialize_biases(
             rows, cols, vals_c, m_eff, n_eff, lam_user=lam6[0],
             lam_item=lam6[1], wgt=weights, user_bias=user_bias,
-            item_bias=item_bias, scale_lam=scale_lam)
+            item_bias=item_bias, scale_lam=scale_lam, nonneg=nonneg)
     RB, CB = build_bucketed_pair(rows, cols, vals_c, m, n, weights,
                                  device=dev, m_eff=m_eff, n_eff=n_eff,
                                  dtype=dtype)
@@ -606,6 +638,14 @@ def _fit_collective_explicit_bucketed(
     lam_vec_Bi = mk(ki_w, ki_pad, lam6[3] / w_implicit, 0.0, False)
     lam_vec_Ai = mk(ki_w, ki_pad, lam6[2] / w_implicit, 0.0, False)
 
+    def mk1(*a):
+        return drivers._make_l1_vec(*a, dev, tdt)
+
+    l1_vec_A = mk1(ka, ka_pad, l16[2], l16[0], user_bias)
+    l1_vec_B = mk1(kb, kb_pad, l16[3], l16[1], item_bias)
+    cd_sides = (nonneg_C, nonneg_D, mk1(kc, kc_pad, l16[4], 0.0, False),
+                mk1(kd, kd_pad, l16[5], 0.0, False), max_cd_steps)
+
     # scale_bias_const: the bias coordinate's penalty scales with the
     # average observation count instead of the per-row count
     # (upstream cmfrec src/common.c:717-722); the mean runs over the X
@@ -644,7 +684,7 @@ def _fit_collective_explicit_bucketed(
 
     def factor_update(blocks, plan, opp, opp_bias, lam_vec, method, S, S_al,
                       S_ds, C_mat, kx, w_side, Xones_opp, k_off, lam_const,
-                      stacks):
+                      stacks, l1_vec):
         """One A- or B-style update with optional side-info and implicit
         features parts."""
         K = lam_vec.shape[0]
@@ -682,7 +722,8 @@ def _fit_collective_explicit_bucketed(
             plan, blocks, opp, opp_bias, lam_vec, w=w_main,
             mu=glob_mean if plan.mode == "na0" else None, G0=G0,
             r0_vec=r0_vec, r0_blocks=r0_blocks, extra_parts=extra,
-            lam_const_vec=lam_const, method=method, n_steps=max_cg_steps,
+            lam_const_vec=lam_const, l1_vec=l1_vec, method=method,
+            n_steps=max_cg_steps, nonneg=nonneg, max_cd_steps=max_cd_steps,
             scale_lam=scale_lam, lam_mult_add=lam_mult_add,
             precondition=precondition_cg, stacks=stacks)
 
@@ -696,7 +737,7 @@ def _fit_collective_explicit_bucketed(
             sd, U, I, (C_blocks, C_orig), (D_blocks, D_orig), A_orig, B_orig,
             widths, lam_vec_C, lam_vec_D, w_user, w_item, method,
             n_steps=max_cg_steps, scale_lam=scale_lam,
-            precondition=precondition_cg)
+            precondition=precondition_cg, cd=cd_sides)
         if add_implicit_features:
             # always closed form: the reference hard-codes use_cg=false for
             # these half-steps (src/collective.c:8479/8520)
@@ -705,6 +746,7 @@ def _fit_collective_explicit_bucketed(
             Bi_blocks = update_side(
                 SidePlan(CB, "na0", m), Bi_blocks, A_x, None, lam_vec_Bi,
                 G0=gram_matrix(A_x), ones_val=True, method="chol",
+                nonneg=nonneg, max_cd_steps=max_cd_steps,
                 scale_lam=scale_lam)
             Bi_orig = blocks_to_orig(Bi_blocks, perm_B)
             B_x = _pad_cols(B_orig[:, k_item:k_item + ki_w], ki_pad, 0)
@@ -712,6 +754,7 @@ def _fit_collective_explicit_bucketed(
             Ai_blocks = update_side(
                 SidePlan(RB, "na0", n), Ai_blocks, B_x, None, lam_vec_Ai,
                 G0=gram_matrix(B_x), ones_val=True, method="chol",
+                nonneg=nonneg, max_cd_steps=max_cd_steps,
                 scale_lam=scale_lam)
             Ai_orig = blocks_to_orig(Ai_blocks, perm_A)
 
@@ -725,7 +768,7 @@ def _fit_collective_explicit_bucketed(
             B_blocks, plan_B, opp, A_orig[:, ka] if user_bias else None,
             lam_vec_B, method, I, sd.I_lay[1], sd.I_lay[2], D_orig, kd,
             w_item, None if Ai_orig is None else Ai_orig * xmask_A[:, None],
-            k_item, lam_const_B, sd.stacks_B)
+            k_item, lam_const_B, sd.stacks_B, l1_vec_B)
         B_orig = blocks_to_orig(B_blocks, perm_B)
 
         # A (users; opposing B, C, Bi)
@@ -736,7 +779,7 @@ def _fit_collective_explicit_bucketed(
             A_blocks, plan_A, opp, B_orig[:, kb] if item_bias else None,
             lam_vec_A, method, U, sd.U_lay[1], sd.U_lay[2], C_orig, kc,
             w_user, None if Bi_orig is None else Bi_orig * xmask_B[:, None],
-            k_user, lam_const_A, sd.stacks_A)
+            k_user, lam_const_A, sd.stacks_A, l1_vec_A)
         return (A_blocks, B_blocks, C_blocks, D_blocks, C_orig, D_orig,
                 Ai_blocks, Bi_blocks)
 
@@ -825,8 +868,9 @@ def fit_collective_implicit_als(
     lam6, l16 = drivers._resolve_lambdas(lambda_, l1_lambda)
     dtype = resolve_dtype(dtype)
     dev = resolve_device(device)
-    drivers._reject_common(mesh, shard_opposing_rows,
-                           nonneg or nonneg_C or nonneg_D, l16)
+    drivers._reject_common(mesh, shard_opposing_rows)
+    if nonneg:
+        use_cg = False
     vals = drivers.implicit_values(vals, apply_log_transf)
     w_mult = len(vals) / (float(m) * float(n)) if adjust_weight else 1.0
     U = prepare_side(_sparsify_short_dense_side(side_U, m), center_U,
@@ -839,7 +883,7 @@ def fit_collective_implicit_als(
         w_main=1.0, na0=NA_as_zero_user or NA_as_zero_item,
         add_implicit_features=False, weights=None, init=init,
         dense_bytes=drivers.dense_bytes(m, n, k, False, implicit=True),
-        dev=dev)
+        dev=dev, cd=bool(nonneg or nonneg_C or nonneg_D or np.any(l16 > 0)))
     if not dense:
         if not plain:  # the plain solves take any k
             drivers.check_kernel_k(
@@ -853,7 +897,8 @@ def fit_collective_implicit_als(
             finalize_chol=finalize_chol, seed=seed, verbose=verbose,
             device=dev, init=init, checkpoint_path=checkpoint_path,
             checkpoint_every=checkpoint_every, dtype=dtype,
-            precondition_cg=precondition_cg)
+            precondition_cg=precondition_cg, l16=l16, nonneg=nonneg,
+            nonneg_C=nonneg_C, nonneg_D=nonneg_D, max_cd_steps=max_cd_steps)
 
     drivers.check_kernel_k(k, padded_dims(m, n, k, bias_col=False)[2],
                            "dense", dev)
@@ -877,6 +922,8 @@ def _fit_collective_implicit_bucketed(
     w_mult, w_user, w_item, alpha, niter, use_cg, max_cg_steps,
     finalize_chol, seed, verbose, device, init, checkpoint_path,
     checkpoint_every, dtype=np.float32, precondition_cg=False,
+    l16=(0.0,) * 6, nonneg=False, nonneg_C=False, nonneg_D=False,
+    max_cd_steps=100,
 ) -> dict:
     """The bucketed route of fit_collective_implicit_als
     (cmfrec_tpu/solvers/collective.py:1134-1500, without the ring branch),
@@ -918,11 +965,18 @@ def _fit_collective_implicit_bucketed(
     lam_vec_B = mk(kb, kb_pad, lam6[3])
     lam_vec_C = mk(kc, kc_pad, lam6[4])
     lam_vec_D = mk(kd, kd_pad, lam6[5])
+
+    def mk1(*a):
+        return drivers._make_l1_vec(*a, 0.0, False, dev, tdt)
+
+    l1_vec_A, l1_vec_B = mk1(ka, ka_pad, l16[2]), mk1(kb, kb_pad, l16[3])
+    cd_sides = (nonneg_C, nonneg_D, mk1(kc, kc_pad, l16[4]),
+                mk1(kd, kd_pad, l16[5]), max_cd_steps)
     plan_A, plan_B = SidePlan(RB, "implicit", n), SidePlan(CB, "implicit", m)
     perm_A, perm_B = sd.perm_A, sd.perm_B
 
     def factor_update(blocks, plan, opp, lam_vec, method, S, S_al, S_ds,
-                      C_mat, kx, w_side, stacks):
+                      C_mat, kx, w_side, stacks, l1_vec):
         K = lam_vec.shape[0]
         G0 = w_x * gram_matrix(opp)
         r0_vec = r0_blocks = extra = None
@@ -939,7 +993,8 @@ def _fit_collective_implicit_bucketed(
         return update_side(
             plan, blocks, opp, None, lam_vec, w=w_x, alpha=alpha, G0=G0,
             r0_vec=r0_vec, r0_blocks=r0_blocks, extra_parts=extra,
-            method=method, n_steps=max_cg_steps,
+            l1_vec=l1_vec, method=method, n_steps=max_cg_steps,
+            nonneg=nonneg, max_cd_steps=max_cd_steps,
             precondition=precondition_cg, stacks=stacks)
 
     def iteration(method, st):
@@ -950,19 +1005,19 @@ def _fit_collective_implicit_bucketed(
             sd, U, I, (C_blocks, C_orig), (D_blocks, D_orig), A_orig, B_orig,
             widths, lam_vec_C, lam_vec_D, w_user, w_item, method,
             n_steps=max_cg_steps, scale_lam=False,
-            precondition=precondition_cg)
+            precondition=precondition_cg, cd=cd_sides)
         # the shared Gram sums the X rows only
         opp = _opposing(A_orig, k_user, k_item, k + k_main, kb_pad, None,
                         sd.xmask_A)
         B_blocks = factor_update(B_blocks, plan_B, opp, lam_vec_B, method, I,
                                  sd.I_lay[1], sd.I_lay[2], D_orig, kd, w_item,
-                                 sd.stacks_B)
+                                 sd.stacks_B, l1_vec_B)
         B_orig = blocks_to_orig(B_blocks, perm_B)
         opp = _opposing(B_orig, k_item, k_user, k + k_main, ka_pad, None,
                         sd.xmask_B)
         A_blocks = factor_update(A_blocks, plan_A, opp, lam_vec_A, method, U,
                                  sd.U_lay[1], sd.U_lay[2], C_orig, kc, w_user,
-                                 sd.stacks_A)
+                                 sd.stacks_A, l1_vec_A)
         return A_blocks, B_blocks, C_blocks, D_blocks, C_orig, D_orig
 
     def state_dict(st):

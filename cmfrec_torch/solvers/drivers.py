@@ -29,8 +29,11 @@ and the dense one won only on a small catalogue
 collective fits (side information, implicit features) are in
 solvers/collective.py.
 
-Configurations that need a solver the port does not have yet raise a
-``ValueError`` naming the ROADMAP slice that brings them.
+``nonneg`` and ``l1_lambda`` solve every half-step by coordinate descent
+(solvers/als.py; the CD kernel of ops/coord_descent.py on a card) on the
+bucketed engine, as the JAX package does: ``nonneg`` turns CG off, and
+neither ever takes the dense engine.  Multi-device fitting raises a
+``ValueError`` naming the ROADMAP slice that brings it.
 """
 
 from __future__ import annotations
@@ -145,6 +148,19 @@ def _with_bias_col(orig: torch.Tensor, col: int, ones: bool) -> torch.Tensor:
     return out
 
 
+def _make_l1_vec(k: int, k_pad: int, l1: float, l1_bias: float,
+                 has_bias: bool, dev, dtype=torch.float32):
+    """Per-coordinate l1: [l1]*k + [l1_bias] + 0s on padding coordinates;
+    None when every entry is 0 (no coordinate descent)."""
+    if l1 == 0.0 and (not has_bias or l1_bias == 0.0):
+        return None
+    v = np.zeros(k_pad, np.float64)
+    v[:k] = l1
+    if has_bias:
+        v[k] = l1_bias
+    return torch.as_tensor(v, dtype=dtype, device=dev)
+
+
 def _make_lam_vec(k: int, k_pad: int, lam: float, lam_bias: float,
                   has_bias: bool, dev, dtype=torch.float32) -> torch.Tensor:
     """Per-coordinate L2: [lam]*k + [lam_bias] + 1s on padding coordinates
@@ -228,16 +244,15 @@ def plain_route(dtype, use_cg, precondition_cg) -> bool:
     return np.dtype(dtype) == np.float64 or bool(use_cg and precondition_cg)
 
 
-def _reject_common(mesh, shard_opposing_rows, nonneg, l16):
+def _reject_common(mesh, shard_opposing_rows):
     if mesh is not None or shard_opposing_rows:
         raise _unsupported("multi-device fitting (mesh=, shard_opposing_rows)",
                            "slice 7")
-    if nonneg:
-        raise _unsupported("nonneg",
-                           "slice 4 item 10, the coordinate-descent solver")
-    if np.any(l16 > 0):
-        raise _unsupported("l1_lambda",
-                           "slice 4 item 10, the coordinate-descent solver")
+
+
+# cmfrec_tpu/solvers/drivers.py:248-251
+DENSE_CD_MESSAGE = ("engine='dense' does not support nonneg/l1_lambda; "
+                    "use engine='auto' or 'sparse'")
 
 
 # ----------------------------------------------------------------------- #
@@ -267,6 +282,7 @@ def fit_explicit_als(
     scale_bias_const: bool = False,
     NA_as_zero: bool = False,
     nonneg: bool = False,
+    max_cd_steps: int = 100,
     weights: Optional[np.ndarray] = None,
     dtype=np.float32,
     seed: int = 1,
@@ -291,12 +307,19 @@ def fit_explicit_als(
     engine for CG fits without NA_as_zero whose dense form fits that
     budget, the bucketed engine's plain solves otherwise; ``"dense"``
     forces the plain dense engine (30 CG steps a half-step without
-    ``use_cg``), as the JAX package's routes do."""
+    ``use_cg``), as the JAX package's routes do.  ``nonneg`` or an
+    ``l1_lambda`` takes the bucketed engine and solves by coordinate
+    descent (``nonneg`` without CG, the global mean clamped at 0)."""
     lam6, l16 = _resolve_lambdas(lambda_, l1_lambda)
     dtype = resolve_dtype(dtype)
     dev = resolve_device(device)
     _check_engine(engine)
-    _reject_common(mesh, shard_opposing_rows, nonneg, l16)
+    _reject_common(mesh, shard_opposing_rows)
+    if nonneg:
+        use_cg = False
+    use_cd = nonneg or bool(np.any(l16 > 0))
+    if engine == "dense" and use_cd:
+        raise ValueError(DENSE_CD_MESSAGE)
     weighted_na0 = NA_as_zero and weights is not None
     if engine == "dense" and weighted_na0:
         raise ValueError("engine='dense' has no weighted NA_as_zero form; "
@@ -306,7 +329,7 @@ def fit_explicit_als(
         raise ValueError("engine='dense' has no NA_as_zero form in float64 "
                          "or under precondition_cg; use engine='auto' or "
                          "'sparse'")
-    bucketed = engine == "sparse" or weighted_na0 or (
+    bucketed = engine == "sparse" or weighted_na0 or use_cd or (
         plain and engine == "auto" and (NA_as_zero or not use_cg))
     if engine == "auto" and not bucketed:
         budget = _dense_budget(dev)
@@ -314,7 +337,7 @@ def fit_explicit_als(
                     m, n, len(vals), k, dtype.itemsize, weights is not None)
                 if plain else dense_bytes(m, n, k, weights is not None))
         bucketed = budget is not None and need > budget
-    if not plain:  # the plain solves take any k
+    if not (plain or use_cd):  # the plain and CD solves take any k
         k_pad = _round_up(k + 1, 8) if bucketed else padded_dims(m, n, k)[2]
         check_kernel_k(k, k_pad, "bucketed" if bucketed else "dense", dev)
 
@@ -327,6 +350,9 @@ def fit_explicit_als(
         wsum = (float(len(vals)) if weights is None
                 else float(np.sum(weights)))
         glob_mean *= wsum / (wsum + float(m) * float(n) - float(len(vals)))
+    if nonneg:
+        # centred like any other, the mean clamped at 0 (common.c:3599)
+        glob_mean = max(glob_mean, 0.0)
 
     ckpt = FitCheckpointer(checkpoint_path, checkpoint_every, niter)
     common = dict(weights=weights, k=k, lam6=lam6, niter=niter,
@@ -338,7 +364,8 @@ def fit_explicit_als(
     if bucketed:
         return _fit_explicit_bucketed(
             rows, cols, vals, m, n, use_cg=use_cg, max_cg_steps=max_cg_steps,
-            NA_as_zero=NA_as_zero, **common)
+            NA_as_zero=NA_as_zero, l16=l16, nonneg=nonneg,
+            max_cd_steps=max_cd_steps, **common)
     if plain:
         return _fit_explicit_dense(
             rows, cols, vals, m, n,
@@ -366,7 +393,7 @@ def _centered(vals, glob_mean, dtype):
 
 
 def _initial_biases(rows, cols, vals_c, m, n, lam6, weights, user_bias,
-                    item_bias, scale_lam):
+                    item_bias, scale_lam, nonneg=False):
     """preprocess.initialize_biases of the centered values, or (None, None)
     without biases."""
     if not (user_bias or item_bias):
@@ -374,21 +401,21 @@ def _initial_biases(rows, cols, vals_c, m, n, lam6, weights, user_bias,
     return preprocess.initialize_biases(
         rows, cols, vals_c, m, n, lam_user=lam6[0], lam_item=lam6[1],
         wgt=weights, user_bias=user_bias, item_bias=item_bias,
-        scale_lam=scale_lam)
+        scale_lam=scale_lam, nonneg=nonneg)
 
 
 def _fit_explicit_bucketed(
     rows, cols, vals, m, n, *, weights, k, lam6, niter, use_cg, max_cg_steps,
     finalize_chol, user_bias, item_bias, glob_mean, scale_lam,
     scale_bias_const, NA_as_zero, seed, verbose, dev, init, ckpt, dtype,
-    precondition_cg,
+    precondition_cg, l16, nonneg, max_cd_steps,
 ) -> dict:
     """The bucketed route of fit_explicit_als
     (cmfrec_tpu/solvers/drivers.py:361-470), in the fit's dtype."""
     tdt = torch_dtype(dtype)
     vals_c = _centered(vals, glob_mean, dtype)
     biasA0, biasB0 = _initial_biases(rows, cols, vals_c, m, n, lam6, weights,
-                                     user_bias, item_bias, scale_lam)
+                                     user_bias, item_bias, scale_lam, nonneg)
     RB, CB = _build_pair(rows, cols, vals_c, m, n, weights, dev)
     perm_A = torch.as_tensor(RB.perm, device=dev)
     perm_B = torch.as_tensor(CB.perm, device=dev)
@@ -415,13 +442,16 @@ def _fit_explicit_bucketed(
     lam_vec_A, lam_vec_B, lam_const_A, lam_const_B = _lam_vecs(
         k, k_pad, lam6, user_bias, item_bias, scale_lam, scale_bias_const,
         weights, len(vals), m, n, dev, tdt)
+    l1_vec_A = _make_l1_vec(k, k_pad, l16[2], l16[0], user_bias, dev, tdt)
+    l1_vec_B = _make_l1_vec(k, k_pad, l16[3], l16[1], item_bias, dev, tdt)
 
     statics = dict(k=k, user_bias=user_bias, item_bias=item_bias,
                    NA_as_zero=NA_as_zero, max_cg_steps=max_cg_steps,
                    scale_lam=scale_lam, m=m, n=n,
-                   precondition=precondition_cg)
+                   precondition=precondition_cg, nonneg=nonneg,
+                   max_cd_steps=max_cd_steps)
     args = (RB, CB, perm_A, perm_B, lam_vec_A, lam_vec_B, lam_const_A,
-            lam_const_B, float(glob_mean))
+            lam_const_B, l1_vec_A, l1_vec_B, float(glob_mean))
 
     def state():
         return _sparse_fit_state(A_blocks, B_blocks, perm_A, perm_B, k,
@@ -483,9 +513,9 @@ def _bf16_rows(dev, method, tdt) -> bool:
 
 def _explicit_sparse_iteration(
     A_blocks, B_blocks, RB, CB, perm_A, perm_B, lam_vec_A, lam_vec_B,
-    lam_const_A, lam_const_B, glob_mean,
+    lam_const_A, lam_const_B, l1_vec_A, l1_vec_B, glob_mean,
     *, m, n, k, user_bias, item_bias, NA_as_zero, method, max_cg_steps,
-    scale_lam, mxu_bf16, precondition,
+    scale_lam, mxu_bf16, precondition, nonneg, max_cd_steps,
 ):
     """One full explicit ALS iteration over bucketed data, B half-step then
     A (the reference's order, upstream cmfrec src/collective.c:8614 "Updating
@@ -493,9 +523,11 @@ def _explicit_sparse_iteration(
     mode = "na0" if NA_as_zero else "explicit"
     common = dict(mu=glob_mean if NA_as_zero else None, method=method,
                   n_steps=max_cg_steps, scale_lam=scale_lam,
-                  mxu_bf16=mxu_bf16, precondition=precondition)
+                  mxu_bf16=mxu_bf16, precondition=precondition,
+                  nonneg=nonneg, max_cd_steps=max_cd_steps)
 
-    def half(blocks, plan, opp_orig, opp_bias_on, ones, lam_vec, lam_const):
+    def half(blocks, plan, opp_orig, opp_bias_on, ones, lam_vec, lam_const,
+             l1_vec):
         opp = _with_bias_col(opp_orig, k, ones)
         opp_bias = opp_orig[:, k] if opp_bias_on else None
         G0 = r0_vec = None
@@ -503,14 +535,15 @@ def _explicit_sparse_iteration(
             G0 = gram_matrix(opp)
             r0_vec = _na0_rhs_base(opp, opp_bias, glob_mean)
         return update_side(plan, blocks, opp, opp_bias, lam_vec, G0=G0,
-                           r0_vec=r0_vec, lam_const_vec=lam_const, **common)
+                           r0_vec=r0_vec, lam_const_vec=lam_const,
+                           l1_vec=l1_vec, **common)
 
     B_blocks = half(B_blocks, SidePlan(CB, mode, m),
                     blocks_to_orig(A_blocks, perm_A), user_bias, item_bias,
-                    lam_vec_B, lam_const_B)
+                    lam_vec_B, lam_const_B, l1_vec_B)
     A_blocks = half(A_blocks, SidePlan(RB, mode, n),
                     blocks_to_orig(B_blocks, perm_B), item_bias, user_bias,
-                    lam_vec_A, lam_const_A)
+                    lam_vec_A, lam_const_A, l1_vec_A)
     return A_blocks, B_blocks
 
 
@@ -623,6 +656,7 @@ def fit_implicit_als(
     apply_log_transf: bool = False,
     adjust_weight: bool = False,
     nonneg: bool = False,
+    max_cd_steps: int = 100,
     dtype=np.float32,
     seed: int = 1,
     verbose: bool = False,
@@ -647,12 +681,18 @@ def fit_implicit_als(
     iterations launch K3 once per bucket and side on a card (bf16 opposing
     matrix); its float64 and Jacobi-PCG iterations run rowsolve.solve_cg,
     and its Cholesky iterations (use_cg=False, or the last one under
-    finalize_chol) stay in the fit's dtype."""
+    finalize_chol) stay in the fit's dtype.  ``nonneg`` (without CG) and
+    ``l1_lambda`` solve by coordinate descent on the bucketed engine."""
     lam6, l16 = _resolve_lambdas(lambda_, l1_lambda)
     dtype = resolve_dtype(dtype)
     dev = resolve_device(device)
     _check_engine(engine)
-    _reject_common(mesh, shard_opposing_rows, nonneg, l16)
+    _reject_common(mesh, shard_opposing_rows)
+    if nonneg:
+        use_cg = False
+    use_cd = nonneg or bool(np.any(l16 > 0))
+    if engine == "dense" and use_cd:
+        raise ValueError(DENSE_CD_MESSAGE)
     plain = plain_route(dtype, use_cg, precondition_cg)
     dense = engine == "dense"
     if dense and plain:
@@ -661,7 +701,7 @@ def fit_implicit_als(
                          "'sparse'")
     k_pad = (padded_dims(m, n, k, bias_col=False)[2] if dense
              else _round_up(k, 8))
-    if not plain:  # the plain solves take any k
+    if not (plain or use_cd):  # the plain and CD solves take any k
         check_kernel_k(k, k_pad, "dense" if dense else "bucketed", dev)
     ckpt = FitCheckpointer(checkpoint_path, checkpoint_every, niter)
     tdt = torch_dtype(dtype)
@@ -693,6 +733,8 @@ def fit_implicit_als(
 
     lam_vec_A = _make_lam_vec(k, k_pad, lam6[2], 0.0, False, dev, tdt)
     lam_vec_B = _make_lam_vec(k, k_pad, lam6[3], 0.0, False, dev, tdt)
+    l1_vec_A = _make_l1_vec(k, k_pad, l16[2], 0.0, False, dev, tdt)
+    l1_vec_B = _make_l1_vec(k, k_pad, l16[3], 0.0, False, dev, tdt)
 
     def state():
         return _sparse_fit_state(A_blocks, B_blocks, perm_A, perm_B, k,
@@ -705,10 +747,11 @@ def fit_implicit_als(
             t0 = time.time()
             A_blocks, B_blocks = _implicit_sparse_iteration(
                 A_blocks, B_blocks, RB, CB, perm_A, perm_B, lam_vec_A,
-                lam_vec_B, w_main, alpha, m=m, n=n, method=method,
-                max_cg_steps=max_cg_steps,
+                lam_vec_B, l1_vec_A, l1_vec_B, w_main, alpha, m=m, n=n,
+                method=method, max_cg_steps=max_cg_steps,
                 mxu_bf16=_bf16_rows(dev, method, tdt),
-                precondition=precondition_cg)
+                precondition=precondition_cg, nonneg=nonneg,
+                max_cd_steps=max_cd_steps)
             if verbose:
                 _fence(dev)
                 print(f"iter {it + 1}/{niter} [{method}] "
@@ -727,20 +770,22 @@ def fit_implicit_als(
 
 def _implicit_sparse_iteration(
     A_blocks, B_blocks, RB, CB, perm_A, perm_B, lam_vec_A, lam_vec_B,
-    w_main, alpha, *, m, n, method, max_cg_steps, mxu_bf16, precondition,
+    l1_vec_A, l1_vec_B, w_main, alpha, *, m, n, method, max_cg_steps,
+    mxu_bf16, precondition, nonneg, max_cd_steps,
 ):
     """One full WRMF iteration over bucketed data, B half-step then A
     (upstream cmfrec src/collective.c:9927 precedes :9981), with the
     shared Gram base G0 = w * opp^T opp."""
     common = dict(w=w_main, alpha=alpha, method=method,
                   n_steps=max_cg_steps, mxu_bf16=mxu_bf16,
-                  precondition=precondition)
+                  precondition=precondition, nonneg=nonneg,
+                  max_cd_steps=max_cd_steps)
     A_orig = blocks_to_orig(A_blocks, perm_A)
     B_blocks = update_side(SidePlan(CB, "implicit", m), B_blocks, A_orig,
                            None, lam_vec_B, G0=w_main * gram_matrix(A_orig),
-                           **common)
+                           l1_vec=l1_vec_B, **common)
     B_orig = blocks_to_orig(B_blocks, perm_B)
     A_blocks = update_side(SidePlan(RB, "implicit", n), A_blocks, B_orig,
                            None, lam_vec_A, G0=w_main * gram_matrix(B_orig),
-                           **common)
+                           l1_vec=l1_vec_A, **common)
     return A_blocks, B_blocks

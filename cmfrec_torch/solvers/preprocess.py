@@ -35,17 +35,17 @@ def initialize_biases(
     user_bias: bool = True,
     item_bias: bool = True,
     scale_lam: bool = False,
+    nonneg: bool = False,
 ) -> Tuple[np.ndarray, np.ndarray]:
     """Alternating closed-form bias init, in float64.
 
     With both biases on: the reference's iterated two-sided init
     (initialize_biases_twosided, upstream cmfrec src/common.c:4410):
-    5 alternating full re-solves, items first --
+    5 alternating full re-solves (15 under ``nonneg``), items first --
     biasB[j] = sum_obs(x - biasA) / (cnt + lam*(scale? cnt : 1)), then the
-    symmetric user pass.  (Its nonneg variant, 15 clipped passes, comes
-    with the nonneg solver.)  With a
-    single bias on: one shrunken-mean pass (initialize_biases_onesided,
-    src/common.c:4130)."""
+    symmetric user pass, each half-pass clipped at 0 under ``nonneg``.
+    With a single bias on: one shrunken-mean pass
+    (initialize_biases_onesided, src/common.c:4130), clipped likewise."""
     biasA = np.zeros(m, np.float64)
     biasB = np.zeros(n, np.float64)
     v = vals_centered.astype(np.float64)
@@ -60,19 +60,26 @@ def initialize_biases(
     den_item = c_item + lam_item * (np.maximum(c_item, 1.0) if scale_lam else 1.0)
     den_user = c_user + lam_user * (np.maximum(c_user, 1.0) if scale_lam else 1.0)
 
-    for _ in range(5 if (user_bias and item_bias) else 1):
+    niter = 1
+    if user_bias and item_bias:
+        niter = 15 if nonneg else 5
+    for _ in range(niter):
         if item_bias:
             resid = v - biasA[rows]
             s = np.bincount(cols, weights=resid if w is None else resid * w,
                             minlength=n)
             biasB = np.divide(s, den_item, out=np.zeros_like(s),
                               where=den_item > 0)
+            if nonneg:
+                biasB = np.maximum(biasB, 0.0)
         if user_bias:
             resid = v - biasB[cols]
             s = np.bincount(rows, weights=resid if w is None else resid * w,
                             minlength=m)
             biasA = np.divide(s, den_user, out=np.zeros_like(s),
                               where=den_user > 0)
+            if nonneg:
+                biasA = np.maximum(biasA, 0.0)
 
     return biasA, biasB
 

@@ -29,8 +29,10 @@ through ``offsets_warm_batch`` and binary side information through
 both run in the model's dtype (float64 for a float64 model, as cmfrec_tpu)
 on the model's device.
 
-Not here yet: nonneg and l1_lambda, which need rowsolve.solve_cd (ROADMAP
-slice 4 item 10).
+A model with ``nonneg`` or an ``l1_lambda`` solves its new rows by
+coordinate descent (ops/coord_descent.py: the CD kernel on a card) on the
+assembled systems, in the model's dtype on its device, and takes none of
+the cached closed forms (cmfrec_tpu/solvers/warm.py:234, :252, :308, :449).
 """
 
 from __future__ import annotations
@@ -39,12 +41,10 @@ import numpy as np
 import torch
 
 from ..config import resolve_device, torch_dtype
-from ..ops import rowsolve
+from ..ops import coord_descent, rowsolve
 from ..ops.rowsolve import SparsePart, length_mask
 from .dense_masked import _round_up
-from .drivers import _resolve_lambdas, _unsupported
-
-SLICE_CD = "slice 4 item 10, the coordinate-descent solver rowsolve.solve_cd"
+from .drivers import _resolve_lambdas
 
 
 def _count(model, key):
@@ -177,10 +177,21 @@ def _trans_btb_inv_bt(model):
     return pre["TransBtBinvBt"]
 
 
-def _reject_cd(model, l16):
-    if getattr(model, "nonneg", False) or np.any(l16 > 0):
-        raise _unsupported("warm and cold factors of a model with nonneg or "
-                           "l1_lambda", SLICE_CD)
+def _uses_cd(model, l16) -> bool:
+    """Whether the model's new-row solves take coordinate descent."""
+    return bool(getattr(model, "nonneg", False)) or bool(np.any(l16 > 0))
+
+
+def _solve_cd(model, G, rhs, l1_np, dev, ndt, lam_mult=None):
+    """The CD solve of a batch of new rows: l1 [K] on the host, scaled per
+    row by ``lam_mult`` (scale_lam, upstream cmfrec src/common.c:717-722)."""
+    l1 = _upload(l1_np, ndt, dev)
+    if lam_mult is not None:
+        l1 = l1[None, :] * lam_mult[:, None]
+    return coord_descent.solve_cd(
+        G, rhs.contiguous(), l1.contiguous(),
+        nonneg=bool(getattr(model, "nonneg", False)),
+        max_steps=int(getattr(model, "max_cd_steps", 100)))
 
 
 def _result(a, kw, bias_col, info=None):
@@ -301,7 +312,7 @@ def factors_explicit_batch(model, idx, vals, wgt, lengths, U=None,
     ext, width, k_pad, user_bias = _ext_B(model)
     lam6, l16 = _resolve_lambdas(model.lambda_,
                                  getattr(model, "l1_lambda", 0.0))
-    _reject_cd(model, l16)
+    use_cd = _uses_cd(model, l16)
     kw = _width(model)
     pre = precomputed(model)
     bias_col = width if user_bias else None
@@ -324,7 +335,8 @@ def factors_explicit_batch(model, idx, vals, wgt, lengths, U=None,
     # collective_factors_cold only without implicit features
     # (collective.c:3656); with Bi the cold rows take the warm path below.
     if (L == 0 and U is not None and "TransCtCinvCt" in pre and not has_bi
-            and not na0 and not getattr(model, "NA_as_zero_user", False)):
+            and not na0 and not getattr(model, "NA_as_zero_user", False)
+            and not use_cd):
         Uarr = np.asarray(U, np.float64)
         if not np.isnan(Uarr).any():
             if model.U_colmeans_ is not None:
@@ -338,14 +350,15 @@ def factors_explicit_batch(model, idx, vals, wgt, lengths, U=None,
     # Fully observed unweighted rows (dense transform workloads): ONE
     # matmul through the lazy TransBtBinvBt (collective.c:10363, :3790).
     dense_trans = (wgt is None and not na0 and U is None and not scaled
-                   and "TransBtBinvBt_G" in pre and _full_rows(idx, lengths, n))
+                   and not use_cd and "TransBtBinvBt_G" in pre
+                   and _full_rows(idx, lengths, n))
 
     # The fused path (the common serving shape): mask, centring, item-bias
     # gather and coefficients move to the device, fed by raw int32 idx and
     # f32 vals.  Unlike cmfrec_tpu's gate it admits scale_lam models, whose
     # scale_lam_sideinfo (implied by scale_lam) changes nothing without U.
     if (not _no_fused and L > 0 and wgt is None and U is None and not has_bi
-            and not na0 and not dense_trans):
+            and not na0 and not dense_trans and not use_cd):
         lam_np = np.ones(k_pad)
         lam_np[:kw] = lam6[2]
         lam_const = np.zeros(k_pad)
@@ -484,7 +497,7 @@ def factors_explicit_batch(model, idx, vals, wgt, lengths, U=None,
     # one rhs product and two triangular solves replace the factorizations.
     # Unlike cmfrec_tpu's gate it admits scaled rows whose multiplier is the
     # one the cache was built with (a full row: n + p, or n)
-    if ("BeTBeChol" in pre and up is not None
+    if ("BeTBeChol" in pre and up is not None and not use_cd
             and (lam_mult is None or (
                 not bias_const
                 and np.all(lam_mult == pre["BeTBeChol_mult"])))
@@ -507,13 +520,20 @@ def factors_explicit_batch(model, idx, vals, wgt, lengths, U=None,
                                                    device=dev),
                                 torch.zeros(R, 1, dtype=tdt, device=dev),
                                 torch.zeros(R, 1, dtype=tdt, device=dev)))
+    lam_mult_d = None if lam_mult is None else _upload(lam_mult, ndt, dev)
     G, rhs = rowsolve.assemble_system(
-        parts, _small(model, "lam_eager", lam_vec),
-        lam_mult=None if lam_mult is None else _upload(lam_mult, ndt,
-                                                       dev),
+        parts, _small(model, "lam_eager", lam_vec), lam_mult=lam_mult_d,
         G0=None if G0 is None else _upload(G0, ndt, dev),
         r0=None if r0 is None else _upload(r0, ndt, dev)[None, :])
-    a, info = rowsolve.solve_chol_ex(G, rhs)
+    if use_cd:
+        # l1 on the factor coordinates only, none on the bias
+        # (cmfrec_tpu/solvers/warm.py:476-486)
+        l1 = np.zeros(k_pad)
+        l1[:kw] = l16[2]
+        a, info = _solve_cd(model, G, rhs, l1, dev, ndt, lam_mult_d), None
+        _count(model, "warm_cd")
+    else:
+        a, info = rowsolve.solve_chol_ex(G, rhs)
     if not na0 and U is None:
         # rows with no data anywhere -> zeros (the reference's zero_out)
         a = torch.where(_upload(lengths, np.int64, dev)[:, None] == 0, 0.0, a)
@@ -642,7 +662,7 @@ def factors_implicit_batch(model, idx, vals, lengths, U=None,
     width = _width(model)
     lam6, l16 = _resolve_lambdas(model.lambda_,
                                  getattr(model, "l1_lambda", 0.0))
-    _reject_cd(model, l16)
+    use_cd = _uses_cd(model, l16)
     w_mult = float(getattr(model, "w_main_multiplier_", 1.0)) * float(
         getattr(model, "w_main", 1.0))
     pre = precomputed(model)
@@ -663,7 +683,7 @@ def factors_implicit_batch(model, idx, vals, lengths, U=None,
         return out if return_device else download(out)[0]
 
     # the fused serving path (the common implicit-warm shape)
-    if not _no_fused and L > 0 and U is None:
+    if not _no_fused and L > 0 and U is None and not use_cd:
         a, info = _warm_implicit(
             ext_d, _upload(idx, np.int32, dev),
             _upload(vals, ndt, dev), _upload(lengths, np.int32, dev),
@@ -686,7 +706,13 @@ def factors_implicit_batch(model, idx, vals, lengths, U=None,
         if r0x is not None:
             r0 = _upload(r0x, ndt, dev)[None, :]
     G, rhs = rowsolve.assemble_system(parts, lam_d, G0=G0, r0=r0)
-    a, info = rowsolve.solve_chol_ex(G, rhs)
+    if use_cd:  # cmfrec_tpu/solvers/warm.py:703-709
+        l1 = np.zeros(k_pad)
+        l1[:width] = l16[2]
+        a, info = _solve_cd(model, G, rhs, l1, dev, ndt), None
+        _count(model, "warm_cd_implicit")
+    else:
+        a, info = rowsolve.solve_chol_ex(G, rhs)
     if U is None:
         # no X observations and no side info -> zero factors; with U the
         # row still gets a side-info-only (cold) solve

@@ -208,6 +208,41 @@ DENSE = "runs on the dense engine"
 COLLECTIVE = "runs on the bucketed collective route"
 LBFGS = "runs the L-BFGS fit"
 PLAIN = "runs on the plain dense engine as cmfrec_tpu"
+CD = "runs coordinate descent as cmfrec_tpu"
+
+
+def _cd_matches_cmfrec_tpu(call, X, mp):
+    """``call(X, pkg=, **kw)`` fits a CMF of ``pkg`` with nonneg or
+    l1_lambda: both packages' drivers start from one init=, the port solves
+    by coordinate descent (the CD op is called, K3's wrapper never), and
+    every factor and bias matches cmfrec_tpu's within 1e-4 of max|.| in
+    float32 (tests/test_torch_cd.py holds float64 at 1e-8)."""
+    from cmfrec_torch.ops import coord_descent, sparse_cg
+    from cmfrec_tpu.solvers import drivers as jdrivers
+
+    m, n = X.shape
+    rng = np.random.default_rng(0)
+    init = {"A": np.abs(0.3 * rng.normal(size=(m, 40))),
+            "B": np.abs(0.3 * rng.normal(size=(n, 40))),
+            "biasA": 0.1 * rng.normal(size=m),
+            "biasB": 0.1 * rng.normal(size=n)}
+    for mod in (drivers, jdrivers):
+        real = mod.fit_explicit_als
+        mp.setattr(mod, "fit_explicit_als",
+                   lambda *a, _r=real, **kw: _r(*a, **{**kw, "init": init}))
+    seen = {"cd": 0, "k3": 0}
+    for mod, name, key in ((coord_descent, "solve_cd", "cd"),
+                           (sparse_cg, "bucket_cg", "k3")):
+        real = getattr(mod, name)
+        mp.setattr(mod, name, lambda *a, _r=real, _k=key, **kw:
+                   seen.__setitem__(_k, seen[_k] + 1) or _r(*a, **kw))
+    got = call(X, device="cpu")
+    want = call(X, pkg=cmfrec_tpu)
+    assert seen["cd"] > 0 and seen["k3"] == 0
+    for attr in ("A_", "B_", "user_bias_", "item_bias_"):
+        g, w = getattr(got, attr), np.asarray(getattr(want, attr))
+        assert g.dtype == np.float32, attr
+        assert np.abs(g - w).max() <= 1e-4 * np.abs(w).max(), attr
 
 
 def _plain_matches_cmfrec_tpu(call, X, mp):
@@ -259,10 +294,13 @@ def _plain_matches_cmfrec_tpu(call, X, mp):
         id="<lambda>-slice 2_1"),
     pytest.param(lambda X: cmfrec_torch.CMF(k_user=2, device="cpu").fit(X),
                  COLLECTIVE, id="<lambda>-slice 2_2"),
-    (lambda X: cmfrec_torch.CMF(nonneg=True, center=False,
-                                device="cpu").fit(X), "slice 4"),
-    (lambda X: cmfrec_torch.CMF(l1_lambda=0.1, device="cpu").fit(X),
-     "slice 4"),
+    # the two cases of ROADMAP slice 4 item 10 keep their ids: nonneg and
+    # l1_lambda fit by coordinate descent, as cmfrec_tpu
+    pytest.param(lambda X, pkg=cmfrec_torch, **kw: pkg.CMF(
+        nonneg=True, center=False, niter=2, **kw).fit(X), CD,
+        id="<lambda>-slice 4_0"),
+    pytest.param(lambda X, pkg=cmfrec_torch, **kw: pkg.CMF(
+        l1_lambda=0.1, niter=2, **kw).fit(X), CD, id="<lambda>-slice 4_1"),
     (lambda X: cmfrec_torch.CMF(NA_as_zero=True, device="cpu").fit(
         X, W=np.ones(X.nnz)), BUCKETED),
     # the two cases of ROADMAP slice 1 item 1 keep their ids: Jacobi PCG in
@@ -286,6 +324,9 @@ def test_out_of_slice_options_raise(call, match, monkeypatch):
     X = sp.coo_matrix((vals, (rows, cols)), shape=(m, n))
     if match == PLAIN:
         _plain_matches_cmfrec_tpu(call, X, monkeypatch)
+        return
+    if match == CD:
+        _cd_matches_cmfrec_tpu(call, X, monkeypatch)
         return
     if match not in (BUCKETED, DENSE, COLLECTIVE, LBFGS):
         with pytest.raises(ValueError, match=match):
@@ -412,8 +453,13 @@ def _side_data(seed=12, m=90, n=60, p=4, q=3):
 def test_side_info_surfaces_fit_alike(fmt):
     """U=/I= as arrays aligned with X's positions, or as DataFrames keyed by
     UserId/ItemId in any row order, give the same fit; the side-info column
-    means are cmfrec_tpu's, exactly."""
+    means are cmfrec_tpu's, exactly.  U and I hold float32-representable
+    values, so that the float32 arrays carry the same numbers as the
+    float64 ones: then the fits are bitwise equal.  (With U rounded to
+    float32 the inputs differ by ~1e-8, which the bf16 bulk iterations
+    amplify to ~5e-4 in C_.)"""
     rows, cols, vals, m, n, U, I = _side_data()
+    U, I = (M.astype(np.float32).astype(np.float64) for M in (U, I))
     kw = dict(k=4, lambda_=1.0, niter=3, add_implicit_features=True)
     X = sp.coo_matrix((vals, (rows, cols)), shape=(m, n))
     ref = cmfrec_torch.CMF(**kw, device="cpu").fit(X, U=U, I=I)
@@ -425,7 +471,9 @@ def test_side_info_surfaces_fit_alike(fmt):
     if fmt == "ndarray":
         got = cmfrec_torch.CMF(**kw, device="cpu").fit(
             X, U=U.astype(np.float32), I=I.astype(np.float32))
-        np.testing.assert_allclose(got.C_, ref.C_, rtol=0, atol=1e-6)
+        for attr in ("C_", "D_", "A_", "U_colmeans_"):
+            np.testing.assert_array_equal(getattr(got, attr),
+                                          getattr(ref, attr), err_msg=attr)
         return
     uid, iid = np.array([f"u{r}" for r in rows]), cols + 500
     ucodes, umap = pd.factorize(uid)
@@ -636,9 +684,10 @@ def test_bucketed_collective_configurations_fit(case):
 
 
 @pytest.mark.parametrize("call,match", [
-    # the later slices' rejections keep their messages in a collective fit
-    (lambda X, U: cmfrec_torch.CMF(nonneg_C=True, device="cpu").fit(X, U=U),
-     "slice 4 item 10, the coordinate-descent solver"),
+    # nonneg_C (ROADMAP slice 4 item 10) fits on the bucketed collective
+    # route, C by coordinate descent: match is None
+    (lambda X, U: ("CMF", dict(nonneg_C=True)), None),
+    # the later slice's rejection keeps its message in a collective fit
     (lambda X, U: cmfrec_torch.CMF(device="cpu").fit(X, U=U, mesh=object()),
      "slice 7"),
     # float64 (ROADMAP slice 1 item 1) fits on the bucketed collective
@@ -652,8 +701,9 @@ def test_bucketed_collective_configurations_raise(call, match):
         with pytest.raises(ValueError, match=match):
             call(X, U)
         return
-    # the float64 collective fit from one init= handed to both packages:
-    # every factor in float64 and within 1e-8 of max|.| of cmfrec_tpu's
+    # the collective fit from one init= handed to both packages: every
+    # factor in the model's dtype and within 1e-8 (float64) or 1e-4 (the
+    # float32 nonneg_C fit, its main half-steps CG) of max|.| of cmfrec_tpu's
     cls, kw = call(X, U)
     routed = []
     from cmfrec_torch.solvers import collective
@@ -666,11 +716,15 @@ def test_bucketed_collective_configurations_raise(call, match):
                    or real(*a, **k))
         got = _fit_model("port", cls, kw, X, U)
         want = _fit_model("jax", cls, kw, X, U)
-    assert routed == [np.float64] and got.dtype_ == np.float64
+    dtype = np.float32 if kw.get("nonneg_C") else np.float64
+    assert routed == [dtype] and got.dtype_ == dtype
+    tol = 1e-8 if dtype == np.float64 else 1e-4
     for attr in ("A_", "B_", "C_", "user_bias_", "item_bias_"):
         g, w = getattr(got, attr), np.asarray(getattr(want, attr))
-        assert g.dtype == np.float64, attr
-        assert np.abs(g - w).max() <= 1e-8 * np.abs(w).max(), attr
+        assert g.dtype == dtype, attr
+        assert np.abs(g - w).max() <= tol * np.abs(w).max(), attr
+    if kw.get("nonneg_C"):
+        assert got.C_.min() >= 0.0
 
 
 @pytest.mark.parametrize("model", ["CMF", "CMF_implicit"])

@@ -112,15 +112,17 @@ _SMALL = _preference_data(seed=2, m=30, n=20)
 DENSE = "runs on the dense engine"
 COLLECTIVE = "runs on the bucketed collective route"
 PLAIN = "runs the bucketed engine's plain solves as cmfrec_tpu"
+CD = "runs coordinate descent as cmfrec_tpu"
 
 
-def _plain_matches_cmfrec_tpu(call, X, mp):
+def _plain_matches_cmfrec_tpu(call, X, mp, cd=False):
     """``call(X, pkg=, **kw)`` fits a CMF_implicit of ``pkg``: both
     packages' drivers start from one init=, the port's solves never call
     the bucket-CG op (K3's wrapper), and A_/B_ match cmfrec_tpu's in the
-    model's dtype: float64 within 1e-8, float32 (Jacobi PCG) within 1e-4 of
+    model's dtype: float64 within 1e-8, float32 (Jacobi PCG, or ``cd``:
+    nonneg and l1_lambda, whose solves must call the CD op) within 1e-4 of
     max|.|."""
-    from cmfrec_torch.ops import sparse_cg
+    from cmfrec_torch.ops import coord_descent, sparse_cg
     from cmfrec_tpu.solvers import drivers as jdrivers
 
     m, n = X.shape
@@ -131,13 +133,17 @@ def _plain_matches_cmfrec_tpu(call, X, mp):
         real = mod.fit_implicit_als
         mp.setattr(mod, "fit_implicit_als",
                    lambda *a, _r=real, **kw: _r(*a, **{**kw, "init": init}))
-    k3 = []
-    real_k3 = sparse_cg.bucket_cg
+    k3, cd_calls = [], []
+    real_k3, real_cd = sparse_cg.bucket_cg, coord_descent.solve_cd
     mp.setattr(sparse_cg, "bucket_cg",
                lambda *a, **kw: k3.append(1) or real_k3(*a, **kw))
+    mp.setattr(coord_descent, "solve_cd",
+               lambda *a, **kw: cd_calls.append(1) or real_cd(*a, **kw))
     got = call(X, device="cpu")
     want = call(X, pkg=cmfrec_tpu)
-    assert not k3
+    assert not k3 and bool(cd_calls) == cd
+    if got.nonneg:
+        assert got.A_.min() >= 0.0 and got.B_.min() >= 0.0
     tol = 1e-8 if got.dtype_ == np.float64 else 1e-4
     for attr in ("A_", "B_"):
         g, w = getattr(got, attr), np.asarray(getattr(want, attr))
@@ -152,10 +158,12 @@ def _plain_matches_cmfrec_tpu(call, X, mp):
         X, I=np.ones((20, 2))), DENSE),
     (lambda X: cmfrec_torch.CMF_implicit(k_user=2, device="cpu").fit(X),
      COLLECTIVE),
-    (lambda X: cmfrec_torch.CMF_implicit(nonneg=True, device="cpu").fit(X),
-     "slice 4"),
-    (lambda X: cmfrec_torch.CMF_implicit(l1_lambda=0.1, device="cpu").fit(X),
-     "slice 4"),
+    # nonneg and l1_lambda (ROADMAP slice 4 item 10) fit by coordinate
+    # descent, as cmfrec_tpu
+    (lambda X, pkg=cmfrec_torch, **kw: pkg.CMF_implicit(
+        nonneg=True, niter=3, **kw).fit(X), CD),
+    (lambda X, pkg=cmfrec_torch, **kw: pkg.CMF_implicit(
+        l1_lambda=0.1, niter=3, **kw).fit(X), CD),
     (lambda X, pkg=cmfrec_torch, **kw: pkg.CMF_implicit(
         precondition_cg=True, **kw).fit(X), PLAIN),
     (lambda X, pkg=cmfrec_torch, **kw: pkg.CMF_implicit(
@@ -173,8 +181,8 @@ def _plain_matches_cmfrec_tpu(call, X, mp):
 def test_out_of_slice_options_raise(call, match, monkeypatch):
     rows, cols, vals, _, m, n = _SMALL
     X = sp.coo_matrix((vals, (rows, cols)), shape=(m, n))
-    if match == PLAIN:
-        _plain_matches_cmfrec_tpu(call, X, monkeypatch)
+    if match in (PLAIN, CD):
+        _plain_matches_cmfrec_tpu(call, X, monkeypatch, cd=match == CD)
         return
     if match not in (DENSE, COLLECTIVE):
         with pytest.raises(ValueError, match=match):

@@ -9,6 +9,17 @@ eight keys: jax.random and torch draw different numbers).  Both run in f32.
 Tolerances (max |difference|, factors of order 1): Cholesky 1e-5, the same
 f32 arithmetic in another summation order; CG 1e-4, since three truncated
 CG steps from the same start amplify those roundings.
+
+NA_as_zero_uncentered under CG read 1.05e-4 at two iterations, on one row
+of A: the two packages' f32 inputs to its second A half-step differ by
+their roundings (G 1.6e-7 and rhs 4e-7 relative, the warm start 1.1e-6),
+no row freezes at another step, and three CG steps in exact arithmetic
+from inputs perturbed by those amounts spread by 3.3e-4 on that row.  Its
+CG case runs one iteration in f32 (3.0e-6; the other CG cases read <=
+3.1e-6 at two), test_na0_uncentered_cg_matches_jax_in_float64 holds the
+two iterations in float64 at 1e-8, and
+test_na0_uncentered_cg_two_iterations_in_float32 holds them in f32 at 1e-3,
+about three times that spread.
 """
 
 import numpy as np
@@ -173,6 +184,8 @@ def test_explicit_matches_jax(case, solver):
               w_user=0.8, w_item=1.3, use_cg=solver == "cg",
               finalize_chol=False, weights=wgt if weighted else None,
               side_U=side_U, side_I=side_I, init=init, **fit)
+    if case == "NA_as_zero_uncentered" and solver == "cg":
+        kw["niter"] = 1  # see the module's notes
     rj = jax_collective.fit_collective_explicit_als(
         rows, cols, vals, M, N, dtype=np.float32, **kw)
     rt = port_explicit(rows, cols, vals, M, N, **kw)
@@ -182,6 +195,46 @@ def test_explicit_matches_jax(case, solver):
         np.testing.assert_array_equal(rt[key], rj[key])
     for key in ("scaling_biasA", "scaling_biasB", "glob_mean"):
         assert rt[key] == pytest.approx(rj[key], rel=1e-12), key
+
+
+def test_na0_uncentered_cg_matches_jax_in_float64():
+    """NA_as_zero_uncentered under CG, two iterations, in float64 through
+    both packages' public collective drivers from one init=: every factor
+    within 1e-8 of max|cmfrec_tpu's| (readings <= 1.5e-13)."""
+    kind, fit, _ = EXPLICIT["NA_as_zero_uncentered"]
+    rng, rows, cols, vals, _, side_U, side_I = _data(kind)
+    init = {key: v.astype(np.float64)
+            for key, v in _init(rng, M, N, K, K, K, K, K).items()}
+    kw = dict(k=K, niter=2, lambda_=[0.3, 0.4, 0.9, 0.8, 0.6, 0.7],
+              w_user=0.8, w_item=1.3, use_cg=True, finalize_chol=False,
+              side_U=side_U, side_I=side_I, init=init, dtype=np.float64,
+              **fit)
+    rj = jax_collective.fit_collective_explicit_als(rows, cols, vals, M, N,
+                                                    **kw)
+    rt = collective.fit_collective_explicit_als(rows, cols, vals, M, N,
+                                                device="cpu", **kw)
+    for key in ("A", "B", "C", "D", "biasA", "biasB"):
+        want = np.asarray(rj[key])
+        assert rt[key].dtype == torch.float64, key
+        assert (np.abs(rt[key].numpy() - want).max()
+                <= 1e-8 * np.abs(want).max()), key
+
+
+def test_na0_uncentered_cg_two_iterations_in_float32():
+    """NA_as_zero_uncentered under CG, two iterations in f32, as
+    test_explicit_matches_jax ran it: within 1e-3, about three times the
+    3.3e-4 by which three CG steps spread from the packages' f32 input
+    roundings (the module's notes); reading 1.05e-4."""
+    kind, fit, _ = EXPLICIT["NA_as_zero_uncentered"]
+    rng, rows, cols, vals, _, side_U, side_I = _data(kind)
+    init = _init(rng, M, N, K, K, K, K, K)
+    kw = dict(k=K, niter=2, lambda_=[0.3, 0.4, 0.9, 0.8, 0.6, 0.7],
+              w_user=0.8, w_item=1.3, use_cg=True, finalize_chol=False,
+              side_U=side_U, side_I=side_I, init=init, **fit)
+    rj = jax_collective.fit_collective_explicit_als(
+        rows, cols, vals, M, N, dtype=np.float32, **kw)
+    rt = port_explicit(rows, cols, vals, M, N, **kw)
+    assert _compare(rj, rt, 1e-3) >= 4
 
 
 IMPLICIT = {

@@ -16,13 +16,26 @@ predictions), as in test_torch_dense_fit.py:
     at the other seeds tried.  A single bf16 iteration holds 5e-4 at every
     seed tried (<= 1.1e-5 over eight), and
     test_one_bf16_iteration_at_every_seed checks it at four.
+  * weighted_side_info and no_biases ran two bf16 iterations and failed
+    that bound on some machines (2.55e-3 and 1.01e-3): after one
+    iteration both engines agree to 1.7e-6 and 9.4e-5, the second one's
+    first half-step (B) departs by 1e-3 and 2.2e-3, in exact mode (f32
+    operands, three iterations) they agree to 2.7e-6 and 3.3e-6, and a
+    one-ulp change of the init alone moves the port's own weighted fit by
+    2.6e-3: flipped bf16 roundings, which truncated CG carries.  The two
+    cases keep their ids at one bf16 iteration, and
+    test_two_iteration_cases_match_jax_in_float64 holds their three
+    iterations in float64 (the bucketed collective route, both packages)
+    at 1e-8.
 """
 
 import numpy as np
 import pytest
 import torch
 
+from cmfrec_tpu.solvers import collective as jcollective
 from cmfrec_tpu.solvers.dense_pallas import fit_collective_dense_pallas
+from cmfrec_torch.solvers import collective
 from cmfrec_torch.solvers.dense_masked import fit_collective_dense_masked
 
 M, N, K, P, Q = 64, 48, 4, 5, 3
@@ -101,9 +114,12 @@ SCALED = dict(scale_lam=True, scale_lam_sideinfo=True, scale_bias_const=True)
     ("scale_lam_sideinfo_bias_const",
      dict(niter=3, add_implicit_features=True, **SCALED), "UI", False,
      TOL_BF16),
-    ("weighted_side_info", dict(niter=3), "UI", True, TOL_BF16),
-    ("no_biases", dict(niter=3, user_bias=False, item_bias=False), "U",
-     False, TOL_BF16),
+    # one bf16 iteration (see the module's notes; their three iterations
+    # are held in float64 below)
+    ("weighted_side_info", dict(niter=1, finalize_chol=False), "UI", True,
+     TOL_BF16),
+    ("no_biases", dict(niter=1, finalize_chol=False, user_bias=False,
+                       item_bias=False), "U", False, TOL_BF16),
     # f32 throughout
     ("exact_mode", dict(niter=2, exact=True, add_implicit_features=True),
      "UI", False, TOL_F32),
@@ -123,6 +139,37 @@ def test_collective_fit_matches_pallas(case, kw, side, weighted, tol):
     if "U" in side:
         assert rt["C"].shape == (P, K)
     _assert_close(rj, rt, ro, co, tol)
+
+
+@pytest.mark.parametrize("case,kw,side,weighted", [
+    ("weighted_side_info", {}, "UI", True),
+    ("no_biases", dict(user_bias=False, item_bias=False), "U", False),
+], ids=["weighted_side_info", "no_biases"])
+def test_two_iteration_cases_match_jax_in_float64(case, kw, side, weighted):
+    """The three iterations of weighted_side_info and no_biases in float64,
+    through both packages' collective drivers (their bucketed route: the
+    dense engines are float32), from one init=: every factor within 1e-8
+    of max|cmfrec_tpu's|."""
+    ro, co, vals, wts, U, I, init = _data(weighted=weighted)
+    sides = {f"side_{key}": (None, None, None, S.shape[0], S.shape[1], True,
+                             S.astype(np.float64))
+             for key, S in (("U", U), ("I", I)) if key in side}
+    init = {key: v.astype(np.float64) for key, v in init.items()}
+    common = dict(k=K, lambda_=[0.5, 0.6, 0.7, 0.8, 0.9, 1.1], w_user=0.8,
+                  w_item=1.3, niter=3, max_cg_steps=3, finalize_chol=True,
+                  weights=wts, seed=3, init=init, dtype=np.float64, **sides,
+                  **kw)
+    rj = jcollective.fit_collective_explicit_als(ro, co, vals, M, N, **common)
+    rt = collective.fit_collective_explicit_als(ro, co, vals, M, N,
+                                                device="cpu", **common)
+    for key in KEYS:
+        if rj[key] is None:
+            assert rt[key] is None, key
+            continue
+        want = np.asarray(rj[key])
+        assert rt[key].dtype == torch.float64, key
+        assert (np.abs(rt[key].numpy() - want).max()
+                <= 1e-8 * np.abs(want).max()), key
 
 
 @pytest.mark.parametrize("seed", [1, 3, 5, 6])

@@ -11,21 +11,24 @@ single bf16 roundings of T*W (2**-8 relative each), 1e-3.  The bucket CG
 difference further: K3_REL_TOL.  The K1 probes: those that round T*W
 or T to bf16 as K1 does 1e-3; dot1 (f32 row sums of T, which cancel) 1e-4
 of max|twin|; the W stream exact on a 0/1 mask, 1e-5 on bf16 weights (f32
-summation order).
+summation order).  The coordinate-descent kernel (csrc/cd_solve.cu)
+against rowsolve.solve_cd: CD_REL_TOL, the same sweeps over sums in
+another order (the iteration contracts, so the roundings do not grow).
 """
 
 import numpy as np
 import pytest
 import torch
 
-from cmfrec_torch.ops import k1_probes
+from cmfrec_torch.ops import coord_descent, k1_probes
 from cmfrec_torch.ops import masked_matmul as mm
-from cmfrec_torch.ops import sparse_cg
+from cmfrec_torch.ops import rowsolve, sparse_cg
 from cmfrec_torch.solvers import drivers
 
 pytestmark = pytest.mark.gpu
 REL_TOL = {torch.bfloat16: 1e-3, torch.float32: 1e-5}
 K3_REL_TOL = {torch.bfloat16: 1e-2, torch.float32: 1e-4}
+CD_REL_TOL = {torch.float32: 1e-4, torch.float64: 1e-10}
 
 
 @pytest.fixture
@@ -805,3 +808,163 @@ def test_float64_factors_warm_card_matches_cpu(cuda, tmp_path):
     for got, want in pairs:
         assert got.dtype == np.float64
         assert np.abs(got - want).max() <= 1e-10 * np.abs(want).max()
+
+
+def _cd_problem(dev, R, K, dtype, seed=0):
+    """R positive definite K x K systems of ridge form, rhs and l1 of both
+    shapes, on the card in ``dtype``."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    Mt = torch.randn(R, K + 8, K, device=dev, generator=g,
+                     dtype=torch.float64) / (K + 8) ** 0.5
+    G = Mt.transpose(1, 2) @ Mt + 0.1 * torch.eye(K, device=dev,
+                                                  dtype=torch.float64)
+    rhs = torch.randn(R, K, device=dev, generator=g, dtype=torch.float64)
+    l1 = {"K": 0.05 * torch.rand(K, device=dev, generator=g,
+                                 dtype=torch.float64),
+          "RK": 0.05 * torch.rand(R, K, device=dev, generator=g,
+                                  dtype=torch.float64)}
+    return (G.to(dtype), rhs.to(dtype),
+            {key: v.to(dtype) for key, v in l1.items()})
+
+
+@pytest.mark.parametrize("max_steps", [1, 100])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("K", [8, 56, 264, 300])
+def test_cd_solve_matches_twin(cuda, K, dtype, max_steps):
+    """The CD kernel against rowsolve.solve_cd on the card, at any K (no
+    K limit), R = 333 (not a multiple of the 8 warps a block), l1 of both
+    shapes, nonneg and the soft threshold; the launch counted once."""
+    R = 333
+    G, rhs, l1 = _cd_problem(cuda, R, K, dtype)
+    for nonneg, shape in ((True, "K"), (False, "RK")):
+        n0 = coord_descent.solve_cd.launches
+        out, sweeps = coord_descent.solve_cd(G, rhs, l1[shape],
+                                             nonneg=nonneg,
+                                             max_steps=max_steps,
+                                             return_sweeps=True)
+        torch.cuda.synchronize()
+        assert coord_descent.solve_cd.launches == n0 + 1
+        want, want_sweeps = rowsolve.solve_cd(G, rhs, l1[shape], nonneg,
+                                              max_steps, return_sweeps=True)
+        assert out.dtype == dtype and torch.isfinite(out).all()
+        assert _rel(out, want) <= CD_REL_TOL[dtype], (nonneg, shape)
+        assert int(sweeps.min()) >= 1 and int(sweeps.max()) <= max_steps
+        if max_steps == 1:
+            assert torch.equal(sweeps, want_sweeps)
+        if nonneg:
+            assert float(out.min()) >= 0.0
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("K", [56, 300])
+def test_cd_solve_shared_g_matches_twin(cuda, K, dtype):
+    """One G for every row, passed with row stride 0 (the dense C/D update
+    of the collective fits), against the twin on the expanded copy."""
+    R = 333
+    G, rhs, l1 = _cd_problem(cuda, R, K, dtype, seed=1)
+    shared = G[0].expand(R, K, K)
+    out = coord_descent.solve_cd(shared, rhs, l1["K"], nonneg=True,
+                                 max_steps=100)
+    want = rowsolve.solve_cd(shared.contiguous(), rhs, l1["K"], True, 100)
+    assert _rel(out, want) <= CD_REL_TOL[dtype]
+
+
+def test_cd_solve_refuses_what_it_does_not_take(cuda):
+    """The wrapper raises on the card; it never hands a tensor to the twin
+    there."""
+    G, rhs, l1 = _cd_problem(cuda, 16, 8, torch.float32)
+    with pytest.raises(ValueError, match="float32 or float64"):
+        coord_descent.solve_cd(G.half(), rhs.half(), l1["K"].half(),
+                               nonneg=True, max_steps=3)
+    with pytest.raises(ValueError, match="contiguous"):
+        coord_descent.solve_cd(G.transpose(1, 2), rhs, l1["K"], nonneg=True,
+                               max_steps=3)
+    with pytest.raises(ValueError, match="several devices"):
+        coord_descent.solve_cd(G, rhs.cpu(), l1["K"], nonneg=True,
+                               max_steps=3)
+
+
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+@pytest.mark.parametrize("case", ["nonneg", "l1", "collective"])
+def test_cd_fit_on_card_matches_cpu(cuda, case, dtype):
+    """nonneg and l1 fits on the card launch the CD kernel (never K1-K3)
+    and equal the same fit on the CPU from one init: float64 1e-10, float32
+    1e-4 (the CD sums in another order over three iterations); factors and
+    biases under nonneg >= 0."""
+    from cmfrec_torch.solvers import collective
+
+    rng = np.random.default_rng(11)
+    m, n, k = 300, 200, 8
+    pairs = np.unique(rng.integers(0, m * n, 6000))
+    rows, cols = pairs // n, pairs % n
+    # ratings of rank 4 (the l1 fit keeps some factors: on noise alone it
+    # zeroes them all)
+    At, Bt = rng.normal(size=(m, 4)), rng.normal(size=(n, 4))
+    vals = 3 + (At[rows] * Bt[cols]).sum(1) + 0.3 * rng.normal(size=rows.size)
+    init = {"A": np.abs(0.3 * rng.normal(size=(m, k))),
+            "B": np.abs(0.3 * rng.normal(size=(n, k)))}
+    common = dict(k=k, niter=3, lambda_=1.0, init=init, dtype=dtype)
+    call = drivers.fit_explicit_als
+    if case == "nonneg":
+        common.update(nonneg=True, center=False)
+    elif case == "l1":
+        # without CG: with it the card assembles the systems from bf16
+        # rows, as the JAX package does on a TPU (phase 28b of
+        # chip_smoke.py runs that)
+        common.update(l1_lambda=0.05, lambda_=0.1, scale_lam=True,
+                      use_cg=False)
+    else:
+        U = np.abs(rng.normal(size=(m, 5)))
+        init["C"] = np.abs(0.3 * rng.normal(size=(5, k)))
+        common.update(side_U=(None, None, None, m, 5, True, U), nonneg=True,
+                      nonneg_C=True, center=False)
+        call = collective.fit_collective_explicit_als
+    ops = (mm.masked_gram_matvec, mm.masked_rhs, sparse_cg.bucket_cg)
+    before = [op.launches for op in ops]
+    cd0 = coord_descent.solve_cd.launches
+    got = call(rows, cols, vals, m, n, device="cuda", **common)
+    torch.cuda.synchronize()
+    assert [op.launches for op in ops] == before
+    assert coord_descent.solve_cd.launches > cd0
+    want = call(rows, cols, vals, m, n, device="cpu", **common)
+    tol = 1e-10 if dtype == np.float64 else 1e-4
+    for key in init:
+        assert float(want[key].abs().max()) > 0, key
+        assert _rel(got[key].cpu(), want[key]) <= tol, key
+        if common.get("nonneg"):
+            assert float(got[key].min()) >= 0.0, key
+
+
+@pytest.mark.parametrize("implicit", [False, True])
+def test_cd_serving_on_card_matches_cpu(cuda, implicit):
+    """A nonneg model's warm and cold factors on the card (the CD kernel)
+    against its CPU copy: 1e-4 of max|a| in f32, factors >= 0."""
+    import scipy.sparse as spm
+
+    import cmfrec_torch
+    from cmfrec_torch.convert import cmf_from_arrays
+
+    rng = np.random.default_rng(12)
+    m, n = 300, 200
+    X = spm.random(m, n, density=0.08, random_state=6, format="coo")
+    X.data = np.round(10 * X.data) / 2 + 0.5
+    U = np.abs(rng.normal(size=(m, 6)))
+    cls = cmfrec_torch.CMF_implicit if implicit else cmfrec_torch.CMF
+    kw = {} if implicit else dict(center=False)
+    card = cls(k=8, niter=2, nonneg=True, nonneg_C=True, device="cuda",
+               **kw).fit(X, U=U)
+    cpu = cmf_from_arrays(
+        A=card.A_, B=card.B_, C=card.C_, user_bias=card.user_bias_,
+        item_bias=card.item_bias_, glob_mean=card.glob_mean_,
+        U_colmeans=card.U_colmeans_,
+        w_main_multiplier=getattr(card, "w_main_multiplier_", 1.0),
+        params={key: v for key, v in card.get_params().items()
+                if key != "device"}, cls=cls, device="cpu")
+    cpu.force_precompute_for_predictions()
+    n0 = coord_descent.solve_cd.launches
+    for call in (lambda mdl: mdl.factors_multiple(X=X.tocsr()[:40]),
+                 lambda mdl: mdl.factors_cold(U=U[3])):
+        got, want = call(card), call(cpu)
+        assert got.min() >= 0.0
+        assert np.abs(got - want).max() <= 1e-4 * np.abs(want).max()
+    assert coord_descent.solve_cd.launches == n0 + 2

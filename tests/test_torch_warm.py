@@ -441,18 +441,32 @@ def test_failed_factorization_raises():
                          ids=["nonneg", "l1_lambda"])
 @pytest.mark.parametrize("implicit", [False, True])
 def test_coordinate_descent_options_raise(kw, implicit):
-    """A model loaded from a cmfrec_tpu checkpoint may carry nonneg or
-    l1_lambda; their solves need rowsolve.solve_cd."""
-    _, tm = (carried_implicit(precompute=False) if implicit
-             else carried("plain", precompute=False))
-    for key, v in kw.items():
-        setattr(tm, key, v)
+    """A model carried from cmfrec_tpu may carry nonneg or l1_lambda (the
+    name is kept from when the port raised on them): its warm factors are
+    coordinate-descent solves, fused or not, and match cmfrec_tpu's on the
+    same model within TOL (tests/test_torch_cd.py holds more branches)."""
+    jm, tm = (carried_implicit(precompute=False) if implicit
+              else carried("plain", precompute=False))
+    for model in (jm, tm):
+        for key, v in kw.items():
+            setattr(model, key, v)
     idx, vals, _, lens = new_rows()
-    with pytest.raises(ValueError, match="slice 4 item 10"):
+    for nf in (False, True):
         if implicit:
-            warm.factors_implicit_batch(tm, idx, vals, lens)
+            got = warm.factors_implicit_batch(tm, idx, vals, lens,
+                                              _no_fused=nf)
+            want = jwarm.factors_implicit_batch(jm, idx, vals, lens)
         else:
-            warm.factors_explicit_batch(tm, idx, vals, None, lens)
+            got = warm.factors_explicit_batch(tm, idx, vals, None, lens,
+                                              _no_fused=nf)
+            want = jwarm.factors_explicit_batch(jm, idx, vals, None, lens)
+            close(got[1], want[1])
+        close(got if implicit else got[0], want if implicit else want[0])
+    key = "warm_cd_implicit" if implicit else "warm_cd"
+    assert tm._cache_stats == {key: 2}
+    if kw.get("nonneg"):
+        a = got if implicit else got[0]
+        assert a.min() >= 0.0
 
 
 def test_binary_side_info_raises():
