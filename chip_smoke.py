@@ -136,7 +136,9 @@ at max_cd_steps):
      Cholesky/CD route: A_, B_ and the biases >= 0, held-out RMSE below
      the global mean's; one bucket of each side's last half-step (at most
      4,096 rows) through the kernel against rowsolve.solve_cd on the card
-     in f32 and f64, both timed, and the whole A half-step timed;
+     in f32 and f64 (sweeps equal to the twin's on >= 99% of the rows),
+     both timed, and the whole A half-step timed three times, printed
+     beside the first design's time and the bound;
  27. phase 7's WRMF with nonneg=True: P@10 >= 2x popularity, factors >= 0;
  28. phase 11's dense U and I with nonneg, nonneg_C and nonneg_D
      (center=False): the dense C/D updates by CD with one G shared by
@@ -152,6 +154,23 @@ at max_cd_steps):
  29. serving: phase 5b's 8,192 users folded into phase 26's model
      (users/s, factors >= 0, 256 card against the CPU copy), and 2,000 U
      rows through cold factors of phase 28's model against its CPU copy.
+
+K past 256 (the kernels' wide paths: K1's gram_wide_kernel, K2's kernels
+at any K, K3 a block or cluster a row looping over K):
+ 30. K1 (bf16 operands on the int8 mask and on bf16 weights, f32 operands)
+     and K2 (bf16, f32) against their twins on the A side of phase 3's X
+     and W at K = 320 (k = 300 on the dense engine) and 1024, and K3
+     against its twin on each A bucket of phase 6's layout at K = 264 (the
+     implicit fit's), 304 (k = 300 bucketed) and 1024 (phase 6's log-play
+     case in bf16): the first 2,048 rows of each bucket, the plan the
+     bucket's full rows take asserted to be the one checked, and at K = 264
+     the widest bucket and the one of the most slots at their full rows;
+     each call's launches, time, plain time and bound; then
+     CMF(k=300) on phase 4's data and split (the dense engine, K = 320):
+     RMSE below the global mean's, K1/K2 launches of 2 iterations; and
+     CMF_implicit(k=260) on phase 7's data (K3 at K = 264): P@10 above
+     popularity, K3 = 2 x the buckets.  Both fits run 2 iterations, cut
+     from 15, so that the phase adds about a minute.
 
 Each fit phase, and phase 9's sweep, sets every kernel's launch count to 0
 just before it and reads the counts just after; phases 10-16 print each
@@ -225,11 +244,12 @@ PROBE_WRAPPERS = {"p1": ("full", "dots", "dot1", "wsum", "part"),
 # the ptxas report and the {"kernels": ...} rows
 CUDA_KERNELS = {
     "masked_gram_matvec": ("gram_bf16_wgmma_kernel", "gram_f32_tile8_kernel",
-                           "gram_f32_ring_kernel", "sum_chunks_kernel"),
+                           "gram_f32_ring_kernel", "gram_wide_kernel",
+                           "sum_chunks_kernel"),
     "masked_rhs": ("rhs_bf16_wgmma_kernel", "rhs_f32_tile8_kernel",
                    "sum_chunks_kernel"),
     "bucket_cg": ("bucket_cg_kernel",),
-    "solve_cd": ("cd_solve_kernel",),
+    "solve_cd": ("cd_staged_kernel", "cd_stream_kernel"),
 }
 PTXAS_KERNELS = tuple(dict.fromkeys(k for ks in CUDA_KERNELS.values()
                                     for k in ks))
@@ -2637,6 +2657,12 @@ CD_REPS = 5  # CUDA-event repetitions of a kernel timing
 # readings on phase 26's buckets (NVIDIA H100 80GB HBM3, 700 W): f32
 # 1.33e-6, f64 2.60e-15
 CD_REL_TOL = {"f32": 1e-5, "f64": 2e-14}
+# the share of phase 26's checked rows whose sweeps equal the twin's
+CD_SAME_SWEEPS = 0.99
+# phase 26's A half-step through the first design of the CD kernel (a warp
+# a row, G read at every coordinate), three runs of this script (NVIDIA
+# H100 80GB HBM3, 700 W), printed beside the present design's
+CD_FIRST_DESIGN_HALF_MS = (83.105, 83.489)
 # max|card - CPU| / max|CPU| of CD-served factors (phase 29), about 6x
 # above the readings (same card): warm 1.57e-5, cold 8.7e-8
 CD_SERVE_TOL = 1e-4
@@ -2776,6 +2802,15 @@ def check_cd(phase, sides):
                 raise AssertionError(f"phase {phase}: the CD kernel "
                                      f"disagrees with its twin on side "
                                      f"{side} {name}")
+            # phase 26's rows run to the cap in the twin, f32 and f64 alike:
+            # the kernel stops them at the same sweep (the few-sweep solves
+            # of 28, whose f32 rows settle within f32 resolution, stop at
+            # whichever sweep their roundings first reach tol)
+            if phase == "26" and rec["same_sweeps"] < CD_SAME_SWEEPS:
+                raise AssertionError(f"phase 26: the CD kernel's sweeps "
+                                     f"equal the twin's on "
+                                     f"{100 * rec['same_sweeps']:.1f}% of "
+                                     f"side {side}'s rows ({name})")
             if nonneg and float(got.min()) < 0:
                 raise AssertionError(f"phase {phase}: negative CD output")
     return out
@@ -2837,23 +2872,35 @@ def cd_phases(ops, rows, cols, vals, test, lastfm, ctx):
         return max(calls, key=lambda c: c[0].shape[0])
 
     records = check_cd("26", {"A": widest(kept_A), "B": widest(kept_B)})
-    # the whole A half-step of the last iteration, bucket by bucket
-    half_ms, half_bytes, half_ops, half_sw = 0.0, 0, 0.0, []
-    for G, rhs, l1, nonneg, steps in kept_A:
-        half_ms += _timed(lambda: coord_descent.solve_cd(
+
+    # the whole A half-step of the last iteration, bucket by bucket (each
+    # bucket's mean of two calls after a warm-up), three runs
+    def half_step():
+        return sum(_timed(lambda: coord_descent.solve_cd(
             G, rhs, l1, nonneg=nonneg, max_steps=steps), 2)
+            for G, rhs, l1, nonneg, steps in kept_A)
+
+    half_bytes, half_ops, half_sw = 0, 0.0, []
+    for G, rhs, l1, nonneg, steps in kept_A:
         _, sw = coord_descent.solve_cd(G, rhs, l1, nonneg=nonneg,
                                        max_steps=steps, return_sweeps=True)
         nb, op = _cd_work(G, rhs, l1, sw, "f32")
         half_bytes, half_ops = half_bytes + nb, half_ops + op["f32"]
         half_sw.append(sw)
     half_bound, half_by = bound(half_bytes, {"f32": half_ops})
+    runs = [half_step() for _ in range(3)]
+    K = kept_A[0][1].shape[1]
+    plan = coord_descent.plan(K, False, torch.float32)
     half = dict(rows=sum(c[0].shape[0] for c in kept_A), buckets=len(kept_A),
-                ms=half_ms, bound_ms=half_bound, bound_by=half_by,
+                ms=float(np.mean(runs)), runs=runs, plan=plan,
+                bound_ms=half_bound, bound_by=half_by,
                 sweeps=sweep_stats(half_sw, kept_A[0][4]))
     print(f"phase 26 CD kernel, the whole A half-step: {half['rows']} rows in "
-          f"{half['buckets']} buckets, K={kept_A[0][1].shape[1]}, f32: "
-          f"{half_ms:.3f} ms, bound {half_bound:.3f} ms ({half_by}); "
+          f"{half['buckets']} buckets, K={K}, f32, plan {plan}: "
+          f"{' '.join(f'{t:.3f}' for t in runs)} ms (three runs; the first "
+          f"design {CD_FIRST_DESIGN_HALF_MS[0]:.3f}-"
+          f"{CD_FIRST_DESIGN_HALF_MS[1]:.3f} ms, not measured here), bound "
+          f"{half_bound:.3f} ms ({half_by}); "
           f"{_fmt_sweeps(half['sweeps'])}", flush=True)
     del kept, kept_A, kept_B, spy
     torch.cuda.empty_cache()
@@ -3022,6 +3069,277 @@ def cd_phases(ops, rows, cols, vals, test, lastfm, ctx):
     del model, cmodel, X, a, bias
     torch.cuda.empty_cache()
     return paths, records, half
+
+
+# phase 30: K past 256.  The widths held kernel against twin: the dense
+# engine's K at k = 300 (320), the bucketed one's at k = 260 (264, the
+# implicit fit's) and k = 300 (304), and K = 1024; the fits' depth is cut
+# from 15 iterations to WIDE_FIT_NITER, and K3's check to an A bucket's
+# first WIDE_K3_ROWS rows (the twin gathers [R, L, K] in f32), to hold the
+# phase to about a minute, except at WIDE_K3_FULL_K, where the widest bucket
+# and the one of the most slots are held at their full rows
+WIDE_K = {"dense": (320, 1024), "bucketed": (264, 304, 1024)}
+WIDE_FIT_NITER = 2
+WIDE_K3_ROWS = 2048
+WIDE_K3_FULL_K = 264
+WIDE_FIT = dict(FIT, k=300, niter=WIDE_FIT_NITER)
+WIDE_IMPLICIT_FIT = dict(IMPLICIT_FIT, k=260, niter=WIDE_FIT_NITER)
+
+
+def check_wide_kernels(rows, cols, vals, weights):
+    """Phase 30's K1 and K2 against their twins at the A side of phase 3's
+    dense X and W (69,888 x 10,688) at each of WIDE_K["dense"]: K1 with bf16
+    operands on the int8 mask and on the bf16 weights, K1 with f32 operands,
+    K2 with bf16 and f32 operands; each call's launches, time, plain time,
+    bound and plan.  Returns the records by kernel."""
+    import torch
+
+    from cmfrec_torch.ops import masked_matmul as mm
+
+    _, sides = flagship_dense(rows, cols, vals, weights)
+    R, S, Xs, W8, Wf = sides.pop("A")
+    del sides
+    Wb = Wf.to(torch.bfloat16)
+    del Wf
+    torch.cuda.empty_cache()
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(30)
+    mb = 3.5 + torch.randn(S, device=dev, generator=gen) / 2
+    out = {"masked_gram_matvec": [], "masked_rhs": []}
+    for K in WIDE_K["dense"]:
+        Q = torch.randn(R, K, device=dev, generator=gen) / 8
+        Be = torch.randn(S, K, device=dev, generator=gen) / 8
+        cases = [("masked_gram_matvec", "bf16", "int8"),
+                 ("masked_gram_matvec", "bf16", "bf16"),
+                 ("masked_gram_matvec", "f32", "int8"),
+                 ("masked_rhs", "bf16", "int8"), ("masked_rhs", "f32", "int8")]
+        for name, op, wname in cases:
+            dt = torch.bfloat16 if op == "bf16" else torch.float32
+            Wv = W8 if wname == "int8" else Wb
+            Beo = Be.to(dt)
+            if name == "masked_gram_matvec":
+                kern, twin = mm.masked_gram_matvec, mm.masked_gram_matvec_ref
+                args = (Q.to(dt), Beo, Wv)
+                plan = mm.gram_plan(R, S, K, dt, Wv.dtype, dev)
+            else:
+                kern, twin = mm.masked_rhs, mm.masked_rhs_ref
+                args = (Xs, Wv, mb, Beo)
+                plan = mm.rhs_plan(R, S, K, dt, Wv.dtype, dev)
+            kern.launches = 0
+            got = kern(*args)
+            launches = kern.launches
+            ref = twin(*args)
+            torch.cuda.synchronize()
+            err = (got - ref).abs().max().item()
+            rel = err / ref.abs().max().item()
+            del got, ref
+            ms = _timed(lambda: kern(*args), 2)
+            plain_ms = _timed(lambda: twin(*args), 1)
+            esz, wsz = (2 if op == "bf16" else 4), Wv.element_size()
+            if name == "masked_gram_matvec":
+                # the scores once a column chunk, the product once
+                nbytes = (R + S) * K * esz + R * S * wsz + R * K * 4
+                ops = 4 * R * S * K
+            else:
+                nbytes = R * S * (2 + wsz) + S * 4 + S * K * esz + R * K * 4
+                ops = 2 * R * S * K
+            b_ms, b_by = bound(nbytes, {op: ops})
+            ok = bool(np.isfinite(rel)) and rel <= REL_TOL[op] and launches == 1
+            print(f"phase 30 kernel {name} side=A R={R} S={S} K={K} op={op} "
+                  f"W={wname}: configuration {plan['variant']}, column "
+                  f"chunks {[w for _, w in plan['cols']]}, S chunk "
+                  f"{plan['chunk']} ({plan['chunks']} chunks); "
+                  f"max_abs_err={err:.3e} rel={rel:.3e} (tol "
+                  f"{REL_TOL[op]:.0e}) launches={launches} ms={ms:.3f} "
+                  f"plain_ms={plain_ms:.3f} bound_ms={b_ms:.4f} ({b_by}) "
+                  f"{'ok' if ok else 'MISMATCH'}", flush=True)
+            if not ok:
+                raise AssertionError(f"phase 30: {name} at K={K} disagrees "
+                                     "with its twin")
+            out[name].append(dict(
+                side="A", R=R, S=S, K=K, op=op, W=wname, launches=launches,
+                max_abs_err=err, rel_err=rel, ms=ms, plain_ms=plain_ms,
+                bound_ms=b_ms, bound_by=b_by, plan=plan))
+        del Q, Be
+        torch.cuda.empty_cache()
+    del Xs, W8, Wb
+    torch.cuda.empty_cache()
+    return out
+
+
+def check_wide_bucket_cg(tr_r, tr_c, tr_v):
+    """Phase 30's K3 against its twin on the A side's buckets of the
+    LastFM-shaped layout at each of WIDE_K["bucketed"] (log-play
+    coefficients and a bf16 opposing matrix, phase 6's main case): every
+    bucket takes a block or a cluster a row there.  Each bucket's first
+    WIDE_K3_ROWS rows, with the plan of its full rows asserted to be the
+    one checked; at WIDE_K3_FULL_K the widest bucket and the one of the most
+    slots at their full rows.  Returns the records."""
+    import types
+
+    import torch
+
+    from cmfrec_torch.data.device_fill import build_bucketed_pair
+    from cmfrec_torch.ops import sparse_cg
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(31)
+    RB, _ = build_bucketed_pair(tr_r, tr_c, tr_v, LFM_M, LFM_N, device="cuda")
+    records = []
+    tol = K3_REL_TOL["implicit-log", "bf16"]
+    for K in WIDE_K["bucketed"]:
+        k = K - 4  # the k that pads to K (300 at 304, as the fits pad)
+        lam = torch.ones(K, device=dev)
+        lam[:k] = IMPLICIT_FIT["lambda_"]
+        mat = torch.randn(LFM_N, K, device=dev, generator=gen) / k ** 0.5
+        mat[:, k:] = 0.0
+        gfix = mat.T @ mat + torch.diag(lam)
+        matx = mat.to(torch.bfloat16)
+        total_ms = 0.0
+        whole = set()
+        if K == WIDE_K3_FULL_K:
+            whole = {max(range(len(RB.buckets)),
+                         key=lambda j: RB.buckets[j].width),
+                     max(range(len(RB.buckets)),
+                         key=lambda j: RB.buckets[j].n_rows
+                         * RB.buckets[j].width)}
+        for i, full in enumerate(RB.buckets):
+            R = full.n_rows if i in whole else min(full.n_rows, WIDE_K3_ROWS)
+            plan = sparse_cg.plan_for(R, full.width, K, matx.dtype, dev)
+            if plan != sparse_cg.plan_for(full.n_rows, full.width, K,
+                                          matx.dtype, dev):
+                raise AssertionError(f"phase 30: bucket {i}'s first {R} rows "
+                                     f"at K={K} take another plan than its "
+                                     f"{full.n_rows}")
+            b = types.SimpleNamespace(
+                width=full.width, n_rows=R, n_real=min(full.n_real, R),
+                idx=full.idx[:R].contiguous(), val=full.val[:R].contiguous(),
+                length=full.length[:R].contiguous())
+            cw, cv, gf, lam_row, r0 = _bucket_case(b, mat, gfix,
+                                                   "implicit-log", gen)
+            a0 = torch.randn(R, K, device=dev, generator=gen) / 8
+            a0[:, k:] = 0.0
+            args = (matx, b.idx, cw.contiguous(), cv.contiguous(), gf, None,
+                    None, a0)
+            sparse_cg.bucket_cg.launches = 0
+            got = sparse_cg.bucket_cg(*args, n_steps=K3_STEPS, length=b.length)
+            launches = sparse_cg.bucket_cg.launches
+            ref = sparse_cg.bucket_cg_ref(*args, n_steps=K3_STEPS)
+            torch.cuda.synchronize()
+            top = ref.abs().max().item()
+            err = (got - ref).abs().max().item()
+            rel, moved = err / top, (ref - a0).abs().max().item() / top
+            del got, ref
+            ms = _timed(lambda: sparse_cg.bucket_cg(
+                *args, n_steps=K3_STEPS, length=b.length), 2)
+            plain_ms = _timed(lambda: sparse_cg.bucket_cg_ref(
+                *args, n_steps=K3_STEPS), 1)
+            total_ms += ms
+            real = (torch.arange(b.width, device=dev)[None, :]
+                    < b.length[:, None])
+            slots = int(b.length.sum())
+            uniq = int(torch.unique(b.idx[real]).numel())
+            nbytes = (uniq * K * 2 + slots * 12 + R * (4 + 8 * K)
+                      + 4 * K * K)
+            ops = {"bf16": slots * (2 * K + (1 + K3_STEPS) * 4 * K),
+                   "f32": R * (1 + K3_STEPS) * 2 * K * K}
+            b_ms, b_by = bound(nbytes, ops)
+            ok = (bool(np.isfinite(rel)) and rel <= tol and launches == 1
+                  and moved >= K3_MOVE_FACTOR * tol and plan["k_loop"])
+            narrow = full.width <= sparse_cg.NARROW_L
+            print(f"phase 30 kernel bucket_cg side=A bucket={i} R={R} "
+                  f"(of {full.n_rows}) L={b.width} slots={slots} K={K} "
+                  f"op=bf16 implicit-log class={plan['cls']}"
+                  f"{' (narrow rows, a block a row past K=256)' if narrow else ''}"
+                  f" cluster={plan['cluster']} threads={plan['threads']} "
+                  f"stage_slots={plan['stage_slots']}: max_abs_err={err:.3e} "
+                  f"rel={rel:.3e} (tol {tol:.0e}) moved={moved:.3e} "
+                  f"launches={launches} ms={ms:.3f} plain_ms={plain_ms:.3f} "
+                  f"bound_ms={b_ms:.4f} ({b_by}) {'ok' if ok else 'MISMATCH'}",
+                  flush=True)
+            if not ok:
+                raise AssertionError(f"phase 30: bucket_cg at K={K} disagrees "
+                                     "with its twin, or checks too little")
+            records.append(dict(
+                side="A", bucket=i, R=R, L=b.width, slots=slots, K=K,
+                op="bf16", mode="implicit-log", launches=launches,
+                max_abs_err=err, rel_err=rel, moved=moved, ms=ms,
+                plain_ms=plain_ms, bytes=nbytes, ops=ops, bound_ms=b_ms,
+                bound_by=b_by, plan=plan))
+            del args, cw, cv, a0, b
+        print(f"phase 30 kernel bucket_cg K={K}: the {len(RB.buckets)} A "
+              f"buckets' rows checked in {total_ms:.3f} ms", flush=True)
+        del mat, matx, gfix
+        torch.cuda.empty_cache()
+    del RB
+    torch.cuda.empty_cache()
+    return records
+
+
+def wide_k_phases(ops, rows, cols, vals, test, weights, lastfm, ctx):
+    """Phase 30: K past 256 at full width.  The kernels against their twins
+    (check_wide_kernels, check_wide_bucket_cg), then CMF(k=300) on the
+    flagship's data and split through the dense engine (K = 320: K1's wide
+    kernel, K2) and CMF_implicit(k=260) on the LastFM-shaped data (K = 264:
+    K3, a block a row), each at WIDE_FIT_NITER iterations, cut from 15 so
+    that the phase adds about a minute: held-out RMSE below the global
+    mean's and P@10 above popularity, with their launches.  Returns
+    (launch counts, kernel records)."""
+    import torch
+
+    import cmfrec_torch
+
+    tr = ~test
+    tr_r, tr_c, tr_v = rows[tr], cols[tr], vals[tr]
+    l_r, l_c, l_v, l_te_r, l_te_c, test_users = lastfm
+    records = check_wide_kernels(tr_r, tr_c, tr_v, weights)
+    records["bucket_cg"] = check_wide_bucket_cg(l_r, l_c, l_v)
+
+    model, launches, s, peak = _fit_phase(
+        ops, lambda: cmfrec_torch.CMF(**WIDE_FIT, device="cuda").fit_triplets(
+            tr_r, tr_c, tr_v, M, N))
+    pred = model.predict(rows[test], cols[test])
+    rmse = float(np.sqrt(np.mean((pred - vals[test]) ** 2)))
+    base = float(np.sqrt(np.mean((tr_v.mean() - vals[test]) ** 2)))
+    want = dense_launches(WIDE_FIT_NITER)
+    print(f"phase 30 CMF(k=300) on {card()}: {WIDE_FIT_NITER} iterations on "
+          f"the dense engine (K=320) in {s:.3f} s, peak device memory "
+          f"{peak / 2**30:.2f} GiB, held-out RMSE {rmse:.5f} (global-mean "
+          f"baseline {base:.5f}), A_ {model.A_.shape}; launches {launches} "
+          f"(expected {want})", flush=True)
+    if launches != want:
+        raise AssertionError("phase 30: CMF(k=300) did not run the expected "
+                             "launches")
+    if not (np.all(np.isfinite(pred)) and rmse < base):
+        raise AssertionError("phase 30: CMF(k=300) out of bounds")
+    del model, pred
+    torch.cuda.empty_cache()
+
+    imodel, ilaunches, s, peak = _fit_phase(
+        ops, lambda: cmfrec_torch.CMF_implicit(
+            **WIDE_IMPLICIT_FIT, device="cuda").fit_triplets(
+                l_r, l_c, l_v, LFM_M, LFM_N))
+    Ad, Bd = imodel._device_x_factors()
+    p10, map10, p10_pop = ranking_quality(Ad, Bd, l_r, l_c, l_te_r, l_te_c,
+                                          test_users, LFM_N)
+    want = dict(NO_LAUNCHES,
+                bucket_cg=WIDE_FIT_NITER * ctx["n_buckets_7"])
+    print(f"phase 30 CMF_implicit(k=260) on {card()}: {WIDE_FIT_NITER} "
+          f"iterations on the bucketed engine (K=264) in {s:.3f} s, peak "
+          f"device memory {peak / 2**30:.2f} GiB, P@10 {p10:.5f} (popularity "
+          f"{p10_pop:.5f}; phase 7 at k=50 and 15 iterations "
+          f"{ctx['p10_7']:.5f}), MAP@10 {map10:.5f}; launches {ilaunches} "
+          f"(expected {want})", flush=True)
+    if ilaunches != want:
+        raise AssertionError("phase 30: CMF_implicit(k=260) did not run the "
+                             "expected launches")
+    if not (np.isfinite(imodel.A_).all() and np.isfinite(imodel.B_).all()
+            and p10 > p10_pop):
+        raise AssertionError("phase 30: CMF_implicit(k=260) out of bounds")
+    del imodel, Ad, Bd
+    torch.cuda.empty_cache()
+    paths = {key: launches[key] + ilaunches[key] for key in launches}
+    return {"30": paths}, records
 
 
 def main():
@@ -3266,6 +3584,11 @@ def main():
                                               lastfm, ctx)
     paths.update(cd_paths)
 
+    # 30. K past 256
+    wide_paths, wide = wide_k_phases(ops, rows, cols, vals, test, weights,
+                                     lastfm, ctx)
+    paths.update(wide_paths)
+
     kernels = []
     for name, variants in results.items():
         main_variant = next(v for v in variants if v["side"] == "A"
@@ -3275,11 +3598,11 @@ def main():
             cuda_kernels=CUDA_KERNELS[name],
             replaces=REPLACES[name], launches=launches[name],
             launches_by_phase={ph: c[name] for ph, c in paths.items()},
-            max_abs_err=max(v["max_abs_err"] for v in variants),
+            max_abs_err=max(v["max_abs_err"] for v in variants + wide[name]),
             ms=main_variant["ms"], plain_ms=main_variant["plain_ms"],
             bound_ms=main_variant["bound_ms"],
             bound_by=main_variant["bound_by"], library_ms=None,
-            variants=variants))
+            variants=variants, wide_k=wide[name]))
     # K3 at the main path's shapes: one implicit iteration's launches (every
     # bucket of both sides, bf16), summed
     main = [r for r in k3
@@ -3292,11 +3615,11 @@ def main():
         cuda_kernels=CUDA_KERNELS["bucket_cg"],
         replaces=REPLACES["bucket_cg"], launches=ilaunches["bucket_cg"],
         launches_by_phase={ph: c["bucket_cg"] for ph, c in paths.items()},
-        max_abs_err=max(r["max_abs_err"] for r in k3),
+        max_abs_err=max(r["max_abs_err"] for r in k3 + wide["bucket_cg"]),
         ms=sum(r["ms"] for r in main),
         plain_ms=sum(r["plain_ms"] for r in main), bound_ms=k3_bound,
         bound_by=k3_by, library_ms=None, variants=k3,
-        multipart_check=multipart))
+        multipart_check=multipart, wide_k=wide["bucket_cg"]))
     # the probes: the sweep's launches (the fit's in fit_launches), times at
     # the A side of phase 9 for the row's headline variant
     for row, variants in probes.items():

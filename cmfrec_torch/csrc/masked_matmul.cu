@@ -896,15 +896,149 @@ __global__ void __launch_bounds__(F8_NT, 1)
   }
 }
 
+// ------------------------------------------------------ K1 past K = 256
+// The tiled K1 kernels above hold a row block's Q and an S tile of Be at the full K
+// in shared memory, which stops fitting past K = kTiledMaxK (256).  gram_wide_kernel
+// takes any K (a multiple of 64) by walking K in chunks: a block owns 64 rows and a
+// chunk of up to 256 output columns (gridDim.y chunks of col_chunk columns, the last
+// narrower), and for each 64-wide S tile accumulates its [64 x 64] scores over the
+// whole K, 32 at a time from Q and Be chunks staged as f32, then masks and rounds
+// them as the tiled kernels do and adds their product with the tile's Be columns of
+// its chunk.  Each column chunk recomputes the scores.  A simple kernel, correct at
+// any K: true f32 FMA for both operand types (bf16 x bf16 products are exact in
+// f32), 256 threads as 16 x 16, thread (ty, tx) owning rows ty + 16i (i < 4), in
+// the scores S columns tx + 16j (j < 4), in the output columns 4tx + 64q + e of the
+// chunk (q, e < 4).
+constexpr int kTiledMaxK = 256;
+constexpr int WD_NT = 256;
+constexpr int WD_BM = 64;          // rows a block
+constexpr int WD_BS = 64;          // S tile
+constexpr int WD_BK = 32;          // K chunk of the scores
+constexpr int WD_MAXC = 256;       // output columns a block
+constexpr int WD_LDK = WD_BK + 4;  // 9 16-byte units a row: 8 rows' float4s on 8 bank groups
+constexpr int WD_LDP = WD_BS + 4;
+
+template <typename TO, typename WT>
+size_t gram_wide_smem(int) {
+  return static_cast<size_t>(2 * WD_BM * WD_LDK + WD_BM * WD_LDP + WD_BS * WD_MAXC) * 4;
+}
+
+__device__ __forceinline__ float load_f32(const float* p) { return *p; }
+__device__ __forceinline__ float load_f32(const bf16_t* p) { return __bfloat162float(*p); }
+
+template <typename TO, typename WT>
+__global__ void __launch_bounds__(WD_NT, 1)
+    gram_wide_kernel(const TO* __restrict__ Q, const TO* __restrict__ Be,
+                     const WT* __restrict__ W, float* __restrict__ part, int R, int S, int K,
+                     int chunk, int col_chunk) {
+  constexpr bool kBf16 = std::is_same<TO, bf16_t>::value;
+  extern __shared__ __align__(16) unsigned char smem[];
+  float* Qs = reinterpret_cast<float*>(smem);  // [64][WD_LDK]
+  float* Bs = Qs + WD_BM * WD_LDK;             // [64][WD_LDK]
+  float* Ps = Bs + WD_BS * WD_LDK;             // [64][WD_LDP]
+  float* Bo = Ps + WD_BM * WD_LDP;             // [64][WD_MAXC]
+  const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
+  const size_t row0 = static_cast<size_t>(blockIdx.x) * WD_BM;
+  const int c0 = blockIdx.y * col_chunk;
+  const int kc = min(col_chunk, K - c0);
+  const Chunk ch(part, R, S, K, chunk);
+
+  float acc[4][16] = {};
+  for (int s0 = ch.s_begin; s0 < ch.s_end; s0 += WD_BS) {
+    // T[64, 64] = Q Be_tile^T over the whole K, k in order
+    float t[4][4] = {};
+    for (int k0 = 0; k0 < K; k0 += WD_BK) {
+      __syncthreads();  // the last chunk's (and tile's) reads are done
+      for (int e = threadIdx.x; e < WD_BM * WD_BK; e += WD_NT) {
+        const int r = e / WD_BK, k = e - r * WD_BK;
+        Qs[r * WD_LDK + k] = load_f32(Q + (row0 + r) * K + k0 + k);
+        Bs[r * WD_LDK + k] = load_f32(Be + static_cast<size_t>(s0 + r) * K + k0 + k);
+      }
+      __syncthreads();
+#pragma unroll
+      for (int k = 0; k < WD_BK; k += 4) {
+        float4 a[4], b[4];
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+          a[i] = *reinterpret_cast<const float4*>(Qs + (ty + 16 * i) * WD_LDK + k);
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+          b[j] = *reinterpret_cast<const float4*>(Bs + (tx + 16 * j) * WD_LDK + k);
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+#pragma unroll
+          for (int j = 0; j < 4; ++j) fma4(t[i][j], a[i], b[j]);
+      }
+    }
+    // P = T * W as the tiled kernels form it; the tile's Be columns of the chunk
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int r = ty + 16 * i, sc = tx + 16 * j;
+        const WT w = W[(row0 + r) * S + s0 + sc];
+        Ps[r * WD_LDP + sc] = kBf16 ? round_bf16(mask<WT, Body::kFull>(t[i][j], w))
+                                    : t[i][j] * to_f32(w);
+      }
+    for (int e = threadIdx.x; e < WD_BS * kc; e += WD_NT) {
+      const int sr = e / kc, c = e - sr * kc;
+      Bo[sr * WD_MAXC + c] = load_f32(Be + static_cast<size_t>(s0 + sr) * K + c0 + c);
+    }
+    __syncthreads();
+    // out[64, chunk] += P Bo, s in order
+#pragma unroll 4
+    for (int sc = 0; sc < WD_BS; ++sc) {
+      float p[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) p[i] = Ps[(ty + 16 * i) * WD_LDP + sc];
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        if (4 * tx + 64 * q >= kc) break;
+        const float4 b = *reinterpret_cast<const float4*>(Bo + sc * WD_MAXC + 4 * tx + 64 * q);
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          acc[i][4 * q] = fmaf(p[i], b.x, acc[i][4 * q]);
+          acc[i][4 * q + 1] = fmaf(p[i], b.y, acc[i][4 * q + 1]);
+          acc[i][4 * q + 2] = fmaf(p[i], b.z, acc[i][4 * q + 2]);
+          acc[i][4 * q + 3] = fmaf(p[i], b.w, acc[i][4 * q + 3]);
+        }
+      }
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      if (4 * tx + 64 * q >= kc) break;
+      *reinterpret_cast<float4*>(ch.out + (row0 + ty + 16 * i) * K + c0 + 4 * tx + 64 * q) =
+          make_float4(acc[i][4 * q], acc[i][4 * q + 1], acc[i][4 * q + 2], acc[i][4 * q + 3]);
+    }
+}
+
 // ---------------------------------------------------------------- launch
 // The kernel configurations of K1 (op 0) and K2 (op 1) for W type WT,
 // numbered as the C interface numbers them, bf16 operands first, each in
 // the order the geometry query prefers them.  K1: 0-2 bf16 (three 128-wide
 // stages, three 64-wide, two 64-wide), 3-4 f32 (8x8 thread tiles, then the
-// 8x4 ring for K > 128).  K2: 0-1 bf16 (three 64-wide stages, two), 2 f32.
+// 8x4 ring for K > 128), and past K = 256 only 5 (bf16) or 6 (f32),
+// gram_wide_kernel.  K2: 0-1 bf16 (three 64-wide stages, two), 2 f32, at any
+// K (a block owns 64 output columns and reads only those of Be).
 constexpr int OP_GRAM = 0, OP_RHS = 1;
-constexpr int CONFIGS[2] = {5, 3};
-constexpr int FIRST_F32[2] = {3, 2};
+constexpr int CONFIGS[2] = {7, 3};
+constexpr int GRAM_WIDE = 5;  // K1's first wide configuration (bf16; +1 f32)
+
+// The configurations the geometry query tries, in order: [first, last].
+void config_range(int op, int K, bool op_f32, int* first, int* last) {
+  if (op == OP_GRAM && K > kTiledMaxK) {
+    *first = *last = GRAM_WIDE + (op_f32 ? 1 : 0);
+  } else if (op == OP_GRAM) {
+    *first = op_f32 ? 3 : 0;
+    *last = op_f32 ? 4 : 2;
+  } else {
+    *first = op_f32 ? 2 : 0;
+    *last = op_f32 ? 2 : 1;
+  }
+}
 
 struct GramConfig {
   const void* kernel;
@@ -924,8 +1058,12 @@ GramConfig gram_config(int variant, int K) {
                     RING_BM, 64, 0, gram_bf16_wgmma_smem<WT, 64, 2>(K)};
     case 3: return {reinterpret_cast<const void*>(gram_f32_tile8_kernel<WT>), F8_NT, F8_BM,
                     F8_BSS, 1, gram_f32_tile8_smem<WT>(K)};
-    default: return {reinterpret_cast<const void*>(gram_f32_ring_kernel<WT>), F32_NT, BM, 32, 0,
-                     gram_f32_ring_smem<WT>(K)};
+    case 4: return {reinterpret_cast<const void*>(gram_f32_ring_kernel<WT>), F32_NT, BM, 32, 0,
+                    gram_f32_ring_smem<WT>(K)};
+    case 5: return {reinterpret_cast<const void*>(gram_wide_kernel<bf16_t, WT>), WD_NT, WD_BM,
+                    WD_BS, 0, gram_wide_smem<bf16_t, WT>(K)};
+    default: return {reinterpret_cast<const void*>(gram_wide_kernel<float, WT>), WD_NT, WD_BM,
+                     WD_BS, 0, gram_wide_smem<float, WT>(K)};
   }
 }
 
@@ -958,8 +1096,9 @@ cudaError_t geometry(int op, int K, bool op_f32, int* geo) {
   if (err == cudaSuccess)
     err = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
   if (err != cudaSuccess) return err;
-  const int last = op_f32 ? CONFIGS[op] - 1 : FIRST_F32[op] - 1;
-  for (int v = op_f32 ? FIRST_F32[op] : 0; v <= last; ++v) {
+  int first = 0, last = 0;
+  config_range(op, K, op_f32, &first, &last);
+  for (int v = first; v <= last; ++v) {
     const GramConfig c = config<WT>(op, v, K);
     if (c.smem > static_cast<size_t>(optin)) {
       if (v == last) return cudaErrorInvalidValue;
@@ -984,18 +1123,24 @@ cudaError_t geometry(int op, int K, bool op_f32, int* geo) {
 // K1 or K2 into `part` (out itself for one chunk) with configuration
 // `variant`, whose shared-memory limit geometry() has set on this device;
 // ptrs are the kernel's leading pointers in its order (three for K1).
+// col_chunk: the output columns a block owns, BN for the tiled kernels, a
+// multiple of BN up to WD_MAXC for gram_wide_kernel.
 template <typename WT>
 cudaError_t run(int op, int variant, const void* const (&ptrs)[4], float* part, int R, int S,
-                int K, int chunk, cudaStream_t st) {
+                int K, int chunk, int col_chunk, cudaStream_t st) {
   if (variant < 0 || variant >= CONFIGS[op]) return cudaErrorInvalidValue;
+  const bool wide = op == OP_GRAM && variant >= GRAM_WIDE;
+  if (wide ? (col_chunk % BN || col_chunk < BN || col_chunk > WD_MAXC) : col_chunk != BN)
+    return cudaErrorInvalidValue;
   const GramConfig c = config<WT>(op, variant, K);
   if (chunk % c.s_tile) return cudaErrorInvalidValue;
-  const dim3 grid((R + c.row_tile - 1) / c.row_tile, K / BN, (S + chunk - 1) / chunk);
+  const dim3 grid((R + c.row_tile - 1) / c.row_tile, (K + col_chunk - 1) / col_chunk,
+                  (S + chunk - 1) / chunk);
   const void* p0 = ptrs[0];
   const void* p1 = ptrs[1];
   const void* p2 = ptrs[2];
   const void* p3 = ptrs[3];
-  void* gram_args[] = {&p0, &p1, &p2, &part, &R, &S, &K, &chunk};
+  void* gram_args[] = {&p0, &p1, &p2, &part, &R, &S, &K, &chunk, &col_chunk};
   void* rhs_args[] = {&p0, &p1, &p2, &p3, &part, &R, &S, &K, &chunk};
   return cudaLaunchKernel(c.kernel, grid, dim3(c.threads), op == OP_GRAM ? gram_args : rhs_args,
                           c.smem, st);
@@ -1005,15 +1150,15 @@ cudaError_t run(int op, int variant, const void* const (&ptrs)[4], float* part, 
 // then, for more than one, sum_chunks_kernel adding the partial sums in
 // chunk order into out.
 int run_split(int op, const void* const (&ptrs)[4], void* out, void* part, int R, int S, int K,
-              int chunk, int variant, int w_type, cudaStream_t st) {
+              int chunk, int col_chunk, int variant, int w_type, cudaStream_t st) {
   if (chunk <= 0) return static_cast<int>(cudaErrorInvalidValue);
   const int chunks = (S + chunk - 1) / chunk;
   float* dst = static_cast<float*>(chunks > 1 ? part : out);
   cudaError_t err;
   switch (w_type) {
-    case 0: err = run<int8_t>(op, variant, ptrs, dst, R, S, K, chunk, st); break;
-    case 1: err = run<float>(op, variant, ptrs, dst, R, S, K, chunk, st); break;
-    case 2: err = run<bf16_t>(op, variant, ptrs, dst, R, S, K, chunk, st); break;
+    case 0: err = run<int8_t>(op, variant, ptrs, dst, R, S, K, chunk, col_chunk, st); break;
+    case 1: err = run<float>(op, variant, ptrs, dst, R, S, K, chunk, col_chunk, st); break;
+    case 2: err = run<bf16_t>(op, variant, ptrs, dst, R, S, K, chunk, col_chunk, st); break;
     default: err = cudaErrorInvalidValue;
   }
   if (err != cudaSuccess || chunks == 1) return static_cast<int>(err);
@@ -1036,21 +1181,23 @@ int geometry_of(int op, int K, int op_f32, int w_type, int* geo) {
 }  // namespace
 
 // C interface (bound with ctypes).  The caller guarantees R % 64 == 0,
-// S % 64 == 0, K % 64 == 0, K <= 256, contiguous row-major tensors on the
-// current device, and 16-byte-aligned base pointers.  w_type: 0 an int8
-// mask, 1 f32 weights, 2 bf16 weights.  Returns the launch's cudaError_t (0
-// on success); the kernels run asynchronously on `stream`.
+// S % 64 == 0, K % 64 == 0, contiguous row-major tensors on the current
+// device, and 16-byte-aligned base pointers.  w_type: 0 an int8 mask, 1 f32
+// weights, 2 bf16 weights.  Returns the launch's cudaError_t (0 on success);
+// the kernels run asynchronously on `stream`.
 //
 // K1 and K2 run the configuration `variant` that cmf_gram_geometry /
 // cmf_rhs_geometry chose on this device for the operands' type, W type and
 // K, and split S into ceil(S / chunk) chunks, chunk a positive multiple of
 // that configuration's S tile; with more than one chunk, `part` holds
-// chunks x R x K f32 partial sums (scratch), else it is not read.
+// chunks x R x K f32 partial sums (scratch), else it is not read.  K1's
+// col_chunk is the output columns a block owns: 64 for the tiled
+// configurations, a multiple of 64 up to 256 for the wide ones.
 extern "C" int cmf_masked_gram_matvec(const void* Q, const void* Be, const void* W, void* out,
-                                      void* part, int R, int S, int K, int chunk, int variant,
-                                      int w_type, void* stream) {
+                                      void* part, int R, int S, int K, int chunk, int col_chunk,
+                                      int variant, int w_type, void* stream) {
   const void* const ptrs[4] = {Q, Be, W, nullptr};
-  return run_split(OP_GRAM, ptrs, out, part, R, S, K, chunk, variant, w_type,
+  return run_split(OP_GRAM, ptrs, out, part, R, S, K, chunk, col_chunk, variant, w_type,
                    static_cast<cudaStream_t>(stream));
 }
 
@@ -1058,7 +1205,7 @@ extern "C" int cmf_masked_rhs(const void* X, const void* W, const void* mb, cons
                               void* out, void* part, int R, int S, int K, int chunk, int variant,
                               int w_type, void* stream) {
   const void* const ptrs[4] = {X, W, mb, Be};
-  return run_split(OP_RHS, ptrs, out, part, R, S, K, chunk, variant, w_type,
+  return run_split(OP_RHS, ptrs, out, part, R, S, K, chunk, BN, variant, w_type,
                    static_cast<cudaStream_t>(stream));
 }
 

@@ -12,7 +12,8 @@
 //
 // It replaces cmfrec_tpu/ops/sparse_cg.py::bucket_cg (Pallas body _cg_kernel) and
 // ::bucket_cg_packed (_cg_kernel_packed, a TPU lane packing for K <= 64 with no
-// Hopper counterpart: this kernel takes any K that is a multiple of 8 up to 256).
+// Hopper counterpart: this kernel takes any K that is a multiple of 8, up to what a
+// row's CG vectors leave of the opt-in shared memory).
 // The TPU kernel took a slab ms[R,L,K] gathered by XLA; this one gathers each m_l
 // itself from the index array.
 //
@@ -54,6 +55,15 @@
 // cw already loaded: a slot's dot product is 3 shuffles of 8 lanes, and its partial
 // sums stay in registers until the end of the pass.
 //
+// Past K = kTiledMaxK (256) the per-lane register arrays of a pass (NP = K / 32 or
+// K / 64 pieces of 16 bytes) would spill, so the planner sends every bucket to a
+// block a row (middle or wide, narrow rows too), and a pass takes one slot a warp:
+// the 32 lanes walk the row's 16-byte pieces, the slot's dot product is a warp sum,
+// and the warp's running sums red[0:K] (red[K:2K]) stay in shared memory, each lane
+// adding into its own pieces (slot_pass_loop, NP = 0).  A simple design for
+// correctness at any K; the row's vectors in shared memory, (8 + 2 warps) K floats,
+// set the limit.
+//
 // Class boundaries, from phase 6 of chip_smoke.py at the LastFM-shaped layout (K=56):
 // a warp a row serves the 60k-100k-row buckets at L = 32-48 best, since it keeps
 // every scalar in shuffles and needs no barrier; up to L = 128 the eight rows of a
@@ -82,6 +92,7 @@ constexpr float kFreezeTol = 1e-8f;
 constexpr unsigned kFull = 0xffffffffu;
 constexpr int kMaxThreads = 256;
 constexpr int kGfixSmemMaxK = 96;  // gfix in shared memory up to this K (36 KB)
+constexpr int kTiledMaxK = 256;    // register-tiled passes up to this K; past it, loops
 
 // Shared memory of one launch (ops/sparse_cg.py: smem_bytes computes the same):
 // [gfix K x K f32, if K <= kGfixSmemMaxK] [teams x team vectors] [teams x stage]
@@ -286,6 +297,76 @@ __device__ __forceinline__ void slot_pass(const T* __restrict__ mat, const int* 
   }
 }
 
+// slot_pass's work past kTiledMaxK: warp `wt` takes slots lo + wt, lo + wt + tw, ...
+// one at a time, lane `lane` the row's 16-byte pieces c0 = CPL * lane + 32 * CPL * i,
+// and sums t_l m_l (and round(cv_l) m_l) into red in shared memory, slot by slot.
+template <typename T, bool RHS, int MODE>
+__device__ __forceinline__ void slot_pass_loop(const T* __restrict__ mat,
+                                               const int* __restrict__ idx_r,
+                                               const float* __restrict__ cw_r,
+                                               const float* __restrict__ cv_r, const float* v,
+                                               float* red, T* slab, float* scw, int lo, int hi,
+                                               int K, int wt, int tw) {
+  using V = Vec<T>;
+  constexpr int CPL = V::n;
+  const int lane = threadIdx.x & 31;
+  for (int c = lane; c < (RHS ? 2 * K : K); c += 32) red[c] = 0.f;
+  __syncwarp();
+  for (int l = lo + wt; l < hi; l += tw) {
+    const T* src;
+    float w, cvl = 0.f;
+    if constexpr (MODE == kReadStage) {
+      src = slab + static_cast<size_t>(l - lo) * K;
+      w = scw[l - lo];
+    } else {
+      src = mat + static_cast<size_t>(__ldg(idx_r + l)) * K;
+      w = __ldg(cw_r + l);
+      if constexpr (RHS) cvl = __ldg(cv_r + l);
+    }
+    T* dst = slab + static_cast<size_t>(l - lo) * K;
+    float d = 0.f;
+    for (int c0 = CPL * lane; c0 < K; c0 += 32 * CPL) {
+      const uint4 m = MODE == kReadStage ? *reinterpret_cast<const uint4*>(src + c0)
+                                         : __ldg(reinterpret_cast<const uint4*>(src + c0));
+      if constexpr (MODE == kWriteStage) *reinterpret_cast<uint4*>(dst + c0) = m;
+      float x[CPL];
+      V::widen(m, x);
+#pragma unroll
+      for (int e = 0; e < CPL; ++e) d = fmaf(x[e], V::round(v[c0 + e]), d);
+    }
+    d = warp_sum(d);
+    if (MODE == kWriteStage && lane == 0) scw[l - lo] = w;
+    const float t = V::round(d * w);
+    const float cr = V::round(cvl);
+    for (int c0 = CPL * lane; c0 < K; c0 += 32 * CPL) {
+      // the lane's own pieces again: from the stage it wrote, or through L1
+      const uint4 m = MODE == kNoStage ? __ldg(reinterpret_cast<const uint4*>(src + c0))
+                                       : *reinterpret_cast<const uint4*>(dst + c0);
+      float x[CPL];
+      V::widen(m, x);
+#pragma unroll
+      for (int e = 0; e < CPL; ++e) {
+        red[c0 + e] = fmaf(t, x[e], red[c0 + e]);
+        if constexpr (RHS) red[K + c0 + e] = fmaf(cr, x[e], red[K + c0 + e]);
+      }
+    }
+  }
+}
+
+// One pass over the slots [lo, hi): slot_pass's register tiles (NP > 0) or, past
+// kTiledMaxK, slot_pass_loop (NP = 0).
+template <typename T, int NP, bool RHS, int MODE>
+__device__ __forceinline__ void run_pass(const T* __restrict__ mat, const int* __restrict__ idx_r,
+                                         const float* __restrict__ cw_r,
+                                         const float* __restrict__ cv_r, const float* v,
+                                         float* red, T* slab, float* scw, int lo, int hi, int K,
+                                         int wt, int tw) {
+  if constexpr (NP == 0)
+    slot_pass_loop<T, RHS, MODE>(mat, idx_r, cw_r, cv_r, v, red, slab, scw, lo, hi, K, wt, tw);
+  else
+    slot_pass<T, NP, RHS, MODE>(mat, idx_r, cw_r, cv_r, v, red, slab, scw, lo, hi, K, wt, tw);
+}
+
 // One row's CG, by its team (and, with C > 1, the cluster's other blocks).  Each
 // thread of the team owns coordinate pairs (c, c+1), c = 2 * (tt + tn * i), in every
 // K-vector operation.
@@ -392,10 +473,10 @@ __device__ __forceinline__ void cg_row(const Params& P, int row, int rank, int t
   // rhs and A a0 in one pass; r = rhs - A a0, p = r
   float* red = s_red + wt * 2 * K;
   if (staged)
-    slot_pass<T, NP, true, kWriteStage>(mat, idx_r, cw_r, cv_r, s_a, red, slab, scw, lo,
+    run_pass<T, NP, true, kWriteStage>(mat, idx_r, cw_r, cv_r, s_a, red, slab, scw, lo,
                                         hi, K, wt, tw);
   else
-    slot_pass<T, NP, true, kNoStage>(mat, idx_r, cw_r, cv_r, s_a, red, slab, scw, lo, hi,
+    run_pass<T, NP, true, kNoStage>(mat, idx_r, cw_r, cv_r, s_a, red, slab, scw, lo, hi,
                                      K, wt, tw);
   team_sync();
   float part = 0.f;
@@ -424,10 +505,10 @@ __device__ __forceinline__ void cg_row(const Params& P, int row, int rank, int t
 
   for (int step = 0; step < P.n_steps && live; ++step) {
     if (staged)
-      slot_pass<T, NP, false, kReadStage>(mat, idx_r, cw_r, cv_r, s_p, red, slab, scw, lo,
+      run_pass<T, NP, false, kReadStage>(mat, idx_r, cw_r, cv_r, s_p, red, slab, scw, lo,
                                           hi, K, wt, tw);
     else
-      slot_pass<T, NP, false, kNoStage>(mat, idx_r, cw_r, cv_r, s_p, red, slab, scw, lo,
+      run_pass<T, NP, false, kNoStage>(mat, idx_r, cw_r, cv_r, s_p, red, slab, scw, lo,
                                         hi, K, wt, tw);
     team_sync();
     part = 0.f;
@@ -528,8 +609,14 @@ cudaError_t launch(const Params& P, int threads, int warp_rows, cudaStream_t st)
   const int nw = threads / 32;
   const int teams = warp_rows ? nw : 1, tw = warp_rows ? 1 : nw;
   const size_t smem = base_bytes(P.K, teams, tw) + teams * stage_bytes(P.stage_slots, P.K, sizeof(T));
-  const void* kernel = warp_rows ? reinterpret_cast<const void*>(bucket_cg_kernel<T, NP, true>)
-                                 : reinterpret_cast<const void*>(bucket_cg_kernel<T, NP, false>);
+  const void* kernel;
+  if constexpr (NP == 0) {  // past kTiledMaxK: a block (or cluster) a row only
+    if (warp_rows) return cudaErrorInvalidValue;
+    kernel = reinterpret_cast<const void*>(bucket_cg_kernel<T, 0, false>);
+  } else {
+    kernel = warp_rows ? reinterpret_cast<const void*>(bucket_cg_kernel<T, NP, true>)
+                       : reinterpret_cast<const void*>(bucket_cg_kernel<T, NP, false>);
+  }
   int dev = 0, optin = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err == cudaSuccess)
@@ -565,6 +652,7 @@ cudaError_t launch(const Params& P, int threads, int warp_rows, cudaStream_t st)
 template <typename T>
 cudaError_t dispatch(const Params& P, int threads, int warp_rows, cudaStream_t st) {
   constexpr int SW = 8 * Vec<T>::n;
+  if (P.K > kTiledMaxK) return launch<T, 0>(P, threads, warp_rows, st);
   switch ((P.K + SW - 1) / SW) {
     case 1: return launch<T, 1>(P, threads, warp_rows, st);
     case 2: return launch<T, 2>(P, threads, warp_rows, st);
@@ -585,8 +673,8 @@ cudaError_t dispatch(const Params& P, int threads, int warp_rows, cudaStream_t s
 
 }  // namespace
 
-// C interface (bound with ctypes).  The caller guarantees K % 8 == 0, 8 <= K <= 256,
-// R >= 1, L >= 1, contiguous row-major tensors on the current device, 16-byte-aligned
+// C interface (bound with ctypes).  The caller guarantees K % 8 == 0, K >= 8 (past
+// 256 a block or cluster a row, warp_rows 0), R >= 1, L >= 1, contiguous row-major tensors on the current device, 16-byte-aligned
 // base pointers and idx values in [0, S).  lam_row and r0 may be null.  The launch
 // plan: `threads` a block (32-256), warp_rows (a warp a row, 8 rows a block of 256)
 // or a block of `threads` a row in clusters of `cluster` blocks (1-8), and up to

@@ -98,7 +98,7 @@ def build() -> tuple[Path, str]:
 def lib() -> ctypes.CDLL:
     so = ctypes.CDLL(str(build()[0]))
     P, I = ctypes.c_void_p, ctypes.c_int
-    so.cmf_masked_gram_matvec.argtypes = [P] * 5 + [I] * 6 + [P]
+    so.cmf_masked_gram_matvec.argtypes = [P] * 5 + [I] * 7 + [P]
     so.cmf_masked_gram_matvec.restype = I
     so.cmf_gram_geometry.argtypes = [I, I, I, ctypes.POINTER(I)]
     so.cmf_gram_geometry.restype = I
@@ -115,9 +115,29 @@ def lib() -> ctypes.CDLL:
     so.cmf_cd_solve.argtypes = ([P, ctypes.c_longlong, P, P, I, P, P]
                                 + [I] * 4 + [ctypes.c_double, I, P])
     so.cmf_cd_solve.restype = I
+    so.cmf_cd_plan.argtypes = [I, I, I, ctypes.POINTER(I)]
+    so.cmf_cd_plan.restype = I
     so.cmf_error_string.argtypes = [I]
     so.cmf_error_string.restype = ctypes.c_char_p
     return so
+
+
+@lru_cache(maxsize=None)
+def _device_optin(index: int) -> int:
+    import torch
+
+    return torch.cuda.get_device_properties(index).shared_memory_per_block_optin
+
+
+def optin_smem(device) -> int:
+    """The shared memory a block may opt in to on the card `device`, as the
+    card reports it (the attribute the kernels read): what the ops' limits
+    on K are held to before a launch."""
+    import torch
+
+    device = torch.device(device)
+    return _device_optin(torch.cuda.current_device() if device.index is None
+                         else device.index)
 
 
 def check(err: int, name: str) -> None:

@@ -5,17 +5,22 @@ For every row r it minimises 0.5 a^T G_r a - rhs_r^T a + l1_r^T |a| from
 a = 0 (under ``nonneg`` subject to a >= 0) by cyclic sweeps, as
 cmfrec_tpu/ops/rowsolve.py::solve_cd (:279), which is XLA code, not a
 Pallas kernel.  On a CUDA tensor the op launches the hand-written kernel in
-csrc/cd_solve.cu (a warp a row, the row's a in shared memory); on a CPU
-tensor it runs its plain twin rowsolve.solve_cd.  There is no fallback from
-one to the other.
+csrc/cd_solve.cu (up to STAGED_MAX_K the row's G staged in shared memory
+once a solve and its coordinates in the registers of 1-32 lanes; past it a
+warp a row streaming G); on a CPU tensor it runs its plain twin
+rowsolve.solve_cd.  There is no fallback from one to the other.
 
 Operands: G [R, K, K] with unit strides within a row's matrix and row
 stride K*K, or 0 (``G1.expand(R, K, K)``: one G shared by every row);
 rhs [R, K] contiguous; l1 [K] or [R, K] contiguous; all float32 or all
-float64, on one device.  Any K.
+float64, on one device.  Any K on the CPU; on a card up to where the
+streamed path's six K-vectors a row fill the opt-in shared memory
+(:func:`check_k`: K = 4,842 in float64).
 """
 
 from __future__ import annotations
+
+import ctypes
 
 import torch
 
@@ -23,6 +28,20 @@ from . import _cuda
 from .rowsolve import solve_cd as solve_cd_ref
 
 _DTYPES = (torch.float32, torch.float64)
+# the kernel stages a row's G in shared memory up to this K
+STAGED_MAX_K = 128
+
+
+def check_k(K, esz, optin):
+    """Raise where the streamed path's six K-vectors of one row would not
+    fit ``optin``, the card's opt-in shared memory a block: the kernel's
+    only limit on K."""
+    need = 6 * K * esz
+    if K > STAGED_MAX_K and need > optin:
+        raise ValueError(f"solve_cd: K={K} needs {need} bytes of shared "
+                         f"memory a block for a row's vectors, above the "
+                         f"card's {optin} (the plain twin on the CPU takes "
+                         "any K)")
 
 
 def _validate(G, rhs, l1, max_steps):
@@ -53,6 +72,21 @@ def _validate(G, rhs, l1, max_steps):
     return R, K, devices.pop()
 
 
+def plan(K, shared_g, dtype, device_index=0):
+    """The launch the kernel takes at width K on a card (``shared_g``: G of
+    row stride 0), as the library keeps it once worked out: whether it
+    stages G, lanes a row, warps and rows a block, resident blocks an SM,
+    shared memory a block."""
+    out = (ctypes.c_int * 6)()
+    with torch.cuda.device(device_index):
+        err = _cuda.lib().cmf_cd_plan(K, int(shared_g),
+                                      int(dtype == torch.float64), out)
+    _cuda.check(err, "solve_cd plan")
+    keys = ("staged", "lanes", "warps", "rows_per_block", "blocks_per_sm",
+            "smem")
+    return dict(zip(keys, (bool(out[0]), *out[1:])))
+
+
 def solve_cd(G, rhs, l1, *, nonneg: bool, max_steps: int, tol: float = 1e-9,
              return_sweeps: bool = False):
     """Coordinate descent over every row from a = 0; returns a [R, K] in
@@ -64,6 +98,7 @@ def solve_cd(G, rhs, l1, *, nonneg: bool, max_steps: int, tol: float = 1e-9,
                             return_sweeps=return_sweeps)
     if device.type != "cuda":
         raise ValueError(f"solve_cd: no kernel for device {device}")
+    check_k(K, rhs.element_size(), _cuda.optin_smem(device))
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
         out = torch.empty(R, K, dtype=rhs.dtype, device=device)

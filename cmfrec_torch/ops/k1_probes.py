@@ -42,6 +42,8 @@ BODIES = {"full": 0, "dots": 1, "dot1": 2, "wsum": 3, "sel": 4, "bft": 5,
           "part": 6}
 WARPS = (4, 8)  # 8 warps: bft only
 PART_CHUNK = 4096
+# the probes measure K1's first design, whose tiles take K up to this
+PROBE_MAX_K = 256
 # the (rows, columns) tiles cmf_w_stream is built for; (64, 64) is K1's
 W_STREAM_TILES = ((64, 64), (128, 64), (512, 64), (64, 256), (256, 256),
                   (16, 2048))
@@ -134,7 +136,10 @@ def _check(name, Q, Be, W, warps=4, chunk=None):
 def _launch(name, Q, Be, W, K, device, warps=4, chunk=PART_CHUNK):
     R, S = Q.shape[0], Be.shape[0]
     parts = -(-S // chunk) if name == "part" else 1
-    mm._kernel_k(name, K)
+    if K > PROBE_MAX_K:
+        raise ValueError(f"{name}: K={K} exceeds the probes' {PROBE_MAX_K} "
+                         "(K1's first design; the plain version on the CPU "
+                         "takes any K)")
     with torch.cuda.device(device):
         stream = mm._stream_for((Q, Be, W), device)
         out = torch.empty(R, parts, K, dtype=torch.float32, device=device)

@@ -15,8 +15,11 @@ int8 0/1 mask, bf16 or f32 weights; X the raw ratings in bf16; mb f32.  With
 bf16 operands T*W is formed in f32 and rounded to bf16 once, as on the TPU;
 a bf16 W meets T already rounded to bf16 (the TPU's bf16 multiply).  The
 f32 K1 and K2 widen any W to f32.
-R, S and K must be multiples of TILE (the engine pads to them); the
-kernels take K up to MAX_K (their shared-memory tiles), the twins any K.
+R, S and K must be multiples of TILE (the engine pads to them).  Every
+kernel takes any such K: K2's blocks own 64 output columns each; K1's tiled
+kernels hold full-K tiles up to TILED_MAX_K, and past it K1 runs its wide
+kernel, whose blocks walk K in chunks and own up to WIDE_COLS output
+columns (:func:`col_chunks`).
 
 When a kernel's row blocks alone would not fill the card, K1 and K2 split
 S into chunks over the grid (:func:`split_chunk` picks the chunk from R, S,
@@ -36,7 +39,10 @@ import torch
 from . import _cuda
 
 TILE = 64
-MAX_K = 256
+# K1's tiled kernels take K up to this; past it, the wide kernel
+TILED_MAX_K = 256
+# the wide K1's output columns a block at most
+WIDE_COLS = 256
 # split_chunk: the fewest waves of resident blocks it aims the grid at
 WAVES = 4
 
@@ -111,12 +117,26 @@ def _validate(name, R, S, Be, W, tensors):
     return K, devices.pop()
 
 
-def _kernel_k(name, K):
-    """The kernels' own limit on K, checked off the CPU only (the twins
-    take any K)."""
-    if K > MAX_K:
-        raise ValueError(f"{name}: K={K} exceeds the CUDA kernels' {MAX_K} "
-                         "(the plain twin on the CPU takes any K)")
+def col_chunks(K, width):
+    """The output column chunks a kernel's blocks own, (start, width) in
+    order: `width` columns each, the last narrower, covering [0, K) once."""
+    return tuple((c0, min(width, K - c0)) for c0 in range(0, K, width))
+
+
+def wide_col_chunk(K):
+    """The wide K1's output columns a block: the fewest chunks of at most
+    WIDE_COLS, as even as whole TILEs allow (K = 320: 192 and 128)."""
+    tiles = K // TILE
+    chunks = -(-K // WIDE_COLS)
+    return -(-tiles // chunks) * TILE
+
+
+def _kernel_device(name, device, K):
+    """Raise unless `device` is a card (CPU tensors take the twin before)."""
+    if device.type != "cuda":
+        raise ValueError(f"{name}: no kernel for device {device} (K={K}; "
+                         "CUDA tensors launch the kernel, CPU tensors run "
+                         "the twin)")
 
 
 def _stream_for(tensors, device):
@@ -177,33 +197,41 @@ def _plan(op, R, S, K, op_dtype, w_dtype, device):
              else device.index)
     variant, row_tile, s_tile, per_sm, sms = _geometry(
         op, index, K, int(op_dtype == torch.float32), W_TYPES[w_dtype])
+    width = (wide_col_chunk(K) if op == "gram" and K > TILED_MAX_K
+             else TILE)
+    cols = col_chunks(K, width)
     chunk = split_chunk(R, S, sms, row_tile=row_tile, s_tile=s_tile,
-                        per_sm=per_sm, col_blocks=K // TILE)
+                        per_sm=per_sm, col_blocks=len(cols))
     return dict(variant=variant, row_tile=row_tile, s_tile=s_tile,
-                per_sm=per_sm, sms=sms, chunk=chunk, chunks=-(-S // chunk))
+                per_sm=per_sm, sms=sms, chunk=chunk, chunks=-(-S // chunk),
+                col_chunk=width, cols=cols)
 
 
 def gram_plan(R, S, K, op_dtype, w_dtype, device):
     """K1's launch plan on a card: its kernel configuration and tiles,
-    resident blocks a SM, the SM count and the S chunk :func:`split_chunk`
-    picks."""
+    resident blocks a SM, the SM count, the S chunk :func:`split_chunk`
+    picks and the output column chunks its blocks own (64 wide up to
+    TILED_MAX_K, else the wide kernel's :func:`wide_col_chunk`)."""
     return _plan("gram", R, S, K, op_dtype, w_dtype, device)
 
 
 def rhs_plan(R, S, K, op_dtype, w_dtype, device):
-    """K2's launch plan on a card, as :func:`gram_plan` gives K1's."""
+    """K2's launch plan on a card, as :func:`gram_plan` gives K1's (its
+    blocks own 64 output columns at any K)."""
     return _plan("rhs", R, S, K, op_dtype, w_dtype, device)
 
 
-def _launch_split(fn, plan, ptrs, R, S, K, w_dtype, device, stream):
+def _launch_split(fn, plan, ptrs, R, S, K, w_dtype, device, stream,
+                  cols=()):
     """One K1 or K2 call over plan["chunks"] chunks of S (partial sums in
     scratch, added in chunk order by the same C call); returns out and
-    the call's CUDA error code."""
+    the call's CUDA error code.  `cols`: K1's column chunk argument."""
     out = torch.empty(R, K, dtype=torch.float32, device=device)
     part = (torch.empty(plan["chunks"], R, K, dtype=torch.float32,
                         device=device) if plan["chunks"] > 1 else out)
     return out, fn(*ptrs, out.data_ptr(), part.data_ptr(), R, S, K,
-                   plan["chunk"], plan["variant"], W_TYPES[w_dtype], stream)
+                   plan["chunk"], *cols, plan["variant"], W_TYPES[w_dtype],
+                   stream)
 
 
 def masked_gram_matvec(Q, Be, W):
@@ -216,14 +244,14 @@ def masked_gram_matvec(Q, Be, W):
     K, device = _validate("masked_gram_matvec", R, S, Be, W, (Q, Be, W))
     if device.type == "cpu":
         return masked_gram_matvec_ref(Q, Be, W)
-    _kernel_k("masked_gram_matvec", K)
+    _kernel_device("masked_gram_matvec", device, K)
     with torch.cuda.device(device):
         stream = _stream_for((Q, Be, W), device)
         plan = gram_plan(R, S, K, Be.dtype, W.dtype, device)
         out, err = _launch_split(
             _cuda.lib().cmf_masked_gram_matvec, plan,
             (Q.data_ptr(), Be.data_ptr(), W.data_ptr()), R, S, K, W.dtype,
-            device, stream)
+            device, stream, cols=(plan["col_chunk"],))
     _cuda.check(err, "masked_gram_matvec")
     masked_gram_matvec.launches += 1
     return out
@@ -247,7 +275,7 @@ def masked_rhs(X, W, mb, Be):
     K, device = _validate("masked_rhs", R, S, Be, W, (X, W, mb, Be))
     if device.type == "cpu":
         return masked_rhs_ref(X, W, mb, Be)
-    _kernel_k("masked_rhs", K)
+    _kernel_device("masked_rhs", device, K)
     with torch.cuda.device(device):
         stream = _stream_for((X, W, mb, Be), device)
         plan = rhs_plan(R, S, K, Be.dtype, W.dtype, device)

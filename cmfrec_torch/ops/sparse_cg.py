@@ -17,7 +17,8 @@ The kernel serves a bucket in one of three classes, which :func:`k3_plan`
 picks from (R, L, K): narrow (a warp a row, 8 rows a block), middle (a
 block a row) and wide (a cluster of 2-8 blocks a row, each over a range of
 the row's slots), each staging a row's gathered slots in shared memory
-where they fit the budget of two blocks an SM.
+where they fit the budget of two blocks an SM.  Past TILED_MAX_K every
+bucket takes a block (or cluster) a row, whose warps loop over K.
 
 Operands: mat [S, K] bf16 (CG bulk iterations on a card) or f32; idx
 [R, L] int32 with values in [0, S) (not checked: the kernel would read out
@@ -25,7 +26,8 @@ of bounds); cw/cv [R, L] f32, zero on padding slots; gfix [K, K] f32
 symmetric; lam_row and r0 optional [R, K] f32; a0 [R, K] f32; length
 [R] int32, the real slots of each row (slots beyond it must carry
 cw = cv = 0: the kernel skips them, which is exact).  K is a multiple of 8,
-up to MAX_K on a card (the twin takes any).  With a bf16 ``mat`` the
+on a card up to where a row's CG vectors fill the opt-in shared memory
+(:func:`check_k`; the twin takes any).  With a bf16 ``mat`` the
 rounding points are those of rowsolve._part_matvec: v, t = (m . v) * cw and
 cv are rounded to bf16, products are exact and sums f32.
 """
@@ -39,8 +41,10 @@ import torch
 from . import _cuda
 from .rowsolve import _part_matvec, _round, _widen, cg_iterations, gather_rows
 
-MAX_K = 256
 _MAT_DTYPES = (torch.bfloat16, torch.float32)
+# the kernel's register-tiled passes take K up to this; past it its warps
+# loop over K, a block (or cluster) a row
+TILED_MAX_K = 256
 # k3_plan: rows up to this width take a warp each; the shared memory a
 # block may take (two blocks an SM); the largest portable cluster
 NARROW_L = 128
@@ -63,21 +67,25 @@ def smem_bytes(K, esz, teams, team_warps, stage_slots):
 
 
 @lru_cache(maxsize=None)
-def k3_plan(R, L, K, esz, sms):
+def k3_plan(R, L, K, esz, sms, optin):
     """K3's launch plan for a bucket of R rows of width L, K coordinates of
-    `esz` bytes, on a card of `sms` SMs: the class, threads a block, whether
+    `esz` bytes, on a card of `sms` SMs and `optin` bytes of opt-in shared
+    memory a block: the class, threads a block, whether
     a warp takes a row (8 rows a block), the cluster size (blocks a row),
     the slots a row (or a cluster rank's range) may stage, and the block's
     shared memory.
 
-    narrow (L <= NARROW_L): a warp a row.  Otherwise a block a row, in
-    clusters of 2-8 blocks while the rows alone would not give two blocks an
-    SM (and each rank keeps >= 256 slots), or while a rank's range would not
-    fit the stage budget (up to 8 blocks an SM's worth of the grid).  The
-    stage takes what BLOCK_SMEM leaves; a row whose range is longer
-    re-gathers its slots on every pass."""
+    narrow (L <= NARROW_L, K <= TILED_MAX_K): a warp a row.  Otherwise a
+    block a row, in clusters of 2-8 blocks while the rows alone would not
+    give two blocks an SM (and each rank keeps >= 256 slots), or while a
+    rank's range would not fit the stage budget (up to 8 blocks an SM's
+    worth of the grid).  The stage takes what BLOCK_SMEM leaves; a row whose
+    range is longer re-gathers its slots on every pass.  Past TILED_MAX_K
+    narrow rows take a block a row too (``k_loop``), and a block keeps 4
+    warps where 8 would not fit their vectors in the opt-in shared
+    memory."""
     slot = K * esz + 4
-    if L <= NARROW_L:
+    if L <= NARROW_L and K <= TILED_MAX_K:
         teams, tw, cluster, per = 8, 1, 1, L
     else:
         teams, cluster = 1, 1
@@ -90,6 +98,8 @@ def k3_plan(R, L, K, esz, sms):
             cluster *= 2
         per = -(-L // cluster)
         tw = 8 if per >= 512 else 4
+        if smem_bytes(K, esz, 1, tw, 0) > optin:
+            tw = 4
     cap = max(0, (BLOCK_SMEM - smem_bytes(K, esz, teams, tw, 0))
               // (teams * slot))
     stage = min(per, cap)
@@ -98,7 +108,20 @@ def k3_plan(R, L, K, esz, sms):
     cls = "narrow" if teams > 1 else ("wide" if cluster > 1 else "middle")
     return dict(cls=cls, threads=32 * tw * teams, warp_rows=teams > 1,
                 cluster=cluster, stage_slots=stage,
-                smem=smem_bytes(K, esz, teams, tw, stage))
+                smem=smem_bytes(K, esz, teams, tw, stage),
+                k_loop=K > TILED_MAX_K)
+
+
+def check_k(K, esz, optin):
+    """Raise where one row's CG vectors (a block of 4 warps, nothing
+    staged) would not fit ``optin``, the card's opt-in shared memory a
+    block: the kernel's only limit on K."""
+    need = smem_bytes(K, esz, 1, 4, 0)
+    if need > optin:
+        raise ValueError(f"bucket_cg: K={K} needs {need} bytes of shared "
+                         f"memory a block for a row's CG vectors, above the "
+                         f"card's {optin} (the plain twin on the CPU takes "
+                         "any K)")
 
 
 @lru_cache(maxsize=None)
@@ -107,12 +130,12 @@ def _sms(device_index):
 
 
 def plan_for(R, L, K, mat_dtype, device):
-    """:func:`k3_plan` on `device`'s SM count."""
+    """:func:`k3_plan` on `device`'s SM count and opt-in shared memory."""
     device = torch.device(device)
     index = (torch.cuda.current_device() if device.index is None
              else device.index)
     esz = 2 if mat_dtype == torch.bfloat16 else 4
-    return k3_plan(R, L, K, esz, _sms(index))
+    return k3_plan(R, L, K, esz, _sms(index), _cuda.optin_smem(index))
 
 
 def bucket_cg_ref(mat, idx, cw, cv, gfix, lam_row, r0, a0, *, n_steps):
@@ -177,11 +200,9 @@ def bucket_cg(mat, idx, cw, cv, gfix, lam_row, r0, a0, *, n_steps, length):
     if device.type == "cpu":
         return bucket_cg_ref(mat, idx, cw, cv, gfix, lam_row, r0, a0,
                              n_steps=n_steps)
-    if K > MAX_K:
-        raise ValueError(f"bucket_cg: K={K} exceeds the CUDA kernel's "
-                         f"{MAX_K} (the plain twin on the CPU takes any K)")
     if device.type != "cuda":
         raise ValueError(f"bucket_cg: no kernel for device {device}")
+    check_k(K, mat.element_size(), _cuda.optin_smem(device))
     if any(t.data_ptr() % 16 for t in tensors):
         raise ValueError("bucket_cg: kernel operands must be 16-byte aligned")
 

@@ -69,7 +69,6 @@ from .dense_masked import (
     _round_up,
     fit_collective_dense_masked,
     fit_collective_implicit_dense_masked,
-    padded_dims,
 )
 
 
@@ -506,10 +505,6 @@ def fit_collective_explicit_als(
                                                    weights is not None),
         dev=dev, cd=bool(nonneg or nonneg_C or nonneg_D or np.any(l16 > 0)))
     if not dense:
-        if not plain:  # the plain solves take any k
-            drivers.check_kernel_k(
-                k, _round_up(max(k_user, k_item) + k + k_main + 1, 8),
-                "bucketed", dev)
         return _fit_collective_explicit_bucketed(
             rows, cols, vals, m, n, U=U, I=I, k=k, k_user=k_user,
             k_item=k_item, k_main=k_main, lam6=lam6, w_main=w_main,
@@ -526,7 +521,6 @@ def fit_collective_explicit_als(
             precondition_cg=precondition_cg, l16=l16, nonneg=nonneg,
             nonneg_C=nonneg_C, nonneg_D=nonneg_D, max_cd_steps=max_cd_steps)
 
-    drivers.check_kernel_k(k, padded_dims(m, n, k)[2], "dense", dev)
     glob_mean = (preprocess.weighted_global_mean(vals, weights) if center
                  else 0.0)
     res = fit_collective_dense_masked(
@@ -885,10 +879,6 @@ def fit_collective_implicit_als(
         dense_bytes=drivers.dense_bytes(m, n, k, False, implicit=True),
         dev=dev, cd=bool(nonneg or nonneg_C or nonneg_D or np.any(l16 > 0)))
     if not dense:
-        if not plain:  # the plain solves take any k
-            drivers.check_kernel_k(
-                k, _round_up(max(k_user, k_item) + k + k_main, 8),
-                "bucketed", dev)
         return _fit_collective_implicit_bucketed(
             rows, cols, vals, m, n, U=U, I=I, k=k, k_user=k_user,
             k_item=k_item, k_main=k_main, lam6=lam6, w_x=w_main * w_mult,
@@ -900,8 +890,6 @@ def fit_collective_implicit_als(
             precondition_cg=precondition_cg, l16=l16, nonneg=nonneg,
             nonneg_C=nonneg_C, nonneg_D=nonneg_D, max_cd_steps=max_cd_steps)
 
-    drivers.check_kernel_k(k, padded_dims(m, n, k, bias_col=False)[2],
-                           "dense", dev)
     res = fit_collective_implicit_dense_masked(
         rows, cols, vals, m, n,
         U_dense=None if U is None else U.dense,

@@ -47,7 +47,6 @@ import torch
 from ..config import (resolve_device, resolve_dtype, should_handle_interrupt,
                       torch_dtype)
 from ..data.device_fill import build_bucketed_pair
-from ..ops import masked_matmul, sparse_cg
 from ..utils.checkpoint import FitCheckpointer
 from . import dense_engine, preprocess
 from .als import SidePlan, blocks_to_orig, gram_matrix, init_blocks, update_side
@@ -99,18 +98,6 @@ def _dense_budget(dev: torch.device) -> Optional[int]:
 def _unsupported(what: str, slice_: str):
     return ValueError(f"{what} is not supported by cmfrec_torch yet "
                       f"(ROADMAP {slice_})")
-
-
-def check_kernel_k(k: int, k_pad: int, engine: str, dev: torch.device) -> None:
-    """Raise on a card when the engine pads k to a K its CUDA kernels do not
-    take (K1/K2 and K3 take K <= 256; the CPU twins take any K).  The
-    drivers call it before any upload."""
-    limit = sparse_cg.MAX_K if engine == "bucketed" else masked_matmul.MAX_K
-    if dev.type == "cuda" and k_pad > limit:
-        raise ValueError(
-            f"k={k}: the {engine} engine pads it to K={k_pad}, and its CUDA "
-            f"kernels take K <= {limit} (ROADMAP section 2, kernels for "
-            "K > 256); fit with a smaller k, or on device='cpu'")
 
 
 def _host(state: dict) -> dict:
@@ -337,9 +324,6 @@ def fit_explicit_als(
                     m, n, len(vals), k, dtype.itemsize, weights is not None)
                 if plain else dense_bytes(m, n, k, weights is not None))
         bucketed = budget is not None and need > budget
-    if not (plain or use_cd):  # the plain and CD solves take any k
-        k_pad = _round_up(k + 1, 8) if bucketed else padded_dims(m, n, k)[2]
-        check_kernel_k(k, k_pad, "bucketed" if bucketed else "dense", dev)
 
     glob_mean = (
         preprocess.weighted_global_mean(vals, weights) if center else 0.0
@@ -699,10 +683,6 @@ def fit_implicit_als(
         raise ValueError("engine='dense' (kernels K1/K2) takes float32 "
                          "without precondition_cg; use engine='auto' or "
                          "'sparse'")
-    k_pad = (padded_dims(m, n, k, bias_col=False)[2] if dense
-             else _round_up(k, 8))
-    if not (plain or use_cd):  # the plain and CD solves take any k
-        check_kernel_k(k, k_pad, "dense" if dense else "bucketed", dev)
     ckpt = FitCheckpointer(checkpoint_path, checkpoint_every, niter)
     tdt = torch_dtype(dtype)
 
@@ -721,6 +701,7 @@ def fit_implicit_als(
     perm_A = torch.as_tensor(RB.perm, device=dev)
     perm_B = torch.as_tensor(CB.perm, device=dev)
 
+    k_pad = _round_up(k, 8)
     gen = torch.Generator(device=dev)
     gen.manual_seed(int(seed))
     A_blocks = init_blocks(gen, RB, k, k_pad, tdt)

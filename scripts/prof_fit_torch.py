@@ -4,7 +4,7 @@
 Run from the repository root:
 
     python3 scripts/prof_fit_torch.py \
-        [--fit explicit|implicit|collective|collective-bucketed|implicit-dense|lbfgs]
+        [--fit explicit|implicit|collective|collective-bucketed|implicit-dense|lbfgs|nonneg]
         [--out DIR]
 
 ``--fit explicit`` (the default) fits the flagship configuration of
@@ -21,7 +21,10 @@ the WRMF configuration on phase 12's training pairs
 (chip_smoke.make_preference_data, 20% held out) through
 drivers.fit_implicit_als(engine="dense"), the dense engine; ``--fit lbfgs``
 chip_smoke.py phase 17's CMF(method="lbfgs", k=50, lambda 30; maxiter 800
-and corr_pairs 4, CMF's defaults) on the flagship's split.  For any:
+and corr_pairs 4, CMF's defaults) on the flagship's split; ``--fit nonneg``
+chip_smoke.py phase 26's, the flagship configuration with nonneg=True and
+center=False (the bucketed Cholesky/CD route) on the flagship's split.  For
+any:
 
   1. one cold fit (CUDA context, cuBLAS and allocator warm-up included);
   2. two warm fits;
@@ -40,15 +43,21 @@ and corr_pairs 4, CMF's defaults) on the flagship's split.  For any:
      Lbfgs.read, which wait for the device no longer since evaluate ends
      synchronized), each synchronized at its end, and of the rest (COO
      build, driver checks, the line search's host arithmetic, the two-loop
-     recursion, result download).
+     recursion, result download); nonneg: the bucket layout build
+     _build_pair, the Gram assembly rowsolve.assemble_system and the CD op
+     coord_descent.solve_cd;
+  5. one warm fit under cProfile: the HOST_TOP functions with the most host
+     time of their own.
 
 Prints one line per measurement and, last, one JSON object with all of
 them.  With --out, also writes the profiler's per-kernel table there.
 """
 
 import argparse
+import cProfile
 import json
 import pathlib
+import pstats
 import subprocess
 import sys
 import time
@@ -68,6 +77,9 @@ IMPLICIT_FIT = dict(k=50, lambda_=5.0, alpha=1.0, niter=15, use_cg=True,
 COLLECTIVE_FIT = dict(FIT, add_implicit_features=True, w_implicit=0.5)
 COLLECTIVE_BUCKETED_FIT = dict(FIT, NA_as_zero_item=True)  # phase 14's
 LBFGS_FIT = dict(k=50, method="lbfgs", lambda_=30.0)  # phase 17's
+NONNEG_FIT = dict(FIT, nonneg=True, center=False)  # phase 26's
+# functions listed from the fit under cProfile, by their own host time
+HOST_TOP = 15
 # the host-split spans of each fit: (module of cmfrec_torch.solvers, function)
 SPANS = {"explicit": (("drivers", "fit_explicit_dense_masked"),),
          "implicit": (("drivers", "_build_pair"),
@@ -79,7 +91,10 @@ SPANS = {"explicit": (("drivers", "fit_explicit_dense_masked"),),
                                  ("collective", "_run")),
          "implicit-dense": (("drivers", "fit_implicit_dense_masked"),),
          "lbfgs": (("lbfgs_core.Lbfgs", "evaluate"),
-                   ("lbfgs_core.Lbfgs", "read"))}
+                   ("lbfgs_core.Lbfgs", "read")),
+         "nonneg": (("drivers", "_build_pair"),
+                    ("ops.rowsolve", "assemble_system"),
+                    ("ops.coord_descent", "solve_cd"))}
 
 
 def _busy_us(intervals):
@@ -109,6 +124,9 @@ def _timed_wrapper(module, name, totals, sync):
         totals[name] = totals.get(name, 0.0) + time.perf_counter() - t0
         return out
 
+    # one attribute dict: an op that counts its launches through its module's
+    # name (fn.launches) keeps counting while the wrapper holds that name
+    wrapped.__dict__ = fn.__dict__
     setattr(module, name, wrapped)
     return fn
 
@@ -142,6 +160,7 @@ def profile_fit(rows, cols, vals, m, n, device, kind, side=None):
             "collective-bucketed": (cmfrec_torch.CMF,
                                     COLLECTIVE_BUCKETED_FIT),
             "lbfgs": (cmfrec_torch.CMF, LBFGS_FIT),
+            "nonneg": (cmfrec_torch.CMF, NONNEG_FIT),
         }[kind]
         return model_cls(**kw, device=device).fit_triplets(
             rows, cols, vals, m, n, **(side or {}))
@@ -187,7 +206,10 @@ def profile_fit(rows, cols, vals, m, n, device, kind, side=None):
         print(f"  {v['ms']:9.2f} ms {v['calls']:5d} calls  {name[:90]}")
 
     def owner(path):
-        """A module of cmfrec_torch.solvers, or a class in one."""
+        """A module of cmfrec_torch.solvers, or a class in one; or a
+        module of cmfrec_torch.ops ("ops.<module>")."""
+        if path.startswith("ops."):
+            return importlib.import_module(f"cmfrec_torch.{path}")
         mod, _, cls = path.partition(".")
         mod = importlib.import_module(f"cmfrec_torch.solvers.{mod}")
         return getattr(mod, cls) if cls else mod
@@ -208,6 +230,26 @@ def profile_fit(rows, cols, vals, m, n, device, kind, side=None):
     out["host_split_s"]["rest"] = wall - sum(totals.values())
     print("host split: " + ", ".join(
         f"{k} {v:.3f} s" for k, v in out["host_split_s"].items()), flush=True)
+
+    # where the host's time goes, by function (cProfile inflates Python
+    # frames against native calls: it names candidates, the spans measure)
+    host = cProfile.Profile()
+    host.enable()
+    try:
+        _, wall = fit()
+    finally:
+        host.disable()
+    stats = pstats.Stats(host).stats
+    top = sorted(((tt, ct, nc, f"{pathlib.Path(fn).name}:{line}({name})")
+                  for (fn, line, name), (_, nc, tt, ct, _) in stats.items()),
+                 reverse=True)[:HOST_TOP]
+    out["host_top"] = {"fit_s": wall, "functions": [
+        dict(name=n, own_s=tt, cumulative_s=ct, calls=nc)
+        for tt, ct, nc, n in top]}
+    print(f"host functions (a fit under cProfile, {wall:.3f} s), own time:",
+          flush=True)
+    for tt, ct, nc, n in top:
+        print(f"  {tt:8.3f} s own {ct:8.3f} s cumulative {nc:7d} calls  {n}")
     return out, prof
 
 

@@ -381,48 +381,6 @@ def test_import_leaves_jax_out():
     assert out.returncode == 0, out.stdout + out.stderr
 
 
-@pytest.mark.parametrize("k,k_pad,engine,raises", [
-    (255, 256, "dense", False),
-    (256, 320, "dense", True),
-    (300, 304, "bucketed", True),
-    (256, 256, "bucketed", False),
-])
-def test_kernel_k_check(k, k_pad, engine, raises):
-    """Fault P1: past K=256 the card's kernels have no path; the drivers'
-    check raises there, naming the limit and the ROADMAP item, and never on
-    the CPU."""
-    drivers.check_kernel_k(k, k_pad, engine, torch.device("cpu"))
-    if raises:
-        with pytest.raises(ValueError, match=r"K <= 256 \(ROADMAP section 2"):
-            drivers.check_kernel_k(k, k_pad, engine, torch.device("cuda"))
-    else:
-        drivers.check_kernel_k(k, k_pad, engine, torch.device("cuda"))
-
-
-@pytest.mark.parametrize("fit", ["explicit", "implicit"])
-def test_kernel_k_check_comes_before_any_upload(fit, monkeypatch):
-    """On a card (stood in for here), k=300 raises at the top of the
-    driver: no layout build, no dense setup, no upload."""
-    monkeypatch.setattr(drivers, "resolve_device",
-                        lambda device: torch.device("cuda"))
-    monkeypatch.setattr(drivers, "_dense_budget", lambda dev: 1 << 40)
-
-    def no_work(*a, **kw):
-        raise AssertionError("the fit went past the check")
-
-    for name in ("_build_pair", "fit_explicit_dense_masked",
-                 "_fit_explicit_bucketed", "fit_implicit_dense_masked"):
-        monkeypatch.setattr(drivers, name, no_work)
-    monkeypatch.setattr(torch.Tensor, "to", no_work)
-    monkeypatch.setattr(torch, "as_tensor", no_work)
-    rows, cols, vals, m, n = _small_fit_data()
-    with pytest.raises(ValueError, match=r"pads it to K=3(20|04)"):
-        if fit == "explicit":
-            drivers.fit_explicit_als(rows, cols, vals, m, n, k=300)
-        else:
-            drivers.fit_implicit_als(rows, cols, vals, m, n, k=300)
-
-
 def test_cmf_fit_takes_mesh():
     """Fault P2: CMF.fit has the reference's mesh= keyword; None fits, a
     mesh raises naming slice 7."""

@@ -20,7 +20,7 @@ import numpy as np
 import pytest
 import torch
 
-from cmfrec_torch.ops import coord_descent, k1_probes
+from cmfrec_torch.ops import _cuda, coord_descent, k1_probes
 from cmfrec_torch.ops import masked_matmul as mm
 from cmfrec_torch.ops import rowsolve, sparse_cg
 from cmfrec_torch.solvers import drivers
@@ -56,11 +56,19 @@ def _rel(out, ref):
     return ((out - ref).abs().max() / ref.abs().max()).item()
 
 
-@pytest.mark.parametrize("K", [64, 128, 256])
+@pytest.mark.parametrize("K", [64, 128, 256, 320, 512, 1024])
 @pytest.mark.parametrize("wdt", [torch.int8, torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("op", [torch.bfloat16, torch.float32])
 def test_kernels_match_twins(cuda, op, wdt, K):
+    """Past K = 256 K1 runs its wide kernel (configuration 5 for bf16, 6
+    for f32), in column chunks of at most 256; K2 its own kernels."""
     R, S = 192, 320
+    plan = mm.gram_plan(R, S, K, op, wdt, cuda)
+    if K > mm.TILED_MAX_K:
+        assert plan["variant"] == (6 if op == torch.float32 else 5)
+        assert len(plan["cols"]) == -(-K // mm.WIDE_COLS)
+    else:
+        assert plan["variant"] <= 4 and plan["col_chunk"] == mm.TILE
     Q, Be, W, X, mb = _inputs(cuda, R, S, K, op, wdt)
     n_gram, n_rhs = mm.masked_gram_matvec.launches, mm.masked_rhs.launches
     out = mm.masked_gram_matvec(Q, Be, W)
@@ -72,7 +80,7 @@ def test_kernels_match_twins(cuda, op, wdt, K):
     assert _rel(out2, mm.masked_rhs_ref(X, W, mb, Be)) <= REL_TOL[op]
 
 
-@pytest.mark.parametrize("K", [64, 128, 192, 256])
+@pytest.mark.parametrize("K", [64, 128, 192, 256, 320, 1024])
 @pytest.mark.parametrize("wdt", [torch.int8, torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("op", [torch.bfloat16, torch.float32])
 def test_k1_split_s_matches_twin(cuda, monkeypatch, op, wdt, K):
@@ -100,7 +108,7 @@ def test_k1_split_s_matches_twin(cuda, monkeypatch, op, wdt, K):
         assert torch.equal(out, again)
 
 
-@pytest.mark.parametrize("K", [64, 128, 192, 256])
+@pytest.mark.parametrize("K", [64, 128, 192, 256, 320, 1024])
 @pytest.mark.parametrize("wdt", [torch.int8, torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("op", [torch.bfloat16, torch.float32])
 def test_k2_split_s_matches_twin(cuda, monkeypatch, op, wdt, K):
@@ -296,6 +304,61 @@ def test_collective_implicit_fit_on_card_matches_cpu(cuda, use_cg):
         np.testing.assert_allclose(card, cpu, rtol=0, atol=5e-4, err_msg=key)
 
 
+@pytest.mark.parametrize("route", ["dense", "bucketed"])
+def test_collective_fit_past_k_256_on_card_matches_cpu(cuda, route):
+    """The collective explicit fit at k = 300 through its kernels, card
+    against CPU from one init: dense U and I on the dense-masked route
+    (K = 320: K1's wide kernel and K2), or a sparse U and a binary I under
+    NA_as_zero_item on the bucketed route (K = 304: K3, a block a row).
+    The tolerances of the k = 6 and k = 8 tests of the same routes.  No
+    implicit features: their products' factors are rounded to bf16 on the
+    card and not on the CPU (test_collective_fit_on_card_matches_cpu), so
+    both sides here do the same arithmetic up to the order of sums."""
+    import scipy.sparse as spm
+
+    from cmfrec_torch.solvers import collective
+
+    k = 300
+    if route == "dense":
+        rows, cols, vals, m, n, U, I, _ = _small_side_data()
+        rng = np.random.default_rng(30)
+        init = {key: (0.3 * rng.normal(size=(d, k))).astype(np.float32)
+                for key, d in (("A", m), ("B", n))}
+        kw = dict(side_U=(None, None, None, m, 5, True, U),
+                  side_I=(None, None, None, n, 4, True, I), k=k,
+                  lambda_=0.5, scale_lam=True, niter=2, use_cg=True,
+                  init=init)
+        keys, atol = ("A", "B", "biasA", "biasB", "C", "D"), 5e-4
+        counters = (mm.masked_gram_matvec, mm.masked_rhs)
+    else:
+        rng = np.random.default_rng(31)
+        m, n, p, q = 300, 200, 40, 6
+        pairs = np.unique(rng.integers(0, m * n, 6000))
+        rows, cols = pairs // n, pairs % n
+        vals = rng.normal(3, 1, rows.size)
+        U = spm.random(m + 20, p, density=0.1, random_state=1, format="coo")
+        I = (spm.random(n, q, density=0.4, random_state=2, format="coo") > 0
+             ).astype(np.float64).tocoo()
+        init = {key: 0.3 * rng.normal(size=(d, k)) for key, d in
+                (("A", m + 20), ("B", n), ("C", p), ("D", q))}
+        kw = dict(side_U=(U.row, U.col, U.data, m + 20, p, False, None),
+                  side_I=(I.row, I.col, I.data, n, q, False, None), k=k,
+                  niter=2, lambda_=0.5, use_cg=True, NA_as_zero_item=True,
+                  scale_lam=True, init=init)
+        keys, atol = ("A", "B", "C", "D", "biasA", "biasB"), 1e-4
+        counters = (sparse_cg.bucket_cg,)
+    before = [c.launches for c in counters]
+    card = collective.fit_collective_explicit_als(rows, cols, vals, m, n,
+                                                  device="cuda", **kw)
+    assert all(c.launches > b for c, b in zip(counters, before))
+    cpu = collective.fit_collective_explicit_als(rows, cols, vals, m, n,
+                                                 device="cpu", **kw)
+    assert card["A"].shape[1] == k
+    for key in keys:
+        np.testing.assert_allclose(card[key].cpu().numpy(), cpu[key].numpy(),
+                                   rtol=0, atol=atol, err_msg=key)
+
+
 def _bucket(dev, R, L, S, K, op, explicit, seed=0):
     """A random bucket: implicit coefficients with a Gram base, or explicit
     ones with a per-row lambda and a rhs base (the scale_lam/NA-as-zero
@@ -323,19 +386,28 @@ def _bucket(dev, R, L, S, K, op, explicit, seed=0):
     return (mat, idx, cw, cv, gfix, lam_row, r0, a0), length
 
 
-@pytest.mark.parametrize("K", [8, 56, 64, 136, 256])
+@pytest.mark.parametrize("K", [8, 56, 64, 136, 256, 264, 320, 512, 1024])
 @pytest.mark.parametrize("op", [torch.bfloat16, torch.float32])
 @pytest.mark.parametrize("explicit", [False, True])
 @pytest.mark.parametrize("L", [40, 700, 5000])
 def test_bucket_cg_matches_twin(cuda, K, op, explicit, L):
-    """Staged (L=40) and re-gathered rows (700, 5000), 4/8/16 warps."""
+    """Staged (L=40) and re-gathered rows (700, 5000), 4/8/16 warps; past
+    K = 256 a block a row, narrow rows too, whose warps loop over K (two
+    calls bitwise equal)."""
     torch.backends.cuda.matmul.allow_tf32 = False
     R = 24 if L == 5000 else 96
     args, length = _bucket(cuda, R, L, 3 * L + 50, K, op, explicit)
+    plan = sparse_cg.plan_for(R, L, K, op, cuda)
+    assert plan["k_loop"] == (K > sparse_cg.TILED_MAX_K)
+    if plan["k_loop"]:
+        assert not plan["warp_rows"]
     before = sparse_cg.bucket_cg.launches
     out = sparse_cg.bucket_cg(*args, n_steps=3, length=length)
     torch.cuda.synchronize()
     assert sparse_cg.bucket_cg.launches == before + 1
+    if plan["k_loop"]:
+        assert torch.equal(out, sparse_cg.bucket_cg(*args, n_steps=3,
+                                                    length=length))
     ref = sparse_cg.bucket_cg_ref(*args, n_steps=3)
     assert torch.isfinite(out).all()
     assert _rel(out, ref) <= K3_REL_TOL[op]
@@ -356,6 +428,9 @@ K3_CLASSES = [
     (600, 763, 56, "wide"),            # one slot past it: two blocks a row
     (3, 31600, 56, "wide"),            # a few LastFM-widest rows, 8 blocks
     (40, 3000, 256, "wide"),           # K=256: gfix read through L1
+    (2000, 128, 304, "middle"),        # past K=256: narrow rows a block each
+    (600, 762, 304, "wide"),           # a row's range past the stage budget
+    (3, 31600, 1024, "wide"),          # K=1024: 8 blocks a row
 ]
 
 
@@ -827,46 +902,79 @@ def _cd_problem(dev, R, K, dtype, seed=0):
             {key: v.to(dtype) for key, v in l1.items()})
 
 
-@pytest.mark.parametrize("max_steps", [1, 100])
+@pytest.mark.parametrize("max_steps", [0, 1, 100])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
-@pytest.mark.parametrize("K", [8, 56, 264, 300])
+@pytest.mark.parametrize("K", [8, 56, 64, 65, 128, 200, 264, 300])
 def test_cd_solve_matches_twin(cuda, K, dtype, max_steps):
-    """The CD kernel against rowsolve.solve_cd on the card, at any K (no
-    K limit), R = 333 (not a multiple of the 8 warps a block), l1 of both
-    shapes, nonneg and the soft threshold; the launch counted once."""
+    """The CD kernel against rowsolve.solve_cd on the card: K up to 128
+    staged (1-32 lanes a row, K = 65 padded), past it streamed; R = 333
+    (not a multiple of the rows a block), l1 of both shapes, nonneg and the
+    soft threshold, no sweep at all; each launch counted once."""
     R = 333
     G, rhs, l1 = _cd_problem(cuda, R, K, dtype)
     for nonneg, shape in ((True, "K"), (False, "RK")):
+        want, want_sweeps = rowsolve.solve_cd(G, rhs, l1[shape], nonneg,
+                                              max_steps, return_sweeps=True)
         n0 = coord_descent.solve_cd.launches
-        out, sweeps = coord_descent.solve_cd(G, rhs, l1[shape],
-                                             nonneg=nonneg,
+        out, sweeps = coord_descent.solve_cd(G, rhs, l1[shape], nonneg=nonneg,
                                              max_steps=max_steps,
                                              return_sweeps=True)
         torch.cuda.synchronize()
         assert coord_descent.solve_cd.launches == n0 + 1
-        want, want_sweeps = rowsolve.solve_cd(G, rhs, l1[shape], nonneg,
-                                              max_steps, return_sweeps=True)
         assert out.dtype == dtype and torch.isfinite(out).all()
+        if max_steps == 0:
+            assert not out.any() and not sweeps.any()
+            continue
         assert _rel(out, want) <= CD_REL_TOL[dtype], (nonneg, shape)
         assert int(sweeps.min()) >= 1 and int(sweeps.max()) <= max_steps
-        if max_steps == 1:
-            assert torch.equal(sweeps, want_sweeps)
+        if max_steps == 1 or dtype == torch.float64:
+            # f32 rows that settle within f32 resolution stop at whichever
+            # sweep their roundings first fall to tol
+            assert (sweeps == want_sweeps).float().mean() >= (
+                1.0 if max_steps == 1 else 0.99)
         if nonneg:
             assert float(out.min()) >= 0.0
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
-@pytest.mark.parametrize("K", [56, 300])
+@pytest.mark.parametrize("K", [8, 56, 65, 128, 300])
 def test_cd_solve_shared_g_matches_twin(cuda, K, dtype):
     """One G for every row, passed with row stride 0 (the dense C/D update
-    of the collective fits), against the twin on the expanded copy."""
+    of the collective fits; staged once a block up to K = 128), against the
+    twin on the expanded copy, nonneg and the soft threshold."""
     R = 333
     G, rhs, l1 = _cd_problem(cuda, R, K, dtype, seed=1)
     shared = G[0].expand(R, K, K)
-    out = coord_descent.solve_cd(shared, rhs, l1["K"], nonneg=True,
-                                 max_steps=100)
-    want = rowsolve.solve_cd(shared.contiguous(), rhs, l1["K"], True, 100)
-    assert _rel(out, want) <= CD_REL_TOL[dtype]
+    for nonneg in (True, False):
+        want = rowsolve.solve_cd(shared.contiguous(), rhs, l1["K"], nonneg,
+                                 100)
+        out = coord_descent.solve_cd(shared, rhs, l1["K"], nonneg=nonneg,
+                                     max_steps=100)
+        assert _rel(out, want) <= CD_REL_TOL[dtype], nonneg
+
+
+@pytest.mark.parametrize("shared_g", [False, True])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("K", [8, 56, 64, 65, 200])
+def test_cd_plan(cuda, K, dtype, shared_g):
+    """The CD kernel's launch: G staged up to STAGED_MAX_K, four coordinates
+    a lane on the fewest lanes that cover K, whole rows a warp, the block
+    within the opt-in shared memory and resident on the card; the launch a
+    solve takes is the one reported, before and after it."""
+    plan = coord_descent.plan(K, shared_g, dtype)
+    assert plan["staged"] == (K <= coord_descent.STAGED_MAX_K)
+    assert plan["blocks_per_sm"] >= 1
+    assert plan["smem"] <= _cuda.optin_smem(cuda)
+    G, rhs, l1 = _cd_problem(cuda, 40, K, dtype)
+    if shared_g:
+        G = G[0].expand(40, K, K)
+    coord_descent.solve_cd(G, rhs, l1["K"], nonneg=True, max_steps=3)
+    assert coord_descent.plan(K, shared_g, dtype) == plan
+    if plan["staged"]:
+        assert 4 * plan["lanes"] >= K > 2 * plan["lanes"] or plan["lanes"] == 1
+        assert plan["rows_per_block"] == plan["warps"] * 32 // plan["lanes"]
+    else:
+        assert plan["rows_per_block"] == plan["warps"]
 
 
 def test_cd_solve_refuses_what_it_does_not_take(cuda):

@@ -125,7 +125,8 @@ bf, f32, i8 = torch.bfloat16, torch.float32, torch.int8
     ((_t((96, 64), bf), _t((64, 64), bf), _t((96, 64), i8)), "multiples"),
     ((_t((64, 64), bf), _t((100, 64), bf), _t((64, 100), i8)), "multiples"),
     ((_t((64, 32), bf), _t((64, 32), bf), _t((64, 64), i8)), "K=32"),
-    # off the CPU (here a tensor without data), K past the kernels' 256
+    # off the CPU and off a card (here a tensor without data): K=320 is no
+    # longer refused (the wide K1 takes it), but no kernel runs there
     ((_t((64, 320), f32, "meta"), _t((64, 320), f32, "meta"),
       _t((64, 64), i8, "meta")), "K=320"),
     ((_t((64, 64), bf), _t((64, 64), bf), _t((64, 128), i8)), "W has shape"),

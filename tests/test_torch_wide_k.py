@@ -1,0 +1,294 @@
+"""K past 256 on the card's kernel routes, on the CPU: the launch planners of
+K1/K2 (gram_plan, rhs_plan) and K3 (k3_plan) past 256 and unchanged up to
+it, the column-chunked composition of K1 and K2 in plain torch against the
+twins and cmfrec_tpu's Pallas kernels in interpret mode, and the drivers
+reaching their engines at k = 300 with a card stood in (no K check is left
+before them).  The kernels themselves are held against their twins at
+K = 264-1024 by tests/test_torch_kernels_gpu.py on a card.
+
+Tolerances, as max|out - ref| <= tol * max|ref|: the chunked composition
+against the twin is the same f32 arithmetic on the same columns, 1e-5
+for f32 operands (bitwise in practice); against the Pallas kernels as
+tests/test_torch_masked_matmul.py: f32 1e-5, bf16 1e-3 (flipped bf16
+roundings of T*W)."""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from cmfrec_torch.ops import coord_descent, sparse_cg
+from cmfrec_torch.ops import masked_matmul as mm
+from cmfrec_torch.solvers import collective, dense_masked, drivers
+from cmfrec_tpu.ops import masked_matmul as jmm
+
+TOL = {"f32": 1e-5, "bf16": 1e-3}
+# geometries a card would report (configuration, row tile, S tile, blocks
+# an SM, SMs): the flagship's bf16 K1 and K2 on 132 SMs
+GEO = {"gram": (0, 128, 128, 2, 132), "rhs": (0, 128, 64, 2, 132)}
+# what an H100 reports: SMs, opt-in shared memory a block (bytes)
+H100 = (132, 227 * 1024)
+
+
+@pytest.fixture
+def fake_geometry(monkeypatch):
+    monkeypatch.setattr(mm, "_geometry",
+                        lambda op, index, K, op_f32, w_type: GEO[op])
+
+
+# The plans of the tree before K past 256 was taken, K1 and K2 alike at
+# these geometries: {(K, R, S): (chunk, chunks)}
+PINNED = {(64, 69888, 10688): (2688, 4), (64, 10688, 69888): (3200, 22),
+          (128, 69888, 10688): (5376, 2), (128, 10688, 69888): (6400, 11),
+          (256, 69888, 10688): (5376, 2), (256, 10688, 69888): (9984, 7)}
+
+
+@pytest.mark.parametrize("op", ["gram", "rhs"])
+@pytest.mark.parametrize("K", [64, 128, 256])
+def test_plans_up_to_256_are_unchanged(fake_geometry, op, K):
+    planner = mm.gram_plan if op == "gram" else mm.rhs_plan
+    for R, S in ((69888, 10688), (10688, 69888)):
+        plan = planner(R, S, K, torch.bfloat16, torch.int8, "cuda:0")
+        variant, row_tile, s_tile, per_sm, sms = GEO[op]
+        chunk, chunks = PINNED[K, R, S]
+        assert {key: plan[key] for key in ("variant", "row_tile", "s_tile",
+                                            "per_sm", "sms", "chunk",
+                                            "chunks")} == dict(
+            variant=variant, row_tile=row_tile, s_tile=s_tile,
+            per_sm=per_sm, sms=sms, chunk=chunk, chunks=chunks)
+        # the blocks' 64 output columns, gridDim.y = K / 64 as before
+        assert plan["col_chunk"] == mm.TILE
+        assert plan["cols"] == tuple((c, mm.TILE) for c in range(0, K, 64))
+
+
+@pytest.mark.parametrize("op", ["gram", "rhs"])
+@pytest.mark.parametrize("K", [320, 512, 1024])
+def test_plans_past_256_cover_k_once_in_chunks(fake_geometry, op, K):
+    planner = mm.gram_plan if op == "gram" else mm.rhs_plan
+    plan = planner(69888, 10688, K, torch.float32, torch.int8, "cuda:0")
+    covered = np.zeros(K, int)
+    for c0, width in plan["cols"]:
+        assert 0 < width <= 256 and width % 64 == 0 and c0 % 64 == 0
+        covered[c0:c0 + width] += 1
+    assert (covered == 1).all()
+    if op == "gram":  # the wide K1: the fewest chunks of at most 256
+        assert len(plan["cols"]) == -(-K // 256)
+        assert plan["col_chunk"] == mm.wide_col_chunk(K)
+    else:  # K2's blocks own 64 columns at any K
+        assert plan["col_chunk"] == 64 and len(plan["cols"]) == K // 64
+    assert plan["chunks"] * plan["chunk"] >= 10688
+
+
+def test_wide_col_chunk_splits_evenly():
+    assert mm.wide_col_chunk(320) == 192  # 192 + 128, not 256 + 64
+    assert mm.wide_col_chunk(512) == 256
+    assert mm.wide_col_chunk(576) == 192
+    assert mm.wide_col_chunk(1024) == 256
+
+
+def _masked(t, W, bf16):
+    """T * W as the twin forms it (masked_gram_matvec_ref)."""
+    if bf16 and W.dtype == torch.bfloat16:
+        t = t.to(torch.bfloat16).float()
+    t = t * W.float()
+    return t.to(torch.bfloat16).float() if bf16 else t
+
+
+def _gram_by_chunks(Q, Be, W):
+    """K1 as the wide kernel composes it: full-K scores, then each output
+    column chunk's product with its own columns of Be."""
+    K = Be.shape[1]
+    bf16 = Be.dtype == torch.bfloat16
+    P = _masked(Q.float() @ Be.float().T, W, bf16)
+    out = torch.empty(Q.shape[0], K)
+    for c0, width in mm.col_chunks(K, mm.wide_col_chunk(K)):
+        out[:, c0:c0 + width] = P @ Be[:, c0:c0 + width].float()
+    return out
+
+
+def _rhs_by_chunks(X, W, mb, Be):
+    """K2 chunk by chunk: each 64-column chunk from its columns of Be."""
+    K = Be.shape[1]
+    out = torch.empty(X.shape[0], K)
+    for c0, width in mm.col_chunks(K, mm.TILE):
+        out[:, c0:c0 + width] = mm.masked_rhs_ref(
+            X, W, mb, Be[:, c0:c0 + width].contiguous())
+    return out
+
+
+def _rel(out, ref):
+    out = np.asarray(out, np.float64)
+    ref = np.asarray(ref, np.float64)
+    return np.abs(out - ref).max() / np.abs(ref).max()
+
+
+@pytest.mark.parametrize("w", ["int8", "bf16"])
+@pytest.mark.parametrize("op", ["f32", "bf16"])
+def test_chunked_composition_matches_twin_and_pallas(op, w):
+    """K = 320 (k = 300 on the dense engine): the chunked K1 and K2 against
+    the twins and against the Pallas kernels in interpret mode."""
+    R, S, K = jmm.BLOCK_R, 1024, 320
+    rng = np.random.default_rng(14)
+    Qn = rng.normal(size=(R, K)).astype(np.float32)
+    Ben = rng.normal(size=(S, K)).astype(np.float32)
+    mask = rng.uniform(size=(R, S)) < 0.3
+    Wn = (mask.astype(np.int8) if w == "int8" else
+          (mask * rng.uniform(0.5, 2.0, size=(R, S))).astype(np.float32))
+    Xn = (np.round(rng.uniform(1, 10, size=(R, S))) / 2).astype(np.float32)
+    mbn = rng.normal(size=S).astype(np.float32)
+    tdt = torch.bfloat16 if op == "bf16" else torch.float32
+    jdt = jnp.bfloat16 if op == "bf16" else jnp.float32
+    Q, Be = torch.from_numpy(Qn).to(tdt), torch.from_numpy(Ben).to(tdt)
+    W = torch.from_numpy(Wn)
+    Wj = jnp.asarray(Wn)
+    if w == "bf16":
+        W = W.to(torch.bfloat16)
+        Wj = jnp.asarray(W.float().numpy(), jnp.bfloat16)
+    X = torch.from_numpy(Xn).to(torch.bfloat16)
+    mb = torch.from_numpy(mbn)
+
+    gram = _gram_by_chunks(Q, Be, W)
+    assert _rel(gram, mm.masked_gram_matvec_ref(Q, Be, W)) <= 1e-5
+    pallas = jmm.masked_gram_matvec(jnp.asarray(Qn, jdt), jnp.asarray(Ben, jdt),
+                                    Wj, block_s=1024, interpret=True)
+    assert _rel(gram, pallas) <= TOL[op]
+
+    rhs = _rhs_by_chunks(X, W, mb, Be)
+    assert _rel(rhs, mm.masked_rhs_ref(X, W, mb, Be)) <= 1e-5
+    pallas = jmm.masked_rhs(jnp.asarray(Xn, jnp.bfloat16), Wj,
+                            jnp.asarray(mbn), jnp.asarray(Ben, jdt),
+                            block_s=1024, interpret=True)
+    assert _rel(rhs, pallas) <= TOL[op]
+
+
+# K3's plans of the tree before K past 256 was taken (K <= 256)
+K3_PINNED = {
+    (95040, 32, 56, 2): dict(cls="narrow", threads=256, warp_rows=True,
+                             cluster=1, stage_slots=32, smem=61184),
+    (12680, 176, 56, 2): dict(cls="middle", threads=128, warp_rows=False,
+                              cluster=1, stage_slots=176, smem=36672),
+    (40, 31592, 56, 2): dict(cls="wide", threads=256, warp_rows=False,
+                             cluster=8, stage_slots=762, smem=106448),
+    (1536, 904, 56, 2): dict(cls="middle", threads=256, warp_rows=False,
+                             cluster=1, stage_slots=762, smem=106448),
+    (40, 3000, 256, 4): dict(cls="wide", threads=128, warp_rows=False,
+                             cluster=8, stage_slots=87, smem=105952),
+    (61784, 48, 256, 2): dict(cls="narrow", threads=256, warp_rows=True,
+                              cluster=1, stage_slots=5, smem=103680),
+    (99928, 40, 8, 4): dict(cls="narrow", threads=256, warp_rows=True,
+                            cluster=1, stage_slots=40, smem=15360),
+}
+
+
+@pytest.mark.parametrize("case", list(K3_PINNED), ids=str)
+def test_k3_plans_up_to_256_are_unchanged(case):
+    assert sparse_cg.k3_plan(*case, *H100) == dict(K3_PINNED[case],
+                                                 k_loop=False)
+
+
+# the LastFM-shaped buckets of both sides (R, L), as test_torch_sparse_cg.py
+LASTFM_BUCKETS = [
+    (40, 3400), (400, 912), (1496, 376), (3752, 216), (7688, 144),
+    (13360, 104), (21304, 80), (20208, 64), (34392, 56), (61784, 48),
+    (99928, 40), (95040, 32), (40, 31592), (88, 14048), (184, 6632),
+    (392, 3240), (744, 1640), (1536, 904), (3032, 504), (6672, 296),
+    (12680, 176), (26760, 112), (43672, 72), (64392, 48)]
+
+
+@pytest.mark.parametrize("esz", [2, 4])
+@pytest.mark.parametrize("K", [264, 304, 512, 1024])
+def test_k3_plans_past_256_loop_over_k(K, esz):
+    """Every bucket a block (or cluster) a row, narrow rows too, within the
+    opt-in shared memory, its stage within the row's range."""
+    for R, L in LASTFM_BUCKETS + [(1, 1), (3, 31600)]:
+        plan = sparse_cg.k3_plan(R, L, K, esz, *H100)
+        assert plan["k_loop"] and not plan["warp_rows"]
+        assert plan["cls"] == ("wide" if plan["cluster"] > 1 else "middle")
+        assert plan["threads"] in (128, 256)
+        assert plan["smem"] <= H100[1]
+        assert plan["smem"] == sparse_cg.smem_bytes(
+            K, esz, 1, plan["threads"] // 32, plan["stage_slots"])
+        assert 0 <= plan["stage_slots"] <= -(-L // plan["cluster"])
+    sparse_cg.check_k(K, esz, H100[1])
+
+
+def test_k3_limit_names_the_shared_memory():
+    sparse_cg.check_k(3600, 2, H100[1])
+    with pytest.raises(ValueError, match=r"K=3640 needs 233088 bytes of "
+                                         r"shared memory"):
+        sparse_cg.check_k(3640, 2, H100[1])
+
+
+def test_cd_limit_names_the_shared_memory():
+    """The CD kernel stages G up to STAGED_MAX_K whatever the type; past it
+    the streamed path's six K-vectors must fit the opt-in shared memory."""
+    for esz in (4, 8):
+        coord_descent.check_k(coord_descent.STAGED_MAX_K, esz, H100[1])
+    coord_descent.check_k(4842, 8, H100[1])
+    coord_descent.check_k(9685, 4, H100[1])
+    with pytest.raises(ValueError, match=r"K=4843 needs 232464 bytes of "
+                                         r"shared memory"):
+        coord_descent.check_k(4843, 8, H100[1])
+
+
+class _Reached(Exception):
+    pass
+
+
+def _small_fit_data(seed=9, m=40, n=30):
+    rng = np.random.default_rng(seed)
+    pairs = np.unique(rng.integers(0, m * n, 300))
+    rows, cols = (pairs // n).astype(np.int32), (pairs % n).astype(np.int32)
+    vals = (1 + rng.integers(0, 5, rows.size)).astype(np.float64)
+    return rows, cols, vals, m, n
+
+
+@pytest.mark.parametrize("fit", ["explicit", "implicit", "implicit-dense",
+                                 "collective"])
+def test_fits_reach_their_engines_at_k_300_on_a_card(fit, monkeypatch):
+    """A card stood in: k = 300 (K = 320 on the dense engines, 304 on the
+    bucketed implicit one) goes to the engine of its route, which runs the
+    kernels; nothing raises on K before it."""
+    cuda = torch.device("cuda")
+    monkeypatch.setattr(drivers, "resolve_device", lambda device: cuda)
+    monkeypatch.setattr(collective, "resolve_device", lambda device: cuda)
+    monkeypatch.setattr(drivers, "_dense_budget", lambda dev: 1 << 40)
+    reached = {}
+
+    def engine(name):
+        def stub(*args, **kw):
+            reached.update(name=name, k=kw.get("k"), device=kw.get("device"))
+            raise _Reached
+        return stub
+
+    for name in ("fit_explicit_dense_masked", "fit_implicit_dense_masked",
+                 "_build_pair"):
+        monkeypatch.setattr(drivers, name, engine(name))
+    monkeypatch.setattr(collective, "fit_collective_dense_masked",
+                        engine("fit_collective_dense_masked"))
+    rows, cols, vals, m, n = _small_fit_data()
+    k = 300
+    with pytest.raises(_Reached):
+        if fit == "explicit":
+            drivers.fit_explicit_als(rows, cols, vals, m, n, k=k)
+        elif fit == "implicit":
+            drivers.fit_implicit_als(rows, cols, vals, m, n, k=k)
+        elif fit == "implicit-dense":
+            drivers.fit_implicit_als(rows, cols, vals, m, n, k=k,
+                                     engine="dense")
+        else:
+            U = np.random.default_rng(3).normal(size=(m, 4))
+            collective.fit_collective_explicit_als(
+                rows, cols, vals, m, n, side_U=(None, None, None, m, 4, True,
+                                                U), k=k)
+    want = {"explicit": ("fit_explicit_dense_masked", 320),
+            "implicit": ("_build_pair", 304),
+            "implicit-dense": ("fit_implicit_dense_masked", 320),
+            "collective": ("fit_collective_dense_masked", 320)}[fit]
+    assert reached["name"] == want[0]
+    if fit == "implicit":  # the bucketed engine pads k to a multiple of 8
+        assert drivers._round_up(k, 8) == want[1]
+    else:
+        assert reached["k"] == k
+        assert dense_masked.padded_dims(
+            m, n, k, bias_col=fit != "implicit-dense")[2] == want[1]
