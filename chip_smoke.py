@@ -155,8 +155,9 @@ at max_cd_steps):
      (users/s, factors >= 0, 256 card against the CPU copy), and 2,000 U
      rows through cold factors of phase 28's model against its CPU copy.
 
-K past 256 (the kernels' wide paths: K1's gram_wide_kernel, K2's kernels
-at any K, K3 a block or cluster a row looping over K):
+K past 256 (the kernels' wide paths: K1's wide configurations,
+gram_bf16_wide_kernel on wgmma and gram_f32_wide_kernel on FMA, K2's
+kernels at any K, K3 a block or cluster a row looping over K):
  30. K1 (bf16 operands on the int8 mask and on bf16 weights, f32 operands)
      and K2 (bf16, f32) against their twins on the A side of phase 3's X
      and W at K = 320 (k = 300 on the dense engine) and 1024, and K3
@@ -165,12 +166,13 @@ at any K, K3 a block or cluster a row looping over K):
      case in bf16): the first 2,048 rows of each bucket, the plan the
      bucket's full rows take asserted to be the one checked, and at K = 264
      the widest bucket and the one of the most slots at their full rows;
-     each call's launches, time, plain time and bound; then
-     CMF(k=300) on phase 4's data and split (the dense engine, K = 320):
-     RMSE below the global mean's, K1/K2 launches of 2 iterations; and
+     each call's launches, time, plain time, bound and plan (K1: its
+     configuration, column chunks and shared memory); then CMF(k=300) on
+     phase 4's data and split (the dense engine, K = 320) at the
+     flagship's 15 iterations: its seconds, RMSE below the global mean's,
+     K1's mean time a call by operand type, K1/K2 launches 146/30; and
      CMF_implicit(k=260) on phase 7's data (K3 at K = 264): P@10 above
-     popularity, K3 = 2 x the buckets.  Both fits run 2 iterations, cut
-     from 15, so that the phase adds about a minute.
+     popularity, K3 = 2 x the buckets (2 iterations, cut from 15).
 
 Each fit phase, and phase 9's sweep, sets every kernel's launch count to 0
 just before it and reads the counts just after; phases 10-16 print each
@@ -244,7 +246,8 @@ PROBE_WRAPPERS = {"p1": ("full", "dots", "dot1", "wsum", "part"),
 # the ptxas report and the {"kernels": ...} rows
 CUDA_KERNELS = {
     "masked_gram_matvec": ("gram_bf16_wgmma_kernel", "gram_f32_tile8_kernel",
-                           "gram_f32_ring_kernel", "gram_wide_kernel",
+                           "gram_f32_ring_kernel", "gram_bf16_whole_kernel",
+                           "gram_bf16_wide_kernel", "gram_f32_wide_kernel",
                            "sum_chunks_kernel"),
     "masked_rhs": ("rhs_bf16_wgmma_kernel", "rhs_f32_tile8_kernel",
                    "sum_chunks_kernel"),
@@ -3073,17 +3076,55 @@ def cd_phases(ops, rows, cols, vals, test, lastfm, ctx):
 
 # phase 30: K past 256.  The widths held kernel against twin: the dense
 # engine's K at k = 300 (320), the bucketed one's at k = 260 (264, the
-# implicit fit's) and k = 300 (304), and K = 1024; the fits' depth is cut
-# from 15 iterations to WIDE_FIT_NITER, and K3's check to an A bucket's
-# first WIDE_K3_ROWS rows (the twin gathers [R, L, K] in f32), to hold the
-# phase to about a minute, except at WIDE_K3_FULL_K, where the widest bucket
-# and the one of the most slots are held at their full rows
+# implicit fit's) and k = 300 (304), and K = 1024.  CMF(k=300) runs the
+# flagship's 15 iterations; CMF_implicit(k=260)'s depth is cut from 15
+# iterations to WIDE_FIT_NITER, and K3's check to an A bucket's first
+# WIDE_K3_ROWS rows (the twin gathers [R, L, K] in f32), to hold the phase
+# to about a minute, except at WIDE_K3_FULL_K, where the widest bucket and
+# the one of the most slots are held at their full rows
 WIDE_K = {"dense": (320, 1024), "bucketed": (264, 304, 1024)}
 WIDE_FIT_NITER = 2
 WIDE_K3_ROWS = 2048
 WIDE_K3_FULL_K = 264
-WIDE_FIT = dict(FIT, k=300, niter=WIDE_FIT_NITER)
+WIDE_FIT = dict(FIT, k=300)
 WIDE_IMPLICIT_FIT = dict(IMPLICIT_FIT, k=260, niter=WIDE_FIT_NITER)
+
+
+class _K1Events:
+    """The dense engine's K1 wrapped for a fit: CUDA events around each
+    call, by operand type, read after the fit (no synchronisation inside
+    it).  The wrapper takes masked_gram_matvec's place in
+    solvers/dense_masked.py only; the op and its launch count stay."""
+
+    def __enter__(self):
+        import torch
+
+        from cmfrec_torch.solvers import dense_masked
+
+        self.module, self.real, self.events = (
+            dense_masked, dense_masked.masked_gram_matvec, [])
+
+        def spy(Q, Be, W):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = self.real(Q, Be, W)
+            end.record()
+            self.events.append((str(Be.dtype).split(".")[-1], start, end))
+            return out
+
+        dense_masked.masked_gram_matvec = spy
+        return self
+
+    def __exit__(self, *exc):
+        self.module.masked_gram_matvec = self.real
+
+    def means(self):
+        """{operand type: (calls, mean ms a call)}, after a synchronize."""
+        by = {}
+        for dt, start, end in self.events:
+            by.setdefault(dt, []).append(start.elapsed_time(end))
+        return {dt: (len(ms), sum(ms) / len(ms)) for dt, ms in by.items()}
 
 
 def check_wide_kernels(rows, cols, vals, weights):
@@ -3137,7 +3178,6 @@ def check_wide_kernels(rows, cols, vals, weights):
             plain_ms = _timed(lambda: twin(*args), 1)
             esz, wsz = (2 if op == "bf16" else 4), Wv.element_size()
             if name == "masked_gram_matvec":
-                # the scores once a column chunk, the product once
                 nbytes = (R + S) * K * esz + R * S * wsz + R * K * 4
                 ops = 4 * R * S * K
             else:
@@ -3148,7 +3188,8 @@ def check_wide_kernels(rows, cols, vals, weights):
             print(f"phase 30 kernel {name} side=A R={R} S={S} K={K} op={op} "
                   f"W={wname}: configuration {plan['variant']}, column "
                   f"chunks {[w for _, w in plan['cols']]}, S chunk "
-                  f"{plan['chunk']} ({plan['chunks']} chunks); "
+                  f"{plan['chunk']} ({plan['chunks']} chunks), smem "
+                  f"{plan['smem']} B; "
                   f"max_abs_err={err:.3e} rel={rel:.3e} (tol "
                   f"{REL_TOL[op]:.0e}) launches={launches} ms={ms:.3f} "
                   f"plain_ms={plain_ms:.3f} bound_ms={b_ms:.4f} ({b_by}) "
@@ -3280,9 +3321,10 @@ def wide_k_phases(ops, rows, cols, vals, test, weights, lastfm, ctx):
     """Phase 30: K past 256 at full width.  The kernels against their twins
     (check_wide_kernels, check_wide_bucket_cg), then CMF(k=300) on the
     flagship's data and split through the dense engine (K = 320: K1's wide
-    kernel, K2) and CMF_implicit(k=260) on the LastFM-shaped data (K = 264:
-    K3, a block a row), each at WIDE_FIT_NITER iterations, cut from 15 so
-    that the phase adds about a minute: held-out RMSE below the global
+    configurations, K2) at the flagship's 15 iterations, with K1's mean time
+    a call by operand type, and CMF_implicit(k=260) on the LastFM-shaped
+    data (K = 264: K3, a block a row) at WIDE_FIT_NITER iterations, cut from
+    15 so that it adds about half a minute: held-out RMSE below the global
     mean's and P@10 above popularity, with their launches.  Returns
     (launch counts, kernel records)."""
     import torch
@@ -3295,18 +3337,26 @@ def wide_k_phases(ops, rows, cols, vals, test, weights, lastfm, ctx):
     records = check_wide_kernels(tr_r, tr_c, tr_v, weights)
     records["bucket_cg"] = check_wide_bucket_cg(l_r, l_c, l_v)
 
-    model, launches, s, peak = _fit_phase(
-        ops, lambda: cmfrec_torch.CMF(**WIDE_FIT, device="cuda").fit_triplets(
-            tr_r, tr_c, tr_v, M, N))
+    with _K1Events() as k1:
+        model, launches, s, peak = _fit_phase(
+            ops, lambda: cmfrec_torch.CMF(**WIDE_FIT, device="cuda")
+            .fit_triplets(tr_r, tr_c, tr_v, M, N))
+    k1_ms = k1.means()
     pred = model.predict(rows[test], cols[test])
     rmse = float(np.sqrt(np.mean((pred - vals[test]) ** 2)))
     base = float(np.sqrt(np.mean((tr_v.mean() - vals[test]) ** 2)))
-    want = dense_launches(WIDE_FIT_NITER)
-    print(f"phase 30 CMF(k=300) on {card()}: {WIDE_FIT_NITER} iterations on "
-          f"the dense engine (K=320) in {s:.3f} s, peak device memory "
+    want = dense_launches(WIDE_FIT["niter"])
+    k1_text = ", ".join(f"{dt} {n} calls {ms:.3f} ms a call"
+                        for dt, (n, ms) in sorted(k1_ms.items()))
+    print(f"phase 30 CMF(k=300) on {card()}: {WIDE_FIT['niter']} iterations "
+          f"on the dense engine (K=320) in {s:.3f} s, peak device memory "
           f"{peak / 2**30:.2f} GiB, held-out RMSE {rmse:.5f} (global-mean "
-          f"baseline {base:.5f}), A_ {model.A_.shape}; launches {launches} "
-          f"(expected {want})", flush=True)
+          f"baseline {base:.5f}), A_ {model.A_.shape}; K1 in the fit: "
+          f"{k1_text}; launches {launches} (expected {want})", flush=True)
+    records["cmf_k300"] = dict(seconds=s, rmse=rmse, baseline=base,
+                               k1_ms_a_call={dt: ms for dt, (_, ms)
+                                             in k1_ms.items()},
+                               launches=launches)
     if launches != want:
         raise AssertionError("phase 30: CMF(k=300) did not run the expected "
                              "launches")
@@ -3602,7 +3652,9 @@ def main():
             ms=main_variant["ms"], plain_ms=main_variant["plain_ms"],
             bound_ms=main_variant["bound_ms"],
             bound_by=main_variant["bound_by"], library_ms=None,
-            variants=variants, wide_k=wide[name]))
+            variants=variants, wide_k=wide[name],
+            **({"cmf_k300": wide["cmf_k300"]}
+               if name == "masked_gram_matvec" else {})))
     # K3 at the main path's shapes: one implicit iteration's launches (every
     # bucket of both sides, bf16), summed
     main = [r for r in k3

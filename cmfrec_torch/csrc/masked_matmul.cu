@@ -71,6 +71,14 @@
 // mma.sync, no split; rhs_f32_kernel: 4x4 thread tiles of scalar loads) is
 // gone.
 //
+// Past K = 256 (kTiledMaxK) K1 runs its wide configurations (the section "K1 past
+// K = 256" below): a block owns as many output columns as its registers hold, all
+// of K = 320, so the scores are computed once; bf16 operands on wgmma
+// (gram_bf16_whole_kernel with Q and the whole-K Be tiles held where they fit,
+// else gram_bf16_wide_kernel streaming the K chunks), f32 operands on
+// register-tiled FMA (gram_f32_wide_kernel, both ways); with bf16 operands the
+// rounding of T*W to bf16 follows T summed in order in f32, as the twin sums it.
+//
 // The first design of the bf16 K1 (gram_bf16_kernel: synchronous 64-wide
 // tiles, mma.sync, no split-S) stays in masked_gram.cuh as the base of the
 // probes in k1_probes.cu (Body::kFull is that design whole).
@@ -154,13 +162,14 @@ __device__ __forceinline__ void copy_swz_async(void* dst, const void* src, size_
   }
 }
 
-// A [rows, K] bf16 row-major block (K * 2 bytes a row) into shared memory as
-// wgmma core matrices without swizzle: 8 rows x 16 bytes, 128 contiguous
-// bytes each, K / 8 of them along K (128 bytes apart), then the next 8 rows
-// (K * 16 bytes on).
+// The first `width` columns of a [rows, K] bf16 row-major block (K * 2 bytes a
+// row) into shared memory as wgmma core matrices without swizzle: 8 rows x 16
+// bytes, 128 contiguous bytes each, width / 8 of them along the row (128 bytes
+// apart), then the next 8 rows (width * 16 bytes on).
 template <int NT>
-__device__ __forceinline__ void copy_core_async(void* dst, const void* src, int rows, int K) {
-  const int per_row = K / 8;
+__device__ __forceinline__ void copy_core_async(void* dst, const void* src, int rows, int K,
+                                                int width) {
+  const int per_row = width / 8;
   const int dr = NT / per_row, dc = NT - dr * per_row;
   int r = threadIdx.x / per_row, c = threadIdx.x - r * per_row;
   for (; r < rows; r += dr, c += dc) {
@@ -168,9 +177,15 @@ __device__ __forceinline__ void copy_core_async(void* dst, const void* src, int 
       c -= per_row;
       if (++r >= rows) break;
     }
-    cp_async16(static_cast<char*>(dst) + (r >> 3) * (K * 16) + c * 128 + (r & 7) * 16,
+    cp_async16(static_cast<char*>(dst) + (r >> 3) * (width * 16) + c * 128 + (r & 7) * 16,
                static_cast<const char*>(src) + static_cast<size_t>(r) * K * 2 + c * 16);
   }
+}
+
+// Whole rows (width = K).
+template <int NT>
+__device__ __forceinline__ void copy_core_async(void* dst, const void* src, int rows, int K) {
+  copy_core_async<NT>(dst, src, rows, K, K);
 }
 
 // The S range of this block's chunk (gridDim.z chunks of `chunk` columns;
@@ -898,121 +913,587 @@ __global__ void __launch_bounds__(F8_NT, 1)
 
 // ------------------------------------------------------ K1 past K = 256
 // The tiled K1 kernels above hold a row block's Q and an S tile of Be at the full K
-// in shared memory, which stops fitting past K = kTiledMaxK (256).  gram_wide_kernel
-// takes any K (a multiple of 64) by walking K in chunks: a block owns 64 rows and a
-// chunk of up to 256 output columns (gridDim.y chunks of col_chunk columns, the last
-// narrower), and for each 64-wide S tile accumulates its [64 x 64] scores over the
-// whole K, 32 at a time from Q and Be chunks staged as f32, then masks and rounds
-// them as the tiled kernels do and adds their product with the tile's Be columns of
-// its chunk.  Each column chunk recomputes the scores.  A simple kernel, correct at
-// any K: true f32 FMA for both operand types (bf16 x bf16 products are exact in
-// f32), 256 threads as 16 x 16, thread (ty, tx) owning rows ty + 16i (i < 4), in
-// the scores S columns tx + 16j (j < 4), in the output columns 4tx + 64q + e of the
-// chunk (q, e < 4).
+// in shared memory and own 64 output columns a block, which stops fitting past K =
+// kTiledMaxK (256).  Past it K1 runs a wide configuration: a block owns a row block
+// and a chunk of output columns as wide as its registers hold (wide_col_chunk: the
+// fewest even chunks of at most the configuration's tiles of 64; K = 320 in one
+// chunk, so the scores are computed once), and walks its S range tile by tile.  No
+// register array grows with K, and a shared buffer does so only in the
+// configuration that holds Q whole, which the geometry query takes only where it
+// fits: every K that is a multiple of 64 runs.
+//
+// bf16 operands, both products on wgmma, 128-row blocks of two warpgroups, 64-wide
+// S tiles.  T[64, 64] = Q Be^T by wgmma_ss (Q and Be as core matrices, K-major),
+// T masked and rounded to bf16 in registers as gram_bf16_wgmma_kernel does and
+// re-packed as the register A operand of out[64, 64q ..] += P Be[S tile, c0 + 64q
+// ..] by wgmma_rs (Be read MN-major).  The rounding of T*W to bf16 flips with the
+// last bits of T, and the tensor cores sum T in another order than the in-order
+// f32 sum (the plain twin's): at the flagship's A side such flips alone put the
+// result 5.7e-4 (K = 320) to 1.4e-3 (K = 1024) of max|twin| away from the twin.  So
+// where the value to round lies within NEAR_ULPS f32 ulps of a bf16 rounding
+// midpoint (near_bf16_midpoint; ~0.4% of the entries of nonzero W), T is summed
+// again in order by FMA from Q's and Be's rows (dot_in_order) and the rounding
+// follows that sum.
+//  - gram_bf16_whole_kernel (configuration 5, where it fits: K = 320 and 384 but
+//    for K = 384 on f32 weights): Q held whole, the whole-K Be tile and W tile in a
+//    two-stage cp.async ring; T's K/16 wgmma steps in one chain, issued while the
+//    last tile's output product runs; up to WH_TILES = 5 output tiles (160
+//    accumulator registers a thread); the rows of the in-order sum read from
+//    shared memory.
+//  - gram_bf16_wide_kernel (configuration 6): the scores' K in WD_KC-wide chunks
+//    that stream with the chunks of Q through a four-stage cp.async ring; each
+//    chunk's T in fresh accumulators, added in f32 in chunk order (one accumulator
+//    over K = 1024 drifts far enough from the in-order sum to flip roundings
+//    outside NEAR_ULPS); the S tile's W and its Be columns of the block's chunk
+//    (Bo) by a double buffer that the tile's first K chunk loads; up to WB_TILES =
+//    4 output tiles beside T's two sets of accumulators; the rows of the in-order
+//    sum read from device memory.
+// Bound by their tensor-core work (4RSK operations: 0.97 ms at the flagship's A
+// side at K = 320 against 0.27 ms for its 0.89 GB of W, operands and output).
+//
+// gram_f32_wide_kernel (f32 operands, true f32 FMA): 64-row blocks of 256 threads,
+// 32-wide S tiles; Q and the whole-K Be tile held where they fit (configuration 7:
+// K = 320, and 384 but on f32 weights), else the K chunks of Q and Be streamed as
+// in gram_bf16_wide_kernel, two stages deep (8).  The score product splits
+// each K chunk into quarters, one
+// to each 64 threads: thread (rg, sg) sums an 8 x 4 tile, rows rg + 8i and S
+// columns sg + 8j, over its quarter (12 16-byte shared loads for 128 FMAs); the
+// quarters' sums are added in a fixed order through shared memory, masked and
+// stored transposed (P[s][r]).  The output product gives thread (ty, tx) rows
+// 8ty..8ty+7 and columns 4tx + 128m (and 2tx past the last full 128), fed by two
+// 16-byte loads of P that every lane of a warp shares and one load of Bo for each
+// 128 columns: 80 FMAs for five loads at 320 columns; at most WF_TILES = 8 tiles of
+// 64 columns (128 accumulator registers).  Bound by f32 FMA (4RSK operations, 14.3
+// ms at the flagship's A side at K = 320).
 constexpr int kTiledMaxK = 256;
-constexpr int WD_NT = 256;
-constexpr int WD_BM = 64;          // rows a block
-constexpr int WD_BS = 64;          // S tile
-constexpr int WD_BK = 32;          // K chunk of the scores
-constexpr int WD_MAXC = 256;       // output columns a block
-constexpr int WD_LDK = WD_BK + 4;  // 9 16-byte units a row: 8 rows' float4s on 8 bank groups
-constexpr int WD_LDP = WD_BS + 4;
+constexpr int WD_KC = 64;     // K chunk of the streamed configurations
+constexpr int WB_BSS = 64;    // bf16: S tile
+constexpr int WH_TILES = 5;   // bf16, Q held whole: output tiles of 64 columns a block at most
+constexpr int WB_TILES = 4;   // bf16, Q streamed: the same
+constexpr int WF_NT = 256;    // f32: threads a block
+constexpr int WF_BM = 64;     // f32: rows a block
+constexpr int WF_BSS = 32;    // f32: S tile
+constexpr int WF_TILES = 8;   // f32: output tiles of 64 columns a block at most
+constexpr int WF_LDK = WD_KC + 4;  // f32 ring rows: 17 16-byte units, 8 rows on 8 bank groups
+constexpr int WF_LDP = WF_BM + 4;  // Pt rows
 
-template <typename TO, typename WT>
-size_t gram_wide_smem(int) {
-  return static_cast<size_t>(2 * WD_BM * WD_LDK + WD_BM * WD_LDP + WD_BS * WD_MAXC) * 4;
+// The wide K1's output columns a block: the fewest chunks of at most `most`
+// tiles of 64 columns, as even as whole tiles allow (K = 320: one chunk at 5 or
+// 8 tiles; K = 1024: four of 256 at 4, two of 512 at 8).
+int wide_col_chunk(int K, int most) {
+  const int tiles = K / BN;
+  const int chunks = (tiles + most - 1) / most;
+  return (tiles + chunks - 1) / chunks * BN;
 }
 
-__device__ __forceinline__ float load_f32(const float* p) { return *p; }
-__device__ __forceinline__ float load_f32(const bf16_t* p) { return __bfloat162float(*p); }
+// The column chunks of a wide configuration's row block: blockIdx.x runs over
+// them fastest, so the blocks of one row block run side by side and read its Q
+// and W rows once from device memory.
+__host__ __device__ __forceinline__ int wide_col_blocks(int K, int col_chunk) {
+  return (K + col_chunk - 1) / col_chunk;
+}
 
-template <typename TO, typename WT>
-__global__ void __launch_bounds__(WD_NT, 1)
-    gram_wide_kernel(const TO* __restrict__ Q, const TO* __restrict__ Be,
-                     const WT* __restrict__ W, float* __restrict__ part, int R, int S, int K,
-                     int chunk, int col_chunk) {
-  constexpr bool kBf16 = std::is_same<TO, bf16_t>::value;
+// d += a, fragment by fragment (f32, round to nearest).
+__device__ __forceinline__ void add_acc(float (&d)[8][4], const float (&a)[8][4]) {
+#pragma unroll
+  for (int j = 0; j < 8; ++j)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) d[j][i] += a[j][i];
+}
+
+// f32 ulps around a bf16 rounding midpoint within which the bf16 wide kernels
+// decide the rounding from the in-order sum: ~2^-16 of the value, ~0.4% of the
+// entries.  The in-order sum lies some sqrt(K) / 2 ulps from the exact one and
+// the tensor cores' T a few more, well inside the window; a flip the window
+// missed would show against the twin as 1e-4 to 1e-3 of max|twin| at the
+// flagship's shapes, where the kernels read ~1e-5 and less.
+constexpr int NEAR_ULPS = 128;
+
+// Whether rounding x to bf16 (to nearest) could go the other way for an x up to
+// NEAR_ULPS f32 ulps off: its low 16 bits lie near the midpoint 0x8000.
+__device__ __forceinline__ bool near_bf16_midpoint(float x) {
+  const int low = static_cast<int>(__float_as_uint(x) & 0xffffu);
+  return abs(low - 0x8000) < NEAR_ULPS;
+}
+
+// The value of T that mask<WT, kFull> rounds to bf16 first: T itself against a
+// bf16 W (T is rounded before the multiply), else T * w.
+template <typename WT>
+__device__ __forceinline__ float first_rounded(float t, WT w) {
+  if constexpr (std::is_same<WT, bf16_t>::value) return t;
+  else return t * to_f32(w);
+}
+
+// sum over k in order of q[k] b[k] in f32 (fmaf from 0): the order of the plain
+// twin's f32 product.  q and b are bf16 rows of K whose 8-entry pieces lie STEP
+// bytes apart: 16 in a row-major array, 128 in core matrices.
+template <int STEP>
+__device__ __forceinline__ float dot_in_order(const unsigned char* q, const unsigned char* b,
+                                              int K) {
+  float acc = 0.f;
+#pragma unroll 4
+  for (int c = 0; c < K / 8; ++c) {
+    const uint4 qv = *reinterpret_cast<const uint4*>(q + c * STEP);
+    const uint4 bv = *reinterpret_cast<const uint4*>(b + c * STEP);
+    const uint32_t qs[4] = {qv.x, qv.y, qv.z, qv.w}, bs[4] = {bv.x, bv.y, bv.z, bv.w};
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      acc = fmaf(__uint_as_float(qs[e] << 16), __uint_as_float(bs[e] << 16), acc);
+      acc = fmaf(__uint_as_float(qs[e] & 0xffff0000u), __uint_as_float(bs[e] & 0xffff0000u), acc);
+    }
+  }
+  return acc;
+}
+
+// P = T * W of a warp's 16 rows and the S tile's 64 columns, packed as wgmma_rs's A
+// fragments (mask<WT, kFull>, the first rounding decided as the in-order sum
+// decides it).  t: T's accumulator fragments (rows wr + g, + 8; columns 8j + 2t,
+// + 1); Ws: the tile's W rows by swz<RB>; qrow(r), brow(s): the bf16 rows of Q (the
+// block's row r) and Be (the tile's row s) whose 8-entry pieces lie STEP bytes
+// apart, for dot_in_order.
+template <typename WT, int RB, int STEP, typename QRow, typename BRow>
+__device__ __forceinline__ void mask_pack(uint32_t (&p)[8][2], float (&t)[8][4],
+                                          const unsigned char* Ws, int wr, int g, int tq, int K,
+                                          QRow qrow, BRow brow) {
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+    WT w[4];
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int r = wr + g + (e >> 1) * 8, s = j * 8 + 2 * tq + (e & 1);
+      w[e] = *reinterpret_cast<const WT*>(Ws + swz<RB>(r, s * static_cast<int>(sizeof(WT))));
+      if (to_f32(w[e]) != 0.f && near_bf16_midpoint(first_rounded(t[j][e], w[e])))
+        t[j][e] = dot_in_order<STEP>(qrow(r), brow(s), K);
+    }
+    p[j][0] = pack_bf16(mask<WT, Body::kFull>(t[j][0], w[0]), mask<WT, Body::kFull>(t[j][1], w[1]));
+    p[j][1] = pack_bf16(mask<WT, Body::kFull>(t[j][2], w[2]), mask<WT, Body::kFull>(t[j][3], w[3]));
+  }
+}
+
+template <typename WT>
+size_t gram_bf16_whole_smem(int K) {
+  return static_cast<size_t>(RING_BM) * K * 2 +
+         2 * (static_cast<size_t>(WB_BSS) * K * 2 +
+              static_cast<size_t>(RING_BM) * WB_BSS * sizeof(WT));
+}
+
+template <typename WT>
+__global__ void __launch_bounds__(RING_NT, 1)
+    gram_bf16_whole_kernel(const uint16_t* __restrict__ Q, const uint16_t* __restrict__ Be,
+                           const WT* __restrict__ W, float* __restrict__ part, int R, int S,
+                           int K, int chunk, int col_chunk) {
+  constexpr int STG = 2;
+  constexpr int RB = WB_BSS * sizeof(WT);  // bytes of a W tile row
   extern __shared__ __align__(16) unsigned char smem[];
-  float* Qs = reinterpret_cast<float*>(smem);  // [64][WD_LDK]
-  float* Bs = Qs + WD_BM * WD_LDK;             // [64][WD_LDK]
-  float* Ps = Bs + WD_BS * WD_LDK;             // [64][WD_LDP]
-  float* Bo = Ps + WD_BM * WD_LDP;             // [64][WD_MAXC]
-  const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
-  const size_t row0 = static_cast<size_t>(blockIdx.x) * WD_BM;
-  const int c0 = blockIdx.y * col_chunk;
-  const int kc = min(col_chunk, K - c0);
-  const Chunk ch(part, R, S, K, chunk);
+  const int core_row = K * 16;  // bytes from one 8-row group of core matrices to the next
+  unsigned char* Qs = smem;                                // [128, K]
+  unsigned char* Bring = Qs + RING_BM * K * 2;             // STG x [64, K]
+  unsigned char* Wring = Bring + STG * WB_BSS * K * 2;     // STG x [128, 64] W, swz
 
-  float acc[4][16] = {};
-  for (int s0 = ch.s_begin; s0 < ch.s_end; s0 += WD_BS) {
-    // T[64, 64] = Q Be_tile^T over the whole K, k in order
-    float t[4][4] = {};
-    for (int k0 = 0; k0 < K; k0 += WD_BK) {
-      __syncthreads();  // the last chunk's (and tile's) reads are done
-      for (int e = threadIdx.x; e < WD_BM * WD_BK; e += WD_NT) {
-        const int r = e / WD_BK, k = e - r * WD_BK;
-        Qs[r * WD_LDK + k] = load_f32(Q + (row0 + r) * K + k0 + k);
-        Bs[r * WD_LDK + k] = load_f32(Be + static_cast<size_t>(s0 + r) * K + k0 + k);
-      }
+  const int lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int wr = (threadIdx.x >> 5) * 16;
+  const int wgr = (threadIdx.x >> 7) * 64;
+  const size_t row0 = static_cast<size_t>(blockIdx.x / wide_col_blocks(K, col_chunk)) * RING_BM;
+  const int rows = min(RING_BM, R - static_cast<int>(row0));
+  const int c0 = blockIdx.x % wide_col_blocks(K, col_chunk) * col_chunk;
+  const int nct = min(col_chunk, K - c0) / BN;
+  const Chunk ch(part, R, S, K, chunk);
+  const int ntiles = (ch.s_end - ch.s_begin) / WB_BSS;  // chunk and S are multiples of 64
+
+  auto load = [&](int tile) {
+    const int s0 = ch.s_begin + tile * WB_BSS;
+    copy_core_async<RING_NT>(Bring + (tile % STG) * WB_BSS * K * 2,
+                             Be + static_cast<size_t>(s0) * K, WB_BSS, K);
+    copy_swz_async<RING_NT, RB>(Wring + (tile % STG) * RING_BM * RB, W + row0 * S + s0,
+                                static_cast<size_t>(S) * sizeof(WT), rows, RB);
+  };
+  copy_core_async<RING_NT>(Qs, Q + row0 * K, rows, K);
+  if (ntiles > 0) load(0);
+  cp_async_commit();
+
+  const bool active = wgr < rows;
+  float acc_o[WH_TILES][8][4] = {};
+  for (int it = 0; it < ntiles; ++it) {
+    cp_async_wait<0>();
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");  // visible to wgmma
+    __syncthreads();  // tile it landed
+    const unsigned char* Bs = Bring + (it % STG) * WB_BSS * K * 2;
+    const unsigned char* Ws = Wring + (it % STG) * RING_BM * RB;
+    // T[64, 64] = Q[64, K] Be[S tile]^T, while tile it-1's output product runs
+    float acc_t[8][4] = {};
+    if (active) {
+      wgmma_fence();
+      for (int kk = 0; kk < K / 16; ++kk)
+        wgmma_ss(acc_t, gmma_desc(Qs + (wgr >> 3) * core_row + kk * 256, 128, core_row),
+                 gmma_desc(Bs + kk * 256, 128, core_row), kk);
+      asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+      asm volatile("wgmma.wait_group.sync.aligned 1;\n" ::: "memory");  // tile it-1 is read
+#pragma unroll
+      for (int q = 0; q < WH_TILES; ++q) fence_acc(acc_o[q]);
+    }
+    __syncthreads();  // both warpgroups are done with tile it-1's stage
+    if (it + 1 < ntiles) load(it + 1);
+    cp_async_commit();
+    if (!active) continue;
+    asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+    fence_acc(acc_t);
+    uint32_t p[8][2];
+    mask_pack<WT, RB, 128>(
+        p, acc_t, Ws, wr, g, t, K,
+        [&](int r) { return Qs + (r >> 3) * core_row + (r & 7) * 16; },
+        [&](int s) { return Bs + (s >> 3) * core_row + (s & 7) * 16; });
+    // out[64, c0 + 64q ..] += P[64, 64] Be[S tile, c0 + 64q ..], in flight until the next tile
+    wgmma_fence();
+#pragma unroll
+    for (int q = 0; q < WH_TILES; ++q) {
+      if (q >= nct) break;
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+        wgmma_rs(acc_o[q], p[2 * kk][0], p[2 * kk][1], p[2 * kk + 1][0], p[2 * kk + 1][1],
+                 gmma_desc(Bs + 2 * kk * core_row + ((c0 >> 3) + 8 * q) * 128, core_row, 128));
+    }
+    asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+  }
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+#pragma unroll
+  for (int q = 0; q < WH_TILES; ++q) fence_acc(acc_o[q]);
+  cp_async_wait<0>();
+  if (wr >= rows) return;
+#pragma unroll
+  for (int q = 0; q < WH_TILES; ++q) {
+    if (q >= nct) break;
+    store_out_bf16(ch.out, acc_o[q], row0 + wr + g, K, c0 + q * BN, t);
+  }
+}
+
+template <typename WT, int STG>
+size_t gram_bf16_wide_smem(int K) {
+  const size_t nc = wide_col_chunk(K, WB_TILES);
+  return static_cast<size_t>(STG) * (RING_BM * WD_KC * 2 + WB_BSS * WD_KC * 2) +
+         2 * (WB_BSS * nc * 2 + static_cast<size_t>(RING_BM) * WB_BSS * sizeof(WT));
+}
+
+template <typename WT, int STG>
+__global__ void __launch_bounds__(RING_NT, 1)
+    gram_bf16_wide_kernel(const uint16_t* __restrict__ Q, const uint16_t* __restrict__ Be,
+                          const WT* __restrict__ W, float* __restrict__ part, int R, int S,
+                          int K, int chunk, int col_chunk) {
+  static_assert(STG >= 2, "a ring of at least two stages");
+  constexpr int RB = WB_BSS * sizeof(WT);      // bytes of a W tile row
+  constexpr int QC = RING_BM * WD_KC * 2;      // bytes of a stage's Q chunk
+  constexpr int STAGE = QC + WB_BSS * WD_KC * 2;
+  constexpr int CORE = WD_KC * 16;  // from one 8-row group of a chunk's core matrices to the next
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int core_o = col_chunk * 16;  // the same in Bo
+  const int bo_bytes = WB_BSS * col_chunk * 2;
+  unsigned char* ring = smem;                // STG x {Q chunk [128, 64], Be chunk [64, 64]}
+  unsigned char* Bo = ring + STG * STAGE;    // 2 x [64, col_chunk]
+  unsigned char* Wt = Bo + 2 * bo_bytes;     // 2 x [128, 64] W, swz
+
+  const int lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int wr = (threadIdx.x >> 5) * 16;
+  const int wgr = (threadIdx.x >> 7) * 64;
+  const size_t row0 = static_cast<size_t>(blockIdx.x / wide_col_blocks(K, col_chunk)) * RING_BM;
+  const int rows = min(RING_BM, R - static_cast<int>(row0));
+  const int c0 = blockIdx.x % wide_col_blocks(K, col_chunk) * col_chunk;
+  const int nct = min(col_chunk, K - c0) / BN;
+  const Chunk ch(part, R, S, K, chunk);
+  const int nkc = K / WD_KC;  // > STG (K > 256): a W / Bo buffer is free before it reloads
+  const int ntiles = (ch.s_end - ch.s_begin) / WB_BSS;  // chunk and S are multiples of 64
+  const int steps = ntiles * nkc;
+
+  // step u: K chunk kc of S tile it (and, first in the tile, its W and Bo)
+  auto load = [&](int u) {
+    const int it = u / nkc, kc = u - it * nkc;
+    const int s0 = ch.s_begin + it * WB_BSS;
+    unsigned char* st = ring + (u % STG) * STAGE;
+    copy_core_async<RING_NT>(st, Q + row0 * K + kc * WD_KC, rows, K, WD_KC);
+    copy_core_async<RING_NT>(st + QC, Be + static_cast<size_t>(s0) * K + kc * WD_KC, WB_BSS, K,
+                             WD_KC);
+    if (kc == 0) {
+      copy_core_async<RING_NT>(Bo + (it & 1) * bo_bytes, Be + static_cast<size_t>(s0) * K + c0,
+                               WB_BSS, K, col_chunk);
+      copy_swz_async<RING_NT, RB>(Wt + (it & 1) * RING_BM * RB, W + row0 * S + s0,
+                                  static_cast<size_t>(S) * sizeof(WT), rows, RB);
+    }
+  };
+#pragma unroll
+  for (int st = 0; st < STG - 1; ++st) {
+    if (st < steps) load(st);
+    cp_async_commit();
+  }
+
+  const bool active = wgr < rows;
+  float acc_o[WB_TILES][8][4] = {};
+  float acc_t[8][4] = {};  // one K chunk's T, on the tensor cores
+  int u = 0;
+  for (int it = 0; it < ntiles; ++it) {
+    float tsum[8][4] = {};  // T: the chunks' sums added in f32, in chunk order
+    for (int kc = 0; kc < nkc; ++kc, ++u) {
+      cp_async_wait<STG - 2>();
+      asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");  // visible to wgmma
+      asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");  // step u-1 is read
+      fence_acc(acc_t);
+#pragma unroll
+      for (int q = 0; q < WB_TILES; ++q) fence_acc(acc_o[q]);
       __syncthreads();
+      if (u + STG - 1 < steps) load(u + STG - 1);
+      cp_async_commit();
+      if (!active) continue;
+      if (kc > 0) add_acc(tsum, acc_t);
+      // T_kc[64, 64] = Q[64, chunk kc] Be[S tile, chunk kc]^T, in flight until the next step
+      const unsigned char* st = ring + (u % STG) * STAGE;
+      wgmma_fence();
 #pragma unroll
-      for (int k = 0; k < WD_BK; k += 4) {
-        float4 a[4], b[4];
+      for (int kk = 0; kk < WD_KC / 16; ++kk)
+        wgmma_ss(acc_t, gmma_desc(st + (wgr >> 3) * CORE + kk * 256, 128, CORE),
+                 gmma_desc(st + QC + kk * 256, 128, CORE), kk);
+      asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+    }
+    if (!active) continue;
+    asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+    fence_acc(acc_t);
+    add_acc(tsum, acc_t);
+    const int s0 = ch.s_begin + it * WB_BSS;
+    uint32_t p[8][2];
+    mask_pack<WT, RB, 16>(
+        p, tsum, Wt + (it & 1) * RING_BM * RB, wr, g, t, K,
+        [&](int r) { return reinterpret_cast<const unsigned char*>(Q + (row0 + r) * K); },
+        [&](int s) {
+          return reinterpret_cast<const unsigned char*>(Be + static_cast<size_t>(s0 + s) * K);
+        });
+    // out[64, c0 + 64q ..] += P[64, 64] Bo[64, 64q ..], in flight until the next step
+    const unsigned char* bo = Bo + (it & 1) * bo_bytes;
+    wgmma_fence();
 #pragma unroll
-        for (int i = 0; i < 4; ++i)
-          a[i] = *reinterpret_cast<const float4*>(Qs + (ty + 16 * i) * WD_LDK + k);
+    for (int q = 0; q < WB_TILES; ++q) {
+      if (q >= nct) break;
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+        wgmma_rs(acc_o[q], p[2 * kk][0], p[2 * kk][1], p[2 * kk + 1][0], p[2 * kk + 1][1],
+                 gmma_desc(bo + 2 * kk * core_o + q * 1024, core_o, 128));
+    }
+    asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+  }
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+#pragma unroll
+  for (int q = 0; q < WB_TILES; ++q) fence_acc(acc_o[q]);
+  cp_async_wait<0>();
+  if (wr >= rows) return;
+#pragma unroll
+  for (int q = 0; q < WB_TILES; ++q) {
+    if (q >= nct) break;
+    store_out_bf16(ch.out, acc_o[q], row0 + wr + g, K, c0 + q * BN, t);
+  }
+}
+
+// WHOLE: Q held whole ([64][K + 4]) and the whole-K Be tile in a two-stage ring
+// ([32][K + 4]), which the output product reads too; else the K chunks streamed in
+// a two-stage ring and the tile's Be columns of the block's chunk (Bo) by a
+// double buffer.
+constexpr int WF_STG = 2;
+
+template <typename WT, bool WHOLE>
+size_t gram_f32_wide_smem(int K) {
+  const size_t nc = wide_col_chunk(K, WF_TILES);
+  const size_t rest = 2 * static_cast<size_t>(WF_BM) * (WF_BSS + WPad<WT>::v) * sizeof(WT) +
+                      2 * static_cast<size_t>(WF_BSS) * WF_LDP * 4;
+  if (WHOLE) return static_cast<size_t>(WF_BM + 2 * WF_BSS) * (K + 4) * 4 + rest;
+  return static_cast<size_t>(WF_STG) * (WF_BM + WF_BSS) * WF_LDK * 4 + 2 * WF_BSS * nc * 4 +
+         rest;
+}
+
+template <typename WT, bool WHOLE>
+__global__ void __launch_bounds__(WF_NT, 1)
+    gram_f32_wide_kernel(const float* __restrict__ Q, const float* __restrict__ Be,
+                         const WT* __restrict__ W, float* __restrict__ part, int R, int S, int K,
+                         int chunk, int col_chunk) {
+  constexpr int STG = WF_STG;
+  constexpr int ldw = WF_BSS + WPad<WT>::v;
+  constexpr int TB = WF_BSS * WF_LDP;  // floats of a [32][LDP] T buffer
+  extern __shared__ __align__(16) unsigned char smem[];
+  // rows of the Q and Be tiles the score product reads: a chunk's, or the whole K's
+  const int ldk = WHOLE ? K + 4 : WF_LDK;
+  const int stage = WHOLE ? WF_BSS * ldk : (WF_BM + WF_BSS) * WF_LDK;  // floats
+  const int bo_n = WHOLE ? 0 : WF_BSS * col_chunk;
+  float* Qw = reinterpret_cast<float*>(smem);  // WHOLE: [64][K + 4]
+  float* ring = Qw + (WHOLE ? WF_BM * ldk : 0);
+  float* Bo = ring + (WHOLE ? 2 : STG) * stage;  // 2 x [32][col_chunk] (not WHOLE)
+  float* Tb = Bo + 2 * bo_n;  // 2 x [32][LDP]: two quarters' T, transposed; P in the first
+  WT* Wt = reinterpret_cast<WT*>(Tb + 2 * TB);  // 2 x [64][ldw]
+
+  // score product: quarter kq of every K chunk, rows rg + 8i, S columns sg + 8j
+  const int kq = threadIdx.x >> 6;
+  const int rg = (threadIdx.x & 63) >> 3, sg = threadIdx.x & 7;
+  // T * W: S column ps, rows pr..pr+7; output: rows 8ty.., columns 4tx + 128m (+ 2tx)
+  const int ps = threadIdx.x >> 3, pr = (threadIdx.x & 7) * 8;
+  const int ty = threadIdx.x >> 5, tx = threadIdx.x & 31;
+  const int rb = blockIdx.x / wide_col_blocks(K, col_chunk);
+  const size_t row0 = static_cast<size_t>(rb) * WF_BM;
+  const int c0 = blockIdx.x % wide_col_blocks(K, col_chunk) * col_chunk;
+  const int nc = min(col_chunk, K - c0);
+  const int nm = nc / 128, tail = nc % 128;  // full 128-column groups, and 64 more or none
+  const Chunk ch(part, R, S, K, chunk);
+  const int nkc = K / WD_KC;  // > STG (K > 256): a W / Bo buffer is free before it reloads
+  const int ntiles = (ch.s_end - ch.s_begin) / WF_BSS;
+  // steps of the ring: a K chunk of an S tile, or (WHOLE) an S tile
+  const int per_tile = WHOLE ? 1 : nkc;
+  const int steps = ntiles * per_tile;
+
+  auto load = [&](int u) {
+    const int it = u / per_tile, kc = u - it * per_tile;
+    const int s0 = ch.s_begin + it * WF_BSS;
+    if (WHOLE) {
+      copy_tile_async<WF_NT>(ring + (it & 1) * stage, ldk * 4, Be + static_cast<size_t>(s0) * K,
+                             static_cast<size_t>(K) * 4, WF_BSS, K * 4);
+    } else {
+      float* st = ring + (u % STG) * stage;
+      copy_tile_async<WF_NT>(st, WF_LDK * 4, Q + row0 * K + kc * WD_KC,
+                             static_cast<size_t>(K) * 4, WF_BM, WD_KC * 4);
+      copy_tile_async<WF_NT>(st + WF_BM * WF_LDK, WF_LDK * 4,
+                             Be + static_cast<size_t>(s0) * K + kc * WD_KC,
+                             static_cast<size_t>(K) * 4, WF_BSS, WD_KC * 4);
+      if (kc == 0)
+        copy_tile_async<WF_NT>(Bo + (it & 1) * bo_n, col_chunk * 4,
+                               Be + static_cast<size_t>(s0) * K + c0,
+                               static_cast<size_t>(K) * 4, WF_BSS, col_chunk * 4);
+    }
+    if (kc == 0)
+      copy_tile_async<WF_NT>(Wt + (it & 1) * WF_BM * ldw, ldw * sizeof(WT), W + row0 * S + s0,
+                             static_cast<size_t>(S) * sizeof(WT), WF_BM, WF_BSS * sizeof(WT));
+  };
+  if (WHOLE)
+    copy_tile_async<WF_NT>(Qw, ldk * 4, Q + row0 * K, static_cast<size_t>(K) * 4, WF_BM, K * 4);
+  constexpr int AHEAD = WHOLE ? 1 : STG - 1;  // steps loaded ahead
+#pragma unroll
+  for (int st = 0; st < AHEAD; ++st) {
+    if (st < steps) load(st);
+    cp_async_commit();
+  }
+
+  // out[8ty + i][c0 + 128m + 4tx + e] at acc[i][4m + e]; the 64-column tail at m = nm, e < 2
+  float acc[8][4 * (WF_TILES / 2)] = {};
+  int u = 0;
+  for (int it = 0; it < ntiles; ++it) {
+    // this quarter's T[rg + 8i][sg + 8j], k in order within the quarter
+    float t[8][4] = {};
+    for (int kc = 0; kc < nkc; ++kc) {
+      const float *Qc, *Bc;
+      if (WHOLE) {
+        if (kc == 0) {
+          cp_async_wait<0>();
+          __syncthreads();  // tile it landed; tile it-1 (and its P) is consumed
+          if (u + 1 < steps) load(u + 1);
+          cp_async_commit();
+          ++u;
+        }
+        Qc = Qw + kc * WD_KC;
+        Bc = ring + (it & 1) * stage + kc * WD_KC;
+      } else {
+        cp_async_wait<STG - 2>();
+        __syncthreads();  // step u landed; step u-1 (and tile it-1's P) is consumed
+        if (u + STG - 1 < steps) load(u + STG - 1);
+        cp_async_commit();
+        Qc = ring + (u % STG) * stage;
+        Bc = Qc + WF_BM * WF_LDK;
+        ++u;
+      }
+#pragma unroll
+      for (int k = kq * (WD_KC / 4); k < (kq + 1) * (WD_KC / 4); k += 4) {
+        float4 b[4];
 #pragma unroll
         for (int j = 0; j < 4; ++j)
-          b[j] = *reinterpret_cast<const float4*>(Bs + (tx + 16 * j) * WD_LDK + k);
+          b[j] = *reinterpret_cast<const float4*>(Bc + (sg + 8 * j) * ldk + k);
 #pragma unroll
-        for (int i = 0; i < 4; ++i)
+        for (int i = 0; i < 8; ++i) {
+          const float4 a = *reinterpret_cast<const float4*>(Qc + (rg + 8 * i) * ldk + k);
 #pragma unroll
-          for (int j = 0; j < 4; ++j) fma4(t[i][j], a[i], b[j]);
+          for (int j = 0; j < 4; ++j) fma4(t[i][j], a, b[j]);
+        }
       }
     }
-    // P = T * W as the tiled kernels form it; the tile's Be columns of the chunk
+    // T = (quarter 0 + quarter 2) + (quarter 1 + quarter 3), through Tb (transposed)
+    if (kq >= 2) {
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
+      for (int i = 0; i < 8; ++i)
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int r = ty + 16 * i, sc = tx + 16 * j;
-        const WT w = W[(row0 + r) * S + s0 + sc];
-        Ps[r * WD_LDP + sc] = kBf16 ? round_bf16(mask<WT, Body::kFull>(t[i][j], w))
-                                    : t[i][j] * to_f32(w);
-      }
-    for (int e = threadIdx.x; e < WD_BS * kc; e += WD_NT) {
-      const int sr = e / kc, c = e - sr * kc;
-      Bo[sr * WD_MAXC + c] = load_f32(Be + static_cast<size_t>(s0 + sr) * K + c0 + c);
+        for (int j = 0; j < 4; ++j) Tb[(kq - 2) * TB + (sg + 8 * j) * WF_LDP + rg + 8 * i] = t[i][j];
     }
     __syncthreads();
-    // out[64, chunk] += P Bo, s in order
-#pragma unroll 4
-    for (int sc = 0; sc < WD_BS; ++sc) {
-      float p[4];
+    if (kq < 2) {
 #pragma unroll
-      for (int i = 0; i < 4; ++i) p[i] = Ps[(ty + 16 * i) * WD_LDP + sc];
+      for (int i = 0; i < 8; ++i)
 #pragma unroll
-      for (int q = 0; q < 4; ++q) {
-        if (4 * tx + 64 * q >= kc) break;
-        const float4 b = *reinterpret_cast<const float4*>(Bo + sc * WD_MAXC + 4 * tx + 64 * q);
+        for (int j = 0; j < 4; ++j) {
+          float* pp = Tb + kq * TB + (sg + 8 * j) * WF_LDP + rg + 8 * i;
+          *pp = t[i][j] + *pp;
+        }
+    }
+    __syncthreads();
+    // P = T * W into the first buffer, each thread its own eight entries
+    {
+      const WT* Ws = Wt + (it & 1) * WF_BM * ldw;
+      float* p0 = Tb + ps * WF_LDP + pr;
+      const float* p1 = Tb + TB + ps * WF_LDP + pr;
+      const float4 a0 = *reinterpret_cast<const float4*>(p0);
+      const float4 a1 = *reinterpret_cast<const float4*>(p0 + 4);
+      const float4 b0 = *reinterpret_cast<const float4*>(p1);
+      const float4 b1 = *reinterpret_cast<const float4*>(p1 + 4);
+      const float tv[8] = {a0.x + b0.x, a0.y + b0.y, a0.z + b0.z, a0.w + b0.w,
+                           a1.x + b1.x, a1.y + b1.y, a1.z + b1.z, a1.w + b1.w};
+      float pv[8];
 #pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          acc[i][4 * q] = fmaf(p[i], b.x, acc[i][4 * q]);
-          acc[i][4 * q + 1] = fmaf(p[i], b.y, acc[i][4 * q + 1]);
-          acc[i][4 * q + 2] = fmaf(p[i], b.z, acc[i][4 * q + 2]);
-          acc[i][4 * q + 3] = fmaf(p[i], b.w, acc[i][4 * q + 3]);
+      for (int e = 0; e < 8; ++e) pv[e] = tv[e] * to_f32(Ws[(pr + e) * ldw + ps]);
+      *reinterpret_cast<float4*>(p0) = make_float4(pv[0], pv[1], pv[2], pv[3]);
+      *reinterpret_cast<float4*>(p0 + 4) = make_float4(pv[4], pv[5], pv[6], pv[7]);
+    }
+    __syncthreads();
+    // out[8ty + i][.] += sum over s in order of P[.][s] Bo[s][.] (WHOLE: the Be tile's columns)
+    const float* B = WHOLE ? ring + (it & 1) * stage + c0 : Bo + (it & 1) * bo_n;
+    const int ldb = WHOLE ? ldk : col_chunk;
+#pragma unroll 2
+    for (int s = 0; s < WF_BSS; ++s) {
+      const float4 a0 = *reinterpret_cast<const float4*>(Tb + s * WF_LDP + 8 * ty);
+      const float4 a1 = *reinterpret_cast<const float4*>(Tb + s * WF_LDP + 8 * ty + 4);
+      const float av[8] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
+#pragma unroll
+      for (int m = 0; m < WF_TILES / 2; ++m) {
+        if (m < nm) {
+          const float4 b = *reinterpret_cast<const float4*>(B + s * ldb + 128 * m + 4 * tx);
+#pragma unroll
+          for (int i = 0; i < 8; ++i) {
+            acc[i][4 * m] = fmaf(av[i], b.x, acc[i][4 * m]);
+            acc[i][4 * m + 1] = fmaf(av[i], b.y, acc[i][4 * m + 1]);
+            acc[i][4 * m + 2] = fmaf(av[i], b.z, acc[i][4 * m + 2]);
+            acc[i][4 * m + 3] = fmaf(av[i], b.w, acc[i][4 * m + 3]);
+          }
+        } else if (m == nm && tail) {
+          const float2 b = *reinterpret_cast<const float2*>(B + s * ldb + 128 * m + 2 * tx);
+#pragma unroll
+          for (int i = 0; i < 8; ++i) {
+            acc[i][4 * m] = fmaf(av[i], b.x, acc[i][4 * m]);
+            acc[i][4 * m + 1] = fmaf(av[i], b.y, acc[i][4 * m + 1]);
+          }
         }
       }
     }
   }
+  cp_async_wait<0>();
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
+  for (int i = 0; i < 8; ++i) {
+    float* o = ch.out + (row0 + 8 * ty + i) * K + c0;
 #pragma unroll
-    for (int q = 0; q < 4; ++q) {
-      if (4 * tx + 64 * q >= kc) break;
-      *reinterpret_cast<float4*>(ch.out + (row0 + ty + 16 * i) * K + c0 + 4 * tx + 64 * q) =
-          make_float4(acc[i][4 * q], acc[i][4 * q + 1], acc[i][4 * q + 2], acc[i][4 * q + 3]);
+    for (int m = 0; m < WF_TILES / 2; ++m) {
+      if (m < nm)
+        *reinterpret_cast<float4*>(o + 128 * m + 4 * tx) =
+            make_float4(acc[i][4 * m], acc[i][4 * m + 1], acc[i][4 * m + 2], acc[i][4 * m + 3]);
+      else if (m == nm && tail)
+        *reinterpret_cast<float2*>(o + 128 * m + 2 * tx) =
+            make_float2(acc[i][4 * m], acc[i][4 * m + 1]);
     }
+  }
 }
 
 // ---------------------------------------------------------------- launch
@@ -1020,17 +1501,21 @@ __global__ void __launch_bounds__(WD_NT, 1)
 // numbered as the C interface numbers them, bf16 operands first, each in
 // the order the geometry query prefers them.  K1: 0-2 bf16 (three 128-wide
 // stages, three 64-wide, two 64-wide), 3-4 f32 (8x8 thread tiles, then the
-// 8x4 ring for K > 128), and past K = 256 only 5 (bf16) or 6 (f32),
-// gram_wide_kernel.  K2: 0-1 bf16 (three 64-wide stages, two), 2 f32, at any
-// K (a block owns 64 output columns and reads only those of Be).
+// 8x4 ring for K > 128), and past K = 256 only the wide ones: 5-6 bf16
+// (Q and the whole-K Be tiles held, then the K chunks streamed), 7-8 f32
+// (the same).  K2: 0-1 bf16 (three 64-wide stages,
+// two), 2 f32, at any K (a block owns 64 output columns and reads only those
+// of Be).
 constexpr int OP_GRAM = 0, OP_RHS = 1;
-constexpr int CONFIGS[2] = {7, 3};
-constexpr int GRAM_WIDE = 5;  // K1's first wide configuration (bf16; +1 f32)
+constexpr int CONFIGS[2] = {9, 3};
+constexpr int GRAM_WIDE = 5;      // K1's first wide configuration (bf16)
+constexpr int GRAM_WIDE_F32 = 7;  // and its first f32 one
 
 // The configurations the geometry query tries, in order: [first, last].
 void config_range(int op, int K, bool op_f32, int* first, int* last) {
   if (op == OP_GRAM && K > kTiledMaxK) {
-    *first = *last = GRAM_WIDE + (op_f32 ? 1 : 0);
+    *first = op_f32 ? GRAM_WIDE_F32 : GRAM_WIDE;
+    *last = op_f32 ? CONFIGS[OP_GRAM] - 1 : GRAM_WIDE_F32 - 1;
   } else if (op == OP_GRAM) {
     *first = op_f32 ? 3 : 0;
     *last = op_f32 ? 4 : 2;
@@ -1060,10 +1545,14 @@ GramConfig gram_config(int variant, int K) {
                     F8_BSS, 1, gram_f32_tile8_smem<WT>(K)};
     case 4: return {reinterpret_cast<const void*>(gram_f32_ring_kernel<WT>), F32_NT, BM, 32, 0,
                     gram_f32_ring_smem<WT>(K)};
-    case 5: return {reinterpret_cast<const void*>(gram_wide_kernel<bf16_t, WT>), WD_NT, WD_BM,
-                    WD_BS, 0, gram_wide_smem<bf16_t, WT>(K)};
-    default: return {reinterpret_cast<const void*>(gram_wide_kernel<float, WT>), WD_NT, WD_BM,
-                     WD_BS, 0, gram_wide_smem<float, WT>(K)};
+    case 5: return {reinterpret_cast<const void*>(gram_bf16_whole_kernel<WT>), RING_NT,
+                    RING_BM, WB_BSS, 1, gram_bf16_whole_smem<WT>(K)};
+    case 6: return {reinterpret_cast<const void*>(gram_bf16_wide_kernel<WT, 4>), RING_NT,
+                    RING_BM, WB_BSS, 0, gram_bf16_wide_smem<WT, 4>(K)};
+    case 7: return {reinterpret_cast<const void*>(gram_f32_wide_kernel<WT, true>), WF_NT, WF_BM,
+                    WF_BSS, 1, gram_f32_wide_smem<WT, true>(K)};
+    default: return {reinterpret_cast<const void*>(gram_f32_wide_kernel<WT, false>), WF_NT, WF_BM,
+                     WF_BSS, 0, gram_f32_wide_smem<WT, false>(K)};
   }
 }
 
@@ -1084,11 +1573,20 @@ GramConfig config(int op, int variant, int K) {
   return op == OP_GRAM ? gram_config<WT>(variant, K) : rhs_config<WT>(variant, K);
 }
 
+// The output columns a block of K1's (K2's) configuration `variant` owns.
+int col_chunk_of(int op, int variant, int K) {
+  if (op != OP_GRAM || variant < GRAM_WIDE) return BN;
+  return wide_col_chunk(K, variant >= GRAM_WIDE_F32 ? WF_TILES
+                           : variant == GRAM_WIDE  ? WH_TILES
+                                                   : WB_TILES);
+}
+
 // The first configuration of `op` for these operands that fits the current
 // device with its min_blocks resident an SM (the last one whatever fits):
 // raises its kernel's shared-memory limit there to the device's opt-in
 // maximum (the limit is the kernel's, whatever K it runs at), and writes
-// geo = {configuration, row tile, S tile, resident blocks an SM}.
+// geo = {configuration, row tile, S tile, resident blocks an SM, output
+// columns a block, shared memory a block in bytes}.
 template <typename WT>
 cudaError_t geometry(int op, int K, bool op_f32, int* geo) {
   int dev = 0, optin = 0;
@@ -1114,6 +1612,8 @@ cudaError_t geometry(int op, int K, bool op_f32, int* geo) {
       geo[1] = c.row_tile;
       geo[2] = c.s_tile;
       geo[3] = blocks;
+      geo[4] = col_chunk_of(op, v, K);
+      geo[5] = static_cast<int>(c.smem);
       return cudaSuccess;
     }
   }
@@ -1123,18 +1623,20 @@ cudaError_t geometry(int op, int K, bool op_f32, int* geo) {
 // K1 or K2 into `part` (out itself for one chunk) with configuration
 // `variant`, whose shared-memory limit geometry() has set on this device;
 // ptrs are the kernel's leading pointers in its order (three for K1).
-// col_chunk: the output columns a block owns, BN for the tiled kernels, a
-// multiple of BN up to WD_MAXC for gram_wide_kernel.
+// col_chunk: the output columns a block owns, as geometry() gave them
+// (col_chunk_of); the wide configurations run only past kTiledMaxK.
 template <typename WT>
 cudaError_t run(int op, int variant, const void* const (&ptrs)[4], float* part, int R, int S,
                 int K, int chunk, int col_chunk, cudaStream_t st) {
   if (variant < 0 || variant >= CONFIGS[op]) return cudaErrorInvalidValue;
   const bool wide = op == OP_GRAM && variant >= GRAM_WIDE;
-  if (wide ? (col_chunk % BN || col_chunk < BN || col_chunk > WD_MAXC) : col_chunk != BN)
+  if (wide != (op == OP_GRAM && K > kTiledMaxK) || col_chunk != col_chunk_of(op, variant, K))
     return cudaErrorInvalidValue;
   const GramConfig c = config<WT>(op, variant, K);
   if (chunk % c.s_tile) return cudaErrorInvalidValue;
-  const dim3 grid((R + c.row_tile - 1) / c.row_tile, (K + col_chunk - 1) / col_chunk,
+  const unsigned row_blocks = (R + c.row_tile - 1) / c.row_tile;
+  const unsigned col_blocks = wide_col_blocks(K, col_chunk);
+  const dim3 grid(wide ? row_blocks * col_blocks : row_blocks, wide ? 1 : col_blocks,
                   (S + chunk - 1) / chunk);
   const void* p0 = ptrs[0];
   const void* p1 = ptrs[1];
@@ -1191,8 +1693,8 @@ int geometry_of(int op, int K, int op_f32, int w_type, int* geo) {
 // K, and split S into ceil(S / chunk) chunks, chunk a positive multiple of
 // that configuration's S tile; with more than one chunk, `part` holds
 // chunks x R x K f32 partial sums (scratch), else it is not read.  K1's
-// col_chunk is the output columns a block owns: 64 for the tiled
-// configurations, a multiple of 64 up to 256 for the wide ones.
+// col_chunk is the output columns a block owns, as the geometry query gave
+// them: 64 for the tiled configurations, wide_col_chunk for the wide ones.
 extern "C" int cmf_masked_gram_matvec(const void* Q, const void* Be, const void* W, void* out,
                                       void* part, int R, int S, int K, int chunk, int col_chunk,
                                       int variant, int w_type, void* stream) {
@@ -1211,7 +1713,8 @@ extern "C" int cmf_masked_rhs(const void* X, const void* W, const void* mb, cons
 
 // K1's (K2's) configuration at width K for these operand and W types on the
 // current device (and its shared-memory limit set there): geo =
-// {configuration, row tile, S tile, resident blocks an SM}.
+// {configuration, row tile, S tile, resident blocks an SM, output columns a
+// block, shared memory a block in bytes}.
 extern "C" int cmf_gram_geometry(int K, int op_f32, int w_type, int* geo) {
   return geometry_of(OP_GRAM, K, op_f32, w_type, geo);
 }

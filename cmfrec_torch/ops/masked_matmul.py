@@ -16,10 +16,15 @@ bf16 operands T*W is formed in f32 and rounded to bf16 once, as on the TPU;
 a bf16 W meets T already rounded to bf16 (the TPU's bf16 multiply).  The
 f32 K1 and K2 widen any W to f32.
 R, S and K must be multiples of TILE (the engine pads to them).  Every
-kernel takes any such K: K2's blocks own 64 output columns each; K1's tiled
-kernels hold full-K tiles up to TILED_MAX_K, and past it K1 runs its wide
-kernel, whose blocks walk K in chunks and own up to WIDE_COLS output
-columns (:func:`col_chunks`).
+kernel takes any such K: K2's blocks own 64 output columns each; K1's
+tiled kernels hold full-K tiles and own 64 output columns up to
+TILED_MAX_K, and past it K1 runs a wide configuration (bf16 on wgmma, f32
+on register-tiled FMA) whose blocks own as many output columns as their
+registers hold (:func:`wide_col_chunk`: all of K = 320, so the scores are
+computed once) and hold Q whole where it fits, else stream the scores' K in
+chunks.  With bf16 operands the rounding of T*W follows T summed in order
+in f32, as the twin sums it (the kernel sums T again in order where the
+tensor cores' T lies near a rounding midpoint).
 
 When a kernel's row blocks alone would not fill the card, K1 and K2 split
 S into chunks over the grid (:func:`split_chunk` picks the chunk from R, S,
@@ -39,10 +44,16 @@ import torch
 from . import _cuda
 
 TILE = 64
-# K1's tiled kernels take K up to this; past it, the wide kernel
+# K1's tiled kernels take K up to this; past it, the wide configurations
 TILED_MAX_K = 256
-# the wide K1's output columns a block at most
-WIDE_COLS = 256
+# K1's wide configurations, numbered as cmf_gram_geometry numbers them and in
+# the order it tries them: (operand type, Q held whole, ring stages of K
+# chunks (0: whole-K Be tiles, two stages), output tiles of TILE columns a
+# block at most: the accumulators take 32 registers a tile in bf16, 16 in f32)
+WIDE_CONFIGS = {5: (torch.bfloat16, True, 0, 5),
+                6: (torch.bfloat16, False, 4, 4),
+                7: (torch.float32, True, 0, 8),
+                8: (torch.float32, False, 2, 8)}
 # split_chunk: the fewest waves of resident blocks it aims the grid at
 WAVES = 4
 
@@ -123,12 +134,52 @@ def col_chunks(K, width):
     return tuple((c0, min(width, K - c0)) for c0 in range(0, K, width))
 
 
-def wide_col_chunk(K):
-    """The wide K1's output columns a block: the fewest chunks of at most
-    WIDE_COLS, as even as whole TILEs allow (K = 320: 192 and 128)."""
-    tiles = K // TILE
-    chunks = -(-K // WIDE_COLS)
+def wide_col_chunk(K, variant):
+    """The output columns a block of K1's wide configuration `variant` owns,
+    as the card's geometry query reckons them (csrc/masked_matmul.cu:
+    col_chunk_of): the fewest chunks of at most its tiles, as even as whole
+    TILEs allow (K = 320: one chunk; K = 1024: 4 x 256 bf16, 2 x 512 f32)."""
+    tiles, most = K // TILE, WIDE_CONFIGS[variant][3]
+    chunks = -(-tiles // most)
     return -(-tiles // chunks) * TILE
+
+
+# the padding of a W tile row in the f32 wide kernel, in entries (WPad)
+_W_PAD = {torch.int8: 16, torch.bfloat16: 8, torch.float32: 8}
+
+
+def wide_smem(variant, K, w_dtype):
+    """The shared memory a block of K1's wide configuration `variant` takes
+    at K, in bytes, as the card's geometry query reckons it
+    (gram_bf16_whole_smem, gram_bf16_wide_smem, gram_f32_wide_smem): Q held
+    whole (bf16 128 rows, f32 64 rows of K + 4) and two stages of a whole-K
+    Be tile (bf16 64 rows, f32 32); or a ring of K chunks (64 wide: bf16 a
+    128-row Q and a 64-row Be chunk; f32 a 64-row Q and a 32-row Be chunk,
+    rows padded to 68) and two buffers of the S tile's Be columns of the
+    block's chunk; two W tiles; and f32's two transposed T buffers (the
+    quarters' sums; P in the first)."""
+    op_dtype, q_whole, stages, _ = WIDE_CONFIGS[variant]
+    nc = wide_col_chunk(K, variant)
+    wsz = torch.empty((), dtype=w_dtype).element_size()
+    if op_dtype == torch.bfloat16:
+        if q_whole:
+            return 128 * K * 2 + 2 * (64 * K * 2 + 128 * 64 * wsz)
+        return (stages * (128 * 64 * 2 + 64 * 64 * 2)
+                + 2 * (64 * nc * 2 + 128 * 64 * wsz))
+    rest = 2 * 64 * (32 + _W_PAD[w_dtype]) * wsz + 2 * 32 * 68 * 4
+    if q_whole:
+        return (64 + 2 * 32) * (K + 4) * 4 + rest
+    return stages * (64 + 32) * 68 * 4 + 2 * 32 * nc * 4 + rest
+
+
+def wide_variant(K, op_dtype, w_dtype, optin):
+    """K1's wide configuration at K (> TILED_MAX_K) on a card that lets a
+    block opt in to `optin` bytes of shared memory, as the card's geometry
+    query picks it: the first of the operand type's that fits (each keeps
+    one block an SM), else its last."""
+    ours = [v for v, c in WIDE_CONFIGS.items() if c[0] == op_dtype]
+    return next((v for v in ours if wide_smem(v, K, w_dtype) <= optin),
+                ours[-1])
 
 
 def _kernel_device(name, device, K):
@@ -177,41 +228,42 @@ def split_chunk(R, S, sms, *, row_tile, s_tile, per_sm, col_blocks=1):
 
 @lru_cache(maxsize=None)
 def _geometry(op, device_index, K, op_f32, w_type):
-    """(configuration, row tile, S tile, resident blocks a SM, SM count) of
-    K1's (op "gram") or K2's (op "rhs") kernel on the card, as its launcher
-    picks it (once: this also sets the kernel's shared-memory limit on the
-    device)."""
-    geo = (ctypes.c_int * 4)()
+    """(configuration, row tile, S tile, resident blocks a SM, SM count,
+    output columns a block, shared memory a block) of K1's (op "gram") or
+    K2's (op "rhs") kernel on the card, as its launcher picks it (once: this
+    also sets the kernel's shared-memory limit on the device)."""
+    geo = (ctypes.c_int * 6)()
     query = (_cuda.lib().cmf_gram_geometry if op == "gram"
              else _cuda.lib().cmf_rhs_geometry)
     with torch.cuda.device(device_index):
         err = query(K, op_f32, w_type, geo)
     _cuda.check(err, f"{op} geometry")
     props = torch.cuda.get_device_properties(device_index)
-    return geo[0], geo[1], geo[2], max(1, geo[3]), props.multi_processor_count
+    return (geo[0], geo[1], geo[2], max(1, geo[3]),
+            props.multi_processor_count, geo[4], geo[5])
 
 
 def _plan(op, R, S, K, op_dtype, w_dtype, device):
     device = torch.device(device)
     index = (torch.cuda.current_device() if device.index is None
              else device.index)
-    variant, row_tile, s_tile, per_sm, sms = _geometry(
+    variant, row_tile, s_tile, per_sm, sms, width, smem = _geometry(
         op, index, K, int(op_dtype == torch.float32), W_TYPES[w_dtype])
-    width = (wide_col_chunk(K) if op == "gram" and K > TILED_MAX_K
-             else TILE)
     cols = col_chunks(K, width)
     chunk = split_chunk(R, S, sms, row_tile=row_tile, s_tile=s_tile,
                         per_sm=per_sm, col_blocks=len(cols))
     return dict(variant=variant, row_tile=row_tile, s_tile=s_tile,
                 per_sm=per_sm, sms=sms, chunk=chunk, chunks=-(-S // chunk),
-                col_chunk=width, cols=cols)
+                col_chunk=width, cols=cols, smem=smem)
 
 
 def gram_plan(R, S, K, op_dtype, w_dtype, device):
     """K1's launch plan on a card: its kernel configuration and tiles,
     resident blocks a SM, the SM count, the S chunk :func:`split_chunk`
-    picks and the output column chunks its blocks own (64 wide up to
-    TILED_MAX_K, else the wide kernel's :func:`wide_col_chunk`)."""
+    picks, the output column chunks its blocks own (64 wide up to
+    TILED_MAX_K, else :func:`wide_col_chunk`) and the shared memory a
+    block takes (past TILED_MAX_K :func:`wide_variant` and
+    :func:`wide_smem` model the choice)."""
     return _plan("gram", R, S, K, op_dtype, w_dtype, device)
 
 

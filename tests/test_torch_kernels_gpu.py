@@ -56,17 +56,25 @@ def _rel(out, ref):
     return ((out - ref).abs().max() / ref.abs().max()).item()
 
 
-@pytest.mark.parametrize("K", [64, 128, 256, 320, 512, 1024])
+@pytest.mark.parametrize("K", [64, 128, 256, 320, 384, 448, 512, 576,
+                               1024])
 @pytest.mark.parametrize("wdt", [torch.int8, torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("op", [torch.bfloat16, torch.float32])
 def test_kernels_match_twins(cuda, op, wdt, K):
-    """Past K = 256 K1 runs its wide kernel (configuration 5 for bf16, 6
-    for f32), in column chunks of at most 256; K2 its own kernels."""
+    """Past K = 256 K1 runs a wide configuration (5-6 bf16, 7-8 f32: Q held
+    whole where it fits, else streamed), in the column chunks, and with
+    the shared memory, that masked_matmul's model of the choice reckons
+    (wide_variant, wide_col_chunk, wide_smem); K2 its own kernels.  R = 192:
+    a ragged last 128-row block."""
     R, S = 192, 320
     plan = mm.gram_plan(R, S, K, op, wdt, cuda)
     if K > mm.TILED_MAX_K:
-        assert plan["variant"] == (6 if op == torch.float32 else 5)
-        assert len(plan["cols"]) == -(-K // mm.WIDE_COLS)
+        assert plan["variant"] == mm.wide_variant(K, op, wdt,
+                                                  _cuda.optin_smem(cuda))
+        assert plan["col_chunk"] == mm.wide_col_chunk(K, plan["variant"])
+        assert plan["smem"] == mm.wide_smem(plan["variant"], K, wdt)
+        most = mm.WIDE_CONFIGS[plan["variant"]][3]
+        assert len(plan["cols"]) == -(-K // (mm.TILE * most))
     else:
         assert plan["variant"] <= 4 and plan["col_chunk"] == mm.TILE
     Q, Be, W, X, mb = _inputs(cuda, R, S, K, op, wdt)
@@ -80,14 +88,16 @@ def test_kernels_match_twins(cuda, op, wdt, K):
     assert _rel(out2, mm.masked_rhs_ref(X, W, mb, Be)) <= REL_TOL[op]
 
 
-@pytest.mark.parametrize("K", [64, 128, 192, 256, 320, 1024])
+@pytest.mark.parametrize("K", [64, 128, 192, 256, 320, 384, 448, 576,
+                               1024])
 @pytest.mark.parametrize("wdt", [torch.int8, torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("op", [torch.bfloat16, torch.float32])
 def test_k1_split_s_matches_twin(cuda, monkeypatch, op, wdt, K):
-    """K1 over one 64-row block: S smaller than one chunk, S in two full
-    chunks and a ragged 64-wide third (the planner's chunk forced), and S
-    as the planner splits it; each twice, bitwise equal (no atomics)."""
-    R = 64
+    """K1 over 192 rows (a ragged last 128-row block): S smaller than one
+    chunk, S in two full chunks and a ragged third (the planner's chunk
+    forced), and S as the planner splits it; each twice, bitwise equal (no
+    atomics)."""
+    R = 192
     s_tile = mm.gram_plan(R, 64, K, op, wdt, cuda)["s_tile"]
     chunk = 2 * s_tile
     planner = mm.split_chunk

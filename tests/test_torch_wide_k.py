@@ -1,6 +1,7 @@
 """K past 256 on the card's kernel routes, on the CPU: the launch planners of
-K1/K2 (gram_plan, rhs_plan) and K3 (k3_plan) past 256 and unchanged up to
-it, the column-chunked composition of K1 and K2 in plain torch against the
+K1/K2 (gram_plan, rhs_plan; K1's wide configurations as masked_matmul
+models the card's choice: wide_variant, wide_col_chunk, wide_smem) and K3
+(k3_plan) past 256 and unchanged up to it, the column-chunked composition of K1 and K2 in plain torch against the
 twins and cmfrec_tpu's Pallas kernels in interpret mode, and the drivers
 reaching their engines at k = 300 with a card stood in (no K check is left
 before them).  The kernels themselves are held against their twins at
@@ -23,17 +24,32 @@ from cmfrec_torch.solvers import collective, dense_masked, drivers
 from cmfrec_tpu.ops import masked_matmul as jmm
 
 TOL = {"f32": 1e-5, "bf16": 1e-3}
-# geometries a card would report (configuration, row tile, S tile, blocks
-# an SM, SMs): the flagship's bf16 K1 and K2 on 132 SMs
-GEO = {"gram": (0, 128, 128, 2, 132), "rhs": (0, 128, 64, 2, 132)}
+# geometries a card would report up to K = 256 (configuration, row tile, S
+# tile, blocks an SM, SMs, output columns a block, shared memory a block):
+# the flagship's bf16 K1 and K2 on 132 SMs (the shared memory theirs at K =
+# 64 on an int8 W)
+GEO = {"gram": (0, 128, 128, 2, 132, 64, 114688),
+       "rhs": (0, 128, 64, 2, 132, 64, 99072)}
 # what an H100 reports: SMs, opt-in shared memory a block (bytes)
 H100 = (132, 227 * 1024)
+W_OF = {code: dtype for dtype, code in mm.W_TYPES.items()}
+
+
+def _card_geometry(op, index, K, op_f32, w_type):
+    """What an H100's geometry query would give: GEO up to K = 256, past it
+    K1's wide configuration as masked_matmul models it (one block an SM)."""
+    if op == "rhs" or K <= mm.TILED_MAX_K:
+        return GEO[op]
+    op_dtype = torch.float32 if op_f32 else torch.bfloat16
+    variant = mm.wide_variant(K, op_dtype, W_OF[w_type], H100[1])
+    return (variant, 64 if op_f32 else 128, 32 if op_f32 else 64, 1, H100[0],
+            mm.wide_col_chunk(K, variant),
+            mm.wide_smem(variant, K, W_OF[w_type]))
 
 
 @pytest.fixture
 def fake_geometry(monkeypatch):
-    monkeypatch.setattr(mm, "_geometry",
-                        lambda op, index, K, op_f32, w_type: GEO[op])
+    monkeypatch.setattr(mm, "_geometry", _card_geometry)
 
 
 # The plans of the tree before K past 256 was taken, K1 and K2 alike at
@@ -49,7 +65,7 @@ def test_plans_up_to_256_are_unchanged(fake_geometry, op, K):
     planner = mm.gram_plan if op == "gram" else mm.rhs_plan
     for R, S in ((69888, 10688), (10688, 69888)):
         plan = planner(R, S, K, torch.bfloat16, torch.int8, "cuda:0")
-        variant, row_tile, s_tile, per_sm, sms = GEO[op]
+        variant, row_tile, s_tile, per_sm, sms = GEO[op][:5]
         chunk, chunks = PINNED[K, R, S]
         assert {key: plan[key] for key in ("variant", "row_tile", "s_tile",
                                             "per_sm", "sms", "chunk",
@@ -61,29 +77,83 @@ def test_plans_up_to_256_are_unchanged(fake_geometry, op, K):
         assert plan["cols"] == tuple((c, mm.TILE) for c in range(0, K, 64))
 
 
+WIDE_K = [320, 384, 448, 512, 576, 1024]
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32],
+                         ids=["bf16", "f32"])
 @pytest.mark.parametrize("op", ["gram", "rhs"])
-@pytest.mark.parametrize("K", [320, 512, 1024])
-def test_plans_past_256_cover_k_once_in_chunks(fake_geometry, op, K):
+@pytest.mark.parametrize("K", WIDE_K)
+def test_plans_past_256_cover_k_once_in_chunks(fake_geometry, op, K, dtype):
     planner = mm.gram_plan if op == "gram" else mm.rhs_plan
-    plan = planner(69888, 10688, K, torch.float32, torch.int8, "cuda:0")
+    plan = planner(69888, 10688, K, dtype, torch.int8, "cuda:0")
     covered = np.zeros(K, int)
+    most = (64 * mm.WIDE_CONFIGS[plan["variant"]][3] if op == "gram"
+            else 64)
     for c0, width in plan["cols"]:
-        assert 0 < width <= 256 and width % 64 == 0 and c0 % 64 == 0
+        assert 0 < width <= most and width % 64 == 0 and c0 % 64 == 0
         covered[c0:c0 + width] += 1
     assert (covered == 1).all()
-    if op == "gram":  # the wide K1: the fewest chunks of at most 256
-        assert len(plan["cols"]) == -(-K // 256)
-        assert plan["col_chunk"] == mm.wide_col_chunk(K)
+    if op == "gram":  # the wide K1: the fewest chunks its registers allow
+        assert len(plan["cols"]) == -(-K // most)
+        assert plan["col_chunk"] == mm.wide_col_chunk(K, plan["variant"])
+        assert plan["variant"] in mm.WIDE_CONFIGS
+        assert mm.WIDE_CONFIGS[plan["variant"]][0] == dtype
     else:  # K2's blocks own 64 columns at any K
         assert plan["col_chunk"] == 64 and len(plan["cols"]) == K // 64
     assert plan["chunks"] * plan["chunk"] >= 10688
+    assert plan["chunk"] % plan["s_tile"] == 0
 
 
 def test_wide_col_chunk_splits_evenly():
-    assert mm.wide_col_chunk(320) == 192  # 192 + 128, not 256 + 64
-    assert mm.wide_col_chunk(512) == 256
-    assert mm.wide_col_chunk(576) == 192
-    assert mm.wide_col_chunk(1024) == 256
+    """K = 320 in one chunk in the configurations that take it (the scores
+    computed once); past that the fewest chunks the registers allow, as
+    even as whole tiles allow."""
+    for variant in (5, 7, 8):
+        assert mm.wide_col_chunk(320, variant) == 320
+    assert mm.wide_col_chunk(320, 6) == 192  # 192 + 128, not 256 + 64
+    assert mm.wide_col_chunk(384, 5) == 192  # 192 + 192, not 320 + 64
+    assert mm.wide_col_chunk(384, 7) == 384
+    assert mm.wide_col_chunk(448, 6) == 256  # 256 + 192
+    assert mm.wide_col_chunk(576, 6) == 192  # three of 192
+    assert mm.wide_col_chunk(576, 7) == 320  # 320 + 256
+    assert mm.wide_col_chunk(1024, 6) == 256
+    assert mm.wide_col_chunk(1024, 8) == 512
+
+
+# K1's wide configuration by K and W type (int8, bf16, f32) on an H100
+# (232,448 B a block): bf16 operands 5 (Q and whole-K Be tiles held), 6 (Q
+# streamed with the K chunks); f32 operands 7 (held), 8 (streamed)
+WIDE_PINNED = {
+    320: {"bf16": (5, 5, 5), "f32": (7, 7, 7)},
+    384: {"bf16": (5, 5, 6), "f32": (7, 7, 8)},
+    448: {"bf16": (6, 6, 6), "f32": (8, 8, 8)},
+    512: {"bf16": (6, 6, 6), "f32": (8, 8, 8)},
+    576: {"bf16": (6, 6, 6), "f32": (8, 8, 8)},
+    1024: {"bf16": (6, 6, 6), "f32": (8, 8, 8)}}
+
+
+@pytest.mark.parametrize("w", [torch.int8, torch.bfloat16, torch.float32],
+                         ids=["int8", "bf16", "f32"])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32],
+                         ids=["bf16", "f32"])
+@pytest.mark.parametrize("K", WIDE_K)
+def test_wide_configuration_fits_the_card(K, dtype, w):
+    """The configuration K1 takes past 256, its shared memory within an
+    H100's opt-in 232,448 B, and at K = 320 at most two column chunks in
+    bf16 and one in f32."""
+    variant = mm.wide_variant(K, dtype, w, 232448)
+    name = "bf16" if dtype == torch.bfloat16 else "f32"
+    assert variant == WIDE_PINNED[K][name][
+        (torch.int8, torch.bfloat16, torch.float32).index(w)]
+    assert mm.wide_smem(variant, K, w) <= 232448
+    # the configurations tried before it do not fit
+    for earlier in mm.WIDE_CONFIGS:
+        if mm.WIDE_CONFIGS[earlier][0] == dtype and earlier < variant:
+            assert mm.wide_smem(earlier, K, w) > 232448
+    chunks = len(mm.col_chunks(K, mm.wide_col_chunk(K, variant)))
+    if K == 320:
+        assert chunks <= (2 if dtype == torch.bfloat16 else 1)
 
 
 def _masked(t, W, bf16):
@@ -101,7 +171,8 @@ def _gram_by_chunks(Q, Be, W):
     bf16 = Be.dtype == torch.bfloat16
     P = _masked(Q.float() @ Be.float().T, W, bf16)
     out = torch.empty(Q.shape[0], K)
-    for c0, width in mm.col_chunks(K, mm.wide_col_chunk(K)):
+    variant = mm.wide_variant(K, Be.dtype, W.dtype, 232448)
+    for c0, width in mm.col_chunks(K, mm.wide_col_chunk(K, variant)):
         out[:, c0:c0 + width] = P @ Be[:, c0:c0 + width].float()
     return out
 
