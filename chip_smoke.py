@@ -155,24 +155,28 @@ at max_cd_steps):
      (users/s, factors >= 0, 256 card against the CPU copy), and 2,000 U
      rows through cold factors of phase 28's model against its CPU copy.
 
-K past 256 (the kernels' wide paths: K1's wide configurations,
-gram_bf16_wide_kernel on wgmma and gram_f32_wide_kernel on FMA, K2's
-kernels at any K, K3 a block or cluster a row looping over K):
+K past 256 (the kernels' wide paths: K1's wide configurations on wgmma
+and on FMA, K2's kernels at any K, K3's rows design up to K = 1024 and
+its loop design past it, fault P6's routes):
  30. K1 (bf16 operands on the int8 mask and on bf16 weights, f32 operands)
      and K2 (bf16, f32) against their twins on the A side of phase 3's X
      and W at K = 320 (k = 300 on the dense engine) and 1024, and K3
      against its twin on each A bucket of phase 6's layout at K = 264 (the
-     implicit fit's), 304 (k = 300 bucketed) and 1024 (phase 6's log-play
-     case in bf16): the first 2,048 rows of each bucket, the plan the
-     bucket's full rows take asserted to be the one checked, and at K = 264
-     the widest bucket and the one of the most slots at their full rows;
-     each call's launches, time, plain time, bound and plan (K1: its
-     configuration, column chunks and shared memory); then CMF(k=300) on
-     phase 4's data and split (the dense engine, K = 320) at the
-     flagship's 15 iterations: its seconds, RMSE below the global mean's,
-     K1's mean time a call by operand type, K1/K2 launches 146/30; and
-     CMF_implicit(k=260) on phase 7's data (K3 at K = 264): P@10 above
-     popularity, K3 = 2 x the buckets (2 iterations, cut from 15).
+     implicit fit's), 304 (k = 300 bucketed) and 1024 (the rows design)
+     and 1032 (the loop design; phase 6's log-play case in bf16): the
+     first 2,048 rows of each bucket, the plan the bucket's full rows take
+     asserted to be the one checked and of the design of its K, and at
+     K = 264 the widest bucket and the one of the most slots at their full
+     rows; each call's launches, time, plain time, bound and plan (K1: its
+     configuration, column chunks and shared memory); P6: a K3 bucket at
+     K = 3,640 through rowsolve.solve_cg (no K3 launch) against K3's twin,
+     the CD kernel at K = 4,848 in float64 (its scratch configuration)
+     against its twin; then CMF(k=300) on phase 4's data and split (the
+     dense engine, K = 320) at the flagship's 15 iterations: its seconds,
+     RMSE below the global mean's, K1's mean time a call by operand type,
+     K1/K2 launches 146/30; and CMF_implicit(k=260) on phase 7's data (K3
+     at K = 264) at its 15 iterations: P@10 above popularity, K3 = 15 x
+     the buckets, K3's milliseconds an iteration and share of the fit.
 
 Each fit phase, and phase 9's sweep, sets every kernel's launch count to 0
 just before it and reads the counts just after; phases 10-16 print each
@@ -251,7 +255,7 @@ CUDA_KERNELS = {
                            "sum_chunks_kernel"),
     "masked_rhs": ("rhs_bf16_wgmma_kernel", "rhs_f32_tile8_kernel",
                    "sum_chunks_kernel"),
-    "bucket_cg": ("bucket_cg_kernel",),
+    "bucket_cg": ("bucket_cg_kernel", "bucket_cg_rows_kernel"),
     "solve_cd": ("cd_staged_kernel", "cd_stream_kernel"),
 }
 PTXAS_KERNELS = tuple(dict.fromkeys(k for ks in CUDA_KERNELS.values()
@@ -3076,55 +3080,69 @@ def cd_phases(ops, rows, cols, vals, test, lastfm, ctx):
 
 # phase 30: K past 256.  The widths held kernel against twin: the dense
 # engine's K at k = 300 (320), the bucketed one's at k = 260 (264, the
-# implicit fit's) and k = 300 (304), and K = 1024.  CMF(k=300) runs the
-# flagship's 15 iterations; CMF_implicit(k=260)'s depth is cut from 15
-# iterations to WIDE_FIT_NITER, and K3's check to an A bucket's first
-# WIDE_K3_ROWS rows (the twin gathers [R, L, K] in f32), to hold the phase
-# to about a minute, except at WIDE_K3_FULL_K, where the widest bucket and
-# the one of the most slots are held at their full rows
-WIDE_K = {"dense": (320, 1024), "bucketed": (264, 304, 1024)}
-WIDE_FIT_NITER = 2
+# implicit fit's) and k = 300 (304), and K = 1024; K3 also at 1032, past
+# the rows design's ROWS_MAX_K, where the loop design serves buckets up to
+# K3's shared-memory limit.  CMF(k=300) and
+# CMF_implicit(k=260) run the flagship's and phase 7's 15 iterations
+# (WIDE_FIT_NITER); K3's check is cut to an A bucket's first WIDE_K3_ROWS
+# rows (the twin gathers [R, L, K] in f32), to hold the phase to about a
+# minute, except at WIDE_K3_FULL_K, where the widest bucket and the one of
+# the most slots are held at their full rows
+WIDE_K = {"dense": (320, 1024), "bucketed": (264, 304, 1024, 1032)}
+WIDE_FIT_NITER = 15
 WIDE_K3_ROWS = 2048
 WIDE_K3_FULL_K = 264
 WIDE_FIT = dict(FIT, k=300)
 WIDE_IMPLICIT_FIT = dict(IMPLICIT_FIT, k=260, niter=WIDE_FIT_NITER)
+# fault P6: a K3 bucket past K3's shared-memory limit on an H100 (3,624)
+# takes rowsolve.solve_cg; a CD solve past the streamed path's shared
+# memory in float64 (4,842) keeps its vectors in a scratch.  A few rows each
+P6_K3_K, P6_CD_K, P6_ROWS, P6_CD_SWEEPS = 3640, 4848, 4, 2
+# the CD kernel against its twin at P6_CD_K in float64: the card tests'
+# float64 limit (tests/test_torch_kernels_gpu.py CD_REL_TOL), since sums of
+# 4,848 terms in another order stray further than CD_REL_TOL's K = 56 ones
+P6_CD_TOL = 1e-10
 
 
-class _K1Events:
-    """The dense engine's K1 wrapped for a fit: CUDA events around each
-    call, by operand type, read after the fit (no synchronisation inside
-    it).  The wrapper takes masked_gram_matvec's place in
-    solvers/dense_masked.py only; the op and its launch count stay."""
+class _CallEvents:
+    """A function wrapped for a fit where `module` calls it by `name`: CUDA
+    events around each call, by the type `label(*args)` names, read after
+    the fit (no synchronisation inside it).  The function and the op's
+    launch count stay."""
+
+    def __init__(self, module, name, label):
+        self.module, self.name, self.label = module, name, label
 
     def __enter__(self):
         import torch
 
-        from cmfrec_torch.solvers import dense_masked
+        self.real, self.events = getattr(self.module, self.name), []
 
-        self.module, self.real, self.events = (
-            dense_masked, dense_masked.masked_gram_matvec, [])
-
-        def spy(Q, Be, W):
+        def spy(*args, **kw):
             start = torch.cuda.Event(enable_timing=True)
             end = torch.cuda.Event(enable_timing=True)
             start.record()
-            out = self.real(Q, Be, W)
+            out = self.real(*args, **kw)
             end.record()
-            self.events.append((str(Be.dtype).split(".")[-1], start, end))
+            self.events.append((self.label(*args), start, end))
             return out
 
-        dense_masked.masked_gram_matvec = spy
+        setattr(self.module, self.name, spy)
         return self
 
     def __exit__(self, *exc):
-        self.module.masked_gram_matvec = self.real
+        setattr(self.module, self.name, self.real)
 
     def means(self):
-        """{operand type: (calls, mean ms a call)}, after a synchronize."""
+        """{type: (calls, mean ms a call)}, after a synchronize."""
         by = {}
         for dt, start, end in self.events:
             by.setdefault(dt, []).append(start.elapsed_time(end))
         return {dt: (len(ms), sum(ms) / len(ms)) for dt, ms in by.items()}
+
+
+def _dtype_name(t):
+    return str(t.dtype).split(".")[-1]
 
 
 def check_wide_kernels(rows, cols, vals, weights):
@@ -3211,11 +3229,13 @@ def check_wide_kernels(rows, cols, vals, weights):
 def check_wide_bucket_cg(tr_r, tr_c, tr_v):
     """Phase 30's K3 against its twin on the A side's buckets of the
     LastFM-shaped layout at each of WIDE_K["bucketed"] (log-play
-    coefficients and a bf16 opposing matrix, phase 6's main case): every
-    bucket takes a block or a cluster a row there.  Each bucket's first
+    coefficients and a bf16 opposing matrix, phase 6's main case).  Each
+    bucket's first
     WIDE_K3_ROWS rows, with the plan of its full rows asserted to be the
-    one checked; at WIDE_K3_FULL_K the widest bucket and the one of the most
-    slots at their full rows.  Returns the records."""
+    one checked and of its K's design (the rows design up to
+    sparse_cg.ROWS_MAX_K, the loop design past it); at WIDE_K3_FULL_K the
+    widest bucket and the one of the most slots at their full rows.
+    Returns the records."""
     import types
 
     import torch
@@ -3285,14 +3305,17 @@ def check_wide_bucket_cg(tr_r, tr_c, tr_v):
             ops = {"bf16": slots * (2 * K + (1 + K3_STEPS) * 4 * K),
                    "f32": R * (1 + K3_STEPS) * 2 * K * K}
             b_ms, b_by = bound(nbytes, ops)
+            rows_design = K <= sparse_cg.ROWS_MAX_K
             ok = (bool(np.isfinite(rel)) and rel <= tol and launches == 1
-                  and moved >= K3_MOVE_FACTOR * tol and plan["k_loop"])
-            narrow = full.width <= sparse_cg.NARROW_L
+                  and moved >= K3_MOVE_FACTOR * tol and plan["k_loop"]
+                  and ("rows" in plan) == rows_design)
+            design = (f"rows a block {plan['rows']}" if "rows" in plan
+                      else "loop design")
             print(f"phase 30 kernel bucket_cg side=A bucket={i} R={R} "
                   f"(of {full.n_rows}) L={b.width} slots={slots} K={K} "
-                  f"op=bf16 implicit-log class={plan['cls']}"
-                  f"{' (narrow rows, a block a row past K=256)' if narrow else ''}"
-                  f" cluster={plan['cluster']} threads={plan['threads']} "
+                  f"op=bf16 implicit-log class={plan['cls']} {design} "
+                  f"cluster={plan['cluster']} "
+                  f"threads={plan['threads']} "
                   f"stage_slots={plan['stage_slots']}: max_abs_err={err:.3e} "
                   f"rel={rel:.3e} (tol {tol:.0e}) moved={moved:.3e} "
                   f"launches={launches} ms={ms:.3f} plain_ms={plain_ms:.3f} "
@@ -3300,7 +3323,8 @@ def check_wide_bucket_cg(tr_r, tr_c, tr_v):
                   flush=True)
             if not ok:
                 raise AssertionError(f"phase 30: bucket_cg at K={K} disagrees "
-                                     "with its twin, or checks too little")
+                                     "with its twin, checks too little or "
+                                     "took the other design")
             records.append(dict(
                 side="A", bucket=i, R=R, L=b.width, slots=slots, K=K,
                 op="bf16", mode="implicit-log", launches=launches,
@@ -3317,27 +3341,130 @@ def check_wide_bucket_cg(tr_r, tr_c, tr_v):
     return records
 
 
+def check_p6(ops):
+    """Fault P6 on the card: a K3 bucket at P6_K3_K (past K3's shared-memory
+    limit), bf16 rows, through als.solve_bucket, the fit's call, must run
+    rowsolve.solve_cg and launch no K3, and match K3's twin on the same
+    operands (K3_REL_TOL of the log plays, bf16); solve_cd at P6_CD_K in
+    float64 (the scratch configuration) must run its kernel and match its
+    twin (P6_CD_TOL).  Prints each route's launch counts.  Returns the
+    records."""
+    import torch
+
+    from cmfrec_torch.ops import _cuda, coord_descent, rowsolve, sparse_cg
+    from cmfrec_torch.solvers import als
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(32)
+    K, R, L, S = P6_K3_K, P6_ROWS, 64, 4096
+    optin = _cuda.optin_smem(dev)
+    opp = torch.randn(S, K, device=dev, generator=gen) / K ** 0.5
+    length = torch.tensor([L, L // 2, 1, 0], dtype=torch.int32, device=dev)
+    part = als.PartData(
+        idx=torch.randint(0, S, (R, L), device=dev, generator=gen,
+                          dtype=torch.int32),
+        val=torch.log1p(100 * torch.rand(R, L, device=dev, generator=gen)),
+        length=length, wgt=None, opp=opp.to(torch.bfloat16), opp_bias=None,
+        w=1.0, alpha=1.0, mu=None)
+    lam = torch.full((K,), IMPLICIT_FIT["lambda_"], device=dev)
+    G0 = opp.T @ opp
+    a0 = torch.randn(R, K, device=dev, generator=gen) / 8
+    calls = {"solve_cg": 0}
+    real = rowsolve.solve_cg
+
+    def spy(*args, **kw):
+        calls["solve_cg"] += 1
+        return real(*args, **kw)
+
+    _reset_launches(ops)
+    rowsolve.solve_cg = spy
+    try:
+        got = als.solve_bucket(
+            (part,), a0, G0, None, None, lam, None, modes=("implicit",),
+            method="cg", n_steps=K3_STEPS, scale_lam=False, n_totals=(S,),
+            mxu_bf16=True)
+    finally:
+        rowsolve.solve_cg = real
+    k3_launches = _read_launches(ops)
+    sp = als._coefficients(part, "implicit")
+    ref = sparse_cg.bucket_cg_ref(part.opp, part.idx, sp.cw, sp.cv,
+                                  G0 + torch.diag(lam), None, None, a0,
+                                  n_steps=K3_STEPS)
+    ref = torch.where((length > 0)[:, None], ref, 0.0)
+    torch.cuda.synchronize()
+    tol = K3_REL_TOL["implicit-log", "bf16"]
+    top = ref.abs().max().item()
+    err = (got - ref).abs().max().item()
+    k3 = dict(K=K, rows=R, takes_k3=als.takes_k3(torch.float32, False, K, dev),
+              k_fits=sparse_cg.k_fits(K, optin), optin=optin,
+              solve_cg_calls=calls["solve_cg"], launches=k3_launches,
+              max_abs_err=err, rel_err=err / top)
+    ok_k3 = (not k3["takes_k3"] and calls["solve_cg"] == 1
+             and not any(k3_launches.values()) and k3["rel_err"] <= tol)
+    print(f"phase 30 P6 K3 K={K} (bf16 rows, {R} rows, opt-in {optin} B): "
+          f"route rowsolve.solve_cg ({calls['solve_cg']} call), launches "
+          f"{k3_launches}; against K3's twin max_abs_err={err:.3e} "
+          f"rel={k3['rel_err']:.3e} (tol {tol:.0e}) "
+          f"{'ok' if ok_k3 else 'MISMATCH'}", flush=True)
+
+    K = P6_CD_K
+    Mt = torch.randn(R, K + 8, K, device=dev, generator=gen,
+                     dtype=torch.float64) / (K + 8) ** 0.5
+    G = Mt.transpose(1, 2) @ Mt + 0.1 * torch.eye(K, device=dev,
+                                                  dtype=torch.float64)
+    del Mt
+    rhs = torch.randn(R, K, device=dev, generator=gen, dtype=torch.float64)
+    l1 = torch.zeros(K, device=dev, dtype=torch.float64)
+    plan = coord_descent.plan(K, False, torch.float64)
+    _reset_launches(ops)
+    got = coord_descent.solve_cd(G, rhs, l1, nonneg=True,
+                                 max_steps=P6_CD_SWEEPS)
+    cd_launches = _read_launches(ops)
+    want = rowsolve.solve_cd(G, rhs, l1, True, P6_CD_SWEEPS)
+    torch.cuda.synchronize()
+    err = (got - want).abs().max().item()
+    cd = dict(K=K, rows=R, sweeps=P6_CD_SWEEPS, dtype="f64", plan=plan,
+              launches=cd_launches, max_abs_err=err,
+              rel_err=err / want.abs().max().item())
+    ok_cd = (plan["scratch"] and cd_launches["solve_cd"] == 1
+             and cd["rel_err"] <= P6_CD_TOL)
+    print(f"phase 30 P6 solve_cd K={K} f64 ({R} rows, {P6_CD_SWEEPS} "
+          f"sweeps): plan {plan}, launches {cd_launches}; against the twin "
+          f"max_abs_err={err:.3e} rel={cd['rel_err']:.3e} (tol "
+          f"{P6_CD_TOL:.0e}) {'ok' if ok_cd else 'MISMATCH'}",
+          flush=True)
+    del G, got, want
+    torch.cuda.empty_cache()
+    if not (ok_k3 and ok_cd):
+        raise AssertionError("phase 30: fault P6 not repaired")
+    return {"bucket_cg": k3, "solve_cd": cd}
+
+
 def wide_k_phases(ops, rows, cols, vals, test, weights, lastfm, ctx):
     """Phase 30: K past 256 at full width.  The kernels against their twins
-    (check_wide_kernels, check_wide_bucket_cg), then CMF(k=300) on the
-    flagship's data and split through the dense engine (K = 320: K1's wide
-    configurations, K2) at the flagship's 15 iterations, with K1's mean time
-    a call by operand type, and CMF_implicit(k=260) on the LastFM-shaped
-    data (K = 264: K3, a block a row) at WIDE_FIT_NITER iterations, cut from
-    15 so that it adds about half a minute: held-out RMSE below the global
-    mean's and P@10 above popularity, with their launches.  Returns
-    (launch counts, kernel records)."""
+    (check_wide_kernels, check_wide_bucket_cg), fault P6 (check_p6), then
+    CMF(k=300) on the flagship's data and split through the dense engine (K
+    = 320: K1's wide configurations, K2) and CMF_implicit(k=260) on the
+    LastFM-shaped data (K = 264: K3's rows design), both at 15 iterations,
+    with K1's mean time a call by operand type and K3's milliseconds an
+    iteration and share of the fit from CUDA events around each call:
+    held-out RMSE below the global mean's and P@10 above popularity, with
+    their launches.  Returns (launch counts, kernel records)."""
     import torch
 
     import cmfrec_torch
+    from cmfrec_torch.ops import sparse_cg
+    from cmfrec_torch.solvers import dense_masked
 
     tr = ~test
     tr_r, tr_c, tr_v = rows[tr], cols[tr], vals[tr]
     l_r, l_c, l_v, l_te_r, l_te_c, test_users = lastfm
     records = check_wide_kernels(tr_r, tr_c, tr_v, weights)
     records["bucket_cg"] = check_wide_bucket_cg(l_r, l_c, l_v)
+    records["p6"] = check_p6(ops)
 
-    with _K1Events() as k1:
+    with _CallEvents(dense_masked, "masked_gram_matvec",
+                     lambda Q, Be, W: _dtype_name(Be)) as k1:
         model, launches, s, peak = _fit_phase(
             ops, lambda: cmfrec_torch.CMF(**WIDE_FIT, device="cuda")
             .fit_triplets(tr_r, tr_c, tr_v, M, N))
@@ -3365,10 +3492,15 @@ def wide_k_phases(ops, rows, cols, vals, test, weights, lastfm, ctx):
     del model, pred
     torch.cuda.empty_cache()
 
-    imodel, ilaunches, s, peak = _fit_phase(
-        ops, lambda: cmfrec_torch.CMF_implicit(
-            **WIDE_IMPLICIT_FIT, device="cuda").fit_triplets(
-                l_r, l_c, l_v, LFM_M, LFM_N))
+    # K3's launches alone (sparse_cg.launch, which bucket_cg calls and counts)
+    with _CallEvents(sparse_cg, "launch",
+                     lambda mat, *a: _dtype_name(mat)) as k3:
+        imodel, ilaunches, s, peak = _fit_phase(
+            ops, lambda: cmfrec_torch.CMF_implicit(
+                **WIDE_IMPLICIT_FIT, device="cuda").fit_triplets(
+                    l_r, l_c, l_v, LFM_M, LFM_N))
+    k3_ms = {dt: n * ms for dt, (n, ms) in k3.means().items()}
+    k3_total = sum(k3_ms.values())
     Ad, Bd = imodel._device_x_factors()
     p10, map10, p10_pop = ranking_quality(Ad, Bd, l_r, l_c, l_te_r, l_te_c,
                                           test_users, LFM_N)
@@ -3377,9 +3509,16 @@ def wide_k_phases(ops, rows, cols, vals, test, weights, lastfm, ctx):
     print(f"phase 30 CMF_implicit(k=260) on {card()}: {WIDE_FIT_NITER} "
           f"iterations on the bucketed engine (K=264) in {s:.3f} s, peak "
           f"device memory {peak / 2**30:.2f} GiB, P@10 {p10:.5f} (popularity "
-          f"{p10_pop:.5f}; phase 7 at k=50 and 15 iterations "
-          f"{ctx['p10_7']:.5f}), MAP@10 {map10:.5f}; launches {ilaunches} "
-          f"(expected {want})", flush=True)
+          f"{p10_pop:.5f}; phase 7 at k=50 {ctx['p10_7']:.5f}), MAP@10 "
+          f"{map10:.5f}; K3 in the fit: {k3_total:.3f} ms, "
+          f"{k3_total / WIDE_FIT_NITER:.3f} ms an iteration ("
+          + ", ".join(f"{dt} {ms:.3f}" for dt, ms in sorted(k3_ms.items()))
+          + f"), {k3_total / 1e3 / s:.3f} of the fit's seconds; launches "
+          f"{ilaunches} (expected {want})", flush=True)
+    records["cmf_implicit_k260"] = dict(
+        seconds=s, p10=p10, p10_pop=p10_pop, k3_ms=k3_total,
+        k3_ms_an_iteration=k3_total / WIDE_FIT_NITER,
+        k3_share=k3_total / 1e3 / s, launches=ilaunches)
     if ilaunches != want:
         raise AssertionError("phase 30: CMF_implicit(k=260) did not run the "
                              "expected launches")
@@ -3671,7 +3810,8 @@ def main():
         ms=sum(r["ms"] for r in main),
         plain_ms=sum(r["plain_ms"] for r in main), bound_ms=k3_bound,
         bound_by=k3_by, library_ms=None, variants=k3,
-        multipart_check=multipart, wide_k=wide["bucket_cg"]))
+        multipart_check=multipart, wide_k=wide["bucket_cg"],
+        cmf_implicit_k260=wide["cmf_implicit_k260"], p6=wide["p6"]["bucket_cg"]))
     # the probes: the sweep's launches (the fit's in fit_launches), times at
     # the A side of phase 9 for the row's headline variant
     for row, variants in probes.items():
@@ -3699,10 +3839,12 @@ def main():
         cuda_kernels=CUDA_KERNELS["solve_cd"], replaces=REPLACES["solve_cd"],
         launches=paths["26"]["solve_cd"],
         launches_by_phase={ph: c["solve_cd"] for ph, c in paths.items()},
-        max_abs_err=max(r["max_abs_err"] for r in cd_records),
+        max_abs_err=max(r["max_abs_err"]
+                        for r in cd_records + [wide["p6"]["solve_cd"]]),
         ms=head["ms"], plain_ms=head["plain_ms"], bound_ms=head["bound_ms"],
         bound_by=head["bound_by"], library_ms=None, shape=head["shape"],
-        sweeps=head["sweeps"], half_step=cd_half, variants=cd_records))
+        sweeps=head["sweeps"], half_step=cd_half, variants=cd_records,
+        p6=wide["p6"]["solve_cd"]))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

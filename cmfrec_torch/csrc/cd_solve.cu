@@ -73,7 +73,11 @@
 //  * Streamed path (K > kStagedMaxK): a warp a row, the dot form, rhs, l1, G_kk, d,
 //    1/d and a in shared memory, and the row of G read from memory (L2) at every
 //    coordinate: one row's G no longer fits a share of the SM at the staged path's
-//    rows a block.  It takes any K whose six K-vectors fit the opt-in shared memory.
+//    rows a block.  Where a row's six K-vectors do not fit the opt-in shared memory
+//    (K > 4,842 in double, 9,685 in float on an H100), the same kernel keeps them in a
+//    scratch in device memory that the wrapper allocates, [rows in flight, 6, K], and
+//    the resident warps walk the rows: the same arithmetic in the same order, so the
+//    same bits as the shared-memory configuration wherever both can run.
 
 #include <cuda_runtime.h>
 
@@ -141,6 +145,8 @@ struct Args {
   int l1_stride;
   void* out;
   int* sweeps;
+  void* scratch;     // streamed path's [scratch_rows, 6, K] vectors, or null: shared memory
+  int scratch_rows;  // rows in flight (a multiple of the warps a block)
   int R, K, nonneg, max_steps;
   double tol;
 };
@@ -294,53 +300,59 @@ __global__ void __launch_bounds__(256)
 }
 
 // ---------------------------------------------------------------- streamed
-// A warp a row; the row's six K-vectors in shared memory, G's row k read from
-// memory at coordinate k (the dot form).
+// A warp a row; the row's six K-vectors in shared memory or, with A.scratch, in the
+// warp's slot of the scratch in device memory; G's row k read from memory at
+// coordinate k (the dot form).  The warps walk the rows (with shared memory the grid
+// covers them, one row a warp).
 template <typename T>
 __global__ void __launch_bounds__(kStreamWarps * 32)
     cd_stream_kernel(const Args A) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const int K = A.K, warps = blockDim.x >> 5;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const long long r = static_cast<long long>(blockIdx.x) * warps + warp;
-  if (r >= A.R) return;  // whole warps leave: no barrier below spans warps
-  T* a = reinterpret_cast<T*>(smem_raw) + static_cast<size_t>(warp) * 6 * K;
+  const long long slot = static_cast<long long>(blockIdx.x) * warps + warp;
+  T* a = A.scratch != nullptr ? static_cast<T*>(A.scratch) + slot * 6 * K
+                              : reinterpret_cast<T*>(smem_raw) + static_cast<size_t>(warp) * 6 * K;
   T* rv = a + K;
   T* l1 = a + 2 * K;
   T* gkk = a + 3 * K;
   T* d = a + 4 * K;
   T* rinv = a + 5 * K;
-  const T* Gr = static_cast<const T*>(A.G) + r * A.g_stride;
-  for (int j = lane; j < K; j += 32) {
-    a[j] = T(0);
-    rv[j] = static_cast<const T*>(A.rhs)[r * K + j];
-    l1[j] = static_cast<const T*>(A.l1)[r * A.l1_stride + j];
-    gkk[j] = Gr[static_cast<long long>(j) * K + j];
-    d[j] = gkk[j] <= T(0) ? T(1) : gkk[j];
-    rinv[j] = T(1) / d[j];
-  }
-  __syncwarp();
   const T tol = static_cast<T>(A.tol);
-  int steps = 0;
-  for (int s = 0; s < A.max_steps; ++s) {
-    T md = T(0);  // the same in every lane
-    for (int k = 0; k < K; ++k) {
-      const T* gk = Gr + static_cast<long long>(k) * K;
-      T part = T(0);
-      for (int j = lane; j < K; j += 32) part += gk[j] * a[j];
-      const T dot = warp_sum(part);
-      const T ak = a[k];
-      const T nw = cd_step((rv[k] - dot) + mul_rn(ak, gkk[k]), l1[k], d[k], rinv[k], A.nonneg);
-      md = fmax(md, fabs(nw - ak));
-      __syncwarp();
-      if (lane == 0) a[k] = nw;
-      __syncwarp();
+  // whole warps leave: no barrier below spans warps
+  for (long long r = slot; r < A.R; r += static_cast<long long>(gridDim.x) * warps) {
+    const T* Gr = static_cast<const T*>(A.G) + r * A.g_stride;
+    for (int j = lane; j < K; j += 32) {
+      a[j] = T(0);
+      rv[j] = static_cast<const T*>(A.rhs)[r * K + j];
+      l1[j] = static_cast<const T*>(A.l1)[r * A.l1_stride + j];
+      gkk[j] = Gr[static_cast<long long>(j) * K + j];
+      d[j] = gkk[j] <= T(0) ? T(1) : gkk[j];
+      rinv[j] = T(1) / d[j];
     }
-    ++steps;
-    if (md <= tol) break;
+    __syncwarp();
+    int steps = 0;
+    for (int s = 0; s < A.max_steps; ++s) {
+      T md = T(0);  // the same in every lane
+      for (int k = 0; k < K; ++k) {
+        const T* gk = Gr + static_cast<long long>(k) * K;
+        T part = T(0);
+        for (int j = lane; j < K; j += 32) part += gk[j] * a[j];
+        const T dot = warp_sum(part);
+        const T ak = a[k];
+        const T nw = cd_step((rv[k] - dot) + mul_rn(ak, gkk[k]), l1[k], d[k], rinv[k], A.nonneg);
+        md = fmax(md, fabs(nw - ak));
+        __syncwarp();
+        if (lane == 0) a[k] = nw;
+        __syncwarp();
+      }
+      ++steps;
+      if (md <= tol) break;
+    }
+    for (int j = lane; j < K; j += 32) static_cast<T*>(A.out)[r * K + j] = a[j];
+    if (A.sweeps != nullptr && lane == 0) A.sweeps[r] = steps;
+    __syncwarp();  // the next row's start overwrites a
   }
-  for (int j = lane; j < K; j += 32) static_cast<T*>(A.out)[r * K + j] = a[j];
-  if (A.sweeps != nullptr && lane == 0) A.sweeps[r] = steps;
 }
 
 
@@ -351,38 +363,43 @@ int staged_lanes(int K) {
 }
 
 // A solve's launch: staged (1) or streamed (0), lanes a row, warps a block, rows a
-// block, resident blocks an SM, shared memory a block.  The layout of cmf_cd_plan.
+// block, resident blocks an SM, shared memory a block, and whether the streamed
+// path's vectors live in a scratch in device memory (1).  The layout of cmf_cd_plan.
 struct Config {
-  int staged, lanes, warps, rows_pb, blocks, smem;
+  int staged, lanes, warps, rows_pb, blocks, smem, scratch;
 };
 
 // The launch of a solve of width K (shared_g: G of row stride 0) on the current
-// device, worked out (the kernel's attributes set, the occupancy asked) the first
-// time it is asked for on that device and kept.  Staged: the warps a block (1, 2, 4
-// or 8) that keep the most rows resident an SM (ties: fewer warps).  Streamed: up
-// to kStreamWarps warps, as many as the opt-in shared memory holds the six
-// K-vectors of.
+// device within `optin` bytes of shared memory a block (0 or more than the card's
+// opt-in: the card's), worked out (the kernel's attributes set, the occupancy asked)
+// the first time it is asked for and kept.  Staged: the warps a block (1, 2, 4 or 8)
+// that keep the most rows resident an SM (ties: fewer warps).  Streamed: up to
+// kStreamWarps warps, as many as the shared memory holds the six K-vectors of; where
+// it holds not one warp's, kStreamWarps warps with the vectors in a scratch
+// (ops/coord_descent.py: stream_plan models the choice).
 template <typename T>
-cudaError_t config(int K, bool shared_g, Config* out) {
+cudaError_t config(int K, bool shared_g, int optin, Config* out) {
   static std::mutex mu;
-  static std::map<std::pair<int, int>, Config> cache;  // (device, +-K: -K shared G)
+  // (device, +-K: -K shared G, the shared memory allowed)
+  static std::map<std::pair<std::pair<int, int>, int>, Config> cache;
   int dev = 0;
   cudaError_t e = cudaGetDevice(&dev);
   if (e != cudaSuccess) return e;
-  const std::pair<int, int> key{dev, shared_g ? -K : K};
+  int card = 0;
+  e = cudaDeviceGetAttribute(&card, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  if (e != cudaSuccess) return e;
+  if (optin <= 0 || optin > card) optin = card;
+  const std::pair<std::pair<int, int>, int> key{{dev, shared_g ? -K : K}, optin};
   std::lock_guard<std::mutex> lock(mu);
   const auto hit = cache.find(key);
   if (hit != cache.end()) {
     *out = hit->second;
     return cudaSuccess;
   }
-  int optin = 0;
-  e = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
-  if (e != cudaSuccess) return e;
   Config c{};
   if (K <= kStagedMaxK) {
     const void* kernel = reinterpret_cast<const void*>(cd_staged_kernel<T>);
-    e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, optin);
+    e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, card);
     if (e == cudaSuccess)
       e = cudaFuncSetAttribute(kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
                                cudaSharedmemCarveoutMaxShared);
@@ -396,23 +413,25 @@ cudaError_t config(int K, bool shared_g, Config* out) {
       e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kernel, 32 * w, smem);
       if (e != cudaSuccess) return e;
       if (blocks * rows_pb > c.blocks * c.rows_pb)
-        c = Config{1, L, w, rows_pb, blocks, static_cast<int>(smem)};
+        c = Config{1, L, w, rows_pb, blocks, static_cast<int>(smem), 0};
     }
     if (c.blocks == 0) return cudaErrorInvalidValue;
   } else {
     const size_t row_bytes = static_cast<size_t>(6) * K * sizeof(T);
     int warps = kStreamWarps;
     while (warps > 1 && warps * row_bytes > static_cast<size_t>(optin)) warps >>= 1;
-    if (warps * row_bytes > static_cast<size_t>(optin)) return cudaErrorInvalidValue;
-    const size_t smem = warps * row_bytes;
+    const int scratch = warps * row_bytes > static_cast<size_t>(optin);
+    if (scratch) warps = kStreamWarps;
+    const size_t smem = scratch ? 0 : warps * row_bytes;
     int blocks = 0;
     e = cudaFuncSetAttribute(cd_stream_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             optin);
+                             card);
     if (e == cudaSuccess)
       e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, cd_stream_kernel<T>, warps * 32,
                                                         smem);
     if (e != cudaSuccess) return e;
-    c = Config{0, 32, warps, warps, blocks, static_cast<int>(smem)};
+    if (blocks == 0) return cudaErrorInvalidValue;
+    c = Config{0, 32, warps, warps, blocks, static_cast<int>(smem), scratch};
   }
   cache.emplace(key, c);
   *out = c;
@@ -420,12 +439,19 @@ cudaError_t config(int K, bool shared_g, Config* out) {
 }
 
 template <typename T>
-cudaError_t launch(const Args& A, cudaStream_t st) {
+cudaError_t launch(Args A, int optin, cudaStream_t st) {
   if (A.R <= 0 || A.K <= 0) return cudaErrorInvalidValue;
   Config c{};
-  const cudaError_t e = config<T>(A.K, A.g_stride == 0, &c);
+  const cudaError_t e = config<T>(A.K, A.g_stride == 0, optin, &c);
   if (e != cudaSuccess) return e;
-  const long long blocks = (static_cast<long long>(A.R) + c.rows_pb - 1) / c.rows_pb;
+  long long blocks = (static_cast<long long>(A.R) + c.rows_pb - 1) / c.rows_pb;
+  if (c.scratch) {  // the warps the scratch has room for walk the rows
+    if (A.scratch == nullptr || A.scratch_rows < c.warps || A.scratch_rows % c.warps)
+      return cudaErrorInvalidValue;
+    blocks = A.scratch_rows / c.warps;
+  } else {
+    A.scratch = nullptr;
+  }
   if (c.staged)
     cd_staged_kernel<T><<<static_cast<unsigned>(blocks), c.warps * 32, c.smem, st>>>(A, c.lanes);
   else
@@ -436,28 +462,33 @@ cudaError_t launch(const Args& A, cudaStream_t st) {
 }  // namespace
 
 // C interface (bound with ctypes).  G, rhs, l1 and out are contiguous in the layouts
-// above, on the current device, 16-byte aligned; K >= 1, R >= 1.  Returns the
-// launch's cudaError_t (0 on success); the kernel runs asynchronously on `stream`.
+// above, on the current device, 16-byte aligned; K >= 1, R >= 1.  `optin`: the shared
+// memory a block the launch may take (0: the card's opt-in).  Where cmf_cd_plan
+// reports the scratch configuration, `scratch` is [scratch_rows, 6, K] of the type,
+// scratch_rows a multiple of the plan's warps a block (otherwise both are ignored).
+// Returns the launch's cudaError_t (0 on success); the kernel runs asynchronously on
+// `stream`.
 extern "C" int cmf_cd_solve(const void* G, long long g_stride, const void* rhs,
-                            const void* l1, int l1_stride, void* out, void* sweeps, int R,
-                            int K, int nonneg, int max_steps, double tol, int is_f64,
-                            void* stream) {
-  const Args A{G, g_stride, rhs, l1, l1_stride, out, static_cast<int*>(sweeps),
-               R, K, nonneg, max_steps, tol};
+                            const void* l1, int l1_stride, void* out, void* sweeps,
+                            void* scratch, int scratch_rows, int R, int K, int nonneg,
+                            int max_steps, double tol, int is_f64, int optin, void* stream) {
+  const Args A{G, g_stride, rhs, l1, l1_stride, out, static_cast<int*>(sweeps), scratch,
+               scratch_rows, R, K, nonneg, max_steps, tol};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return static_cast<int>(is_f64 ? launch<double>(A, st) : launch<float>(A, st));
+  return static_cast<int>(is_f64 ? launch<double>(A, optin, st) : launch<float>(A, optin, st));
 }
 
-// The launch that cmf_cd_solve takes at width K (shared_g: G of row stride 0) on
-// the current device, from the same record: out = {staged, lanes a row, warps a
-// block, rows a block, resident blocks an SM, shared memory bytes a block}.
-extern "C" int cmf_cd_plan(int K, int shared_g, int is_f64, int* out) {
+// The launch that cmf_cd_solve takes at width K (shared_g: G of row stride 0) within
+// `optin` bytes of shared memory (0: the card's) on the current device, from the same
+// record: out = {staged, lanes a row, warps a block, rows a block, resident blocks an
+// SM, shared memory bytes a block, scratch}.
+extern "C" int cmf_cd_plan(int K, int shared_g, int is_f64, int optin, int* out) {
   if (K <= 0) return static_cast<int>(cudaErrorInvalidValue);
   Config c{};
-  const cudaError_t e = is_f64 ? config<double>(K, shared_g != 0, &c)
-                               : config<float>(K, shared_g != 0, &c);
+  const cudaError_t e = is_f64 ? config<double>(K, shared_g != 0, optin, &c)
+                               : config<float>(K, shared_g != 0, optin, &c);
   if (e != cudaSuccess) return static_cast<int>(e);
-  const int v[6] = {c.staged, c.lanes, c.warps, c.rows_pb, c.blocks, c.smem};
-  for (int i = 0; i < 6; ++i) out[i] = v[i];
+  const int v[7] = {c.staged, c.lanes, c.warps, c.rows_pb, c.blocks, c.smem, c.scratch};
+  for (int i = 0; i < 7; ++i) out[i] = v[i];
   return cudaSuccess;
 }

@@ -7,7 +7,8 @@ linked into one shared library with a plain C interface, on first use, in
 sources and flags, so an edited source is rebuilt and a stale library is
 never loaded.  The library is bound
 with ``ctypes``.  Nothing here runs at import time: the CPU path never needs
-``nvcc``.
+``nvcc``.  :func:`probe_libs` builds K3's source alone with a probe flag,
+for scripts/time_k3_wide_torch.py only.
 """
 
 from __future__ import annotations
@@ -41,12 +42,18 @@ def _nvcc() -> str:
     return str(path)
 
 
-def library_path() -> Path:
+def _hashed(stem: str, sources, flags) -> Path:
+    """The library built from `sources` with `flags`: its name carries a hash
+    of both, so an edited source is rebuilt and a stale library never loaded."""
     h = hashlib.sha256()
-    for src in (*SOURCES, *HEADERS):
+    for src in (*sources, *HEADERS):
         h.update(src.read_bytes())
-    h.update(" ".join(NVCC_FLAGS).encode())
-    return BUILD_DIR / f"libcmfrec_kernels_{h.hexdigest()[:16]}.so"
+    h.update(" ".join(flags).encode())
+    return BUILD_DIR / f"{stem}_{h.hexdigest()[:16]}.so"
+
+
+def library_path() -> Path:
+    return _hashed("libcmfrec_kernels", SOURCES, NVCC_FLAGS)
 
 
 def _nvcc_all(cmds) -> str:
@@ -69,6 +76,34 @@ def _nvcc_all(cmds) -> str:
     return "".join(out + err for out, err in outs)
 
 
+def _build_all(targets) -> str:
+    """Build each (library path, sources, flags) of `targets`: every object
+    compiled at once (one nvcc a source), then each library linked.
+    Returns nvcc's diagnostics."""
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    nvcc = _nvcc()
+    compiles, links, done, temps = [], [], [], []
+    for path, sources, flags in targets:
+        tag = f"{path.stem}.{os.getpid()}"
+        objs = [BUILD_DIR / f"{tag}.{src.stem}.o" for src in sources]
+        tmp = BUILD_DIR / f"{tag}.so.tmp"
+        compiles += [[nvcc, *flags, "-c", "-o", str(obj), str(src)]
+                     for src, obj in zip(sources, objs)]
+        links.append([nvcc, flags[0], "-shared", "-o", str(tmp),
+                      *map(str, objs)])
+        done.append((tmp, path))
+        temps += [*objs, tmp]
+    try:
+        log = _nvcc_all(compiles)
+        log += _nvcc_all(links)
+        for tmp, path in done:  # atomic: a loader never sees half a file
+            os.replace(tmp, path)
+    finally:
+        for f in temps:
+            f.unlink(missing_ok=True)
+    return log
+
+
 @lru_cache(maxsize=None)
 def build() -> tuple[Path, str]:
     """Compile the kernels unless the hashed library exists.  Returns the
@@ -77,21 +112,38 @@ def build() -> tuple[Path, str]:
     path = library_path()
     if path.exists():
         return path, ""
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    nvcc = _nvcc()
-    tag = f"{path.stem}.{os.getpid()}"
-    objs = [BUILD_DIR / f"{tag}.{src.stem}.o" for src in SOURCES]
-    tmp = BUILD_DIR / f"{tag}.so.tmp"
-    try:
-        log = _nvcc_all([[nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)]
-                         for src, obj in zip(SOURCES, objs)])
-        log += _nvcc_all([[nvcc, NVCC_FLAGS[0], "-shared", "-o", str(tmp),
-                           *map(str, objs)]])
-        os.replace(tmp, path)  # atomic: a loader never sees half a file
-    finally:
-        for f in (*objs, tmp):
-            f.unlink(missing_ok=True)
-    return path, log
+    return path, _build_all([(path, SOURCES, NVCC_FLAGS)])
+
+
+K3_SOURCE = _PKG / "csrc" / "sparse_cg.cu"
+
+
+def probe_libs(bits) -> dict:
+    """K3's source alone, built once for each of `bits` with
+    ``-DCMF_K3_PROBE=<bits>`` (all compiled at once): past K = 256 a launch
+    of such a build leaves out the parts its bits name (1 the slot passes,
+    2 gfix v, 4 the stop rule), so that scripts/time_k3_wide_torch.py can
+    split a launch's time.  Its results are not K3's, and the ops never
+    load it.  Returns {bits: the bound library}."""
+    flags = {b: (*NVCC_FLAGS, f"-DCMF_K3_PROBE={int(b)}") for b in bits}
+    want = {b: _hashed(f"libcmfrec_k3_probe{int(b)}", (K3_SOURCE,), f)
+            for b, f in flags.items()}
+    missing = [(want[b], (K3_SOURCE,), flags[b]) for b in want
+               if not want[b].exists()]
+    if missing:
+        _build_all(missing)
+    out = {}
+    for b, path in want.items():
+        so = ctypes.CDLL(str(path))
+        _bind_bucket_cg(so)
+        out[b] = so
+    return out
+
+
+def _bind_bucket_cg(so) -> None:
+    P, I = ctypes.c_void_p, ctypes.c_int
+    so.cmf_bucket_cg.argtypes = [P] * 10 + [I] * 10 + [P]
+    so.cmf_bucket_cg.restype = I
 
 
 @lru_cache(maxsize=None)
@@ -110,12 +162,11 @@ def lib() -> ctypes.CDLL:
     so.cmf_k1_probe.restype = I
     so.cmf_w_stream.argtypes = [P, P] + [I] * 6 + [P]
     so.cmf_w_stream.restype = I
-    so.cmf_bucket_cg.argtypes = [P] * 10 + [I] * 9 + [P]
-    so.cmf_bucket_cg.restype = I
-    so.cmf_cd_solve.argtypes = ([P, ctypes.c_longlong, P, P, I, P, P]
-                                + [I] * 4 + [ctypes.c_double, I, P])
+    _bind_bucket_cg(so)
+    so.cmf_cd_solve.argtypes = ([P, ctypes.c_longlong, P, P, I, P, P, P]
+                                + [I] * 5 + [ctypes.c_double, I, I, P])
     so.cmf_cd_solve.restype = I
-    so.cmf_cd_plan.argtypes = [I, I, I, ctypes.POINTER(I)]
+    so.cmf_cd_plan.argtypes = [I, I, I, I, ctypes.POINTER(I)]
     so.cmf_cd_plan.restype = I
     so.cmf_error_string.argtypes = [I]
     so.cmf_error_string.restype = ctypes.c_char_p
@@ -138,6 +189,22 @@ def optin_smem(device) -> int:
     device = torch.device(device)
     return _device_optin(torch.cuda.current_device() if device.index is None
                          else device.index)
+
+
+@lru_cache(maxsize=None)
+def _device_sms(index: int) -> int:
+    import torch
+
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def sm_count(device) -> int:
+    """The SMs of the card `device`."""
+    import torch
+
+    device = torch.device(device)
+    return _device_sms(torch.cuda.current_device() if device.index is None
+                       else device.index)
 
 
 def check(err: int, name: str) -> None:

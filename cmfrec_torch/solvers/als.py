@@ -20,7 +20,9 @@ separate parts is its reference.
 The blocks, the coefficients and the solves run in the fit's dtype.  The
 bucket-CG op takes float32 without a preconditioner only, as the JAX
 package's fused CG (its ``can_fuse_cg``): float64 and Jacobi PCG
-(``precondition_cg``) buckets run rowsolve.solve_cg in plain torch.
+(``precondition_cg``) buckets run rowsolve.solve_cg in plain torch, and so
+do buckets whose K is past what K3's shared memory holds on the card
+(:func:`takes_k3`).
 
 Not ported from the JAX package: ``defer_solve`` and the cross-bucket
 Cholesky concatenation (a TPU compile-time measure: here each bucket
@@ -36,7 +38,7 @@ import numpy as np
 import torch
 
 from ..data.shards import BucketedRows
-from ..ops import coord_descent, rowsolve, sparse_cg
+from ..ops import _cuda, coord_descent, rowsolve, sparse_cg
 from ..ops.rowsolve import SparsePart, length_mask
 
 
@@ -157,11 +159,21 @@ def stacked_part(sparse_parts: list, mat: torch.Tensor,
     return SparsePart(mat, st.idx, cw, cv)
 
 
-def takes_k3(dtype, precondition: bool) -> bool:
-    """Whether a CG bucket runs the bucket-CG op (kernel K3 on a card): f32
-    without Jacobi preconditioning, the JAX package's ``can_fuse_cg``
-    gate.  Otherwise rowsolve.solve_cg runs it."""
-    return dtype == torch.float32 and not precondition
+def _on_card(device) -> bool:
+    return torch.device(device).type == "cuda"
+
+
+def takes_k3(dtype, precondition: bool, K: int, device) -> bool:
+    """Whether a CG bucket of width K on `device` runs the bucket-CG op
+    (kernel K3 on a card): f32 without Jacobi preconditioning, the JAX
+    package's ``can_fuse_cg`` gate, and on a card only where a row's CG
+    vectors fit its opt-in shared memory (``sparse_cg.k_fits``: K <= 3,624
+    on an H100).  Otherwise rowsolve.solve_cg runs it, the route the JAX
+    package takes past its gate; the twin on the CPU takes any K."""
+    if dtype != torch.float32 or precondition:
+        return False
+    return not _on_card(device) or sparse_cg.k_fits(
+        K, _cuda.optin_smem(device))
 
 
 def solve_bucket(
@@ -259,7 +271,7 @@ def solve_bucket(
     if lam_const_vec is not None:
         G0_eff = torch.diag(lam_const_vec) if G0 is None else (
             G0 + torch.diag(lam_const_vec))
-    if not takes_k3(a_prev.dtype, precondition):
+    if not takes_k3(a_prev.dtype, precondition, K, a_prev.device):
         return finish(rowsolve.solve_cg(
             sparse_parts, lam_vec, a_prev, n_steps, lam_mult=lam_mult,
             G0=G0_eff, r0=r0, jacobi=precondition, mxu_bf16=mxu_bf16))
@@ -349,7 +361,8 @@ def update_side(
             n_totals, scale_parts = n_totals + (pn,), scale_parts + (psc,)
         stacked = None
         if (method == "cg" and not use_cd and len(parts) > 1
-                and takes_k3(blk.dtype, precondition)):
+                and takes_k3(blk.dtype, precondition, blk.shape[1],
+                             blk.device)):
             if mat_cat is None:
                 mat_cat = torch.cat([p.opp for p in parts])
                 if mxu_bf16:

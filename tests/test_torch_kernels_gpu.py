@@ -396,21 +396,25 @@ def _bucket(dev, R, L, S, K, op, explicit, seed=0):
     return (mat, idx, cw, cv, gfix, lam_row, r0, a0), length
 
 
-@pytest.mark.parametrize("K", [8, 56, 64, 136, 256, 264, 320, 512, 1024])
+@pytest.mark.parametrize("K", [8, 56, 64, 136, 256, 264, 304, 320, 512,
+                               1024, 1032])
 @pytest.mark.parametrize("op", [torch.bfloat16, torch.float32])
 @pytest.mark.parametrize("explicit", [False, True])
 @pytest.mark.parametrize("L", [40, 700, 5000])
 def test_bucket_cg_matches_twin(cuda, K, op, explicit, L):
     """Staged (L=40) and re-gathered rows (700, 5000), 4/8/16 warps; past
-    K = 256 a block a row, narrow rows too, whose warps loop over K (two
-    calls bitwise equal)."""
+    K = 256 the rows design up to K = 1024 (narrow rows a warp each, 8 rows
+    a block; 99 rows, so the last block holds fewer) and the loop design
+    past it (a block a row), two calls bitwise equal."""
     torch.backends.cuda.matmul.allow_tf32 = False
-    R = 24 if L == 5000 else 96
+    R = 24 if L == 5000 else (99 if K > sparse_cg.TILED_MAX_K else 96)
     args, length = _bucket(cuda, R, L, 3 * L + 50, K, op, explicit)
     plan = sparse_cg.plan_for(R, L, K, op, cuda)
     assert plan["k_loop"] == (K > sparse_cg.TILED_MAX_K)
     if plan["k_loop"]:
-        assert not plan["warp_rows"]
+        rows = plan.get("rows", 0)  # the rows design's rows a block
+        assert (rows > 0) == (K <= sparse_cg.ROWS_MAX_K)
+        assert plan["warp_rows"] == (rows > 0 and L <= 128)
     before = sparse_cg.bucket_cg.launches
     out = sparse_cg.bucket_cg(*args, n_steps=3, length=length)
     torch.cuda.synchronize()
@@ -438,9 +442,16 @@ K3_CLASSES = [
     (600, 763, 56, "wide"),            # one slot past it: two blocks a row
     (3, 31600, 56, "wide"),            # a few LastFM-widest rows, 8 blocks
     (40, 3000, 256, "wide"),           # K=256: gfix read through L1
-    (2000, 128, 304, "middle"),        # past K=256: narrow rows a block each
-    (600, 762, 304, "wide"),           # a row's range past the stage budget
+    # past K=256, the rows design: a warp a row, 8 rows a block
+    (2000, 128, 304, "narrow"),
+    (8 * 37 + 3, 40, 1024, "narrow"),  # K=1024, a ragged last block
+    (601, 300, 264, "middle"),         # 4 rows a block of 2 warps each
+    (600, 762, 304, "middle"),         # 2 rows a block, partly staged
+    (130, 400, 512, "middle"),         # few rows: 1 row a block of 2 warps
     (3, 31600, 1024, "wide"),          # K=1024: 8 blocks a row
+    # past K=1024, the loop design: a block or cluster a row
+    (2000, 100, 1032, "middle"),
+    (3, 31600, 1032, "wide"),
 ]
 
 
@@ -468,6 +479,48 @@ def test_bucket_cg_classes(cuda, case, op, explicit):
     assert torch.isfinite(out).all()
     assert _rel(out, ref) <= K3_REL_TOL[op]
     assert torch.equal(out, again)
+
+
+@pytest.mark.parametrize("L", [40, 300])
+@pytest.mark.parametrize("op", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("K", [264, 304, 1024])
+def test_bucket_cg_rows_skip_and_freeze(cuda, K, op, L):
+    """The rows design with rows that skip (zero length, a0 = 0: r.r = 0)
+    and rows that freeze at different steps inside one block (gfix = 1.3 I:
+    a row of n slots has n + 1 distinct eigenvalues, so CG ends after n + 1
+    steps), beside full rows, in blocks whose last one is ragged (37 narrow
+    rows, 531 middle ones: enough for 4 rows a block), with and without
+    lam_row/r0: against the twin, and two launches bitwise equal."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    R = 37 if L <= 128 else 531
+    g = torch.Generator(device=cuda).manual_seed(K + L)
+    args, length = _bucket(cuda, R, L, 3 * L + 50, K, op, False, seed=K + L)
+    mat, idx, cw, cv, gfix, lam_row, r0, a0 = args
+    length[0::6] = 0           # skip: no slots and a0 = 0
+    a0[0::6] = 0.0
+    length[1::6] = 0           # freeze after one step (A = 1.3 I)
+    length[2::6] = 1           # after two
+    length[3::6] = 2           # after three
+    msk = (torch.arange(L, device=cuda)[None, :] < length[:, None]).float()
+    cw, cv = cw * msk, cv * msk
+    gfix = 1.3 * torch.eye(K, device=cuda)
+    plan = sparse_cg.plan_for(R, L, K, op, cuda)
+    assert plan["rows"] > 1 and R % plan["rows"]
+    for extra in (False, True):
+        lam_row = (0.4 * (1 + length.float())[:, None].expand(R, K)
+                   .contiguous() if extra else None)
+        r0 = torch.randn(R, K, device=cuda, generator=g) if extra else None
+        if extra:
+            r0[0::6] = 0.0
+        call = (mat, idx, cw, cv, gfix, lam_row, r0, a0)
+        out = sparse_cg.bucket_cg(*call, n_steps=3, length=length)
+        again = sparse_cg.bucket_cg(*call, n_steps=3, length=length)
+        ref = sparse_cg.bucket_cg_ref(*call, n_steps=3)
+        torch.cuda.synchronize()
+        assert torch.isfinite(out).all()
+        assert _rel(out, ref) <= K3_REL_TOL[op]
+        assert torch.equal(out, again)
+        assert torch.equal(out[0::6], a0[0::6])  # skipped rows keep a0
 
 
 def _serving_models(implicit, devices=("cuda", "cpu"), seed=15, m=300,
@@ -579,7 +632,7 @@ def _stacked_bucket(dev, R, Ls, K, seed):
     return parts, sparse, st, g
 
 
-@pytest.mark.parametrize("K", [8, 56, 136])
+@pytest.mark.parametrize("K", [8, 56, 136, 264, 1024])
 @pytest.mark.parametrize("Ls", [(24, 8, 24), (600, 16, 600), (3000, 64, 8)],
                          ids=["narrow", "middle", "wide"])
 def test_bucket_cg_stacked_parts_match_separate_parts(cuda, K, Ls):
@@ -980,11 +1033,55 @@ def test_cd_plan(cuda, K, dtype, shared_g):
         G = G[0].expand(40, K, K)
     coord_descent.solve_cd(G, rhs, l1["K"], nonneg=True, max_steps=3)
     assert coord_descent.plan(K, shared_g, dtype) == plan
+    assert not plan["scratch"]
     if plan["staged"]:
         assert 4 * plan["lanes"] >= K > 2 * plan["lanes"] or plan["lanes"] == 1
         assert plan["rows_per_block"] == plan["warps"] * 32 // plan["lanes"]
     else:
         assert plan["rows_per_block"] == plan["warps"]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_cd_scratch_matches_shared_memory(cuda, monkeypatch, dtype):
+    """Fault P6: the streamed path's scratch configuration (the vectors in
+    device memory), forced at K = 200 by a plan for a 4,096-byte opt-in,
+    gives the bits of the shared-memory one; 10,000 rows, more than the
+    resident warps, so that warps walk several rows."""
+    K, R = 200, 10000
+    G, rhs, l1 = _cd_problem(cuda, R, K, dtype, seed=2)
+    want, want_sweeps = coord_descent.solve_cd(
+        G, rhs, l1["RK"], nonneg=False, max_steps=8, return_sweeps=True)
+    shared = coord_descent.plan(K, False, dtype)
+    assert not shared["scratch"] and shared["smem"] > 0
+    monkeypatch.setattr(_cuda, "optin_smem", lambda device: 4096)
+    plan = coord_descent.plan(K, False, dtype)
+    assert plan["scratch"] and plan["smem"] == 0
+    assert plan == dict(coord_descent.stream_plan(
+        K, G.element_size(), 4096), staged=False, lanes=32,
+        rows_per_block=plan["warps"], blocks_per_sm=plan["blocks_per_sm"])
+    assert R > plan["blocks_per_sm"] * _cuda.sm_count(cuda) * plan["warps"]
+    n0 = coord_descent.solve_cd.launches
+    got, sweeps = coord_descent.solve_cd(G, rhs, l1["RK"], nonneg=False,
+                                         max_steps=8, return_sweeps=True)
+    torch.cuda.synchronize()
+    assert coord_descent.solve_cd.launches == n0 + 1
+    assert torch.equal(got, want) and torch.equal(sweeps, want_sweeps)
+
+
+def test_cd_solve_past_the_shared_memory_matches_twin(cuda):
+    """Fault P6: K = 4,848 in float64, past what a warp's six K-vectors
+    leave of the opt-in shared memory, runs the kernel (the scratch
+    configuration) and matches the twin: 4 rows, 2 sweeps."""
+    K, R = 4848, 4
+    plan = coord_descent.plan(K, False, torch.float64)
+    assert plan["scratch"]
+    G, rhs, l1 = _cd_problem(cuda, R, K, torch.float64, seed=3)
+    want = rowsolve.solve_cd(G, rhs, l1["K"], True, 2)
+    n0 = coord_descent.solve_cd.launches
+    got = coord_descent.solve_cd(G, rhs, l1["K"], nonneg=True, max_steps=2)
+    torch.cuda.synchronize()
+    assert coord_descent.solve_cd.launches == n0 + 1
+    assert _rel(got, want) <= CD_REL_TOL[torch.float64]
 
 
 def test_cd_solve_refuses_what_it_does_not_take(cuda):

@@ -269,18 +269,60 @@ LASTFM_BUCKETS = [
 @pytest.mark.parametrize("esz", [2, 4])
 @pytest.mark.parametrize("K", [264, 304, 512, 1024])
 def test_k3_plans_past_256_loop_over_k(K, esz):
-    """Every bucket a block (or cluster) a row, narrow rows too, within the
-    opt-in shared memory, its stage within the row's range."""
+    """Past 256, up to ROWS_MAX_K, the rows design: narrow rows a warp each,
+    8 rows a block; wider rows a team of warps, several rows a block (a
+    cluster one); within the opt-in shared memory, its stage within the
+    row's range."""
     for R, L in LASTFM_BUCKETS + [(1, 1), (3, 31600)]:
         plan = sparse_cg.k3_plan(R, L, K, esz, *H100)
-        assert plan["k_loop"] and not plan["warp_rows"]
+        assert plan["k_loop"] and plan["rows"] in (1, 2, 4, 8)
+        assert plan["warp_rows"] == (L <= sparse_cg.NARROW_L)
+        if L <= sparse_cg.NARROW_L:
+            assert plan["cls"] == "narrow"
+            assert plan["rows"] == 8 and plan["threads"] == 256
+        else:
+            assert plan["cls"] == ("wide" if plan["cluster"] > 1
+                                   else "middle")
+            assert plan["rows"] == 1 or plan["cluster"] == 1
+            assert plan["threads"] // 32 // plan["rows"] in (2, 4, 8)
+        assert plan["threads"] % (32 * plan["rows"]) == 0
+        assert plan["smem"] <= H100[1]
+        assert plan["smem"] == sparse_cg.rows_smem_bytes(
+            K, esz, plan["rows"], plan["threads"] // 32, plan["stage_slots"],
+            plan["cluster"])
+        assert 0 <= plan["stage_slots"] <= -(-L // plan["cluster"])
+    sparse_cg.check_k(K, esz, H100[1])
+
+
+@pytest.mark.parametrize("esz", [2, 4])
+@pytest.mark.parametrize("K", [1032, 2048])
+def test_k3_plans_past_1024_keep_the_loop_design(K, esz):
+    """Past ROWS_MAX_K the loop design: a block (or cluster) a row, narrow
+    rows too, whose warps loop over K, within the opt-in shared memory."""
+    for R, L in LASTFM_BUCKETS + [(1, 1), (3, 31600)]:
+        plan = sparse_cg.k3_plan(R, L, K, esz, *H100)
+        assert plan == sparse_cg.block_plan(R, L, K, esz, *H100)
+        assert plan["k_loop"] and not plan["warp_rows"] and "rows" not in plan
         assert plan["cls"] == ("wide" if plan["cluster"] > 1 else "middle")
         assert plan["threads"] in (128, 256)
         assert plan["smem"] <= H100[1]
         assert plan["smem"] == sparse_cg.smem_bytes(
             K, esz, 1, plan["threads"] // 32, plan["stage_slots"])
         assert 0 <= plan["stage_slots"] <= -(-L // plan["cluster"])
-    sparse_cg.check_k(K, esz, H100[1])
+
+
+@pytest.mark.parametrize("K", [264, 304, 1024])
+def test_k3_rows_plans_of_a_bucket_prefix(K):
+    """chip_smoke.py phase 30 holds each A bucket's first 2,048 rows with
+    the plan of the whole bucket: the rows design gives both the same plan.
+    Fewer rows than a block an SM's worth take fewer rows a block."""
+    for R, L in LASTFM_BUCKETS[:12]:
+        assert (sparse_cg.k3_plan(min(R, 2048), L, K, 2, *H100)
+                == sparse_cg.k3_plan(R, L, K, 2, *H100))
+    few = sparse_cg.k3_plan(130, 400, K, 2, *H100)
+    assert few["cls"] == "middle" and few["cluster"] == 1
+    assert few["rows"] == 1 and few["threads"] == 64
+    assert sparse_cg.k3_plan(2 * 132, 400, K, 2, *H100)["rows"] == 2
 
 
 def test_k3_limit_names_the_shared_memory():
@@ -292,14 +334,82 @@ def test_k3_limit_names_the_shared_memory():
 
 def test_cd_limit_names_the_shared_memory():
     """The CD kernel stages G up to STAGED_MAX_K whatever the type; past it
-    the streamed path's six K-vectors must fit the opt-in shared memory."""
-    for esz in (4, 8):
-        coord_descent.check_k(coord_descent.STAGED_MAX_K, esz, H100[1])
-    coord_descent.check_k(4842, 8, H100[1])
-    coord_descent.check_k(9685, 4, H100[1])
-    with pytest.raises(ValueError, match=r"K=4843 needs 232464 bytes of "
-                                         r"shared memory"):
-        coord_descent.check_k(4843, 8, H100[1])
+    the streamed path keeps a row's six K-vectors in shared memory while
+    one warp's fit the opt-in shared memory, and past that (K = 4,842 in
+    float64, 9,685 in float32 on an H100) in a scratch in device memory:
+    no K raises."""
+    optin = H100[1]
+    for K, esz in ((4842, 8), (9685, 4)):
+        plan = coord_descent.stream_plan(K, esz, optin)
+        assert not plan["scratch"] and plan["warps"] == 1
+        assert plan["smem"] == 6 * K * esz <= optin
+        past = coord_descent.stream_plan(K + 1, esz, optin)
+        assert past == dict(warps=coord_descent.STREAM_WARPS, scratch=True,
+                            smem=0)
+        assert 6 * (K + 1) * esz > optin
+    # K = 200 (f32): 8 warps in shared memory; a small opt-in forces the
+    # scratch (the card test holds the two configurations bitwise equal)
+    assert coord_descent.stream_plan(200, 4, optin) == dict(
+        warps=8, scratch=False, smem=8 * 4800)
+    assert coord_descent.stream_plan(200, 4, 4096)["scratch"]
+    assert coord_descent.stream_plan(4848, 8, optin)["scratch"]
+
+
+# an opt-in shared memory that puts K3's limit between K = 256 and 264:
+# a row's CG vectors take 64 K + 128 bytes
+P6_OPTIN = 64 * 256 + 128
+
+
+@pytest.mark.parametrize("optin,routed", [(P6_OPTIN, True),
+                                          (64 * 264 + 128, False)],
+                         ids=["past-limit", "within-limit"])
+def test_k3_past_its_limit_takes_solve_cg(monkeypatch, optin, routed):
+    """Fault P6 on a card stood in: past K3's shared-memory limit (here at K
+    = 264, an opt-in of 16,512 B) a bucketed CMF_implicit fit at k = 260
+    runs rowsolve.solve_cg, never the bucket-CG op, and matches cmfrec_tpu
+    (tolerance of test_torch_bucketed_fit.py); within the limit the op runs
+    every CG bucket."""
+    from cmfrec_torch.convert import init_from_arrays
+    from cmfrec_torch.ops import _cuda, rowsolve
+    from cmfrec_torch.solvers import als
+    from cmfrec_tpu.solvers import drivers as jax_drivers
+
+    monkeypatch.setattr(als, "_on_card", lambda device: True)
+    monkeypatch.setattr(_cuda, "optin_smem", lambda device: optin)
+    assert sparse_cg.k_fits(256, P6_OPTIN)
+    assert not sparse_cg.k_fits(264, P6_OPTIN)
+    calls = {"bucket_cg": 0, "solve_cg": 0}
+
+    def spy(module, name):
+        real = getattr(module, name)
+
+        def wrapped(*args, **kw):
+            calls[name] += 1
+            return real(*args, **kw)
+        monkeypatch.setattr(module, name, wrapped)
+
+    spy(sparse_cg, "bucket_cg")
+    spy(rowsolve, "solve_cg")
+    m, n, k = 60, 40, 260
+    rng = np.random.default_rng(2)
+    pairs = np.unique(rng.integers(0, m * n, 700))
+    rows, cols = pairs // n, pairs % n
+    vals = rng.uniform(1, 10, rows.size)
+    init = {key: (0.3 * rng.normal(size=(d, k))).astype(np.float32)
+            for key, d in (("A", m), ("B", n))}
+    common = dict(k=k, lambda_=0.9, alpha=2.0, niter=2, seed=3)
+    rj = jax_drivers.fit_implicit_als(rows, cols, vals, m, n, init=init,
+                                      dtype=np.float32, **common)
+    rt = drivers.fit_implicit_als(rows, cols, vals, m, n, device="cpu",
+                                  init=init_from_arrays(init, "cpu"),
+                                  **common)
+    if routed:
+        assert calls["bucket_cg"] == 0 and calls["solve_cg"] > 0
+    else:
+        assert calls["bucket_cg"] > 0 and calls["solve_cg"] == 0
+    for key in ("A", "B"):
+        np.testing.assert_allclose(rt[key].numpy(), np.asarray(rj[key]),
+                                   rtol=0, atol=5e-5, err_msg=key)
 
 
 class _Reached(Exception):
