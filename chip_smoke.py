@@ -156,27 +156,29 @@ at max_cd_steps):
      rows through cold factors of phase 28's model against its CPU copy.
 
 K past 256 (the kernels' wide paths: K1's wide configurations on wgmma
-and on FMA, K2's kernels at any K, K3's rows design up to K = 1024 and
-its loop design past it, fault P6's routes):
+and on FMA, K2's wide kernel (bf16) and its f32 kernel at any K, K3's rows
+design up to K = 1024 and its loop design past it, fault P6's routes):
  30. K1 (bf16 operands on the int8 mask and on bf16 weights, f32 operands)
-     and K2 (bf16, f32) against their twins on the A side of phase 3's X
-     and W at K = 320 (k = 300 on the dense engine) and 1024, and K3
-     against its twin on each A bucket of phase 6's layout at K = 264 (the
-     implicit fit's), 304 (k = 300 bucketed) and 1024 (the rows design)
-     and 1032 (the loop design; phase 6's log-play case in bf16): the
-     first 2,048 rows of each bucket, the plan the bucket's full rows take
-     asserted to be the one checked and of the design of its K, and at
-     K = 264 the widest bucket and the one of the most slots at their full
-     rows; each call's launches, time, plain time, bound and plan (K1: its
-     configuration, column chunks and shared memory); P6: a K3 bucket at
-     K = 3,640 through rowsolve.solve_cg (no K3 launch) against K3's twin,
-     the CD kernel at K = 4,848 in float64 (its scratch configuration)
-     against its twin; then CMF(k=300) on phase 4's data and split (the
-     dense engine, K = 320) at the flagship's 15 iterations: its seconds,
-     RMSE below the global mean's, K1's mean time a call by operand type,
-     K1/K2 launches 146/30; and CMF_implicit(k=260) on phase 7's data (K3
-     at K = 264) at its 15 iterations: P@10 above popularity, K3 = 15 x
-     the buckets, K3's milliseconds an iteration and share of the fit.
+     and K2 (bf16 on the int8 mask and on bf16 weights, f32) against their
+     twins on the A side of phase 3's X and W at K = 320 (k = 300 on the
+     dense engine) and 1024, the bf16 K2 also at 576 (two column chunks),
+     and K3 against its twin on each A bucket of phase 6's layout at K =
+     264 (the implicit fit's), 304 (k = 300 bucketed) and 1024 (the rows
+     design) and 1032 (the loop design; phase 6's log-play case in bf16):
+     the first 2,048 rows of each bucket, the plan the bucket's full rows
+     take asserted to be the one checked and of the design of its K, and
+     at K = 264 the widest bucket and the one of the most slots at their
+     full rows; each call's launches, time, plain time, bound and plan
+     (K1, K2: configuration, column chunks and shared memory); P6: a K3
+     bucket at K = 3,640 through rowsolve.solve_cg (no K3 launch) against
+     K3's twin, the CD kernel at K = 4,848 in float64 (its scratch
+     configuration) against its twin; then CMF(k=300) on phase 4's data
+     and split (the dense engine, K = 320) at the flagship's 15 iterations:
+     its seconds, RMSE below the global mean's, K1's and K2's mean time a
+     call by operand type, K1/K2 launches 146/30; and CMF_implicit(k=260)
+     on phase 7's data (K3 at K = 264) at its 15 iterations: P@10 above
+     popularity, K3 = 15 x the buckets, K3's milliseconds an iteration and
+     share of the fit.
 
 Each fit phase, and phase 9's sweep, sets every kernel's launch count to 0
 just before it and reads the counts just after; phases 10-16 print each
@@ -254,7 +256,7 @@ CUDA_KERNELS = {
                            "gram_bf16_wide_kernel", "gram_f32_wide_kernel",
                            "sum_chunks_kernel"),
     "masked_rhs": ("rhs_bf16_wgmma_kernel", "rhs_f32_tile8_kernel",
-                   "sum_chunks_kernel"),
+                   "rhs_bf16_wide_kernel", "sum_chunks_kernel"),
     "bucket_cg": ("bucket_cg_kernel", "bucket_cg_rows_kernel"),
     "solve_cd": ("cd_staged_kernel", "cd_stream_kernel"),
 }
@@ -3089,6 +3091,9 @@ def cd_phases(ops, rows, cols, vals, test, lastfm, ctx):
 # minute, except at WIDE_K3_FULL_K, where the widest bucket and the one of
 # the most slots are held at their full rows
 WIDE_K = {"dense": (320, 1024), "bucketed": (264, 304, 1024, 1032)}
+# the bf16 K2 also at a width of two column chunks of its wide kernel
+# (320 + 256)
+WIDE_K2_ONLY = (576,)
 WIDE_FIT_NITER = 15
 WIDE_K3_ROWS = 2048
 WIDE_K3_FULL_K = 264
@@ -3149,8 +3154,9 @@ def check_wide_kernels(rows, cols, vals, weights):
     """Phase 30's K1 and K2 against their twins at the A side of phase 3's
     dense X and W (69,888 x 10,688) at each of WIDE_K["dense"]: K1 with bf16
     operands on the int8 mask and on the bf16 weights, K1 with f32 operands,
-    K2 with bf16 and f32 operands; each call's launches, time, plain time,
-    bound and plan.  Returns the records by kernel."""
+    K2 with bf16 operands on the mask and on the weights and with f32
+    operands; at WIDE_K2_ONLY the bf16 K2 alone; each call's launches, time,
+    plain time, bound and plan.  Returns the records by kernel."""
     import torch
 
     from cmfrec_torch.ops import masked_matmul as mm
@@ -3165,13 +3171,16 @@ def check_wide_kernels(rows, cols, vals, weights):
     gen = torch.Generator(device=dev).manual_seed(30)
     mb = 3.5 + torch.randn(S, device=dev, generator=gen) / 2
     out = {"masked_gram_matvec": [], "masked_rhs": []}
-    for K in WIDE_K["dense"]:
-        Q = torch.randn(R, K, device=dev, generator=gen) / 8
+    k2_bf16 = [("masked_rhs", "bf16", "int8"), ("masked_rhs", "bf16", "bf16")]
+    for K in WIDE_K["dense"] + WIDE_K2_ONLY:
+        Q = (None if K in WIDE_K2_ONLY
+             else torch.randn(R, K, device=dev, generator=gen) / 8)
         Be = torch.randn(S, K, device=dev, generator=gen) / 8
-        cases = [("masked_gram_matvec", "bf16", "int8"),
-                 ("masked_gram_matvec", "bf16", "bf16"),
-                 ("masked_gram_matvec", "f32", "int8"),
-                 ("masked_rhs", "bf16", "int8"), ("masked_rhs", "f32", "int8")]
+        cases = k2_bf16 if K in WIDE_K2_ONLY else [
+            ("masked_gram_matvec", "bf16", "int8"),
+            ("masked_gram_matvec", "bf16", "bf16"),
+            ("masked_gram_matvec", "f32", "int8"),
+            *k2_bf16, ("masked_rhs", "f32", "int8")]
         for name, op, wname in cases:
             dt = torch.bfloat16 if op == "bf16" else torch.float32
             Wv = W8 if wname == "int8" else Wb
@@ -3204,7 +3213,8 @@ def check_wide_kernels(rows, cols, vals, weights):
             b_ms, b_by = bound(nbytes, {op: ops})
             ok = bool(np.isfinite(rel)) and rel <= REL_TOL[op] and launches == 1
             print(f"phase 30 kernel {name} side=A R={R} S={S} K={K} op={op} "
-                  f"W={wname}: configuration {plan['variant']}, column "
+                  f"W={wname}: configuration {plan['variant']}, nc "
+                  f"{plan['col_chunk']}, column "
                   f"chunks {[w for _, w in plan['cols']]}, S chunk "
                   f"{plan['chunk']} ({plan['chunks']} chunks), smem "
                   f"{plan['smem']} B; "
@@ -3464,25 +3474,31 @@ def wide_k_phases(ops, rows, cols, vals, test, weights, lastfm, ctx):
     records["p6"] = check_p6(ops)
 
     with _CallEvents(dense_masked, "masked_gram_matvec",
-                     lambda Q, Be, W: _dtype_name(Be)) as k1:
+                     lambda Q, Be, W: _dtype_name(Be)) as k1, \
+            _CallEvents(dense_masked, "masked_rhs",
+                        lambda X, W, mb, Be: _dtype_name(Be)) as k2:
         model, launches, s, peak = _fit_phase(
             ops, lambda: cmfrec_torch.CMF(**WIDE_FIT, device="cuda")
             .fit_triplets(tr_r, tr_c, tr_v, M, N))
-    k1_ms = k1.means()
+    k1_ms, k2_ms = k1.means(), k2.means()
     pred = model.predict(rows[test], cols[test])
     rmse = float(np.sqrt(np.mean((pred - vals[test]) ** 2)))
     base = float(np.sqrt(np.mean((tr_v.mean() - vals[test]) ** 2)))
     want = dense_launches(WIDE_FIT["niter"])
-    k1_text = ", ".join(f"{dt} {n} calls {ms:.3f} ms a call"
-                        for dt, (n, ms) in sorted(k1_ms.items()))
+    k1_text, k2_text = (", ".join(f"{dt} {n} calls {ms:.3f} ms a call"
+                                  for dt, (n, ms) in sorted(by.items()))
+                        for by in (k1_ms, k2_ms))
     print(f"phase 30 CMF(k=300) on {card()}: {WIDE_FIT['niter']} iterations "
           f"on the dense engine (K=320) in {s:.3f} s, peak device memory "
           f"{peak / 2**30:.2f} GiB, held-out RMSE {rmse:.5f} (global-mean "
           f"baseline {base:.5f}), A_ {model.A_.shape}; K1 in the fit: "
-          f"{k1_text}; launches {launches} (expected {want})", flush=True)
+          f"{k1_text}; K2 in the fit: {k2_text}; launches {launches} "
+          f"(expected {want})", flush=True)
     records["cmf_k300"] = dict(seconds=s, rmse=rmse, baseline=base,
                                k1_ms_a_call={dt: ms for dt, (_, ms)
                                              in k1_ms.items()},
+                               k2_ms_a_call={dt: ms for dt, (_, ms)
+                                             in k2_ms.items()},
                                launches=launches)
     if launches != want:
         raise AssertionError("phase 30: CMF(k=300) did not run the expected "
@@ -3792,8 +3808,7 @@ def main():
             bound_ms=main_variant["bound_ms"],
             bound_by=main_variant["bound_by"], library_ms=None,
             variants=variants, wide_k=wide[name],
-            **({"cmf_k300": wide["cmf_k300"]}
-               if name == "masked_gram_matvec" else {})))
+            cmf_k300=wide["cmf_k300"]))
     # K3 at the main path's shapes: one implicit iteration's launches (every
     # bucket of both sides, bf16), summed
     main = [r for r in k3

@@ -12,7 +12,8 @@
 // They replace cmfrec_tpu/ops/masked_matmul.py::masked_gram_matvec (Pallas body
 // _matvec_kernel) and ::masked_rhs (_rhs_kernel).  As there, the [R,S]
 // intermediate never reaches device memory: a block owns a row block and 64
-// output columns and walks S in tiles.  With bf16 operands, T*W is formed in
+// output columns (past K = 256 as many as its registers hold) and walks S in
+// tiles.  With bf16 operands, T*W is formed in
 // f32 and rounded to bf16 once, exactly where the TPU kernel rounds it
 // (masked_matmul.py:96); a bf16 W meets T rounded to bf16 first (:94).  K2
 // and the f32 K1 widen any W to f32.
@@ -69,7 +70,10 @@
 // half, V staged transposed, a cp.async double buffer, 8x8 thread tiles of
 // true f32 FMA.  The first design (rhs_bf16_kernel: synchronous copies,
 // mma.sync, no split; rhs_f32_kernel: 4x4 thread tiles of scalar loads) is
-// gone.
+// gone.  Past K = 256 the bf16 K2 runs rhs_bf16_wide_kernel (the section "K2
+// past K = 256" below): a block owns as many output columns as its registers
+// hold, all of K = 320, so X and W leave device memory once and V is formed
+// once an S tile; the f32 K2 keeps rhs_f32_tile8_kernel at any K.
 //
 // Past K = 256 (kTiledMaxK) K1 runs its wide configurations (the section "K1 past
 // K = 256" below): a block owns as many output columns as its registers hold, all
@@ -85,6 +89,8 @@
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
 //        -Xcompiler -fPIC -o libcmfrec_kernels.so masked_matmul.cu
+
+#include <cuda.h>  // CUtensorMap; the encoder is reached through the runtime
 
 #include <algorithm>
 
@@ -1185,7 +1191,6 @@ __global__ void __launch_bounds__(RING_NT, 1)
   constexpr int STAGE = QC + WB_BSS * WD_KC * 2;
   constexpr int CORE = WD_KC * 16;  // from one 8-row group of a chunk's core matrices to the next
   extern __shared__ __align__(16) unsigned char smem[];
-  const int core_o = col_chunk * 16;  // the same in Bo
   const int bo_bytes = WB_BSS * col_chunk * 2;
   unsigned char* ring = smem;                // STG x {Q chunk [128, 64], Be chunk [64, 64]}
   unsigned char* Bo = ring + STG * STAGE;    // 2 x [64, col_chunk]
@@ -1198,7 +1203,9 @@ __global__ void __launch_bounds__(RING_NT, 1)
   const size_t row0 = static_cast<size_t>(blockIdx.x / wide_col_blocks(K, col_chunk)) * RING_BM;
   const int rows = min(RING_BM, R - static_cast<int>(row0));
   const int c0 = blockIdx.x % wide_col_blocks(K, col_chunk) * col_chunk;
-  const int nct = min(col_chunk, K - c0) / BN;
+  const int ncols = min(col_chunk, K - c0);  // the last chunk may be narrower
+  const int nct = ncols / BN;
+  const int core_o = ncols * 16;  // from one 8-row group of Bo's core matrices to the next
   const Chunk ch(part, R, S, K, chunk);
   const int nkc = K / WD_KC;  // > STG (K > 256): a W / Bo buffer is free before it reloads
   const int ntiles = (ch.s_end - ch.s_begin) / WB_BSS;  // chunk and S are multiples of 64
@@ -1214,7 +1221,7 @@ __global__ void __launch_bounds__(RING_NT, 1)
                              WD_KC);
     if (kc == 0) {
       copy_core_async<RING_NT>(Bo + (it & 1) * bo_bytes, Be + static_cast<size_t>(s0) * K + c0,
-                               WB_BSS, K, col_chunk);
+                               WB_BSS, K, ncols);
       copy_swz_async<RING_NT, RB>(Wt + (it & 1) * RING_BM * RB, W + row0 * S + s0,
                                   static_cast<size_t>(S) * sizeof(WT), rows, RB);
     }
@@ -1355,10 +1362,10 @@ __global__ void __launch_bounds__(WF_NT, 1)
       copy_tile_async<WF_NT>(st + WF_BM * WF_LDK, WF_LDK * 4,
                              Be + static_cast<size_t>(s0) * K + kc * WD_KC,
                              static_cast<size_t>(K) * 4, WF_BSS, WD_KC * 4);
-      if (kc == 0)
+      if (kc == 0)  // the chunk's own columns: the last chunk may be narrower
         copy_tile_async<WF_NT>(Bo + (it & 1) * bo_n, col_chunk * 4,
                                Be + static_cast<size_t>(s0) * K + c0,
-                               static_cast<size_t>(K) * 4, WF_BSS, col_chunk * 4);
+                               static_cast<size_t>(K) * 4, WF_BSS, nc * 4);
     }
     if (kc == 0)
       copy_tile_async<WF_NT>(Wt + (it & 1) * WF_BM * ldw, ldw * sizeof(WT), W + row0 * S + s0,
@@ -1496,6 +1503,272 @@ __global__ void __launch_bounds__(WF_NT, 1)
   }
 }
 
+// ------------------------------------------------------ K2 past K = 256
+// rhs_bf16_wgmma_kernel owns 64 output columns a block, and its launcher makes
+// gridDim.y = K / 64 with blockIdx.x over the row blocks fastest, so past K = 256
+// each of the K / 64 column groups streams the whole X and W from device memory and
+// forms V = (X - mb) * W again: 5 x 2.24 GB at the flagship's A side at K = 320, 16 x
+// at K = 1024.  rhs_bf16_wide_kernel (bf16 operands, any W type) serves K2 past
+// kTiledMaxK instead, and is bound by the bytes of X and W (0.70 ms at K = 320 on an
+// H100) up to K ~ 450, by its 2RSK tensor-core operations past that (1.55 ms at K =
+// 1024):
+//  - a block owns a 128-row block (two warpgroups of 64 rows) and as many output
+//    columns as its registers hold: RW_TILES tiles of 64, 32 f32 accumulators a
+//    thread each (160 at K = 320, all of it in one chunk); blockIdx.x runs over a row
+//    block's column chunks fastest (wide_col_blocks), so at K = 1024 its four chunks
+//    run side by side and X and W leave device memory once;
+//  - V is formed in f32 from the staged X, W and mb once an S tile and a block, and
+//    rounded to bf16 once (masked_rhs_ref's rounding point), as wgmma_rs's register A
+//    operand of the chunk's output tiles, against the S tile's Be columns of the
+//    chunk read MN-major;
+//  - the tiles come by the Tensor Memory Accelerator through a ring of 64-wide S
+//    tiles (three stages where they fit, else two), thread 0 asking for them on the
+//    stage's mbarrier: X and W as 2-D boxes of [128 rows, 64 columns] that land as
+//    swz lays them out (128 B rows by 128B swizzle, an int8 W's 64 B rows by 64B, an
+//    f32 W as two 128 B halves), mb's 256 bytes by a bulk copy, the chunk's Be
+//    columns as [64 S rows, 64 columns] tiles by 128B swizzle (wgmma's MN-major
+//    layout of that swizzle).  The first design streamed them by cp.async from all
+//    threads (2.47 ms at K = 320, the copies alone 2.14, X and W's 1.05: the block's
+//    requests, not device memory, set the pace); a cluster of two row blocks
+//    multicasting each Be tile read slower than TMA alone (1.86 ms), its blocks
+//    waiting on each other at every stage (PERF.md);
+//  - V of tile it is formed while tile it-1's products run (two sets of A registers,
+//    wgmma.wait_group 1), and every warp runs the products whatever rows it holds (a
+//    ragged last block's second warpgroup computes on zeros and stores nothing): no
+//    wgmma or wait sits on a path the compiler could take for divergent (C7518
+//    serializes them).
+// Split-S as the tiled kernels: no atomics, two calls give the same bits.
+constexpr int RW_TILES = 5;  // output tiles of 64 columns a block at most
+constexpr int RW_BSS = 64;   // S tile
+
+// Probe builds leave one part of rhs_bf16_wide_kernel's work out, so that
+// scripts/time_k2_wide_torch.py can split a launch's time (their results are not
+// K2's): no V and no products (the copies alone), no Be copies (the products read
+// whatever the ring holds).  A probe build is this file compiled alone with
+// -DCMF_K2_PROBE=<bits> (ops/_cuda.py: probe_libs); the ops' library is compiled
+// without it, and kK2Probe is 0 there.
+constexpr int kK2ProbeNoMath = 1;
+constexpr int kK2ProbeNoBe = 2;
+#ifndef CMF_K2_PROBE
+#define CMF_K2_PROBE 0
+#endif
+constexpr int kK2Probe = CMF_K2_PROBE;
+
+// Two consecutive W entries, widened to f32.
+__device__ __forceinline__ float2 load_w2(const int8_t* p) {
+  const uint16_t v = *reinterpret_cast<const uint16_t*>(p);
+  return make_float2(static_cast<float>(static_cast<int8_t>(v & 0xff)),
+                     static_cast<float>(static_cast<int8_t>(v >> 8)));
+}
+
+__device__ __forceinline__ float2 load_w2(const bf16_t* p) {
+  const uint32_t v = *reinterpret_cast<const uint32_t*>(p);
+  return make_float2(bf16_bits_to_float(static_cast<uint16_t>(v & 0xffffu)),
+                     bf16_bits_to_float(static_cast<uint16_t>(v >> 16)));
+}
+
+__device__ __forceinline__ float2 load_w2(const float* p) {
+  return *reinterpret_cast<const float2*>(p);
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_addr(bar)), "r"(count)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_addr(bar)),
+               "r"(bytes)
+               : "memory");
+}
+
+// Wait for the phase of parity `parity` to complete; a fault in the protocol traps (a
+// launch error) after ~10 s rather than holding the card.
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  const long long t0 = clock64();
+  for (;;) {
+    uint32_t done;
+    asm volatile(
+        "{\n.reg .pred p;\nmbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(smem_addr(bar)), "r"(parity)
+        : "memory");
+    if (done) return;
+    if (clock64() - t0 > (1LL << 34)) __trap();
+  }
+}
+
+__device__ __forceinline__ void tma_2d(void* dst, const CUtensorMap* map, int c0, int c1,
+                                       uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1, {%2, "
+      "%3}], [%4];\n" ::"r"(smem_addr(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(smem_addr(bar))
+      : "memory");
+}
+
+__device__ __forceinline__ void bulk_copy(void* dst, const void* src, uint32_t bytes,
+                                          uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n" ::
+          "r"(smem_addr(dst)),
+      "l"(src), "r"(bytes), "r"(smem_addr(bar))
+      : "memory");
+}
+
+// A 128B-swizzled MN-major operand of 64 columns: 128 B rows, 8-row groups 1024 B
+// apart (SBO); LBO, the stride to the next 64 columns, is not read at N = 64.
+__device__ __forceinline__ uint64_t gmma_desc_sw128(const void* p) {
+  return gmma_desc(p, 8192, 1024) | (1ull << 62);
+}
+
+// Bytes of a ring stage: nc / 64 Be tiles [64, 64] (8 KB each), X [128, 64], W
+// [128, 64], mb (a 1 KB slot), each 1024-aligned for the swizzle.
+template <typename WT>
+__host__ __device__ __forceinline__ size_t rhs_wide_stage(size_t nc) {
+  return nc / 64 * 8192 + static_cast<size_t>(RING_BM) * RW_BSS * (2 + sizeof(WT)) + 1024;
+}
+
+template <typename WT, int STG>
+size_t rhs_bf16_wide_smem(int K) {
+  return 1024 + STG * rhs_wide_stage<WT>(wide_col_chunk(K, RW_TILES)) + STG * sizeof(uint64_t);
+}
+
+// Byte of W entry (r, s) in a stage's W tile as TMA lays it out (an f32 W in two
+// halves of 32 columns).
+template <typename WT>
+__device__ __forceinline__ int w_tile_byte(int r, int s) {
+  if constexpr (sizeof(WT) == 4) return (s >> 5) * (RING_BM * 128) + swz<128>(r, (s & 31) * 4);
+  else return swz<RW_BSS * sizeof(WT)>(r, s * static_cast<int>(sizeof(WT)));
+}
+
+// One warp's share of a stage: V = (X - mb) * W of its 16 rows and the S tile's 64
+// columns, rounded to bf16 into p as wgmma_rs's A fragments (rows wr + g, + 8;
+// columns 8j + 2t, + 1), then out[64, 64q ..] += V Be[S tile, 64q ..] for the chunk's
+// nct tiles (Be tiles at Bs + 8192 q; X, W and mb at Bs + xo, wo, mo), committed and
+// left in flight.  (One instruction over several tiles, N up to 256, read 5% faster
+// at K = 1024 and no faster at 320.)
+template <typename WT>
+__device__ __forceinline__ void rhs_wide_products(float (&acc)[RW_TILES][8][4],
+                                                  uint32_t (&p)[8][2], const unsigned char* Bs,
+                                                  int xo, int wo, int mo, int nct, int wr, int g,
+                                                  int t) {
+  constexpr int RX = RW_BSS * 2;  // bytes of an X tile row
+  if constexpr (kK2Probe & kK2ProbeNoMath) return;
+  const unsigned char* Xs = Bs + xo;
+  const unsigned char* Ws = Bs + wo;
+  const float* ms = reinterpret_cast<const float*>(Bs + mo);
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+    const int s = j * 8 + 2 * t;
+    const float2 m = *reinterpret_cast<const float2*>(ms + s);
+    const uint32_t x0 = *reinterpret_cast<const uint32_t*>(Xs + swz<RX>(wr + g, 2 * s));
+    const uint32_t x1 = *reinterpret_cast<const uint32_t*>(Xs + swz<RX>(wr + g + 8, 2 * s));
+    const float2 w0 = load_w2(reinterpret_cast<const WT*>(Ws + w_tile_byte<WT>(wr + g, s)));
+    const float2 w1 = load_w2(reinterpret_cast<const WT*>(Ws + w_tile_byte<WT>(wr + g + 8, s)));
+    p[j][0] = pack_bf16((bf16_bits_to_float(static_cast<uint16_t>(x0 & 0xffffu)) - m.x) * w0.x,
+                        (bf16_bits_to_float(static_cast<uint16_t>(x0 >> 16)) - m.y) * w0.y);
+    p[j][1] = pack_bf16((bf16_bits_to_float(static_cast<uint16_t>(x1 & 0xffffu)) - m.x) * w1.x,
+                        (bf16_bits_to_float(static_cast<uint16_t>(x1 >> 16)) - m.y) * w1.y);
+  }
+  wgmma_fence();
+#pragma unroll
+  for (int q = 0; q < RW_TILES; ++q) {
+    if (q >= nct) break;
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+      wgmma_rs(acc[q], p[2 * kk][0], p[2 * kk][1], p[2 * kk + 1][0], p[2 * kk + 1][1],
+               gmma_desc_sw128(Bs + q * 8192 + kk * 2048));
+  }
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+
+template <typename WT, int STG>
+__global__ void __launch_bounds__(RING_NT, 1)
+    rhs_bf16_wide_kernel(const __grid_constant__ CUtensorMap tmX,
+                         const __grid_constant__ CUtensorMap tmW,
+                         const __grid_constant__ CUtensorMap tmB, const float* __restrict__ mb,
+                         float* __restrict__ part, int R, int S, int K, int chunk, int col_chunk) {
+  static_assert(STG >= 2, "a ring of at least two stages");
+  constexpr int XB = RING_BM * RW_BSS * 2, WB = RING_BM * RW_BSS * sizeof(WT);
+  constexpr bool kBe = !(kK2Probe & kK2ProbeNoBe);
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  unsigned char* smem = smem_raw + ((1024 - (smem_addr(smem_raw) & 1023)) & 1023);
+  const int stage = static_cast<int>(rhs_wide_stage<WT>(col_chunk));
+  const int xo = col_chunk / BN * 8192, wo = xo + XB, mo = wo + WB;  // a stage's X, W, mb
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + STG * stage);  // a stage's tiles landed
+
+  const int lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int wr = (threadIdx.x >> 5) * 16;
+  const int row0 = blockIdx.x / wide_col_blocks(K, col_chunk) * RING_BM;
+  const int rows = min(RING_BM, R - row0);
+  const int c0 = blockIdx.x % wide_col_blocks(K, col_chunk) * col_chunk;
+  const int nct = min(col_chunk, K - c0) / BN;  // the last chunk may be narrower
+  const Chunk ch(part, R, S, K, chunk);
+  const int ntiles = (ch.s_end - ch.s_begin) / RW_BSS;  // chunk and S are multiples of 64
+  const uint32_t tile_bytes = XB + WB + RW_BSS * sizeof(float) + (kBe ? nct * 8192 : 0);
+
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < STG; ++i) mbar_init(full + i, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  // thread 0: tile `tile` into its stage (rows past R arrive as zeros)
+  auto issue = [&](int tile) {
+    unsigned char* st = smem + (tile % STG) * stage;
+    uint64_t* bar = full + tile % STG;
+    const int s0 = ch.s_begin + tile * RW_BSS;
+    mbar_expect_tx(bar, tile_bytes);
+    tma_2d(st + xo, &tmX, s0, row0, bar);
+    tma_2d(st + wo, &tmW, s0, row0, bar);
+    if constexpr (sizeof(WT) == 4) tma_2d(st + wo + RING_BM * 128, &tmW, s0 + 32, row0, bar);
+    bulk_copy(st + mo, mb + s0, RW_BSS * sizeof(float), bar);
+    if constexpr (kBe)
+      for (int q = 0; q < nct; ++q) tma_2d(st + q * 8192, &tmB, c0 + q * BN, s0, bar);
+  };
+  if (threadIdx.x == 0)
+    for (int tile = 0; tile < STG - 1 && tile < ntiles; ++tile) issue(tile);
+
+  float acc[RW_TILES][8][4] = {};
+  uint32_t pa[8][2], pb[8][2];  // V of the even and of the odd tiles
+  // tile it's products, once its stage has landed
+  auto products = [&](int it, uint32_t (&p)[8][2]) {
+    mbar_wait(full + it % STG, (it / STG) & 1);
+    rhs_wide_products<WT>(acc, p, smem + (it % STG) * stage, xo, wo, mo, nct, wr, g, t);
+  };
+  // after them: tile it-1's awaited; once both warpgroups are done with its stage,
+  // tile it + STG - 1 goes there
+  auto end = [&](int it) {
+    if constexpr (!(kK2Probe & kK2ProbeNoMath))
+      asm volatile("wgmma.wait_group.sync.aligned 1;\n" ::: "memory");
+    __syncthreads();
+    if (threadIdx.x == 0 && it + STG - 1 < ntiles) issue(it + STG - 1);
+  };
+  int it = 0;
+  for (; it + 1 < ntiles; it += 2) {
+    products(it, pa);
+    end(it);
+    products(it + 1, pb);
+    end(it + 1);
+  }
+  if (it < ntiles) {
+    products(it, pa);
+    end(it);
+  }
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+#pragma unroll
+  for (int q = 0; q < RW_TILES; ++q) fence_acc(acc[q]);
+  if (wr >= rows) return;
+#pragma unroll
+  for (int q = 0; q < RW_TILES; ++q) {
+    if (q >= nct) break;
+    store_out_bf16(ch.out, acc[q], static_cast<size_t>(row0 + wr + g), K, c0 + q * BN, t);
+  }
+}
+
 // ---------------------------------------------------------------- launch
 // The kernel configurations of K1 (op 0) and K2 (op 1) for W type WT,
 // numbered as the C interface numbers them, bf16 operands first, each in
@@ -1503,13 +1776,15 @@ __global__ void __launch_bounds__(WF_NT, 1)
 // stages, three 64-wide, two 64-wide), 3-4 f32 (8x8 thread tiles, then the
 // 8x4 ring for K > 128), and past K = 256 only the wide ones: 5-6 bf16
 // (Q and the whole-K Be tiles held, then the K chunks streamed), 7-8 f32
-// (the same).  K2: 0-1 bf16 (three 64-wide stages,
-// two), 2 f32, at any K (a block owns 64 output columns and reads only those
-// of Be).
+// (the same).  K2: 0-1 bf16 up to K = 256 (three 64-wide stages, two; a
+// block owns 64 output columns and reads only those of Be), 2 f32 at any K
+// (the same), and past K = 256 3-4 bf16 (rhs_bf16_wide_kernel, three
+// stages, two).
 constexpr int OP_GRAM = 0, OP_RHS = 1;
-constexpr int CONFIGS[2] = {9, 3};
+constexpr int CONFIGS[2] = {9, 5};
 constexpr int GRAM_WIDE = 5;      // K1's first wide configuration (bf16)
 constexpr int GRAM_WIDE_F32 = 7;  // and its first f32 one
+constexpr int RHS_WIDE = 3;       // K2's first wide configuration (bf16 only)
 
 // The configurations the geometry query tries, in order: [first, last].
 void config_range(int op, int K, bool op_f32, int* first, int* last) {
@@ -1519,10 +1794,22 @@ void config_range(int op, int K, bool op_f32, int* first, int* last) {
   } else if (op == OP_GRAM) {
     *first = op_f32 ? 3 : 0;
     *last = op_f32 ? 4 : 2;
+  } else if (op_f32) {
+    *first = *last = 2;
   } else {
-    *first = op_f32 ? 2 : 0;
-    *last = op_f32 ? 2 : 1;
+    *first = K > kTiledMaxK ? RHS_WIDE : 0;
+    *last = K > kTiledMaxK ? CONFIGS[OP_RHS] - 1 : 1;
   }
+}
+
+// Whether configuration `variant` of `op` runs at width K (for either operand type).
+bool takes_k(int op, int variant, int K) {
+  for (int f32 = 0; f32 < 2; ++f32) {
+    int first = 0, last = 0;
+    config_range(op, K, f32, &first, &last);
+    if (first <= variant && variant <= last) return true;
+  }
+  return false;
 }
 
 struct GramConfig {
@@ -1530,6 +1817,7 @@ struct GramConfig {
   int threads, row_tile, s_tile;
   int min_blocks;  // resident blocks an SM it is chosen for (0: the last resort)
   size_t smem;
+  bool tma = false;  // the kernel takes TMA maps of X, W and Be (K2 past kTiledMaxK)
 };
 
 template <typename WT>
@@ -1563,8 +1851,12 @@ GramConfig rhs_config(int variant, int K) {
                     RING_BM, 64, 2, rhs_bf16_wgmma_smem<WT, 64, 3>(K)};
     case 1: return {reinterpret_cast<const void*>(rhs_bf16_wgmma_kernel<WT, 64, 2>), RING_NT,
                     RING_BM, 64, 0, rhs_bf16_wgmma_smem<WT, 64, 2>(K)};
-    default: return {reinterpret_cast<const void*>(rhs_f32_tile8_kernel<WT>), F8_NT, F8_BM,
-                     F8_BSS, 0, rhs_f32_tile8_smem<WT>(K)};
+    case 2: return {reinterpret_cast<const void*>(rhs_f32_tile8_kernel<WT>), F8_NT, F8_BM,
+                    F8_BSS, 0, rhs_f32_tile8_smem<WT>(K)};
+    case 3: return {reinterpret_cast<const void*>(rhs_bf16_wide_kernel<WT, 3>), RING_NT,
+                    RING_BM, RW_BSS, 1, rhs_bf16_wide_smem<WT, 3>(K), true};
+    default: return {reinterpret_cast<const void*>(rhs_bf16_wide_kernel<WT, 2>), RING_NT,
+                     RING_BM, RW_BSS, 0, rhs_bf16_wide_smem<WT, 2>(K), true};
   }
 }
 
@@ -1573,9 +1865,16 @@ GramConfig config(int op, int variant, int K) {
   return op == OP_GRAM ? gram_config<WT>(variant, K) : rhs_config<WT>(variant, K);
 }
 
+// Whether configuration `variant` of `op` is a wide one: a block owns a chunk of
+// the output columns (col_chunk_of) and blockIdx.x runs over them fastest.
+bool is_wide(int op, int variant) {
+  return variant >= (op == OP_GRAM ? GRAM_WIDE : RHS_WIDE);
+}
+
 // The output columns a block of K1's (K2's) configuration `variant` owns.
 int col_chunk_of(int op, int variant, int K) {
-  if (op != OP_GRAM || variant < GRAM_WIDE) return BN;
+  if (!is_wide(op, variant)) return BN;
+  if (op == OP_RHS) return wide_col_chunk(K, RW_TILES);
   return wide_col_chunk(K, variant >= GRAM_WIDE_F32 ? WF_TILES
                            : variant == GRAM_WIDE  ? WH_TILES
                                                    : WB_TILES);
@@ -1620,20 +1919,99 @@ cudaError_t geometry(int op, int K, bool op_f32, int* geo) {
   return cudaErrorInvalidValue;
 }
 
+// CUDA's cuTensorMapEncodeTiled, reached through the runtime's entry-point query (no
+// link to libcuda).
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+EncodeTiled tensor_map_encoder() {
+  static const EncodeTiled fn = [] {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult q;
+    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &q) !=
+            cudaSuccess ||
+        q != cudaDriverEntryPointSuccess)
+      return static_cast<EncodeTiled>(nullptr);
+    return reinterpret_cast<EncodeTiled>(p);
+  }();
+  return fn;
+}
+
+// A map of a row-major [rows, cols] array of `esz`-byte entries whose boxes are
+// [box_rows, box_cols], rows past the array arriving as zeros.
+cudaError_t map_2d(CUtensorMap* m, CUtensorMapDataType type, int esz, const void* base, int rows,
+                   int cols, int box_rows, int box_cols, CUtensorMapSwizzle swizzle) {
+  const EncodeTiled encode = tensor_map_encoder();
+  if (!encode) return cudaErrorNotSupported;
+  const cuuint64_t dims[2] = {static_cast<cuuint64_t>(cols), static_cast<cuuint64_t>(rows)};
+  const cuuint64_t strides[1] = {static_cast<cuuint64_t>(cols) * esz};
+  const cuuint32_t box[2] = {static_cast<cuuint32_t>(box_cols), static_cast<cuuint32_t>(box_rows)};
+  const cuuint32_t steps[2] = {1, 1};
+  return encode(m, type, 2, const_cast<void*>(base), dims, strides, box, steps,
+                CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS
+             ? cudaSuccess
+             : cudaErrorInvalidValue;
+}
+
+// How a W tile travels by TMA: its type, box columns (an f32 W's 64 in two boxes) and
+// swizzle (as swz lays out its rows).
+template <typename WT> struct WMap;
+template <> struct WMap<int8_t> {
+  static constexpr CUtensorMapDataType type = CU_TENSOR_MAP_DATA_TYPE_UINT8;
+  static constexpr int cols = 64;
+  static constexpr CUtensorMapSwizzle swizzle = CU_TENSOR_MAP_SWIZZLE_64B;
+};
+template <> struct WMap<bf16_t> {
+  static constexpr CUtensorMapDataType type = CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
+  static constexpr int cols = 64;
+  static constexpr CUtensorMapSwizzle swizzle = CU_TENSOR_MAP_SWIZZLE_128B;
+};
+template <> struct WMap<float> {
+  static constexpr CUtensorMapDataType type = CU_TENSOR_MAP_DATA_TYPE_FLOAT32;
+  static constexpr int cols = 32;
+  static constexpr CUtensorMapSwizzle swizzle = CU_TENSOR_MAP_SWIZZLE_128B;
+};
+
+// K2 by a TMA configuration (rhs_bf16_wide_kernel): the maps of X, W and Be.
+template <typename WT>
+cudaError_t run_tma(const GramConfig& c, const void* const (&ptrs)[4], float* part, int R, int S,
+                    int K, int chunk, int col_chunk, cudaStream_t st) {
+  CUtensorMap maps[3];
+  cudaError_t err = map_2d(&maps[0], CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, ptrs[0], R, S, RING_BM,
+                           RW_BSS, CU_TENSOR_MAP_SWIZZLE_128B);
+  if (err == cudaSuccess)
+    err = map_2d(&maps[1], WMap<WT>::type, sizeof(WT), ptrs[1], R, S, RING_BM, WMap<WT>::cols,
+                 WMap<WT>::swizzle);
+  if (err == cudaSuccess)
+    err = map_2d(&maps[2], CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, ptrs[3], S, K, RW_BSS, BN,
+                 CU_TENSOR_MAP_SWIZZLE_128B);
+  if (err != cudaSuccess) return err;
+  const unsigned row_blocks = (R + RING_BM - 1) / RING_BM;
+  const dim3 grid(row_blocks * wide_col_blocks(K, col_chunk), 1, (S + chunk - 1) / chunk);
+  const void* mb = ptrs[2];
+  void* args[] = {&maps[0], &maps[1], &maps[2], &mb, &part, &R, &S, &K, &chunk, &col_chunk};
+  return cudaLaunchKernel(c.kernel, grid, dim3(c.threads), args, c.smem, st);
+}
+
 // K1 or K2 into `part` (out itself for one chunk) with configuration
 // `variant`, whose shared-memory limit geometry() has set on this device;
 // ptrs are the kernel's leading pointers in its order (three for K1).
 // col_chunk: the output columns a block owns, as geometry() gave them
-// (col_chunk_of); the wide configurations run only past kTiledMaxK.
+// (col_chunk_of); the wide configurations run only past kTiledMaxK, and the
+// tiled bf16 ones only up to it.
 template <typename WT>
 cudaError_t run(int op, int variant, const void* const (&ptrs)[4], float* part, int R, int S,
                 int K, int chunk, int col_chunk, cudaStream_t st) {
   if (variant < 0 || variant >= CONFIGS[op]) return cudaErrorInvalidValue;
-  const bool wide = op == OP_GRAM && variant >= GRAM_WIDE;
-  if (wide != (op == OP_GRAM && K > kTiledMaxK) || col_chunk != col_chunk_of(op, variant, K))
+  const bool wide = is_wide(op, variant);
+  if (!takes_k(op, variant, K) || col_chunk != col_chunk_of(op, variant, K))
     return cudaErrorInvalidValue;
   const GramConfig c = config<WT>(op, variant, K);
   if (chunk % c.s_tile) return cudaErrorInvalidValue;
+  if (c.tma) return run_tma<WT>(c, ptrs, part, R, S, K, chunk, col_chunk, st);
   const unsigned row_blocks = (R + c.row_tile - 1) / c.row_tile;
   const unsigned col_blocks = wide_col_blocks(K, col_chunk);
   const dim3 grid(wide ? row_blocks * col_blocks : row_blocks, wide ? 1 : col_blocks,
@@ -1643,7 +2021,7 @@ cudaError_t run(int op, int variant, const void* const (&ptrs)[4], float* part, 
   const void* p2 = ptrs[2];
   const void* p3 = ptrs[3];
   void* gram_args[] = {&p0, &p1, &p2, &part, &R, &S, &K, &chunk, &col_chunk};
-  void* rhs_args[] = {&p0, &p1, &p2, &p3, &part, &R, &S, &K, &chunk};
+  void* rhs_args[] = {&p0, &p1, &p2, &p3, &part, &R, &S, &K, &chunk, &col_chunk};
   return cudaLaunchKernel(c.kernel, grid, dim3(c.threads), op == OP_GRAM ? gram_args : rhs_args,
                           c.smem, st);
 }
@@ -1692,7 +2070,7 @@ int geometry_of(int op, int K, int op_f32, int w_type, int* geo) {
 // cmf_rhs_geometry chose on this device for the operands' type, W type and
 // K, and split S into ceil(S / chunk) chunks, chunk a positive multiple of
 // that configuration's S tile; with more than one chunk, `part` holds
-// chunks x R x K f32 partial sums (scratch), else it is not read.  K1's
+// chunks x R x K f32 partial sums (scratch), else it is not read.
 // col_chunk is the output columns a block owns, as the geometry query gave
 // them: 64 for the tiled configurations, wide_col_chunk for the wide ones.
 extern "C" int cmf_masked_gram_matvec(const void* Q, const void* Be, const void* W, void* out,
@@ -1704,10 +2082,10 @@ extern "C" int cmf_masked_gram_matvec(const void* Q, const void* Be, const void*
 }
 
 extern "C" int cmf_masked_rhs(const void* X, const void* W, const void* mb, const void* Be,
-                              void* out, void* part, int R, int S, int K, int chunk, int variant,
-                              int w_type, void* stream) {
+                              void* out, void* part, int R, int S, int K, int chunk,
+                              int col_chunk, int variant, int w_type, void* stream) {
   const void* const ptrs[4] = {X, W, mb, Be};
-  return run_split(OP_RHS, ptrs, out, part, R, S, K, chunk, BN, variant, w_type,
+  return run_split(OP_RHS, ptrs, out, part, R, S, K, chunk, col_chunk, variant, w_type,
                    static_cast<cudaStream_t>(stream));
 }
 

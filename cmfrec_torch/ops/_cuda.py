@@ -7,8 +7,9 @@ linked into one shared library with a plain C interface, on first use, in
 sources and flags, so an edited source is rebuilt and a stale library is
 never loaded.  The library is bound
 with ``ctypes``.  Nothing here runs at import time: the CPU path never needs
-``nvcc``.  :func:`probe_libs` builds K3's source alone with a probe flag,
-for scripts/time_k3_wide_torch.py only.
+``nvcc``.  :func:`probe_libs` builds K3's or K2's source alone with a
+probe flag, for scripts/time_k3_wide_torch.py and
+scripts/time_k2_wide_torch.py only.
 """
 
 from __future__ import annotations
@@ -115,49 +116,63 @@ def build() -> tuple[Path, str]:
     return path, _build_all([(path, SOURCES, NVCC_FLAGS)])
 
 
-K3_SOURCE = _PKG / "csrc" / "sparse_cg.cu"
-
-
-def probe_libs(bits) -> dict:
-    """K3's source alone, built once for each of `bits` with
-    ``-DCMF_K3_PROBE=<bits>`` (all compiled at once): past K = 256 a launch
-    of such a build leaves out the parts its bits name (1 the slot passes,
-    2 gfix v, 4 the stop rule), so that scripts/time_k3_wide_torch.py can
-    split a launch's time.  Its results are not K3's, and the ops never
-    load it.  Returns {bits: the bound library}."""
-    flags = {b: (*NVCC_FLAGS, f"-DCMF_K3_PROBE={int(b)}") for b in bits}
-    want = {b: _hashed(f"libcmfrec_k3_probe{int(b)}", (K3_SOURCE,), f)
-            for b, f in flags.items()}
-    missing = [(want[b], (K3_SOURCE,), flags[b]) for b in want
-               if not want[b].exists()]
-    if missing:
-        _build_all(missing)
-    out = {}
-    for b, path in want.items():
-        so = ctypes.CDLL(str(path))
-        _bind_bucket_cg(so)
-        out[b] = so
-    return out
-
-
 def _bind_bucket_cg(so) -> None:
     P, I = ctypes.c_void_p, ctypes.c_int
     so.cmf_bucket_cg.argtypes = [P] * 10 + [I] * 10 + [P]
     so.cmf_bucket_cg.restype = I
 
 
-@lru_cache(maxsize=None)
-def lib() -> ctypes.CDLL:
-    so = ctypes.CDLL(str(build()[0]))
+def _bind_masked(so) -> None:
     P, I = ctypes.c_void_p, ctypes.c_int
     so.cmf_masked_gram_matvec.argtypes = [P] * 5 + [I] * 7 + [P]
     so.cmf_masked_gram_matvec.restype = I
     so.cmf_gram_geometry.argtypes = [I, I, I, ctypes.POINTER(I)]
     so.cmf_gram_geometry.restype = I
-    so.cmf_masked_rhs.argtypes = [P] * 6 + [I] * 6 + [P]
+    so.cmf_masked_rhs.argtypes = [P] * 6 + [I] * 7 + [P]
     so.cmf_masked_rhs.restype = I
     so.cmf_rhs_geometry.argtypes = [I, I, I, ctypes.POINTER(I)]
     so.cmf_rhs_geometry.restype = I
+    so.cmf_error_string.argtypes = [I]
+    so.cmf_error_string.restype = ctypes.c_char_p
+
+
+# the probe builds: kernel -> (its source, the macro of its probe bits, binder)
+PROBES = {"k3": (_PKG / "csrc" / "sparse_cg.cu", "CMF_K3_PROBE",
+                 _bind_bucket_cg),
+          "k2": (_PKG / "csrc" / "masked_matmul.cu", "CMF_K2_PROBE",
+                 _bind_masked)}
+
+
+def probe_libs(bits, kernel="k3") -> dict:
+    """`kernel`'s source alone (K3: sparse_cg.cu, K2: masked_matmul.cu),
+    built once for each of `bits` with ``-D<macro>=<bits>`` (all compiled at
+    once): a launch of such a build leaves out the parts its bits name (K3
+    past K = 256: 1 the slot passes, 2 gfix v, 4 the stop rule; K2's wide
+    kernel: 1 V and the products, 2 the Be copies), so that
+    scripts/time_k3_wide_torch.py and scripts/time_k2_wide_torch.py can
+    split a launch's time.  Its results are not the kernel's, and the ops
+    never load it.  Returns {bits: the bound library}."""
+    source, macro, bind = PROBES[kernel]
+    flags = {b: (*NVCC_FLAGS, f"-D{macro}={int(b)}") for b in bits}
+    want = {b: _hashed(f"libcmfrec_{kernel}_probe{int(b)}", (source,), f)
+            for b, f in flags.items()}
+    missing = [(want[b], (source,), flags[b]) for b in want
+               if not want[b].exists()]
+    if missing:
+        _build_all(missing)
+    out = {}
+    for b, path in want.items():
+        so = ctypes.CDLL(str(path))
+        bind(so)
+        out[b] = so
+    return out
+
+
+@lru_cache(maxsize=None)
+def lib() -> ctypes.CDLL:
+    so = ctypes.CDLL(str(build()[0]))
+    P, I = ctypes.c_void_p, ctypes.c_int
+    _bind_masked(so)
     so.cmf_k1_probe.argtypes = [P, P, P, P] + [I] * 7 + [P]
     so.cmf_k1_probe.restype = I
     so.cmf_w_stream.argtypes = [P, P] + [I] * 6 + [P]
@@ -168,8 +183,6 @@ def lib() -> ctypes.CDLL:
     so.cmf_cd_solve.restype = I
     so.cmf_cd_plan.argtypes = [I, I, I, I, ctypes.POINTER(I)]
     so.cmf_cd_plan.restype = I
-    so.cmf_error_string.argtypes = [I]
-    so.cmf_error_string.restype = ctypes.c_char_p
     return so
 
 

@@ -16,15 +16,19 @@ bf16 operands T*W is formed in f32 and rounded to bf16 once, as on the TPU;
 a bf16 W meets T already rounded to bf16 (the TPU's bf16 multiply).  The
 f32 K1 and K2 widen any W to f32.
 R, S and K must be multiples of TILE (the engine pads to them).  Every
-kernel takes any such K: K2's blocks own 64 output columns each; K1's
-tiled kernels hold full-K tiles and own 64 output columns up to
-TILED_MAX_K, and past it K1 runs a wide configuration (bf16 on wgmma, f32
-on register-tiled FMA) whose blocks own as many output columns as their
-registers hold (:func:`wide_col_chunk`: all of K = 320, so the scores are
-computed once) and hold Q whole where it fits, else stream the scores' K in
-chunks.  With bf16 operands the rounding of T*W follows T summed in order
-in f32, as the twin sums it (the kernel sums T again in order where the
-tensor cores' T lies near a rounding midpoint).
+kernel takes any such K: K1's tiled kernels hold full-K tiles and own 64
+output columns up to TILED_MAX_K, and past it K1 runs a wide configuration
+(bf16 on wgmma, f32 on register-tiled FMA) whose blocks own as many output
+columns as their registers hold (:func:`wide_col_chunk`: all of K = 320,
+so the scores are computed once) and hold Q whole where it fits, else
+stream the scores' K in chunks.  With bf16 operands the rounding of T*W
+follows T summed in order in f32, as the twin sums it (the kernel sums T
+again in order where the tensor cores' T lies near a rounding midpoint).
+K2's blocks own 64 output columns up to TILED_MAX_K and with f32 operands
+at any K; past it with bf16 operands they own as many as their registers
+hold (:func:`rhs_col_chunk`: all of K = 320), so X and W are read once and
+V = (X - mb) * W formed once an S tile (:func:`rhs_wide_variant`,
+:func:`rhs_wide_smem` model the choice).
 
 When a kernel's row blocks alone would not fill the card, K1 and K2 split
 S into chunks over the grid (:func:`split_chunk` picks the chunk from R, S,
@@ -54,6 +58,12 @@ WIDE_CONFIGS = {5: (torch.bfloat16, True, 0, 5),
                 6: (torch.bfloat16, False, 4, 4),
                 7: (torch.float32, True, 0, 8),
                 8: (torch.float32, False, 2, 8)}
+# K2's wide configurations past TILED_MAX_K (bf16 operands only), numbered as
+# cmf_rhs_geometry numbers them and in the order it tries them: ring stages
+RHS_WIDE_CONFIGS = {3: 3, 4: 2}
+# output tiles of TILE columns a block of them owns at most (32 accumulator
+# registers a tile)
+RHS_WIDE_TILES = 5
 # split_chunk: the fewest waves of resident blocks it aims the grid at
 WAVES = 4
 
@@ -134,14 +144,49 @@ def col_chunks(K, width):
     return tuple((c0, min(width, K - c0)) for c0 in range(0, K, width))
 
 
+def _col_chunk(K, most):
+    """The fewest chunks of at most `most` tiles covering K, as even as
+    whole TILEs allow: the columns of one (csrc/masked_matmul.cu:
+    wide_col_chunk)."""
+    tiles = K // TILE
+    chunks = -(-tiles // most)
+    return -(-tiles // chunks) * TILE
+
+
 def wide_col_chunk(K, variant):
     """The output columns a block of K1's wide configuration `variant` owns,
     as the card's geometry query reckons them (csrc/masked_matmul.cu:
     col_chunk_of): the fewest chunks of at most its tiles, as even as whole
     TILEs allow (K = 320: one chunk; K = 1024: 4 x 256 bf16, 2 x 512 f32)."""
-    tiles, most = K // TILE, WIDE_CONFIGS[variant][3]
-    chunks = -(-tiles // most)
-    return -(-tiles // chunks) * TILE
+    return _col_chunk(K, WIDE_CONFIGS[variant][3])
+
+
+def rhs_col_chunk(K):
+    """The output columns a block of K2's wide configurations owns past
+    TILED_MAX_K (col_chunk_of): at most RHS_WIDE_TILES tiles (K = 320 and
+    576's first chunk 320, K = 384 2 x 192, K = 1024 4 x 256)."""
+    return _col_chunk(K, RHS_WIDE_TILES)
+
+
+def rhs_wide_smem(variant, K, w_dtype):
+    """The shared memory a block of K2's wide configuration `variant` takes
+    at K, in bytes, as the card's geometry query reckons it
+    (rhs_bf16_wide_smem): 1 KB to align the tiles to 1024 B, and its ring
+    stages, each the 64-wide S tile's Be columns of the block's chunk (8 KB
+    a 64-column tile, bf16), X's and W's [128, 64] tiles and a 1 KB slot of
+    mb's 64 entries, with an 8-byte barrier."""
+    wsz = torch.empty((), dtype=w_dtype).element_size()
+    stage = rhs_col_chunk(K) // 64 * 8192 + 128 * 64 * (2 + wsz) + 1024
+    return 1024 + RHS_WIDE_CONFIGS[variant] * (stage + 8)
+
+
+def rhs_wide_variant(K, w_dtype, optin):
+    """K2's configuration at K (> TILED_MAX_K) with bf16 operands on a card
+    that lets a block opt in to `optin` bytes of shared memory, as the
+    card's geometry query picks it: three stages where they fit, else two."""
+    return next((v for v in RHS_WIDE_CONFIGS
+                 if rhs_wide_smem(v, K, w_dtype) <= optin),
+                list(RHS_WIDE_CONFIGS)[-1])
 
 
 # the padding of a W tile row in the f32 wide kernel, in entries (WPad)
@@ -268,22 +313,24 @@ def gram_plan(R, S, K, op_dtype, w_dtype, device):
 
 
 def rhs_plan(R, S, K, op_dtype, w_dtype, device):
-    """K2's launch plan on a card, as :func:`gram_plan` gives K1's (its
-    blocks own 64 output columns at any K)."""
+    """K2's launch plan on a card, as :func:`gram_plan` gives K1's: its
+    blocks own 64 output columns up to TILED_MAX_K and with f32 operands,
+    past it with bf16 operands :func:`rhs_col_chunk` (the configuration and
+    shared memory as :func:`rhs_wide_variant` and :func:`rhs_wide_smem`
+    model them)."""
     return _plan("rhs", R, S, K, op_dtype, w_dtype, device)
 
 
-def _launch_split(fn, plan, ptrs, R, S, K, w_dtype, device, stream,
-                  cols=()):
+def _launch_split(fn, plan, ptrs, R, S, K, w_dtype, device, stream):
     """One K1 or K2 call over plan["chunks"] chunks of S (partial sums in
-    scratch, added in chunk order by the same C call); returns out and
-    the call's CUDA error code.  `cols`: K1's column chunk argument."""
+    scratch, added in chunk order by the same C call) with the plan's
+    column chunk; returns out and the call's CUDA error code."""
     out = torch.empty(R, K, dtype=torch.float32, device=device)
     part = (torch.empty(plan["chunks"], R, K, dtype=torch.float32,
                         device=device) if plan["chunks"] > 1 else out)
     return out, fn(*ptrs, out.data_ptr(), part.data_ptr(), R, S, K,
-                   plan["chunk"], *cols, plan["variant"], W_TYPES[w_dtype],
-                   stream)
+                   plan["chunk"], plan["col_chunk"], plan["variant"],
+                   W_TYPES[w_dtype], stream)
 
 
 def masked_gram_matvec(Q, Be, W):
@@ -303,7 +350,7 @@ def masked_gram_matvec(Q, Be, W):
         out, err = _launch_split(
             _cuda.lib().cmf_masked_gram_matvec, plan,
             (Q.data_ptr(), Be.data_ptr(), W.data_ptr()), R, S, K, W.dtype,
-            device, stream, cols=(plan["col_chunk"],))
+            device, stream)
     _cuda.check(err, "masked_gram_matvec")
     masked_gram_matvec.launches += 1
     return out
@@ -328,15 +375,32 @@ def masked_rhs(X, W, mb, Be):
     if device.type == "cpu":
         return masked_rhs_ref(X, W, mb, Be)
     _kernel_device("masked_rhs", device, K)
+    out = rhs_launch(X, W, mb, Be, rhs_plan(R, S, K, Be.dtype, W.dtype,
+                                            device))
+    masked_rhs.launches += 1
+    return out
+
+
+def rhs_launch(X, W, mb, Be, plan, kernels=None):
+    """One K2 call on validated CUDA operands with `plan` (a
+    :func:`rhs_plan`), from the ops' library, or from `kernels`, a library
+    of :func:`_cuda.probe_libs` (scripts/time_k2_wide_torch.py: the result
+    is then not K2's), whose geometry query is asked first so that its
+    kernels' shared-memory limit is set.  Counts no launch:
+    :func:`masked_rhs` is the op."""
+    (R, S), K, device = X.shape, Be.shape[1], X.device
     with torch.cuda.device(device):
         stream = _stream_for((X, W, mb, Be), device)
-        plan = rhs_plan(R, S, K, Be.dtype, W.dtype, device)
+        if kernels is not None:
+            geo = (ctypes.c_int * 6)()
+            _cuda.check(kernels.cmf_rhs_geometry(
+                K, int(Be.dtype == torch.float32), W_TYPES[W.dtype], geo),
+                "rhs geometry")
         out, err = _launch_split(
-            _cuda.lib().cmf_masked_rhs, plan,
-            (X.data_ptr(), W.data_ptr(), mb.data_ptr(), Be.data_ptr()), R, S,
-            K, W.dtype, device, stream)
+            (_cuda.lib() if kernels is None else kernels).cmf_masked_rhs,
+            plan, (X.data_ptr(), W.data_ptr(), mb.data_ptr(), Be.data_ptr()),
+            R, S, K, W.dtype, device, stream)
     _cuda.check(err, "masked_rhs")
-    masked_rhs.launches += 1
     return out
 
 

@@ -64,9 +64,20 @@ def test_kernels_match_twins(cuda, op, wdt, K):
     """Past K = 256 K1 runs a wide configuration (5-6 bf16, 7-8 f32: Q held
     whole where it fits, else streamed), in the column chunks, and with
     the shared memory, that masked_matmul's model of the choice reckons
-    (wide_variant, wide_col_chunk, wide_smem); K2 its own kernels.  R = 192:
-    a ragged last 128-row block."""
+    (wide_variant, wide_col_chunk, wide_smem); K2 with bf16 operands its
+    wide configuration (3-4, rhs_wide_variant, rhs_col_chunk,
+    rhs_wide_smem), with f32 operands 64 columns a block.  R = 192: a
+    ragged last 128-row block."""
     R, S = 192, 320
+    rplan = mm.rhs_plan(R, S, K, op, wdt, cuda)
+    if K > mm.TILED_MAX_K and op == torch.bfloat16:
+        assert rplan["variant"] == mm.rhs_wide_variant(
+            K, wdt, _cuda.optin_smem(cuda))
+        assert rplan["col_chunk"] == mm.rhs_col_chunk(K)
+        assert rplan["smem"] == mm.rhs_wide_smem(rplan["variant"], K, wdt)
+        assert len(rplan["cols"]) == -(-K // (mm.TILE * mm.RHS_WIDE_TILES))
+    else:
+        assert rplan["variant"] <= 2 and rplan["col_chunk"] == mm.TILE
     plan = mm.gram_plan(R, S, K, op, wdt, cuda)
     if K > mm.TILED_MAX_K:
         assert plan["variant"] == mm.wide_variant(K, op, wdt,
@@ -136,6 +147,33 @@ def test_k2_split_s_matches_twin(cuda, monkeypatch, op, wdt, K):
         chunks = mm.rhs_plan(R, S, K, op, wdt, cuda)["chunks"]
         assert ch is None or chunks == -(-S // ch)
         _, Be, W, X, mb = _inputs(cuda, R, S, K, op, wdt, seed=S)
+        before = mm.masked_rhs.launches
+        out = mm.masked_rhs(X, W, mb, Be)
+        again = mm.masked_rhs(X, W, mb, Be)
+        torch.cuda.synchronize()
+        assert mm.masked_rhs.launches == before + 2
+        assert torch.isfinite(out).all()
+        assert _rel(out, mm.masked_rhs_ref(X, W, mb, Be)) <= REL_TOL[op]
+        assert torch.equal(out, again)
+
+
+@pytest.mark.parametrize("K", [320, 384, 576, 1024])
+@pytest.mark.parametrize("wdt", [torch.int8, torch.float32, torch.bfloat16])
+def test_k2_wide_ragged_rows_and_split_s(cuda, monkeypatch, wdt, K):
+    """The bf16 K2 past 256 (rhs_bf16_wide_kernel) on 320 rows (two full
+    128-row blocks and a ragged one of 64) in its column chunks (one at K =
+    320, two at 384 and 576, four at 1024), with S in two full chunks and a
+    ragged third (the chunk forced) and in one chunk: each call twice,
+    bitwise equal (no atomics), against the twin."""
+    R, op = 320, torch.bfloat16
+    s_tile = mm.rhs_plan(R, 64, K, op, wdt, cuda)["s_tile"]
+    chunk = 2 * s_tile
+    for S, ch in ((2 * chunk + 64, chunk), (2 * chunk + 64, 4 * chunk)):
+        monkeypatch.setattr(mm, "split_chunk", lambda *a, **kw: ch)
+        plan = mm.rhs_plan(R, S, K, op, wdt, cuda)
+        assert plan["variant"] in mm.RHS_WIDE_CONFIGS
+        assert plan["chunks"] == -(-S // ch)
+        _, Be, W, X, mb = _inputs(cuda, R, S, K, op, wdt, seed=K + S)
         before = mm.masked_rhs.launches
         out = mm.masked_rhs(X, W, mb, Be)
         again = mm.masked_rhs(X, W, mb, Be)

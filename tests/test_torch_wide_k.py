@@ -1,6 +1,7 @@
 """K past 256 on the card's kernel routes, on the CPU: the launch planners of
-K1/K2 (gram_plan, rhs_plan; K1's wide configurations as masked_matmul
-models the card's choice: wide_variant, wide_col_chunk, wide_smem) and K3
+K1/K2 (gram_plan, rhs_plan; K1's and K2's wide configurations as masked_matmul
+models the card's choice: wide_variant, wide_col_chunk, wide_smem;
+rhs_wide_variant, rhs_col_chunk, rhs_wide_smem) and K3
 (k3_plan) past 256 and unchanged up to it, the column-chunked composition of K1 and K2 in plain torch against the
 twins and cmfrec_tpu's Pallas kernels in interpret mode, and the drivers
 reaching their engines at k = 300 with a card stood in (no K check is left
@@ -29,7 +30,9 @@ TOL = {"f32": 1e-5, "bf16": 1e-3}
 # the flagship's bf16 K1 and K2 on 132 SMs (the shared memory theirs at K =
 # 64 on an int8 W)
 GEO = {"gram": (0, 128, 128, 2, 132, 64, 114688),
-       "rhs": (0, 128, 64, 2, 132, 64, 99072)}
+       "rhs": (0, 128, 64, 2, 132, 64, 99072),
+       # the f32 K2 (rhs_f32_tile8_kernel) on an int8 W, at any K
+       "rhs_f32": (2, 128, 64, 1, 132, 64, 115200)}
 # what an H100 reports: SMs, opt-in shared memory a block (bytes)
 H100 = (132, 227 * 1024)
 W_OF = {code: dtype for dtype, code in mm.W_TYPES.items()}
@@ -37,9 +40,16 @@ W_OF = {code: dtype for dtype, code in mm.W_TYPES.items()}
 
 def _card_geometry(op, index, K, op_f32, w_type):
     """What an H100's geometry query would give: GEO up to K = 256, past it
-    K1's wide configuration as masked_matmul models it (one block an SM)."""
-    if op == "rhs" or K <= mm.TILED_MAX_K:
+    K1's and K2's wide configurations as masked_matmul models them (one
+    block an SM), and the f32 K2's 64 columns a block."""
+    if K <= mm.TILED_MAX_K:
         return GEO[op]
+    if op == "rhs" and op_f32:
+        return GEO["rhs_f32"]
+    if op == "rhs":
+        variant = mm.rhs_wide_variant(K, W_OF[w_type], H100[1])
+        return (variant, 128, 64, 1, H100[0], mm.rhs_col_chunk(K),
+                mm.rhs_wide_smem(variant, K, W_OF[w_type]))
     op_dtype = torch.float32 if op_f32 else torch.bfloat16
     variant = mm.wide_variant(K, op_dtype, W_OF[w_type], H100[1])
     return (variant, 64 if op_f32 else 128, 32 if op_f32 else 64, 1, H100[0],
@@ -89,7 +99,7 @@ def test_plans_past_256_cover_k_once_in_chunks(fake_geometry, op, K, dtype):
     plan = planner(69888, 10688, K, dtype, torch.int8, "cuda:0")
     covered = np.zeros(K, int)
     most = (64 * mm.WIDE_CONFIGS[plan["variant"]][3] if op == "gram"
-            else 64)
+            else 64 * mm.RHS_WIDE_TILES if dtype == torch.bfloat16 else 64)
     for c0, width in plan["cols"]:
         assert 0 < width <= most and width % 64 == 0 and c0 % 64 == 0
         covered[c0:c0 + width] += 1
@@ -99,7 +109,11 @@ def test_plans_past_256_cover_k_once_in_chunks(fake_geometry, op, K, dtype):
         assert plan["col_chunk"] == mm.wide_col_chunk(K, plan["variant"])
         assert plan["variant"] in mm.WIDE_CONFIGS
         assert mm.WIDE_CONFIGS[plan["variant"]][0] == dtype
-    else:  # K2's blocks own 64 columns at any K
+    elif dtype == torch.bfloat16:  # the wide K2: the fewest its registers allow
+        assert len(plan["cols"]) == -(-K // most)
+        assert plan["col_chunk"] == mm.rhs_col_chunk(K)
+        assert plan["variant"] in mm.RHS_WIDE_CONFIGS
+    else:  # the f32 K2's blocks own 64 columns at any K
         assert plan["col_chunk"] == 64 and len(plan["cols"]) == K // 64
     assert plan["chunks"] * plan["chunk"] >= 10688
     assert plan["chunk"] % plan["s_tile"] == 0
@@ -156,6 +170,39 @@ def test_wide_configuration_fits_the_card(K, dtype, w):
         assert chunks <= (2 if dtype == torch.bfloat16 else 1)
 
 
+# K2's wide configuration past 256 (bf16 operands) on an H100 (232,448 B a
+# block): {K: (output columns a block, the column chunks, {W type:
+# (configuration: 3 three ring stages, 4 two; shared memory a block)})}
+RHS_WIDE_PINNED = {
+    320: (320, (320,), {"int8": (3, 200728), "bf16": (3, 225304),
+                        "f32": (4, 183312)}),
+    384: (192, (192, 192), {"int8": (3, 151576), "bf16": (3, 176152),
+                            "f32": (3, 225304)}),
+    576: (320, (320, 256), {"int8": (3, 200728), "bf16": (3, 225304),
+                            "f32": (4, 183312)}),
+    1024: (256, (256,) * 4, {"int8": (3, 176152), "bf16": (3, 200728),
+                             "f32": (4, 166928)})}
+
+
+@pytest.mark.parametrize("w", [torch.int8, torch.bfloat16, torch.float32],
+                         ids=["int8", "bf16", "f32"])
+@pytest.mark.parametrize("K", list(RHS_WIDE_PINNED))
+def test_rhs_wide_configuration_fits_the_card(K, w):
+    """The bf16 K2 past 256: a block owns the fewest even chunks of at most
+    five 64-column tiles (K = 320 in one), and the ring takes three stages
+    where they fit an H100's opt-in 232,448 B, else two."""
+    nc, chunks, by_w = RHS_WIDE_PINNED[K]
+    variant, smem = by_w[{torch.int8: "int8", torch.bfloat16: "bf16",
+                          torch.float32: "f32"}[w]]
+    assert mm.rhs_col_chunk(K) == nc
+    assert tuple(wd for _, wd in mm.col_chunks(K, nc)) == chunks
+    assert mm.rhs_wide_variant(K, w, 232448) == variant
+    assert mm.rhs_wide_smem(variant, K, w) == smem <= 232448
+    for earlier in mm.RHS_WIDE_CONFIGS:
+        if earlier < variant:
+            assert mm.rhs_wide_smem(earlier, K, w) > 232448
+
+
 def _masked(t, W, bf16):
     """T * W as the twin forms it (masked_gram_matvec_ref)."""
     if bf16 and W.dtype == torch.bfloat16:
@@ -178,10 +225,13 @@ def _gram_by_chunks(Q, Be, W):
 
 
 def _rhs_by_chunks(X, W, mb, Be):
-    """K2 chunk by chunk: each 64-column chunk from its columns of Be."""
+    """K2 as its kernels compose it: each output column chunk from its
+    columns of Be (past 256 with bf16 operands the wide chunks, else 64)."""
     K = Be.shape[1]
+    wide = K > mm.TILED_MAX_K and Be.dtype == torch.bfloat16
     out = torch.empty(X.shape[0], K)
-    for c0, width in mm.col_chunks(K, mm.TILE):
+    for c0, width in mm.col_chunks(K, mm.rhs_col_chunk(K) if wide
+                                   else mm.TILE):
         out[:, c0:c0 + width] = mm.masked_rhs_ref(
             X, W, mb, Be[:, c0:c0 + width].contiguous())
     return out
@@ -229,6 +279,42 @@ def test_chunked_composition_matches_twin_and_pallas(op, w):
     pallas = jmm.masked_rhs(jnp.asarray(Xn, jnp.bfloat16), Wj,
                             jnp.asarray(mbn), jnp.asarray(Ben, jdt),
                             block_s=1024, interpret=True)
+    assert _rel(rhs, pallas) <= TOL[op]
+
+
+@pytest.mark.parametrize("w", ["int8", "bf16"])
+@pytest.mark.parametrize("op", ["f32", "bf16"])
+def test_rhs_two_chunk_composition_matches_twin_and_pallas(op, w):
+    """K = 576, two column chunks of the bf16 K2 (320 + 256; f32 nine of
+    64): the chunked K2 against its twin (the same f32 arithmetic on the
+    same columns, 1e-5) and against the Pallas kernel in interpret mode
+    (TOL: f32 1e-5; bf16 1e-3, though V's rounding is elementwise and only
+    the f32 sum order differs)."""
+    R, S, K = jmm.BLOCK_R, 512, 576
+    rng = np.random.default_rng(16)
+    Ben = rng.normal(size=(S, K)).astype(np.float32)
+    mask = rng.uniform(size=(R, S)) < 0.3
+    Wn = (mask.astype(np.int8) if w == "int8" else
+          (mask * rng.uniform(0.5, 2.0, size=(R, S))).astype(np.float32))
+    Xn = (np.round(rng.uniform(1, 10, size=(R, S))) / 2).astype(np.float32)
+    mbn = rng.normal(size=S).astype(np.float32)
+    tdt = torch.bfloat16 if op == "bf16" else torch.float32
+    jdt = jnp.bfloat16 if op == "bf16" else jnp.float32
+    Be = torch.from_numpy(Ben).to(tdt)
+    W = torch.from_numpy(Wn)
+    Wj = jnp.asarray(Wn)
+    if w == "bf16":
+        W = W.to(torch.bfloat16)
+        Wj = jnp.asarray(W.float().numpy(), jnp.bfloat16)
+    X = torch.from_numpy(Xn).to(torch.bfloat16)
+    mb = torch.from_numpy(mbn)
+    if op == "bf16":
+        assert len(mm.col_chunks(K, mm.rhs_col_chunk(K))) == 2
+    rhs = _rhs_by_chunks(X, W, mb, Be)
+    assert _rel(rhs, mm.masked_rhs_ref(X, W, mb, Be)) <= 1e-5
+    pallas = jmm.masked_rhs(jnp.asarray(Xn, jnp.bfloat16), Wj,
+                            jnp.asarray(mbn), jnp.asarray(Ben, jdt),
+                            block_s=S, interpret=True)
     assert _rel(rhs, pallas) <= TOL[op]
 
 
