@@ -16,7 +16,9 @@ attribute-only ``ContentBased`` and the ``MostPopular`` baseline; plus
 predict/topN/save/load (cmfrec_tpu's .npz format, both ways); warm and
 cold serving of every model (factors_warm/cold, factors_multiple,
 transform, predict_new, topN_*) on the model's device; and
-``CMF_imputer``.  See ROADMAP.md for what follows.
+``CMF_imputer``.  Every fit takes ``mesh=``, a 1-D ``torch.distributed``
+DeviceMesh (parallel/mesh.py), and then runs data-parallel over its
+ranks, one process a card.  See ROADMAP.md for what follows.
 """
 
 from .models.cmf import CMF, CMF_implicit

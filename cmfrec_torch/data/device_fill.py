@@ -21,7 +21,7 @@ from typing import Optional
 import numpy as np
 import torch
 
-from .shards import Bucket, BucketedRows, plan_layout
+from .shards import ROW_BLOCK, Bucket, BucketedRows, plan_layout
 
 
 def _device_sort_coo(rows, cols, vals, wgt):
@@ -57,11 +57,12 @@ def _fill_device(row_e, ids, vals, wgt, counts, perm, pos_starts, widths,
     return idx_flat, val_flat, wgt_flat
 
 
-def _one_side(counts_dev, n_rows, n_cols):
+def _one_side(counts_dev, n_rows, n_cols, row_block=ROW_BLOCK):
     """Plan one orientation on the host from its device-side counts."""
     counts = counts_dev.cpu().numpy().astype(np.int64)
     row_order = np.argsort(-counts, kind="stable").astype(np.int64)
-    chunks, perm, row_of, n_rows_pad = plan_layout(counts, row_order, n_rows)
+    chunks, perm, row_of, n_rows_pad = plan_layout(counts, row_order, n_rows,
+                                                   row_block)
     sizes = np.array([R * w for (_, R, _, w, _) in chunks], np.int64)
     dev = counts_dev.device
 
@@ -77,7 +78,8 @@ def _one_side(counts_dev, n_rows, n_cols):
         perm=t(perm),
     )
     out = BucketedRows(n_rows=n_rows, n_cols=n_cols, n_rows_pad=n_rows_pad,
-                       perm=perm, row_of=row_of, counts=counts)
+                       perm=perm, row_of=row_of, counts=counts,
+                       row_block=row_block)
     return out, meta
 
 
@@ -120,14 +122,15 @@ def build_bucketed_pair(
     rows, cols, vals, m: int, n: int,
     weights: Optional[np.ndarray] = None, *, device,
     m_eff: Optional[int] = None, n_eff: Optional[int] = None,
-    dtype=np.float32,
+    dtype=np.float32, row_block: int = ROW_BLOCK,
 ):
     """(row-oriented, column-oriented) BucketedRows of the COO triplets,
     with values (and weights) of ``dtype`` (the fit's) and int32 column
     ids on ``device``.
     ``m_eff`` >= m and ``n_eff`` >= n give either side extra rows with no
     entries (side-info-only entities of a collective fit); the other side's
-    column count stays m or n."""
+    column count stays m or n.  ``row_block`` pads the buckets' row counts
+    (parallel/mesh.py:mesh_row_block under a mesh)."""
     dev = torch.device(device)
     m_eff = m if m_eff is None else m_eff
     n_eff = n if n_eff is None else n_eff
@@ -137,8 +140,8 @@ def build_bucketed_pair(
     counts_c = torch.bincount(cols_d, minlength=n_eff)
     del rows_d, cols_d
 
-    RB, meta_r = _one_side(counts_r, m_eff, n)
-    CB, meta_c = _one_side(counts_c, n_eff, m)
+    RB, meta_r = _one_side(counts_r, m_eff, n, row_block)
+    CB, meta_c = _one_side(counts_c, n_eff, m, row_block)
     _attach(RB, meta_r, counts_r,
             *_fill(row_e, ids, svals, swgt, counts_r, meta_r))
     order2 = _transpose_order(ids)
@@ -149,7 +152,8 @@ def build_bucketed_pair(
 
 
 def build_bucketed_rows(rows, cols, vals, n_rows: int, n_cols: int, *,
-                        device, dtype=np.float32) -> BucketedRows:
+                        device, dtype=np.float32,
+                        row_block: int = ROW_BLOCK) -> BucketedRows:
     """The row-oriented BucketedRows alone (the feature side of sparse side
     information: rows are features, columns entities), values of
     ``dtype``."""
@@ -157,6 +161,6 @@ def build_bucketed_rows(rows, cols, vals, n_rows: int, n_cols: int, *,
     rows_d, _, (row_e, ids, svals, _) = _upload_sorted(rows, cols, vals,
                                                         None, dev, dtype)
     counts = torch.bincount(rows_d, minlength=n_rows)
-    out, meta = _one_side(counts, n_rows, n_cols)
+    out, meta = _one_side(counts, n_rows, n_cols, row_block)
     return _attach(out, meta, counts,
                    *_fill(row_e, ids, svals, None, counts, meta))

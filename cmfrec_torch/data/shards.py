@@ -59,6 +59,7 @@ class BucketedRows:
     row_of: np.ndarray  # [n_rows_pad] int64: permuted position -> original row
     counts: np.ndarray  # [m] int64 nnz per original row
     buckets: list[Bucket] = field(default_factory=list)
+    row_block: int = ROW_BLOCK  # bucket row counts are multiples of this
 
     @property
     def nnz(self) -> int:
@@ -127,23 +128,27 @@ def _optimal_boundaries(sorted_counts: np.ndarray):
     return out
 
 
-def plan_layout(counts: np.ndarray, row_order: np.ndarray, n_rows: int):
+def plan_layout(counts: np.ndarray, row_order: np.ndarray, n_rows: int,
+                row_block: int = ROW_BLOCK):
     """Bucket layout (no filling): a list of (pos, R, n_real, width, cs)
     chunks, where ``cs`` indexes ``row_order``, plus perm, row_of and
-    n_rows_pad."""
+    n_rows_pad.  ``row_block`` (a multiple of ROW_BLOCK that divides over a
+    mesh) pads each chunk's R; the boundaries keep ROW_BLOCK in their cost,
+    so that bucket membership does not depend on the mesh size, as in the
+    JAX package (cmfrec_tpu/data/shards.py:182-186)."""
     boundaries = _optimal_boundaries(counts[row_order])
     chunks = []
     perm = np.zeros(n_rows, dtype=np.int64)
     row_of_parts = []
     pos = 0
     for (bs, be, w) in boundaries:
-        max_rows = max(ROW_BLOCK,
-                       (MAX_BLOCK_ELEMS // max(w, 1)) // ROW_BLOCK * ROW_BLOCK)
+        max_rows = max(row_block,
+                       (MAX_BLOCK_ELEMS // max(w, 1)) // row_block * row_block)
         cs = bs
         while cs < be:
             ce = min(be, cs + max_rows)
             n_real = ce - cs
-            R = -(-n_real // ROW_BLOCK) * ROW_BLOCK
+            R = -(-n_real // row_block) * row_block
             chunks.append((pos, R, n_real, w, cs))
             perm[row_order[cs:ce]] = pos + np.arange(n_real)
             part = np.full(R, -1, dtype=np.int64)

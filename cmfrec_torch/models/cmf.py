@@ -20,8 +20,10 @@ fits the joint objective by L-BFGS (solvers/lbfgs.py), binary side info
 through one L-BFGS over the rows (warm.factors_bin_batch).  ``nonneg``,
 ``nonneg_C``, ``nonneg_D`` and ``l1_lambda`` fit and serve by coordinate
 descent on every ALS route (``method="lbfgs"`` rejects them, as cmfrec_tpu).
-Multi-device fitting (``mesh=``) raises ``ValueError`` naming the ROADMAP
-slice that brings it.
+``fit(..., mesh=)`` with a 1-D ``torch.distributed`` DeviceMesh
+(parallel/mesh.py) fits data-parallel on every route, each rank solving
+its rows and every rank returning the whole model; serving after such a
+fit is the ordinary serving on each rank's model.
 """
 
 from __future__ import annotations
@@ -198,8 +200,9 @@ class CMF(_BaseModel):
         """Fit to explicit-feedback data (reference:
         upstream cmfrec/__init__.py:3066).  ``method="lbfgs"`` fits the
         joint objective by L-BFGS (solvers/lbfgs.py), the only fit that
-        takes binary side info (``U_bin``, ``I_bin``).  ``mesh``
-        (multi-device fitting) must be None until ROADMAP slice 7."""
+        takes binary side info (``U_bin``, ``I_bin``).  ``mesh``: a 1-D
+        DeviceMesh (parallel/mesh.py:make_mesh, called on every rank with
+        the same arguments) fits data-parallel."""
         _validate_cmf_params(self)  # set_params may have changed options
         set_handle_interrupt(bool(self.handle_interrupt))
         self._reset()

@@ -24,10 +24,15 @@ package's fused CG (its ``can_fuse_cg``): float64 and Jacobi PCG
 do buckets whose K is past what K3's shared memory holds on the card
 (:func:`takes_k3`).
 
+Under a mesh (parallel/mesh.py) the layout a half-step gets is this
+rank's share of every bucket's rows (parallel/mesh.py:shard_bucketed): the
+rank solves its rows of each bucket against the whole opposing matrix and
+one all-gather makes the blocks whole again.
+
 Not ported from the JAX package: ``defer_solve`` and the cross-bucket
 Cholesky concatenation (a TPU compile-time measure: here each bucket
 factors its own systems), the K = 128 lane padding of the CG operands and
-the ring-sharded assembly.
+the ring-sharded assembly (ROADMAP slice 7b).
 """
 
 from __future__ import annotations
@@ -37,9 +42,10 @@ from typing import NamedTuple, Optional
 import numpy as np
 import torch
 
-from ..data.shards import BucketedRows
+from ..data.shards import ROW_BLOCK, BucketedRows, plan_layout
 from ..ops import _cuda, coord_descent, rowsolve, sparse_cg
 from ..ops.rowsolve import SparsePart, length_mask
+from ..parallel.mesh import gather_blocks, local_blocks
 
 
 class PartData(NamedTuple):
@@ -334,6 +340,7 @@ def update_side(
     precondition: bool = False,  # Jacobi PCG (precondition_cg)
     stacks: Optional[list] = None,  # per-bucket SlotStack cache (None
     # entries are filled on first use) for CG over several parts
+    mesh=None,  # a 1-D DeviceMesh: plan.bucketed is this rank's share
 ) -> list:
     """Solve all buckets of one side; returns the new block list.  Under
     ``mxu_bf16`` the opposing matrix is rounded to bf16 once per side.  A
@@ -341,7 +348,12 @@ def update_side(
     (:func:`takes_k3`) runs it once over the parts' matrices stacked (built
     once per call) and the bucket's slot map.  Under ``nonneg`` or an
     ``l1_vec`` every bucket is solved by coordinate descent, whatever
-    ``method`` says, as in the JAX package."""
+    ``method`` says, as in the JAX package.  Under ``mesh`` the plan's
+    buckets, ``r0_blocks`` and ``extra_parts`` hold this rank's rows
+    (parallel/mesh.py:shard_bucketed) and ``blocks`` are whole: the rank
+    solves its rows and the returned blocks are whole again (one
+    all-gather)."""
+    blocks = local_blocks(blocks, plan.bucketed, mesh)
     use_cd = nonneg or l1_vec is not None
     mat = opp.to(torch.bfloat16) if mxu_bf16 else opp
     mat_cat = None
@@ -379,7 +391,7 @@ def update_side(
             max_cd_steps=max_cd_steps, scale_lam=scale_lam, n_totals=n_totals,
             scale_parts=scale_parts, lam_mult_add=lam_mult_add,
             mxu_bf16=mxu_bf16, precondition=precondition, stacked=stacked))
-    return out
+    return gather_blocks(out, mesh)
 
 
 def blocks_to_orig(blocks: list, perm: torch.Tensor) -> torch.Tensor:
@@ -391,15 +403,30 @@ def init_blocks(gen: torch.Generator, bucketed: BucketedRows, k_tot: int,
                 k_pad: int, dtype=torch.float32) -> list:
     """Random normal init scaled like the reference's random_parallel
     (upstream cmfrec src/helpers.c:927), zero on coordinates >= k_tot, in
-    the fit's ``dtype``."""
+    the fit's ``dtype``.  The draws follow the layout of ROW_BLOCK rows a
+    block: a layout padded for a mesh (``row_block`` > ROW_BLOCK) takes the
+    same rows' draws, its padding rows zero, so that the start does not
+    depend on the mesh size."""
     scale = float(1.0 / np.sqrt(max(k_tot, 1)))
+    sizes = [b.n_rows for b in bucketed.buckets]
+    if bucketed.row_block != ROW_BLOCK:
+        order = np.argsort(-bucketed.counts, kind="stable").astype(np.int64)
+        chunks, perm, _, _ = plan_layout(bucketed.counts, order,
+                                         bucketed.n_rows)
+        sizes = [c[1] for c in chunks]
     blocks = []
-    for b in bucketed.buckets:
-        blk = scale * torch.randn(b.n_rows, k_pad, generator=gen,
-                                  dtype=dtype, device=gen.device)
+    for R in sizes:
+        blk = scale * torch.randn(R, k_pad, generator=gen, dtype=dtype,
+                                  device=gen.device)
         blk[:, k_tot:] = 0.0
         blocks.append(blk)
-    return blocks
+    if bucketed.row_block == ROW_BLOCK:
+        return blocks
+    orig = blocks_to_orig(blocks, torch.as_tensor(perm, device=gen.device))
+    ext = torch.cat([orig, orig.new_zeros(1, k_pad)])
+    return [ext[torch.as_tensor(bucketed.row_of[b.start:b.start + b.n_rows],
+                                device=gen.device)]
+            for b in bucketed.buckets]
 
 
 def gram_matrix(mat: torch.Tensor) -> torch.Tensor:

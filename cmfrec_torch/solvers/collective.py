@@ -1,5 +1,5 @@
 """Collective matrix factorization ALS drivers
-(port of cmfrec_tpu/solvers/collective.py, without the ring branch).
+(port of cmfrec_tpu/solvers/collective.py).
 
 The joint model (upstream cmfrec src/collective.c:78-355):
 
@@ -38,6 +38,14 @@ A float64 fit, or one with Jacobi PCG (``precondition_cg``), never takes
 the dense-masked route: it runs the bucketed route's plain-torch solves in
 the fit's dtype, as the JAX package's routes send it to its XLA code
 (cmfrec_tpu/solvers/collective.py:382-416, :1088-1114).
+
+``mesh=`` (parallel/mesh.py) fits data-parallel on both routes, as the JAX
+package's ``_mesh_place_collective`` (cmfrec_tpu/solvers/collective.py:
+64-88): each rank holds its rows of the X buckets, of the side-info
+feature buckets, of the aligned parts, the dense side slices and the mean
+slices; C, D, the dense side matrices and the permutations are whole on
+every rank.  The big-axis ring (``shard_opposing_rows=True``) raises,
+naming ROADMAP slice 7b.
 """
 
 from __future__ import annotations
@@ -54,6 +62,8 @@ from ..config import (resolve_device, resolve_dtype, should_handle_interrupt,
                       torch_dtype)
 from ..data.device_fill import build_bucketed_pair, build_bucketed_rows
 from ..data.shards import BucketedRows
+from ..parallel.mesh import (mesh_row_block, shard_blocks, shard_bucketed,
+                             world_rank)
 from ..utils.checkpoint import FitCheckpointer
 from ..ops import coord_descent
 from . import drivers, preprocess
@@ -228,12 +238,13 @@ def _init_dense_ok(init):
 
 def _dense_route(U, I, m, n, *, k_user, k_item, k_main, w_main, na0,
                  add_implicit_features, weights, init, dense_bytes, dev,
-                 cd=False):
+                 cd=False, mesh=None):
     """Whether a collective fit takes the dense-masked engine: where the
     JAX package's ``use_dense_pallas`` would (cmfrec_tpu/solvers/
     collective.py:382-414, :1088-1113), with the card's budget
-    (drivers._dense_budget; none on the CPU) in place of the TPU's.  ``cd``:
-    nonneg, nonneg_C, nonneg_D or an l1_lambda, which it never takes."""
+    (drivers._dense_budget; none on the CPU) in place of the TPU's, against
+    a rank's share of the dense form under ``mesh``.  ``cd``: nonneg,
+    nonneg_C, nonneg_D or an l1_lambda, which it never takes."""
     if not (k_user == 0 and k_item == 0 and k_main == 0 and w_main == 1.0
             and not na0 and not cd and _init_dense_ok(init)
             and not (add_implicit_features and weights is not None)):
@@ -241,23 +252,24 @@ def _dense_route(U, I, m, n, *, k_user, k_item, k_main, w_main, na0,
     for side, dim in ((U, m), (I, n)):
         if side is not None and (side.dense is None or side.n_ent != dim):
             return False
-    budget = drivers._dense_budget(dev)
-    return budget is None or dense_bytes <= budget
+    budget = drivers._mesh_budget(dev, mesh)
+    return budget is None or dense_bytes // world_rank(mesh)[0] <= budget
 
 
-def _side_layout(S: Optional[PreparedSide], main: BucketedRows, dev, dtype):
+def _side_layout(S: Optional[PreparedSide], main: BucketedRows, dev, dtype,
+                 row_block):
     """The bucketed route's structures of one side matrix, in the fit's
     ``dtype``: its feature bucketing (rows = features, for the C/D update),
     its parts aligned to the main bucketing, its dense slices, and
     (NA-as-zero with centering) the column means of the feature buckets'
-    rows."""
+    rows.  ``row_block`` pads the feature buckets' rows (a mesh's)."""
     if S is None:
         return None, None, None, None
     if S.dense is not None:
         return None, None, _bucket_dense_slices(main, S.dense, dev), None
     r_s, c_s, v_s = S.coo
     feat_b = build_bucketed_rows(c_s, r_s, v_s, S.p, S.n_ent, device=dev,
-                                 dtype=dtype)
+                                 dtype=dtype, row_block=row_block)
     aligned = build_aligned_parts(main, r_s, c_s, v_s, S.n_ent, dev, dtype)
     mean_slices = None
     if S.na0 and S.colmeans is not None:
@@ -269,6 +281,20 @@ def _side_layout(S: Optional[PreparedSide], main: BucketedRows, dev, dtype):
             ms[ok] = S.colmeans[ids[ok]]
             mean_slices.append(torch.as_tensor(ms, device=dev))
     return feat_b, aligned, None, mean_slices
+
+
+def _shard_layout(lay, main, mesh):
+    """This rank's rows of a _side_layout: the feature bucketing's share,
+    the aligned parts and dense slices cut like ``main`` (this rank's share
+    of the main bucketing), the mean slices like the feature buckets."""
+    if mesh is None:
+        return lay
+    feat_b, aligned, dense, means = lay
+    fb = None if feat_b is None else shard_bucketed(feat_b, mesh)
+    return (fb,
+            None if aligned is None else shard_blocks(aligned, main, mesh),
+            None if dense is None else shard_blocks(dense, main, mesh),
+            None if means is None else shard_blocks(means, fb, mesh))
 
 
 def _side_init(S, featb, kx, kx_pad, gen, init_M, dev, tdt):
@@ -301,7 +327,7 @@ def _xdim_mask(limit, total, dev, tdt):
 
 def _side_factor_update(S, featb, blocks, A1, lam_vec, w_side, method,
                         mean_slices, *, n_steps, scale_lam, precondition,
-                        l1_vec, nonneg, max_cd_steps):
+                        l1_vec, nonneg, max_cd_steps, mesh=None):
     """Update C (or D): rows = side-info features, opposing = A[:, :k_off+k].
     Under scale_lam (or scale_lam_sideinfo) the lambda scales with each
     feature's observed count too (upstream cmfrec src/collective.c:8373)."""
@@ -317,7 +343,7 @@ def _side_factor_update(S, featb, blocks, A1, lam_vec, w_side, method,
                        r0_blocks=r0_blocks, l1_vec=l1_vec, method=method,
                        n_steps=n_steps, nonneg=nonneg,
                        max_cd_steps=max_cd_steps, scale_lam=scale_lam,
-                       precondition=precondition)
+                       precondition=precondition, mesh=mesh)
 
 
 def _side_parts(S, aligned, Ce, w_side, n_buckets, scale_flag, dev):
@@ -365,10 +391,10 @@ def _update_C(S, featb, blocks, A_orig, kc, kc_pad, lam_vec, w_side,
 
 class _Sides(NamedTuple):
     """The side-info structures both bucketed bodies build around their
-    main bucketings: each side matrix's layout (_side_layout) and start
-    (_side_init), the row permutations, the X-row masks, and the slot maps
-    of the several-part CG buckets (filled on the first CG half-step, kept
-    for the fit)."""
+    main bucketings: each side matrix's layout (_side_layout; this rank's
+    rows of it under a mesh) and start (_side_init), the row permutations,
+    the X-row masks, and the slot maps of the several-part CG buckets
+    (filled on the first CG half-step, kept for the fit)."""
 
     U_lay: tuple  # (feature bucketing, aligned parts, dense slices, means)
     I_lay: tuple
@@ -387,14 +413,15 @@ class _Sides(NamedTuple):
 
 
 def _sides(U, I, RB, CB, m, n, m_eff, n_eff, widths, seed, init, dev,
-           dtype):
+           dtype, mesh=None, shares=None):
     """The _Sides of a bucketed fit in the fit's ``dtype``; ``widths`` is
     (kc, kc_pad, kd, kd_pad).  C and D start from their own generator
-    (seed + 1)."""
+    (seed + 1).  Under ``mesh``, ``shares`` are this rank's shares of RB
+    and CB, and the layouts are cut to them."""
     kc, kc_pad, kd, kd_pad = widths
     tdt = torch_dtype(dtype)
-    U_lay = _side_layout(U, RB, dev, dtype)
-    I_lay = _side_layout(I, CB, dev, dtype)
+    U_lay = _side_layout(U, RB, dev, dtype, mesh_row_block(mesh))
+    I_lay = _side_layout(I, CB, dev, dtype, mesh_row_block(mesh))
     gen2 = torch.Generator(device=dev)
     gen2.manual_seed(int(seed) + 1)
     C0 = D0 = (None, None)
@@ -409,6 +436,10 @@ def _sides(U, I, RB, CB, m, n, m_eff, n_eff, widths, seed, init, dev,
         return None if featb is None else torch.as_tensor(featb.perm,
                                                           device=dev)
 
+    if mesh is not None:
+        U_lay = _shard_layout(U_lay, shares[0], mesh)
+        I_lay = _shard_layout(I_lay, shares[1], mesh)
+
     return _Sides(
         U_lay, I_lay, C0, D0, perm(RB), perm(CB), perm(U_lay[0]),
         perm(I_lay[0]), _xdim_mask(m, m_eff, dev, tdt),
@@ -422,14 +453,15 @@ def _sides(U, I, RB, CB, m, n, m_eff, n_eff, widths, seed, init, dev,
 
 def _update_sides(sd, U, I, C, D, A_orig, B_orig, widths, lam_vec_C,
                   lam_vec_D, w_user, w_item, method, *, n_steps, scale_lam,
-                  precondition, cd):
+                  precondition, cd, mesh=None):
     """The C and D half-steps of one iteration; C and D are (blocks, orig)
     pairs, returned updated.  ``cd``: (nonneg_C, nonneg_D, l1_vec_C,
     l1_vec_D, max_cd_steps)."""
     kc, kc_pad, kd, kd_pad = widths
     nonneg_C, nonneg_D, l1_vec_C, l1_vec_D, max_cd_steps = cd
     kw = dict(n_steps=n_steps, scale_lam=scale_lam,
-              precondition=precondition, max_cd_steps=max_cd_steps)
+              precondition=precondition, max_cd_steps=max_cd_steps,
+              mesh=mesh)
     if U is not None:
         C = _update_C(U, sd.U_lay[0], C[0], A_orig, kc, kc_pad, lam_vec_C,
                       w_user, method, sd.U_lay[3], sd.perm_U, sd.xmask_AU,
@@ -488,7 +520,7 @@ def fit_collective_explicit_als(
     lam6, l16 = drivers._resolve_lambdas(lambda_, l1_lambda)
     dtype = resolve_dtype(dtype)
     dev = resolve_device(device)
-    drivers._reject_common(mesh, shard_opposing_rows)
+    drivers._reject_common(mesh, shard_opposing_rows, dev)
     if nonneg:
         use_cg = False
     U = prepare_side(_sparsify_short_dense_side(side_U, m), center_U,
@@ -503,7 +535,8 @@ def fit_collective_explicit_als(
         add_implicit_features=add_implicit_features, weights=weights,
         init=init, dense_bytes=drivers.dense_bytes(m, n, k,
                                                    weights is not None),
-        dev=dev, cd=bool(nonneg or nonneg_C or nonneg_D or np.any(l16 > 0)))
+        dev=dev, cd=bool(nonneg or nonneg_C or nonneg_D or np.any(l16 > 0)),
+        mesh=mesh)
     if not dense:
         return _fit_collective_explicit_bucketed(
             rows, cols, vals, m, n, U=U, I=I, k=k, k_user=k_user,
@@ -519,7 +552,8 @@ def fit_collective_explicit_als(
             init=init, checkpoint_path=checkpoint_path,
             checkpoint_every=checkpoint_every, dtype=dtype,
             precondition_cg=precondition_cg, l16=l16, nonneg=nonneg,
-            nonneg_C=nonneg_C, nonneg_D=nonneg_D, max_cd_steps=max_cd_steps)
+            nonneg_C=nonneg_C, nonneg_D=nonneg_D, max_cd_steps=max_cd_steps,
+            mesh=mesh)
 
     glob_mean = (preprocess.weighted_global_mean(vals, weights) if center
                  else 0.0)
@@ -536,7 +570,7 @@ def fit_collective_explicit_als(
         scale_bias_const=scale_bias_const, seed=seed, verbose=verbose,
         device=dev, init=init, add_implicit_features=add_implicit_features,
         w_implicit=w_implicit, exact=not use_cg, dtype=dtype,
-        precondition_cg=use_cg and precondition_cg)
+        precondition_cg=use_cg and precondition_cg, mesh=mesh)
     res["U_colmeans"] = None if U is None else U.colmeans
     res["I_colmeans"] = None if I is None else I.colmeans
     return res
@@ -549,15 +583,16 @@ def _fit_collective_explicit_bucketed(
     scale_lam, scale_lam_sideinfo, scale_bias_const, NA_as_zero, weights,
     seed, verbose, device, init, checkpoint_path, checkpoint_every,
     dtype=np.float32, precondition_cg=False, l16=(0.0,) * 6, nonneg=False,
-    nonneg_C=False, nonneg_D=False, max_cd_steps=100,
+    nonneg_C=False, nonneg_D=False, max_cd_steps=100, mesh=None,
 ) -> dict:
     """The bucketed route of fit_collective_explicit_als
-    (cmfrec_tpu/solvers/collective.py:440-1019, without the ring branch),
-    in the fit's ``dtype``.  ``U``/``I`` are PreparedSide (prepare_side) or
-    None, ``lam6`` the six lambdas (drivers._resolve_lambdas)."""
+    (cmfrec_tpu/solvers/collective.py:440-1019), in the fit's ``dtype``.
+    ``U``/``I`` are PreparedSide (prepare_side) or None, ``lam6`` the six
+    lambdas (drivers._resolve_lambdas).  Under ``mesh`` the whole layouts
+    plan and seed the start and each rank solves its share of them."""
     dev = torch.device(device)
     tdt = torch_dtype(dtype)
-    ckpt = FitCheckpointer(checkpoint_path, checkpoint_every, niter)
+    ckpt = FitCheckpointer(checkpoint_path, checkpoint_every, niter, mesh)
     scale_lam = scale_lam or scale_lam_sideinfo
     m_eff = max(m, U.n_ent if U else 0)
     n_eff = max(n, I.n_ent if I else 0)
@@ -583,7 +618,8 @@ def _fit_collective_explicit_bucketed(
             item_bias=item_bias, scale_lam=scale_lam, nonneg=nonneg)
     RB, CB = build_bucketed_pair(rows, cols, vals_c, m, n, weights,
                                  device=dev, m_eff=m_eff, n_eff=n_eff,
-                                 dtype=dtype)
+                                 dtype=dtype, row_block=mesh_row_block(mesh))
+    shares = shard_bucketed(RB, mesh), shard_bucketed(CB, mesh)
 
     ka, kb = k_user + k + k_main, k_item + k + k_main  # A/B widths, no bias
     ka_pad, kb_pad = _round_up(ka + 1, 8), _round_up(kb + 1, 8)
@@ -611,7 +647,7 @@ def _fit_collective_explicit_bucketed(
 
     widths = (kc, kc_pad, kd, kd_pad)
     sd = _sides(U, I, RB, CB, m, n, m_eff, n_eff, widths, seed, init, dev,
-                dtype)
+                dtype, mesh, shares)
     (C_blocks, C_orig), (D_blocks, D_orig) = sd.C0, sd.D0
     Ai_blocks = Bi_blocks = None
     if add_implicit_features:
@@ -672,6 +708,7 @@ def _fit_collective_explicit_bucketed(
             lam_vec_B[kb] = 0.0
 
     mode = "na0" if NA_as_zero else "explicit"
+    RB, CB = shares  # each rank solves its share of the buckets
     plan_A, plan_B = SidePlan(RB, mode, n), SidePlan(CB, mode, m)
     perm_A, perm_B, xmask_A, xmask_B = (sd.perm_A, sd.perm_B, sd.xmask_A,
                                         sd.xmask_B)
@@ -719,7 +756,7 @@ def _fit_collective_explicit_bucketed(
             lam_const_vec=lam_const, l1_vec=l1_vec, method=method,
             n_steps=max_cg_steps, nonneg=nonneg, max_cd_steps=max_cd_steps,
             scale_lam=scale_lam, lam_mult_add=lam_mult_add,
-            precondition=precondition_cg, stacks=stacks)
+            precondition=precondition_cg, stacks=stacks, mesh=mesh)
 
     def iteration(method, st):
         A_blocks, B_blocks, C_blocks, D_blocks, C_orig, D_orig, Ai_blocks, \
@@ -731,7 +768,7 @@ def _fit_collective_explicit_bucketed(
             sd, U, I, (C_blocks, C_orig), (D_blocks, D_orig), A_orig, B_orig,
             widths, lam_vec_C, lam_vec_D, w_user, w_item, method,
             n_steps=max_cg_steps, scale_lam=scale_lam,
-            precondition=precondition_cg, cd=cd_sides)
+            precondition=precondition_cg, cd=cd_sides, mesh=mesh)
         if add_implicit_features:
             # always closed form: the reference hard-codes use_cg=false for
             # these half-steps (src/collective.c:8479/8520)
@@ -741,7 +778,7 @@ def _fit_collective_explicit_bucketed(
                 SidePlan(CB, "na0", m), Bi_blocks, A_x, None, lam_vec_Bi,
                 G0=gram_matrix(A_x), ones_val=True, method="chol",
                 nonneg=nonneg, max_cd_steps=max_cd_steps,
-                scale_lam=scale_lam)
+                scale_lam=scale_lam, mesh=mesh)
             Bi_orig = blocks_to_orig(Bi_blocks, perm_B)
             B_x = _pad_cols(B_orig[:, k_item:k_item + ki_w], ki_pad, 0)
             B_x = B_x * xmask_B[:, None]
@@ -749,7 +786,7 @@ def _fit_collective_explicit_bucketed(
                 SidePlan(RB, "na0", n), Ai_blocks, B_x, None, lam_vec_Ai,
                 G0=gram_matrix(B_x), ones_val=True, method="chol",
                 nonneg=nonneg, max_cd_steps=max_cd_steps,
-                scale_lam=scale_lam)
+                scale_lam=scale_lam, mesh=mesh)
             Ai_orig = blocks_to_orig(Ai_blocks, perm_A)
 
         # B (items; opposing A, D, Ai).  The shared bases sum the X rows
@@ -862,7 +899,7 @@ def fit_collective_implicit_als(
     lam6, l16 = drivers._resolve_lambdas(lambda_, l1_lambda)
     dtype = resolve_dtype(dtype)
     dev = resolve_device(device)
-    drivers._reject_common(mesh, shard_opposing_rows)
+    drivers._reject_common(mesh, shard_opposing_rows, dev)
     if nonneg:
         use_cg = False
     vals = drivers.implicit_values(vals, apply_log_transf)
@@ -877,7 +914,8 @@ def fit_collective_implicit_als(
         w_main=1.0, na0=NA_as_zero_user or NA_as_zero_item,
         add_implicit_features=False, weights=None, init=init,
         dense_bytes=drivers.dense_bytes(m, n, k, False, implicit=True),
-        dev=dev, cd=bool(nonneg or nonneg_C or nonneg_D or np.any(l16 > 0)))
+        dev=dev, cd=bool(nonneg or nonneg_C or nonneg_D or np.any(l16 > 0)),
+        mesh=mesh)
     if not dense:
         return _fit_collective_implicit_bucketed(
             rows, cols, vals, m, n, U=U, I=I, k=k, k_user=k_user,
@@ -888,7 +926,8 @@ def fit_collective_implicit_als(
             device=dev, init=init, checkpoint_path=checkpoint_path,
             checkpoint_every=checkpoint_every, dtype=dtype,
             precondition_cg=precondition_cg, l16=l16, nonneg=nonneg,
-            nonneg_C=nonneg_C, nonneg_D=nonneg_D, max_cd_steps=max_cd_steps)
+            nonneg_C=nonneg_C, nonneg_D=nonneg_D, max_cd_steps=max_cd_steps,
+            mesh=mesh)
 
     res = fit_collective_implicit_dense_masked(
         rows, cols, vals, m, n,
@@ -899,7 +938,7 @@ def fit_collective_implicit_als(
         finalize_chol=finalize_chol, alpha=alpha,
         w_main_multiplier=w_main * w_mult, seed=seed, verbose=verbose,
         device=dev, init=init, exact=not use_cg, dtype=dtype,
-        precondition_cg=use_cg and precondition_cg)
+        precondition_cg=use_cg and precondition_cg, mesh=mesh)
     res["U_colmeans"] = None if U is None else U.colmeans
     res["I_colmeans"] = None if I is None else I.colmeans
     return res
@@ -911,21 +950,22 @@ def _fit_collective_implicit_bucketed(
     finalize_chol, seed, verbose, device, init, checkpoint_path,
     checkpoint_every, dtype=np.float32, precondition_cg=False,
     l16=(0.0,) * 6, nonneg=False, nonneg_C=False, nonneg_D=False,
-    max_cd_steps=100,
+    max_cd_steps=100, mesh=None,
 ) -> dict:
     """The bucketed route of fit_collective_implicit_als
-    (cmfrec_tpu/solvers/collective.py:1134-1500, without the ring branch),
-    in the fit's ``dtype``.  ``vals`` are the implicit values
-    (log-transformed where asked), ``w_x`` the main part's weight
-    w_main * w_mult."""
+    (cmfrec_tpu/solvers/collective.py:1134-1500), in the fit's ``dtype``.
+    ``vals`` are the implicit values (log-transformed where asked), ``w_x``
+    the main part's weight w_main * w_mult.  Under ``mesh`` each rank
+    solves its share of the buckets."""
     dev = torch.device(device)
     tdt = torch_dtype(dtype)
-    ckpt = FitCheckpointer(checkpoint_path, checkpoint_every, niter)
+    ckpt = FitCheckpointer(checkpoint_path, checkpoint_every, niter, mesh)
     m_eff = max(m, U.n_ent if U else 0)
     n_eff = max(n, I.n_ent if I else 0)
     RB, CB = build_bucketed_pair(rows, cols, np.asarray(vals).astype(dtype),
                                  m, n, device=dev, m_eff=m_eff, n_eff=n_eff,
-                                 dtype=dtype)
+                                 dtype=dtype, row_block=mesh_row_block(mesh))
+    shares = shard_bucketed(RB, mesh), shard_bucketed(CB, mesh)
     ka, kb = k_user + k + k_main, k_item + k + k_main
     ka_pad, kb_pad = _round_up(ka, 8), _round_up(kb, 8)
     kc, kd = k_user + k, k_item + k
@@ -943,8 +983,9 @@ def _fit_collective_implicit_bucketed(
 
     widths = (kc, kc_pad, kd, kd_pad)
     sd = _sides(U, I, RB, CB, m, n, m_eff, n_eff, widths, seed, init, dev,
-                dtype)
+                dtype, mesh, shares)
     (C_blocks, C_orig), (D_blocks, D_orig) = sd.C0, sd.D0
+    RB, CB = shares  # each rank solves its share of the buckets
 
     def mk(*a):
         return drivers._make_lam_vec(*a, 0.0, False, dev, tdt)
@@ -983,7 +1024,7 @@ def _fit_collective_implicit_bucketed(
             r0_vec=r0_vec, r0_blocks=r0_blocks, extra_parts=extra,
             l1_vec=l1_vec, method=method, n_steps=max_cg_steps,
             nonneg=nonneg, max_cd_steps=max_cd_steps,
-            precondition=precondition_cg, stacks=stacks)
+            precondition=precondition_cg, stacks=stacks, mesh=mesh)
 
     def iteration(method, st):
         A_blocks, B_blocks, C_blocks, D_blocks, C_orig, D_orig = st
@@ -993,7 +1034,7 @@ def _fit_collective_implicit_bucketed(
             sd, U, I, (C_blocks, C_orig), (D_blocks, D_orig), A_orig, B_orig,
             widths, lam_vec_C, lam_vec_D, w_user, w_item, method,
             n_steps=max_cg_steps, scale_lam=False,
-            precondition=precondition_cg, cd=cd_sides)
+            precondition=precondition_cg, cd=cd_sides, mesh=mesh)
         # the shared Gram sums the X rows only
         opp = _opposing(A_orig, k_user, k_item, k + k_main, kb_pad, None,
                         sd.xmask_A)

@@ -27,17 +27,29 @@ The port runs eagerly: one Python loop step per iteration, no dispatch
 batching.  Dropped TPU workarounds: chunked uploads, the x64 trace guards,
 pad_dim's TPU block sizes (the kernels' own 64-wide tile is used) and the
 int32 flat index.
+
+Under a mesh (``mesh=``, parallel/mesh.py; the JAX engine's shard_map,
+cmfrec_tpu/solvers/dense_pallas.py:170-348) each rank holds its share of
+the dense form's rows in both orientations (:class:`_Rows`: equal shares
+of whole TILEs, the padded row count rounded up to the world's), and the
+factor matrices whole.  A half-step runs K1 and K2 on the rank's rows
+against the whole opposing matrix, then one all-gather makes the solved
+side whole; the bias start sums the ranks' column sums, and exact mode's
+all-frozen exit is taken when every rank's rows are frozen.
 """
 
 from __future__ import annotations
 
 import time
+from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
 
 from ..config import should_handle_interrupt
 from ..ops.masked_matmul import TILE, masked_gram_matvec, masked_rhs, row_chunks
+from ..parallel.mesh import (any_rank, gather_rows, padded_share, reduce_sum,
+                             world_rank)
 
 
 def _round_up(x, mult):
@@ -62,49 +74,126 @@ def padded_dims(m: int, n: int, k: int, bias_col: bool = True
             max(_round_up(k + int(bias_col), TILE), TILE))
 
 
-def _setup(rows, cols, vals, wvals, m_pad, n_pad):
-    """Scatter COO -> padded dense [m_pad, n_pad] bf16 X and int8 mask (or
-    f32 weights) W, both orientations, plus f32 row/column counts.  Duplicate
-    (row, col) pairs keep one entry, as on the TPU engine."""
-    flat = rows * n_pad + cols  # int64: no 2**31 limit on m_pad * n_pad
-    dev = rows.device
-    X = torch.zeros(m_pad * n_pad, dtype=torch.bfloat16, device=dev)
-    X[flat] = vals.to(torch.bfloat16)
-    X = X.view(m_pad, n_pad)
-    if wvals is not None:
-        W = torch.zeros(m_pad * n_pad, dtype=torch.float32, device=dev)
-        W[flat] = wvals
-    else:
-        W = torch.zeros(m_pad * n_pad, dtype=torch.int8, device=dev)
-        W[flat] = 1
-    W = W.view(m_pad, n_pad)
+class _Split(NamedTuple):
+    """One side's rows of the dense form over a mesh: ``pad`` rows without
+    one, ``total`` = world x ``share`` >= pad, and this rank's ``share``
+    rows from ``start`` (share = total = pad without a mesh)."""
+
+    pad: int
+    total: int
+    share: int
+    start: int
+
+    @property
+    def sl(self) -> slice:
+        return slice(self.start, self.start + self.share)
+
+
+def _split(n_pad: int, mesh) -> _Split:
+    world, rank = world_rank(mesh)
+    share = padded_share(n_pad, mesh, TILE)
+    return _Split(n_pad, world * share, share, rank * share)
+
+
+class _Rows(NamedTuple):
+    """A dense fit's row sharding: each side's _Split, the mesh (None:
+    every rank holds everything) and each side's liveness whole (the
+    opposing side of a half-step)."""
+
+    a: _Split
+    b: _Split
+    mesh: object
+    live_A: torch.Tensor  # [a.total] bool
+    live_B: torch.Tensor  # [b.total] bool
+
+    def gather(self, t):
+        return gather_rows(t, self.mesh)
+
+
+def _whole_mask(live, mesh):
+    """A bool row mask made whole over the mesh."""
+    return gather_rows(live.to(torch.uint8), mesh).bool()
+
+
+def _rank_entries(key, s: _Split, *ts):
+    """The COO entries whose ``key`` lies in this rank's rows of ``s``, the
+    key made local (all of them where one rank holds every row)."""
+    if s.share == s.total:
+        return (key,) + ts
+    keep = (key >= s.start) & (key < s.start + s.share)
+    return (key[keep] - s.start,) + tuple(
+        None if t is None else t[keep] for t in ts)
+
+
+def _both_orientations(rows, cols, values, fill, m_pad, n_pad, mesh):
+    """``fill(r, c, values, R, S)``: [R, S] tensors of this rank's rows of
+    the dense form, then of its transpose; ``values`` are per-entry
+    tensors (or None), cut with the entries.  Also the f32 row counts of
+    the last forward tensor (the mask or weights) and this rank's share of
+    its column counts, summed over the ranks: taken before the transpose,
+    so that their temporaries do not meet it.  Where one rank holds every
+    row the transpose is the forward form's (so a duplicate pair keeps the
+    same entry in both); across ranks each orientation is scattered from
+    its own entries."""
+    sa, sb = _split(m_pad, mesh), _split(n_pad, mesh)
+    r, c, *v = _rank_entries(rows, sa, cols, *values)
+    fwd = fill(r, c, v, sa.share, sb.total)
+    W = fwd[-1]
     cnt_A = W.sum(dim=1, dtype=torch.float32)
-    cnt_B = W.sum(dim=0, dtype=torch.float32)
-    return X, W, X.t().contiguous(), W.t().contiguous(), cnt_A, cnt_B
+    cnt_B = reduce_sum(W.sum(dim=0, dtype=torch.float32), mesh)[sb.sl]
+    if sa.share == sa.total:
+        bwd = [t.t().contiguous() for t in fwd]
+    else:
+        c2, r2, *v2 = _rank_entries(cols, sb, rows, *values)
+        bwd = fill(c2, r2, v2, sb.share, sa.total)
+    return fwd, bwd, cnt_A, cnt_B
 
 
-def _setup_implicit(rows, cols, av, m_pad, n_pad):
+def _scatter(r, c, R, S, fills):
+    """Dense [R, S] tensors of (dtype, values) at the entries (r, c)."""
+    flat = r * S + c  # int64: no 2**31 limit on R * S
+    out = []
+    for dtype, v in fills:
+        t = torch.zeros(R * S, dtype=dtype, device=r.device)
+        t[flat] = v
+        out.append(t.view(R, S))
+    return out
+
+
+def _setup(rows, cols, vals, wvals, m_pad, n_pad, mesh=None):
+    """Scatter COO -> padded dense bf16 X and int8 mask (or f32 weights) W,
+    both orientations, plus f32 row/column counts: this rank's rows of
+    each orientation under a mesh ([m_pad, n_pad] and its transpose
+    without one).  Duplicate (row, col) pairs keep one entry, as on the TPU
+    engine."""
+    def fill(r, c, v, R, S):
+        x, w = v
+        return _scatter(r, c, R, S, [
+            (torch.bfloat16, x.to(torch.bfloat16)),
+            (torch.float32, w) if w is not None else (torch.int8, 1)])
+
+    (X, W), (XT, WT), cnt_A, cnt_B = _both_orientations(
+        rows, cols, (vals, wvals), fill, m_pad, n_pad, mesh)
+    return X, W, XT, WT, cnt_A, cnt_B
+
+
+def _setup_implicit(rows, cols, av, m_pad, n_pad, mesh=None):
     """Scatter the confidence terms of WRMF, both orientations: Wx =
     bf16(alpha*x) (the Gram coefficients), Xp = bf16(1 + Wx) (the rhs
     coefficients; two roundings, as on the TPU) and the int8 mask M, plus
-    f32 row/column counts."""
-    flat = rows * n_pad + cols
-    dev = rows.device
-    avb = av.to(torch.bfloat16)
-    Wx = torch.zeros(m_pad * n_pad, dtype=torch.bfloat16, device=dev)
-    Wx[flat] = avb
-    Xp = torch.zeros(m_pad * n_pad, dtype=torch.bfloat16, device=dev)
-    Xp[flat] = 1.0 + avb
-    M = torch.zeros(m_pad * n_pad, dtype=torch.int8, device=dev)
-    M[flat] = 1
-    Wx, Xp, M = (t.view(m_pad, n_pad) for t in (Wx, Xp, M))
-    cnt_A = M.sum(dim=1, dtype=torch.float32)
-    cnt_B = M.sum(dim=0, dtype=torch.float32)
-    return (Wx, Xp, M, Wx.t().contiguous(), Xp.t().contiguous(),
-            M.t().contiguous(), cnt_A, cnt_B)
+    f32 row/column counts (this rank's rows under a mesh)."""
+    def fill(r, c, v, R, S):
+        avb = v[0].to(torch.bfloat16)
+        return _scatter(r, c, R, S, [(torch.bfloat16, avb),
+                                     (torch.bfloat16, 1.0 + avb),
+                                     (torch.int8, 1)])
+
+    (Wx, Xp, M), (WxT, XpT, MT), cnt_A, cnt_B = _both_orientations(
+        rows, cols, (av,), fill, m_pad, n_pad, mesh)
+    return Wx, Xp, M, WxT, XpT, MT, cnt_A, cnt_B
 
 
-def _cg(P, rhs, matvec, n_steps, dyn_stop=False):
+def _cg(P, rhs, matvec, n_steps, dyn_stop=False, mesh=None):
     """Truncated CG with per-row early freeze (masked step size).
 
     Two-tolerance stopping matching the reference
@@ -116,7 +205,8 @@ def _cg(P, rhs, matvec, n_steps, dyn_stop=False):
     max(1e-8, (1e-6*|rhs_r|)^2) -- the absolute target is unreachable in f32
     for rows with a large rhs -- and leaves the loop once every row is
     frozen, which gives the fixed-step result without its wasted matvecs.
-    That exit reads ``live.any()`` on the host: one device sync per step."""
+    That exit reads ``live.any()`` on the host: one device sync per step,
+    and under ``mesh`` one all-reduce, so that every rank leaves together."""
     r = rhs - matvec(P)
     rs = torch.sum(r * r, dim=-1)
     live = rs > 1e-12
@@ -126,7 +216,7 @@ def _cg(P, rhs, matvec, n_steps, dyn_stop=False):
         tol = 1e-8
     a, p = P, r
     for _ in range(n_steps):
-        if dyn_stop and not bool(live.any()):
+        if dyn_stop and not any_rank(live.any(), mesh):
             break
         Ap = matvec(p)
         denom = torch.sum(p * Ap, dim=-1)
@@ -142,10 +232,11 @@ def _cg(P, rhs, matvec, n_steps, dyn_stop=False):
 
 
 def _half_step(P, X, W, Be, mb, lam_row, live, *, n_steps, compute_dtype,
-               dyn_stop=False, G0=None, R0=None):
+               dyn_stop=False, G0=None, R0=None, mesh=None):
     """One side's update: solve (Be^T diag(W_r) Be + G0 + lam_r) a_r =
     rhs_r + R0_r for all rows r at once by fused-kernel CG.  G0/R0 carry the
-    collective model's side-info and implicit-features terms."""
+    collective model's side-info and implicit-features terms.  P, X, W,
+    lam_row, live and R0 are this rank's rows under ``mesh``, Be whole."""
     Bek = Be.to(compute_dtype)
     rhs = masked_rhs(X, W, mb, Bek)
     if R0 is not None:
@@ -157,7 +248,7 @@ def _half_step(P, X, W, Be, mb, lam_row, live, *, n_steps, compute_dtype,
             mv = mv + v @ G0.T
         return mv + v * lam_row
 
-    a = _cg(P, rhs, matvec, n_steps, dyn_stop=dyn_stop)
+    a = _cg(P, rhs, matvec, n_steps, dyn_stop=dyn_stop, mesh=mesh)
     return torch.where(live[:, None], a, 0.0)
 
 
@@ -235,12 +326,13 @@ def _side_terms(n_rows, Kp, k, parts):
 
 
 def _iteration(A, B, X, W, XT, WT, lam_row_A, lam_row_B, live_A, live_B, mu,
-               *, k, user_bias, item_bias, n_steps, compute, na0=False,
+               *, k, user_bias, item_bias, n_steps, compute, rows, na0=False,
                dyn_stop=False, G0B=None, R0B=None, G0A=None, R0A=None):
     """One full ALS iteration: B half-step then A half-step (the reference's
     in-iteration order, upstream cmfrec src/collective.c:8614 "Updating B"
     before :8802 "Updating A").  G0*/R0* are a collective fit's side terms
-    of each half-step."""
+    of each half-step.  A and B are whole; X, W, the lambdas, the live
+    masks and R0* hold this rank's rows (``rows``, a _Rows)."""
     cdt = torch.bfloat16 if compute == "bf16" else torch.float32
     # bias-column trick (upstream cmfrec src/common.c:561-565): the opposing
     # side's bias coordinate is a column of ones (or zeros without a bias),
@@ -253,11 +345,13 @@ def _iteration(A, B, X, W, XT, WT, lam_row_A, lam_row_B, live_A, live_B, mu,
     if na0:
         # lam_row_* is the shared [Kp] diagonal in this mode
         B = torch.where(live_B[:, None],
-                        _half_step_na0(XT, Ae, mbB, live_A, lam_row_B), 0.0)
+                        _half_step_na0(XT, Ae, mbB, rows.live_A, lam_row_B),
+                        0.0)
     else:
-        B = _half_step(B, XT, WT, Ae, mbB, lam_row_B, live_B,
+        B = _half_step(B[rows.b.sl], XT, WT, Ae, mbB, lam_row_B, live_B,
                        n_steps=n_steps, compute_dtype=cdt, dyn_stop=dyn_stop,
-                       G0=G0B, R0=R0B)
+                       G0=G0B, R0=R0B, mesh=rows.mesh)
+    B = rows.gather(B)
     Be = B.clone()
     Be[:, k] = 1.0 if user_bias else 0.0
     mbA = torch.full((B.shape[0],), mu, dtype=torch.float32, device=B.device)
@@ -265,24 +359,29 @@ def _iteration(A, B, X, W, XT, WT, lam_row_A, lam_row_B, live_A, live_B, mu,
         mbA = mbA + B[:, k]
     if na0:
         A = torch.where(live_A[:, None],
-                        _half_step_na0(X, Be, mbA, live_B, lam_row_A), 0.0)
+                        _half_step_na0(X, Be, mbA, rows.live_B, lam_row_A),
+                        0.0)
     else:
-        A = _half_step(A, X, W, Be, mbA, lam_row_A, live_A,
+        A = _half_step(A[rows.a.sl], X, W, Be, mbA, lam_row_A, live_A,
                        n_steps=n_steps, compute_dtype=cdt, dyn_stop=dyn_stop,
-                       G0=G0A, R0=R0A)
-    return A, B
+                       G0=G0A, R0=R0A, mesh=rows.mesh)
+    return rows.gather(A), B
 
 
-def _init_factors(gen, live, bias0, shape, coord, seed_bias):
-    """Random factors scaled by 1/sqrt(k), zero past coordinate ``coord``
-    and on dead rows, with the bias coordinate (if Kp holds one) seeded
-    from bias0 (or zero)."""
+def _init_factors(gen, live, bias0, s: _Split, Kp, coord, seed_bias):
+    """Random factors scaled by 1/sqrt(k) over the whole padded rows
+    (``s.pad`` of them drawn, whatever the mesh; zeros below them to
+    ``s.total``), zero past coordinate ``coord`` and on dead rows (``live``,
+    whole), with the bias coordinate (if Kp holds one) seeded from bias0 (or
+    zero)."""
     scale = float(1.0 / np.sqrt(max(coord, 1)))
-    M = scale * torch.randn(shape, generator=gen, dtype=torch.float32,
+    M = scale * torch.randn((s.pad, Kp), generator=gen, dtype=torch.float32,
                             device=live.device)
-    coord_pad = torch.arange(shape[1], device=live.device) > coord
+    if s.total > s.pad:
+        M = torch.cat([M, M.new_zeros(s.total - s.pad, Kp)])
+    coord_pad = torch.arange(Kp, device=live.device) > coord
     M = torch.where(coord_pad[None, :] | ~live[:, None], 0.0, M)
-    if coord < shape[1]:
+    if coord < Kp:
         M[:, coord] = bias0 if seed_bias else 0.0
     return M
 
@@ -307,34 +406,41 @@ def _apply_init(A, B, init, m, n, k, user_bias=False, item_bias=False):
 
 
 def _device_bias_init(X, W, cnt_A, cnt_B, mu, lam_user, lam_item, scale_lam,
-                      user_bias, item_bias):
+                      user_bias, item_bias, mesh=None):
     """Iterated alternating closed-form bias init from the dense forms (the
     reference's initialize_biases_twosided, upstream cmfrec src/common.c:4410):
     5 alternating full re-solves when both biases are on (items first), one
-    pass otherwise.  Row chunks bound the f32 temporaries."""
-    m_pad, n_pad = X.shape
-    chunks = list(row_chunks(m_pad, n_pad))
+    pass otherwise.  Row chunks bound the f32 temporaries.  Under ``mesh``
+    X, W and cnt_A are this rank's rows and cnt_B its share of the columns:
+    the column sums are the ranks' partial sums added up (rank 0's
+    starting from the base), and the biases come back whole."""
+    m_sh, n_tot = X.shape
+    chunks = list(row_chunks(m_sh, n_tot))
+    first = world_rank(mesh)[1] == 0
 
     def wf(sl):
         return W[sl].float()
 
-    sB0 = torch.zeros(n_pad, dtype=torch.float32, device=X.device)
-    sA0 = torch.empty(m_pad, dtype=torch.float32, device=X.device)
+    sB0 = torch.zeros(n_tot, dtype=torch.float32, device=X.device)
+    sA0 = torch.empty(m_sh, dtype=torch.float32, device=X.device)
     for sl in chunks:
         xw = X[sl].float() * wf(sl)
         sB0 += xw.sum(dim=0)
         sA0[sl] = xw.sum(dim=1)
+    sB0 = reduce_sum(sB0, mesh)
+    cnt_B = gather_rows(cnt_B, mesh)
     sB0 -= mu * cnt_B
     sA0 -= mu * cnt_A
     denomB = cnt_B + lam_item * (torch.clamp(cnt_B, min=1.0) if scale_lam else 1.0)
     denomA = cnt_A + lam_user * (torch.clamp(cnt_A, min=1.0) if scale_lam else 1.0)
-    biasA = torch.zeros(m_pad, dtype=torch.float32, device=X.device)
-    biasB = torch.zeros(n_pad, dtype=torch.float32, device=X.device)
+    biasA = torch.zeros(m_sh, dtype=torch.float32, device=X.device)
+    biasB = torch.zeros(n_tot, dtype=torch.float32, device=X.device)
     for _ in range(5 if (user_bias and item_bias) else 1):
         if item_bias:
-            sB = sB0.clone()
+            sB = sB0.clone() if first else torch.zeros_like(sB0)
             for sl in chunks:
                 sB -= biasA[sl] @ wf(sl)
+            sB = reduce_sum(sB, mesh)
             biasB = torch.where(denomB > 0,
                                 sB / torch.where(denomB > 0, denomB, 1.0), 0.0)
         if user_bias:
@@ -343,7 +449,7 @@ def _device_bias_init(X, W, cnt_A, cnt_B, mu, lam_user, lam_item, scale_lam,
                 sA[sl] = sA0[sl] - wf(sl) @ biasB
             biasA = torch.where(denomA > 0,
                                 sA / torch.where(denomA > 0, denomA, 1.0), 0.0)
-    return biasA, biasB
+    return gather_rows(biasA, mesh), biasB
 
 
 def _lam_rows(lam_f, lam_bias, has_bias, cnt, count_avg, *, k, Kp, scale_lam,
@@ -420,36 +526,50 @@ def _host_state(state):
             for key, v in state.items()}
 
 
+def _live_share(s: _Split, n_real, cnt, live_all):
+    """This rank's live rows: every real row (``live_all``), or those that a
+    rating reaches."""
+    if live_all:
+        return torch.arange(s.start, s.start + s.share,
+                            device=cnt.device) < n_real
+    return cnt > 0
+
+
 def _dense_explicit_setup(rows, cols, vals_raw, weights, m, n, k, *, lam6,
                           user_bias, item_bias, glob_mean, scale_lam, seed,
-                          dev, init, live_all_A=False, live_all_B=False):
+                          dev, init, live_all_A=False, live_all_B=False,
+                          mesh=None):
     """Shared set-up of the explicit engines: the dense forms, liveness,
     bias init and the (warm-started) factors.  Returns (X, W, XT, WT, cnt_A,
-    cnt_B, live_A, live_B, A, B)."""
+    cnt_B, live_A, live_B, A, B, rows): this rank's rows of the dense
+    forms, counts and liveness, the whole factors, and the _Rows."""
     m_pad, n_pad, Kp = padded_dims(m, n, k)
     X, W, XT, WT, cnt_A, cnt_B = _setup(
         _upload(rows, np.int64, dev), _upload(cols, np.int64, dev),
         _upload(vals_raw, np.float32, dev),
         None if weights is None else _upload(weights, np.float32, dev),
-        m_pad, n_pad)
+        m_pad, n_pad, mesh)
+    sa, sb = _split(m_pad, mesh), _split(n_pad, mesh)
     # rows that no rating reaches are dead (zero), unless the fit gives
     # every real row a system of its own (NA-as-zero, side info)
-    live_A = (torch.arange(m_pad, device=dev) < m) if live_all_A else cnt_A > 0
-    live_B = (torch.arange(n_pad, device=dev) < n) if live_all_B else cnt_B > 0
+    live_A = _live_share(sa, m, cnt_A, live_all_A)
+    live_B = _live_share(sb, n, cnt_B, live_all_B)
     mu = float(np.float32(glob_mean))
     if user_bias or item_bias:
         bA, bB = _device_bias_init(X, W, cnt_A, cnt_B, mu, float(lam6[0]),
                                    float(lam6[1]), scale_lam, user_bias,
-                                   item_bias)
+                                   item_bias, mesh)
     else:
-        bA = torch.zeros(m_pad, device=dev)
-        bB = torch.zeros(n_pad, device=dev)
+        bA = torch.zeros(sa.total, device=dev)
+        bB = torch.zeros(sb.total, device=dev)
+    rws = _Rows(sa, sb, mesh, _whole_mask(live_A, mesh),
+                _whole_mask(live_B, mesh))
     gen = torch.Generator(device=dev)
     gen.manual_seed(int(seed))
-    A = _init_factors(gen, live_A, bA, (m_pad, Kp), k, user_bias)
-    B = _init_factors(gen, live_B, bB, (n_pad, Kp), k, item_bias)
+    A = _init_factors(gen, rws.live_A, bA, sa, Kp, k, user_bias)
+    B = _init_factors(gen, rws.live_B, bB, sb, Kp, k, item_bias)
     _apply_init(A, B, init, m, n, k, user_bias, item_bias)
-    return X, W, XT, WT, cnt_A, cnt_B, live_A, live_B, A, B
+    return X, W, XT, WT, cnt_A, cnt_B, live_A, live_B, A, B, rws
 
 
 def fit_explicit_dense_masked(
@@ -457,20 +577,23 @@ def fit_explicit_dense_masked(
     k, lam6, niter, max_cg_steps, finalize_chol, finalize_steps,
     user_bias, item_bias, glob_mean, scale_lam, scale_bias_const,
     seed, verbose, device, init=None, na_as_zero=False, ckpt=None,
-    exact=False, dtype=np.float32, precondition_cg=False,
+    exact=False, dtype=np.float32, precondition_cg=False, mesh=None,
 ) -> dict:
     """Fit explicit ALS on the dense-masked engine.  Returns A [m,k], B [n,k],
-    biasA/biasB (or None), glob_mean and k; tensors stay on ``device``."""
+    biasA/biasB (or None), glob_mean and k; tensors stay on ``device``.
+    Under ``mesh`` each rank holds its rows of the dense form and every rank
+    returns the whole model."""
     _require_f32_plain_cg(dtype, precondition_cg)
     Kp = padded_dims(m, n, k)[2]
     weighted = weights is not None
     dev = torch.device(device)
-    X, W, XT, WT, cnt_A, cnt_B, live_A, live_B, A, B = _dense_explicit_setup(
+    (X, W, XT, WT, cnt_A, cnt_B, live_A, live_B, A, B,
+     rws) = _dense_explicit_setup(
         rows, cols, vals_raw, weights, m, n, k, lam6=lam6,
         user_bias=user_bias, item_bias=item_bias, glob_mean=glob_mean,
         scale_lam=scale_lam, seed=seed, dev=dev, init=init,
         # every real row/column participates (missing entries are zeros)
-        live_all_A=na_as_zero, live_all_B=na_as_zero)
+        live_all_A=na_as_zero, live_all_B=na_as_zero, mesh=mesh)
 
     count_avg_A = count_avg_B = 1.0
     if scale_lam:
@@ -507,7 +630,7 @@ def fit_explicit_dense_masked(
         st["A"], st["B"] = _iteration(st["A"], st["B"], *args, k=k,
                                       user_bias=user_bias,
                                       item_bias=item_bias, na0=na_as_zero,
-                                      **kw)
+                                      rows=rws, **kw)
 
     def _state():
         # checkpoint layout == return layout (1:1 with init=)
@@ -549,14 +672,21 @@ def _upload_side(S, rows_pad, dev):
                    np.float32, dev)
 
 
+def _rows_of(S, s: _Split):
+    """This rank's rows of a whole side matrix (None stays None)."""
+    return None if S is None else S[s.sl]
+
+
 def _collective_iteration(A, B, X, W, XT, WT, Ud, Id, lam_row_A, lam_row_B,
                           live_A, live_B, mu, lamC, lamD, w_user, w_item,
                           lam_ai, lam_bi, w_imp, *, k, user_bias, item_bias,
-                          n_steps, compute, dyn_stop):
+                          n_steps, compute, dyn_stop, rows):
     """One collective iteration in the reference's order: C, D, Bi, Ai, then
     B, then A (upstream cmfrec src/collective.c:8345,8396,8479,8520,8614,
     8802).  C/D/Bi/Ai are solved from the pre-update A/B.  Returns A, B, C,
-    D, Ai, Bi (None where the fit has no such part)."""
+    D, Ai, Bi (None where the fit has no such part), all whole: Ud and Id
+    are whole, C and D solved alike on every rank; Ai and Bi are solved on
+    each rank's rows of the masks and gathered."""
     Kp = A.shape[1]
     # the implicit-features products take bf16-rounded factors in the bf16
     # iterations on a card, as on the TPU; the CPU multiplies f32 factors,
@@ -570,22 +700,23 @@ def _collective_iteration(A, B, X, W, XT, WT, Ud, Id, lam_row_A, lam_row_B,
     Ai = Bi = None
     if lam_ai is not None:
         # Xones ~ A Bi^T and Xones^T ~ B Ai^T, both from the pre-update A/B
-        Bi = _shared_na0_solve(A[:, :k], WT, lam_bi, mdt)
-        Ai = _shared_na0_solve(B[:, :k], W, lam_ai, mdt)
+        Bi = rows.gather(_shared_na0_solve(A[:, :k], WT, lam_bi, mdt))
+        Ai = rows.gather(_shared_na0_solve(B[:, :k], W, lam_ai, mdt))
     parts_B, parts_A = [], []
     if D is not None:
-        parts_B.append((w_item, D, Id @ D))
+        parts_B.append((w_item, D, _rows_of(Id, rows.b) @ D))
     if C is not None:
-        parts_A.append((w_user, C, Ud @ C))
+        parts_A.append((w_user, C, _rows_of(Ud, rows.a) @ C))
     if Ai is not None:
         parts_B.append((w_imp, Ai, _mask_matmul(WT, Ai, mdt)))
         parts_A.append((w_imp, Bi, _mask_matmul(W, Bi, mdt)))
-    G0B, R0B = _side_terms(B.shape[0], Kp, k, parts_B)
-    G0A, R0A = _side_terms(A.shape[0], Kp, k, parts_A)
+    G0B, R0B = _side_terms(rows.b.share, Kp, k, parts_B)
+    G0A, R0A = _side_terms(rows.a.share, Kp, k, parts_A)
     A, B = _iteration(A, B, X, W, XT, WT, lam_row_A, lam_row_B, live_A,
                       live_B, mu, k=k, user_bias=user_bias,
                       item_bias=item_bias, n_steps=n_steps, compute=compute,
-                      dyn_stop=dyn_stop, G0B=G0B, R0B=R0B, G0A=G0A, R0A=R0A)
+                      dyn_stop=dyn_stop, G0B=G0B, R0B=R0B, G0A=G0A, R0A=R0A,
+                      rows=rows)
     return A, B, C, D, Ai, Bi
 
 
@@ -595,7 +726,7 @@ def fit_collective_dense_masked(
     finalize_steps, user_bias, item_bias, glob_mean, scale_lam,
     scale_lam_sideinfo=False, scale_bias_const=False, seed=1, verbose=False,
     device="cpu", init=None, add_implicit_features=False, w_implicit=0.5,
-    exact=False, dtype=np.float32, precondition_cg=False,
+    exact=False, dtype=np.float32, precondition_cg=False, mesh=None,
 ) -> dict:
     """Collective explicit ALS with fully dense side info (U_dense [m, p],
     I_dense [n, q], centered) and/or implicit features on the dense-masked
@@ -605,21 +736,23 @@ def fit_collective_dense_masked(
     closed forms already.  Returns A, B, biasA/biasB (or None), C [p, k], D
     [q, k], Ai [m, k], Bi [n, k] (or None), glob_mean and k; the returned
     C/D/Ai/Bi are those solved at the last iteration's start, and with
-    niter=0 those of the starting factors."""
+    niter=0 those of the starting factors.  Under ``mesh`` the dense side
+    matrices are whole on every rank, X and W a rank's rows."""
     _require_f32_plain_cg(dtype, precondition_cg)
-    m_pad, n_pad, Kp = padded_dims(m, n, k)
+    Kp = padded_dims(m, n, k)[2]
     dev = torch.device(device)
     has_impl = bool(add_implicit_features)
     # with dense side info (or implicit features, whose Xones part gives
     # every row a full-rank system) every real row participates
-    X, W, XT, WT, cnt_A, cnt_B, live_A, live_B, A, B = _dense_explicit_setup(
+    (X, W, XT, WT, cnt_A, cnt_B, live_A, live_B, A, B,
+     rws) = _dense_explicit_setup(
         rows, cols, vals_raw, weights, m, n, k, lam6=lam6,
         user_bias=user_bias, item_bias=item_bias, glob_mean=glob_mean,
         scale_lam=scale_lam, seed=seed, dev=dev, init=init,
         live_all_A=U_dense is not None or has_impl,
-        live_all_B=I_dense is not None or has_impl)
-    Ud = _upload_side(U_dense, m_pad, dev)
-    Id = _upload_side(I_dense, n_pad, dev)
+        live_all_B=I_dense is not None or has_impl, mesh=mesh)
+    Ud = _upload_side(U_dense, rws.a.total, dev)
+    Id = _upload_side(I_dense, rws.b.total, dev)
 
     count_avg_A = count_avg_B = 1.0
     if scale_lam:
@@ -663,7 +796,7 @@ def fit_collective_dense_masked(
     def step(**kw):
         out = _collective_iteration(st["A"], st["B"], *args, k=k,
                                     user_bias=user_bias, item_bias=item_bias,
-                                    **kw)
+                                    rows=rws, **kw)
         st.update(zip(("A", "B", "C", "D", "Ai", "Bi"), out))
 
     bulk, polish = _schedule(exact, k + 1, max_cg_steps, finalize_steps,
@@ -680,8 +813,10 @@ def fit_collective_dense_masked(
             st["D"] = _solve_side_factor(B[:, :k], Id, f32(w_item),
                                          f32(lam6[5]), k)
         if has_impl:
-            st["Bi"] = _shared_na0_solve(A[:, :k], WT, lam_bi, torch.float32)
-            st["Ai"] = _shared_na0_solve(B[:, :k], W, lam_ai, torch.float32)
+            st["Bi"] = rws.gather(_shared_na0_solve(A[:, :k], WT, lam_bi,
+                                                    torch.float32))
+            st["Ai"] = rws.gather(_shared_na0_solve(B[:, :k], W, lam_ai,
+                                                    torch.float32))
     return {
         "A": A[:m, :k],
         "B": B[:n, :k],
@@ -701,14 +836,16 @@ def fit_collective_dense_masked(
 
 
 def _half_step_implicit(P, Wx, Xp, M, Be, live, live_opp, lam_vec, w_mult, *,
-                        n_steps, compute_dtype, dyn_stop=False, side=None):
+                        n_steps, compute_dtype, dyn_stop=False, side=None,
+                        mesh=None):
     """WRMF half-step: (w (B^T B + sum_obs alpha*x b b^T) + lam) a =
     w sum_obs (1 + alpha*x) b (upstream cmfrec src/common.c:1914), B the
     live opposing rows.  ``side`` = (w_side, C, S) adds the collective
     fit's dense side-info terms w_side C^T C and w_side S @ C
     (optimizeA_collective_implicit, upstream cmfrec src/collective.c:5971);
     a collective fit (side given, or the empty tuple) scales the Gram base
-    by w before adding them, as the TPU engine does."""
+    by w before adding them, as the TPU engine does.  P, Wx, Xp, M, live
+    and S are this rank's rows under ``mesh``; Be and live_opp whole."""
     Bl = torch.where(live_opp[:, None], Be, 0.0)
     Bek = Bl.to(compute_dtype)
     G0 = Bl.T @ Bl
@@ -734,17 +871,18 @@ def _half_step_implicit(P, Wx, Xp, M, Be, live, live_opp, lam_vec, w_mult, *,
             return w_mult * mv + v @ G0.T + v * lam_vec[None, :]
         return w_mult * (mv + v @ G0.T) + v * lam_vec[None, :]
 
-    a = _cg(P, rhs, matvec, n_steps, dyn_stop=dyn_stop)
+    a = _cg(P, rhs, matvec, n_steps, dyn_stop=dyn_stop, mesh=mesh)
     return torch.where(live[:, None], a, 0.0)
 
 
 def _implicit_iteration(A, B, Wx, Xp, M, WxT, XpT, MT, lam_vec_A, lam_vec_B,
                         live_A, live_B, w_mult, *, k, n_steps, compute,
-                        dyn_stop, side=None):
+                        dyn_stop, rows, side=None):
     """One WRMF iteration, B half-step then A (upstream cmfrec
     src/collective.c:9927 "Optimize B" before :9981 "Optimize A").  ``side``
     (a collective fit's dict of Ud, Id, w_user, w_item, lamC, lamD) first
-    solves C and D from the pre-update A and B.  Returns A, B, C, D."""
+    solves C and D from the pre-update A and B.  Returns A, B, C, D, whole
+    (``rows``, a _Rows, says this rank's rows)."""
     cdt = torch.bfloat16 if compute == "bf16" else torch.float32
     C = D = None
     side_B = side_A = None
@@ -755,19 +893,24 @@ def _implicit_iteration(A, B, Wx, Xp, M, WxT, XpT, MT, lam_vec_A, lam_vec_B,
         if side["Id"] is not None:
             D = _solve_side_factor(B[:, :k], side["Id"], side["w_item"],
                                    side["lamD"], k)
-        side_B = () if D is None else (side["w_item"], D, side["Id"])
-        side_A = () if C is None else (side["w_user"], C, side["Ud"])
-    kw = dict(n_steps=n_steps, compute_dtype=cdt, dyn_stop=dyn_stop)
-    B = _half_step_implicit(B, WxT, XpT, MT, A, live_B, live_A, lam_vec_B,
-                            w_mult, side=side_B, **kw)
-    A = _half_step_implicit(A, Wx, Xp, M, B, live_A, live_B, lam_vec_A,
-                            w_mult, side=side_A, **kw)
+        side_B = () if D is None else (side["w_item"], D,
+                                       _rows_of(side["Id"], rows.b))
+        side_A = () if C is None else (side["w_user"], C,
+                                       _rows_of(side["Ud"], rows.a))
+    kw = dict(n_steps=n_steps, compute_dtype=cdt, dyn_stop=dyn_stop,
+              mesh=rows.mesh)
+    B = rows.gather(_half_step_implicit(
+        B[rows.b.sl], WxT, XpT, MT, A, live_B, rows.live_A, lam_vec_B,
+        w_mult, side=side_B, **kw))
+    A = rows.gather(_half_step_implicit(
+        A[rows.a.sl], Wx, Xp, M, B, live_A, rows.live_B, lam_vec_A, w_mult,
+        side=side_A, **kw))
     return A, B, C, D
 
 
 def _fit_implicit(rows, cols, vals, m, n, *, k, lam6, niter, max_cg_steps,
                   finalize_steps, finalize_chol, alpha, w_main_multiplier,
-                  seed, verbose, device, init, ckpt, exact, side):
+                  seed, verbose, device, init, ckpt, exact, side, mesh=None):
     """The WRMF engine of fit_implicit_dense_masked (side None) and
     fit_collective_implicit_dense_masked (side the dense side matrices and
     their weights and lambdas)."""
@@ -777,25 +920,26 @@ def _fit_implicit(rows, cols, vals, m, n, *, k, lam6, niter, max_cg_steps,
     av = (float(alpha) * np.asarray(vals, np.float64)).astype(np.float32)
     Wx, Xp, M, WxT, XpT, MT, cnt_A, cnt_B = _setup_implicit(
         _upload(rows, np.int64, dev), _upload(cols, np.int64, dev),
-        _upload(av, np.float32, dev), m_pad, n_pad)
-    real_A = torch.arange(m_pad, device=dev) < m
-    real_B = torch.arange(n_pad, device=dev) < n
+        _upload(av, np.float32, dev), m_pad, n_pad, mesh)
+    sa, sb = _split(m_pad, mesh), _split(n_pad, mesh)
     sd = None
     if side is not None:
-        sd = dict(Ud=_upload_side(side["U"], m_pad, dev),
-                  Id=_upload_side(side["I"], n_pad, dev),
+        sd = dict(Ud=_upload_side(side["U"], sa.total, dev),
+                  Id=_upload_side(side["I"], sb.total, dev),
                   w_user=float(np.float32(side["w_user"])),
                   w_item=float(np.float32(side["w_item"])),
                   lamC=float(np.float32(lam6[4])),
                   lamD=float(np.float32(lam6[5])))
     # dense side info gives every real row a system of its own
-    live_A = real_A if sd is not None and sd["Ud"] is not None else cnt_A > 0
-    live_B = real_B if sd is not None and sd["Id"] is not None else cnt_B > 0
+    live_A = _live_share(sa, m, cnt_A, sd is not None and sd["Ud"] is not None)
+    live_B = _live_share(sb, n, cnt_B, sd is not None and sd["Id"] is not None)
+    rws = _Rows(sa, sb, mesh, _whole_mask(live_A, mesh),
+                _whole_mask(live_B, mesh))
 
     gen = torch.Generator(device=dev)
     gen.manual_seed(int(seed))
-    A = _init_factors(gen, live_A, 0.0, (m_pad, Kp), k, False)
-    B = _init_factors(gen, live_B, 0.0, (n_pad, Kp), k, False)
+    A = _init_factors(gen, rws.live_A, 0.0, sa, Kp, k, False)
+    B = _init_factors(gen, rws.live_B, 0.0, sb, Kp, k, False)
     _apply_init(A, B, init, m, n, k)
 
     def lam_vec_for(lam_f):
@@ -809,7 +953,8 @@ def _fit_implicit(rows, cols, vals, m, n, *, k, lam6, niter, max_cg_steps,
     st = {"A": A, "B": B, "C": None, "D": None}
 
     def step(**kw):
-        out = _implicit_iteration(st["A"], st["B"], *args, k=k, side=sd, **kw)
+        out = _implicit_iteration(st["A"], st["B"], *args, k=k, side=sd,
+                                  rows=rws, **kw)
         st.update(zip(("A", "B", "C", "D"), out))
 
     def _state():
@@ -843,7 +988,7 @@ def fit_implicit_dense_masked(
     rows, cols, vals, m, n, *, k, lam6, niter, max_cg_steps, finalize_steps,
     finalize_chol, alpha, w_main_multiplier, seed, verbose, device,
     init=None, ckpt=None, exact=False, dtype=np.float32,
-    precondition_cg=False,
+    precondition_cg=False, mesh=None,
 ) -> dict:
     """WRMF on the dense-masked engine (the dense confidence form); the same
     systems as the bucketed implicit engine.  K1 runs on W = bf16(alpha*x),
@@ -856,14 +1001,15 @@ def fit_implicit_dense_masked(
         max_cg_steps=max_cg_steps, finalize_steps=finalize_steps,
         finalize_chol=finalize_chol, alpha=alpha,
         w_main_multiplier=w_main_multiplier, seed=seed, verbose=verbose,
-        device=device, init=init, ckpt=ckpt, exact=exact, side=None)
+        device=device, init=init, ckpt=ckpt, exact=exact, side=None,
+        mesh=mesh)
 
 
 def fit_collective_implicit_dense_masked(
     rows, cols, vals, m, n, *, U_dense, I_dense, k, lam6, w_user, w_item,
     niter, max_cg_steps, finalize_steps, finalize_chol, alpha,
     w_main_multiplier, seed, verbose, device, init=None, exact=False,
-    dtype=np.float32, precondition_cg=False,
+    dtype=np.float32, precondition_cg=False, mesh=None,
 ) -> dict:
     """Collective WRMF with fully dense side info on the dense-masked engine
     (k_user = k_item = k_main = 0): C and D are solved whole-matrix at each
@@ -877,4 +1023,5 @@ def fit_collective_implicit_dense_masked(
         finalize_chol=finalize_chol, alpha=alpha,
         w_main_multiplier=w_main_multiplier, seed=seed, verbose=verbose,
         device=device, init=init, ckpt=None, exact=exact,
-        side=dict(U=U_dense, I=I_dense, w_user=w_user, w_item=w_item))
+        side=dict(U=U_dense, I=I_dense, w_user=w_user, w_item=w_item),
+        mesh=mesh)

@@ -32,8 +32,18 @@ solvers/collective.py.
 ``nonneg`` and ``l1_lambda`` solve every half-step by coordinate descent
 (solvers/als.py; the CD kernel of ops/coord_descent.py on a card) on the
 bucketed engine, as the JAX package does: ``nonneg`` turns CG off, and
-neither ever takes the dense engine.  Multi-device fitting raises a
-``ValueError`` naming the ROADMAP slice that brings it.
+neither ever takes the dense engine.
+
+``mesh=`` (a 1-D ``DeviceMesh``, parallel/mesh.py) fits data-parallel, as
+the JAX package's ``mesh=`` (cmfrec_tpu/solvers/drivers.py:105-135): the
+bucketed engine's buckets are padded to rows that divide over the mesh
+and each rank solves its share of every bucket (K3, the CD kernel,
+Cholesky or rowsolve.solve_cg, as the route decides), then gathers; the
+dense-masked engine holds each rank's rows of the dense form
+(solvers/dense_masked.py).  The plain dense engine takes no mesh, as in the
+JAX package (:344-357): under one it runs whole on every rank.  The
+big-axis ring (``shard_opposing_rows=True``) raises a ``ValueError`` naming
+ROADMAP slice 7b.
 """
 
 from __future__ import annotations
@@ -47,6 +57,8 @@ import torch
 from ..config import (resolve_device, resolve_dtype, should_handle_interrupt,
                       torch_dtype)
 from ..data.device_fill import build_bucketed_pair
+from ..parallel.mesh import (check_mesh, mesh_row_block, reduce_min,
+                             shard_bucketed, world_rank)
 from ..utils.checkpoint import FitCheckpointer
 from . import dense_engine, preprocess
 from .als import SidePlan, blocks_to_orig, gram_matrix, init_blocks, update_side
@@ -93,6 +105,13 @@ def _dense_budget(dev: torch.device) -> Optional[int]:
         return None
     free, _ = torch.cuda.mem_get_info(dev)
     return int(0.9 * free)
+
+
+def _mesh_budget(dev: torch.device, mesh) -> Optional[int]:
+    """_dense_budget, the least over the mesh's ranks: every rank takes the
+    same engine."""
+    budget = _dense_budget(dev)
+    return None if budget is None else reduce_min(budget, mesh, dev)
 
 
 def _unsupported(what: str, slice_: str):
@@ -159,11 +178,12 @@ def _make_lam_vec(k: int, k_pad: int, lam: float, lam_bias: float,
     return torch.as_tensor(v, dtype=dtype, device=dev)
 
 
-def _build_pair(rows, cols, vals_c, m, n, weights, dev):
+def _build_pair(rows, cols, vals_c, m, n, weights, dev, mesh=None):
     """Both orientations of the bucketed layout, built on the fit's device
-    with the values' dtype."""
+    with the values' dtype, bucket rows dividing over ``mesh``."""
     return build_bucketed_pair(rows, cols, vals_c, m, n, weights, device=dev,
-                               dtype=np.asarray(vals_c).dtype)
+                               dtype=np.asarray(vals_c).dtype,
+                               row_block=mesh_row_block(mesh))
 
 
 def _row_index(bucketed, b, dev):
@@ -231,10 +251,13 @@ def plain_route(dtype, use_cg, precondition_cg) -> bool:
     return np.dtype(dtype) == np.float64 or bool(use_cg and precondition_cg)
 
 
-def _reject_common(mesh, shard_opposing_rows):
-    if mesh is not None or shard_opposing_rows:
-        raise _unsupported("multi-device fitting (mesh=, shard_opposing_rows)",
-                           "slice 7")
+def _reject_common(mesh, shard_opposing_rows, dev):
+    """The multi-device options: the ring raises, a mesh must be a 1-D
+    DeviceMesh of the fit's device type (parallel/mesh.py:check_mesh)."""
+    if shard_opposing_rows:
+        raise _unsupported("the big-axis ring (shard_opposing_rows=True)",
+                           "slice 7b")
+    check_mesh(mesh, dev)
 
 
 # cmfrec_tpu/solvers/drivers.py:248-251
@@ -301,7 +324,7 @@ def fit_explicit_als(
     dtype = resolve_dtype(dtype)
     dev = resolve_device(device)
     _check_engine(engine)
-    _reject_common(mesh, shard_opposing_rows)
+    _reject_common(mesh, shard_opposing_rows, dev)
     if nonneg:
         use_cg = False
     use_cd = nonneg or bool(np.any(l16 > 0))
@@ -319,10 +342,13 @@ def fit_explicit_als(
     bucketed = engine == "sparse" or weighted_na0 or use_cd or (
         plain and engine == "auto" and (NA_as_zero or not use_cg))
     if engine == "auto" and not bucketed:
-        budget = _dense_budget(dev)
+        budget = _mesh_budget(dev, mesh)
+        # the dense-masked engine holds 1/world of the dense form a rank;
+        # the plain dense engine runs whole on every rank
         need = (dense_engine.estimate_dense_bytes(
                     m, n, len(vals), k, dtype.itemsize, weights is not None)
-                if plain else dense_bytes(m, n, k, weights is not None))
+                if plain else dense_bytes(m, n, k, weights is not None)
+                // world_rank(mesh)[0])
         bucketed = budget is not None and need > budget
 
     glob_mean = (
@@ -338,7 +364,7 @@ def fit_explicit_als(
         # centred like any other, the mean clamped at 0 (common.c:3599)
         glob_mean = max(glob_mean, 0.0)
 
-    ckpt = FitCheckpointer(checkpoint_path, checkpoint_every, niter)
+    ckpt = FitCheckpointer(checkpoint_path, checkpoint_every, niter, mesh)
     common = dict(weights=weights, k=k, lam6=lam6, niter=niter,
                   finalize_chol=finalize_chol, user_bias=user_bias,
                   item_bias=item_bias, glob_mean=glob_mean,
@@ -349,7 +375,7 @@ def fit_explicit_als(
         return _fit_explicit_bucketed(
             rows, cols, vals, m, n, use_cg=use_cg, max_cg_steps=max_cg_steps,
             NA_as_zero=NA_as_zero, l16=l16, nonneg=nonneg,
-            max_cd_steps=max_cd_steps, **common)
+            max_cd_steps=max_cd_steps, mesh=mesh, **common)
     if plain:
         return _fit_explicit_dense(
             rows, cols, vals, m, n,
@@ -367,7 +393,7 @@ def fit_explicit_als(
         init=init, na_as_zero=NA_as_zero, ckpt=ckpt,
         # use_cg=False runs exact mode on the same engine, as on the TPU
         exact=not use_cg, dtype=dtype,
-        precondition_cg=use_cg and precondition_cg,
+        precondition_cg=use_cg and precondition_cg, mesh=mesh,
     )
 
 
@@ -392,15 +418,17 @@ def _fit_explicit_bucketed(
     rows, cols, vals, m, n, *, weights, k, lam6, niter, use_cg, max_cg_steps,
     finalize_chol, user_bias, item_bias, glob_mean, scale_lam,
     scale_bias_const, NA_as_zero, seed, verbose, dev, init, ckpt, dtype,
-    precondition_cg, l16, nonneg, max_cd_steps,
+    precondition_cg, l16, nonneg, max_cd_steps, mesh=None,
 ) -> dict:
     """The bucketed route of fit_explicit_als
-    (cmfrec_tpu/solvers/drivers.py:361-470), in the fit's dtype."""
+    (cmfrec_tpu/solvers/drivers.py:361-470), in the fit's dtype.  Under
+    ``mesh`` the whole layouts plan and seed the start; each rank solves
+    its share of them (parallel/mesh.py:shard_bucketed)."""
     tdt = torch_dtype(dtype)
     vals_c = _centered(vals, glob_mean, dtype)
     biasA0, biasB0 = _initial_biases(rows, cols, vals_c, m, n, lam6, weights,
                                      user_bias, item_bias, scale_lam, nonneg)
-    RB, CB = _build_pair(rows, cols, vals_c, m, n, weights, dev)
+    RB, CB = _build_pair(rows, cols, vals_c, m, n, weights, dev, mesh)
     perm_A = torch.as_tensor(RB.perm, device=dev)
     perm_B = torch.as_tensor(CB.perm, device=dev)
 
@@ -433,7 +461,8 @@ def _fit_explicit_bucketed(
                    NA_as_zero=NA_as_zero, max_cg_steps=max_cg_steps,
                    scale_lam=scale_lam, m=m, n=n,
                    precondition=precondition_cg, nonneg=nonneg,
-                   max_cd_steps=max_cd_steps)
+                   max_cd_steps=max_cd_steps, mesh=mesh)
+    RB, CB = shard_bucketed(RB, mesh), shard_bucketed(CB, mesh)
     args = (RB, CB, perm_A, perm_B, lam_vec_A, lam_vec_B, lam_const_A,
             lam_const_B, l1_vec_A, l1_vec_B, float(glob_mean))
 
@@ -499,7 +528,7 @@ def _explicit_sparse_iteration(
     A_blocks, B_blocks, RB, CB, perm_A, perm_B, lam_vec_A, lam_vec_B,
     lam_const_A, lam_const_B, l1_vec_A, l1_vec_B, glob_mean,
     *, m, n, k, user_bias, item_bias, NA_as_zero, method, max_cg_steps,
-    scale_lam, mxu_bf16, precondition, nonneg, max_cd_steps,
+    scale_lam, mxu_bf16, precondition, nonneg, max_cd_steps, mesh=None,
 ):
     """One full explicit ALS iteration over bucketed data, B half-step then
     A (the reference's order, upstream cmfrec src/collective.c:8614 "Updating
@@ -508,7 +537,7 @@ def _explicit_sparse_iteration(
     common = dict(mu=glob_mean if NA_as_zero else None, method=method,
                   n_steps=max_cg_steps, scale_lam=scale_lam,
                   mxu_bf16=mxu_bf16, precondition=precondition,
-                  nonneg=nonneg, max_cd_steps=max_cd_steps)
+                  nonneg=nonneg, max_cd_steps=max_cd_steps, mesh=mesh)
 
     def half(blocks, plan, opp_orig, opp_bias_on, ones, lam_vec, lam_const,
              l1_vec):
@@ -671,7 +700,7 @@ def fit_implicit_als(
     dtype = resolve_dtype(dtype)
     dev = resolve_device(device)
     _check_engine(engine)
-    _reject_common(mesh, shard_opposing_rows)
+    _reject_common(mesh, shard_opposing_rows, dev)
     if nonneg:
         use_cg = False
     use_cd = nonneg or bool(np.any(l16 > 0))
@@ -683,7 +712,7 @@ def fit_implicit_als(
         raise ValueError("engine='dense' (kernels K1/K2) takes float32 "
                          "without precondition_cg; use engine='auto' or "
                          "'sparse'")
-    ckpt = FitCheckpointer(checkpoint_path, checkpoint_every, niter)
+    ckpt = FitCheckpointer(checkpoint_path, checkpoint_every, niter, mesh)
     tdt = torch_dtype(dtype)
 
     vals = implicit_values(vals, apply_log_transf).astype(dtype)
@@ -695,9 +724,9 @@ def fit_implicit_als(
             finalize_chol=finalize_chol, alpha=alpha,
             w_main_multiplier=w_main, seed=seed, verbose=verbose, device=dev,
             init=init, ckpt=ckpt, exact=not use_cg, dtype=dtype,
-            precondition_cg=use_cg and precondition_cg)
+            precondition_cg=use_cg and precondition_cg, mesh=mesh)
 
-    RB, CB = _build_pair(rows, cols, vals, m, n, None, dev)
+    RB, CB = _build_pair(rows, cols, vals, m, n, None, dev, mesh)
     perm_A = torch.as_tensor(RB.perm, device=dev)
     perm_B = torch.as_tensor(CB.perm, device=dev)
 
@@ -721,6 +750,8 @@ def fit_implicit_als(
         return _sparse_fit_state(A_blocks, B_blocks, perm_A, perm_B, k,
                                  False, False)
 
+    RB, CB = shard_bucketed(RB, mesh), shard_bucketed(CB, mesh)
+
     try:
         for it in range(niter):
             method = ("cg" if use_cg and not (finalize_chol and it == niter - 1)
@@ -732,7 +763,7 @@ def fit_implicit_als(
                 method=method, max_cg_steps=max_cg_steps,
                 mxu_bf16=_bf16_rows(dev, method, tdt),
                 precondition=precondition_cg, nonneg=nonneg,
-                max_cd_steps=max_cd_steps)
+                max_cd_steps=max_cd_steps, mesh=mesh)
             if verbose:
                 _fence(dev)
                 print(f"iter {it + 1}/{niter} [{method}] "
@@ -752,7 +783,7 @@ def fit_implicit_als(
 def _implicit_sparse_iteration(
     A_blocks, B_blocks, RB, CB, perm_A, perm_B, lam_vec_A, lam_vec_B,
     l1_vec_A, l1_vec_B, w_main, alpha, *, m, n, method, max_cg_steps,
-    mxu_bf16, precondition, nonneg, max_cd_steps,
+    mxu_bf16, precondition, nonneg, max_cd_steps, mesh=None,
 ):
     """One full WRMF iteration over bucketed data, B half-step then A
     (upstream cmfrec src/collective.c:9927 precedes :9981), with the
@@ -760,7 +791,7 @@ def _implicit_sparse_iteration(
     common = dict(w=w_main, alpha=alpha, method=method,
                   n_steps=max_cg_steps, mxu_bf16=mxu_bf16,
                   precondition=precondition, nonneg=nonneg,
-                  max_cd_steps=max_cd_steps)
+                  max_cd_steps=max_cd_steps, mesh=mesh)
     A_orig = blocks_to_orig(A_blocks, perm_A)
     B_blocks = update_side(SidePlan(CB, "implicit", m), B_blocks, A_orig,
                            None, lam_vec_B, G0=w_main * gram_matrix(A_orig),

@@ -20,8 +20,15 @@ sparse observations (X, and side info given as COO) go through
 ``SparseObs``: the predictions as a sampled product on the observations'
 CSR pattern and the gradient as two sparse-dense products, with no
 [nnz, k] intermediate and no atomic scatter (``_term_sparse`` is the same
-term by gathers, as cmfrec_tpu writes it).  Multi-device fitting
-(``mesh=``) comes with ROADMAP slice 7.
+term by gathers, as cmfrec_tpu writes it).
+
+Under ``mesh=`` (parallel/mesh.py; cmfrec_tpu/solvers/lbfgs.py:83-100)
+each rank holds an even share of every term's observations (and of a dense
+side matrix's rows), evaluates its part of the objective and gradient, and
+one all-reduce sums value and gradient before lbfgs_core sees them; the
+penalty counts on rank 0.  The parameters stay whole on every rank (k x
+(m + n) floats), so the optimizer's state and every line-search decision
+are the same on every rank.
 """
 
 from __future__ import annotations
@@ -30,11 +37,10 @@ import numpy as np
 import torch
 
 from ..config import resolve_device, should_handle_interrupt
+from ..parallel.mesh import check_mesh, even_share, reduce_sum, world_rank
 from . import preprocess
-from .drivers import _resolve_lambdas, _unsupported
+from .drivers import _resolve_lambdas
 from .lbfgs_core import FlatParams, Lbfgs
-
-SLICE_MESH = "slice 7"
 
 
 def _torch_dtype(dtype):
@@ -164,22 +170,39 @@ def _side_coo(side, center, dtype):
             vals.astype(dtype), p, colmeans)
 
 
-def value_and_grad_of(loss_fn, layout):
+def value_and_grad_of(loss_fn, layout, mesh=None):
     """(value, grad) of ``loss_fn`` (of a dict of tensors) at a flat vector
-    laid out by ``layout`` (a FlatParams), by autograd."""
+    laid out by ``layout`` (a FlatParams), by autograd; under ``mesh`` each
+    rank's part summed over the ranks (one all-reduce of both)."""
 
     def value_and_grad(x):
         with torch.enable_grad():
             x = x.detach().requires_grad_(True)
             f = loss_fn(layout.views(x))
             grad, = torch.autograd.grad(f, x)
-        return f.detach(), grad
+        if mesh is None:
+            return f.detach(), grad
+        vg = reduce_sum(torch.cat([f.detach().reshape(1), grad]), mesh)
+        return vg[0], vg[1:]
 
     return value_and_grad
 
 
+def obs_share(rows, cols, vals, wgt, mesh):
+    """This rank's even share of a term's observations (all without a
+    mesh)."""
+    if mesh is None:
+        return rows, cols, vals, wgt
+    sl = even_share(len(vals), mesh)
+
+    def cut(a):
+        return None if a is None else np.asarray(a)[sl]
+
+    return cut(rows), cut(cols), cut(vals), cut(wgt)
+
+
 def run_lbfgs(loss_fn, params, *, maxiter, corr_pairs, tol, verbose=False,
-              print_every=10, label="lbfgs"):
+              print_every=10, label="lbfgs", mesh=None):
     """cmfrec_tpu's iteration loop around optax.lbfgs: chunks of up to 25
     iterations, and after each chunk a stop when its value trace is not
     finite or its last two changes are within ``tol * max(|f|, 1)``
@@ -190,7 +213,7 @@ def run_lbfgs(loss_fn, params, *, maxiter, corr_pairs, tol, verbose=False,
     ``linesearch_steps`` and per-iteration ``values``."""
     layout = FlatParams(params)
     x = layout.flatten(params)
-    core = Lbfgs(value_and_grad_of(loss_fn, layout), x, corr_pairs)
+    core = Lbfgs(value_and_grad_of(loss_fn, layout, mesh), x, corr_pairs)
     chunk = max(1, min(25, int(maxiter)))
     it = 0
     nfev = 0
@@ -228,17 +251,22 @@ class CollectiveProblem:
     """The joint objective of one collective L-BFGS fit on a device: the
     centered data, the side terms, the regularization map, and
     ``loss(params)`` / ``value_and_grad(params)`` over the parameter dict
-    (A, B, and whichever of biasA, biasB, C, D, Cb, Db the model has)."""
+    (A, B, and whichever of biasA, biasB, C, D, Cb, Db the model has).
+    Under ``mesh`` it holds this rank's share of the observations and
+    ``loss`` is this rank's part (the penalty on rank 0)."""
 
     def __init__(self, rows, cols, vals, m, n, *, side_U=None, side_I=None,
                  side_Ub=None, side_Ib=None, k=40, k_user=0, k_item=0,
                  k_main=0, lambda_=10.0, w_main=1.0, w_user=1.0, w_item=1.0,
                  user_bias=True, item_bias=True, center=True, center_U=True,
                  center_I=True, weights=None, dtype=np.float32,
-                 device="cuda"):
+                 device="cuda", mesh=None):
         self.dtype = np.dtype(dtype)
         self.tdt = _torch_dtype(dtype)
         self.dev = resolve_device(device)
+        check_mesh(mesh, self.dev)
+        self.mesh = mesh
+        self.penalty = world_rank(mesh)[1] == 0
         self.m, self.n = int(m), int(n)
         self.k, self.k_user, self.k_item, self.k_main = k, k_user, k_item, k_main
         self.w_main, self.w_user, self.w_item = w_main, w_user, w_item
@@ -250,9 +278,9 @@ class CollectiveProblem:
 
         self.glob_mean = (preprocess.weighted_global_mean(vals, weights)
                           if center else 0.0)
-        self.obs = SparseObs(rows, cols,
-                             np.asarray(vals, np.float64) - self.glob_mean,
-                             weights, m, n, self.tdt, self.dev)
+        self.obs = SparseObs(*obs_share(
+            rows, cols, np.asarray(vals, np.float64) - self.glob_mean,
+            weights, mesh), m, n, self.tdt, self.dev)
 
         self.sides = {}
         self.colmeans = {}
@@ -265,8 +293,12 @@ class CollectiveProblem:
             kind, r_s, c_s, v_s, p, colmeans = S
             self.colmeans[name] = colmeans
             if kind == "dense":
-                self.sides[name] = ("dense", p, self._up(v_s))
-            elif name in ("U", "I"):
+                # this rank's rows of the dense matrix
+                sl = even_share(v_s.shape[0], mesh)
+                self.sides[name] = ("dense", p, self._up(v_s[sl]), sl)
+                continue
+            r_s, c_s, v_s, _ = obs_share(r_s, c_s, v_s, None, mesh)
+            if name in ("U", "I"):
                 n_ent = (self.m, self.n)[name == "I"]
                 self.sides[name] = ("coo", p, SparseObs(
                     r_s, c_s, v_s, None, n_ent, p, self.tdt, self.dev))
@@ -314,7 +346,8 @@ class CollectiveProblem:
     def _side_term(self, name, Amat, Cmat, w, binary):
         side = self.sides[name]
         if side[0] == "dense":
-            M = side[2]
+            M, sl = side[2], side[3]
+            Amat = Amat[sl]
             if binary:
                 rr = M - torch.sigmoid(Amat @ Cmat.T)
                 return w * 0.5 * torch.sum(rr * rr)
@@ -341,15 +374,17 @@ class CollectiveProblem:
         if "Db" in p:
             f = f + self._side_term("Ib", B[:, :ki + k], p["Db"], self.w_item,
                                     True)
-        for name in sorted(p):
-            mat = p[name]
-            f = f + 0.5 * self.lam_map[name] * torch.sum(mat * mat)
+        if self.penalty:
+            for name in sorted(p):
+                mat = p[name]
+                f = f + 0.5 * self.lam_map[name] * torch.sum(mat * mat)
         return f
 
     def value_and_grad(self, params):
-        """(value, dict of gradients) at a dict of parameters."""
+        """(value, dict of gradients) at a dict of parameters, summed over
+        the mesh's ranks."""
         layout = FlatParams(params)
-        value, grad = value_and_grad_of(self.loss, layout)(
+        value, grad = value_and_grad_of(self.loss, layout, self.mesh)(
             layout.flatten(params))
         return value, layout.views(grad)
 
@@ -373,19 +408,19 @@ def fit_collective_explicit_lbfgs(
     """The collective explicit fit by L-BFGS on the joint objective.
     Returns numpy arrays (A, B, C, D, Cb, Db, biasA, biasB; None where
     absent), glob_mean, the side-info column means, cmfrec_tpu's niter and
-    nfev, and the measured n_evals, host_syncs and per-iteration values."""
-    if mesh is not None:
-        raise _unsupported("multi-device fitting (mesh=)", SLICE_MESH)
+    nfev, and the measured n_evals, host_syncs and per-iteration values.
+    Under ``mesh`` every rank returns the whole model."""
     prob = CollectiveProblem(
         rows, cols, vals, m, n, side_U=side_U, side_I=side_I,
         side_Ub=side_Ub, side_Ib=side_Ib, k=k, k_user=k_user, k_item=k_item,
         k_main=k_main, lambda_=lambda_, w_main=w_main, w_user=w_user,
         w_item=w_item, user_bias=user_bias, item_bias=item_bias,
         center=center, center_U=center_U, center_I=center_I, weights=weights,
-        dtype=dtype, device=device)
+        dtype=dtype, device=device, mesh=mesh)
     params, stats = run_lbfgs(prob.loss, prob.init_params(seed, init),
                               maxiter=maxiter, corr_pairs=corr_pairs, tol=tol,
-                              verbose=verbose, print_every=print_every)
+                              verbose=verbose, print_every=print_every,
+                              mesh=mesh)
     out = {name: v.cpu().numpy() for name, v in params.items()}
     return {
         "A": out["A"], "B": out["B"], "C": out.get("C"), "D": out.get("D"),

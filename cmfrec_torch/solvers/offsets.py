@@ -13,12 +13,15 @@ in Collective Matrix Factorization", Cortes 2018):
 Two fits, as in the reference:
   * the exact joint optimization by L-BFGS (fit_offsets_explicit_lbfgs,
     src/offsets.c:1150): solvers/lbfgs_core.py with autograd gradients, in
-    plain torch on the fit's device;
+    plain torch on the fit's device; under ``mesh=`` each rank evaluates
+    its share of the observations and value and gradient are summed over
+    the ranks, as in solvers/lbfgs.py;
   * the ALS approximation (fit_offsets_als, src/offsets.c:1773): Am/Bm by
     the port's ALS drivers on the fit's device (K1/K2 on the dense-masked
     engine, K3 on the bucketed one), then the attribute regression
     C = argmin ||Am - U C|| and A = Am - w_user U C on the host, in f64.
-    Only k (no k_sec/k_main) in this mode.
+    Only k (no k_sec/k_main) in this mode; ``mesh=`` passes to the ALS
+    fit.
 
 The pure content-based model (Am = U C + Cb, k_sec = k, no free part)
 reuses the same machinery (src/offsets.c:3283).  The attributes are dense
@@ -31,14 +34,10 @@ import numpy as np
 import torch
 
 from ..config import resolve_device
+from ..parallel.mesh import check_mesh, world_rank
 from . import preprocess
-from .drivers import (
-    _resolve_lambdas,
-    _unsupported,
-    fit_explicit_als,
-    fit_implicit_als,
-)
-from .lbfgs import SLICE_MESH, SparseObs, _torch_dtype, run_lbfgs
+from .drivers import _resolve_lambdas, fit_explicit_als, fit_implicit_als
+from .lbfgs import SparseObs, _torch_dtype, obs_share, run_lbfgs
 
 
 def densify_side(side, center: bool):
@@ -84,15 +83,19 @@ def construct_Am(A, UC, k_sec, k, k_main, w):
 class OffsetsProblem:
     """The objective of one offsets L-BFGS fit on a device: ``loss(p)``
     over the parameter dict (A, B, C, D, C_bias, D_bias, biasA, biasB,
-    whichever the model has) and ``sides(p)`` -> (Am, Bm)."""
+    whichever the model has) and ``sides(p)`` -> (Am, Bm).  Under ``mesh``
+    it holds this rank's share of the observations and ``loss`` is this
+    rank's part (the penalty on rank 0)."""
 
     def __init__(self, rows, cols, vals, m, n, *, side_U=None, side_I=None,
                  k=50, k_sec=0, k_main=0, lambda_=10.0, w_user=1.0,
                  w_item=1.0, user_bias=True, item_bias=True, center=True,
                  add_intercepts=True, weights=None, dtype=np.float32,
-                 device="cuda"):
+                 device="cuda", mesh=None):
         self.tdt = _torch_dtype(dtype)
         self.dev = resolve_device(device)
+        check_mesh(mesh, self.dev)
+        self.penalty = world_rank(mesh)[1] == 0
         self.m, self.n = int(m), int(n)
         self.k, self.k_sec, self.k_main = k, k_sec, k_main
         self.w_user, self.w_item = w_user, w_item
@@ -108,9 +111,9 @@ class OffsetsProblem:
             raise ValueError("k_sec requires side info")
         self.glob_mean = (preprocess.weighted_global_mean(vals, weights)
                           if center else 0.0)
-        self.obs = SparseObs(rows, cols,
-                             np.asarray(vals, np.float64) - self.glob_mean,
-                             weights, m, n, self.tdt, self.dev)
+        self.obs = SparseObs(*obs_share(
+            rows, cols, np.asarray(vals, np.float64) - self.glob_mean,
+            weights, mesh), m, n, self.tdt, self.dev)
         self.U = None if U is None else self._up(U)
         self.I = None if I is None else self._up(I)
 
@@ -178,9 +181,10 @@ class OffsetsProblem:
     def loss(self, p):
         Am, Bm = self.sides(p)
         f = self.obs.term(Am, Bm, p.get("biasA"), p.get("biasB"))
-        for name in sorted(p):
-            mat = p[name]
-            f = f + 0.5 * self.lam_map[name] * torch.sum(mat * mat)
+        if self.penalty:
+            for name in sorted(p):
+                mat = p[name]
+                f = f + 0.5 * self.lam_map[name] * torch.sum(mat * mat)
         return f
 
 
@@ -199,19 +203,18 @@ def fit_offsets_explicit_lbfgs(
     """The exact offsets fit.  Returns numpy arrays (A, B, C, D, C_bias,
     D_bias, Am, Bm, biasA, biasB; None where absent), glob_mean, the
     attribute column means, cmfrec_tpu's niter, and the measured n_evals,
-    host_syncs and per-iteration values."""
-    if mesh is not None:
-        raise _unsupported("multi-device fitting (mesh=)", SLICE_MESH)
+    host_syncs and per-iteration values; under ``mesh`` the whole model on
+    every rank."""
     prob = OffsetsProblem(
         rows, cols, vals, m, n, side_U=side_U, side_I=side_I, k=k,
         k_sec=k_sec, k_main=k_main, lambda_=lambda_, w_user=w_user,
         w_item=w_item, user_bias=user_bias, item_bias=item_bias,
         center=center, add_intercepts=add_intercepts, weights=weights,
-        dtype=dtype, device=device)
+        dtype=dtype, device=device, mesh=mesh)
     params, stats = run_lbfgs(prob.loss, prob.init_params(seed, init_params),
                               maxiter=maxiter, corr_pairs=corr_pairs, tol=tol,
                               verbose=verbose, print_every=print_every,
-                              label="offsets-lbfgs")
+                              label="offsets-lbfgs", mesh=mesh)
     stats.pop("nfev")
     with torch.no_grad():
         Am, Bm = prob.sides(params)

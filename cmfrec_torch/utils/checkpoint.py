@@ -27,6 +27,8 @@ from typing import Optional
 
 import numpy as np
 
+from ..parallel.mesh import barrier, is_writer
+
 
 def save_fit_checkpoint(path: str, arrays: dict, iterations_done: int,
                         niter_total: int) -> None:
@@ -63,10 +65,14 @@ def load_fit_checkpoint(path: str):
 class FitCheckpointer:
     """Per-fit helper: call ``maybe_save(it, state_fn)`` at the end of
     each iteration; ``state_fn`` is only invoked (and state only
-    downloaded) when this iteration actually checkpoints."""
+    downloaded) when this iteration actually checkpoints.  Under a mesh
+    (parallel/mesh.py) every rank holds the whole state: rank 0 writes the
+    file and the others wait at a barrier until it is in place."""
 
-    def __init__(self, path: Optional[str], every: int, niter: int):
+    def __init__(self, path: Optional[str], every: int, niter: int,
+                 mesh=None):
         self.path = path
+        self.mesh = mesh
         self.every = int(every) if path else 0
         self.niter = niter
         if path and self.every <= 0:
@@ -88,4 +94,7 @@ class FitCheckpointer:
         # the final iteration's state is the fit's own return value —
         # don't pay a redundant download for it
         if it_done % self.every == 0 and it_done < self.niter:
-            save_fit_checkpoint(self.path, state_fn(), it_done, self.niter)
+            if is_writer(self.mesh):
+                save_fit_checkpoint(self.path, state_fn(), it_done,
+                                    self.niter)
+            barrier(self.mesh)

@@ -1,0 +1,580 @@
+"""The cases of the mesh tests (tests/test_torch_mesh*.py) and the runner
+that plays them on every rank of a gloo group.
+
+Each case is ``case(pkg, mesh)``: the same call on the same numpy inputs
+and init= factors through cmfrec_torch (``pkg="port"``, on the CPU, with
+``mesh`` a 1-D DeviceMesh or None) or through cmfrec_tpu (``pkg="jax"``,
+meshless), returning a dict of numpy arrays.  This module imports neither
+JAX nor cmfrec_tpu at import time: the ranks are spawned processes that
+import it and run only the port.
+
+``Group(names, world, tmp)`` spawns ``world`` processes (the ``spawn``
+start method) that join one gloo group on a ``file://`` store,
+each running every named case with the group's mesh and saving its
+results; ``Group.results()`` joins them under a deadline, so a collective
+that hangs fails the test instead of the suite.
+"""
+
+from __future__ import annotations
+
+import multiprocessing
+import time
+import traceback
+from pathlib import Path
+
+import numpy as np
+
+# the parent's join deadline from the group's start (each rank imports
+# torch, joins the group and runs a file's cases in a few seconds)
+JOIN_TIMEOUT = 120
+RANK_THREADS = 1
+
+
+def problem():
+    """tests/test_multidevice.py's ``problem`` fixture (rng 1234): a
+    128 x 96 rank-4 matrix, 30% observed."""
+    rng = np.random.default_rng(1234)
+    m, n, k_true = 128, 96, 4
+    A = rng.normal(size=(m, k_true))
+    B = rng.normal(size=(n, k_true))
+    mask = rng.uniform(size=(m, n)) < 0.3
+    rows, cols = np.nonzero(mask)
+    vals = (A @ B.T)[rows, cols] + 0.1 * rng.normal(size=rows.size)
+    return rows, cols, vals, m, n
+
+
+def _init(seed, dtype=np.float32, **shapes):
+    rng = np.random.default_rng(seed)
+    return {key: (0.3 * rng.normal(size=shape)).astype(dtype)
+            for key, shape in shapes.items()}
+
+
+def _np(res, keys):
+    out = {}
+    for key in keys:
+        v = res[key]
+        if v is None:
+            continue
+        out[key] = v.cpu().numpy() if hasattr(v, "cpu") else np.asarray(v)
+    return out
+
+
+def _port_kw(pkg, mesh):
+    return dict(mesh=mesh, device="cpu") if pkg == "port" else {}
+
+
+# --------------------------------------------------------------------- #
+# the bucketed drivers (tests/test_multidevice.py:76-170)                #
+# --------------------------------------------------------------------- #
+
+
+def halfstep(pkg, mesh):
+    """One explicit A half-step by Cholesky on the bucketed layout
+    (row_block 8) from numpy factors (:45-82)."""
+    rows, cols, vals, m, n = problem()
+    k, k_pad = 6, 8
+    rng = np.random.default_rng(0)
+    A0 = np.zeros((m, k_pad), np.float32)
+    A0[:, :k] = rng.normal(size=(m, k)) / np.sqrt(k)
+    B0 = (0.1 * rng.normal(size=(n, k_pad))).astype(np.float32)
+    if pkg == "port":
+        import torch
+
+        from cmfrec_torch.data.device_fill import build_bucketed_pair
+        from cmfrec_torch.parallel.mesh import mesh_row_block, shard_bucketed
+        from cmfrec_torch.solvers.als import SidePlan, blocks_to_orig, update_side
+
+        RB, _ = build_bucketed_pair(rows, cols, vals, m, n, device="cpu",
+                                    row_block=mesh_row_block(mesh))
+        ext = torch.cat([torch.from_numpy(A0), torch.zeros(1, k_pad)])
+        blocks = [ext[torch.as_tensor(RB.row_of[b.start:b.start + b.n_rows])]
+                  for b in RB.buckets]
+        perm = torch.as_tensor(RB.perm)
+        plan = SidePlan(shard_bucketed(RB, mesh), "explicit", n)
+        out = update_side(plan, blocks, torch.from_numpy(B0), None,
+                          torch.ones(k_pad), method="chol", mesh=mesh)
+        return {"A": blocks_to_orig(out, perm).numpy()}
+    import jax.numpy as jnp
+
+    from cmfrec_tpu.data.shards import build_bucketed_rows
+    from cmfrec_tpu.solvers.als import SidePlan, blocks_to_orig, update_side
+
+    RB = build_bucketed_rows(rows, cols, vals, m, n, dtype=np.float32,
+                             row_block=8)
+    ext = np.concatenate([A0, np.zeros((1, k_pad), np.float32)])
+    blocks = [jnp.asarray(ext[RB.row_of[b.start:b.start + b.n_rows]])
+              for b in RB.buckets]
+    out = update_side(SidePlan(RB, "explicit", n), blocks, jnp.asarray(B0),
+                      None, jnp.ones(k_pad, jnp.float32), method="chol",
+                      dtype=np.float32)
+    return {"A": np.asarray(blocks_to_orig(out, jnp.asarray(RB.perm), m))}
+
+
+def _explicit(pkg, mesh, **kw):
+    rows, cols, vals, m, n = problem()
+    k = kw.pop("k", 5)
+    init = _init(11, A=(m, k), B=(n, k), biasA=(m,), biasB=(n,))
+    if kw.get("nonneg"):
+        init = {key: np.abs(v) for key, v in init.items()}
+    if pkg == "port":
+        from cmfrec_torch.solvers import drivers
+    else:
+        from cmfrec_tpu.solvers import drivers
+    res = drivers.fit_explicit_als(rows, cols, vals, m, n, k=k, lambda_=0.7,
+                                   engine="sparse", seed=3, init=init,
+                                   dtype=np.float32, **kw,
+                                   **_port_kw(pkg, mesh))
+    return _np(res, ("A", "B", "biasA", "biasB"))
+
+
+def explicit_cholesky(pkg, mesh):
+    """fit_explicit_als(engine="sparse") by Cholesky (:85)."""
+    return _explicit(pkg, mesh, niter=4, use_cg=False)
+
+
+def explicit_cg(pkg, mesh):
+    """fit_explicit_als(engine="sparse", mesh=) with CG (:105)."""
+    return _explicit(pkg, mesh, niter=4)
+
+
+def explicit_cd(pkg, mesh):
+    """nonneg=True: every bucket by coordinate descent."""
+    return _explicit(pkg, mesh, niter=3, nonneg=True, center=False)
+
+
+def explicit_world3(pkg, mesh):
+    """A mesh of 3 ranks (:265): bucket rows padded to lcm(8, 3) = 24."""
+    return _explicit(pkg, mesh, niter=2, k=4)
+
+
+def implicit(pkg, mesh):
+    """fit_implicit_als(mesh=) (:122)."""
+    rows, cols, vals, m, n = problem()
+    init = _init(12, A=(m, 5), B=(n, 5))
+    if pkg == "port":
+        from cmfrec_torch.solvers import drivers
+    else:
+        from cmfrec_tpu.solvers import drivers
+    res = drivers.fit_implicit_als(rows, cols, np.abs(vals) + 1.0, m, n, k=5,
+                                   lambda_=1.0, niter=4, seed=3, init=init,
+                                   **_port_kw(pkg, mesh))
+    return _np(res, ("A", "B"))
+
+
+def _collective(pkg):
+    if pkg == "port":
+        from cmfrec_torch.solvers import collective
+    else:
+        from cmfrec_tpu.solvers import collective
+    return collective
+
+
+def collective_explicit(pkg, mesh):
+    """The collective explicit fit with dense side info and k splits, the
+    bucketed route (:135)."""
+    rows, cols, vals, m, n = problem()
+    U = np.random.default_rng(13).normal(size=(m, 7))
+    init = _init(14, A=(m, 6), B=(n, 5), C=(7, 5), biasA=(m,), biasB=(n,))
+    res = _collective(pkg).fit_collective_explicit_als(
+        rows, cols, vals, m, n, side_U=(None, None, None, m, 7, True, U),
+        k=4, k_user=1, k_main=1, lambda_=0.8, niter=3, use_cg=True,
+        max_cg_steps=3, seed=3, dtype=np.float32, init=init,
+        **_port_kw(pkg, mesh))
+    return _np(res, ("A", "B", "C", "biasA", "biasB"))
+
+
+def collective_implicit(pkg, mesh):
+    """The collective implicit fit with sparse side info: the aligned parts
+    and the feature buckets (:153)."""
+    rows, cols, vals, m, n = problem()
+    rng = np.random.default_rng(15)
+    Ur, Uc, Uv = rng.integers(0, m, 300), rng.integers(0, 6, 300), \
+        rng.normal(size=300)
+    init = _init(16, A=(m, 4), B=(n, 4), C=(6, 4))
+    res = _collective(pkg).fit_collective_implicit_als(
+        rows, cols, np.abs(vals) + 1.0, m, n,
+        side_U=(Ur, Uc, Uv, m, 6, False, None), k=4, lambda_=1.0, niter=3,
+        seed=3, dtype=np.float32, init=init, **_port_kw(pkg, mesh))
+    return _np(res, ("A", "B", "C"))
+
+
+def topn(pkg, mesh):
+    """topn_sharded against the plain ranking (:172), at 1,024 items and
+    at 1,021 (padding over the ranks)."""
+    rng = np.random.default_rng(17)
+    n, k = 1024, 16
+    B = rng.normal(size=(n, k)).astype(np.float32)
+    a = rng.normal(size=k).astype(np.float32)
+    bias = rng.normal(size=n).astype(np.float32)
+    out = {}
+    for size in (n, n - 3):
+        if pkg == "port":
+            import torch
+
+            from cmfrec_torch.parallel.topn import topn_sharded
+
+            idx, s = topn_sharded(torch.from_numpy(a),
+                                  torch.from_numpy(B[:size]), 10,
+                                  torch.from_numpy(bias[:size]), mesh)
+            idx, s = idx.numpy(), s.numpy()
+        else:
+            s_all = B[:size].astype(np.float64) @ a + bias[:size]
+            idx = np.argsort(-s_all, kind="stable")[:10]
+            s = s_all[idx]
+        out[f"idx{size}"], out[f"scores{size}"] = idx, s
+    return out
+
+
+# --------------------------------------------------------------------- #
+# the dense engine, the models, L-BFGS and offsets (:189-612)            #
+# --------------------------------------------------------------------- #
+
+
+def _dense_data():
+    """tests/test_multidevice.py:194-200 (rng 1234), on a half-point grid
+    (exact in the engine's bf16 X)."""
+    rng = np.random.default_rng(1234)
+    m, n, k = 96, 64, 4
+    A0 = rng.normal(size=(m, k))
+    B0 = rng.normal(size=(n, k))
+    mask = rng.uniform(size=(m, n)) < 0.5
+    ro, co = np.nonzero(mask)
+    vals = np.round(2 * ((A0 @ B0.T)[ro, co] + 3.0
+                         + 0.05 * rng.normal(size=ro.size))) / 2
+    init = _init(18, A=(m, k), B=(n, k), biasA=(m,), biasB=(n,))
+    return ro, co, vals, m, n, k, init
+
+
+def _dense(pkg, mesh, **kw):
+    ro, co, vals, m, n, k, init = _dense_data()
+    common = dict(weights=None, k=k, lam6=np.full(6, 0.5), max_cg_steps=3,
+                  finalize_chol=True, finalize_steps=16, user_bias=True,
+                  item_bias=True, glob_mean=float(vals.mean()),
+                  scale_lam=False, scale_bias_const=False, seed=3,
+                  verbose=False, **kw)
+    if pkg == "port":
+        from cmfrec_torch.convert import init_from_arrays
+        from cmfrec_torch.solvers.dense_masked import (
+            fit_explicit_dense_masked)
+
+        res = fit_explicit_dense_masked(ro, co, vals, m, n, device="cpu",
+                                        init=init_from_arrays(init, "cpu"),
+                                        mesh=mesh, **common)
+    else:
+        from cmfrec_tpu.solvers.dense_pallas import fit_explicit_dense_pallas
+
+        res = fit_explicit_dense_pallas(ro, co, vals, m, n, biasA0=None,
+                                        biasB0=None, dtype=np.float32,
+                                        interpret=True, init=init, **common)
+    out = _np(res, ("A", "B", "biasA", "biasB"))
+    out["pred"] = (out["A"][ro] * out["B"][co]).sum(1)
+    return out
+
+
+def dense_plain(pkg, mesh):
+    """The dense-masked engine, a bf16 bulk iteration and the f32 polish
+    (:189).  Two iterations, not :189's six: the two packages' bf16
+    roundings of T*W flip apart and grow over the bulk iterations
+    (tests/test_torch_dense_fit.py), to 7.8e-3 of the predictions at six
+    and 1.3e-4 at two."""
+    return _dense(pkg, mesh, niter=2)
+
+
+def dense_exact(pkg, mesh):
+    """Exact mode: the all-frozen exit taken over every rank (:215)."""
+    return _dense(pkg, mesh, niter=4, exact=True)
+
+
+def _patched_init(driver_mod, name, init):
+    """``driver_mod.<name>`` handing ``init`` to every call (the models fit
+    through their drivers' module attributes)."""
+    fn = getattr(driver_mod, name)
+
+    def wrapped(*a, **kw):
+        kw["init"] = init
+        return fn(*a, **kw)
+
+    return fn, wrapped
+
+
+def models(pkg, mesh):
+    """CMF.fit(X, mesh=) and CMF_implicit.fit(X, mesh=) (:244), each from
+    one init= handed to its driver.  On the CPU the port's CMF takes the
+    dense-masked engine and cmfrec_tpu's its bucketed one, so CMF runs in
+    exact mode (use_cg=False: both solve to the f32 fixed point, where bf16
+    and f32 CG iterates part by 1e-2 in three iterations) on ratings of a
+    half-point grid (exact in the dense engine's bf16 X)."""
+    import scipy.sparse as sp
+
+    rows, cols, vals, m, n = problem()
+    vals = np.round(2 * vals) / 2
+    if pkg == "port":
+        import cmfrec_torch as lib
+        from cmfrec_torch.solvers import drivers
+        extra = dict(device="cpu")
+        fit_kw = dict(mesh=mesh)
+    else:
+        import cmfrec_tpu as lib
+        from cmfrec_tpu.solvers import drivers
+        extra, fit_kw = {}, {}
+    out = {}
+    for name, cls, v, init, kw in (
+            ("cmf", "CMF", vals,
+             _init(19, A=(m, 4), B=(n, 4), biasA=(m,), biasB=(n,)),
+             dict(lambda_=0.7, use_float=True, use_cg=False)),
+            ("implicit", "CMF_implicit", np.abs(vals) + 1.0,
+             _init(20, A=(m, 4), B=(n, 4)), dict(lambda_=1.0))):
+        fn_name = "fit_explicit_als" if name == "cmf" else "fit_implicit_als"
+        real, wrapped = _patched_init(drivers, fn_name, init)
+        setattr(drivers, fn_name, wrapped)
+        try:
+            model = getattr(lib, cls)(k=4, niter=3, **kw, **extra).fit(
+                sp.coo_matrix((v, (rows, cols)), shape=(m, n)), **fit_kw)
+        finally:
+            setattr(drivers, fn_name, real)
+        out[f"{name}_A"], out[f"{name}_B"] = model.A_, model.B_
+        if name == "cmf":
+            out["cmf_pred"] = model.predict(rows, cols)
+    return out
+
+
+def omf_models(pkg, mesh):
+    """OMF_explicit (L-BFGS, float64), OMF_implicit (ALS, exact mode) and
+    ContentBased (L-BFGS, float64) through fit(..., mesh=), each from one
+    init handed to its offsets solver (as tests/test_torch_omf.py does)."""
+    import scipy.sparse as sp
+
+    rows, cols, vals, m, n = problem()
+    rng = np.random.default_rng(27)
+    U, I = rng.normal(size=(m, 5)), rng.normal(size=(n, 4))
+    X = sp.coo_matrix((vals, (rows, cols)), shape=(m, n))
+    plays = sp.coo_matrix((np.abs(vals) + 1.0, (rows, cols)), shape=(m, n))
+    if pkg == "port":
+        import cmfrec_torch as lib
+        from cmfrec_torch.solvers import offsets
+        extra, fit_kw = dict(device="cpu"), dict(mesh=mesh)
+    else:
+        import cmfrec_tpu as lib
+        from cmfrec_tpu.solvers import offsets
+        extra, fit_kw = {}, {}
+    lbfgs_init = _init(28, np.float64, A=(m, 3), B=(n, 3), C=(5, 3),
+                       D=(4, 3), C_bias=(3,), D_bias=(3,))
+    content_init = {key: v for key, v in lbfgs_init.items()
+                    if key not in ("A", "B")}
+    out = {}
+    for name, cls, kw, data, side, solver, key, init, attrs in (
+            ("omf", "OMF_explicit", dict(k=3, lambda_=1.5, maxiter=25,
+                                         use_float=False), X,
+             dict(U=U, I=I), "fit_offsets_explicit_lbfgs", "init_params",
+             lbfgs_init, ("A_", "B_", "C_", "D_", "Am_")),
+            ("omf_implicit", "OMF_implicit",
+             dict(k=3, lambda_=2.0, alpha=2.0, niter=2, use_cg=False,
+                  use_float=True), plays, dict(U=U), "fit_offsets_als",
+             "init", _init(29, A=(m, 3), B=(n, 3)), ("Am_", "C_")),
+            ("content", "ContentBased",
+             dict(k=3, lambda_=5.0, maxiter=25, use_float=False,
+                  start_with_ALS=False), X, dict(U=U, I=I),
+             "fit_offsets_explicit_lbfgs", "init_params", content_init,
+             ("C_", "D_"))):
+        real = getattr(offsets, solver)
+        setattr(offsets, solver,
+                lambda *a, _r=real, _k=key, _i=init, **k: _r(*a, **{**k,
+                                                                    _k: _i}))
+        try:
+            model = getattr(lib, cls)(**kw, **extra).fit(data, **side,
+                                                         **fit_kw)
+        finally:
+            setattr(offsets, solver, real)
+        for attr in attrs:
+            out[f"{name}_{attr}"] = np.asarray(getattr(model, attr))
+    return out
+
+
+def lbfgs(pkg, mesh):
+    """The collective L-BFGS fit with dense, sparse and binary side info in
+    float64 (:550)."""
+    rows, cols, vals, m, n = problem()
+    rng = np.random.default_rng(21)
+    U = rng.normal(size=(m, 7))
+    Ub = (rng.uniform(size=(m, 3)) < 0.5).astype(np.float64)
+    Ir, Ic, Iv = rng.integers(0, n, 200), rng.integers(0, 4, 200), \
+        rng.normal(size=200)
+    init = _init(22, np.float64, A=(m, 6), B=(n, 5), C=(7, 5), D=(4, 4),
+                 Cb=(3, 5), biasA=(m,), biasB=(n,))
+    if pkg == "port":
+        from cmfrec_torch.solvers.lbfgs import fit_collective_explicit_lbfgs
+    else:
+        from cmfrec_tpu.solvers.lbfgs import fit_collective_explicit_lbfgs
+    res = fit_collective_explicit_lbfgs(
+        rows, cols, vals, m, n, side_U=(None, None, None, m, 7, True, U),
+        side_I=(Ir, Ic, Iv, n, 4, False, None),
+        side_Ub=(None, None, None, m, 3, True, Ub), k=4, k_user=1, k_main=1,
+        lambda_=0.8, w_user=0.9, maxiter=25, corr_pairs=4, dtype=np.float64,
+        seed=3, init=init, **_port_kw(pkg, mesh))
+    return _np(res, ("A", "B", "C", "D", "Cb", "biasA", "biasB"))
+
+
+def offsets_lbfgs(pkg, mesh):
+    """The exact offsets fit at k = 128 in float64 (:578)."""
+    rows, cols, vals, m, n = problem()
+    rng = np.random.default_rng(23)
+    U, I = rng.normal(size=(m, 6)), rng.normal(size=(n, 5))
+    init = _init(24, np.float64, A=(m, 129), B=(n, 129), C=(6, 130),
+                 D=(5, 130), C_bias=(130,), D_bias=(130,), biasA=(m,),
+                 biasB=(n,))
+    if pkg == "port":
+        from cmfrec_torch.solvers.offsets import fit_offsets_explicit_lbfgs
+    else:
+        from cmfrec_tpu.solvers.offsets import fit_offsets_explicit_lbfgs
+    res = fit_offsets_explicit_lbfgs(
+        rows, cols, vals, m, n, side_U=(None, None, None, m, 6, True, U),
+        side_I=(None, None, None, n, 5, True, I), k=128, k_sec=2, k_main=1,
+        lambda_=1.0, w_user=0.8, maxiter=25, corr_pairs=5, dtype=np.float64,
+        seed=3, init_params=init, **_port_kw(pkg, mesh))
+    return _np(res, ("A", "B", "C", "D", "C_bias", "Am", "Bm", "biasA"))
+
+
+def offsets_als(pkg, mesh):
+    """fit_offsets_als(mesh=) passes to the ALS fit (:600), in exact mode
+    on half-point ratings for the reasons models() gives."""
+    rows, cols, vals, m, n = problem()
+    vals = np.round(2 * vals) / 2
+    U = np.random.default_rng(25).normal(size=(m, 6))
+    init = _init(26, A=(m, 5), B=(n, 5), biasA=(m,), biasB=(n,))
+    if pkg == "port":
+        from cmfrec_torch.solvers.offsets import fit_offsets_als
+    else:
+        from cmfrec_tpu.solvers.offsets import fit_offsets_als
+    res = fit_offsets_als(rows, cols, vals, m, n,
+                          side_U=(None, None, None, m, 6, True, U), k=5,
+                          lambda_=0.9, niter=3, use_cg=False, seed=3,
+                          dtype=np.float32, init=init, **_port_kw(pkg, mesh))
+    return _np(res, ("Am", "C", "A"))
+
+
+CASES = {fn.__name__: fn for fn in (
+    halfstep, explicit_cholesky, explicit_cg, explicit_cd, explicit_world3,
+    implicit, collective_explicit, collective_implicit, topn, dense_plain,
+    dense_exact, models, omf_models, lbfgs, offsets_lbfgs, offsets_als)}
+
+
+# --------------------------------------------------------------------- #
+# the checks the test files share                                        #
+# --------------------------------------------------------------------- #
+
+
+def assert_ranks_agree(ranks):
+    """(i) every rank's arrays are rank 0's, bit for bit."""
+    r0, *rest = ranks
+    for r in rest:
+        assert r.keys() == r0.keys()
+        for key in r0:
+            np.testing.assert_array_equal(r[key], r0[key], err_msg=key)
+
+
+def assert_meshless(got, want, summed=False):
+    """(ii) a mesh fit against the meshless one: bitwise, or with
+    ``summed`` (an L-BFGS fit, whose objective adds the ranks' parts)
+    within 1e-10 of each array's max|.|."""
+    assert got.keys() == want.keys()
+    for key in want:
+        if summed:
+            np.testing.assert_allclose(
+                got[key], want[key], rtol=0,
+                atol=1e-10 * float(np.abs(want[key]).max()), err_msg=key)
+        else:
+            np.testing.assert_array_equal(got[key], want[key], err_msg=key)
+
+
+def assert_close_to(got, want, tol):
+    """(iii) a mesh fit against cmfrec_tpu's: ``tol`` maps a key (None:
+    every other key) to (rtol, atol), or to None to skip it; ids are
+    compared exactly."""
+    for key in want:
+        t = tol.get(key, tol.get(None))
+        if key.startswith("idx"):
+            np.testing.assert_array_equal(got[key], want[key], err_msg=key)
+        elif t is not None:
+            np.testing.assert_allclose(got[key], want[key], rtol=t[0],
+                                       atol=t[1], err_msg=key)
+
+
+class Meshless(dict):
+    """Each case's meshless port result, computed once a module."""
+
+    def __missing__(self, name):
+        self[name] = CASES[name]("port", None)
+        return self[name]
+
+
+# --------------------------------------------------------------------- #
+# the ranks                                                              #
+# --------------------------------------------------------------------- #
+
+
+def _rank(rank, world, store, names, out_dir):
+    """One rank: join the gloo group, run ``names`` with its mesh, save
+    each case's arrays as ``<name>.<rank>.npz``."""
+    try:
+        import torch
+
+        torch.set_num_threads(RANK_THREADS)
+        from cmfrec_torch.parallel.mesh import init_distributed
+
+        mesh = init_distributed(f"file://{store}", world, rank,
+                                device_type="cpu")
+        for name in names:
+            np.savez(Path(out_dir) / f"{name}.{rank}.npz",
+                     **CASES[name]("port", mesh))
+        import torch.distributed as dist
+
+        dist.destroy_process_group()
+    except BaseException:
+        traceback.print_exc()
+        raise SystemExit(1)
+
+
+class Group:
+    """A running group of ranks; ``results()`` waits for it."""
+
+    def __init__(self, names, world, tmp):
+        tmp = Path(tmp)
+        self.names, self.world, self.out = list(names), world, tmp / "out"
+        self.out.mkdir(parents=True, exist_ok=True)
+        ctx = multiprocessing.get_context("spawn")
+        self.procs = [ctx.Process(target=_rank, args=(
+            r, world, str(tmp / "store"), self.names, str(self.out)))
+            for r in range(world)]
+        self.t0 = time.monotonic()
+        for p in self.procs:
+            p.start()
+        self._results = None
+
+    def results(self):
+        """{case: [each rank's dict of arrays]}; raises if a rank failed
+        or the group outlived JOIN_TIMEOUT."""
+        if self._results is None:
+            for p in self.procs:
+                p.join(max(0.0, JOIN_TIMEOUT - (time.monotonic() - self.t0)))
+            hung = [r for r, p in enumerate(self.procs) if p.is_alive()]
+            for p in self.procs:
+                if p.is_alive():
+                    p.kill()
+                    p.join()
+            if hung:
+                raise AssertionError(f"ranks {hung} of {self.world} did not "
+                                     f"finish within {JOIN_TIMEOUT} s")
+            codes = [p.exitcode for p in self.procs]
+            if any(codes):
+                raise AssertionError(f"rank exit codes {codes}")
+            self._results = {
+                name: [dict(np.load(self.out / f"{name}.{r}.npz"))
+                       for r in range(self.world)]
+                for name in self.names}
+        return self._results
+
+    def close(self):
+        for p in self.procs:
+            if p.is_alive():
+                p.kill()
+                p.join()

@@ -209,6 +209,8 @@ COLLECTIVE = "runs on the bucketed collective route"
 LBFGS = "runs the L-BFGS fit"
 PLAIN = "runs on the plain dense engine as cmfrec_tpu"
 CD = "runs coordinate descent as cmfrec_tpu"
+# a mesh= that is not a 1-D DeviceMesh raises a TypeError naming it
+NOT_A_MESH = "DeviceMesh"
 
 
 def _cd_matches_cmfrec_tpu(call, X, mp):
@@ -311,10 +313,15 @@ def _plain_matches_cmfrec_tpu(call, X, mp):
     pytest.param(lambda X, pkg=cmfrec_torch, **kw: pkg.CMF(
         use_float=False, **kw).fit(X), PLAIN,
         id="<lambda>-slice 1 item 1_1"),
-    (lambda X: drivers.fit_explicit_als(*_TRIPLETS, mesh=object(),
-                                        device="cpu"), "slice 7"),
-    (lambda X: drivers.fit_explicit_als(*_TRIPLETS, shard_opposing_rows=True,
-                                        device="cpu"), "slice 7"),
+    # the two cases of ROADMAP slice 7 keep their ids: since slice 7a a mesh=
+    # fits data-parallel (tests/test_torch_mesh*.py), so a mesh= that is no
+    # DeviceMesh raises a TypeError; the ring (slice 7b) still raises
+    pytest.param(lambda X: drivers.fit_explicit_als(
+        *_TRIPLETS, mesh=object(), device="cpu"), NOT_A_MESH,
+        id="<lambda>-slice 7_0"),
+    pytest.param(lambda X: drivers.fit_explicit_als(
+        *_TRIPLETS, shard_opposing_rows=True, device="cpu"), "slice 7",
+        id="<lambda>-slice 7_1"),
     (lambda X: drivers.fit_explicit_als(*_TRIPLETS, engine="sparse",
                                         device="cpu"), BUCKETED),
     (lambda X: _fit_beyond_the_device_budget(), BUCKETED),
@@ -327,6 +334,10 @@ def test_out_of_slice_options_raise(call, match, monkeypatch):
         return
     if match == CD:
         _cd_matches_cmfrec_tpu(call, X, monkeypatch)
+        return
+    if match == NOT_A_MESH:
+        with pytest.raises(TypeError, match=match):
+            call(X)
         return
     if match not in (BUCKETED, DENSE, COLLECTIVE, LBFGS):
         with pytest.raises(ValueError, match=match):
@@ -382,15 +393,17 @@ def test_import_leaves_jax_out():
 
 
 def test_cmf_fit_takes_mesh():
-    """Fault P2: CMF.fit has the reference's mesh= keyword; None fits, a
-    mesh raises naming slice 7."""
+    """Fault P2: CMF.fit has the reference's mesh= keyword; None fits, and
+    since ROADMAP slice 7a a 1-D DeviceMesh fits data-parallel
+    (tests/test_torch_mesh*.py), so anything else raises a TypeError naming
+    DeviceMesh."""
     rows, cols, vals, m, n = _small_fit_data()
     X = sp.coo_matrix((vals, (rows, cols)), shape=(m, n))
     model = cmfrec_torch.CMF(k=4, lambda_=1.0, niter=2, device="cpu")
     ref = cmfrec_torch.CMF(k=4, lambda_=1.0, niter=2, device="cpu").fit(X)
     np.testing.assert_array_equal(model.fit(X, mesh=None).predict(rows, cols),
                                   ref.predict(rows, cols))
-    with pytest.raises(ValueError, match="slice 7"):
+    with pytest.raises(TypeError, match="DeviceMesh"):
         cmfrec_torch.CMF(k=4, niter=1, device="cpu").fit(X, mesh=object())
 
 
@@ -645,9 +658,9 @@ def test_bucketed_collective_configurations_fit(case):
     # nonneg_C (ROADMAP slice 4 item 10) fits on the bucketed collective
     # route, C by coordinate descent: match is None
     (lambda X, U: ("CMF", dict(nonneg_C=True)), None),
-    # the later slice's rejection keeps its message in a collective fit
+    # a mesh= that is no DeviceMesh raises its TypeError in a collective fit
     (lambda X, U: cmfrec_torch.CMF(device="cpu").fit(X, U=U, mesh=object()),
-     "slice 7"),
+     NOT_A_MESH),
     # float64 (ROADMAP slice 1 item 1) fits on the bucketed collective
     # route: match is None
     (lambda X, U: ("CMF", dict(use_float=False)), None),
@@ -656,7 +669,8 @@ def test_bucketed_collective_configurations_raise(call, match):
     rows, cols, vals, m, n, U, _ = _side_data()
     X = sp.coo_matrix((vals, (rows, cols)), shape=(m, n))
     if match is not None:
-        with pytest.raises(ValueError, match=match):
+        with pytest.raises(TypeError if match == NOT_A_MESH else ValueError,
+                           match=match):
             call(X, U)
         return
     # the collective fit from one init= handed to both packages: every

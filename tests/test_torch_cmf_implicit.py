@@ -113,6 +113,9 @@ DENSE = "runs on the dense engine"
 COLLECTIVE = "runs on the bucketed collective route"
 PLAIN = "runs the bucketed engine's plain solves as cmfrec_tpu"
 CD = "runs coordinate descent as cmfrec_tpu"
+# a mesh= that is not a 1-D DeviceMesh raises a TypeError naming it
+# (data-parallel mesh= is ROADMAP slice 7a, tests/test_torch_mesh*.py)
+NOT_A_MESH = "DeviceMesh"
 
 
 def _plain_matches_cmfrec_tpu(call, X, mp, cd=False):
@@ -169,7 +172,7 @@ def _plain_matches_cmfrec_tpu(call, X, mp, cd=False):
     (lambda X, pkg=cmfrec_torch, **kw: pkg.CMF_implicit(
         use_float=False, **kw).fit(X), PLAIN),
     (lambda X: cmfrec_torch.CMF_implicit(device="cpu").fit(X, mesh=object()),
-     "slice 7"),
+     NOT_A_MESH),
     (lambda X: cmfrec_torch.CMF_implicit(alpha=0.0, device="cpu"),
      "'alpha' must be positive"),
     (lambda X: cmfrec_torch.CMF_implicit(
@@ -185,7 +188,8 @@ def test_out_of_slice_options_raise(call, match, monkeypatch):
         _plain_matches_cmfrec_tpu(call, X, monkeypatch, cd=match == CD)
         return
     if match not in (DENSE, COLLECTIVE):
-        with pytest.raises(ValueError, match=match):
+        with pytest.raises(TypeError if match == NOT_A_MESH else ValueError,
+                           match=match):
             call(X)
         return
     from cmfrec_torch.solvers import collective

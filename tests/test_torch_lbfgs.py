@@ -395,11 +395,14 @@ def test_offsets_fit_matches_jax(dtype, maxiter):
 
 
 def test_fits_reject_a_mesh():
+    """A mesh= that is no 1-D DeviceMesh raises a TypeError naming it (a
+    DeviceMesh fits data-parallel since ROADMAP slice 7a,
+    tests/test_torch_mesh_fits.py)."""
     rows, cols, vals, _, kw, _ = _case("plain")
-    with pytest.raises(ValueError, match="slice 7"):
+    with pytest.raises(TypeError, match="DeviceMesh"):
         tl.fit_collective_explicit_lbfgs(rows, cols, vals, M, N,
                                          mesh=object(), device="cpu", **kw)
-    with pytest.raises(ValueError, match="slice 7"):
+    with pytest.raises(TypeError, match="DeviceMesh"):
         toff.fit_offsets_explicit_lbfgs(rows, cols, vals, M, N, k=K,
                                         mesh=object(), device="cpu")
 

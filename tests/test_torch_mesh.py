@@ -1,0 +1,165 @@
+"""cmfrec_torch's data-parallel ``mesh=`` on the bucketed drivers, the
+collective fits and distributed topN, on 2-rank gloo groups on the CPU
+(the port's counterpart of tests/test_multidevice.py:76-185).
+
+One spawned group (tests/mesh_cases.py) runs every case of this file on
+each of its ranks; the parametrised tests read its results, so each case
+counts.  The tests that need no rank run first, while the ranks work.  Each case holds:
+  (i)   every rank to rank 0's bits;
+  (ii)  the mesh fit to the port's meshless fit, bitwise: a row share
+        changes no row's arithmetic on these routes (each rank solves its
+        rows against the same whole opposing matrix, and the all-gather
+        copies), and a world of one, run in this process, to the
+        meshless fit bitwise;
+  (iii) the mesh fit to cmfrec_tpu's same call on the same numpy inputs and
+        init= factors, meshless, at the matching test_multidevice.py
+        tolerances (:82 the half-step, :98-119 the drivers, :148-169 the
+        collective fits, :185 topN; the CD case at the drivers').
+"""
+
+import ast
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+from cmfrec_torch.parallel import mesh as pmesh
+from cmfrec_torch.solvers import drivers
+
+from .mesh_cases import (
+    CASES,
+    Group,
+    Meshless,
+    assert_close_to,
+    assert_meshless,
+    assert_ranks_agree,
+    problem,
+)
+
+NAMES = ["halfstep", "explicit_cholesky", "explicit_cg", "explicit_cd",
+         "implicit", "collective_explicit", "collective_implicit", "topn"]
+# (rtol, atol) of each case against cmfrec_tpu
+JAX_TOL = {"halfstep": (1e-5, 1e-6), "explicit_cholesky": (1e-4, 1e-5),
+           "explicit_cg": (1e-4, 1e-5), "explicit_cd": (1e-4, 1e-5),
+           "implicit": (1e-4, 1e-5), "collective_explicit": (1e-4, 1e-5),
+           "collective_implicit": (1e-4, 1e-5), "topn": (1e-6, 0.0)}
+
+
+@pytest.fixture(scope="module")
+def group(tmp_path_factory):
+    g = Group(NAMES, 2, tmp_path_factory.mktemp("mesh"))
+    yield g
+    g.close()
+
+
+@pytest.fixture(scope="module")
+def world_of_one():
+    """A gloo world of one in this process: the mesh path (slicing and
+    collectives) at world size 1."""
+    import torch.distributed as dist
+
+    mesh = pmesh.init_distributed(device_type="cpu")
+    yield mesh
+    dist.destroy_process_group()
+
+
+@pytest.fixture(scope="module")
+def meshless():
+    return Meshless()
+
+
+@pytest.mark.parametrize("name", NAMES)
+def test_world_of_one_is_meshless(world_of_one, meshless, name):
+    assert_meshless(CASES[name]("port", world_of_one), meshless[name])
+
+
+@pytest.mark.parametrize("name", NAMES)
+def test_mesh_matches_cmfrec_tpu(group, name):
+    # cmfrec_tpu first: the group's ranks run meanwhile
+    want = CASES[name]("jax", None)
+    assert_close_to(group.results()[name][0], want, {None: JAX_TOL[name]})
+
+
+@pytest.mark.parametrize("name", NAMES)
+def test_ranks_agree(group, name):
+    assert_ranks_agree(group.results()[name])
+
+
+@pytest.mark.parametrize("name", NAMES)
+def test_mesh_matches_meshless(group, meshless, name):
+    assert_meshless(group.results()[name][0], meshless[name])
+
+
+def test_parallel_modules_import_no_jax():
+    """cmfrec_torch/parallel/*.py import neither jax nor cmfrec_tpu."""
+    root = Path(pmesh.__file__).parent
+    files = sorted(root.glob("*.py"))
+    assert {f.name for f in files} >= {"mesh.py", "topn.py"}
+    for f in files:
+        for node in ast.walk(ast.parse(f.read_text())):
+            if isinstance(node, ast.Import):
+                mods = [a.name for a in node.names]
+            elif isinstance(node, ast.ImportFrom):
+                mods = [node.module or ""]
+            else:
+                continue
+            for mod in mods:
+                assert mod.split(".")[0] not in ("jax", "jaxlib",
+                                                 "cmfrec_tpu"), (f, mod)
+
+
+@pytest.mark.parametrize("fit", ["explicit", "implicit", "lbfgs", "offsets"])
+def test_a_mesh_that_is_not_a_device_mesh_raises(fit):
+    from cmfrec_torch.solvers import lbfgs, offsets
+
+    rows, cols, vals, m, n = problem()
+    call = {"explicit": drivers.fit_explicit_als,
+            "implicit": drivers.fit_implicit_als,
+            "lbfgs": lbfgs.fit_collective_explicit_lbfgs,
+            "offsets": offsets.fit_offsets_explicit_lbfgs}[fit]
+    with pytest.raises(TypeError, match="DeviceMesh"):
+        call(rows, cols, np.abs(vals) + 1, m, n, k=2, mesh=object(),
+             device="cpu")
+
+
+def test_mesh_device_and_size_checks(world_of_one):
+    with pytest.raises(ValueError, match="'cpu' DeviceMesh.*'cuda'"):
+        pmesh.check_mesh(world_of_one, "cuda")
+    pmesh.check_mesh(world_of_one, "cpu")
+    with pytest.raises(ValueError, match="n_devices=2"):
+        pmesh.make_mesh(2, device_type="cpu")
+    assert pmesh.world_rank(world_of_one) == (1, 0)
+    assert pmesh.mesh_row_block(world_of_one) == 8
+
+
+def test_the_ring_raises_naming_slice_7b(world_of_one):
+    rows, cols, vals, m, n = problem()
+    with pytest.raises(ValueError, match="slice 7b"):
+        drivers.fit_explicit_als(rows, cols, vals, m, n, k=2,
+                                 mesh=world_of_one, shard_opposing_rows=True,
+                                 device="cpu")
+    with pytest.raises(ValueError, match="slice 7b"):
+        pmesh.shard_opposing(torch.zeros(4, 2), world_of_one,
+                             shard_rows=True)
+    opp = torch.ones(4, 2)
+    assert pmesh.shard_opposing(opp, world_of_one) is opp
+
+
+def test_checkpoint_under_a_mesh(world_of_one, tmp_path):
+    """Rank 0 writes the mid-fit checkpoint (the others wait at a barrier):
+    at a world of one the file is the meshless fit's, bit for bit."""
+    from cmfrec_torch.utils.checkpoint import load_fit_checkpoint
+
+    rows, cols, vals, m, n = problem()
+    saved = []
+    for name, mesh in (("meshless", None), ("mesh", world_of_one)):
+        path = str(tmp_path / f"{name}.npz")
+        drivers.fit_explicit_als(rows, cols, vals, m, n, k=3, niter=3,
+                                 engine="sparse", checkpoint_path=path,
+                                 checkpoint_every=1, mesh=mesh, device="cpu")
+        saved.append(load_fit_checkpoint(path))
+    (want, done_want), (got, done) = saved
+    assert done == done_want == 2 and got.keys() == want.keys()
+    for key in want:
+        np.testing.assert_array_equal(got[key], want[key], err_msg=key)
