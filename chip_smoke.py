@@ -189,8 +189,10 @@ on each rank's rows):
      its phase: the mesh fit's seconds beside the repeat's and the phase's,
      its launches equal to the phase's (K1 146 / K2 30, K3 360, K3 546, 0),
      its factors and biases bitwise equal to the phase's where the repeat
-     is (else its held-out quality within the fold-in tolerances and the
-     factors within 10 x the repeat's difference, both printed), and the
+     is (else its held-out quality within the fold-in tolerances and, for
+     17, its objective and gradient at the fit's start within 1e-5 of the
+     meshless evaluation's, the factors' distance printed beside the
+     repeat's), and the
      phase's quality bar (RMSE <= 0.7408, P@10 >= 0.0839, phase 17 below
      phase 21's MostPopular); (e) topn_sharded for 256 of phase 4's users
      against ops/predict.topn: ids and scores equal.  31b, on a machine
@@ -199,6 +201,31 @@ on each rank's rows):
      factors within 1e-2 of their max (15 bf16 iterations carry the
      reordered sums of a half share; rtol 1e-4's reading printed); on one
      card a line says it was not run.
+
+The big-axis ring (shard_opposing_rows=True, cmfrec_torch/parallel/ring.py;
+Cholesky and CD only, no kernel of its own but the CD kernel):
+ 32. on 31's NCCL world of one, each fit after a meshless repeat of the
+     same call: (a) phase 8's flagship through drivers.fit_explicit_als(
+     engine="sparse", use_cg=False, mesh=, shard_opposing_rows=True), RMSE
+     <= 0.7408; (b) phase 7's WRMF through fit_implicit_als(use_cg=False),
+     P@10 >= 0.0839; (c) phase 14's collective bucketed fit (CMF with U
+     tags and I genres, use_cg=False, the collective driver given
+     shard_opposing_rows=True), RMSE <= 0.7408; (d) phase 26's nonneg
+     flagship (CMF(nonneg=True), the CD kernel's 360 launches on the
+     ring-assembled systems), RMSE below the global mean's, factors >= 0,
+     and the kernel against its twin on the widest A bucket of the last
+     half-step.  Each line: seconds beside the repeat's ((a) also ms a
+     half-step), peak memory, each side's shard bytes a rank, the parts
+     ringed and gathered whole, the factors bitwise equal to the repeat's
+     (else within the CPU tests' tolerance, printed), launches.  32b, on
+     a machine with two cards or more: 32(a) and a 2,000,000 x 1,000,000
+     fit of 8,000,000 ratings (k = 32) on 2-rank NCCL groups (and 4-rank
+     ones on four cards) through the ring and through slice 7a's mesh=:
+     each rank's memory at rest and at its peak and its ms a half-step
+     (32(a) beside the meshless one card's), the ring's RMSE within 1e-4
+     and arrays within 1e-2 of their max of 32(a)'s repeat and of 7a's
+     big fit, whether they equal 7a's bit for bit; on one card a line says
+     it was not run (alone: scripts/mesh_two_cards_torch.py --ring).
 
 Each fit phase, and phase 9's sweep, sets every kernel's launch count to 0
 just before it and reads the counts just after; phases 10-16 print each
@@ -209,6 +236,7 @@ failure raises and exits non-zero; so does a machine without a CUDA
 device, or a directory without the package.
 """
 
+import contextlib
 import json
 import re
 import subprocess
@@ -3577,13 +3605,20 @@ def wide_k_phases(ops, rows, cols, vals, test, weights, lastfm, ctx):
 
 # phase 31: a mesh fit is held bitwise to its meshless phase where that
 # phase's fit repeats bitwise (4, 7 and 14 on an NVIDIA H100).  Where it
-# does not (17: the f32 L-BFGS, whose sparse products on the card are not
-# bitwise reproducible, so 800 iterations part two meshless repeats by
-# 0.16 in a factor), its held-out quality within MESH_QUALITY_TOL of the
-# phase's (the fold-in tolerances of phases 5b and 7b), and max|mesh -
-# phase| within MESH_REPEAT_FACTOR x the meshless repeat's own
+# does not (17: the f32 L-BFGS; torch.sparse.mm of a CSR matrix on the card
+# is not bitwise repeatable, and 800 iterations carry that into one of two
+# basins whose factors lie ~2.2 apart, meshless fits as much as mesh ones:
+# scripts/lbfgs_repeat_torch.py, NVIDIA H100 80GB HBM3, 700 W), it is held
+# by its held-out quality within MESH_QUALITY_TOL of the phase's (the
+# fold-in tolerances of phases 5b and 7b) and the phase's bar, its
+# factors' distance printed beside the meshless repeat's; and by its
+# objective and gradient at the fit's start, one evaluation through mesh=
+# against the meshless one before the iterations carry the products'
+# rounding into another basin: |f_mesh - f| / |f| and ||g_mesh - g|| /
+# ||g|| each within MESH_LBFGS_TOL, or 10 x a second meshless evaluation's
+# where that is larger
 MESH_QUALITY_TOL = {"rmse": FOLDIN_RMSE_TOL, "p10": FOLDIN_P10_TOL}
-MESH_REPEAT_FACTOR = 10
+MESH_LBFGS_TOL = 1e-5
 # phase 31b (two or more cards): phase 4 on a 2-rank NCCL group against
 # phase 4's fit.  A half share of the rows changes K1's and K2's split-S
 # chunks and the bias start's sums, and 15 bf16 iterations carry the f32
@@ -3649,29 +3684,19 @@ def _rank_31b(rank, world, address, out):
     dist.destroy_process_group()
 
 
-def two_card_phase(ref):
-    """Phase 31b where the machine has two cards or more: phase 4 on a
-    2-rank NCCL group (one process a card, spawned), held to phase 4's fit
-    (MESH2_RMSE_TOL, MESH2_REL_TOL; MESH2_RTOL / MESH2_ATOL's reading
-    printed); printed and skipped on one card."""
+def _spawn_ranks(target, world, args, what):
+    """``world`` spawned processes, one a card, on a localhost NCCL
+    address; raises unless every one ends with 0 within MESH2_TIMEOUT.
+    Returns the seconds they took."""
     import multiprocessing
     import socket
 
-    import torch
-
-    from cmfrec_torch.ops import _cuda
-
-    if torch.cuda.device_count() < 2:
-        print("phase 31b: not run, this machine has one card "
-              f"({torch.cuda.device_count()}); it needs two", flush=True)
-        return
     with socket.socket() as s:
         s.bind(("127.0.0.1", 0))
         address = f"tcp://127.0.0.1:{s.getsockname()[1]}"
-    out = _cuda.BUILD_DIR / "phase31b.npz"
     ctx = multiprocessing.get_context("spawn")
-    procs = [ctx.Process(target=_rank_31b, args=(r, 2, address, str(out)))
-             for r in range(2)]
+    procs = [ctx.Process(target=target, args=(r, world, address) + args)
+             for r in range(world)]
     t0 = time.perf_counter()
     for p in procs:
         p.start()
@@ -3683,17 +3708,42 @@ def two_card_phase(ref):
         p.join()
     codes = [p.exitcode for p in procs]
     if hung or any(codes):
-        raise AssertionError(f"phase 31b: ranks ended with {codes}")
-    got = dict(np.load(out))
+        raise AssertionError(f"{what}: ranks ended with {codes}")
+    return time.perf_counter() - t0
+
+
+def _off(got, arrays, vals):
+    """How far rank 0's result ``got`` lies from a reference: max|got -
+    ref| / max|ref| for each of the reference's ``arrays``, and the RMSE
+    of got["pred"] against ``vals``."""
     rel = {key: float(np.abs(got[key] - w).max() / np.abs(w).max())
-           for key, w in ref["arrays"].items()}
+           for key, w in arrays.items()}
+    return rel, float(np.sqrt(np.mean((got["pred"] - vals) ** 2)))
+
+
+def two_card_phase(ref):
+    """Phase 31b where the machine has two cards or more: phase 4 on a
+    2-rank NCCL group (one process a card, spawned), held to phase 4's fit
+    (MESH2_RMSE_TOL, MESH2_REL_TOL; MESH2_RTOL / MESH2_ATOL's reading
+    printed); printed and skipped on one card."""
+    import torch
+
+    from cmfrec_torch.ops import _cuda
+
+    if torch.cuda.device_count() < 2:
+        print("phase 31b: not run, this machine has one card "
+              f"({torch.cuda.device_count()}); it needs two", flush=True)
+        return
+    out = _cuda.BUILD_DIR / "phase31b.npz"
+    wall = _spawn_ranks(_rank_31b, 2, (str(out),), "phase 31b")
+    got = dict(np.load(out))
+    rel, rmse = _off(got, ref["arrays"], ref["test_vals"])
     worst = max(float(np.max(np.abs(got[key] - w) - MESH2_RTOL * np.abs(w)))
                 for key, w in ref["arrays"].items())
-    rmse = float(np.sqrt(np.mean((got["pred"] - ref["test_vals"]) ** 2)))
     print(f"phase 31b CMF(...).fit(X, mesh=) on 2 ranks (NCCL, "
           f"{torch.cuda.device_count()} cards: "
           f"{'; '.join(dict.fromkeys(card().splitlines()))}) in "
-          f"{time.perf_counter() - t0:.1f} s (spawn, data and kernels' load "
+          f"{wall:.1f} s (spawn, data and kernels' load "
           f"in): held-out RMSE {rmse:.5f} (phase 4 {ref['quality']:.5f}, "
           f"within {MESH2_RMSE_TOL:.0e}); max|mesh - phase 4| / max|phase "
           f"4| by array {rel} (limit {MESH2_REL_TOL:.0e}); max(|mesh - "
@@ -3704,6 +3754,246 @@ def two_card_phase(ref):
         raise AssertionError("phase 31b: the 2-rank fit is off phase 4's")
 
 
+class _IterTimer:
+    """drivers._explicit_sparse_iteration timed, each call synchronized
+    before and after (``its``: seconds a call), and the device memory the
+    fit holds at rest read as each call starts (``rest``: bytes).  With
+    ``reset_peak`` the device's peak memory so far is kept as
+    ``setup_peak`` and reset at the first call, so max_memory_allocated()
+    after the fit reads the iterations' peak (what the fit holds then
+    included)."""
+
+    def __init__(self, reset_peak=False):
+        self.reset_peak, self.setup_peak = reset_peak, 0
+
+    def __enter__(self):
+        import torch
+
+        from cmfrec_torch.solvers import drivers
+
+        self.mod, self.real = drivers, drivers._explicit_sparse_iteration
+        self.its, self.rest = [], []
+
+        def timed(*a, **kw):
+            torch.cuda.synchronize()
+            self.rest.append(torch.cuda.memory_allocated())
+            if self.reset_peak and not self.its:
+                self.setup_peak = torch.cuda.max_memory_allocated()
+                torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            res = self.real(*a, **kw)
+            torch.cuda.synchronize()
+            self.its.append(time.perf_counter() - t0)
+            return res
+
+        drivers._explicit_sparse_iteration = timed
+        return self
+
+    def __exit__(self, *exc):
+        self.mod._explicit_sparse_iteration = self.real
+
+    def half_ms(self):
+        """(the first iteration's ms a half-step, the median of the
+        others')."""
+        its = 1e3 * np.asarray(self.its) / 2
+        return float(its[0]), float(np.median(its[1:]))
+
+
+def _ring_big_data():
+    """RING_BIG's ratings, made from seed 32: uniform (user, item) pairs
+    without repeats, each rated 3.5 + a rank-8 product + N(0, 0.7^2),
+    rounded to halves in [0.5, 5] as bench.make_ml10m_shaped rates."""
+    m, n, nnz = RING_BIG
+    rng = np.random.default_rng(32)
+    pairs = np.unique(rng.integers(0, m * n, nnz + nnz // 50,
+                                   dtype=np.int64))
+    rng.shuffle(pairs)
+    pairs = pairs[:nnz]
+    r, c = pairs // n, pairs % n
+    A = (0.35 * rng.standard_normal((m, 8))).astype(np.float32)
+    B = (0.35 * rng.standard_normal((n, 8))).astype(np.float32)
+    v = (3.5 + np.einsum("nk,nk->n", A[r], B[c])
+         + 0.7 * rng.standard_normal(nnz).astype(np.float32))
+    return r, c, np.clip(np.round(v * 2) / 2, 0.5, 5.0).astype(np.float64)
+
+
+def _rank_32b(rank, world, address, out, ring):
+    """One rank of phase 32b: 32(a)'s fit, then RING_BIG's, on a
+    ``world``-rank NCCL group, through the ring (``ring``) or slice 7a's
+    data-parallel mesh=.  For each (``a_``, ``big_``) every rank saves its
+    seconds, its iterations' seconds (synchronized), what it holds at rest
+    as each iteration starts and its peak device memory over the fit and
+    over the iterations to ``out``.<rank>.npz; rank 0 also the arrays and
+    predictions (32(a)'s held-out ratings, RING_BIG's first
+    RING_BIG_SAMPLE)."""
+    import torch
+    import torch.distributed as dist
+
+    from cmfrec_torch.parallel.mesh import init_distributed
+    from cmfrec_torch.solvers import drivers
+
+    mesh = init_distributed(address, world, rank)
+    rows, cols, vals, test = _split_ml10m()
+    tr = ~test
+    b_r, b_c, b_v = _ring_big_data()
+    sample = np.arange(RING_BIG_SAMPLE)
+    cases = (("a", rows[tr], cols[tr], vals[tr], M, N, RING_FIT,
+              (rows[test], cols[test])),
+             ("big", b_r, b_c, b_v, RING_BIG[0], RING_BIG[1], RING_BIG_FIT,
+              (b_r[sample], b_c[sample])))
+    stats = {}
+    for case, r, c, v, m, n, fit, (pr, pc) in cases:
+        dist.barrier()
+        torch.cuda.empty_cache()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        with _IterTimer(reset_peak=True) as timer:
+            res = drivers.fit_explicit_als(r, c, v, m, n, engine="sparse",
+                                           device="cuda", mesh=mesh,
+                                           shard_opposing_rows=ring, **fit)
+            torch.cuda.synchronize()
+        peak_iter = torch.cuda.max_memory_allocated()
+        st = dict(seconds=time.perf_counter() - t0,
+                  iterations=np.asarray(timer.its),
+                  rest=np.asarray(timer.rest),
+                  peak=max(timer.setup_peak, peak_iter), peak_iter=peak_iter)
+        if rank == 0:
+            rt, ct = (torch.as_tensor(a, device="cuda") for a in (pr, pc))
+            st.update(pred=(res["glob_mean"] + res["biasA"][rt]
+                            + res["biasB"][ct] + (res["A"][rt] * res["B"][
+                                ct]).sum(dim=1)).cpu().numpy(),
+                      **_res_arrays(res))
+        stats.update({f"{case}_{key}": val for key, val in st.items()})
+        del res
+    np.savez(f"{out}.{rank}.npz", **stats)
+    dist.destroy_process_group()
+
+
+def two_card_ring_phase(ref):
+    """Phase 32b where the machine has two cards or more: on 2-rank NCCL
+    groups, and 4-rank ones where it has four cards, 32(a) and RING_BIG's
+    fit through the ring and through slice 7a's mesh= at the same world:
+    each rank's device memory at rest and at its peak and its seconds a
+    half-step (its iterations' median past the first, synchronized).
+    32(a)'s ring is held to 32(a)'s meshless repeat (``ref``), RING_BIG's
+    to 7a's fit at the same world: the RMSE within MESH2_RMSE_TOL and
+    every array within MESH2_REL_TOL of its max|.|.  Printed and skipped
+    on one card."""
+    import torch
+
+    from cmfrec_torch.ops import _cuda
+
+    cards = torch.cuda.device_count()
+    worlds = [w for w in RING2_WORLDS if w <= cards]
+    if not worlds:
+        print("phase 32b: not run, this machine has one card "
+              f"({cards}); it needs two", flush=True)
+        return
+    m, n, nnz = RING_BIG
+    k_pad = -(-(RING_BIG_FIT["k"] + 1) // 8) * 8
+    truth = _ring_big_data()[2][:RING_BIG_SAMPLE]
+    for world in worlds:
+        runs, wall = {}, {}
+        for mode in ("ring", "mesh"):
+            out = _cuda.BUILD_DIR / f"phase32b_{mode}{world}"
+            wall[mode] = _spawn_ranks(
+                _rank_32b, world, (str(out), mode == "ring"),
+                f"phase 32b ({mode}, {world} ranks)")
+            runs[mode] = [dict(np.load(f"{out}.{r}.npz"))
+                          for r in range(world)]
+
+        def of(mode, case, r=0):
+            """Rank r's readings of one case."""
+            return {key[len(case) + 1:]: val for key, val in
+                    runs[mode][r].items() if key.startswith(case + "_")}
+
+        def per_rank(mode, case):
+            lines = []
+            for r in range(world):
+                st = of(mode, case, r)
+                its = 1e3 * st["iterations"] / 2
+                lines.append(
+                    f"rank {r}: at rest {st['rest'][1:].max() / 2**30:.3f} "
+                    f"GiB, peak {st['peak'] / 2**30:.3f} GiB (the "
+                    f"iterations' {st['peak_iter'] / 2**30:.3f}), "
+                    f"{np.median(its[1:]):.1f} ms a half-step (the first "
+                    f"iteration's {its[0]:.1f}), fit {st['seconds']:.2f} s")
+            return "; ".join(lines)
+
+        rel, rmse = _off(of("ring", "a"), ref["arrays"], ref["test_vals"])
+        same = {case: all(np.array_equal(of("ring", case)[key],
+                                         of("mesh", case)[key])
+                          for key in ("A", "B", "biasA", "biasB"))
+                for case in ("a", "big")}
+        mesh_big = of("mesh", "big")
+        want = _off(mesh_big, {}, truth)[1]
+        rel_big, rmse_big = _off(of("ring", "big"), {
+            key: mesh_big[key] for key in ("A", "B", "biasA", "biasB")},
+            truth)
+        head = (f"on {world} ranks (NCCL, {cards} cards: "
+                f"{'; '.join(dict.fromkeys(card().splitlines()))})")
+        print(f"phase 32b(a) ring {head}: {per_rank('ring', 'a')} (both "
+              f"cases spawned and done in {wall['ring']:.1f} s); slice "
+              f"7a's mesh=: {per_rank('mesh', 'a')}; one card, meshless "
+              f"(32(a)'s repeat): {ref['half_ms'][1]:.1f} ms a half-step "
+              f"(the first iteration's {ref['half_ms'][0]:.1f}), peak "
+              f"{ref['peak'] / 2**30:.3f} GiB; held-out RMSE {rmse:.5f} "
+              f"(32(a)'s repeat {ref['quality']:.5f}, within "
+              f"{MESH2_RMSE_TOL:.0e}); max|ring - repeat| / max|repeat| by "
+              f"array {rel} (limit {MESH2_REL_TOL:.0e}); the ring's arrays "
+              f"{'bitwise equal to' if same['a'] else 'not bitwise'} 7a's",
+              flush=True)
+        print(f"phase 32b(big) {m} x {n}, {nnz} ratings, k "
+              f"{RING_BIG_FIT['k']}, {RING_BIG_FIT['niter']} iterations, "
+              f"ring {head}: {per_rank('ring', 'big')}; slice 7a's mesh=: "
+              f"{per_rank('mesh', 'big')}; a rank's A and B "
+              f"{(m + n) * k_pad * 4 / world / 2**30:.3f} GiB under the "
+              f"ring, {(m + n) * k_pad * 4 / 2**30:.3f} under 7a ((S_A + "
+              f"S_B) K itemsize / D and whole); RMSE on the first "
+              f"{RING_BIG_SAMPLE} ratings {rmse_big:.5f} (7a {want:.5f}, "
+              f"within {MESH2_RMSE_TOL:.0e}); max|ring - 7a| / max|7a| by "
+              f"array {rel_big} (limit {MESH2_REL_TOL:.0e}); "
+              f"{'bitwise equal' if same['big'] else 'not bitwise'}",
+              flush=True)
+        if (max(rel.values()) > MESH2_REL_TOL
+                or abs(rmse - ref["quality"]) > MESH2_RMSE_TOL
+                or max(rel_big.values()) > MESH2_REL_TOL
+                or abs(rmse_big - want) > MESH2_RMSE_TOL
+                or not np.isfinite(rmse_big)):
+            raise AssertionError(f"phase 32b: the {world}-rank ring fit is "
+                                 f"off its reference")
+
+
+def _lbfgs_start_reading(tr_r, tr_c, tr_v, lambda_, mesh):
+    """31(d)'s start check: phase 17's objective (value, gradient) at its
+    seeded start (CollectiveProblem.init_params(1)), through ``mesh`` and
+    twice without.  Returns {"f", "g"}: (the mesh's relative difference,
+    the meshless repeat's), of |f| and of ||g||."""
+    import torch
+
+    from cmfrec_torch.solvers import lbfgs
+
+    def evaluate(mesh_):
+        prob = lbfgs.CollectiveProblem(
+            tr_r, tr_c, tr_v, M, N, k=LBFGS_FIT["k"], lambda_=lambda_,
+            dtype=np.float32, device="cuda", mesh=mesh_)
+        f, g = prob.value_and_grad(prob.init_params(1))
+        return float(f), torch.cat([g[key].reshape(-1).double()
+                                    for key in sorted(g)])
+
+    f0, g0 = evaluate(None)
+    f1, g1 = evaluate(None)
+    fm, gm = evaluate(mesh)
+    norm = float(torch.linalg.vector_norm(g0))
+    out = {"f": (abs(fm - f0) / abs(f0), abs(f1 - f0) / abs(f0)),
+           "g": (float(torch.linalg.vector_norm(gm - g0)) / norm,
+                 float(torch.linalg.vector_norm(g1 - g0)) / norm)}
+    del g0, g1, gm
+    torch.cuda.empty_cache()
+    return out
+
+
 def mesh_phases(ops, rows, cols, vals, test, lastfm, refs):
     """Phase 31: the mesh path on the card.  A world of one on NCCL
     (init_distributed on a local store), then phases 4, 7, 14 and 17
@@ -3711,8 +4001,9 @@ def mesh_phases(ops, rows, cols, vals, test, lastfm, refs):
     repeat of its phase: launches equal to the phase's, the factors
     bitwise equal to the phase's where the repeat is (else within the
     stated tolerance), the phase's quality bar; then topn_sharded against
-    ops/predict.topn; then 31b.  ``refs``: each phase's arrays, launches,
-    seconds and quality.  Returns the fits' launch counts by phase."""
+    ops/predict.topn.  ``refs``: each phase's arrays, launches, seconds and
+    quality.  Returns (the fits' launch counts by phase, the mesh, which
+    phase 32 takes over)."""
     import torch
     import torch.distributed as dist
 
@@ -3771,23 +4062,34 @@ def mesh_phases(ops, rows, cols, vals, test, lastfm, refs):
         got = _max_diff(_model_arrays(model), ref["arrays"])
         q = quality(model)
         metric = "p10" if quality is p10 else "rmse"
-        tol = MESH_REPEAT_FACTOR * rep
         q_tol = 0.0 if rep == 0 else MESH_QUALITY_TOL[metric]
         bar = ref["bar"]
         good = (q >= bar if metric == "p10" else q <= bar) and (
             abs(q - ref["quality"]) <= q_tol)
+        start = ""
+        if ph == "17":
+            t0 = time.perf_counter()
+            reading = _lbfgs_start_reading(tr_r, tr_c, tr_v, model.lambda_,
+                                           mesh)
+            start = "; at the start " + ", ".join(
+                f"{key} {got_:.2e} (limit "
+                f"{max(MESH_LBFGS_TOL, 10 * rep_):.2e}; the meshless "
+                f"repeat {rep_:.2e})" for key, (got_, rep_) in
+                reading.items()) + (f" of |f| and ||g||, evaluated in "
+                                    f"{time.perf_counter() - t0:.1f} s")
+            good = good and all(got_ <= max(MESH_LBFGS_TOL, 10 * rep_)
+                                for got_, rep_ in reading.values())
         print(f"phase 31({label}) phase {ph} with mesh=: {s:.3f} s (the "
               f"meshless repeat {s_again:.3f} s, phase {ph} "
               f"{ref['seconds']:.3f} s), peak device memory "
               f"{peak / 2**30:.2f} GiB (the repeat {peak_again / 2**30:.2f});"
               f" max|mesh - phase {ph}| {got:.3e} "
-              f"(limit {tol:.3e}: "
-              f"{'bitwise, as' if rep == 0 else f'{MESH_REPEAT_FACTOR} x'} "
+              f"({'limit 0: bitwise, as' if rep == 0 else 'not gated:'} "
               f"the meshless repeat's {rep:.3e}); {metric} {q:.5f} (phase "
-              f"{ph} {ref['quality']:.5f}, within {q_tol}; bar {bar:.5f}); "
-              f"launches {launches} (phase {ph} {ref['launches']})",
-              flush=True)
-        if launches != ref["launches"] or got > tol or not good:
+              f"{ph} {ref['quality']:.5f}, within {q_tol}; bar {bar:.5f})"
+              f"{start}; launches {launches} (phase {ph} "
+              f"{ref['launches']})", flush=True)
+        if launches != ref["launches"] or (rep == 0 and got > 0) or not good:
             raise AssertionError(f"phase 31({label}): the mesh fit is off "
                                  f"phase {ph}'s")
         paths[f"31({label})"] = launches
@@ -3816,10 +4118,263 @@ def mesh_phases(ops, rows, cols, vals, test, lastfm, refs):
     if bad:
         raise AssertionError("phase 31(e): topn_sharded is off topn")
     del keep, A, B, bias
-    dist.destroy_process_group()
     torch.cuda.empty_cache()
-    two_card_phase(refs["4"])
-    return paths
+    return paths, mesh
+
+
+# phase 32: the big-axis ring (shard_opposing_rows=True) on 31's NCCL world
+# of one, each fit beside its meshless repeat.  At one rank every route's
+# sums are the meshless ones (one shard holds every slot; Gram bases sum
+# the rows in their original order, parallel/ring.py:row_sum), so the
+# factors should equal the repeat's bit for bit; the gate is that, or
+# every array within the CPU tests' tolerance (tests/test_torch_ring.py):
+# |ring - repeat| <= atol + rtol |repeat|, the reading printed
+RING_FIT = dict(FIT, use_cg=False)
+RING_IMPLICIT_FIT = dict(IMPLICIT_FIT, use_cg=False)
+RING_NONNEG_FIT = dict(NONNEG_FIT, use_cg=False)
+RING_TOL = {"explicit": (1e-4, 1e-5), "implicit": (2e-3, 1e-4)}
+# phase 32b (two cards or more): 32(a) on 2-rank (and 4-rank) NCCL groups
+# against 32(a)'s meshless repeat, gated as 31b is: RMSE within
+# MESH2_RMSE_TOL, every array within MESH2_REL_TOL of its max|.|
+RING2_WORLDS = (2, 4)
+# and a fit whose factor matrices are large beside its data: 2,000,000
+# users x 1,000,000 items, 8,000,000 ratings drawn uniformly (4 a user, 8
+# an item on average), k = 32, three Cholesky iterations; the ring held to
+# 7a's mesh= at the same world (the RMSE on the first RING_BIG_SAMPLE
+# ratings), what a rank holds at rest and at its peak printed
+RING_BIG = (2_000_000, 1_000_000, 8_000_000)
+RING_BIG_FIT = dict(RING_FIT, k=32, niter=3)
+RING_BIG_SAMPLE = 200_000
+
+
+class _RingSpy:
+    """What a ring fit does, recorded: the largest shard of each side a
+    rank holds (parallel/ring.py:RingSide.shard; bytes), the parts
+    assembled by the ring and those gathered whole, by their opposing
+    matrix's rows in all (als.update_side's opposing_operand)."""
+
+    def __enter__(self):
+        from cmfrec_torch.parallel import ring
+        from cmfrec_torch.solvers import als
+
+        self.shards, self.rung, self.whole = {}, {}, {}
+        self.real = (ring.RingSide.shard, als.opposing_operand)
+        shard, operand = self.real
+
+        def spy_shard(side, blocks):
+            out = shard(side, blocks)
+            self.shards[side.n_total] = max(
+                self.shards.get(side.n_total, 0),
+                out.numel() * out.element_size())
+            return out
+
+        def spy_operand(mat, bias, mesh):
+            out = operand(mat, bias, mesh)
+            tally = self.rung if out[2] is not None else self.whole
+            rows = mat.shape[0] * ring.world_rank(mesh)[0]
+            tally[rows] = tally.get(rows, 0) + 1
+            return out
+
+        ring.RingSide.shard = spy_shard
+        als.opposing_operand = spy_operand
+        return self
+
+    def __exit__(self, *exc):
+        from cmfrec_torch.parallel import ring
+        from cmfrec_torch.solvers import als
+
+        ring.RingSide.shard, als.opposing_operand = self.real
+
+
+class _WithRing:
+    """``module.name`` (a driver the models call) run with
+    shard_opposing_rows=True whenever it is given a mesh."""
+
+    def __init__(self, module, name):
+        self.module, self.name = module, name
+
+    def __enter__(self):
+        real = self.real = getattr(self.module, self.name)
+
+        def ringed(*a, **kw):
+            if kw.get("mesh") is not None:
+                kw["shard_opposing_rows"] = True
+            return real(*a, **kw)
+
+        setattr(self.module, self.name, ringed)
+        return self
+
+    def __exit__(self, *exc):
+        setattr(self.module, self.name, self.real)
+
+
+def _res_arrays(res):
+    """A driver's result as host arrays (its factors and biases)."""
+    return {key: res[key].cpu().numpy() for key in
+            ("A", "B", "C", "D", "biasA", "biasB")
+            if res.get(key) is not None}
+
+
+def _ring_reading(got, want, tol):
+    """(bitwise, max over arrays of max(|got - want| - rtol |want|),
+    max|got - want| / max|want| by array)."""
+    bitwise = all(np.array_equal(got[key], w) for key, w in want.items())
+    worst = max(float(np.max(np.abs(got[key] - w) - tol[0] * np.abs(w)))
+                for key, w in want.items())
+    rel = {key: float(np.abs(got[key] - w).max() / np.abs(w).max())
+           for key, w in want.items()}
+    return bitwise, worst, rel
+
+
+def _explicit_rmse(res, rows, cols, vals, test):
+    """Held-out RMSE of a driver's explicit result (no k splits)."""
+    import torch
+
+    dev = res["A"].device
+    rt, ct = (torch.as_tensor(a[test], device=dev) for a in (rows, cols))
+    k = res["k"]
+    pred = (res["glob_mean"] + res["biasA"][rt] + res["biasB"][ct]
+            + (res["A"][rt, :k] * res["B"][ct, :k]).sum(dim=1)).cpu().numpy()
+    if not np.all(np.isfinite(pred)):
+        raise AssertionError("non-finite predictions")
+    return float(np.sqrt(np.mean((pred - vals[test]) ** 2)))
+
+
+def ring_phases(ops, rows, cols, vals, test, lastfm, mesh):
+    """Phase 32: the big-axis ring on the card, on phase 31's NCCL world of
+    one: (a) phase 8's flagship through drivers.fit_explicit_als(
+    engine="sparse", use_cg=False, mesh=, shard_opposing_rows=True), (b)
+    phase 7's WRMF through drivers.fit_implicit_als(use_cg=False, ...), (c)
+    phase 14's collective bucketed fit (CMF with U tags and I genres,
+    use_cg=False), (d) phase 26's nonneg flagship (CMF(nonneg=True), the
+    CD kernel on the ring-assembled systems, held against its twin on one
+    A bucket of the last half-step); each after a meshless repeat of the
+    same call: seconds, launches, peak memory, each side's shard bytes a
+    rank (S K itemsize / D), the parts that ring and those gathered whole,
+    the factors against the repeat (bitwise or RING_TOL) and the phase's
+    quality bar.  Returns (launch counts by path, the CD check's records,
+    32(a)'s repeat: arrays, RMSE)."""
+    import torch
+
+    import cmfrec_torch
+    from cmfrec_torch.solvers import collective, drivers
+
+    tr = ~test
+    tr_r, tr_c, tr_v = rows[tr], cols[tr], vals[tr]
+    l_r, l_c, l_v, l_te_r, l_te_c, test_users = lastfm
+    base = float(np.sqrt(np.mean((tr_v.mean() - vals[test]) ** 2)))
+    n_rb, n_cb = n_chunks(tr_r, M), n_chunks(tr_c, N)
+    U, I = make_user_tags(), make_item_genres()
+    print(f"phase 32 ring: shard_opposing_rows=True on the NCCL world of "
+          f"{mesh.size()} ({card()})", flush=True)
+
+    def rmse_model(model):
+        pred = model.predict(rows[test], cols[test])
+        if not np.all(np.isfinite(pred)):
+            raise AssertionError("non-finite predictions")
+        return float(np.sqrt(np.mean((pred - vals[test]) ** 2)))
+
+    def p10_res(res):
+        return ranking_quality(res["A"], res["B"], l_r, l_c, l_te_r, l_te_c,
+                               test_users, LFM_N)[0]
+
+    fits = {
+        "a": ("8", "explicit", lambda m: drivers.fit_explicit_als(
+            tr_r, tr_c, tr_v, M, N, engine="sparse", device="cuda", mesh=m,
+            shard_opposing_rows=m is not None, **RING_FIT)),
+        "b": ("7", "implicit", lambda m: drivers.fit_implicit_als(
+            l_r, l_c, l_v, LFM_M, LFM_N, device="cuda", mesh=m,
+            shard_opposing_rows=m is not None, **RING_IMPLICIT_FIT)),
+        "c": ("14", "explicit", lambda m: cmfrec_torch.CMF(
+            **RING_FIT, NA_as_zero_item=True, device="cuda").fit_triplets(
+            tr_r, tr_c, tr_v, M, N, U=U, I=I, mesh=m)),
+        "d": ("26", "explicit", lambda m: cmfrec_torch.CMF(
+            **RING_NONNEG_FIT, device="cuda").fit_triplets(
+            tr_r, tr_c, tr_v, M, N, mesh=m)),
+    }
+    def widest(calls):
+        return max(calls, key=lambda c: c[0].shape[0])
+
+    paths, cd_records, ref_a = {}, [], None
+    niter = FIT["niter"]
+    last = (niter - 1) * (n_cb + n_rb)
+    for label, (ph, kind, fit) in fits.items():
+        patch = {"c": (collective, "fit_collective_explicit_als"),
+                 "d": (drivers, "fit_explicit_als")}.get(label)
+        # (d) keeps its last iteration's CD inputs in both fits, so that
+        # the two peaks hold the same copies
+        def keep(i, G):
+            return label == "d" and i >= last
+
+        timed = _IterTimer if label == "a" else contextlib.nullcontext
+        with _WithRing(*patch) if patch else contextlib.nullcontext():
+            with _CDSpy(keep=keep), timed() as t_again:
+                again, _, s_again, peak_again = _fit_phase(
+                    ops, lambda: fit(None))
+            if label == "a":
+                ref_a = dict(arrays=_res_arrays(again),
+                             quality=_explicit_rmse(again, rows, cols, vals,
+                                                    test),
+                             test_vals=vals[test], half_ms=t_again.half_ms(),
+                             peak=peak_again)
+            want = (_model_arrays(again) if hasattr(again, "A_")
+                    else _res_arrays(again))
+            del again
+            torch.cuda.empty_cache()
+            with _RingSpy() as spy, _CDSpy(keep=keep) as cds, \
+                    timed() as t_ring:
+                out, launches, s, peak = _fit_phase(ops, lambda: fit(mesh))
+        got = _model_arrays(out) if hasattr(out, "A_") else _res_arrays(out)
+        tol = RING_TOL[kind]
+        bitwise, worst, rel = _ring_reading(got, want, tol)
+        expected = dict(NO_LAUNCHES, solve_cd=(niter * (n_rb + n_cb)
+                                               if label == "d" else 0))
+        if label == "a":
+            metric, q = "RMSE", _explicit_rmse(out, rows, cols, vals, test)
+            good = q <= RMSE_BOUND
+            bar = f"<= {RMSE_BOUND:.4f}"
+        elif label == "b":
+            metric, q = "P@10", p10_res(out)
+            good, bar = q >= P10_BOUND, f">= {P10_BOUND:.4f}"
+        elif label == "c":
+            metric, q = "RMSE", rmse_model(out)
+            good, bar = q <= RMSE_BOUND, f"<= {RMSE_BOUND:.4f}"
+        else:
+            metric, q = "RMSE", rmse_model(out)
+            mins = min(float(np.min(v)) for v in got.values())
+            good = q < base and mins >= 0.0
+            bar = f"< {base:.5f} (the global mean's), min factor {mins:.3g}"
+        shards = "; ".join(
+            f"{rows_} rows: {b / 2**20:.2f} MiB a rank (S K itemsize / D)"
+            for rows_, b in sorted(spy.shards.items()))
+        halves = ("" if label != "a" else
+                  f" ({t_ring.half_ms()[1]:.1f} ms a half-step, the "
+                  f"repeat {t_again.half_ms()[1]:.1f}; medians, each "
+                  f"iteration synchronized)")
+        print(f"phase 32({label}) phase {ph} through the ring: {s:.3f} s "
+              f"(the meshless repeat {s_again:.3f} s){halves}, peak device "
+              f"memory "
+              f"{peak / 2**30:.2f} GiB (the repeat "
+              f"{peak_again / 2**30:.2f}); opposing shards {shards}; parts "
+              f"ringed by opposing rows {dict(sorted(spy.rung.items()))}, "
+              f"gathered whole {dict(sorted(spy.whole.items()))}; "
+              f"{'bitwise equal to the repeat' if bitwise else 'not bitwise'}"
+              f": max(|ring - repeat| - {tol[0]:.0e} |repeat|) {worst:.3e} "
+              f"(limit {tol[1]:.0e}), max|ring - repeat| / max|repeat| by "
+              f"array {rel}; {metric} {q:.5f} (bar {bar}); launches "
+              f"{launches} (expected {expected})", flush=True)
+        if launches != expected or worst > tol[1] or not good:
+            raise AssertionError(f"phase 32({label}): the ring fit is off "
+                                 f"its meshless repeat, its launches or its "
+                                 f"bar")
+        if label == "d":
+            kept = [cds.kept[i] for i in sorted(cds.kept)]
+            cd_records = check_cd("32(d)", {"A": widest(kept[n_cb:])})
+            del kept
+        paths[f"32({label})"] = launches
+        del out, spy, cds
+        torch.cuda.empty_cache()
+    return paths, cd_records, ref_a
 
 
 def main():
@@ -4075,8 +4630,19 @@ def main():
                                      lastfm, ctx)
     paths.update(wide_paths)
 
-    # 31. the mesh path (31b on two cards or more)
-    paths.update(mesh_phases(ops, rows, cols, vals, test, lastfm, refs))
+    # 31. the mesh path; 32. the big-axis ring on its world of one (31b and
+    # 32b on two cards or more)
+    mesh_paths, mesh = mesh_phases(ops, rows, cols, vals, test, lastfm, refs)
+    paths.update(mesh_paths)
+    ring_paths, ring_cd, ring_ref = ring_phases(ops, rows, cols, vals, test,
+                                                lastfm, mesh)
+    paths.update(ring_paths)
+    import torch.distributed as dist
+
+    dist.destroy_process_group()
+    torch.cuda.empty_cache()
+    two_card_phase(refs["4"])
+    two_card_ring_phase(ring_ref)
 
     kernels = []
     for name, variants in results.items():
@@ -4139,10 +4705,12 @@ def main():
         launches=paths["26"]["solve_cd"],
         launches_by_phase={ph: c["solve_cd"] for ph, c in paths.items()},
         max_abs_err=max(r["max_abs_err"]
-                        for r in cd_records + [wide["p6"]["solve_cd"]]),
+                        for r in cd_records + ring_cd
+                        + [wide["p6"]["solve_cd"]]),
         ms=head["ms"], plain_ms=head["plain_ms"], bound_ms=head["bound_ms"],
         bound_by=head["bound_by"], library_ms=None, shape=head["shape"],
-        sweeps=head["sweeps"], half_step=cd_half, variants=cd_records,
+        sweeps=head["sweeps"], half_step=cd_half,
+        variants=cd_records + ring_cd,
         p6=wide["p6"]["solve_cd"]))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

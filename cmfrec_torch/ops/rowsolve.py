@@ -41,12 +41,16 @@ class SparsePart(NamedTuple):
     idx: [R, L] int32 indices into mat (0-padded)
     cw:  [R, L] Gram coefficients (0 on padding)
     cv:  [R, L] rhs coefficients  (0 on padding)
+    ring: None, or, where ``mat`` is this rank's shard of a row-sharded
+          matrix and ``idx`` are ring-order ids, the slots grouped by the
+          shard that holds their rows (parallel/ring.py:ShardSlots)
     """
 
     mat: torch.Tensor
     idx: torch.Tensor
     cw: torch.Tensor
     cv: torch.Tensor
+    ring: object = None
 
 
 def length_mask(length: torch.Tensor, width: int) -> torch.Tensor:
@@ -74,17 +78,31 @@ def _widen(ms: torch.Tensor) -> torch.Tensor:
     return ms.float() if ms.dtype == torch.bfloat16 else ms
 
 
-def part_gram(part: SparsePart, mxu_bf16: bool = False) -> torch.Tensor:
-    """[R, K, K] Gram contribution: sum_l cw * m m^T."""
-    ms = gather_rows(part.mat, part.idx, mxu_bf16)
+def part_rows(part: SparsePart, mxu_bf16: bool = False) -> torch.Tensor:
+    """[R, L, K] the opposing rows of a part's slots, in mat's dtype (bf16
+    with mxu_bf16): gathered, or under the big-axis ring gathered shard by
+    shard as the shards pass (parallel/ring.py:ring_rows)."""
+    if part.ring is None:
+        return gather_rows(part.mat, part.idx, mxu_bf16)
+    from ..parallel.ring import ring_rows
+
+    return ring_rows(part.mat, part.ring, mxu_bf16)
+
+
+def part_gram(part: SparsePart, mxu_bf16: bool = False,
+              ms: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """[R, K, K] Gram contribution: sum_l cw * m m^T (``ms``: the part's
+    rows, part_rows, where already at hand)."""
+    ms = part_rows(part, mxu_bf16) if ms is None else ms
     msf = _widen(ms)
     lhs = msf * _round(part.cw, ms.dtype)[..., None]
     return torch.einsum("rlk,rlm->rkm", _round(lhs, ms.dtype), msf)
 
 
-def part_rhs(part: SparsePart, mxu_bf16: bool = False) -> torch.Tensor:
-    """[R, K] rhs contribution: sum_l cv * m."""
-    ms = gather_rows(part.mat, part.idx, mxu_bf16)
+def part_rhs(part: SparsePart, mxu_bf16: bool = False,
+             ms: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """[R, K] rhs contribution: sum_l cv * m (``ms`` as in part_gram)."""
+    ms = part_rows(part, mxu_bf16) if ms is None else ms
     return torch.einsum("rlk,rl->rk", _widen(ms), _round(part.cv, ms.dtype))
 
 
@@ -104,7 +122,9 @@ def assemble_system(
     r0: Optional[torch.Tensor] = None,  # [R, K] per-row rhs base
     mxu_bf16: bool = False,
 ):
-    """The dense batched (G [R, K, K], rhs [R, K]) for Cholesky solving."""
+    """The dense batched (G [R, K, K], rhs [R, K]) for Cholesky solving.
+    A part with a ``ring`` takes its rows by one ring of its matrix's
+    shards (cmfrec_tpu/ops/rowsolve.py:109-135)."""
     R, K = parts[0].idx.shape[0], parts[0].mat.shape[1]
     dev = lam_vec.device
     dt = parts[0].mat.dtype
@@ -113,8 +133,10 @@ def assemble_system(
     G = torch.zeros(R, K, K, dtype=dt, device=dev)
     rhs = torch.zeros(R, K, dtype=dt, device=dev)
     for p in parts:
-        G = G + part_gram(p, mxu_bf16)
-        rhs = rhs + part_rhs(p, mxu_bf16)
+        ms = None if p.ring is None else part_rows(p, mxu_bf16)
+        G = G + part_gram(p, mxu_bf16, ms)
+        rhs = rhs + part_rhs(p, mxu_bf16, ms)
+        del ms
     if G0 is not None:
         G = G + G0[None, :, :]
     if r0 is not None:

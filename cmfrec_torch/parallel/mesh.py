@@ -35,8 +35,9 @@ A mesh of one rank runs the same slicing and collectives as a mesh of
 four; only ``mesh=None`` skips them.  Only rank 0 writes a checkpoint
 (utils/checkpoint.py), the others wait at a barrier.
 
-Not ported here: the big-axis ring (``shard_opposing_rows=True``,
-cmfrec_tpu/parallel/ring.py), ROADMAP slice 7b.
+The big-axis mode (``shard_opposing_rows=True``) keeps the opposing
+matrices row-sharded instead of gathering them after each half-step:
+parallel/ring.py.
 """
 
 from __future__ import annotations
@@ -316,11 +317,14 @@ def gather_blocks(local, mesh):
 
 
 def shard_opposing(opp, mesh, shard_rows: bool = False):
-    """The opposing factor matrix is replicated: every rank holds it whole
-    (cmfrec_tpu/parallel/mesh.py:73-76).  Row-sharding it is the big-axis
-    ring, ROADMAP slice 7b."""
-    if shard_rows:
-        raise ValueError("shard_opposing(shard_rows=True), the big-axis "
-                         "ring, is not supported by cmfrec_torch yet "
-                         "(ROADMAP slice 7b)")
-    return opp
+    """An opposing factor matrix as a fit holds it
+    (cmfrec_tpu/parallel/mesh.py:73-76): whole on every rank, or under
+    ``shard_rows`` (the big-axis ring, parallel/ring.py) this rank's
+    contiguous share of its rows, zero rows appended to a multiple of the
+    world size first.  ``opp`` itself without a mesh."""
+    if mesh is None or not shard_rows:
+        return opp
+    from .ring import pad_rows_to
+
+    opp = pad_rows_to(opp, world_rank(mesh)[0])
+    return opp[row_share(opp.shape[0], mesh)].clone()

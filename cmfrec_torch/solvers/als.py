@@ -27,12 +27,19 @@ do buckets whose K is past what K3's shared memory holds on the card
 Under a mesh (parallel/mesh.py) the layout a half-step gets is this
 rank's share of every bucket's rows (parallel/mesh.py:shard_bucketed): the
 rank solves its rows of each bucket against the whole opposing matrix and
-one all-gather makes the blocks whole again.
+one all-gather makes the blocks whole again.  Under the big-axis ring
+(``ring_mesh``, parallel/ring.py) the rank's blocks stay its own and the
+opposing matrices are its shards of them: each part of
+RING_MIN_ROWS x D rows or more is assembled by rotating the shards, a
+smaller one is gathered whole; Cholesky and coordinate descent only, as
+in the JAX package.  The shared-Gram solves keep their one Cholesky under
+the ring (their rhs rotates the shards too), where the JAX package
+factors each row's copy of the one G: the same systems, and at a world of
+one the meshless fit's bits.
 
 Not ported from the JAX package: ``defer_solve`` and the cross-bucket
 Cholesky concatenation (a TPU compile-time measure: here each bucket
-factors its own systems), the K = 128 lane padding of the CG operands and
-the ring-sharded assembly (ROADMAP slice 7b).
+factors its own systems) and the K = 128 lane padding of the CG operands.
 """
 
 from __future__ import annotations
@@ -46,6 +53,7 @@ from ..data.shards import ROW_BLOCK, BucketedRows, plan_layout
 from ..ops import _cuda, coord_descent, rowsolve, sparse_cg
 from ..ops.rowsolve import SparsePart, length_mask
 from ..parallel.mesh import gather_blocks, local_blocks
+from ..parallel.ring import opposing_operand, ring_take, shard_slots
 
 
 class PartData(NamedTuple):
@@ -60,6 +68,8 @@ class PartData(NamedTuple):
     w: float  # part weight (w_main)
     alpha: Optional[float]  # implicit confidence slope
     mu: Optional[float]  # global mean (NA-as-zero centering)
+    ring: object = None  # the mesh when opp is this rank's shard of a
+    # row-sharded matrix and idx are ring-order ids (parallel/ring.py)
 
 
 def _coefficients(p: PartData, mode: str) -> SparsePart:
@@ -76,8 +86,14 @@ def _coefficients(p: PartData, mode: str) -> SparsePart:
                src/collective.c:303-312)
     """
     msk = length_mask(p.length, p.idx.shape[1]).to(p.val.dtype)
+    slots = (None if p.ring is None else
+             shard_slots(p.idx, p.length, p.opp.shape[0], p.ring))
+    ob = None
+    if p.opp_bias is not None:
+        ob = (p.opp_bias[p.idx] if slots is None
+              else ring_take(p.opp_bias, slots))
     if mode == "explicit":
-        vadj = p.val if p.opp_bias is None else p.val - p.opp_bias[p.idx]
+        vadj = p.val if ob is None else p.val - ob
         cw = p.w * msk if p.wgt is None else p.w * p.wgt * msk
         cv = cw * vadj
     elif mode == "implicit":
@@ -87,14 +103,13 @@ def _coefficients(p: PartData, mode: str) -> SparsePart:
     elif mode == "na0":
         cw = (torch.zeros_like(p.val) if p.wgt is None
               else p.w * (p.wgt - 1.0) * msk)
-        ob = (torch.zeros_like(p.val) if p.opp_bias is None
-              else p.opp_bias[p.idx])
+        ob = torch.zeros_like(p.val) if ob is None else ob
         mu = 0.0 if p.mu is None else p.mu
         wgt = 1.0 if p.wgt is None else p.wgt
         cv = p.w * (wgt * (p.val - ob) + mu + ob) * msk
     else:
         raise ValueError(mode)
-    return SparsePart(p.opp, p.idx, cw.contiguous(), cv.contiguous())
+    return SparsePart(p.opp, p.idx, cw.contiguous(), cv.contiguous(), slots)
 
 
 def _lam_multiplier(p: PartData, mode: str, n_total: int) -> torch.Tensor:
@@ -115,6 +130,12 @@ def _lam_multiplier(p: PartData, mode: str, n_total: int) -> torch.Tensor:
         return p.length.to(p.val.dtype)
     msk = length_mask(p.length, L).to(p.val.dtype)
     return torch.sum(p.wgt * msk, dim=1)
+
+
+# cmfrec_tpu/solvers/als.py:219-224
+RING_CG_MESSAGE = ("ring-sharded opposing factors support Cholesky/CD "
+                   "solves only (truncated CG would cost one ring per "
+                   "matvec); pass use_cg=False")
 
 
 class SlotStack(NamedTuple):
@@ -236,6 +257,9 @@ def solve_bucket(
         return a if live is None else torch.where(live[:, None], a, 0.0)
 
     use_cd = nonneg or l1_vec is not None
+    if (any(p.ring is not None for p in parts)
+            and not (method == "chol" or use_cd)):
+        raise ValueError(RING_CG_MESSAGE)
     if method == "chol" and not use_cd and all(
             m == "na0" and p.wgt is None for p, m in zip(parts, modes)):
         # Shared-Gram fast path: every per-row Gram correction vanishes
@@ -341,6 +365,8 @@ def update_side(
     stacks: Optional[list] = None,  # per-bucket SlotStack cache (None
     # entries are filled on first use) for CG over several parts
     mesh=None,  # a 1-D DeviceMesh: plan.bucketed is this rank's share
+    ring_mesh=None,  # the big-axis ring's mesh: plan.bucketed, blocks and
+    # the opposing matrices are this rank's (parallel/ring.py)
 ) -> list:
     """Solve all buckets of one side; returns the new block list.  Under
     ``mxu_bf16`` the opposing matrix is rounded to bf16 once per side.  A
@@ -352,8 +378,25 @@ def update_side(
     buckets, ``r0_blocks`` and ``extra_parts`` hold this rank's rows
     (parallel/mesh.py:shard_bucketed) and ``blocks`` are whole: the rank
     solves its rows and the returned blocks are whole again (one
-    all-gather)."""
-    blocks = local_blocks(blocks, plan.bucketed, mesh)
+    all-gather).  Under ``ring_mesh`` the blocks, ``opp``, ``opp_bias`` and
+    the extra parts' matrices and biases are this rank's shards in ring
+    order, and the returned blocks this rank's, with no gather
+    (parallel/ring.py)."""
+    if ring_mesh is None:
+        blocks = local_blocks(blocks, plan.bucketed, mesh)
+        ring, operand = None, None
+    else:
+        seen = {}
+
+        def operand(mat, bias):
+            """(matrix, bias, ring) of a part: each distinct shard resolved
+            (kept, or gathered whole) once a half-step."""
+            key = (id(mat), id(bias))
+            if key not in seen:
+                seen[key] = opposing_operand(mat, bias, ring_mesh)
+            return seen[key]
+
+        opp, opp_bias, ring = operand(opp, opp_bias)
     use_cd = nonneg or l1_vec is not None
     mat = opp.to(torch.bfloat16) if mxu_bf16 else opp
     mat_cat = None
@@ -364,11 +407,15 @@ def update_side(
                         # the Xones solves are unweighted even in a weighted
                         # fit (upstream cmfrec src/collective.c:8458-8530)
                         wgt=None if ones_val else b.wgt,
-                        opp_bias=opp_bias, w=w, alpha=alpha, mu=mu)
+                        opp_bias=opp_bias, w=w, alpha=alpha, mu=mu,
+                        ring=ring)
         parts, modes = (part,), (plan.mode,)
         n_totals, scale_parts = (plan.n_total,), (True,)
         for pd, pmode, pn, psc in ([] if extra_parts is None
                                    else extra_parts[bi]):
+            if operand is not None:
+                pmat, pbias, pring = operand(pd.opp, pd.opp_bias)
+                pd = pd._replace(opp=pmat, opp_bias=pbias, ring=pring)
             parts, modes = parts + (pd,), modes + (pmode,)
             n_totals, scale_parts = n_totals + (pn,), scale_parts + (psc,)
         stacked = None
@@ -391,7 +438,7 @@ def update_side(
             max_cd_steps=max_cd_steps, scale_lam=scale_lam, n_totals=n_totals,
             scale_parts=scale_parts, lam_mult_add=lam_mult_add,
             mxu_bf16=mxu_bf16, precondition=precondition, stacked=stacked))
-    return gather_blocks(out, mesh)
+    return out if ring_mesh is not None else gather_blocks(out, mesh)
 
 
 def blocks_to_orig(blocks: list, perm: torch.Tensor) -> torch.Tensor:
@@ -400,26 +447,37 @@ def blocks_to_orig(blocks: list, perm: torch.Tensor) -> torch.Tensor:
 
 
 def init_blocks(gen: torch.Generator, bucketed: BucketedRows, k_tot: int,
-                k_pad: int, dtype=torch.float32) -> list:
+                k_pad: int, dtype=torch.float32, side=None) -> list:
     """Random normal init scaled like the reference's random_parallel
     (upstream cmfrec src/helpers.c:927), zero on coordinates >= k_tot, in
     the fit's ``dtype``.  The draws follow the layout of ROW_BLOCK rows a
     block: a layout padded for a mesh (``row_block`` > ROW_BLOCK) takes the
     same rows' draws, its padding rows zero, so that the start does not
-    depend on the mesh size."""
+    depend on the mesh size.  Under the big-axis ring (``side``, the
+    layout's parallel/ring.py:RingSide) only this rank's blocks are made,
+    each draw block's rows of them kept as it is drawn."""
     scale = float(1.0 / np.sqrt(max(k_tot, 1)))
     sizes = [b.n_rows for b in bucketed.buckets]
+    perm, row_of = bucketed.perm, bucketed.row_of
     if bucketed.row_block != ROW_BLOCK:
         order = np.argsort(-bucketed.counts, kind="stable").astype(np.int64)
-        chunks, perm, _, _ = plan_layout(bucketed.counts, order,
-                                         bucketed.n_rows)
+        chunks, perm, row_of, _ = plan_layout(bucketed.counts, order,
+                                              bucketed.n_rows)
         sizes = [c[1] for c in chunks]
-    blocks = []
+    shard = (None if side is None else
+             torch.zeros(side.chunk, k_pad, dtype=dtype, device=gen.device))
+    blocks, pos = [], 0
     for R in sizes:
         blk = scale * torch.randn(R, k_pad, generator=gen, dtype=dtype,
                                   device=gen.device)
         blk[:, k_tot:] = 0.0
-        blocks.append(blk)
+        if shard is None:
+            blocks.append(blk)
+        else:
+            side.keep(shard, blk, row_of[pos:pos + R])
+        pos += R
+    if shard is not None:
+        return side.split(shard)
     if bucketed.row_block == ROW_BLOCK:
         return blocks
     orig = blocks_to_orig(blocks, torch.as_tensor(perm, device=gen.device))

@@ -44,8 +44,19 @@ package's ``_mesh_place_collective`` (cmfrec_tpu/solvers/collective.py:
 64-88): each rank holds its rows of the X buckets, of the side-info
 feature buckets, of the aligned parts, the dense side slices and the mean
 slices; C, D, the dense side matrices and the permutations are whole on
-every rank.  The big-axis ring (``shard_opposing_rows=True``) raises,
-naming ROADMAP slice 7b.
+every rank.
+
+``shard_opposing_rows=True`` (the big-axis ring, parallel/ring.py;
+cmfrec_tpu/solvers/collective.py:64-131, 714-930, 1253-1420) takes the
+bucketed route and keeps A, B, Ai, Bi, and C and D of sparse side
+information, row-sharded for the whole fit: each rank holds the rows it
+solves, in ring order (parallel/ring.py:RingSide), and every slot that
+indexes one of them (the X buckets, the side-info feature buckets, the
+aligned parts) is rewritten into that order once a fit.  The real-row and
+X-row masks and the dense side matrices' rows follow the same order; the
+Gram and cross terms over a sharded matrix (the NA-as-zero bases, the
+implicit B^T B, the dense C/D solves' A1^T A1 and A1^T U) are partial sums
+added over the ranks.  C and D of dense side information stay whole.
 """
 
 from __future__ import annotations
@@ -62,8 +73,9 @@ from ..config import (resolve_device, resolve_dtype, should_handle_interrupt,
                       torch_dtype)
 from ..data.device_fill import build_bucketed_pair, build_bucketed_rows
 from ..data.shards import BucketedRows
-from ..parallel.mesh import (mesh_row_block, shard_blocks, shard_bucketed,
-                             world_rank)
+from ..parallel.mesh import (gather_blocks, mesh_row_block, shard_blocks,
+                             shard_bucketed, world_rank)
+from ..parallel.ring import RingSide, row_sum
 from ..utils.checkpoint import FitCheckpointer
 from ..ops import coord_descent
 from . import drivers, preprocess
@@ -205,23 +217,28 @@ def _dense_rhs(U_slice, Ce, w):
 
 
 def _dense_full_solve(A1, U, lam_vec, w, nonneg, l1_vec, max_cd_steps,
-                      lam_scale=1.0):
+                      lam_scale=1.0, ring=None):
     """Whole-matrix update of C (or D) from fully dense side info:
     (w A1^T A1 + diag(lam)) C^T = w A1^T U, by one Cholesky (the
     reference's optimizeA case-1 fast path, upstream cmfrec
     src/common.c:2787).  ``lam_scale``: the scale_lam multiplier, the
     number of side-info rows (case 1 uses lam * n).  Under ``nonneg`` or an
     ``l1_vec`` (scaled by ``lam_scale`` too) every side column is solved by
-    coordinate descent against the one G, passed with row stride 0."""
-    G = w * gram_matrix(A1) + torch.diag(lam_vec * lam_scale)
+    coordinate descent against the one G, passed with row stride 0.  Under
+    the big-axis ``ring`` (the rows' RingSide and the mesh) A1 and U are
+    this rank's rows of them (ring order) and A1^T A1 and the cross term
+    are added over the ranks (parallel/ring.py:row_sum)."""
+    side, mesh = ring or (None, None)
+    G = w * row_sum(gram_matrix, side, mesh, A1) + torch.diag(
+        lam_vec * lam_scale)
     if nonneg or l1_vec is not None:
-        rhs = w * (U.T @ A1)  # [p, K]
+        rhs = w * row_sum(lambda a, u: u.T @ a, side, mesh, A1, U)  # [p, K]
         l1 = torch.zeros_like(lam_vec) if l1_vec is None else l1_vec
         return coord_descent.solve_cd(
             G.expand(rhs.shape[0], *G.shape), rhs.contiguous(),
             (l1 * lam_scale).contiguous(), nonneg=nonneg,
             max_steps=max_cd_steps)
-    rhs = w * (A1.T @ U)  # [K, p]
+    rhs = w * row_sum(lambda a, u: a.T @ u, side, mesh, A1, U)  # [K, p]
     return torch.cholesky_solve(rhs, torch.linalg.cholesky(G)).T
 
 
@@ -297,11 +314,14 @@ def _shard_layout(lay, main, mesh):
             None if means is None else shard_blocks(means, fb, mesh))
 
 
-def _side_init(S, featb, kx, kx_pad, gen, init_M, dev, tdt):
+def _side_init(S, featb, kx, kx_pad, gen, init_M, dev, tdt, side=None,
+               share=None):
     """C (or D) at the start of a bucketed fit, of torch dtype ``tdt``: for
     dense side info a [p, kx_pad] matrix of N(0, 0.01^2), else bucket
     blocks over the features; ``init_M`` ([p, kx]) overrides.  Returns
-    (blocks, orig)."""
+    (blocks, orig).  Under the big-axis ring (``side``, the features'
+    RingSide) the blocks are this rank's, laid out as ``share`` (its share
+    of the feature bucketing), and orig is None."""
     if S.dense is not None:
         M = 0.01 * torch.randn(S.p, kx_pad, generator=gen, dtype=tdt,
                                device=dev)
@@ -309,9 +329,12 @@ def _side_init(S, featb, kx, kx_pad, gen, init_M, dev, tdt):
         if init_M is not None:
             M[:, :kx] = torch.as_tensor(init_M, dtype=tdt, device=dev)
         return None, M
-    blocks = init_blocks(gen, featb, kx, kx_pad, tdt)
+    blocks = init_blocks(gen, featb, kx, kx_pad, tdt, side)
     if init_M is not None:
-        drivers._seed_factor_blocks(blocks, featb, init_M, kx)
+        drivers._seed_factor_blocks(blocks, featb if side is None else share,
+                                    init_M, kx)
+    if side is not None:
+        return blocks, None
     return blocks, blocks_to_orig(blocks, torch.as_tensor(featb.perm,
                                                           device=dev))
 
@@ -327,35 +350,48 @@ def _xdim_mask(limit, total, dev, tdt):
 
 def _side_factor_update(S, featb, blocks, A1, lam_vec, w_side, method,
                         mean_slices, *, n_steps, scale_lam, precondition,
-                        l1_vec, nonneg, max_cd_steps, mesh=None):
+                        l1_vec, nonneg, max_cd_steps, mesh=None,
+                        ring_mesh=None, ring_side=None):
     """Update C (or D): rows = side-info features, opposing = A[:, :k_off+k].
     Under scale_lam (or scale_lam_sideinfo) the lambda scales with each
-    feature's observed count too (upstream cmfrec src/collective.c:8373)."""
+    feature's observed count too (upstream cmfrec src/collective.c:8373).
+    Under ``ring_mesh`` A1 and the blocks are this rank's, A1's rows in the
+    order of ``ring_side``."""
     plan = SidePlan(featb, "na0" if S.na0 else "explicit", S.n_ent)
     G0 = r0_blocks = None
     if S.na0:
-        G0 = w_side * gram_matrix(A1)
+        G0 = w_side * row_sum(gram_matrix, ring_side, ring_mesh, A1)
         if mean_slices is not None:
-            colsum = A1.sum(dim=0)
+            colsum = row_sum(lambda a: a.sum(dim=0), ring_side, ring_mesh,
+                             A1)
             r0_blocks = [-w_side * ms[:, None] * colsum[None, :]
                          for ms in mean_slices]
     return update_side(plan, blocks, A1, None, lam_vec, w=w_side, G0=G0,
                        r0_blocks=r0_blocks, l1_vec=l1_vec, method=method,
                        n_steps=n_steps, nonneg=nonneg,
                        max_cd_steps=max_cd_steps, scale_lam=scale_lam,
-                       precondition=precondition, mesh=mesh)
+                       precondition=precondition, mesh=mesh,
+                       ring_mesh=ring_mesh)
 
 
-def _side_parts(S, aligned, Ce, w_side, n_buckets, scale_flag, dev):
+def _side_parts(S, aligned, Ce, w_side, n_buckets, scale_flag, dev,
+                ring=None, ring_mesh=None):
     """A sparse side matrix's parts of the A (or B) systems, one list per
-    bucket, and its shared bases under NA-as-zero: (extra, G0, r0_vec)."""
+    bucket, and its shared bases under NA-as-zero: (extra, G0, r0_vec).
+    Under ``ring_mesh`` Ce is this rank's shard of C in the order of
+    ``ring`` (the features' RingSide) and the bases are added over the
+    ranks."""
     extra = [[] for _ in range(n_buckets)]
     G0 = r0_vec = cm = None
     if S.na0:
-        G0 = w_side * gram_matrix(Ce)
+        G0 = w_side * row_sum(gram_matrix, ring, ring_mesh, Ce)
         if S.colmeans is not None:
-            cm = torch.as_tensor(S.colmeans, dtype=Ce.dtype, device=dev)
-        r0_vec = w_side * drivers._na0_rhs_base(Ce, cm, 0.0)
+            cm = (torch.as_tensor(S.colmeans, dtype=Ce.dtype, device=dev)
+                  if ring is None else
+                  ring.values(S.colmeans).to(Ce.dtype))
+        r0_vec = w_side * row_sum(
+            lambda c, b: drivers._na0_rhs_base(c, b, 0.0), ring, ring_mesh,
+            Ce, cm)
     for bi, (idx_s, val_s, len_s) in enumerate(aligned):
         pd = PartData(idx=idx_s, val=val_s, length=len_s, wgt=None, opp=Ce,
                       opp_bias=cm, w=w_side, alpha=None,
@@ -370,23 +406,34 @@ def _add(a, b):
 
 
 def _update_C(S, featb, blocks, A_orig, kc, kc_pad, lam_vec, w_side,
-              method, mean_slices, perm_S, xmask, lam_scale, **kw):
+              method, mean_slices, perm_S, xmask, lam_scale, ring=None,
+              main_ring=None, dense=None, **kw):
     """One C (or D) half-step from A_orig (or B_orig); returns (blocks,
-    orig)."""
+    orig).  Under the big-axis ring (``kw["ring_mesh"]``) A_orig is this
+    rank's shard of A (in the order of ``main_ring``), ``dense`` the dense
+    side matrix's rows in its order and ``ring`` the features' RingSide:
+    sparse side info returns this rank's blocks and shard of C, dense side
+    info the whole C."""
     A1 = _pad_cols(A_orig[:, :kc], kc_pad, 0)
+    ring_mesh = kw.get("ring_mesh")
     if S.dense is not None:
-        A1u = A1[:S.n_ent] if S.n_ent < A1.shape[0] else A1
-        dense = torch.as_tensor(S.dense, device=A1.device)
-        return None, _dense_full_solve(A1u, dense, lam_vec, w_side,
-                                       kw["nonneg"], kw["l1_vec"],
-                                       kw["max_cd_steps"], lam_scale)
+        A1u = A1
+        if ring_mesh is None:
+            A1u = A1[:S.n_ent] if S.n_ent < A1.shape[0] else A1
+            dense = torch.as_tensor(S.dense, device=A1.device)
+        return None, _dense_full_solve(
+            A1u, dense, lam_vec, w_side, kw["nonneg"], kw["l1_vec"],
+            kw["max_cd_steps"], lam_scale,
+            None if ring_mesh is None else (main_ring, ring_mesh))
     if xmask is not None and not S.na0:
         # under NA-as-zero the rows beyond the side matrix are genuine
         # all-zero side rows (kept)
         A1 = A1 * xmask[:, None]
     blocks = _side_factor_update(S, featb, blocks, A1, lam_vec, w_side,
-                                 method, mean_slices, **kw)
-    return blocks, blocks_to_orig(blocks, perm_S)
+                                 method, mean_slices, ring_side=main_ring,
+                                 **kw)
+    return blocks, (blocks_to_orig(blocks, perm_S) if ring is None
+                    else ring.shard(blocks))
 
 
 class _Sides(NamedTuple):
@@ -410,45 +457,78 @@ class _Sides(NamedTuple):
     xmask_BI: Optional[torch.Tensor]
     stacks_A: list
     stacks_B: list
+    # under the big-axis ring: the RingSides (A, B, U's features, I's
+    # features; None for dense side info) and the dense side matrices'
+    # rows of this rank in A's (B's) ring order
+    ring: Optional[tuple] = None
+    U_dense: Optional[torch.Tensor] = None
+    I_dense: Optional[torch.Tensor] = None
 
 
 def _sides(U, I, RB, CB, m, n, m_eff, n_eff, widths, seed, init, dev,
-           dtype, mesh=None, shares=None):
+           dtype, mesh=None, shares=None, ring=None):
     """The _Sides of a bucketed fit in the fit's ``dtype``; ``widths`` is
     (kc, kc_pad, kd, kd_pad).  C and D start from their own generator
     (seed + 1).  Under ``mesh``, ``shares`` are this rank's shares of RB
-    and CB, and the layouts are cut to them."""
+    and CB, and the layouts are cut to them.  Under ``ring`` (the big-axis
+    ring: A's and B's RingSides) every slot that indexes a sharded matrix
+    is rewritten into its ring order, C and D of sparse side info start as
+    this rank's blocks, and the masks are this rank's rows in ring
+    order."""
     kc, kc_pad, kd, kd_pad = widths
     tdt = torch_dtype(dtype)
     U_lay = _side_layout(U, RB, dev, dtype, mesh_row_block(mesh))
     I_lay = _side_layout(I, CB, dev, dtype, mesh_row_block(mesh))
     gen2 = torch.Generator(device=dev)
     gen2.manual_seed(int(seed) + 1)
-    C0 = D0 = (None, None)
-    if U is not None:
-        C0 = _side_init(U, U_lay[0], kc, kc_pad, gen2, init.get("C"), dev,
-                        tdt)
-    if I is not None:
-        D0 = _side_init(I, I_lay[0], kd, kd_pad, gen2, init.get("D"), dev,
-                        tdt)
 
     def perm(featb):
         return None if featb is None else torch.as_tensor(featb.perm,
                                                           device=dev)
 
+    rings = (None,) * 4
+    if ring:
+        rings = tuple(ring) + tuple(
+            None if lay is None else RingSide(lay, mesh, dev, tdt)
+            for lay in (U_lay[0], I_lay[0]))
+    whole = (U_lay[0], I_lay[0])
     if mesh is not None:
         U_lay = _shard_layout(U_lay, shares[0], mesh)
         I_lay = _shard_layout(I_lay, shares[1], mesh)
+    C0 = D0 = (None, None)
+    if U is not None:
+        C0 = _side_init(U, whole[0], kc, kc_pad, gen2, init.get("C"), dev,
+                        tdt, rings[2], U_lay[0])
+    if I is not None:
+        D0 = _side_init(I, whole[1], kd, kd_pad, gen2, init.get("D"), dev,
+                        tdt, rings[3], I_lay[0])
+    if not ring:
+        return _Sides(
+            U_lay, I_lay, C0, D0, perm(RB), perm(CB), perm(U_lay[0]),
+            perm(I_lay[0]), _xdim_mask(m, m_eff, dev, tdt),
+            _xdim_mask(n, n_eff, dev, tdt),
+            None if U is None or U.n_ent >= m_eff
+            else _xdim_mask(U.n_ent, m_eff, dev, tdt),
+            None if I is None or I.n_ent >= n_eff
+            else _xdim_mask(I.n_ent, n_eff, dev, tdt),
+            [None] * len(RB.buckets), [None] * len(CB.buckets))
 
+    rA, rB, rU, rI = rings
+    dense = []
+    for lay, main_ring, feat_ring in ((U_lay, rA, rU), (I_lay, rB, rI)):
+        featb, aligned, slices, _ = lay
+        if featb is not None:  # the feature buckets' slots index A (B)
+            main_ring.remap_slots(featb)
+        if aligned is not None:  # the aligned parts' slots index C (D)
+            for i, (idx, *rest) in enumerate(aligned):
+                aligned[i] = (feat_ring.remap(idx), *rest)
+        dense.append(None if slices is None else torch.cat(slices, 0))
     return _Sides(
         U_lay, I_lay, C0, D0, perm(RB), perm(CB), perm(U_lay[0]),
-        perm(I_lay[0]), _xdim_mask(m, m_eff, dev, tdt),
-        _xdim_mask(n, n_eff, dev, tdt),
-        None if U is None or U.n_ent >= m_eff
-        else _xdim_mask(U.n_ent, m_eff, dev, tdt),
-        None if I is None or I.n_ent >= n_eff
-        else _xdim_mask(I.n_ent, n_eff, dev, tdt),
-        [None] * len(RB.buckets), [None] * len(CB.buckets))
+        perm(I_lay[0]), rA.rows_below(m), rB.rows_below(n),
+        None if U is None or U.n_ent >= m_eff else rA.rows_below(U.n_ent),
+        None if I is None or I.n_ent >= n_eff else rB.rows_below(I.n_ent),
+        [None] * len(RB.buckets), [None] * len(CB.buckets), rings, *dense)
 
 
 def _update_sides(sd, U, I, C, D, A_orig, B_orig, widths, lam_vec_C,
@@ -456,34 +536,40 @@ def _update_sides(sd, U, I, C, D, A_orig, B_orig, widths, lam_vec_C,
                   precondition, cd, mesh=None):
     """The C and D half-steps of one iteration; C and D are (blocks, orig)
     pairs, returned updated.  ``cd``: (nonneg_C, nonneg_D, l1_vec_C,
-    l1_vec_D, max_cd_steps)."""
+    l1_vec_D, max_cd_steps).  Under the ring (``sd.ring``) A_orig and
+    B_orig are this rank's shards."""
     kc, kc_pad, kd, kd_pad = widths
     nonneg_C, nonneg_D, l1_vec_C, l1_vec_D, max_cd_steps = cd
     kw = dict(n_steps=n_steps, scale_lam=scale_lam,
-              precondition=precondition, max_cd_steps=max_cd_steps,
-              mesh=mesh)
+              precondition=precondition, max_cd_steps=max_cd_steps)
+    kw.update({"mesh": mesh} if sd.ring is None else {"ring_mesh": mesh})
+    rA, rB, rU, rI = (None,) * 4 if sd.ring is None else sd.ring
     if U is not None:
         C = _update_C(U, sd.U_lay[0], C[0], A_orig, kc, kc_pad, lam_vec_C,
                       w_user, method, sd.U_lay[3], sd.perm_U, sd.xmask_AU,
-                      float(U.n_ent) if scale_lam else 1.0, nonneg=nonneg_C,
+                      float(U.n_ent) if scale_lam else 1.0, ring=rU,
+                      main_ring=rA, dense=sd.U_dense, nonneg=nonneg_C,
                       l1_vec=l1_vec_C, **kw)
     if I is not None:
         D = _update_C(I, sd.I_lay[0], D[0], B_orig, kd, kd_pad, lam_vec_D,
                       w_item, method, sd.I_lay[3], sd.perm_I, sd.xmask_BI,
-                      float(I.n_ent) if scale_lam else 1.0, nonneg=nonneg_D,
+                      float(I.n_ent) if scale_lam else 1.0, ring=rI,
+                      main_ring=rB, dense=sd.I_dense, nonneg=nonneg_D,
                       l1_vec=l1_vec_D, **kw)
     return C, D
 
 
-def _opposing(F_orig, k_from, k_to, width, k_pad, ones_col, xmask):
+def _opposing(F_orig, k_from, k_to, width, k_pad, ones_col, xmask,
+              ones=1.0):
     """The extended opposing matrix of a main half-step: F's shared
-    coordinates moved to [k_to : k_to + width], ones on the bias column
-    ``ones_col`` (or none), rows outside ``xmask`` zeroed (or kept)."""
+    coordinates moved to [k_to : k_to + width], ``ones`` on the bias column
+    ``ones_col`` (or none; under the ring the real-row mask, so padding
+    rows stay zero), rows outside ``xmask`` zeroed (or kept)."""
     opp = torch.zeros(F_orig.shape[0], k_pad, dtype=F_orig.dtype,
                       device=F_orig.device)
     opp[:, k_to:k_to + width] = F_orig[:, k_from:k_from + width]
     if ones_col is not None:
-        opp[:, ones_col] = 1.0
+        opp[:, ones_col] = ones
     return opp if xmask is None else opp * xmask[:, None]
 
 
@@ -520,7 +606,7 @@ def fit_collective_explicit_als(
     lam6, l16 = drivers._resolve_lambdas(lambda_, l1_lambda)
     dtype = resolve_dtype(dtype)
     dev = resolve_device(device)
-    drivers._reject_common(mesh, shard_opposing_rows, dev)
+    drivers._reject_common(mesh, shard_opposing_rows, dev, use_cg)
     if nonneg:
         use_cg = False
     U = prepare_side(_sparsify_short_dense_side(side_U, m), center_U,
@@ -528,7 +614,8 @@ def fit_collective_explicit_als(
     I = prepare_side(_sparsify_short_dense_side(side_I, n), center_I,
                      NA_as_zero_item, dtype)
     plain = drivers.plain_route(dtype, use_cg, precondition_cg)
-    dense = not plain and _dense_route(
+    # the ring is the bucketed route's
+    dense = not plain and not shard_opposing_rows and _dense_route(
         U, I, m, n, k_user=k_user, k_item=k_item, k_main=k_main,
         w_main=w_main,
         na0=NA_as_zero or NA_as_zero_user or NA_as_zero_item,
@@ -553,7 +640,7 @@ def fit_collective_explicit_als(
             checkpoint_every=checkpoint_every, dtype=dtype,
             precondition_cg=precondition_cg, l16=l16, nonneg=nonneg,
             nonneg_C=nonneg_C, nonneg_D=nonneg_D, max_cd_steps=max_cd_steps,
-            mesh=mesh)
+            mesh=mesh, ring=shard_opposing_rows)
 
     glob_mean = (preprocess.weighted_global_mean(vals, weights) if center
                  else 0.0)
@@ -583,13 +670,14 @@ def _fit_collective_explicit_bucketed(
     scale_lam, scale_lam_sideinfo, scale_bias_const, NA_as_zero, weights,
     seed, verbose, device, init, checkpoint_path, checkpoint_every,
     dtype=np.float32, precondition_cg=False, l16=(0.0,) * 6, nonneg=False,
-    nonneg_C=False, nonneg_D=False, max_cd_steps=100, mesh=None,
+    nonneg_C=False, nonneg_D=False, max_cd_steps=100, mesh=None, ring=False,
 ) -> dict:
     """The bucketed route of fit_collective_explicit_als
     (cmfrec_tpu/solvers/collective.py:440-1019), in the fit's ``dtype``.
     ``U``/``I`` are PreparedSide (prepare_side) or None, ``lam6`` the six
     lambdas (drivers._resolve_lambdas).  Under ``mesh`` the whole layouts
-    plan and seed the start and each rank solves its share of them."""
+    plan and seed the start and each rank solves its share of them; under
+    ``ring`` each rank keeps only its rows of the factor matrices."""
     dev = torch.device(device)
     tdt = torch_dtype(dtype)
     ckpt = FitCheckpointer(checkpoint_path, checkpoint_every, niter, mesh)
@@ -631,15 +719,18 @@ def _fit_collective_explicit_bucketed(
 
     gen = torch.Generator(device=dev)
     gen.manual_seed(int(seed))
-    A_blocks = init_blocks(gen, RB, ka, ka_pad, tdt)
-    B_blocks = init_blocks(gen, CB, kb, kb_pad, tdt)
+    rA, rB = ((RingSide(RB, mesh, dev, tdt), RingSide(CB, mesh, dev, tdt))
+              if ring else (None, None))
+    lay_A, lay_B = shares if ring else (RB, CB)  # the blocks' layouts
+    A_blocks = init_blocks(gen, RB, ka, ka_pad, tdt, rA)
+    B_blocks = init_blocks(gen, CB, kb, kb_pad, tdt, rB)
     if user_bias:
-        drivers._set_bias_coord(A_blocks, RB, biasA0, ka)
+        drivers._set_bias_coord(A_blocks, lay_A, biasA0, ka)
     if item_bias:
-        drivers._set_bias_coord(B_blocks, CB, biasB0, kb)
+        drivers._set_bias_coord(B_blocks, lay_B, biasB0, kb)
     for key, blocks, bk, kx, has_bias in (
-            ("A", A_blocks, RB, ka, user_bias),
-            ("B", B_blocks, CB, kb, item_bias)):
+            ("A", A_blocks, lay_A, ka, user_bias),
+            ("B", B_blocks, lay_B, kb, item_bias)):
         if init.get(key) is not None:
             drivers._seed_factor_blocks(blocks, bk, init[key], kx)
         if has_bias and init.get("bias" + key) is not None:
@@ -647,16 +738,19 @@ def _fit_collective_explicit_bucketed(
 
     widths = (kc, kc_pad, kd, kd_pad)
     sd = _sides(U, I, RB, CB, m, n, m_eff, n_eff, widths, seed, init, dev,
-                dtype, mesh, shares)
+                dtype, mesh, shares, ring and (rA, rB))
     (C_blocks, C_orig), (D_blocks, D_orig) = sd.C0, sd.D0
     Ai_blocks = Bi_blocks = None
     if add_implicit_features:
-        Bi_blocks = init_blocks(gen, CB, ki_w, ki_pad, tdt)
-        Ai_blocks = init_blocks(gen, RB, ki_w, ki_pad, tdt)
+        Bi_blocks = init_blocks(gen, CB, ki_w, ki_pad, tdt, rB)
+        Ai_blocks = init_blocks(gen, RB, ki_w, ki_pad, tdt, rA)
         if init.get("Bi") is not None:
-            drivers._seed_factor_blocks(Bi_blocks, CB, init["Bi"], ki_w)
+            drivers._seed_factor_blocks(Bi_blocks, lay_B, init["Bi"], ki_w)
         if init.get("Ai") is not None:
-            drivers._seed_factor_blocks(Ai_blocks, RB, init["Ai"], ki_w)
+            drivers._seed_factor_blocks(Ai_blocks, lay_A, init["Ai"], ki_w)
+    if ring:
+        rB.remap_slots(shares[0])  # A's slots index B's rows
+        rA.remap_slots(shares[1])
 
     def mk(*a):
         return drivers._make_lam_vec(*a, dev, tdt)
@@ -712,18 +806,24 @@ def _fit_collective_explicit_bucketed(
     plan_A, plan_B = SidePlan(RB, mode, n), SidePlan(CB, mode, m)
     perm_A, perm_B, xmask_A, xmask_B = (sd.perm_A, sd.perm_B, sd.xmask_A,
                                         sd.xmask_B)
+    ring_mesh = mesh if ring else None
+    upd = {"ring_mesh": mesh} if ring else {"mesh": mesh}
+    rA, rB, rU, rI = sd.ring if ring else (None,) * 4
 
     def factor_update(blocks, plan, opp, opp_bias, lam_vec, method, S, S_al,
                       S_ds, C_mat, kx, w_side, Xones_opp, k_off, lam_const,
-                      stacks, l1_vec):
+                      stacks, l1_vec, S_ring, opp_ring):
         """One A- or B-style update with optional side-info and implicit
-        features parts."""
+        features parts; under the ring the opposing rows are in the order
+        of ``opp_ring``, the side info's in ``S_ring``'s."""
         K = lam_vec.shape[0]
         G0 = r0_vec = r0_blocks = extra = None
         n_buckets = len(plan.bucketed.buckets)
         if plan.mode == "na0":
-            G0 = w_main * gram_matrix(opp)
-            r0_vec = w_main * drivers._na0_rhs_base(opp, opp_bias, glob_mean)
+            G0 = w_main * row_sum(gram_matrix, opp_ring, ring_mesh, opp)
+            r0_vec = w_main * row_sum(
+                lambda o, b: drivers._na0_rhs_base(o, b, glob_mean),
+                opp_ring, ring_mesh, opp, opp_bias)
         lam_mult_add = 0.0
         if S is not None:
             Ce = _pad_cols(C_mat[:, :kx], K, 0)
@@ -736,12 +836,14 @@ def _fit_collective_explicit_bucketed(
                     lam_mult_add = float(S.p)
             else:
                 extra, Gs, rv = _side_parts(S, S_al, Ce, w_side, n_buckets,
-                                            scale_lam_sideinfo, dev)
+                                            scale_lam_sideinfo, dev, S_ring,
+                                            ring_mesh)
                 G0, r0_vec = _add(G0, Gs), _add(r0_vec, rv)
         if add_implicit_features:
             # Xones ~ A[:, k_off:] . Bi^T
             Bi_e = _pad_cols(Xones_opp[:, :ki_w], K, k_off)
-            G0 = _add(G0, w_implicit * gram_matrix(Bi_e))
+            G0 = _add(G0, w_implicit * row_sum(gram_matrix, opp_ring,
+                                               ring_mesh, Bi_e))
             extra = extra or [[] for _ in range(n_buckets)]
             for bi, b in enumerate(plan.bucketed.buckets):
                 pd = PartData(idx=b.idx, val=torch.ones_like(b.val),
@@ -756,13 +858,13 @@ def _fit_collective_explicit_bucketed(
             lam_const_vec=lam_const, l1_vec=l1_vec, method=method,
             n_steps=max_cg_steps, nonneg=nonneg, max_cd_steps=max_cd_steps,
             scale_lam=scale_lam, lam_mult_add=lam_mult_add,
-            precondition=precondition_cg, stacks=stacks, mesh=mesh)
+            precondition=precondition_cg, stacks=stacks, **upd)
 
     def iteration(method, st):
         A_blocks, B_blocks, C_blocks, D_blocks, C_orig, D_orig, Ai_blocks, \
             Bi_blocks = st
-        A_orig = blocks_to_orig(A_blocks, perm_A)
-        B_orig = blocks_to_orig(B_blocks, perm_B)
+        A_orig = _orig(A_blocks, perm_A, rA)
+        B_orig = _orig(B_blocks, perm_B, rB)
         Ai_orig = Bi_orig = None
         (C_blocks, C_orig), (D_blocks, D_orig) = _update_sides(
             sd, U, I, (C_blocks, C_orig), (D_blocks, D_orig), A_orig, B_orig,
@@ -776,57 +878,59 @@ def _fit_collective_explicit_bucketed(
             A_x = A_x * xmask_A[:, None]  # Gram over the X rows only
             Bi_blocks = update_side(
                 SidePlan(CB, "na0", m), Bi_blocks, A_x, None, lam_vec_Bi,
-                G0=gram_matrix(A_x), ones_val=True, method="chol",
-                nonneg=nonneg, max_cd_steps=max_cd_steps,
-                scale_lam=scale_lam, mesh=mesh)
-            Bi_orig = blocks_to_orig(Bi_blocks, perm_B)
+                G0=row_sum(gram_matrix, rA, ring_mesh, A_x), ones_val=True,
+                method="chol", nonneg=nonneg, max_cd_steps=max_cd_steps,
+                scale_lam=scale_lam, **upd)
+            Bi_orig = _orig(Bi_blocks, perm_B, rB)
             B_x = _pad_cols(B_orig[:, k_item:k_item + ki_w], ki_pad, 0)
             B_x = B_x * xmask_B[:, None]
             Ai_blocks = update_side(
                 SidePlan(RB, "na0", n), Ai_blocks, B_x, None, lam_vec_Ai,
-                G0=gram_matrix(B_x), ones_val=True, method="chol",
-                nonneg=nonneg, max_cd_steps=max_cd_steps,
-                scale_lam=scale_lam, mesh=mesh)
-            Ai_orig = blocks_to_orig(Ai_blocks, perm_A)
+                G0=row_sum(gram_matrix, rB, ring_mesh, B_x), ones_val=True,
+                method="chol", nonneg=nonneg, max_cd_steps=max_cd_steps,
+                scale_lam=scale_lam, **upd)
+            Ai_orig = _orig(Ai_blocks, perm_A, rA)
 
         # B (items; opposing A, D, Ai).  The shared bases sum the X rows
         # only, except under NA_as_zero, where side-only entities are
         # genuine all-zero X rows
         opp = _opposing(A_orig, k_user, k_item, k + k_main, kb_pad,
                         kb if item_bias else None,
-                        None if NA_as_zero else xmask_A)
+                        None if NA_as_zero else xmask_A,
+                        1.0 if rA is None else rA.mask)
         B_blocks = factor_update(
             B_blocks, plan_B, opp, A_orig[:, ka] if user_bias else None,
             lam_vec_B, method, I, sd.I_lay[1], sd.I_lay[2], D_orig, kd,
             w_item, None if Ai_orig is None else Ai_orig * xmask_A[:, None],
-            k_item, lam_const_B, sd.stacks_B, l1_vec_B)
-        B_orig = blocks_to_orig(B_blocks, perm_B)
+            k_item, lam_const_B, sd.stacks_B, l1_vec_B, rI, rA)
+        B_orig = _orig(B_blocks, perm_B, rB)
 
         # A (users; opposing B, C, Bi)
         opp = _opposing(B_orig, k_item, k_user, k + k_main, ka_pad,
                         ka if user_bias else None,
-                        None if NA_as_zero else xmask_B)
+                        None if NA_as_zero else xmask_B,
+                        1.0 if rB is None else rB.mask)
         A_blocks = factor_update(
             A_blocks, plan_A, opp, B_orig[:, kb] if item_bias else None,
             lam_vec_A, method, U, sd.U_lay[1], sd.U_lay[2], C_orig, kc,
             w_user, None if Bi_orig is None else Bi_orig * xmask_B[:, None],
-            k_user, lam_const_A, sd.stacks_A, l1_vec_A)
+            k_user, lam_const_A, sd.stacks_A, l1_vec_A, rU, rB)
         return (A_blocks, B_blocks, C_blocks, D_blocks, C_orig, D_orig,
                 Ai_blocks, Bi_blocks)
 
     def state_dict(st):
-        Ab, Bb, _Cb, _Db, Co, Do, Aib, Bib = st
-        Ao, Bo = blocks_to_orig(Ab, perm_A), blocks_to_orig(Bb, perm_B)
+        Ab, Bb, Cb, Db, Co, Do, Aib, Bib = st
+        Ao, Bo, Co, Do, Aio, Bio = _whole(
+            ring_mesh, (Ab, perm_A), (Bb, perm_B), (Cb, sd.perm_U, Co),
+            (Db, sd.perm_I, Do), (Aib, perm_A), (Bib, perm_B))
         return {
             "A": Ao[:, :ka], "B": Bo[:, :kb],
             "biasA": Ao[:, ka] if user_bias else None,
             "biasB": Bo[:, kb] if item_bias else None,
             "C": None if Co is None else Co[:, :kc],
             "D": None if Do is None else Do[:, :kd],
-            "Ai": (None if Aib is None
-                   else blocks_to_orig(Aib, perm_A)[:, :ki_w]),
-            "Bi": (None if Bib is None
-                   else blocks_to_orig(Bib, perm_B)[:, :ki_w]),
+            "Ai": None if Aio is None else Aio[:, :ki_w],
+            "Bi": None if Bio is None else Bio[:, :ki_w],
         }
 
     st = (A_blocks, B_blocks, C_blocks, D_blocks, C_orig, D_orig,
@@ -841,6 +945,29 @@ def _fit_collective_explicit_bucketed(
         "scaling_biasA": scaling_biasA, "scaling_biasB": scaling_biasB,
         "glob_mean": float(glob_mean), "k": k,
     })
+    return out
+
+
+def _orig(blocks, perm, ring):
+    """A factor matrix as a half-step reads it: whole in original order, or
+    under the ring (``ring`` its side's RingSide) this rank's shard."""
+    return blocks_to_orig(blocks, perm) if ring is None else ring.shard(blocks)
+
+
+def _whole(ring_mesh, *mats):
+    """Each of ``mats`` whole in original order: ``(blocks, perm)``, or
+    ``(blocks, perm, orig)`` for C or D (``orig`` whole already where the
+    side info is dense, or C is replicated without a ring).  Under
+    ``ring_mesh`` the blocks are this rank's and are gathered, one
+    all-gather each."""
+    out = []
+    for blocks, perm, *orig in mats:
+        if blocks is None:
+            out.append(orig[0] if orig else None)
+        elif orig and ring_mesh is None:
+            out.append(orig[0])
+        else:
+            out.append(blocks_to_orig(gather_blocks(blocks, ring_mesh), perm))
     return out
 
 
@@ -899,7 +1026,7 @@ def fit_collective_implicit_als(
     lam6, l16 = drivers._resolve_lambdas(lambda_, l1_lambda)
     dtype = resolve_dtype(dtype)
     dev = resolve_device(device)
-    drivers._reject_common(mesh, shard_opposing_rows, dev)
+    drivers._reject_common(mesh, shard_opposing_rows, dev, use_cg)
     if nonneg:
         use_cg = False
     vals = drivers.implicit_values(vals, apply_log_transf)
@@ -909,7 +1036,7 @@ def fit_collective_implicit_als(
     I = prepare_side(_sparsify_short_dense_side(side_I, n), center_I,
                      NA_as_zero_item, dtype)
     plain = drivers.plain_route(dtype, use_cg, precondition_cg)
-    dense = not plain and _dense_route(
+    dense = not plain and not shard_opposing_rows and _dense_route(
         U, I, m, n, k_user=k_user, k_item=k_item, k_main=k_main,
         w_main=1.0, na0=NA_as_zero_user or NA_as_zero_item,
         add_implicit_features=False, weights=None, init=init,
@@ -927,7 +1054,7 @@ def fit_collective_implicit_als(
             checkpoint_every=checkpoint_every, dtype=dtype,
             precondition_cg=precondition_cg, l16=l16, nonneg=nonneg,
             nonneg_C=nonneg_C, nonneg_D=nonneg_D, max_cd_steps=max_cd_steps,
-            mesh=mesh)
+            mesh=mesh, ring=shard_opposing_rows)
 
     res = fit_collective_implicit_dense_masked(
         rows, cols, vals, m, n,
@@ -950,13 +1077,14 @@ def _fit_collective_implicit_bucketed(
     finalize_chol, seed, verbose, device, init, checkpoint_path,
     checkpoint_every, dtype=np.float32, precondition_cg=False,
     l16=(0.0,) * 6, nonneg=False, nonneg_C=False, nonneg_D=False,
-    max_cd_steps=100, mesh=None,
+    max_cd_steps=100, mesh=None, ring=False,
 ) -> dict:
     """The bucketed route of fit_collective_implicit_als
     (cmfrec_tpu/solvers/collective.py:1134-1500), in the fit's ``dtype``.
     ``vals`` are the implicit values (log-transformed where asked), ``w_x``
     the main part's weight w_main * w_mult.  Under ``mesh`` each rank
-    solves its share of the buckets."""
+    solves its share of the buckets; under ``ring`` each rank keeps only
+    its rows of the factor matrices."""
     dev = torch.device(device)
     tdt = torch_dtype(dtype)
     ckpt = FitCheckpointer(checkpoint_path, checkpoint_every, niter, mesh)
@@ -974,18 +1102,27 @@ def _fit_collective_implicit_bucketed(
 
     gen = torch.Generator(device=dev)
     gen.manual_seed(int(seed))
-    A_blocks = init_blocks(gen, RB, ka, ka_pad, tdt)
-    B_blocks = init_blocks(gen, CB, kb, kb_pad, tdt)
+    rA, rB = ((RingSide(RB, mesh, dev, tdt), RingSide(CB, mesh, dev, tdt))
+              if ring else (None, None))
+    lay_A, lay_B = shares if ring else (RB, CB)  # the blocks' layouts
+    A_blocks = init_blocks(gen, RB, ka, ka_pad, tdt, rA)
+    B_blocks = init_blocks(gen, CB, kb, kb_pad, tdt, rB)
     if init.get("A") is not None:
-        drivers._seed_factor_blocks(A_blocks, RB, init["A"], ka)
+        drivers._seed_factor_blocks(A_blocks, lay_A, init["A"], ka)
     if init.get("B") is not None:
-        drivers._seed_factor_blocks(B_blocks, CB, init["B"], kb)
+        drivers._seed_factor_blocks(B_blocks, lay_B, init["B"], kb)
 
     widths = (kc, kc_pad, kd, kd_pad)
     sd = _sides(U, I, RB, CB, m, n, m_eff, n_eff, widths, seed, init, dev,
-                dtype, mesh, shares)
+                dtype, mesh, shares, ring and (rA, rB))
     (C_blocks, C_orig), (D_blocks, D_orig) = sd.C0, sd.D0
+    if ring:
+        rB.remap_slots(shares[0])  # A's slots index B's rows
+        rA.remap_slots(shares[1])
     RB, CB = shares  # each rank solves its share of the buckets
+    ring_mesh = mesh if ring else None
+    upd = {"ring_mesh": mesh} if ring else {"mesh": mesh}
+    rA, rB, rU, rI = sd.ring if ring else (None,) * 4
 
     def mk(*a):
         return drivers._make_lam_vec(*a, 0.0, False, dev, tdt)
@@ -1005,9 +1142,9 @@ def _fit_collective_implicit_bucketed(
     perm_A, perm_B = sd.perm_A, sd.perm_B
 
     def factor_update(blocks, plan, opp, lam_vec, method, S, S_al, S_ds,
-                      C_mat, kx, w_side, stacks, l1_vec):
+                      C_mat, kx, w_side, stacks, l1_vec, S_ring, opp_ring):
         K = lam_vec.shape[0]
-        G0 = w_x * gram_matrix(opp)
+        G0 = w_x * row_sum(gram_matrix, opp_ring, ring_mesh, opp)
         r0_vec = r0_blocks = extra = None
         if S is not None:
             Ce = _pad_cols(C_mat[:, :kx], K, 0)
@@ -1017,19 +1154,19 @@ def _fit_collective_implicit_bucketed(
             else:
                 extra, Gs, r0_vec = _side_parts(
                     S, S_al, Ce, w_side, len(plan.bucketed.buckets), False,
-                    dev)
+                    dev, S_ring, ring_mesh)
                 G0 = _add(G0, Gs)
         return update_side(
             plan, blocks, opp, None, lam_vec, w=w_x, alpha=alpha, G0=G0,
             r0_vec=r0_vec, r0_blocks=r0_blocks, extra_parts=extra,
             l1_vec=l1_vec, method=method, n_steps=max_cg_steps,
             nonneg=nonneg, max_cd_steps=max_cd_steps,
-            precondition=precondition_cg, stacks=stacks, mesh=mesh)
+            precondition=precondition_cg, stacks=stacks, **upd)
 
     def iteration(method, st):
         A_blocks, B_blocks, C_blocks, D_blocks, C_orig, D_orig = st
-        A_orig = blocks_to_orig(A_blocks, perm_A)
-        B_orig = blocks_to_orig(B_blocks, perm_B)
+        A_orig = _orig(A_blocks, perm_A, rA)
+        B_orig = _orig(B_blocks, perm_B, rB)
         (C_blocks, C_orig), (D_blocks, D_orig) = _update_sides(
             sd, U, I, (C_blocks, C_orig), (D_blocks, D_orig), A_orig, B_orig,
             widths, lam_vec_C, lam_vec_D, w_user, w_item, method,
@@ -1040,20 +1177,21 @@ def _fit_collective_implicit_bucketed(
                         sd.xmask_A)
         B_blocks = factor_update(B_blocks, plan_B, opp, lam_vec_B, method, I,
                                  sd.I_lay[1], sd.I_lay[2], D_orig, kd, w_item,
-                                 sd.stacks_B, l1_vec_B)
-        B_orig = blocks_to_orig(B_blocks, perm_B)
+                                 sd.stacks_B, l1_vec_B, rI, rA)
+        B_orig = _orig(B_blocks, perm_B, rB)
         opp = _opposing(B_orig, k_item, k_user, k + k_main, ka_pad, None,
                         sd.xmask_B)
         A_blocks = factor_update(A_blocks, plan_A, opp, lam_vec_A, method, U,
                                  sd.U_lay[1], sd.U_lay[2], C_orig, kc, w_user,
-                                 sd.stacks_A, l1_vec_A)
+                                 sd.stacks_A, l1_vec_A, rU, rB)
         return A_blocks, B_blocks, C_blocks, D_blocks, C_orig, D_orig
 
     def state_dict(st):
-        Ab, Bb, _Cb, _Db, Co, Do = st
+        Ab, Bb, Cb, Db, Co, Do = st
+        Ao, Bo, Co, Do = _whole(ring_mesh, (Ab, perm_A), (Bb, perm_B),
+                                (Cb, sd.perm_U, Co), (Db, sd.perm_I, Do))
         return {
-            "A": blocks_to_orig(Ab, perm_A)[:, :ka],
-            "B": blocks_to_orig(Bb, perm_B)[:, :kb],
+            "A": Ao[:, :ka], "B": Bo[:, :kb],
             "C": None if Co is None else Co[:, :kc],
             "D": None if Do is None else Do[:, :kd],
         }

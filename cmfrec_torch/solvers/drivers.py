@@ -41,9 +41,21 @@ and each rank solves its share of every bucket (K3, the CD kernel,
 Cholesky or rowsolve.solve_cg, as the route decides), then gathers; the
 dense-masked engine holds each rank's rows of the dense form
 (solvers/dense_masked.py).  The plain dense engine takes no mesh, as in the
-JAX package (:344-357): under one it runs whole on every rank.  The
-big-axis ring (``shard_opposing_rows=True``) raises a ``ValueError`` naming
-ROADMAP slice 7b.
+JAX package (:344-357): under one it runs whole on every rank.
+
+``shard_opposing_rows=True`` with a mesh (the big-axis ring,
+parallel/ring.py; cmfrec_tpu/solvers/drivers.py:428-447, 487-609,
+772-857) keeps every factor matrix row-sharded for the whole fit: a rank
+holds the rows it solves (its share of each bucket, parallel/ring.py:
+RingSide) and nothing more of them; the bucket slots are rewritten into
+the opposing side's ring order once a fit, each half-step's opposing
+matrix is the rank's shard (padding rows zeroed, the bias column from the
+real-row mask), its rows' systems are assembled by rotating the shards,
+and the NA-as-zero and implicit Gram bases are partial sums added over
+the ranks.  It takes the bucketed engine, Cholesky or coordinate descent
+(the gates of the JAX package: ``mesh=`` and ``use_cg=False``), and one
+all-gather of each factor matrix makes the model whole at the end of the
+fit and at each checkpoint.
 """
 
 from __future__ import annotations
@@ -59,6 +71,7 @@ from ..config import (resolve_device, resolve_dtype, should_handle_interrupt,
 from ..data.device_fill import build_bucketed_pair
 from ..parallel.mesh import (check_mesh, mesh_row_block, reduce_min,
                              shard_bucketed, world_rank)
+from ..parallel.ring import RingSide, row_sum
 from ..utils.checkpoint import FitCheckpointer
 from . import dense_engine, preprocess
 from .als import SidePlan, blocks_to_orig, gram_matrix, init_blocks, update_side
@@ -194,13 +207,14 @@ def _row_index(bucketed, b, dev):
 
 def _seed_factor_blocks(blocks, bucketed, M, k):
     """Write warm-start factor rows into the bucketed block layout, in the
-    blocks' dtype (padding rows get zeros)."""
-    dev = blocks[0].device if blocks else None
-    dt = blocks[0].dtype if blocks else None
-    M = torch.as_tensor(M, dtype=dt, device=dev)
-    ext = torch.cat([M[:, :k], torch.zeros(1, k, dtype=dt, device=dev)])
+    blocks' dtype (padding rows get zeros): each block's rows picked on the
+    host, so that ``M`` is never whole on the device."""
+    M = M.cpu().numpy() if torch.is_tensor(M) else np.asarray(M)
+    ext = np.concatenate([M[:, :k], np.zeros((1, k), M.dtype)])
     for b, blk in zip(bucketed.buckets, blocks):
-        blk[:, :k] = ext[_row_index(bucketed, b, dev)]
+        blk[:, :k] = torch.as_tensor(
+            ext[bucketed.row_of[b.start:b.start + b.n_rows]],
+            dtype=blk.dtype, device=blk.device)
     return blocks
 
 
@@ -251,13 +265,23 @@ def plain_route(dtype, use_cg, precondition_cg) -> bool:
     return np.dtype(dtype) == np.float64 or bool(use_cg and precondition_cg)
 
 
-def _reject_common(mesh, shard_opposing_rows, dev):
-    """The multi-device options: the ring raises, a mesh must be a 1-D
-    DeviceMesh of the fit's device type (parallel/mesh.py:check_mesh)."""
+def _reject_common(mesh, shard_opposing_rows, dev, use_cg):
+    """The multi-device options: the big-axis ring needs a mesh and
+    ``use_cg=False`` (the JAX package's gates and messages,
+    cmfrec_tpu/solvers/drivers.py:200-208); a mesh must be a 1-D DeviceMesh
+    of the fit's device type (parallel/mesh.py:check_mesh)."""
     if shard_opposing_rows:
-        raise _unsupported("the big-axis ring (shard_opposing_rows=True)",
-                           "slice 7b")
+        if mesh is None:
+            raise ValueError("shard_opposing_rows requires mesh=")
+        if use_cg:
+            raise ValueError(RING_GATE_MESSAGE)
     check_mesh(mesh, dev)
+
+
+# cmfrec_tpu/solvers/drivers.py:204-208
+RING_GATE_MESSAGE = ("shard_opposing_rows supports Cholesky/CD solves only "
+                     "(truncated CG would cost one ring per matvec); pass "
+                     "use_cg=False")
 
 
 # cmfrec_tpu/solvers/drivers.py:248-251
@@ -324,7 +348,9 @@ def fit_explicit_als(
     dtype = resolve_dtype(dtype)
     dev = resolve_device(device)
     _check_engine(engine)
-    _reject_common(mesh, shard_opposing_rows, dev)
+    _reject_common(mesh, shard_opposing_rows, dev, use_cg)
+    if shard_opposing_rows:
+        engine = "sparse"  # the bucketed engine is the ring's
     if nonneg:
         use_cg = False
     use_cd = nonneg or bool(np.any(l16 > 0))
@@ -375,7 +401,8 @@ def fit_explicit_als(
         return _fit_explicit_bucketed(
             rows, cols, vals, m, n, use_cg=use_cg, max_cg_steps=max_cg_steps,
             NA_as_zero=NA_as_zero, l16=l16, nonneg=nonneg,
-            max_cd_steps=max_cd_steps, mesh=mesh, **common)
+            max_cd_steps=max_cd_steps, mesh=mesh, ring=shard_opposing_rows,
+            **common)
     if plain:
         return _fit_explicit_dense(
             rows, cols, vals, m, n,
@@ -418,12 +445,13 @@ def _fit_explicit_bucketed(
     rows, cols, vals, m, n, *, weights, k, lam6, niter, use_cg, max_cg_steps,
     finalize_chol, user_bias, item_bias, glob_mean, scale_lam,
     scale_bias_const, NA_as_zero, seed, verbose, dev, init, ckpt, dtype,
-    precondition_cg, l16, nonneg, max_cd_steps, mesh=None,
+    precondition_cg, l16, nonneg, max_cd_steps, mesh=None, ring=False,
 ) -> dict:
     """The bucketed route of fit_explicit_als
     (cmfrec_tpu/solvers/drivers.py:361-470), in the fit's dtype.  Under
     ``mesh`` the whole layouts plan and seed the start; each rank solves
-    its share of them (parallel/mesh.py:shard_bucketed)."""
+    its share of them (parallel/mesh.py:shard_bucketed).  Under ``ring``
+    each rank keeps only its rows of A and B (parallel/ring.py)."""
     tdt = torch_dtype(dtype)
     vals_c = _centered(vals, glob_mean, dtype)
     biasA0, biasB0 = _initial_biases(rows, cols, vals_c, m, n, lam6, weights,
@@ -435,21 +463,25 @@ def _fit_explicit_bucketed(
     k_pad = _round_up(k + 1, 8)
     gen = torch.Generator(device=dev)
     gen.manual_seed(int(seed))
-    A_blocks = init_blocks(gen, RB, k, k_pad, tdt)
-    B_blocks = init_blocks(gen, CB, k, k_pad, tdt)
+    sides = _ring_start(RB, CB, mesh, dev, tdt) if ring else None
+    side_A, side_B = sides or (None, None)
+    A_blocks = init_blocks(gen, RB, k, k_pad, tdt, side_A)
+    B_blocks = init_blocks(gen, CB, k, k_pad, tdt, side_B)
+    shares = shard_bucketed(RB, mesh), shard_bucketed(CB, mesh)
+    lay_A, lay_B = shares if ring else (RB, CB)  # the blocks' layouts
     if user_bias:
-        _set_bias_coord(A_blocks, RB, biasA0, k)
+        _set_bias_coord(A_blocks, lay_A, biasA0, k)
     if item_bias:
-        _set_bias_coord(B_blocks, CB, biasB0, k)
+        _set_bias_coord(B_blocks, lay_B, biasB0, k)
     if init is not None:
         if init.get("A") is not None:
-            _seed_factor_blocks(A_blocks, RB, init["A"], k)
+            _seed_factor_blocks(A_blocks, lay_A, init["A"], k)
         if init.get("B") is not None:
-            _seed_factor_blocks(B_blocks, CB, init["B"], k)
+            _seed_factor_blocks(B_blocks, lay_B, init["B"], k)
         if user_bias and init.get("biasA") is not None:
-            _set_bias_coord(A_blocks, RB, init["biasA"], k)
+            _set_bias_coord(A_blocks, lay_A, init["biasA"], k)
         if item_bias and init.get("biasB") is not None:
-            _set_bias_coord(B_blocks, CB, init["biasB"], k)
+            _set_bias_coord(B_blocks, lay_B, init["biasB"], k)
 
     lam_vec_A, lam_vec_B, lam_const_A, lam_const_B = _lam_vecs(
         k, k_pad, lam6, user_bias, item_bias, scale_lam, scale_bias_const,
@@ -462,13 +494,16 @@ def _fit_explicit_bucketed(
                    scale_lam=scale_lam, m=m, n=n,
                    precondition=precondition_cg, nonneg=nonneg,
                    max_cd_steps=max_cd_steps, mesh=mesh)
-    RB, CB = shard_bucketed(RB, mesh), shard_bucketed(CB, mesh)
+    RB, CB = shares
+    if ring:
+        side_B.remap_slots(RB)  # A's slots index B's rows
+        side_A.remap_slots(CB)
     args = (RB, CB, perm_A, perm_B, lam_vec_A, lam_vec_B, lam_const_A,
             lam_const_B, l1_vec_A, l1_vec_B, float(glob_mean))
 
     def state():
-        return _sparse_fit_state(A_blocks, B_blocks, perm_A, perm_B, k,
-                                 user_bias, item_bias)
+        return _sparse_fit_state(*_whole(A_blocks, B_blocks, sides),
+                                 perm_A, perm_B, k, user_bias, item_bias)
 
     try:
         for it in range(niter):
@@ -480,7 +515,8 @@ def _fit_explicit_bucketed(
             # in the fit's dtype
             A_blocks, B_blocks = _explicit_sparse_iteration(
                 A_blocks, B_blocks, *args, method=method,
-                mxu_bf16=_bf16_rows(dev, method, tdt), **statics)
+                mxu_bf16=_bf16_rows(dev, method, tdt), ring=sides,
+                **statics)
             if verbose:
                 _fence(dev)
                 print(f"iter {it + 1}/{niter} [{method}] "
@@ -529,35 +565,69 @@ def _explicit_sparse_iteration(
     lam_const_A, lam_const_B, l1_vec_A, l1_vec_B, glob_mean,
     *, m, n, k, user_bias, item_bias, NA_as_zero, method, max_cg_steps,
     scale_lam, mxu_bf16, precondition, nonneg, max_cd_steps, mesh=None,
+    ring=None,
 ):
     """One full explicit ALS iteration over bucketed data, B half-step then
     A (the reference's order, upstream cmfrec src/collective.c:8614 "Updating
-    B" precedes :8802 "Updating A")."""
+    B" precedes :8802 "Updating A").  ``ring``: the (A, B) RingSides of a
+    big-axis fit, whose blocks are this rank's."""
     mode = "na0" if NA_as_zero else "explicit"
     common = dict(mu=glob_mean if NA_as_zero else None, method=method,
                   n_steps=max_cg_steps, scale_lam=scale_lam,
                   mxu_bf16=mxu_bf16, precondition=precondition,
-                  nonneg=nonneg, max_cd_steps=max_cd_steps, mesh=mesh)
+                  nonneg=nonneg, max_cd_steps=max_cd_steps)
+    if ring is None:
+        common["mesh"] = mesh
+    else:
+        common["ring_mesh"] = mesh
 
-    def half(blocks, plan, opp_orig, opp_bias_on, ones, lam_vec, lam_const,
-             l1_vec):
-        opp = _with_bias_col(opp_orig, k, ones)
+    def half(blocks, plan, opp_blocks, perm, side, opp_bias_on, ones,
+             lam_vec, lam_const, l1_vec):
+        if side is None:
+            opp_orig = blocks_to_orig(opp_blocks, perm)
+            opp = _with_bias_col(opp_orig, k, ones)
+        else:
+            # this rank's shard, padding rows zero and the bias column
+            # from the real-row mask (cmfrec_tpu/solvers/drivers.py:600-609)
+            opp_orig = side.shard(opp_blocks)
+            opp = opp_orig.clone()
+            opp[:, k] = side.mask if ones else 0.0
         opp_bias = opp_orig[:, k] if opp_bias_on else None
         G0 = r0_vec = None
         if NA_as_zero:
-            G0 = gram_matrix(opp)
-            r0_vec = _na0_rhs_base(opp, opp_bias, glob_mean)
+            G0 = row_sum(gram_matrix, side, mesh, opp)
+            r0_vec = row_sum(lambda o, b: _na0_rhs_base(o, b, glob_mean),
+                             side, mesh, opp, opp_bias)
         return update_side(plan, blocks, opp, opp_bias, lam_vec, G0=G0,
                            r0_vec=r0_vec, lam_const_vec=lam_const,
                            l1_vec=l1_vec, **common)
 
-    B_blocks = half(B_blocks, SidePlan(CB, mode, m),
-                    blocks_to_orig(A_blocks, perm_A), user_bias, item_bias,
-                    lam_vec_B, lam_const_B, l1_vec_B)
-    A_blocks = half(A_blocks, SidePlan(RB, mode, n),
-                    blocks_to_orig(B_blocks, perm_B), item_bias, user_bias,
-                    lam_vec_A, lam_const_A, l1_vec_A)
+    side_A, side_B = (None, None) if ring is None else ring
+    B_blocks = half(B_blocks, SidePlan(CB, mode, m), A_blocks, perm_A,
+                    side_A, user_bias, item_bias, lam_vec_B, lam_const_B,
+                    l1_vec_B)
+    A_blocks = half(A_blocks, SidePlan(RB, mode, n), B_blocks, perm_B,
+                    side_B, item_bias, user_bias, lam_vec_A, lam_const_A,
+                    l1_vec_A)
     return A_blocks, B_blocks
+
+
+# ----------------------------------------------------------------------- #
+# the big-axis ring (parallel/ring.py)                                     #
+# ----------------------------------------------------------------------- #
+
+
+def _ring_start(RB, CB, mesh, dev, tdt):
+    """The (A, B) RingSides of a big-axis fit, from the whole layouts."""
+    return RingSide(RB, mesh, dev, tdt), RingSide(CB, mesh, dev, tdt)
+
+
+def _whole(A_blocks, B_blocks, sides):
+    """Both sides' blocks whole: as they are, or under a ring (``sides``)
+    gathered, one all-gather each."""
+    if sides is None:
+        return A_blocks, B_blocks
+    return sides[0].whole(A_blocks), sides[1].whole(B_blocks)
 
 
 def _fit_explicit_dense(
@@ -700,9 +770,12 @@ def fit_implicit_als(
     dtype = resolve_dtype(dtype)
     dev = resolve_device(device)
     _check_engine(engine)
-    _reject_common(mesh, shard_opposing_rows, dev)
     if nonneg:
         use_cg = False
+    # after nonneg's use_cg, as cmfrec_tpu/solvers/drivers.py:679-690
+    _reject_common(mesh, shard_opposing_rows, dev, use_cg)
+    if shard_opposing_rows:
+        engine = "sparse"  # the bucketed engine is the ring's
     use_cd = nonneg or bool(np.any(l16 > 0))
     if engine == "dense" and use_cd:
         raise ValueError(DENSE_CD_MESSAGE)
@@ -733,13 +806,18 @@ def fit_implicit_als(
     k_pad = _round_up(k, 8)
     gen = torch.Generator(device=dev)
     gen.manual_seed(int(seed))
-    A_blocks = init_blocks(gen, RB, k, k_pad, tdt)
-    B_blocks = init_blocks(gen, CB, k, k_pad, tdt)
+    sides = (_ring_start(RB, CB, mesh, dev, tdt) if shard_opposing_rows
+             else None)
+    side_A, side_B = sides or (None, None)
+    A_blocks = init_blocks(gen, RB, k, k_pad, tdt, side_A)
+    B_blocks = init_blocks(gen, CB, k, k_pad, tdt, side_B)
+    shares = shard_bucketed(RB, mesh), shard_bucketed(CB, mesh)
+    lay_A, lay_B = shares if sides else (RB, CB)  # the blocks' layouts
     if init is not None:
         if init.get("A") is not None:
-            _seed_factor_blocks(A_blocks, RB, init["A"], k)
+            _seed_factor_blocks(A_blocks, lay_A, init["A"], k)
         if init.get("B") is not None:
-            _seed_factor_blocks(B_blocks, CB, init["B"], k)
+            _seed_factor_blocks(B_blocks, lay_B, init["B"], k)
 
     lam_vec_A = _make_lam_vec(k, k_pad, lam6[2], 0.0, False, dev, tdt)
     lam_vec_B = _make_lam_vec(k, k_pad, lam6[3], 0.0, False, dev, tdt)
@@ -747,10 +825,13 @@ def fit_implicit_als(
     l1_vec_B = _make_l1_vec(k, k_pad, l16[3], 0.0, False, dev, tdt)
 
     def state():
-        return _sparse_fit_state(A_blocks, B_blocks, perm_A, perm_B, k,
-                                 False, False)
+        return _sparse_fit_state(*_whole(A_blocks, B_blocks, sides),
+                                 perm_A, perm_B, k, False, False)
 
-    RB, CB = shard_bucketed(RB, mesh), shard_bucketed(CB, mesh)
+    RB, CB = shares
+    if sides:
+        side_B.remap_slots(RB)  # A's slots index B's rows
+        side_A.remap_slots(CB)
 
     try:
         for it in range(niter):
@@ -763,7 +844,7 @@ def fit_implicit_als(
                 method=method, max_cg_steps=max_cg_steps,
                 mxu_bf16=_bf16_rows(dev, method, tdt),
                 precondition=precondition_cg, nonneg=nonneg,
-                max_cd_steps=max_cd_steps, mesh=mesh)
+                max_cd_steps=max_cd_steps, mesh=mesh, ring=sides)
             if verbose:
                 _fence(dev)
                 print(f"iter {it + 1}/{niter} [{method}] "
@@ -783,21 +864,34 @@ def fit_implicit_als(
 def _implicit_sparse_iteration(
     A_blocks, B_blocks, RB, CB, perm_A, perm_B, lam_vec_A, lam_vec_B,
     l1_vec_A, l1_vec_B, w_main, alpha, *, m, n, method, max_cg_steps,
-    mxu_bf16, precondition, nonneg, max_cd_steps, mesh=None,
+    mxu_bf16, precondition, nonneg, max_cd_steps, mesh=None, ring=None,
 ):
     """One full WRMF iteration over bucketed data, B half-step then A
     (upstream cmfrec src/collective.c:9927 precedes :9981), with the
-    shared Gram base G0 = w * opp^T opp."""
+    shared Gram base G0 = w * opp^T opp (a sum over the ranks' shards
+    under ``ring``, the (A, B) RingSides of a big-axis fit)."""
     common = dict(w=w_main, alpha=alpha, method=method,
                   n_steps=max_cg_steps, mxu_bf16=mxu_bf16,
                   precondition=precondition, nonneg=nonneg,
-                  max_cd_steps=max_cd_steps, mesh=mesh)
-    A_orig = blocks_to_orig(A_blocks, perm_A)
-    B_blocks = update_side(SidePlan(CB, "implicit", m), B_blocks, A_orig,
-                           None, lam_vec_B, G0=w_main * gram_matrix(A_orig),
-                           l1_vec=l1_vec_B, **common)
-    B_orig = blocks_to_orig(B_blocks, perm_B)
-    A_blocks = update_side(SidePlan(RB, "implicit", n), A_blocks, B_orig,
-                           None, lam_vec_A, G0=w_main * gram_matrix(B_orig),
-                           l1_vec=l1_vec_A, **common)
+                  max_cd_steps=max_cd_steps)
+    if ring is None:
+        common["mesh"] = mesh
+    else:
+        common["ring_mesh"] = mesh
+    side_A, side_B = (None, None) if ring is None else ring
+
+    def opposing(blocks, perm, side):
+        return (blocks_to_orig(blocks, perm) if side is None
+                else side.shard(blocks))
+
+    A_orig = opposing(A_blocks, perm_A, side_A)
+    B_blocks = update_side(
+        SidePlan(CB, "implicit", m), B_blocks, A_orig, None, lam_vec_B,
+        G0=w_main * row_sum(gram_matrix, side_A, mesh, A_orig),
+        l1_vec=l1_vec_B, **common)
+    B_orig = opposing(B_blocks, perm_B, side_B)
+    A_blocks = update_side(
+        SidePlan(RB, "implicit", n), A_blocks, B_orig, None, lam_vec_A,
+        G0=w_main * row_sum(gram_matrix, side_B, mesh, B_orig),
+        l1_vec=l1_vec_A, **common)
     return A_blocks, B_blocks

@@ -66,8 +66,9 @@ class FitCheckpointer:
     """Per-fit helper: call ``maybe_save(it, state_fn)`` at the end of
     each iteration; ``state_fn`` is only invoked (and state only
     downloaded) when this iteration actually checkpoints.  Under a mesh
-    (parallel/mesh.py) every rank holds the whole state: rank 0 writes the
-    file and the others wait at a barrier until it is in place."""
+    (parallel/mesh.py) every rank calls ``state_fn`` (under the big-axis
+    ring it makes the state whole by collectives): rank 0 writes the file
+    and the others wait at a barrier until it is in place."""
 
     def __init__(self, path: Optional[str], every: int, niter: int,
                  mesh=None):
@@ -94,7 +95,7 @@ class FitCheckpointer:
         # the final iteration's state is the fit's own return value —
         # don't pay a redundant download for it
         if it_done % self.every == 0 and it_done < self.niter:
+            state = state_fn()
             if is_writer(self.mesh):
-                save_fit_checkpoint(self.path, state_fn(), it_done,
-                                    self.niter)
+                save_fit_checkpoint(self.path, state, it_done, self.niter)
             barrier(self.mesh)

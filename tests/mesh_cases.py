@@ -12,11 +12,15 @@ import it and run only the port.
 start method) that join one gloo group on a ``file://`` store,
 each running every named case with the group's mesh and saving its
 results; ``Group.results()`` joins them under a deadline, so a collective
-that hangs fails the test instead of the suite.
+that hangs fails the test instead of the suite.  ``cases`` names the
+module whose ``CASES`` the ranks play (tests/ring_cases.py for the ring).
+``Refs(batches, tmp, cases)`` computes cmfrec_tpu's results of the named
+cases in spawned processes, one a batch, beside the ranks.
 """
 
 from __future__ import annotations
 
+import importlib
 import multiprocessing
 import time
 import traceback
@@ -512,20 +516,21 @@ class Meshless(dict):
 # --------------------------------------------------------------------- #
 
 
-def _rank(rank, world, store, names, out_dir):
-    """One rank: join the gloo group, run ``names`` with its mesh, save
-    each case's arrays as ``<name>.<rank>.npz``."""
+def _rank(rank, world, store, names, out_dir, cases):
+    """One rank: join the gloo group, run ``names`` of module ``cases``
+    with its mesh, save each case's arrays as ``<name>.<rank>.npz``."""
     try:
         import torch
 
         torch.set_num_threads(RANK_THREADS)
         from cmfrec_torch.parallel.mesh import init_distributed
 
+        table = importlib.import_module(cases).CASES
         mesh = init_distributed(f"file://{store}", world, rank,
                                 device_type="cpu")
         for name in names:
             np.savez(Path(out_dir) / f"{name}.{rank}.npz",
-                     **CASES[name]("port", mesh))
+                     **table[name]("port", mesh))
         import torch.distributed as dist
 
         dist.destroy_process_group()
@@ -534,47 +539,97 @@ def _rank(rank, world, store, names, out_dir):
         raise SystemExit(1)
 
 
-class Group:
-    """A running group of ranks; ``results()`` waits for it."""
+def _refs(names, cases, out_dir):
+    """One process of ``Refs``: JAX configured as tests/conftest.py does,
+    each ``name`` (a case, or ``case:pkg``; pkg "jax" by default) of
+    module ``cases`` saved as ``<name>.ref.npz``."""
+    try:
+        import jax
 
-    def __init__(self, names, world, tmp):
-        tmp = Path(tmp)
-        self.names, self.world, self.out = list(names), world, tmp / "out"
+        jax.config.update("jax_platforms", "cpu")
+        jax.config.update("jax_num_cpu_devices", 8)
+        jax.config.update("jax_enable_x64", True)
+        table = importlib.import_module(cases).CASES
+        for name in names:
+            case, _, pkg = name.partition(":")
+            np.savez(Path(out_dir) / f"{name}.ref.npz",
+                     **table[case](pkg or "jax", None))
+    except BaseException:
+        traceback.print_exc()
+        raise SystemExit(1)
+
+
+class _Spawned:
+    """Processes started together and joined under JOIN_TIMEOUT."""
+
+    def __init__(self, tmp, targets):
+        self.out = Path(tmp) / "out"
         self.out.mkdir(parents=True, exist_ok=True)
         ctx = multiprocessing.get_context("spawn")
-        self.procs = [ctx.Process(target=_rank, args=(
-            r, world, str(tmp / "store"), self.names, str(self.out)))
-            for r in range(world)]
+        self.procs = [ctx.Process(target=fn, args=args)
+                      for fn, args in targets]
         self.t0 = time.monotonic()
         for p in self.procs:
             p.start()
         self._results = None
 
-    def results(self):
-        """{case: [each rank's dict of arrays]}; raises if a rank failed
-        or the group outlived JOIN_TIMEOUT."""
-        if self._results is None:
-            for p in self.procs:
-                p.join(max(0.0, JOIN_TIMEOUT - (time.monotonic() - self.t0)))
-            hung = [r for r, p in enumerate(self.procs) if p.is_alive()]
-            for p in self.procs:
-                if p.is_alive():
-                    p.kill()
-                    p.join()
-            if hung:
-                raise AssertionError(f"ranks {hung} of {self.world} did not "
-                                     f"finish within {JOIN_TIMEOUT} s")
-            codes = [p.exitcode for p in self.procs]
-            if any(codes):
-                raise AssertionError(f"rank exit codes {codes}")
-            self._results = {
-                name: [dict(np.load(self.out / f"{name}.{r}.npz"))
-                       for r in range(self.world)]
-                for name in self.names}
-        return self._results
+    def _join(self, what):
+        for p in self.procs:
+            p.join(max(0.0, JOIN_TIMEOUT - (time.monotonic() - self.t0)))
+        hung = [r for r, p in enumerate(self.procs) if p.is_alive()]
+        self.close()
+        if hung:
+            raise AssertionError(f"{what} {hung} of {len(self.procs)} did "
+                                 f"not finish within {JOIN_TIMEOUT} s")
+        codes = [p.exitcode for p in self.procs]
+        if any(codes):
+            raise AssertionError(f"{what} exit codes {codes}")
 
     def close(self):
         for p in self.procs:
             if p.is_alive():
                 p.kill()
                 p.join()
+
+
+class Group(_Spawned):
+    """A running group of ranks; ``results()`` waits for it."""
+
+    def __init__(self, names, world, tmp, cases=__name__):
+        tmp = Path(tmp)
+        self.names, self.world = list(names), world
+        super().__init__(tmp, [
+            (_rank, (r, world, str(tmp / "store"), self.names,
+                     str(tmp / "out"), cases)) for r in range(world)])
+
+    def results(self):
+        """{case: [each rank's dict of arrays]}; raises if a rank failed
+        or the group outlived JOIN_TIMEOUT."""
+        if self._results is None:
+            self._join("ranks")
+            self._results = {
+                name: [dict(np.load(self.out / f"{name}.{r}.npz"))
+                       for r in range(self.world)]
+                for name in self.names}
+        return self._results
+
+
+class Refs(_Spawned):
+    """cmfrec_tpu's results of the cases named in ``batches`` (lists of
+    ``case`` or ``case:pkg``), one spawned process a batch; ``results()``
+    waits for them."""
+
+    def __init__(self, batches, tmp, cases):
+        self.names = [name for batch in batches for name in batch]
+        super().__init__(tmp, [(_refs, (list(batch), cases,
+                                         str(Path(tmp) / "out")))
+                               for batch in batches])
+
+    def results(self):
+        """{name: dict of arrays}; raises if a process failed or outlived
+        JOIN_TIMEOUT."""
+        if self._results is None:
+            self._join("reference processes")
+            self._results = {name: dict(np.load(self.out / f"{name}.ref.npz"))
+                             for name in self.names}
+        return self._results

@@ -315,13 +315,15 @@ def _plain_matches_cmfrec_tpu(call, X, mp):
         id="<lambda>-slice 1 item 1_1"),
     # the two cases of ROADMAP slice 7 keep their ids: since slice 7a a mesh=
     # fits data-parallel (tests/test_torch_mesh*.py), so a mesh= that is no
-    # DeviceMesh raises a TypeError; the ring (slice 7b) still raises
+    # DeviceMesh raises a TypeError; since slice 7b the ring fits
+    # (tests/test_torch_ring.py) and without a mesh raises the JAX
+    # package's message
     pytest.param(lambda X: drivers.fit_explicit_als(
         *_TRIPLETS, mesh=object(), device="cpu"), NOT_A_MESH,
         id="<lambda>-slice 7_0"),
     pytest.param(lambda X: drivers.fit_explicit_als(
-        *_TRIPLETS, shard_opposing_rows=True, device="cpu"), "slice 7",
-        id="<lambda>-slice 7_1"),
+        *_TRIPLETS, shard_opposing_rows=True, device="cpu"),
+        "requires mesh=", id="<lambda>-slice 7_1"),
     (lambda X: drivers.fit_explicit_als(*_TRIPLETS, engine="sparse",
                                         device="cpu"), BUCKETED),
     (lambda X: _fit_beyond_the_device_budget(), BUCKETED),

@@ -134,16 +134,24 @@ def test_mesh_device_and_size_checks(world_of_one):
 
 
 def test_the_ring_raises_naming_slice_7b(world_of_one):
+    """Since slice 7b the ring fits (tests/test_torch_ring.py): its gates
+    raise the JAX package's messages, and shard_opposing(shard_rows=True)
+    returns this rank's share of the rows, zero rows appended to a
+    multiple of the world size (the whole at a world of one)."""
     rows, cols, vals, m, n = problem()
-    with pytest.raises(ValueError, match="slice 7b"):
+    with pytest.raises(ValueError, match="use_cg=False"):
         drivers.fit_explicit_als(rows, cols, vals, m, n, k=2,
                                  mesh=world_of_one, shard_opposing_rows=True,
                                  device="cpu")
-    with pytest.raises(ValueError, match="slice 7b"):
-        pmesh.shard_opposing(torch.zeros(4, 2), world_of_one,
-                             shard_rows=True)
-    opp = torch.ones(4, 2)
+    with pytest.raises(ValueError, match="requires mesh="):
+        drivers.fit_explicit_als(rows, cols, vals, m, n, k=2, use_cg=False,
+                                 shard_opposing_rows=True, device="cpu")
+    opp = torch.arange(10.0).reshape(5, 2)
+    share = pmesh.shard_opposing(opp, world_of_one, shard_rows=True)
+    assert share is not opp
+    torch.testing.assert_close(share, opp, rtol=0, atol=0)
     assert pmesh.shard_opposing(opp, world_of_one) is opp
+    assert pmesh.shard_opposing(opp, None, shard_rows=True) is opp
 
 
 def test_checkpoint_under_a_mesh(world_of_one, tmp_path):
