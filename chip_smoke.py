@@ -221,11 +221,24 @@ Cholesky and CD only, no kernel of its own but the CD kernel):
      a machine with two cards or more: 32(a) and a 2,000,000 x 1,000,000
      fit of 8,000,000 ratings (k = 32) on 2-rank NCCL groups (and 4-rank
      ones on four cards) through the ring and through slice 7a's mesh=:
-     each rank's memory at rest and at its peak and its ms a half-step
-     (32(a) beside the meshless one card's), the ring's RMSE within 1e-4
-     and arrays within 1e-2 of their max of 32(a)'s repeat and of 7a's
-     big fit, whether they equal 7a's bit for bit; on one card a line says
-     it was not run (alone: scripts/mesh_two_cards_torch.py --ring).
+     each rank's memory at rest and at its peak (the set-up's beside the
+     iterations') and its ms a half-step (32(a) beside the meshless one
+     card's), the ring's RMSE within 1e-4 and arrays within 1e-2 of their
+     max of 32(a)'s repeat and of 7a's big fit, whether they equal 7a's
+     bit for bit, 32(a)'s set-up peak a rank beside the 1.005 GiB of every
+     rank building the whole layout; then 32(a) through the ring on 2
+     ranks with each process's device memory capped between its peak and
+     that 1.005 GiB (scripts/ring_capped_torch.py), which must complete
+     bitwise equal to the uncapped run; on one card a line says it was
+     not run (alone: scripts/mesh_two_cards_torch.py --ring).
+
+Profiling (cmfrec_torch/utils/profiling.py):
+ 33. phase 8's bucketed fit and phase 4's flagship at 2 iterations, each
+     under CMFREC_TORCH_PROFILE=<a directory under build/>: one
+     torch.profiler trace each, whose kernel events name bucket_cg_kernel
+     (8) and gram_bf16_wgmma_kernel and rhs_bf16_wgmma_kernel (4), with
+     their device ms; launches as expected (K3 = the buckets of both
+     sides; K1/K2 42/4).
 
 Each fit phase, and phase 9's sweep, sets every kernel's launch count to 0
 just before it and reads the counts just after; phases 10-16 print each
@@ -238,6 +251,7 @@ device, or a directory without the package.
 
 import contextlib
 import json
+import pathlib
 import re
 import subprocess
 import sys
@@ -3857,7 +3871,8 @@ def _rank_32b(rank, world, address, out, ring):
         st = dict(seconds=time.perf_counter() - t0,
                   iterations=np.asarray(timer.its),
                   rest=np.asarray(timer.rest),
-                  peak=max(timer.setup_peak, peak_iter), peak_iter=peak_iter)
+                  peak=max(timer.setup_peak, peak_iter),
+                  setup_peak=timer.setup_peak, peak_iter=peak_iter)
         if rank == 0:
             rt, ct = (torch.as_tensor(a, device="cuda") for a in (pr, pc))
             st.update(pred=(res["glob_mean"] + res["biasA"][rt]
@@ -3878,8 +3893,10 @@ def two_card_ring_phase(ref):
     half-step (its iterations' median past the first, synchronized).
     32(a)'s ring is held to 32(a)'s meshless repeat (``ref``), RING_BIG's
     to 7a's fit at the same world: the RMSE within MESH2_RMSE_TOL and
-    every array within MESH2_REL_TOL of its max|.|.  Printed and skipped
-    on one card."""
+    every array within MESH2_REL_TOL of its max|.|.  Each rank's set-up
+    peak is printed beside its iterations' and beside
+    WHOLE_BUILD_SETUP_PEAK; after the last world the capped run on 2
+    ranks (:func:`_capped_ring`).  Printed and skipped on one card."""
     import torch
 
     from cmfrec_torch.ops import _cuda
@@ -3915,8 +3932,9 @@ def two_card_ring_phase(ref):
                 its = 1e3 * st["iterations"] / 2
                 lines.append(
                     f"rank {r}: at rest {st['rest'][1:].max() / 2**30:.3f} "
-                    f"GiB, peak {st['peak'] / 2**30:.3f} GiB (the "
-                    f"iterations' {st['peak_iter'] / 2**30:.3f}), "
+                    f"GiB, peak {st['peak'] / 2**30:.3f} GiB (set-up "
+                    f"{st['setup_peak'] / 2**30:.3f}, the iterations' "
+                    f"{st['peak_iter'] / 2**30:.3f}), "
                     f"{np.median(its[1:]):.1f} ms a half-step (the first "
                     f"iteration's {its[0]:.1f}), fit {st['seconds']:.2f} s")
             return "; ".join(lines)
@@ -3956,6 +3974,11 @@ def two_card_ring_phase(ref):
               f"array {rel_big} (limit {MESH2_REL_TOL:.0e}); "
               f"{'bitwise equal' if same['big'] else 'not bitwise'}",
               flush=True)
+        print(f"phase 32b(a) set-up peak a rank, {head}: ring "
+              f"{_peaks(runs['ring'], 'a')}, 7a's mesh= "
+              f"{_peaks(runs['mesh'], 'a')} GiB (each rank building the "
+              f"whole layout: {WHOLE_BUILD_SETUP_PEAK / 2**30:.3f})",
+              flush=True)
         if (max(rel.values()) > MESH2_REL_TOL
                 or abs(rmse - ref["quality"]) > MESH2_RMSE_TOL
                 or max(rel_big.values()) > MESH2_REL_TOL
@@ -3963,6 +3986,47 @@ def two_card_ring_phase(ref):
                 or not np.isfinite(rmse_big)):
             raise AssertionError(f"phase 32b: the {world}-rank ring fit is "
                                  f"off its reference")
+        if world == 2:
+            capped = (runs["ring"], of("ring", "a"), head)
+    _capped_ring(*capped)
+
+
+def _peaks(ranks, case):
+    """Each rank's set-up peak of ``case`` in GiB, comma-separated."""
+    return ", ".join(f"{st[case + '_setup_peak'] / 2**30:.3f}"
+                     for st in ranks)
+
+
+def _capped_ring(ranks, uncapped, head):
+    """32b's capped run: 32(a) through the ring on 2 ranks again, each
+    process's device memory capped midway between the uncapped run's peak
+    (``ranks``, each rank's readings) and WHOLE_BUILD_SETUP_PEAK, the
+    set-up that building the whole layout on every rank took: it must
+    complete with rank 0's arrays bitwise equal to the uncapped run's
+    (``uncapped``)."""
+    from cmfrec_torch.ops import _cuda
+    from scripts.ring_capped_torch import capped_run, describe
+
+    peak = max(float(st["a_peak"]) for st in ranks)
+    cap = (peak + WHOLE_BUILD_SETUP_PEAK) / 2
+    if cap <= peak * 1.02:
+        raise AssertionError(f"phase 32b capped: the uncapped peak "
+                             f"{peak / 2**30:.3f} GiB leaves no cap below "
+                             f"{WHOLE_BUILD_SETUP_PEAK / 2**30:.3f}")
+    records, wall = capped_run(cap, _cuda.BUILD_DIR / "phase32b_capped")
+    done = all(str(st["outcome"]) == "completed" for st in records)
+    same = done and all(np.array_equal(records[0][key], uncapped[key])
+                        for key in ("A", "B", "biasA", "biasB"))
+    print(f"phase 32b(a) capped ring {head}: each process capped at "
+          f"{cap / 2**30:.3f} GiB (torch.cuda.set_per_process_memory_"
+          f"fraction; the uncapped peak {peak / 2**30:.3f}, the whole "
+          f"build's set-up {WHOLE_BUILD_SETUP_PEAK / 2**30:.3f}), "
+          f"{wall:.1f} s: {describe(records)}; rank 0's arrays "
+          f"{'bitwise equal to' if same else 'not equal to'} the uncapped "
+          f"run's", flush=True)
+    if not same:
+        raise AssertionError("phase 32b capped: the capped ring fit did not "
+                             "complete bitwise equal to the uncapped one")
 
 
 def _lbfgs_start_reading(tr_r, tr_c, tr_v, lambda_, mesh):
@@ -4143,6 +4207,12 @@ RING2_WORLDS = (2, 4)
 # 7a's mesh= at the same world (the RMSE on the first RING_BIG_SAMPLE
 # ratings), what a rank holds at rest and at its peak printed
 RING_BIG = (2_000_000, 1_000_000, 8_000_000)
+# 32(a)'s set-up peak a rank when every mesh rank built the whole bucketed
+# layout and cut its share (at 2 and at 4 ranks, NVIDIA H100 80GB HBM3,
+# 700 W: this phase on the tree before the share build).  32b's capped run
+# puts each 2-rank ring process's device memory cap midway between the
+# uncapped run's peak (set-up and iterations) and this
+WHOLE_BUILD_SETUP_PEAK = 1.005 * 2**30
 RING_BIG_FIT = dict(RING_FIT, k=32, niter=3)
 RING_BIG_SAMPLE = 200_000
 
@@ -4375,6 +4445,80 @@ def ring_phases(ops, rows, cols, vals, test, lastfm, mesh):
         del out, spy, cds
         torch.cuda.empty_cache()
     return paths, cd_records, ref_a
+
+
+# phase 33: CMFREC_TORCH_PROFILE=<dir> (utils/profiling.py) around phase 8's
+# bucketed fit and phase 4's flagship at PROFILE_NITER iterations: each
+# writes one torch.profiler trace, whose kernel events must name the port's
+# own CUDA kernels on its path (csrc/sparse_cg.cu, csrc/masked_matmul.cu)
+PROFILE_NITER = 2
+PROFILE_KERNELS = {"8": ("bucket_cg_kernel",),
+                   "4": ("gram_bf16_wgmma_kernel", "rhs_bf16_wgmma_kernel")}
+
+
+def profile_phase(ops, rows, cols, vals, test):
+    """Phase 33: phases 8 and 4 at PROFILE_NITER iterations under
+    CMFREC_TORCH_PROFILE, each into a directory of its own under build/:
+    seconds, the trace file and its size, its kernel events, the device
+    time of the named kernels, and launches against the expected.  Returns
+    the launch counts by path."""
+    import os
+    import tempfile
+
+    import cmfrec_torch
+    from cmfrec_torch.ops import _cuda
+    from cmfrec_torch.solvers import drivers
+    from cmfrec_torch.utils.profiling import PROFILE_ENV
+
+    tr = ~test
+    fit = dict(FIT, niter=PROFILE_NITER)
+    fits = {
+        "8": (lambda: drivers.fit_explicit_als(
+            rows[tr], cols[tr], vals[tr], M, N, engine="sparse",
+            device="cuda", **fit),
+            dict(NO_LAUNCHES, bucket_cg=(PROFILE_NITER - 1) * (
+                n_chunks(rows[tr], M) + n_chunks(cols[tr], N)))),
+        "4": (lambda: cmfrec_torch.CMF(**fit, device="cuda").fit_triplets(
+            rows[tr], cols[tr], vals[tr], M, N),
+            dense_launches(PROFILE_NITER)),
+    }
+    paths = {}
+    _cuda.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=_cuda.BUILD_DIR) as tmp:
+        for ph, (fn, want) in fits.items():
+            logdir = pathlib.Path(tmp) / ph
+            os.environ[PROFILE_ENV] = str(logdir)
+            try:
+                _, launches, s, _ = _fit_phase(ops, fn)
+            finally:
+                del os.environ[PROFILE_ENV]
+            files = sorted(logdir.glob("*.pt.trace.json"))
+            kernels = {}
+            for f in files:
+                for e in json.loads(f.read_text())["traceEvents"]:
+                    if e.get("cat") == "kernel":
+                        kernels[e["name"]] = (kernels.get(e["name"], 0.0)
+                                              + float(e.get("dur", 0.0)))
+            found = {k: sum(us for name, us in kernels.items() if k in name)
+                     for k in PROFILE_KERNELS[ph]}
+            named = {k: sum(1 for name in kernels if k in name)
+                     for k in PROFILE_KERNELS[ph]}
+            mib = sum(f.stat().st_size for f in files) / 2**20
+            print(f"phase 33({ph}) phase {ph} at {PROFILE_NITER} iterations "
+                  f"under {PROFILE_ENV}: {s:.3f} s, {len(files)} trace "
+                  f"file(s), {mib:.1f} MiB, {len(kernels)} distinct "
+                  f"kernels; device ms of the "
+                  f"port's by name " + ", ".join(
+                      f"{k} {us / 1e3:.3f} ({named[k]} variant(s))"
+                      for k, us in found.items())
+                  + f"; launches {launches} (expected {want})", flush=True)
+            if (len(files) != 1 or launches != want
+                    or not all(named.values())):
+                raise AssertionError(f"phase 33({ph}): no trace, or it does "
+                                     f"not name {PROFILE_KERNELS[ph]}, or "
+                                     f"the launches are off")
+            paths[f"33({ph})"] = launches
+    return paths
 
 
 def main():
@@ -4641,6 +4785,10 @@ def main():
 
     dist.destroy_process_group()
     torch.cuda.empty_cache()
+
+    # 33. the fits traced under CMFREC_TORCH_PROFILE
+    paths.update(profile_phase(ops, rows, cols, vals, test))
+
     two_card_phase(refs["4"])
     two_card_ring_phase(ring_ref)
 

@@ -161,6 +161,17 @@ def plan_layout(counts: np.ndarray, row_order: np.ndarray, n_rows: int,
     return chunks, perm, row_of, pos
 
 
+def row_owners(bucketed: BucketedRows, world: int) -> np.ndarray:
+    """[n_rows] the rank that holds each original row when every bucket's
+    rows are cut into ``world`` equal contiguous shares
+    (parallel/mesh.py:row_share); reads the plan alone."""
+    at = np.zeros(bucketed.n_rows_pad, np.int64)
+    for b in bucketed.buckets:
+        at[b.start:b.start + b.n_rows] = (np.arange(b.n_rows)
+                                          // (b.n_rows // world))
+    return at[bucketed.perm]
+
+
 def dense_to_coo(X: np.ndarray, weights: Optional[np.ndarray] = None):
     """Dense matrix with NaN-coded missing entries -> COO triplets
     (the reference's dense X with NAN holes, upstream cmfrec

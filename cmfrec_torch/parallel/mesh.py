@@ -10,10 +10,13 @@ cards and gloo between CPU processes:
     host plan: bucket layout, permutations, padding, and the starting
     factors, drawn whole from the seed and then sliced, so that the start
     does not depend on the world size;
-  * each rank keeps and solves its own share of the rows of every
-    row-sharded array (the bucketed layouts, the dense forms, the side
-    information's slices): equal contiguous shares of each bucket's rows,
-    or of the dense form's padded rows (:func:`row_share`);
+  * each rank builds, keeps and solves only its own share of the rows of
+    every row-sharded array (the bucketed layouts, the dense forms, the
+    side information's slices): equal contiguous shares of each bucket's
+    rows, or of the dense form's padded rows (:func:`row_share`).  It
+    uploads only the entries of those rows and fills only its slices
+    (data/device_fill.py:build_bucketed_pair_share, solvers/
+    dense_masked.py), so that no rank's card holds the whole data;
   * after each half-step :func:`gather_rows` (one all-gather) makes the
     newly solved factors whole on every rank: the all-gather XLA inserts
     for the replicated opposing matrix.  Gram bases (B^T B, C^T C and the
@@ -243,16 +246,12 @@ def is_writer(mesh) -> bool:
     return world_rank(mesh)[1] == 0
 
 
-def shard_bucketed(bucketed, mesh):
-    """This rank's share of a BucketedRows: every bucket's rows cut to its
-    contiguous slice, ``start`` and ``n_real`` moved with it; ``perm``,
-    ``row_of`` and ``counts`` stay the whole layout's.  Each bucket's row
-    count divides over the mesh (:func:`mesh_row_block`).  The whole
-    layout keeps its plan (what init_blocks and the warm start read) and
-    gives up its tensors, so that a rank holds only its rows.  The bucketed
-    layout itself without a mesh (cmfrec_tpu/parallel/mesh.py:60-62)."""
-    if mesh is None:
-        return bucketed
+def share_plan(bucketed, mesh):
+    """This rank's share of a BucketedRows' plan: every bucket cut to its
+    contiguous slice of rows (:func:`row_share`), ``start`` and ``n_real``
+    moved with it, its tensors None; ``perm``, ``row_of`` and ``counts``
+    stay the whole layout's.  Each bucket's row count divides over the
+    mesh (:func:`mesh_row_block`)."""
     from ..data.shards import Bucket, BucketedRows
 
     out = BucketedRows(n_rows=bucketed.n_rows, n_cols=bucketed.n_cols,
@@ -261,32 +260,31 @@ def shard_bucketed(bucketed, mesh):
                        row_block=bucketed.row_block)
     for b in bucketed.buckets:
         sl = row_share(b.n_rows, mesh)
-
-        def cut(t):
-            return None if t is None else t[sl].clone()
-
         out.buckets.append(Bucket(
             start=b.start + sl.start, n_rows=sl.stop - sl.start,
             n_real=int(np.clip(b.n_real - sl.start, 0, sl.stop - sl.start)),
-            width=b.width, idx=cut(b.idx), val=cut(b.val),
-            length=cut(b.length), wgt=cut(b.wgt)))
-        b.idx = b.val = b.length = b.wgt = None
+            width=b.width, idx=None, val=None, length=None))
     return out
 
 
-def shard_blocks(blocks, bucketed_share, mesh):
-    """This rank's rows of per-bucket tensors laid out like the whole
-    bucketing of ``bucketed_share`` (the aligned parts, the dense slices):
-    each cut to its bucket's share (cmfrec_tpu/parallel/mesh.py:65-67).
-    ``blocks`` itself without a mesh."""
+def shard_bucketed(bucketed, mesh):
+    """The cut of a whole BucketedRows to this rank's share
+    (:func:`share_plan` with each bucket's tensors cut to its rows); the
+    whole layout gives up its tensors (cmfrec_tpu/parallel/mesh.py:60-62).
+    The fits never build a whole layout under a mesh: each rank builds its
+    share from its entries alone (data/device_fill.py:
+    build_bucketed_pair_share), which equals this cut bit for bit.  This
+    cut serves callers that hold a whole layout (a half-step alone, the
+    share build's tests).  The bucketed layout itself without a mesh."""
     if mesh is None:
-        return blocks
-    _, rank = world_rank(mesh)
-    out = []
-    for b, blk in zip(bucketed_share.buckets, blocks):
-        sl = slice(rank * b.n_rows, (rank + 1) * b.n_rows)
-        out.append(tuple(t[sl].clone() for t in blk)
-                   if isinstance(blk, tuple) else blk[sl].clone())
+        return bucketed
+    out = share_plan(bucketed, mesh)
+    for b, c in zip(bucketed.buckets, out.buckets):
+        sl = slice(c.start - b.start, c.start - b.start + c.n_rows)
+        c.idx, c.val, c.length, c.wgt = (
+            None if t is None else t[sl].clone()
+            for t in (b.idx, b.val, b.length, b.wgt))
+        b.idx = b.val = b.length = b.wgt = None
     return out
 
 

@@ -3,7 +3,7 @@
 
 Under ``shard_opposing_rows=True`` no rank holds an opposing factor matrix
 whole.  Each rank keeps the rows it solved, its share of every bucket
-(parallel/mesh.py:shard_bucketed), concatenated bucket by bucket: the
+(parallel/mesh.py:row_share), concatenated bucket by bucket: the
 rank's **shard**, S/D rows of the S a side has over D ranks.  The shards in
 rank order are the side's **ring order** (:class:`RingSide`); the bucket
 slots that index a side are rewritten into it once a fit, so a half-step
@@ -51,9 +51,7 @@ Constraints and cost:
     included;
   * a rank draws its start one seeded block at a time and keeps its rows
     of each (:meth:`RingSide.keep`): the start is the meshless one and no
-    factor matrix is whole on a rank before the end of the fit.  The
-    bucketed layouts of the data are still built whole on every rank and
-    then cut (parallel/mesh.py:shard_bucketed).
+    factor matrix is whole on a rank before the end of the fit.
 """
 
 from __future__ import annotations
@@ -220,7 +218,8 @@ def ring_part_system(shard: torch.Tensor, slots: ShardSlots,
 
 class RingSide:
     """One side's rows in ring order over ``mesh``: rank r's shard is its
-    share of every bucket of ``bucketed`` (the whole layout), concatenated
+    share of every bucket of ``bucketed`` (a plan: its buckets' start and
+    rows, ``perm`` and ``row_of``; no tensor is read), concatenated
     bucket by bucket, and the shards follow each other in rank order.  At a
     world of one it is the bucketed layout's own concatenation (the JAX
     package's concat order, cmfrec_tpu/solvers/drivers.py:562-589)."""

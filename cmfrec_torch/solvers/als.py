@@ -25,9 +25,10 @@ do buckets whose K is past what K3's shared memory holds on the card
 (:func:`takes_k3`).
 
 Under a mesh (parallel/mesh.py) the layout a half-step gets is this
-rank's share of every bucket's rows (parallel/mesh.py:shard_bucketed): the
-rank solves its rows of each bucket against the whole opposing matrix and
-one all-gather makes the blocks whole again.  Under the big-axis ring
+rank's share of every bucket's rows, built from its entries alone
+(data/device_fill.py:build_bucketed_pair_share): the rank solves its rows
+of each bucket against the whole opposing matrix and one all-gather makes
+the blocks whole again.  Under the big-axis ring
 (``ring_mesh``, parallel/ring.py) the rank's blocks stay its own and the
 opposing matrices are its shards of them: each part of
 RING_MIN_ROWS x D rows or more is assembled by rotating the shards, a
@@ -376,12 +377,12 @@ def update_side(
     ``l1_vec`` every bucket is solved by coordinate descent, whatever
     ``method`` says, as in the JAX package.  Under ``mesh`` the plan's
     buckets, ``r0_blocks`` and ``extra_parts`` hold this rank's rows
-    (parallel/mesh.py:shard_bucketed) and ``blocks`` are whole: the rank
-    solves its rows and the returned blocks are whole again (one
-    all-gather).  Under ``ring_mesh`` the blocks, ``opp``, ``opp_bias`` and
-    the extra parts' matrices and biases are this rank's shards in ring
-    order, and the returned blocks this rank's, with no gather
-    (parallel/ring.py)."""
+    (data/device_fill.py:build_bucketed_pair_share) and ``blocks`` are
+    whole: the rank solves its rows and the returned blocks are whole
+    again (one all-gather).  Under ``ring_mesh`` the blocks, ``opp``,
+    ``opp_bias`` and the extra parts' matrices and biases are this rank's
+    shards in ring order, and the returned blocks this rank's, with no
+    gather (parallel/ring.py)."""
     if ring_mesh is None:
         blocks = local_blocks(blocks, plan.bucketed, mesh)
         ring, operand = None, None

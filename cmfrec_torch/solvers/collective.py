@@ -71,12 +71,13 @@ import torch
 
 from ..config import (resolve_device, resolve_dtype, should_handle_interrupt,
                       torch_dtype)
-from ..data.device_fill import build_bucketed_pair, build_bucketed_rows
+from ..data.device_fill import (build_bucketed_pair_share,
+                                build_bucketed_rows_share)
 from ..data.shards import BucketedRows
-from ..parallel.mesh import (gather_blocks, mesh_row_block, shard_blocks,
-                             shard_bucketed, world_rank)
+from ..parallel.mesh import gather_blocks, row_share, world_rank
 from ..parallel.ring import RingSide, row_sum
 from ..utils.checkpoint import FitCheckpointer
+from ..utils.profiling import profiled_fit
 from ..ops import coord_descent
 from . import drivers, preprocess
 from .als import (
@@ -155,12 +156,15 @@ def _sparsify_short_dense_side(side, xdim):
 
 
 def build_aligned_parts(bucketed: BucketedRows, rows_s, cols_s, vals_s,
-                        n_ent: int, dev, dtype=np.float32):
+                        n_ent: int, dev, dtype=np.float32, mesh=None):
     """Pad a second sparse matrix's rows in the exact row order of an
     existing bucketing (so the X part and the side part of one row system
     sit in the same batch slot): per bucket (idx [R, L] int32, val [R, L]
     of ``dtype``, length [R] int32) on ``dev``, L the bucket's longest side
-    row rounded up to 8.  The sort and scatter run on the host."""
+    row rounded up to 8.  The sort and scatter run on the host.  Under
+    ``mesh`` only this rank's share of each bucket's rows
+    (parallel/mesh.py:row_share) is built and uploaded, L still the whole
+    bucket's."""
     rows_s = np.asarray(rows_s, np.int64)
     order = np.argsort(rows_s, kind="stable")
     sc = np.asarray(cols_s, np.int64)[order]
@@ -172,18 +176,20 @@ def build_aligned_parts(bucketed: BucketedRows, rows_s, cols_s, vals_s,
     out = []
     for b in bucketed.buckets:
         ids = bucketed.row_of[b.start:b.start + b.n_rows]  # -1 on padding
-        valid = ids >= 0
-        ns = np.where(valid, counts[np.maximum(ids, 0)], 0)
+        ns = np.where(ids >= 0, counts[np.maximum(ids, 0)], 0)
         L = _round_up(max(int(ns.max()), 1), 8)
-        idx = np.zeros((b.n_rows, L), np.int32)
-        val = np.zeros((b.n_rows, L), dtype)
+        sl = row_share(b.n_rows, mesh)
+        ids, ns = ids[sl], ns[sl]
+        R = sl.stop - sl.start
+        idx = np.zeros((R, L), np.int32)
+        val = np.zeros((R, L), dtype)
         total = int(ns.sum())
         if total:
-            starts = np.where(valid, indptr[np.maximum(ids, 0)], 0)
+            starts = np.where(ids >= 0, indptr[np.maximum(ids, 0)], 0)
             seg_off = np.repeat(np.cumsum(ns) - ns, ns)
             within = np.arange(total, dtype=np.int64) - seg_off
             src = np.repeat(starts, ns) + within
-            dest_r = np.repeat(np.arange(b.n_rows, dtype=np.int64), ns)
+            dest_r = np.repeat(np.arange(R, dtype=np.int64), ns)
             idx[dest_r, within] = sc[src]
             val[dest_r, within] = sv[src]
         out.append(tuple(torch.as_tensor(a, device=dev)
@@ -191,13 +197,15 @@ def build_aligned_parts(bucketed: BucketedRows, rows_s, cols_s, vals_s,
     return out
 
 
-def _bucket_dense_slices(bucketed: BucketedRows, M: np.ndarray, dev):
+def _bucket_dense_slices(bucketed: BucketedRows, M: np.ndarray, dev,
+                         mesh=None):
     """Per-bucket dense row slices of M in its dtype (rows beyond M ->
-    zeros)."""
+    zeros): under ``mesh`` this rank's share of each bucket's rows."""
     out = []
     for b in bucketed.buckets:
-        ids = bucketed.row_of[b.start:b.start + b.n_rows]
-        sl = np.zeros((b.n_rows, M.shape[1]), M.dtype)
+        share = row_share(b.n_rows, mesh)
+        ids = bucketed.row_of[b.start + share.start:b.start + share.stop]
+        sl = np.zeros((ids.size, M.shape[1]), M.dtype)
         ok = (ids >= 0) & (ids < M.shape[0])
         sl[ok] = M[ids[ok]]
         out.append(torch.as_tensor(sl, device=dev))
@@ -274,20 +282,23 @@ def _dense_route(U, I, m, n, *, k_user, k_item, k_main, w_main, na0,
 
 
 def _side_layout(S: Optional[PreparedSide], main: BucketedRows, dev, dtype,
-                 row_block):
+                 mesh):
     """The bucketed route's structures of one side matrix, in the fit's
-    ``dtype``: its feature bucketing (rows = features, for the C/D update),
-    its parts aligned to the main bucketing, its dense slices, and
-    (NA-as-zero with centering) the column means of the feature buckets'
-    rows.  ``row_block`` pads the feature buckets' rows (a mesh's)."""
+    ``dtype``: (the feature bucketing's plan, (its share, the parts aligned
+    to the main bucketing ``main`` (a plan), the dense slices, and under
+    NA-as-zero with centering the column means of the feature buckets'
+    rows)), all of this rank's rows under ``mesh`` (whose row block pads
+    the feature buckets), built from them alone."""
     if S is None:
-        return None, None, None, None
+        return None, (None, None, None, None)
     if S.dense is not None:
-        return None, None, _bucket_dense_slices(main, S.dense, dev), None
+        return None, (None, None,
+                      _bucket_dense_slices(main, S.dense, dev, mesh), None)
     r_s, c_s, v_s = S.coo
-    feat_b = build_bucketed_rows(c_s, r_s, v_s, S.p, S.n_ent, device=dev,
-                                 dtype=dtype, row_block=row_block)
-    aligned = build_aligned_parts(main, r_s, c_s, v_s, S.n_ent, dev, dtype)
+    feat_plan, feat_b = build_bucketed_rows_share(
+        c_s, r_s, v_s, S.p, S.n_ent, device=dev, dtype=dtype, mesh=mesh)
+    aligned = build_aligned_parts(main, r_s, c_s, v_s, S.n_ent, dev, dtype,
+                                  mesh)
     mean_slices = None
     if S.na0 and S.colmeans is not None:
         mean_slices = []
@@ -297,21 +308,7 @@ def _side_layout(S: Optional[PreparedSide], main: BucketedRows, dev, dtype,
             ok = ids >= 0
             ms[ok] = S.colmeans[ids[ok]]
             mean_slices.append(torch.as_tensor(ms, device=dev))
-    return feat_b, aligned, None, mean_slices
-
-
-def _shard_layout(lay, main, mesh):
-    """This rank's rows of a _side_layout: the feature bucketing's share,
-    the aligned parts and dense slices cut like ``main`` (this rank's share
-    of the main bucketing), the mean slices like the feature buckets."""
-    if mesh is None:
-        return lay
-    feat_b, aligned, dense, means = lay
-    fb = None if feat_b is None else shard_bucketed(feat_b, mesh)
-    return (fb,
-            None if aligned is None else shard_blocks(aligned, main, mesh),
-            None if dense is None else shard_blocks(dense, main, mesh),
-            None if means is None else shard_blocks(means, fb, mesh))
+    return feat_plan, (feat_b, aligned, None, mean_slices)
 
 
 def _side_init(S, featb, kx, kx_pad, gen, init_M, dev, tdt, side=None,
@@ -466,19 +463,19 @@ class _Sides(NamedTuple):
 
 
 def _sides(U, I, RB, CB, m, n, m_eff, n_eff, widths, seed, init, dev,
-           dtype, mesh=None, shares=None, ring=None):
+           dtype, mesh=None, ring=None):
     """The _Sides of a bucketed fit in the fit's ``dtype``; ``widths`` is
     (kc, kc_pad, kd, kd_pad).  C and D start from their own generator
-    (seed + 1).  Under ``mesh``, ``shares`` are this rank's shares of RB
-    and CB, and the layouts are cut to them.  Under ``ring`` (the big-axis
-    ring: A's and B's RingSides) every slot that indexes a sharded matrix
-    is rewritten into its ring order, C and D of sparse side info start as
-    this rank's blocks, and the masks are this rank's rows in ring
-    order."""
+    (seed + 1).  RB and CB are the main bucketings' plans; under ``mesh``
+    each rank builds only its rows of the side layouts.  Under ``ring``
+    (the big-axis ring: A's and B's RingSides) every slot that indexes a
+    sharded matrix is rewritten into its ring order, C and D of sparse
+    side info start as this rank's blocks, and the masks are this rank's
+    rows in ring order."""
     kc, kc_pad, kd, kd_pad = widths
     tdt = torch_dtype(dtype)
-    U_lay = _side_layout(U, RB, dev, dtype, mesh_row_block(mesh))
-    I_lay = _side_layout(I, CB, dev, dtype, mesh_row_block(mesh))
+    plan_U, U_lay = _side_layout(U, RB, dev, dtype, mesh)
+    plan_I, I_lay = _side_layout(I, CB, dev, dtype, mesh)
     gen2 = torch.Generator(device=dev)
     gen2.manual_seed(int(seed) + 1)
 
@@ -489,18 +486,14 @@ def _sides(U, I, RB, CB, m, n, m_eff, n_eff, widths, seed, init, dev,
     rings = (None,) * 4
     if ring:
         rings = tuple(ring) + tuple(
-            None if lay is None else RingSide(lay, mesh, dev, tdt)
-            for lay in (U_lay[0], I_lay[0]))
-    whole = (U_lay[0], I_lay[0])
-    if mesh is not None:
-        U_lay = _shard_layout(U_lay, shares[0], mesh)
-        I_lay = _shard_layout(I_lay, shares[1], mesh)
+            None if plan is None else RingSide(plan, mesh, dev, tdt)
+            for plan in (plan_U, plan_I))
     C0 = D0 = (None, None)
     if U is not None:
-        C0 = _side_init(U, whole[0], kc, kc_pad, gen2, init.get("C"), dev,
+        C0 = _side_init(U, plan_U, kc, kc_pad, gen2, init.get("C"), dev,
                         tdt, rings[2], U_lay[0])
     if I is not None:
-        D0 = _side_init(I, whole[1], kd, kd_pad, gen2, init.get("D"), dev,
+        D0 = _side_init(I, plan_I, kd, kd_pad, gen2, init.get("D"), dev,
                         tdt, rings[3], I_lay[0])
     if not ring:
         return _Sides(
@@ -578,6 +571,7 @@ def _opposing(F_orig, k_from, k_to, width, k_pad, ones_col, xmask,
 # --------------------------------------------------------------------- #
 
 
+@profiled_fit
 def fit_collective_explicit_als(
     rows, cols, vals, m, n, *,
     side_U=None, side_I=None,
@@ -704,10 +698,9 @@ def _fit_collective_explicit_bucketed(
             rows, cols, vals_c, m_eff, n_eff, lam_user=lam6[0],
             lam_item=lam6[1], wgt=weights, user_bias=user_bias,
             item_bias=item_bias, scale_lam=scale_lam, nonneg=nonneg)
-    RB, CB = build_bucketed_pair(rows, cols, vals_c, m, n, weights,
-                                 device=dev, m_eff=m_eff, n_eff=n_eff,
-                                 dtype=dtype, row_block=mesh_row_block(mesh))
-    shares = shard_bucketed(RB, mesh), shard_bucketed(CB, mesh)
+    (RB, CB), shares = build_bucketed_pair_share(
+        rows, cols, vals_c, m, n, weights, device=dev, mesh=mesh,
+        m_eff=m_eff, n_eff=n_eff, dtype=dtype)
 
     ka, kb = k_user + k + k_main, k_item + k + k_main  # A/B widths, no bias
     ka_pad, kb_pad = _round_up(ka + 1, 8), _round_up(kb + 1, 8)
@@ -738,7 +731,7 @@ def _fit_collective_explicit_bucketed(
 
     widths = (kc, kc_pad, kd, kd_pad)
     sd = _sides(U, I, RB, CB, m, n, m_eff, n_eff, widths, seed, init, dev,
-                dtype, mesh, shares, ring and (rA, rB))
+                dtype, mesh, ring and (rA, rB))
     (C_blocks, C_orig), (D_blocks, D_orig) = sd.C0, sd.D0
     Ai_blocks = Bi_blocks = None
     if add_implicit_features:
@@ -1001,6 +994,7 @@ def _run(iteration, st, state_dict, niter, use_cg, finalize_chol, verbose,
 # --------------------------------------------------------------------- #
 
 
+@profiled_fit
 def fit_collective_implicit_als(
     rows, cols, vals, m, n, *,
     side_U=None, side_I=None,
@@ -1090,10 +1084,9 @@ def _fit_collective_implicit_bucketed(
     ckpt = FitCheckpointer(checkpoint_path, checkpoint_every, niter, mesh)
     m_eff = max(m, U.n_ent if U else 0)
     n_eff = max(n, I.n_ent if I else 0)
-    RB, CB = build_bucketed_pair(rows, cols, np.asarray(vals).astype(dtype),
-                                 m, n, device=dev, m_eff=m_eff, n_eff=n_eff,
-                                 dtype=dtype, row_block=mesh_row_block(mesh))
-    shares = shard_bucketed(RB, mesh), shard_bucketed(CB, mesh)
+    (RB, CB), shares = build_bucketed_pair_share(
+        rows, cols, np.asarray(vals).astype(dtype), m, n, device=dev,
+        mesh=mesh, m_eff=m_eff, n_eff=n_eff, dtype=dtype)
     ka, kb = k_user + k + k_main, k_item + k + k_main
     ka_pad, kb_pad = _round_up(ka, 8), _round_up(kb, 8)
     kc, kd = k_user + k, k_item + k
@@ -1114,7 +1107,7 @@ def _fit_collective_implicit_bucketed(
 
     widths = (kc, kc_pad, kd, kd_pad)
     sd = _sides(U, I, RB, CB, m, n, m_eff, n_eff, widths, seed, init, dev,
-                dtype, mesh, shares, ring and (rA, rB))
+                dtype, mesh, ring and (rA, rB))
     (C_blocks, C_orig), (D_blocks, D_orig) = sd.C0, sd.D0
     if ring:
         rB.remap_slots(shares[0])  # A's slots index B's rows

@@ -36,9 +36,10 @@ neither ever takes the dense engine.
 
 ``mesh=`` (a 1-D ``DeviceMesh``, parallel/mesh.py) fits data-parallel, as
 the JAX package's ``mesh=`` (cmfrec_tpu/solvers/drivers.py:105-135): the
-bucketed engine's buckets are padded to rows that divide over the mesh
-and each rank solves its share of every bucket (K3, the CD kernel,
-Cholesky or rowsolve.solve_cg, as the route decides), then gathers; the
+bucketed engine's buckets are padded to rows that divide over the mesh,
+each rank builds only its share of every bucket from its entries
+(:func:`_build_pair`) and solves it (K3, the CD kernel, Cholesky or
+rowsolve.solve_cg, as the route decides), then gathers; the
 dense-masked engine holds each rank's rows of the dense form
 (solvers/dense_masked.py).  The plain dense engine takes no mesh, as in the
 JAX package (:344-357): under one it runs whole on every rank.
@@ -68,11 +69,11 @@ import torch
 
 from ..config import (resolve_device, resolve_dtype, should_handle_interrupt,
                       torch_dtype)
-from ..data.device_fill import build_bucketed_pair
-from ..parallel.mesh import (check_mesh, mesh_row_block, reduce_min,
-                             shard_bucketed, world_rank)
+from ..data.device_fill import build_bucketed_pair_share
+from ..parallel.mesh import check_mesh, reduce_min, world_rank
 from ..parallel.ring import RingSide, row_sum
 from ..utils.checkpoint import FitCheckpointer
+from ..utils.profiling import profiled_fit
 from . import dense_engine, preprocess
 from .als import SidePlan, blocks_to_orig, gram_matrix, init_blocks, update_side
 from .dense_masked import (
@@ -192,11 +193,14 @@ def _make_lam_vec(k: int, k_pad: int, lam: float, lam_bias: float,
 
 
 def _build_pair(rows, cols, vals_c, m, n, weights, dev, mesh=None):
-    """Both orientations of the bucketed layout, built on the fit's device
-    with the values' dtype, bucket rows dividing over ``mesh``."""
-    return build_bucketed_pair(rows, cols, vals_c, m, n, weights, device=dev,
-                               dtype=np.asarray(vals_c).dtype,
-                               row_block=mesh_row_block(mesh))
+    """Both orientations of the bucketed layout with the values' dtype,
+    bucket rows dividing over ``mesh``: ((RB, CB), shares), the plans and
+    this rank's shares, built on the fit's device from the rank's entries
+    alone (data/device_fill.py:build_bucketed_pair_share; the whole layouts,
+    both plan and share, without a mesh)."""
+    return build_bucketed_pair_share(rows, cols, vals_c, m, n, weights,
+                                     device=dev, mesh=mesh,
+                                     dtype=np.asarray(vals_c).dtype)
 
 
 def _row_index(bucketed, b, dev):
@@ -294,6 +298,7 @@ DENSE_CD_MESSAGE = ("engine='dense' does not support nonneg/l1_lambda; "
 # ----------------------------------------------------------------------- #
 
 
+@profiled_fit
 def fit_explicit_als(
     rows: np.ndarray,
     cols: np.ndarray,
@@ -449,14 +454,15 @@ def _fit_explicit_bucketed(
 ) -> dict:
     """The bucketed route of fit_explicit_als
     (cmfrec_tpu/solvers/drivers.py:361-470), in the fit's dtype.  Under
-    ``mesh`` the whole layouts plan and seed the start; each rank solves
-    its share of them (parallel/mesh.py:shard_bucketed).  Under ``ring``
-    each rank keeps only its rows of A and B (parallel/ring.py)."""
+    ``mesh`` the plans seed the start and each rank builds, holds and
+    solves its share of the layouts (_build_pair).  Under ``ring`` each
+    rank keeps only its rows of A and B (parallel/ring.py)."""
     tdt = torch_dtype(dtype)
     vals_c = _centered(vals, glob_mean, dtype)
     biasA0, biasB0 = _initial_biases(rows, cols, vals_c, m, n, lam6, weights,
                                      user_bias, item_bias, scale_lam, nonneg)
-    RB, CB = _build_pair(rows, cols, vals_c, m, n, weights, dev, mesh)
+    (RB, CB), shares = _build_pair(rows, cols, vals_c, m, n, weights, dev,
+                                   mesh)
     perm_A = torch.as_tensor(RB.perm, device=dev)
     perm_B = torch.as_tensor(CB.perm, device=dev)
 
@@ -467,7 +473,6 @@ def _fit_explicit_bucketed(
     side_A, side_B = sides or (None, None)
     A_blocks = init_blocks(gen, RB, k, k_pad, tdt, side_A)
     B_blocks = init_blocks(gen, CB, k, k_pad, tdt, side_B)
-    shares = shard_bucketed(RB, mesh), shard_bucketed(CB, mesh)
     lay_A, lay_B = shares if ring else (RB, CB)  # the blocks' layouts
     if user_bias:
         _set_bias_coord(A_blocks, lay_A, biasA0, k)
@@ -618,7 +623,7 @@ def _explicit_sparse_iteration(
 
 
 def _ring_start(RB, CB, mesh, dev, tdt):
-    """The (A, B) RingSides of a big-axis fit, from the whole layouts."""
+    """The (A, B) RingSides of a big-axis fit, from the layouts' plans."""
     return RingSide(RB, mesh, dev, tdt), RingSide(CB, mesh, dev, tdt)
 
 
@@ -720,6 +725,7 @@ def _fit_explicit_dense(
 # ----------------------------------------------------------------------- #
 
 
+@profiled_fit
 def fit_implicit_als(
     rows: np.ndarray,
     cols: np.ndarray,
@@ -799,7 +805,7 @@ def fit_implicit_als(
             init=init, ckpt=ckpt, exact=not use_cg, dtype=dtype,
             precondition_cg=use_cg and precondition_cg, mesh=mesh)
 
-    RB, CB = _build_pair(rows, cols, vals, m, n, None, dev, mesh)
+    (RB, CB), shares = _build_pair(rows, cols, vals, m, n, None, dev, mesh)
     perm_A = torch.as_tensor(RB.perm, device=dev)
     perm_B = torch.as_tensor(CB.perm, device=dev)
 
@@ -811,7 +817,6 @@ def fit_implicit_als(
     side_A, side_B = sides or (None, None)
     A_blocks = init_blocks(gen, RB, k, k_pad, tdt, side_A)
     B_blocks = init_blocks(gen, CB, k, k_pad, tdt, side_B)
-    shares = shard_bucketed(RB, mesh), shard_bucketed(CB, mesh)
     lay_A, lay_B = shares if sides else (RB, CB)  # the blocks' layouts
     if init is not None:
         if init.get("A") is not None:

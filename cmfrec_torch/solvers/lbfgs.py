@@ -38,6 +38,7 @@ import torch
 
 from ..config import resolve_device, should_handle_interrupt
 from ..parallel.mesh import check_mesh, even_share, reduce_sum, world_rank
+from ..utils.profiling import profiled_fit
 from . import preprocess
 from .drivers import _resolve_lambdas
 from .lbfgs_core import FlatParams, Lbfgs
@@ -389,6 +390,7 @@ class CollectiveProblem:
         return value, layout.views(grad)
 
 
+@profiled_fit
 def fit_collective_explicit_lbfgs(
     rows, cols, vals, m, n, *,
     side_U=None, side_I=None, side_Ub=None, side_Ib=None,

@@ -35,6 +35,7 @@ import torch
 
 from ..config import resolve_device
 from ..parallel.mesh import check_mesh, world_rank
+from ..utils.profiling import profiled_fit
 from . import preprocess
 from .drivers import _resolve_lambdas, fit_explicit_als, fit_implicit_als
 from .lbfgs import SparseObs, _torch_dtype, obs_share, run_lbfgs
@@ -188,6 +189,7 @@ class OffsetsProblem:
         return f
 
 
+@profiled_fit
 def fit_offsets_explicit_lbfgs(
     rows, cols, vals, m, n, *,
     side_U=None, side_I=None,
@@ -248,6 +250,7 @@ def _host(t):
     return None if t is None else t.cpu().numpy()
 
 
+@profiled_fit
 def fit_offsets_als(
     rows, cols, vals, m, n, *,
     side_U=None, side_I=None, implicit=False,

@@ -1,0 +1,3 @@
+from . import metrics, profiling
+
+__all__ = ["metrics", "profiling"]

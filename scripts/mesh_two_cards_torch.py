@@ -22,9 +22,13 @@ first card, then runs chip_smoke.two_card_ring_phase: the same fit, and a
 iterations), through the big-axis ring (shard_opposing_rows=True) and
 through slice 7a's mesh= on 2-rank NCCL groups, and on 4-rank ones where
 the machine has four cards; each rank's memory at rest and at its peak
-and its seconds a half-step, the ring's factors and RMSE held to the
-meshless fit's (32(a)) and to 7a's (the big fit).  No kernel runs on this
-path (Cholesky), so nothing is built.
+(the set-up's beside the iterations') and its seconds a half-step, the
+ring's factors and RMSE held to the meshless fit's (32(a)) and to 7a's
+(the big fit); then 32(a) through the ring on 2 ranks with each process's
+device memory capped between its peak and the 1.005 GiB set-up of every
+rank building the whole layout (scripts/ring_capped_torch.py), held bit
+for bit to the uncapped run.  No kernel runs on this path (Cholesky), so
+nothing is built.
 """
 
 import argparse

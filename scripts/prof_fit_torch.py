@@ -36,8 +36,9 @@ any:
      the engine's spans (explicit: fit_explicit_dense_masked; implicit: the
      bucket layout build _build_pair and the iterations
      _implicit_sparse_iteration; collective: fit_collective_dense_masked;
-     collective-bucketed: the layout builds build_bucketed_pair,
-     build_aligned_parts and build_bucketed_rows, and the iterations _run;
+     collective-bucketed: the layout builds build_bucketed_pair_share,
+     build_aligned_parts and build_bucketed_rows_share, and the iterations
+     _run;
      implicit-dense: fit_implicit_dense_masked; lbfgs: the objective and
      its gradient, Lbfgs.evaluate, and the line search's host reads,
      Lbfgs.read, which wait for the device no longer since evaluate ends
@@ -85,9 +86,9 @@ SPANS = {"explicit": (("drivers", "fit_explicit_dense_masked"),),
          "implicit": (("drivers", "_build_pair"),
                       ("drivers", "_implicit_sparse_iteration")),
          "collective": (("collective", "fit_collective_dense_masked"),),
-         "collective-bucketed": (("collective", "build_bucketed_pair"),
+         "collective-bucketed": (("collective", "build_bucketed_pair_share"),
                                  ("collective", "build_aligned_parts"),
-                                 ("collective", "build_bucketed_rows"),
+                                 ("collective", "build_bucketed_rows_share"),
                                  ("collective", "_run")),
          "implicit-dense": (("drivers", "fit_implicit_dense_masked"),),
          "lbfgs": (("lbfgs_core.Lbfgs", "evaluate"),

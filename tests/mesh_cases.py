@@ -456,10 +456,191 @@ def offsets_als(pkg, mesh):
     return _np(res, ("Am", "C", "A"))
 
 
+# --------------------------------------------------------------------- #
+# each rank's share of the bucketed layouts (data/device_fill.py)        #
+# --------------------------------------------------------------------- #
+
+
+def layout_problem():
+    """60 x 40 with one row of 35 entries beside ~6 a row and one column of
+    20 beside ~8 a column, duplicate (row, col) pairs among them: at 2 and
+    3 ranks some bucket's share holds only padding rows."""
+    rng = np.random.default_rng(19)
+    m, n = 60, 40
+    rows = np.concatenate([rng.integers(0, m, 300), np.full(35, 3),
+                           rng.integers(0, m, 20)])
+    cols = np.concatenate([rng.integers(0, n, 300), rng.integers(0, n, 35),
+                           np.full(20, 7)])
+    return (rows, cols, rng.normal(size=rows.size),
+            rng.uniform(0.5, 2.0, size=rows.size), m, n)
+
+
+def _plan_arrays(tag, b):
+    """A BucketedRows' plan: perm, row_of, counts, each bucket's (start,
+    rows, real rows, width)."""
+    return {f"{tag}__perm": b.perm, f"{tag}__row_of": b.row_of,
+            f"{tag}__counts": b.counts,
+            f"{tag}__buckets": np.array(
+                [(c.start, c.n_rows, c.n_real, c.width) for c in b.buckets],
+                np.int64).reshape(-1, 4)}
+
+
+def _tensors(tag, b):
+    """Plan and tensors of a (share of a) BucketedRows."""
+    out = _plan_arrays(tag, b)
+    for i, c in enumerate(b.buckets):
+        for f in ("idx", "val", "length", "wgt"):
+            t = getattr(c, f)
+            if t is not None:
+                out[f"{tag}__{i}__{f}"] = t.numpy()
+    return out
+
+
+def _builds():
+    """The share builds' arguments: (tag, weights, m_eff extra, n_eff
+    extra), unweighted and weighted, with and without side-info-only
+    entities."""
+    return (("u", False, 0, 0), ("w", True, 0, 0), ("u_eff", False, 5, 3),
+            ("w_eff", True, 5, 3))
+
+
+def layout_pair(pkg, mesh):
+    """build_bucketed_pair_share against shard_bucketed of the whole
+    build_bucketed_pair (``share__*`` against ``cut__*``), both sides, and
+    its plans against the whole build's (``plan__*``, ``whole__*``)."""
+    from cmfrec_torch.data.device_fill import (build_bucketed_pair,
+                                               build_bucketed_pair_share)
+    from cmfrec_torch.parallel.mesh import mesh_row_block, shard_bucketed
+
+    rows, cols, vals, wgt, m, n = layout_problem()
+    out = {}
+    for tag, weighted, dm, dn in _builds():
+        kw = dict(device="cpu", m_eff=m + dm, n_eff=n + dn)
+        w = wgt if weighted else None
+        plans, shares = build_bucketed_pair_share(rows, cols, vals, m, n, w,
+                                                  mesh=mesh, **kw)
+        whole = build_bucketed_pair(rows, cols, vals, m, n, w,
+                                    row_block=mesh_row_block(mesh), **kw)
+        for side, plan, share, lay in zip("AB", plans, shares, whole):
+            out.update(_plan_arrays(f"plan__{tag}{side}", plan))
+            out.update(_plan_arrays(f"whole__{tag}{side}", lay))
+            out.update(_tensors(f"share__{tag}{side}", share))
+            out.update(_tensors(f"cut__{tag}{side}",
+                                shard_bucketed(lay, mesh)))
+    return out
+
+
+def layout_rows(pkg, mesh):
+    """build_bucketed_rows_share (the feature side of sparse side
+    information) against shard_bucketed of build_bucketed_rows."""
+    from cmfrec_torch.data.device_fill import (build_bucketed_rows,
+                                               build_bucketed_rows_share)
+    from cmfrec_torch.parallel.mesh import mesh_row_block, shard_bucketed
+
+    rows, cols, vals, _, m, n = layout_problem()
+    plan, share = build_bucketed_rows_share(cols, rows, vals, n, m + 5,
+                                            device="cpu", mesh=mesh)
+    whole = build_bucketed_rows(cols, rows, vals, n, m + 5, device="cpu",
+                                row_block=mesh_row_block(mesh))
+    return {**_plan_arrays("plan__F", plan), **_plan_arrays("whole__F", whole),
+            **_tensors("share__F", share),
+            **_tensors("cut__F", shard_bucketed(whole, mesh))}
+
+
+def _main_plan(mesh):
+    from cmfrec_torch.data.device_fill import build_bucketed_pair_share
+
+    rows, cols, vals, _, m, n = layout_problem()
+    (RB, _), _ = build_bucketed_pair_share(rows, cols, vals, m, n,
+                                           device="cpu", mesh=mesh,
+                                           m_eff=m + 5)
+    return RB
+
+
+def _cut_blocks(plan, blocks, mesh):
+    """Each bucket's tensors cut to this rank's rows of it."""
+    from cmfrec_torch.parallel.mesh import row_share
+
+    out = []
+    for b, blk in zip(plan.buckets, blocks):
+        sl = row_share(b.n_rows, mesh)
+        out.append(tuple(t[sl] for t in blk) if isinstance(blk, tuple)
+                   else (blk[sl],))
+    return out
+
+
+def _block_arrays(tag, blocks):
+    return {f"{tag}__{i}__{j}": t.numpy() for i, blk in enumerate(blocks)
+            for j, t in enumerate(blk if isinstance(blk, tuple) else (blk,))}
+
+
+def layout_aligned(pkg, mesh):
+    """collective.build_aligned_parts of a sparse side matrix (65 entities,
+    side-only ones among them) on this rank's rows against the cut of the
+    whole build."""
+    from cmfrec_torch.solvers.collective import build_aligned_parts
+
+    RB = _main_plan(mesh)
+    rng = np.random.default_rng(20)
+    r_s = rng.integers(0, 65, 200)
+    c_s = rng.integers(0, 9, 200)
+    v_s = rng.normal(size=200)
+    share = build_aligned_parts(RB, r_s, c_s, v_s, 65, "cpu", mesh=mesh)
+    whole = build_aligned_parts(RB, r_s, c_s, v_s, 65, "cpu")
+    return {**_block_arrays("share__S", share),
+            **_block_arrays("cut__S", _cut_blocks(RB, whole, mesh))}
+
+
+def layout_dense(pkg, mesh):
+    """collective._bucket_dense_slices of a dense side matrix of fewer rows
+    than the bucketing (rows past it zero) on this rank's rows against the
+    cut of the whole build."""
+    from cmfrec_torch.solvers.collective import _bucket_dense_slices
+
+    RB = _main_plan(mesh)
+    M = np.random.default_rng(21).normal(size=(58, 4)).astype(np.float32)
+    return {**_block_arrays("share__D",
+                            _bucket_dense_slices(RB, M, "cpu", mesh)),
+            **_block_arrays("cut__D", _cut_blocks(
+                RB, _bucket_dense_slices(RB, M, "cpu"), mesh))}
+
+
+def layout_uploads(pkg, mesh):
+    """The entries build_bucketed_pair_share uploads to this rank, counted
+    by wrapping device_fill._upload (``uploads``: each upload's length),
+    beside the nnz of the rank's share of each side (``share_nnz``: the sum
+    of its rows' lengths)."""
+    from cmfrec_torch.data import device_fill
+
+    rows, cols, vals, wgt, m, n = layout_problem()
+    sizes = []
+    real = device_fill._upload
+
+    def counted(a, dt, dev):
+        sizes.append(np.asarray(a).size)
+        return real(a, dt, dev)
+
+    device_fill._upload = counted
+    try:
+        _, shares = device_fill.build_bucketed_pair_share(
+            rows, cols, vals, m, n, wgt, device="cpu", mesh=mesh)
+    finally:
+        device_fill._upload = real
+    return {"uploads": np.asarray(sizes, np.int64),
+            "share_nnz": np.asarray([sum(int(b.length.sum())
+                                         for b in s.buckets)
+                                     for s in shares], np.int64),
+            "nnz": np.asarray(rows.size)}
+
+
+LAYOUT = ["layout_pair", "layout_rows", "layout_aligned", "layout_dense",
+          "layout_uploads"]
+
 CASES = {fn.__name__: fn for fn in (
     halfstep, explicit_cholesky, explicit_cg, explicit_cd, explicit_world3,
     implicit, collective_explicit, collective_implicit, topn, dense_plain,
-    dense_exact, models, omf_models, lbfgs, offsets_lbfgs, offsets_als)}
+    dense_exact, models, omf_models, lbfgs, offsets_lbfgs, offsets_als,
+    layout_pair, layout_rows, layout_aligned, layout_dense, layout_uploads)}
 
 
 # --------------------------------------------------------------------- #
@@ -501,6 +682,49 @@ def assert_close_to(got, want, tol):
         elif t is not None:
             np.testing.assert_allclose(got[key], want[key], rtol=t[0],
                                        atol=t[1], err_msg=key)
+
+
+def _same_bits(got, want, key):
+    assert got.dtype == want.dtype and got.shape == want.shape, key
+    assert got.tobytes() == want.tobytes(), key
+
+
+def assert_share_is_cut(res):
+    """A layout case on one rank: every ``share__*`` array is its
+    ``cut__*`` twin and every ``plan__*`` its ``whole__*`` twin, bit for
+    bit and key for key; an ``uploads`` case uploaded each side's own,
+    values and weights of its share's entries alone."""
+    if "uploads" in res:
+        n_a, n_b = (int(x) for x in res["share_nnz"])
+        want = [n_a] * 4 + [n_b] * 4  # ids, other ids, values, weights
+        assert res["uploads"].tolist() == want
+        return
+    pairs = (("share__", "cut__"), ("plan__", "whole__"))
+    for mine, twin in pairs:
+        keys = {k[len(mine):] for k in res if k.startswith(mine)}
+        assert keys == {k[len(twin):] for k in res if k.startswith(twin)}
+        for k in keys:
+            _same_bits(res[mine + k], res[twin + k], mine + k)
+    assert all(k.startswith(("share__", "cut__", "plan__", "whole__"))
+               for k in res)
+
+
+def assert_layout_group(ranks, name):
+    """A layout case on every rank of a group: each rank's share is the cut
+    of the whole build (:func:`assert_share_is_cut`), the ranks' shares of
+    each side's entries add up to all of them, and the last rank's share
+    of some bucket holds only padding rows (every rank enters every
+    ring, parallel/ring.py)."""
+    for res in ranks:
+        assert_share_is_cut(res)
+    if name == "layout_uploads":
+        nnz = int(ranks[0]["nnz"])
+        assert sum(r["share_nnz"] for r in ranks).tolist() == [nnz, nnz]
+        assert all((r["share_nnz"] < nnz).all() for r in ranks)
+    if name == "layout_pair":
+        last = ranks[-1]
+        assert any((last[f"share__{tag}{side}__buckets"][:, 2] == 0).any()
+                   for tag, *_ in _builds() for side in "AB")
 
 
 class Meshless(dict):

@@ -29,11 +29,15 @@ from cmfrec_torch.solvers import drivers
 
 from .mesh_cases import (
     CASES,
+    LAYOUT,
     Group,
     Meshless,
     assert_close_to,
+    assert_layout_group,
     assert_meshless,
     assert_ranks_agree,
+    assert_share_is_cut,
+    layout_problem,
     problem,
 )
 
@@ -48,7 +52,7 @@ JAX_TOL = {"halfstep": (1e-5, 1e-6), "explicit_cholesky": (1e-4, 1e-5),
 
 @pytest.fixture(scope="module")
 def group(tmp_path_factory):
-    g = Group(NAMES, 2, tmp_path_factory.mktemp("mesh"))
+    g = Group(NAMES + LAYOUT, 2, tmp_path_factory.mktemp("mesh"))
     yield g
     g.close()
 
@@ -171,3 +175,61 @@ def test_checkpoint_under_a_mesh(world_of_one, tmp_path):
     assert done == done_want == 2 and got.keys() == want.keys()
     for key in want:
         np.testing.assert_array_equal(got[key], want[key], err_msg=key)
+
+
+# each rank's share of the bucketed layouts (data/device_fill.py), on this
+# file's 2-rank group (its LAYOUT cases run after NAMES) and its world of one
+
+
+@pytest.mark.parametrize("name", LAYOUT)
+def test_share_build_is_the_cut(group, name):
+    """On this file's 2-rank group: every rank's share build of every
+    bucketed layout (both sides of the main one, weighted and not, with
+    side-info-only entities; the feature side; the aligned parts; the dense
+    slices) equals the cut of the whole build bit for bit, and a rank
+    uploads only its share's entries (tests/mesh_cases.py:
+    assert_layout_group)."""
+    assert_layout_group(group.results()[name], name)
+
+
+@pytest.mark.parametrize("name", [n for n in LAYOUT if n != "layout_uploads"])
+def test_share_build_world_of_one(world_of_one, name):
+    """At a world of one (this process) the share builds are the cut of the
+    whole build."""
+    assert_share_is_cut(CASES[name]("port", world_of_one))
+
+
+@pytest.mark.parametrize("weighted", [False, True])
+def test_share_build_world_of_one_is_meshless(world_of_one, weighted):
+    """At a world of one the share build is the meshless build, which it is
+    both plan and share of: the same plan and the same tensors, bit for
+    bit, and the whole entries uploaded once."""
+    from cmfrec_torch.data import device_fill
+
+    rows, cols, vals, wgt, m, n = layout_problem()
+    w = wgt if weighted else None
+    sizes = []
+    real = device_fill._upload
+    device_fill._upload = lambda a, dt, dev: (sizes.append(np.asarray(a).size)
+                                              or real(a, dt, dev))
+    try:
+        plans, shares = device_fill.build_bucketed_pair_share(
+            rows, cols, vals, m, n, w, device="cpu", mesh=world_of_one)
+    finally:
+        device_fill._upload = real
+    assert sizes == [rows.size] * (4 if weighted else 3)
+    want = device_fill.build_bucketed_pair(rows, cols, vals, m, n, w,
+                                           device="cpu")
+    for plan, share, lay in zip(plans, shares, want):
+        assert plan is share
+        for key in ("perm", "row_of", "counts"):
+            np.testing.assert_array_equal(getattr(plan, key),
+                                          getattr(lay, key))
+        assert len(plan.buckets) == len(lay.buckets)
+        for b, c in zip(plan.buckets, lay.buckets):
+            assert (b.start, b.n_rows, b.n_real, b.width) == (
+                c.start, c.n_rows, c.n_real, c.width)
+            for f in ("idx", "val", "length", "wgt"):
+                x, y = getattr(b, f), getattr(c, f)
+                assert (x is None) == (y is None) and (
+                    x is None or torch.equal(x, y)), f

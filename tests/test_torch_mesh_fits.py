@@ -15,9 +15,11 @@ import pytest
 
 from .mesh_cases import (
     CASES,
+    LAYOUT,
     Group,
     Meshless,
     assert_close_to,
+    assert_layout_group,
     assert_meshless,
     assert_ranks_agree,
     problem,
@@ -47,7 +49,8 @@ def group(tmp_path_factory):
 
 @pytest.fixture(scope="module")
 def group3(tmp_path_factory):
-    g = Group(["explicit_world3"], 3, tmp_path_factory.mktemp("mesh3"))
+    g = Group(["explicit_world3"] + LAYOUT, 3,
+              tmp_path_factory.mktemp("mesh3"))
     yield g
     g.close()
 
@@ -106,3 +109,12 @@ def test_world3_row_block(group3):
                                      torch.as_tensor(lay.perm)))
     torch.testing.assert_close(starts[0], starts[1], rtol=0, atol=0)
     assert group3.world == 3
+
+
+@pytest.mark.parametrize("name", LAYOUT)
+def test_share_build_is_the_cut_world3(group3, name):
+    """On this file's 3-rank group (its LAYOUT cases run after
+    explicit_world3): every rank's share build of every bucketed layout
+    equals the cut of the whole build bit for bit, and a rank uploads only
+    its share's entries (tests/mesh_cases.py:assert_layout_group)."""
+    assert_layout_group(group3.results()[name], name)
