@@ -32,6 +32,7 @@ import numpy as np
 import torch
 
 from ..parallel.mesh import mesh_row_block, share_plan, world_rank
+from ..utils import profiling
 from .shards import ROW_BLOCK, Bucket, BucketedRows, plan_layout, row_owners
 
 
@@ -91,7 +92,7 @@ def _fill(row_e, ids, vals, wgt, counts, buckets, perm):
     sizes = np.array([b.n_rows * b.width for b in buckets], np.int64)
 
     def t(a):
-        return torch.as_tensor(np.asarray(a, np.int64), device=dev)
+        return profiling.upload(np.asarray(a, np.int64), dev)
 
     return _fill_device(
         row_e, ids, vals, wgt, counts, t(perm),
@@ -117,7 +118,7 @@ def _attach(buckets, lengths, idx_f, val_f, wgt_f):
 def _upload(a, dt, dev):
     """A host array on the fit's device: every entry a build uploads
     passes here."""
-    return torch.as_tensor(np.asarray(a, dt)).to(dev)
+    return profiling.upload(np.asarray(a, dt), dev)
 
 
 def _upload_sorted(rows, cols, vals, weights, dev, dtype):
@@ -130,10 +131,10 @@ def _upload_sorted(rows, cols, vals, weights, dev, dtype):
 def _whole_side(counts_d, n_rows, n_cols, row_block, row_e, ids, vals, wgt):
     """One whole orientation: planned from its device-side counts, every
     bucket filled from the row-sorted entries."""
-    out = _plan(counts_d.cpu().numpy(), n_rows, n_cols, row_block)
+    out = _plan(profiling.to_host(counts_d), n_rows, n_cols, row_block)
     lengths = torch.zeros(out.n_rows_pad, dtype=torch.int32,
                           device=counts_d.device)
-    lengths[torch.as_tensor(out.perm, device=counts_d.device)] = \
+    lengths[profiling.upload(out.perm, counts_d.device)] = \
         counts_d.to(torch.int32)
     _attach(out.buckets, lengths,
             *_fill(row_e, ids, vals, wgt, counts_d, out.buckets, out.perm))
@@ -164,11 +165,10 @@ def _share_side(plan: BucketedRows, own, other, vals, wgt, mesh, dev, dtype,
                          for b in share.buckets] + [np.zeros(0, np.int64)])
     lengths = np.where(ro >= 0, plan.counts[np.maximum(ro, 0)], 0)
     _attach(share.buckets,
-            torch.as_tensor(lengths.astype(np.int32), device=dev),
+            profiling.upload(lengths.astype(np.int32), dev),
             *_fill(own_d[order], other_d[order], vals_d[order],
                    None if wgt_d is None else wgt_d[order],
-                   torch.as_tensor(np.where(held, plan.counts, 0),
-                                   device=dev),
+                   profiling.upload(np.where(held, plan.counts, 0), dev),
                    share.buckets, plan.perm))
     return share
 

@@ -20,6 +20,7 @@ import torch
 from ..config import resolve_device, resolve_dtype, torch_dtype
 from ..ops import predict as predict_ops
 from ..solvers import warm
+from ..utils import profiling
 
 
 def _is_df(x):
@@ -130,7 +131,8 @@ class _BaseModel:
     def _ingest_X(self, X, W=None):
         """Fit-time ingestion: also records X's dims (``_m_orig``/``_n_orig``,
         the include_all_X gate of topN)."""
-        out = self._ingest_X_inner(X, W)
+        with profiling.span("cmfrec.ingest"):
+            out = self._ingest_X_inner(X, W)
         self._m_orig = out[4]
         self._n_orig = out[5]
         return out
@@ -272,8 +274,7 @@ class _BaseModel:
         (None where the fit has no such part)."""
         for attr, key in (("C_", "C"), ("D_", "D"), ("Ai_", "Ai"),
                           ("Bi_", "Bi")):
-            t = res.get(key)
-            setattr(self, attr, None if t is None else t.cpu().numpy())
+            setattr(self, attr, profiling.to_host(res.get(key)))
         self.U_colmeans_ = res.get("U_colmeans")
         self.I_colmeans_ = res.get("I_colmeans")
 

@@ -34,6 +34,7 @@ import numpy as np
 
 from ..config import resolve_device, resolve_dtype, set_handle_interrupt
 from ..solvers import collective, drivers, lbfgs, warm
+from ..utils import profiling
 from .base import _BaseModel
 
 def _route_grouped(rows, m_new, min_rows=256, max_waste=3.0):
@@ -109,8 +110,7 @@ def _validate_cmf_params(self, implicit=False):
         )
 
 
-def _host(t):
-    return None if t is None else t.cpu().numpy()
+_host = profiling.to_host
 
 
 class CMF(_BaseModel):
@@ -195,6 +195,7 @@ class CMF(_BaseModel):
         self.is_fitted_ = False
         _validate_cmf_params(self)
 
+    @profiling.recorded_fit
     def fit(self, X, U=None, I=None, U_bin=None, I_bin=None, W=None,
             mesh=None):
         """Fit to explicit-feedback data (reference:
@@ -263,16 +264,17 @@ class CMF(_BaseModel):
                 if res.get(key) is not None:
                     setattr(self, attr, float(res[key]))
 
-        self.A_ = _host(res["A"])
-        self.B_ = _host(res["B"])
-        self.user_bias_ = _host(res["biasA"])
-        self.item_bias_ = _host(res["biasB"])
-        self.glob_mean_ = res["glob_mean"]
-        self.is_fitted_ = True
-        self.niter_ = self.niter
-        self._build_dicts()
-        if self.precompute_for_predictions:
-            self.force_precompute_for_predictions()
+        with profiling.span("cmfrec.finish"):
+            self.A_ = _host(res["A"])
+            self.B_ = _host(res["B"])
+            self.user_bias_ = _host(res["biasA"])
+            self.item_bias_ = _host(res["biasB"])
+            self.glob_mean_ = res["glob_mean"]
+            self.is_fitted_ = True
+            self.niter_ = self.niter
+            self._build_dicts()
+            if self.precompute_for_predictions:
+                self.force_precompute_for_predictions()
         return self
 
     def _fit_lbfgs(self, rows, cols, vals, wgt, m, n, U, I, U_bin, I_bin,
@@ -305,9 +307,10 @@ class CMF(_BaseModel):
                            ("n_evals", "host_syncs", "linesearch_steps",
                             "values")}
         self.is_fitted_ = True
-        self._build_dicts()
-        if self.precompute_for_predictions:
-            self.force_precompute_for_predictions()
+        with profiling.span("cmfrec.finish"):
+            self._build_dicts()
+            if self.precompute_for_predictions:
+                self.force_precompute_for_predictions()
         return self
 
     # ------------------------------------------------------------------ #
@@ -678,6 +681,7 @@ class CMF_implicit(_BaseModel):
         self.is_fitted_ = False
         _validate_cmf_params(self, implicit=True)
 
+    @profiling.recorded_fit
     def fit(self, X, U=None, I=None, mesh=None):
         """Fit to implicit-feedback data (reference:
         upstream cmfrec/__init__.py:4816): without side info on the
@@ -717,17 +721,18 @@ class CMF_implicit(_BaseModel):
                 NA_as_zero_item=self.NA_as_zero_item,
                 nonneg_C=self.nonneg_C, nonneg_D=self.nonneg_D, **common)
             self._store_side(res)
-        self.A_ = _host(res["A"])
-        self.B_ = _host(res["B"])
-        self.user_bias_ = None
-        self.item_bias_ = None
-        self.glob_mean_ = 0.0
-        self.w_main_multiplier_ = res["w_main_multiplier"]
-        self.is_fitted_ = True
-        self.niter_ = self.niter
-        self._build_dicts()
-        if self.precompute_for_predictions:
-            self.force_precompute_for_predictions()
+        with profiling.span("cmfrec.finish"):
+            self.A_ = _host(res["A"])
+            self.B_ = _host(res["B"])
+            self.user_bias_ = None
+            self.item_bias_ = None
+            self.glob_mean_ = 0.0
+            self.w_main_multiplier_ = res["w_main_multiplier"]
+            self.is_fitted_ = True
+            self.niter_ = self.niter
+            self._build_dicts()
+            if self.precompute_for_predictions:
+                self.force_precompute_for_predictions()
         return self
 
     # ------------------------------------------------------------------ #

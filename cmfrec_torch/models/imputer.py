@@ -5,6 +5,7 @@ from __future__ import annotations
 
 import numpy as np
 
+from ..utils import profiling
 from .cmf import CMF
 
 
@@ -12,6 +13,7 @@ class CMF_imputer(CMF):
     """Drop-in sklearn transformer: ``fit`` on a dense matrix with NaNs,
     ``transform`` fills them with the model's predictions."""
 
+    @profiling.recorded_fit
     def fit(self, X, y=None, U=None, I=None, U_bin=None, I_bin=None,
             W=None):
         """sklearn-style fit (y is ignored)."""

@@ -18,6 +18,7 @@ import torch
 from ..config import resolve_device, resolve_dtype
 from ..solvers import preprocess, warm
 from ..solvers.drivers import implicit_values
+from ..utils import profiling
 from .base import _BaseModel
 
 F64 = torch.float64
@@ -67,6 +68,7 @@ class MostPopular(_BaseModel):
                 "Option 'apply_log_transf' only available for 'implicit=True'."
             )
 
+    @profiling.recorded_fit
     def fit(self, X, W=None):
         self._reset()
         self.dtype_ = resolve_dtype(self.use_float)
@@ -75,11 +77,11 @@ class MostPopular(_BaseModel):
         lam = np.atleast_1d(np.asarray(self.lambda_, np.float64))
         lam_user = float(lam[0])
         lam_item = float(lam[1] if lam.size == 6 else lam[0])
-        r = torch.as_tensor(np.asarray(rows, np.int64), device=dev)
-        c = torch.as_tensor(np.asarray(cols, np.int64), device=dev)
+        r = profiling.upload(np.asarray(rows, np.int64), dev)
+        c = profiling.upload(np.asarray(cols, np.int64), dev)
 
         def up(a):
-            return torch.as_tensor(np.asarray(a, np.float64), device=dev)
+            return profiling.upload(np.asarray(a, np.float64), dev)
 
         if self.implicit:
             # values <= 0 under apply_log_transf raise (ROADMAP F4)
@@ -87,18 +89,17 @@ class MostPopular(_BaseModel):
             cnt = _bincount(c, n)
             S = _bincount(c, n, v + 1.0)
             a = self.alpha
-            self.item_bias_ = ((a * S) / (a * S + (m - cnt) + lam_item)
-                               ).cpu().numpy()
+            self.item_bias_ = profiling.to_host(
+                (a * S) / (a * S + (m - cnt) + lam_item))
             self.user_bias_ = None
             self.glob_mean_ = 0.0
         else:
             biasA, biasB, glob_mean = self._explicit_biases(
                 r, c, up(vals), None if wgt is None else up(wgt), m, n,
                 lam_user, lam_item, vals, wgt)
-            self.item_bias_ = biasB.cpu().numpy()
-            self.user_bias_ = (biasA.cpu().numpy()
-                               if self.user_bias and biasA is not None
-                               else None)
+            self.item_bias_ = profiling.to_host(biasB)
+            self.user_bias_ = (profiling.to_host(biasA)
+                               if self.user_bias else None)
             self.glob_mean_ = float(glob_mean)
 
         self.A_ = np.zeros((m, 0), self.dtype_)

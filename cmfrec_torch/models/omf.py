@@ -20,6 +20,7 @@ from ..config import resolve_device, resolve_dtype, set_handle_interrupt
 from ..solvers import offsets as offsets_solver
 from ..solvers import warm
 from ..solvers.drivers import implicit_values
+from ..utils import profiling
 from .base import _BaseModel
 
 
@@ -46,24 +47,25 @@ class _OMFBase(_BaseModel):
         return self._on_device("Bm_")
 
     def _store(self, res):
-        self.A_ = res.get("A")
-        self.B_ = res.get("B")
-        self.C_ = res.get("C")
-        self.D_ = res.get("D")
-        self.C_bias_ = res.get("C_bias")
-        self.D_bias_ = res.get("D_bias")
-        self.Am_ = res["Am"] if "Am" in res else None
-        self.Bm_ = res.get("Bm")
-        self.user_bias_ = res.get("biasA")
-        self.item_bias_ = res.get("biasB")
-        self.glob_mean_ = res.get("glob_mean", 0.0)
-        self.U_colmeans_ = res.get("U_colmeans")
-        self.I_colmeans_ = res.get("I_colmeans")
-        self.niter_ = res.get("niter")
-        self.is_fitted_ = True
-        self._build_dicts()
-        if self.Bm_ is not None:
-            self.force_precompute_for_predictions()
+        with profiling.span("cmfrec.finish"):
+            self.A_ = res.get("A")
+            self.B_ = res.get("B")
+            self.C_ = res.get("C")
+            self.D_ = res.get("D")
+            self.C_bias_ = res.get("C_bias")
+            self.D_bias_ = res.get("D_bias")
+            self.Am_ = res["Am"] if "Am" in res else None
+            self.Bm_ = res.get("Bm")
+            self.user_bias_ = res.get("biasA")
+            self.item_bias_ = res.get("biasB")
+            self.glob_mean_ = res.get("glob_mean", 0.0)
+            self.U_colmeans_ = res.get("U_colmeans")
+            self.I_colmeans_ = res.get("I_colmeans")
+            self.niter_ = res.get("niter")
+            self.is_fitted_ = True
+            self._build_dicts()
+            if self.Bm_ is not None:
+                self.force_precompute_for_predictions()
 
     def force_precompute_for_predictions(self):
         """The Bm-space caches of the warm solves (precompute_offsets_both,
@@ -304,6 +306,7 @@ class OMF_explicit(_OMFBase):
                     "method='als'."
                 )
 
+    @profiling.recorded_fit
     def fit(self, X, U=None, I=None, W=None, mesh=None):
         self._validate_offsets_params()
         set_handle_interrupt(bool(self.handle_interrupt))
@@ -452,6 +455,7 @@ class OMF_implicit(_OMFBase):
         self.k_main = 0
         self.is_fitted_ = False
 
+    @profiling.recorded_fit
     def fit(self, X, U=None, I=None, mesh=None):
         set_handle_interrupt(bool(self.handle_interrupt))
         self._reset()
@@ -558,6 +562,7 @@ class ContentBased(_OMFBase):
     def k_sec(self):
         return self.k
 
+    @profiling.recorded_fit
     def fit(self, X, U, I, W=None, mesh=None):
         if U is None or I is None:
             raise ValueError("ContentBased requires both U and I")

@@ -55,6 +55,7 @@ import torch.distributed as dist
 
 # bucket row counts are multiples of this without a mesh (data/shards.py)
 from ..data.shards import ROW_BLOCK
+from ..utils import profiling
 
 MESH_AXIS = "d"
 # the collectives' time limit: a rank that raised mid-fit, or ranks that
@@ -217,6 +218,7 @@ def _reduce_scalar(x, mesh, device, op):
     t = torch.tensor([x], dtype=torch.float64 if isinstance(x, float)
                      else torch.int64, device=device)
     dist.all_reduce(t, op=op, group=_group(mesh))
+    profiling.synced(t.element_size())
     return t.item()
 
 

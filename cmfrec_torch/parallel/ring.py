@@ -63,6 +63,7 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
+from ..utils import profiling
 from .mesh import gather_blocks, gather_rows, reduce_sum, world_rank
 
 # a part whose opposing matrix has fewer than this many rows a rank is
@@ -249,9 +250,8 @@ class RingSide:
         self.mask = self.rows_below(None)
         real = np.nonzero(self.row_of >= 0)[0]
         # this rank's real rows in the order of their original ids
-        self.order = torch.as_tensor(
-            real[np.argsort(self.row_of[real], kind="stable")],
-            device=self.device)
+        self.order = profiling.upload(
+            real[np.argsort(self.row_of[real], kind="stable")], self.device)
 
     def ordered(self, t: torch.Tensor) -> torch.Tensor:
         """This rank's real rows of ``t`` (rows in ring order) in the order
@@ -265,14 +265,13 @@ class RingSide:
         keep = self.row_of >= 0
         if limit is not None:
             keep &= self.row_of < limit
-        return torch.as_tensor(keep, dtype=self.dtype, device=self.device)
+        return profiling.upload(keep, self.device, self.dtype)
 
     def remap(self, idx: torch.Tensor) -> torch.Tensor:
         """Slot ids that index this side (original row ids, int32)
         rewritten into its ring order, once a fit
         (cmfrec_tpu/solvers/drivers.py:562-589)."""
-        pos = torch.as_tensor(self.pos_of, dtype=torch.int32,
-                              device=idx.device)
+        pos = profiling.upload(self.pos_of, idx.device, torch.int32)
         return pos[idx.long()]
 
     def remap_slots(self, bucketed_share) -> None:
@@ -291,8 +290,8 @@ class RingSide:
         at = self.pos_of[rows[real]] - self.rank * self.chunk
         mine = (at >= 0) & (at < self.chunk)
         if mine.any():
-            shard[torch.as_tensor(at[mine], device=shard.device)] = \
-                blk[torch.as_tensor(real[mine], device=blk.device)]
+            shard[profiling.upload(at[mine], shard.device)] = \
+                blk[profiling.upload(real[mine], blk.device)]
 
     def split(self, shard: torch.Tensor) -> list:
         """A shard's per-bucket blocks: this rank's rows of each bucket."""
@@ -309,7 +308,7 @@ class RingSide:
         out = np.zeros((self.chunk,) + whole.shape[1:], whole.dtype)
         ok = (self.row_of >= 0) & (self.row_of < whole.shape[0])
         out[ok] = whole[self.row_of[ok]]
-        return torch.as_tensor(out, device=self.device)
+        return profiling.upload(out, self.device)
 
     def shard(self, blocks) -> torch.Tensor:
         """This rank's shard of a factor matrix from its solved blocks:

@@ -55,6 +55,7 @@ from ..ops import _cuda, coord_descent, rowsolve, sparse_cg
 from ..ops.rowsolve import SparsePart, length_mask
 from ..parallel.mesh import gather_blocks, local_blocks
 from ..parallel.ring import opposing_operand, ring_take, shard_slots
+from ..utils import profiling
 
 
 class PartData(NamedTuple):
@@ -481,10 +482,10 @@ def init_blocks(gen: torch.Generator, bucketed: BucketedRows, k_tot: int,
         return side.split(shard)
     if bucketed.row_block == ROW_BLOCK:
         return blocks
-    orig = blocks_to_orig(blocks, torch.as_tensor(perm, device=gen.device))
+    orig = blocks_to_orig(blocks, profiling.upload(perm, gen.device))
     ext = torch.cat([orig, orig.new_zeros(1, k_pad)])
-    return [ext[torch.as_tensor(bucketed.row_of[b.start:b.start + b.n_rows],
-                                device=gen.device)]
+    return [ext[profiling.upload(bucketed.row_of[b.start:b.start + b.n_rows],
+                                 gen.device)]
             for b in bucketed.buckets]
 
 

@@ -76,6 +76,7 @@ from ..data.device_fill import (build_bucketed_pair_share,
 from ..data.shards import BucketedRows
 from ..parallel.mesh import gather_blocks, row_share, world_rank
 from ..parallel.ring import RingSide, row_sum
+from ..utils import profiling
 from ..utils.checkpoint import FitCheckpointer
 from ..utils.profiling import profiled_fit
 from ..ops import coord_descent
@@ -192,7 +193,7 @@ def build_aligned_parts(bucketed: BucketedRows, rows_s, cols_s, vals_s,
             dest_r = np.repeat(np.arange(R, dtype=np.int64), ns)
             idx[dest_r, within] = sc[src]
             val[dest_r, within] = sv[src]
-        out.append(tuple(torch.as_tensor(a, device=dev)
+        out.append(tuple(profiling.upload(a, dev)
                          for a in (idx, val, ns.astype(np.int32))))
     return out
 
@@ -208,7 +209,7 @@ def _bucket_dense_slices(bucketed: BucketedRows, M: np.ndarray, dev,
         sl = np.zeros((ids.size, M.shape[1]), M.dtype)
         ok = (ids >= 0) & (ids < M.shape[0])
         sl[ok] = M[ids[ok]]
-        out.append(torch.as_tensor(sl, device=dev))
+        out.append(profiling.upload(sl, dev))
     return out
 
 
@@ -307,7 +308,7 @@ def _side_layout(S: Optional[PreparedSide], main: BucketedRows, dev, dtype,
             ms = np.zeros(b.n_rows, dtype)
             ok = ids >= 0
             ms[ok] = S.colmeans[ids[ok]]
-            mean_slices.append(torch.as_tensor(ms, device=dev))
+            mean_slices.append(profiling.upload(ms, dev))
     return feat_plan, (feat_b, aligned, None, mean_slices)
 
 
@@ -324,7 +325,7 @@ def _side_init(S, featb, kx, kx_pad, gen, init_M, dev, tdt, side=None,
                                device=dev)
         M[:, kx:] = 0.0
         if init_M is not None:
-            M[:, :kx] = torch.as_tensor(init_M, dtype=tdt, device=dev)
+            M[:, :kx] = profiling.upload(init_M, dev, tdt)
         return None, M
     blocks = init_blocks(gen, featb, kx, kx_pad, tdt, side)
     if init_M is not None:
@@ -332,8 +333,7 @@ def _side_init(S, featb, kx, kx_pad, gen, init_M, dev, tdt, side=None,
                                     init_M, kx)
     if side is not None:
         return blocks, None
-    return blocks, blocks_to_orig(blocks, torch.as_tensor(featb.perm,
-                                                          device=dev))
+    return blocks, blocks_to_orig(blocks, profiling.upload(featb.perm, dev))
 
 
 def _xdim_mask(limit, total, dev, tdt):
@@ -342,7 +342,7 @@ def _xdim_mask(limit, total, dev, tdt):
     side-info-only entities the factor matrices carry live rows beyond X's
     dimension, which the reference's opposing row counts exclude (its
     optimizeA calls pass m/n, upstream cmfrec src/collective.c:8461/9924)."""
-    return torch.as_tensor(np.arange(total) < limit, dtype=tdt, device=dev)
+    return profiling.upload(np.arange(total) < limit, dev, tdt)
 
 
 def _side_factor_update(S, featb, blocks, A1, lam_vec, w_side, method,
@@ -383,7 +383,7 @@ def _side_parts(S, aligned, Ce, w_side, n_buckets, scale_flag, dev,
     if S.na0:
         G0 = w_side * row_sum(gram_matrix, ring, ring_mesh, Ce)
         if S.colmeans is not None:
-            cm = (torch.as_tensor(S.colmeans, dtype=Ce.dtype, device=dev)
+            cm = (profiling.upload(S.colmeans, dev, Ce.dtype)
                   if ring is None else
                   ring.values(S.colmeans).to(Ce.dtype))
         r0_vec = w_side * row_sum(
@@ -417,7 +417,7 @@ def _update_C(S, featb, blocks, A_orig, kc, kc_pad, lam_vec, w_side,
         A1u = A1
         if ring_mesh is None:
             A1u = A1[:S.n_ent] if S.n_ent < A1.shape[0] else A1
-            dense = torch.as_tensor(S.dense, device=A1.device)
+            dense = profiling.upload(S.dense, A1.device)
         return None, _dense_full_solve(
             A1u, dense, lam_vec, w_side, kw["nonneg"], kw["l1_vec"],
             kw["max_cd_steps"], lam_scale,
@@ -480,8 +480,7 @@ def _sides(U, I, RB, CB, m, n, m_eff, n_eff, widths, seed, init, dev,
     gen2.manual_seed(int(seed) + 1)
 
     def perm(featb):
-        return None if featb is None else torch.as_tensor(featb.perm,
-                                                          device=dev)
+        return None if featb is None else profiling.upload(featb.perm, dev)
 
     rings = (None,) * 4
     if ring:
@@ -657,6 +656,7 @@ def fit_collective_explicit_als(
     return res
 
 
+@profiling.engine
 def _fit_collective_explicit_bucketed(
     rows, cols, vals, m, n, *, U, I, k, k_user, k_item, k_main, lam6,
     w_main, w_user, w_item, w_implicit, add_implicit_features, niter,
@@ -698,9 +698,10 @@ def _fit_collective_explicit_bucketed(
             rows, cols, vals_c, m_eff, n_eff, lam_user=lam6[0],
             lam_item=lam6[1], wgt=weights, user_bias=user_bias,
             item_bias=item_bias, scale_lam=scale_lam, nonneg=nonneg)
-    (RB, CB), shares = build_bucketed_pair_share(
-        rows, cols, vals_c, m, n, weights, device=dev, mesh=mesh,
-        m_eff=m_eff, n_eff=n_eff, dtype=dtype)
+    with profiling.span("cmfrec.engine.layout"):
+        (RB, CB), shares = build_bucketed_pair_share(
+            rows, cols, vals_c, m, n, weights, device=dev, mesh=mesh,
+            m_eff=m_eff, n_eff=n_eff, dtype=dtype)
 
     ka, kb = k_user + k + k_main, k_item + k + k_main  # A/B widths, no bias
     ka_pad, kb_pad = _round_up(ka + 1, 8), _round_up(kb + 1, 8)
@@ -976,7 +977,9 @@ def _run(iteration, st, state_dict, niter, use_cg, finalize_chol, verbose,
                                               and it == niter - 1)
                       else "chol")
             t0 = time.time()
-            st = iteration(method, st)
+            with profiling.span("cmfrec.engine.iter", it=it + 1,
+                                method=method):
+                st = iteration(method, st)
             if verbose:
                 drivers._fence(dev)
                 print(f"iter {it + 1}/{niter} [{method}] "
@@ -1065,6 +1068,7 @@ def fit_collective_implicit_als(
     return res
 
 
+@profiling.engine
 def _fit_collective_implicit_bucketed(
     rows, cols, vals, m, n, *, U, I, k, k_user, k_item, k_main, lam6, w_x,
     w_mult, w_user, w_item, alpha, niter, use_cg, max_cg_steps,
@@ -1084,9 +1088,10 @@ def _fit_collective_implicit_bucketed(
     ckpt = FitCheckpointer(checkpoint_path, checkpoint_every, niter, mesh)
     m_eff = max(m, U.n_ent if U else 0)
     n_eff = max(n, I.n_ent if I else 0)
-    (RB, CB), shares = build_bucketed_pair_share(
-        rows, cols, np.asarray(vals).astype(dtype), m, n, device=dev,
-        mesh=mesh, m_eff=m_eff, n_eff=n_eff, dtype=dtype)
+    with profiling.span("cmfrec.engine.layout"):
+        (RB, CB), shares = build_bucketed_pair_share(
+            rows, cols, np.asarray(vals).astype(dtype), m, n, device=dev,
+            mesh=mesh, m_eff=m_eff, n_eff=n_eff, dtype=dtype)
     ka, kb = k_user + k + k_main, k_item + k + k_main
     ka_pad, kb_pad = _round_up(ka, 8), _round_up(kb, 8)
     kc, kd = k_user + k, k_item + k

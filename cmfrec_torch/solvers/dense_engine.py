@@ -30,6 +30,7 @@ import numpy as np
 import torch
 
 from ..ops.rowsolve import cg_iterations
+from ..utils import profiling
 
 # bytes of one [rows, S] temporary of a masked product
 CHUNK_BYTES = 256 << 20
@@ -41,16 +42,16 @@ def dense_from_coo(rows, cols, vals, m, n, weights=None, *, dtype, device):
     the weights in ``dtype``, or without weights a 0/1 int8 mask.  Duplicate
     (row, col) pairs keep one entry (ROADMAP F5)."""
     dev = torch.device(device)
-    flat = torch.as_tensor(np.asarray(rows, np.int64) * n
-                           + np.asarray(cols, np.int64), device=dev)
+    flat = profiling.upload(np.asarray(rows, np.int64) * n
+                            + np.asarray(cols, np.int64), dev)
     X = torch.zeros(m * n, dtype=dtype, device=dev)
-    X[flat] = torch.as_tensor(np.asarray(vals), device=dev).to(dtype)
+    X[flat] = profiling.upload(np.asarray(vals), dev).to(dtype)
     if weights is None:
         W = torch.zeros(m * n, dtype=torch.int8, device=dev)
         W[flat] = 1
     else:
         W = torch.zeros(m * n, dtype=dtype, device=dev)
-        W[flat] = torch.as_tensor(np.asarray(weights), device=dev).to(dtype)
+        W[flat] = profiling.upload(np.asarray(weights), dev).to(dtype)
     return X.view(m, n), W.view(m, n)
 
 

@@ -50,6 +50,7 @@ from ..config import should_handle_interrupt
 from ..ops.masked_matmul import TILE, masked_gram_matvec, masked_rhs, row_chunks
 from ..parallel.mesh import (any_rank, gather_rows, padded_share, reduce_sum,
                              world_rank)
+from ..utils import profiling
 
 
 def _round_up(x, mult):
@@ -205,8 +206,9 @@ def _cg(P, rhs, matvec, n_steps, dyn_stop=False, mesh=None):
     max(1e-8, (1e-6*|rhs_r|)^2) -- the absolute target is unreachable in f32
     for rows with a large rhs -- and leaves the loop once every row is
     frozen, which gives the fixed-step result without its wasted matvecs.
-    That exit reads ``live.any()`` on the host: one device sync per step,
-    and under ``mesh`` one all-reduce, so that every rank leaves together."""
+    That exit reads ``live.any()`` on the host: one device sync per step
+    (counted by profiling.synced), and under ``mesh`` one all-reduce, so
+    that every rank leaves together."""
     r = rhs - matvec(P)
     rs = torch.sum(r * r, dim=-1)
     live = rs > 1e-12
@@ -216,8 +218,10 @@ def _cg(P, rhs, matvec, n_steps, dyn_stop=False, mesh=None):
         tol = 1e-8
     a, p = P, r
     for _ in range(n_steps):
-        if dyn_stop and not any_rank(live.any(), mesh):
-            break
+        if dyn_stop:
+            profiling.synced(1)
+            if not any_rank(live.any(), mesh):
+                break
         Ap = matvec(p)
         denom = torch.sum(p * Ap, dim=-1)
         alpha = torch.where(live, rs / torch.where(denom == 0, 1.0, denom), 0.0)
@@ -393,7 +397,7 @@ def _apply_init(A, B, init, m, n, k, user_bias=False, item_bias=False):
         return
 
     def given(key):
-        return torch.as_tensor(init[key], dtype=torch.float32, device=A.device)
+        return profiling.upload(init[key], A.device, torch.float32)
 
     if init.get("A") is not None:
         A[:m, :k] = given("A")
@@ -462,7 +466,7 @@ def _lam_rows(lam_f, lam_bias, has_bias, cnt, count_avg, *, k, Kp, scale_lam,
     v = np.ones(Kp, np.float32)
     v[:k] = lam_f
     v[k] = lam_bias if has_bias else 1.0
-    vec = torch.as_tensor(v, device=cnt.device)
+    vec = profiling.upload(v, cnt.device)
     if not scale_lam:
         return vec[None, :]
     lam_row = vec[None, :] * torch.clamp(cnt, min=1.0)[:, None]
@@ -503,7 +507,9 @@ def _run_fit(step, niter, bulk, polish, *, verbose, dev, save=None):
             final = it > n_bulk
             kw = polish if final else bulk
             t0 = time.time()
-            step(**kw)
+            with profiling.span("cmfrec.engine.iter", it=it,
+                                compute=kw["compute"]):
+                step(**kw)
             if verbose:
                 if dev.type == "cuda":
                     torch.cuda.synchronize(dev)
@@ -518,12 +524,11 @@ def _run_fit(step, niter, bulk, polish, *, verbose, dev, save=None):
 
 
 def _upload(a, dtype, dev):
-    return torch.as_tensor(np.asarray(a, dtype)).to(dev)
+    return profiling.upload(np.asarray(a, dtype), dev)
 
 
 def _host_state(state):
-    return {key: None if v is None else v.cpu().numpy()
-            for key, v in state.items()}
+    return {key: profiling.to_host(v) for key, v in state.items()}
 
 
 def _live_share(s: _Split, n_real, cnt, live_all):
@@ -544,21 +549,23 @@ def _dense_explicit_setup(rows, cols, vals_raw, weights, m, n, k, *, lam6,
     cnt_B, live_A, live_B, A, B, rows): this rank's rows of the dense
     forms, counts and liveness, the whole factors, and the _Rows."""
     m_pad, n_pad, Kp = padded_dims(m, n, k)
-    X, W, XT, WT, cnt_A, cnt_B = _setup(
-        _upload(rows, np.int64, dev), _upload(cols, np.int64, dev),
-        _upload(vals_raw, np.float32, dev),
-        None if weights is None else _upload(weights, np.float32, dev),
-        m_pad, n_pad, mesh)
-    sa, sb = _split(m_pad, mesh), _split(n_pad, mesh)
-    # rows that no rating reaches are dead (zero), unless the fit gives
-    # every real row a system of its own (NA-as-zero, side info)
-    live_A = _live_share(sa, m, cnt_A, live_all_A)
-    live_B = _live_share(sb, n, cnt_B, live_all_B)
+    with profiling.span("cmfrec.engine.setup"):
+        X, W, XT, WT, cnt_A, cnt_B = _setup(
+            _upload(rows, np.int64, dev), _upload(cols, np.int64, dev),
+            _upload(vals_raw, np.float32, dev),
+            None if weights is None else _upload(weights, np.float32, dev),
+            m_pad, n_pad, mesh)
+        sa, sb = _split(m_pad, mesh), _split(n_pad, mesh)
+        # rows that no rating reaches are dead (zero), unless the fit gives
+        # every real row a system of its own (NA-as-zero, side info)
+        live_A = _live_share(sa, m, cnt_A, live_all_A)
+        live_B = _live_share(sb, n, cnt_B, live_all_B)
     mu = float(np.float32(glob_mean))
     if user_bias or item_bias:
-        bA, bB = _device_bias_init(X, W, cnt_A, cnt_B, mu, float(lam6[0]),
-                                   float(lam6[1]), scale_lam, user_bias,
-                                   item_bias, mesh)
+        with profiling.span("cmfrec.engine.bias_init"):
+            bA, bB = _device_bias_init(X, W, cnt_A, cnt_B, mu,
+                                       float(lam6[0]), float(lam6[1]),
+                                       scale_lam, user_bias, item_bias, mesh)
     else:
         bA = torch.zeros(sa.total, device=dev)
         bB = torch.zeros(sb.total, device=dev)
@@ -572,6 +579,7 @@ def _dense_explicit_setup(rows, cols, vals_raw, weights, m, n, k, *, lam6,
     return X, W, XT, WT, cnt_A, cnt_B, live_A, live_B, A, B, rws
 
 
+@profiling.engine
 def fit_explicit_dense_masked(
     rows, cols, vals_raw, m, n, *, weights,
     k, lam6, niter, max_cg_steps, finalize_chol, finalize_steps,
@@ -610,7 +618,7 @@ def fit_explicit_dense_masked(
                 v[k] = lam_bias * (
                     count_avg if (scale_lam and scale_bias_const)
                     else (n_opp if scale_lam else 1.0))
-            return torch.as_tensor(v, device=dev)
+            return profiling.upload(v, dev)
 
         lam_row_A = lam_diag_for(lam6[2], lam6[0], user_bias, n, count_avg_A)
         lam_row_B = lam_diag_for(lam6[3], lam6[1], item_bias, m, count_avg_B)
@@ -720,6 +728,7 @@ def _collective_iteration(A, B, X, W, XT, WT, Ud, Id, lam_row_A, lam_row_B,
     return A, B, C, D, Ai, Bi
 
 
+@profiling.engine
 def fit_collective_dense_masked(
     rows, cols, vals_raw, m, n, *, U_dense, I_dense, weights,
     k, lam6, w_user, w_item, niter, max_cg_steps, finalize_chol,
@@ -918,21 +927,24 @@ def _fit_implicit(rows, cols, vals, m, n, *, k, lam6, niter, max_cg_steps,
     dev = torch.device(device)
     # alpha * x formed in f64 on the host, as the TPU engine's upload does
     av = (float(alpha) * np.asarray(vals, np.float64)).astype(np.float32)
-    Wx, Xp, M, WxT, XpT, MT, cnt_A, cnt_B = _setup_implicit(
-        _upload(rows, np.int64, dev), _upload(cols, np.int64, dev),
-        _upload(av, np.float32, dev), m_pad, n_pad, mesh)
-    sa, sb = _split(m_pad, mesh), _split(n_pad, mesh)
-    sd = None
-    if side is not None:
-        sd = dict(Ud=_upload_side(side["U"], sa.total, dev),
-                  Id=_upload_side(side["I"], sb.total, dev),
-                  w_user=float(np.float32(side["w_user"])),
-                  w_item=float(np.float32(side["w_item"])),
-                  lamC=float(np.float32(lam6[4])),
-                  lamD=float(np.float32(lam6[5])))
-    # dense side info gives every real row a system of its own
-    live_A = _live_share(sa, m, cnt_A, sd is not None and sd["Ud"] is not None)
-    live_B = _live_share(sb, n, cnt_B, sd is not None and sd["Id"] is not None)
+    with profiling.span("cmfrec.engine.setup"):
+        Wx, Xp, M, WxT, XpT, MT, cnt_A, cnt_B = _setup_implicit(
+            _upload(rows, np.int64, dev), _upload(cols, np.int64, dev),
+            _upload(av, np.float32, dev), m_pad, n_pad, mesh)
+        sa, sb = _split(m_pad, mesh), _split(n_pad, mesh)
+        sd = None
+        if side is not None:
+            sd = dict(Ud=_upload_side(side["U"], sa.total, dev),
+                      Id=_upload_side(side["I"], sb.total, dev),
+                      w_user=float(np.float32(side["w_user"])),
+                      w_item=float(np.float32(side["w_item"])),
+                      lamC=float(np.float32(lam6[4])),
+                      lamD=float(np.float32(lam6[5])))
+        # dense side info gives every real row a system of its own
+        live_A = _live_share(sa, m, cnt_A,
+                             sd is not None and sd["Ud"] is not None)
+        live_B = _live_share(sb, n, cnt_B,
+                             sd is not None and sd["Id"] is not None)
     rws = _Rows(sa, sb, mesh, _whole_mask(live_A, mesh),
                 _whole_mask(live_B, mesh))
 
@@ -945,7 +957,7 @@ def _fit_implicit(rows, cols, vals, m, n, *, k, lam6, niter, max_cg_steps,
     def lam_vec_for(lam_f):
         v = np.ones(Kp, np.float32)
         v[:k] = lam_f
-        return torch.as_tensor(v, device=dev)
+        return profiling.upload(v, dev)
 
     args = (Wx, Xp, M, WxT, XpT, MT, lam_vec_for(lam6[2]),
             lam_vec_for(lam6[3]), live_A, live_B,
@@ -984,6 +996,7 @@ def _fit_implicit(rows, cols, vals, m, n, *, k, lam6, niter, max_cg_steps,
     return out
 
 
+@profiling.engine
 def fit_implicit_dense_masked(
     rows, cols, vals, m, n, *, k, lam6, niter, max_cg_steps, finalize_steps,
     finalize_chol, alpha, w_main_multiplier, seed, verbose, device,
@@ -1005,6 +1018,7 @@ def fit_implicit_dense_masked(
         mesh=mesh)
 
 
+@profiling.engine
 def fit_collective_implicit_dense_masked(
     rows, cols, vals, m, n, *, U_dense, I_dense, k, lam6, w_user, w_item,
     niter, max_cg_steps, finalize_steps, finalize_chol, alpha,

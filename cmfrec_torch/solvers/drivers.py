@@ -72,6 +72,7 @@ from ..config import (resolve_device, resolve_dtype, should_handle_interrupt,
 from ..data.device_fill import build_bucketed_pair_share
 from ..parallel.mesh import check_mesh, reduce_min, world_rank
 from ..parallel.ring import RingSide, row_sum
+from ..utils import profiling
 from ..utils.checkpoint import FitCheckpointer
 from ..utils.profiling import profiled_fit
 from . import dense_engine, preprocess
@@ -134,13 +135,18 @@ def _unsupported(what: str, slice_: str):
 
 
 def _host(state: dict) -> dict:
-    return {key: None if v is None else v.cpu().numpy()
-            for key, v in state.items()}
+    return {key: profiling.to_host(v) for key, v in state.items()}
 
 
 def _fence(dev: torch.device) -> None:
+    profiling.synced()
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
+
+
+def _compute(mxu_bf16: bool, tdt) -> str:
+    """A bucketed iteration's operand type, as its span names it."""
+    return "bf16" if mxu_bf16 else {torch.float64: "f64"}.get(tdt, "f32")
 
 
 # ----------------------------------------------------------------------- #
@@ -178,7 +184,7 @@ def _make_l1_vec(k: int, k_pad: int, l1: float, l1_bias: float,
     v[:k] = l1
     if has_bias:
         v[k] = l1_bias
-    return torch.as_tensor(v, dtype=dtype, device=dev)
+    return profiling.upload(v, dev, dtype)
 
 
 def _make_lam_vec(k: int, k_pad: int, lam: float, lam_bias: float,
@@ -189,7 +195,7 @@ def _make_lam_vec(k: int, k_pad: int, lam: float, lam_bias: float,
     v[:k] = lam
     if has_bias:
         v[k] = lam_bias
-    return torch.as_tensor(v, dtype=dtype, device=dev)
+    return profiling.upload(v, dev, dtype)
 
 
 def _build_pair(rows, cols, vals_c, m, n, weights, dev, mesh=None):
@@ -198,27 +204,27 @@ def _build_pair(rows, cols, vals_c, m, n, weights, dev, mesh=None):
     this rank's shares, built on the fit's device from the rank's entries
     alone (data/device_fill.py:build_bucketed_pair_share; the whole layouts,
     both plan and share, without a mesh)."""
-    return build_bucketed_pair_share(rows, cols, vals_c, m, n, weights,
-                                     device=dev, mesh=mesh,
-                                     dtype=np.asarray(vals_c).dtype)
+    with profiling.span("cmfrec.engine.layout"):
+        return build_bucketed_pair_share(rows, cols, vals_c, m, n, weights,
+                                         device=dev, mesh=mesh,
+                                         dtype=np.asarray(vals_c).dtype)
 
 
 def _row_index(bucketed, b, dev):
     """Original row ids of bucket b's rows (-1 on padding rows)."""
-    return torch.as_tensor(bucketed.row_of[b.start:b.start + b.n_rows],
-                           device=dev)
+    return profiling.upload(bucketed.row_of[b.start:b.start + b.n_rows], dev)
 
 
 def _seed_factor_blocks(blocks, bucketed, M, k):
     """Write warm-start factor rows into the bucketed block layout, in the
     blocks' dtype (padding rows get zeros): each block's rows picked on the
     host, so that ``M`` is never whole on the device."""
-    M = M.cpu().numpy() if torch.is_tensor(M) else np.asarray(M)
+    M = profiling.to_host(M) if torch.is_tensor(M) else np.asarray(M)
     ext = np.concatenate([M[:, :k], np.zeros((1, k), M.dtype)])
     for b, blk in zip(bucketed.buckets, blocks):
-        blk[:, :k] = torch.as_tensor(
-            ext[bucketed.row_of[b.start:b.start + b.n_rows]],
-            dtype=blk.dtype, device=blk.device)
+        blk[:, :k] = profiling.upload(
+            ext[bucketed.row_of[b.start:b.start + b.n_rows]], blk.device,
+            blk.dtype)
     return blocks
 
 
@@ -226,7 +232,7 @@ def _set_bias_coord(blocks, bucketed, bias_vec, coord):
     """Write biases into each block's bias coordinate."""
     dev = blocks[0].device if blocks else None
     dt = blocks[0].dtype if blocks else None
-    bias = torch.as_tensor(bias_vec, dtype=dt, device=dev)
+    bias = profiling.upload(bias_vec, dev, dt)
     ext = torch.cat([bias, torch.zeros(1, dtype=dt, device=dev)])
     for b, blk in zip(bucketed.buckets, blocks):
         blk[:, coord] = ext[_row_index(bucketed, b, dev)]
@@ -446,6 +452,7 @@ def _initial_biases(rows, cols, vals_c, m, n, lam6, weights, user_bias,
         scale_lam=scale_lam, nonneg=nonneg)
 
 
+@profiling.engine
 def _fit_explicit_bucketed(
     rows, cols, vals, m, n, *, weights, k, lam6, niter, use_cg, max_cg_steps,
     finalize_chol, user_bias, item_bias, glob_mean, scale_lam,
@@ -463,8 +470,8 @@ def _fit_explicit_bucketed(
                                      user_bias, item_bias, scale_lam, nonneg)
     (RB, CB), shares = _build_pair(rows, cols, vals_c, m, n, weights, dev,
                                    mesh)
-    perm_A = torch.as_tensor(RB.perm, device=dev)
-    perm_B = torch.as_tensor(CB.perm, device=dev)
+    perm_A = profiling.upload(RB.perm, dev)
+    perm_B = profiling.upload(CB.perm, dev)
 
     k_pad = _round_up(k + 1, 8)
     gen = torch.Generator(device=dev)
@@ -518,10 +525,12 @@ def _fit_explicit_bucketed(
             # bf16 copies of the opposing matrix in the f32 CG iterations
             # on a card, as the JAX package does on the TPU; Cholesky stays
             # in the fit's dtype
-            A_blocks, B_blocks = _explicit_sparse_iteration(
-                A_blocks, B_blocks, *args, method=method,
-                mxu_bf16=_bf16_rows(dev, method, tdt), ring=sides,
-                **statics)
+            bf16 = _bf16_rows(dev, method, tdt)
+            with profiling.span("cmfrec.engine.iter", it=it + 1,
+                                compute=_compute(bf16, tdt), method=method):
+                A_blocks, B_blocks = _explicit_sparse_iteration(
+                    A_blocks, B_blocks, *args, method=method,
+                    mxu_bf16=bf16, ring=sides, **statics)
             if verbose:
                 _fence(dev)
                 print(f"iter {it + 1}/{niter} [{method}] "
@@ -635,6 +644,7 @@ def _whole(A_blocks, B_blocks, sides):
     return sides[0].whole(A_blocks), sides[1].whole(B_blocks)
 
 
+@profiling.engine
 def _fit_explicit_dense(
     rows, cols, vals, m, n, *, weights, k, lam6, niter, max_cg_steps,
     finalize_chol, user_bias, item_bias, glob_mean, scale_lam,
@@ -662,7 +672,7 @@ def _fit_explicit_dense(
     B = scale * torch.randn(n, K, generator=gen, dtype=tdt, device=dev)
 
     def up(a):
-        return torch.as_tensor(a, dtype=tdt, device=dev)
+        return profiling.upload(a, dev, tdt)
 
     init = init or {}
     if init.get("A") is not None:
@@ -696,14 +706,17 @@ def _fit_explicit_dense(
             jacobi = precondition_cg and not final
             t0 = time.time()
             # B before A, the reference's order (src/collective.c:8614/8802)
-            B = dense_engine.dense_cg_update(
-                B, X, W, _with_bias_col(A, k, item_bias),
-                A[:, k] if user_bias else None, lam_vec_B, lam_mult_B,
-                lam_const_B, steps, 1, jacobi=jacobi)
-            A = dense_engine.dense_cg_update(
-                A, X, W, _with_bias_col(B, k, user_bias),
-                B[:, k] if item_bias else None, lam_vec_A, lam_mult_A,
-                lam_const_A, steps, 0, jacobi=jacobi)
+            with profiling.span("cmfrec.engine.iter", it=it + 1,
+                                compute=_compute(False, tdt),
+                                method="dense-cg"):
+                B = dense_engine.dense_cg_update(
+                    B, X, W, _with_bias_col(A, k, item_bias),
+                    A[:, k] if user_bias else None, lam_vec_B, lam_mult_B,
+                    lam_const_B, steps, 1, jacobi=jacobi)
+                A = dense_engine.dense_cg_update(
+                    A, X, W, _with_bias_col(B, k, user_bias),
+                    B[:, k] if item_bias else None, lam_vec_A, lam_mult_A,
+                    lam_const_A, steps, 0, jacobi=jacobi)
             if verbose:
                 _fence(dev)
                 tag = "dense-cg*" if final else "dense-cg"
@@ -805,15 +818,33 @@ def fit_implicit_als(
             init=init, ckpt=ckpt, exact=not use_cg, dtype=dtype,
             precondition_cg=use_cg and precondition_cg, mesh=mesh)
 
+    return _fit_implicit_bucketed(
+        rows, cols, vals, m, n, k=k, lam6=lam6, l16=l16, niter=niter,
+        use_cg=use_cg, max_cg_steps=max_cg_steps,
+        precondition_cg=precondition_cg, finalize_chol=finalize_chol,
+        alpha=alpha, w_main=w_main, nonneg=nonneg, max_cd_steps=max_cd_steps,
+        seed=seed, verbose=verbose, mesh=mesh, init=init, ckpt=ckpt,
+        ring=shard_opposing_rows, dev=dev, tdt=tdt)
+
+
+@profiling.engine
+def _fit_implicit_bucketed(
+    rows, cols, vals, m, n, *, k, lam6, l16, niter, use_cg, max_cg_steps,
+    precondition_cg, finalize_chol, alpha, w_main, nonneg, max_cd_steps,
+    seed, verbose, mesh, init, ckpt, ring, dev, tdt,
+) -> dict:
+    """The bucketed route of fit_implicit_als (K3 on a card, the plain
+    solves in float64 and under Jacobi PCG, coordinate descent under
+    ``nonneg`` or an l1), in the fit's dtype; under ``ring`` each rank
+    keeps only its rows of A and B (parallel/ring.py)."""
     (RB, CB), shares = _build_pair(rows, cols, vals, m, n, None, dev, mesh)
-    perm_A = torch.as_tensor(RB.perm, device=dev)
-    perm_B = torch.as_tensor(CB.perm, device=dev)
+    perm_A = profiling.upload(RB.perm, dev)
+    perm_B = profiling.upload(CB.perm, dev)
 
     k_pad = _round_up(k, 8)
     gen = torch.Generator(device=dev)
     gen.manual_seed(int(seed))
-    sides = (_ring_start(RB, CB, mesh, dev, tdt) if shard_opposing_rows
-             else None)
+    sides = _ring_start(RB, CB, mesh, dev, tdt) if ring else None
     side_A, side_B = sides or (None, None)
     A_blocks = init_blocks(gen, RB, k, k_pad, tdt, side_A)
     B_blocks = init_blocks(gen, CB, k, k_pad, tdt, side_B)
@@ -843,13 +874,16 @@ def fit_implicit_als(
             method = ("cg" if use_cg and not (finalize_chol and it == niter - 1)
                       else "chol")
             t0 = time.time()
-            A_blocks, B_blocks = _implicit_sparse_iteration(
-                A_blocks, B_blocks, RB, CB, perm_A, perm_B, lam_vec_A,
-                lam_vec_B, l1_vec_A, l1_vec_B, w_main, alpha, m=m, n=n,
-                method=method, max_cg_steps=max_cg_steps,
-                mxu_bf16=_bf16_rows(dev, method, tdt),
-                precondition=precondition_cg, nonneg=nonneg,
-                max_cd_steps=max_cd_steps, mesh=mesh, ring=sides)
+            bf16 = _bf16_rows(dev, method, tdt)
+            with profiling.span("cmfrec.engine.iter", it=it + 1,
+                                compute=_compute(bf16, tdt), method=method):
+                A_blocks, B_blocks = _implicit_sparse_iteration(
+                    A_blocks, B_blocks, RB, CB, perm_A, perm_B, lam_vec_A,
+                    lam_vec_B, l1_vec_A, l1_vec_B, w_main, alpha, m=m, n=n,
+                    method=method, max_cg_steps=max_cg_steps,
+                    mxu_bf16=bf16, precondition=precondition_cg,
+                    nonneg=nonneg, max_cd_steps=max_cd_steps, mesh=mesh,
+                    ring=sides)
             if verbose:
                 _fence(dev)
                 print(f"iter {it + 1}/{niter} [{method}] "

@@ -38,6 +38,7 @@ import torch
 
 from ..config import resolve_device, should_handle_interrupt
 from ..parallel.mesh import check_mesh, even_share, reduce_sum, world_rank
+from ..utils import profiling
 from ..utils.profiling import profiled_fit
 from . import preprocess
 from .drivers import _resolve_lambdas
@@ -102,7 +103,7 @@ class SparseObs:
 
     def __init__(self, rows, cols, vals, wgt, m, n, dtype, dev):
         def up(a, dt=torch.int64):
-            return torch.as_tensor(np.asarray(a), device=dev).to(dt)
+            return profiling.upload(np.asarray(a), dev).to(dt)
 
         def crow(ids, size):
             return torch.cat([ids.new_zeros(1), torch.cumsum(
@@ -202,6 +203,7 @@ def obs_share(rows, cols, vals, wgt, mesh):
     return cut(rows), cut(cols), cut(vals), cut(wgt)
 
 
+@profiling.engine
 def run_lbfgs(loss_fn, params, *, maxiter, corr_pairs, tol, verbose=False,
               print_every=10, label="lbfgs", mesh=None):
     """cmfrec_tpu's iteration loop around optax.lbfgs: chunks of up to 25
@@ -305,12 +307,12 @@ class CollectiveProblem:
                     r_s, c_s, v_s, None, n_ent, p, self.tdt, self.dev))
             else:
                 self.sides[name] = (
-                    "coo", p, torch.as_tensor(r_s, device=self.dev),
-                    torch.as_tensor(c_s, device=self.dev), self._up(v_s))
+                    "coo", p, profiling.upload(r_s, self.dev),
+                    profiling.upload(c_s, self.dev), self._up(v_s))
 
     def _up(self, a):
-        return torch.as_tensor(np.asarray(a, np.float64),
-                               device=self.dev).to(self.tdt)
+        return profiling.upload(np.asarray(a, np.float64),
+                                self.dev).to(self.tdt)
 
     def init_params(self, seed=1, init=None):
         """Seeded N(0, 1/k) factors and zero biases (torch's generator, not
@@ -423,7 +425,7 @@ def fit_collective_explicit_lbfgs(
                               maxiter=maxiter, corr_pairs=corr_pairs, tol=tol,
                               verbose=verbose, print_every=print_every,
                               mesh=mesh)
-    out = {name: v.cpu().numpy() for name, v in params.items()}
+    out = {name: profiling.to_host(v) for name, v in params.items()}
     return {
         "A": out["A"], "B": out["B"], "C": out.get("C"), "D": out.get("D"),
         "Cb": out.get("Cb"), "Db": out.get("Db"),

@@ -31,6 +31,8 @@ from typing import Callable, Dict
 import numpy as np
 import torch
 
+from ..utils import profiling
+
 # scale_by_zoom_linesearch's defaults, as optax.lbfgs sets them
 MAX_LINESEARCH_STEPS = 20
 SLOPE_RTOL = 1e-4
@@ -300,8 +302,10 @@ class Lbfgs:
         return self._vg(params)
 
     def read(self, t: torch.Tensor):
-        """Scalars to the host: one sync."""
+        """Scalars to the host: one sync (profiling.synced, which counts
+        it into a profiled fit's record too)."""
         self.host_syncs += 1
+        profiling.synced(t.numel() * t.element_size())
         return t.tolist()
 
     def _precondition(self, grad, gamma, memory_idx):

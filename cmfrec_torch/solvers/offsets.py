@@ -35,6 +35,7 @@ import torch
 
 from ..config import resolve_device
 from ..parallel.mesh import check_mesh, world_rank
+from ..utils import profiling
 from ..utils.profiling import profiled_fit
 from . import preprocess
 from .drivers import _resolve_lambdas, fit_explicit_als, fit_implicit_als
@@ -119,8 +120,8 @@ class OffsetsProblem:
         self.I = None if I is None else self._up(I)
 
     def _up(self, a):
-        return torch.as_tensor(np.asarray(a, np.float64),
-                               device=self.dev).to(self.tdt)
+        return profiling.upload(np.asarray(a, np.float64),
+                                self.dev).to(self.tdt)
 
     def init_params(self, seed=1, init_params=None):
         """Seeded N(0, 1/(k_sec + k + k_main)) matrices (torch's generator,
@@ -220,12 +221,12 @@ def fit_offsets_explicit_lbfgs(
     stats.pop("nfev")
     with torch.no_grad():
         Am, Bm = prob.sides(params)
-    out = {name: v.cpu().numpy() for name, v in params.items()}
+    out = {name: profiling.to_host(v) for name, v in params.items()}
     return {
         "A": out.get("A"), "B": out.get("B"), "C": out.get("C"),
         "D": out.get("D"), "C_bias": out.get("C_bias"),
         "D_bias": out.get("D_bias"),
-        "Am": Am.cpu().numpy(), "Bm": Bm.cpu().numpy(),
+        "Am": profiling.to_host(Am), "Bm": profiling.to_host(Bm),
         "biasA": out.get("biasA"), "biasB": out.get("biasB"),
         "glob_mean": float(prob.glob_mean),
         "U_colmeans": prob.U_colmeans, "I_colmeans": prob.I_colmeans,
@@ -246,8 +247,7 @@ def _regress_side(U, Am, add_intercepts, ridge=1e-10):
     return Cfull, None
 
 
-def _host(t):
-    return None if t is None else t.cpu().numpy()
+_host = profiling.to_host
 
 
 @profiled_fit
