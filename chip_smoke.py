@@ -16,6 +16,10 @@ Phases, each printing its own line(s):
      and each one's split-S plan; the bf16 K1 on the int8 mask and on the bf16
      weights is also timed against the first design of K1 (the k1_probes
      p_full kernel) on the same inputs, in turns (old, new, new, old);
+     3b: K1 with f32 operands on the row lists (masked_gram_matvec_rows,
+     csrc/masked_rows.cu) at both sides on the int8 mask and on the f32
+     weights: the lists' build, errors against the dense f32 K1 and the
+     twin, two calls bitwise equal, CUDA-event times beside the dense K1's;
   4. fit: the flagship explicit ALS-CG fit through the public CMF entry point
      (k=50, lambda 0.05, scale_lam, 15 iterations, CG 3, f32 polish), with its
      kernel launch counts, held-out RMSE against the global-mean baseline;
@@ -41,12 +45,13 @@ Phases, each printing its own line(s):
  10. the collective fits on phase 4's data and split, through CMF: (a) the
      flagship configuration with implicit features (w_implicit 0.5; the C
      reference's "CG + implicit features" row, bench.py:217-228), held-out
-     RMSE and launches K1 146 / K2 30; (b) the same with use_cg=False
-     (exact mode), RMSE and K2 30, K1 printed (its all-frozen exit makes it
-     depend on the data);
+     RMSE and launches K1 112, its row-list form 34 (the f32 polish) / K2
+     30; (b) the same with use_cg=False (exact mode), RMSE and K2 30, K1 on
+     the row lists printed (its all-frozen exit makes it depend on the
+     data);
  11. the flagship configuration with dense side info U [M, 32] and I
      [N, 32] from a seeded generator: RMSE, C_/D_ [32, 50] finite, the
-     column means stored, launches K1 146 / K2 30;
+     column means stored, launches K1 112 + 34 on the row lists / K2 30;
  12. the implicit WRMF configuration of phase 7 on implicit pairs drawn
      with preference structure at ML10M's shape and number of pairs
      (make_preference_data, 20% held out): the dense engine
@@ -187,7 +192,8 @@ on each rank's rows):
      collective bucketed fit and (d) phase 17's CMF(method="lbfgs") run
      through fit(..., mesh=make_mesh()), each after a meshless repeat of
      its phase: the mesh fit's seconds beside the repeat's and the phase's,
-     its launches equal to the phase's (K1 146 / K2 30, K3 360, K3 546, 0),
+     its launches equal to the phase's (K1 112 + 34 / K2 30, K3 360, K3
+     546, 0),
      its factors and biases bitwise equal to the phase's where the repeat
      is (else its held-out quality within the fold-in tolerances and, for
      17, its objective and gradient at the fit's start within 1e-5 of the
@@ -267,10 +273,11 @@ FIT = dict(k=50, lambda_=0.05, scale_lam=True, niter=15, use_cg=True,
 # JAX package's held-out RMSE on the same data (BENCH_r05.json) plus 0.01
 # for a different random init
 RMSE_BOUND = 0.73078 + 0.01
-# K1 = 14 bulk iterations x 2 half-steps x (1 + 3 CG steps)
-#      + the polish's 2 x (1 + 16);  K2 = one per half-step
-EXPECTED_LAUNCHES = {"solve_cd": 0,
-                     "masked_gram_matvec": 14 * 2 * 4 + 2 * 17,
+# K1 = 14 bulk iterations x 2 half-steps x (1 + 3 CG steps); the polish's
+# 2 x (1 + 16) f32 K1 on the row lists (ML10M's 1.27% lies under
+# masked_matmul.ROWS_MAX_DENSITY);  K2 = one per half-step
+EXPECTED_LAUNCHES = {"solve_cd": 0, "masked_gram_matvec": 14 * 2 * 4,
+                     "masked_gram_matvec_rows": 2 * 17,
                      "masked_rhs": 15 * 2, "bucket_cg": 0}
 # max|kernel - twin| / max|twin|, set about 7x above the largest readings at
 # these shapes (1.4e-4 bf16, 6.5e-6 f32, NVIDIA H100): f32 differs by
@@ -282,6 +289,7 @@ REPLACES = {"masked_gram_matvec": "cmfrec_tpu/ops/masked_matmul.py:87",
             # XLA in the JAX package (a fori_loop in a scan), not Pallas
             "solve_cd": "cmfrec_tpu/ops/rowsolve.py:279"}
 SOURCES = {"masked_gram_matvec": "cmfrec_torch/csrc/masked_matmul.cu",
+           "masked_gram_matvec_rows": "cmfrec_torch/csrc/masked_rows.cu",
            "masked_rhs": "cmfrec_torch/csrc/masked_matmul.cu",
            "bucket_cg": "cmfrec_torch/csrc/sparse_cg.cu",
            "solve_cd": "cmfrec_torch/csrc/cd_solve.cu"}
@@ -319,6 +327,9 @@ CUDA_KERNELS = {
                            "sum_chunks_kernel"),
     "masked_rhs": ("rhs_bf16_wgmma_kernel", "rhs_f32_tile8_kernel",
                    "rhs_bf16_wide_kernel", "sum_chunks_kernel"),
+    "masked_gram_matvec_rows": ("rowlist_gram_kernel", "rowlist_sum_kernel",
+                                "rowlist_count_kernel", "rowlist_scan_kernel",
+                                "rowlist_fill_kernel"),
     "bucket_cg": ("bucket_cg_kernel", "bucket_cg_rows_kernel"),
     "solve_cd": ("cd_staged_kernel", "cd_stream_kernel"),
 }
@@ -336,6 +347,7 @@ RMSE_BOUND_CHOL_IMPLICIT_FEAT = 0.7308 + 0.01
 SIDE_P = 32  # columns of phase 11's U and I
 # the dense implicit engine: 15 iterations x 2 half-steps x (1 + 3 CG steps)
 EXPECTED_DENSE_IMPLICIT = {"solve_cd": 0, "masked_gram_matvec": 15 * 2 * 4,
+                           "masked_gram_matvec_rows": 0,
                            "masked_rhs": 15 * 2, "bucket_cg": 0}
 RANK_USERS = 2000  # held-out users of phases 12-13
 # |P@10 - phase 12's dense P@10| of phase 12's bucketed fit and phase 13's
@@ -543,6 +555,73 @@ def check_kernels(rows, cols, vals, weights):
                     del out, ref
         del Wbs
     return results
+
+
+def check_k1_rows(rows, cols, vals, weights):
+    """Phase 3b: K1 with f32 operands on the row lists at the flagship's
+    sides, int8 mask and f32 weights, against the dense f32 K1 and its
+    twin; two calls bitwise equal; the lists' build time."""
+    import torch
+
+    from cmfrec_torch.ops import masked_matmul as mm
+
+    Kp, sides = flagship_dense(rows, cols, vals, weights)
+    dev = sides["A"][3].device
+    gen = torch.Generator(device=dev).manual_seed(1)
+    out = []
+    for side, (R, S, _, W8s, Wfs) in sides.items():
+        Q = torch.randn(R, Kp, device=dev, generator=gen) / 8
+        Be = torch.randn(S, Kp, device=dev, generator=gen) / 8
+        for wname, W in (("int8", W8s), ("f32", Wfs)):
+            start, end = (torch.cuda.Event(enable_timing=True)
+                          for _ in range(2))
+            start.record()
+            lists = mm.row_lists(W, rows.size)
+            end.record()
+            torch.cuda.synchronize()
+            build_ms = start.elapsed_time(end)
+            entries = int(lists.offsets[-1])
+            got = mm.masked_gram_matvec_rows(Q, Be, lists)
+            again = mm.masked_gram_matvec_rows(Q, Be, lists)
+            dense = mm.masked_gram_matvec(Q, Be, W)
+            twin = mm.masked_gram_matvec_rows_ref(Q, Be, lists)
+            torch.cuda.synchronize()
+            scale = dense.abs().max().item()
+            err = (got - dense).abs().max().item()
+            rel = err / scale
+            rel_twin = (got - twin).abs().max().item() / scale
+            bitwise = bool(torch.equal(got, again))
+            ms = _timed(lambda: mm.masked_gram_matvec_rows(Q, Be, lists), 5)
+            dense_ms = _timed(lambda: mm.masked_gram_matvec(Q, Be, W), 5)
+            plain_ms = _timed(
+                lambda: mm.masked_gram_matvec_rows_ref(Q, Be, lists), 2)
+            # the ids (and weights), the offsets, Q, Be and out once; the
+            # 4 K operations an entry at the f32 peak
+            nbytes = (entries * (4 if wname == "int8" else 8) + 2 * (R + 1) * 4
+                      + (2 * R + S) * Kp * 4)
+            b_ms, b_by = bound(nbytes, {"f32": 4 * entries * Kp})
+            ok = (rel <= REL_TOL["f32"] and rel_twin <= REL_TOL["f32"]
+                  and bitwise)
+            print(f"kernel masked_gram_matvec_rows side={side} R={R} S={S} "
+                  f"K={Kp} op=f32 W={wname}: entries={entries} "
+                  f"({100 * entries / (R * S):.3f}%, rule "
+                  f"{100 * mm.ROWS_MAX_DENSITY:.0f}%), lists built in "
+                  f"{build_ms:.3f} ms; max_abs_err={err:.3e} rel vs the "
+                  f"dense K1 {rel:.3e}, vs the twin {rel_twin:.3e} (tol "
+                  f"{REL_TOL['f32']:.0e}), bitwise {bitwise}; ms={ms:.4f} "
+                  f"(the dense f32 K1 {dense_ms:.3f}) plain_ms="
+                  f"{plain_ms:.3f} bound_ms={b_ms:.4f} ({b_by}) "
+                  f"{'ok' if ok else 'MISMATCH'}", flush=True)
+            if not ok:
+                raise AssertionError("masked_gram_matvec_rows disagrees")
+            out.append(dict(side=side, R=R, S=S, K=Kp, op="f32", W=wname,
+                            entries=entries, build_ms=build_ms,
+                            max_abs_err=err, rel_err=rel,
+                            rel_twin=rel_twin, ms=ms, dense_ms=dense_ms,
+                            plain_ms=plain_ms, bound_ms=b_ms,
+                            bound_by=b_by))
+            del lists, got, again, dense, twin
+    return out
 
 
 def check_k1_probes(rows, cols, vals, weights):
@@ -1211,15 +1290,17 @@ def collective_phases(ops, rows, cols, vals, test):
             **{**COLLECTIVE_FIT, **kw}, device="cuda").fit_triplets(*train))
         rmse = rmse_of(model)
         want = dict(EXPECTED_LAUNCHES)
-        if tag == "10b":  # the all-frozen exit sets K1's count
-            want["masked_gram_matvec"] = launches["masked_gram_matvec"]
+        k1 = "masked_gram_matvec"
+        if tag == "10b":  # every K1 f32, on the row lists; the all-frozen
+            # exit sets their count
+            want.update({k1: 0, k1 + "_rows": launches[k1 + "_rows"]})
         print(f"phase {tag} implicit features (use_cg={model.use_cg}): "
               f"{s:.3f} s, peak device memory {peak / 2**30:.2f} GiB, "
               f"held-out RMSE {rmse:.5f} (bound {bound_:.5f}, global-mean "
               f"baseline {base:.5f}), Ai_ {model.Ai_.shape} Bi_ "
               f"{model.Bi_.shape}, launches {launches} (expected {want})",
               flush=True)
-        if launches != want or launches["masked_gram_matvec"] <= 30:
+        if launches != want or launches[k1] + launches[k1 + "_rows"] <= 30:
             raise AssertionError(f"phase {tag} did not run the expected "
                                  "kernel launches")
         if not (rmse <= bound_ and np.isfinite(model.Ai_).all()
@@ -1304,9 +1385,8 @@ def implicit_phases(ops, U):
     quality["bucketed"] = ranking(*imodel._device_x_factors())
     del imodel
     torch.cuda.empty_cache()
-    want = {"solve_cd": 0, "masked_gram_matvec": 0, "masked_rhs": 0,
-            "bucket_cg": IMPLICIT_FIT["niter"] * (n_chunks(rows[tr], M)
-                                                  + n_chunks(cols[tr], N))}
+    want = dict(NO_LAUNCHES, bucket_cg=IMPLICIT_FIT["niter"] * (
+        n_chunks(rows[tr], M) + n_chunks(cols[tr], N)))
     print(f"phase 12 bucketed implicit (CMF_implicit, engine 'auto'): "
           f"{s:.3f} s, peak device memory {peak / 2**30:.2f} GiB, P@10 "
           f"{quality['bucketed'][0]:.5f}, MAP@10 "
@@ -1773,8 +1853,8 @@ def bucketed_collective_phases(ops, rows, cols, vals, test, lastfm, p10_7,
     with _Route(sides) as route:
         model, launches, s, peak = _fit_phase(ops, fit)
     rmse = rmse_of(model)
-    want = {"solve_cd": 0, "masked_gram_matvec": 0, "masked_rhs": 0,
-            "bucket_cg": (FIT["niter"] - 1) * sum(n_b.values())}
+    want = dict(NO_LAUNCHES,
+                bucket_cg=(FIT["niter"] - 1) * sum(n_b.values()))
     # centering U by each tag's observed mean zeroes a tag seen once (or
     # always with one count): a side-only user whose every tag is such has
     # no side information left, and its A row solves to zero
@@ -1832,8 +1912,7 @@ def bucketed_collective_phases(ops, rows, cols, vals, test, lastfm, p10_7,
     Ad, Bd = imodel._device_x_factors()
     p10, map10, p10_pop = ranking_quality(Ad, Bd, l_r, l_c, l_te_r, l_te_c,
                                           test_users, LFM_N)
-    want = {"solve_cd": 0, "masked_gram_matvec": 0, "masked_rhs": 0,
-            "bucket_cg": IMPLICIT_FIT["niter"] * n_b15}
+    want = dict(NO_LAUNCHES, bucket_cg=IMPLICIT_FIT["niter"] * n_b15)
     print(f"phase 15 collective implicit bucketed (U profiles {P.shape} nnz "
           f"{P.nnz}, NA_as_zero_user): route {route.name}, warm fit "
           f"{s:.3f} s, peak device memory {peak / 2**30:.2f} GiB, P@10 "
@@ -1975,18 +2054,21 @@ ATTR_NOISE = 0.5  # sd of the noise on phases 18a and 20's attributes
 NEW_GENRE_ROWS = 256  # phase 17b's cold item rows
 CB_NEW_ROWS = 2000  # phase 20's new attribute rows
 # the dense-engine launches of an ALS fit with CG and the f32 polish:
-# (niter - 1) x 2 half-steps x (1 + 3 CG steps) + 2 x (1 + 16); K2 one a
-# half-step
+# (niter - 1) x 2 half-steps x (1 + 3 CG steps) + 2 x (1 + 16), the
+# polish's on the row lists where ``rows`` (ML10M's density, K <= 256); K2
+# one a half-step
 
 
-def dense_launches(niter):
+def dense_launches(niter, rows=True):
+    polish = 2 * 17
     return {"solve_cd": 0,
-            "masked_gram_matvec": (niter - 1) * 2 * 4 + 2 * 17,
+            "masked_gram_matvec": (niter - 1) * 2 * 4 + (0 if rows else polish),
+            "masked_gram_matvec_rows": polish if rows else 0,
             "masked_rhs": 2 * niter, "bucket_cg": 0}
 
 
-NO_LAUNCHES = {"solve_cd": 0, "masked_gram_matvec": 0, "masked_rhs": 0,
-               "bucket_cg": 0}
+NO_LAUNCHES = {"solve_cd": 0, "masked_gram_matvec": 0,
+               "masked_gram_matvec_rows": 0, "masked_rhs": 0, "bucket_cg": 0}
 # phase 17: the card's f32 objective and gradient at the fit's result
 # against the CPU's f64 evaluation; 17b: the objective alone
 LBFGS_F32_TOL = 1e-4
@@ -2430,8 +2512,8 @@ def lbfgs_family_phases(ops, rows, cols, vals, test, lastfm, ctx):
     Am_d, Bm_d = iomf._device_x_factors()
     p10, map10, _ = ranking_quality(Am_d, Bm_d, l_r, l_c, l_te_r, l_te_c,
                                     test_users, LFM_N)
-    want = {"solve_cd": 0, "masked_gram_matvec": 0, "masked_rhs": 0,
-            "bucket_cg": IMPLICIT_FIT["niter"] * ctx["n_buckets_7"]}
+    want = dict(NO_LAUNCHES,
+                bucket_cg=IMPLICIT_FIT["niter"] * ctx["n_buckets_7"])
     print(f"phase 19 OMF_implicit (phase 7's hyperparameters, U profiles "
           f"{P.shape}): fit {s:.3f} s (host: densify_side "
           f"{host.get('densify_side', 0):.3f} s, _regress_side "
@@ -3554,7 +3636,7 @@ def wide_k_phases(ops, rows, cols, vals, test, weights, lastfm, ctx):
     pred = model.predict(rows[test], cols[test])
     rmse = float(np.sqrt(np.mean((pred - vals[test]) ** 2)))
     base = float(np.sqrt(np.mean((tr_v.mean() - vals[test]) ** 2)))
-    want = dense_launches(WIDE_FIT["niter"])
+    want = dense_launches(WIDE_FIT["niter"], rows=False)  # K = 320
     k1_text, k2_text = (", ".join(f"{dt} {n} calls {ms:.3f} ms a call"
                                   for dt, (n, ms) in sorted(by.items()))
                         for by in (k1_ms, k2_ms))
@@ -4537,6 +4619,7 @@ def main():
     from scripts.sweep_k1_probes_torch import sweep
 
     ops = {"masked_gram_matvec": mm.masked_gram_matvec,
+           "masked_gram_matvec_rows": mm.masked_gram_matvec_rows,
            "masked_rhs": mm.masked_rhs, "bucket_cg": sparse_cg.bucket_cg,
            "solve_cd": coord_descent.solve_cd}
     probe_ops = {w.__name__: w for w in k1_probes.WRAPPERS}
@@ -4572,6 +4655,9 @@ def main():
 
     # 3. kernels against their plain twins
     results = check_kernels(rows[tr], cols[tr], vals[tr], weights)
+    torch.cuda.empty_cache()
+    # 3b. K1 on the row lists
+    k1_rows = check_k1_rows(rows[tr], cols[tr], vals[tr], weights)
     torch.cuda.empty_cache()
 
     # 4. the flagship fit through the public entry point
@@ -4668,8 +4754,7 @@ def main():
     ifit_s = time.perf_counter() - t0
     ilaunches = _read_launches(ops)
     ipeak = torch.cuda.max_memory_allocated()
-    want = {"solve_cd": 0, "masked_gram_matvec": 0, "masked_rhs": 0,
-            "bucket_cg": IMPLICIT_FIT["niter"] * n_buckets}
+    want = dict(NO_LAUNCHES, bucket_cg=IMPLICIT_FIT["niter"] * n_buckets)
     Ad, Bd = imodel._device_x_factors()
     p10, map10, p10_pop = ranking_quality(Ad, Bd, tr_r, tr_c, te_r, te_c,
                                           test_users, LFM_N)
@@ -4712,9 +4797,8 @@ def main():
     sfit_s = time.perf_counter() - t0
     slaunches = _read_launches(ops)
     speak = torch.cuda.max_memory_allocated()
-    want = {"solve_cd": 0, "masked_gram_matvec": 0, "masked_rhs": 0,
-            "bucket_cg": (FIT["niter"] - 1) * (n_chunks(rows[tr], M)
-                                              + n_chunks(cols[tr], N))}
+    want = dict(NO_LAUNCHES, bucket_cg=(FIT["niter"] - 1) * (
+        n_chunks(rows[tr], M) + n_chunks(cols[tr], N)))
     rt, ct = (torch.as_tensor(a[test], device="cuda") for a in (rows, cols))
     spred = (res["glob_mean"] + res["biasA"][rt] + res["biasB"][ct]
              + (res["A"][rt] * res["B"][ct]).sum(dim=1)).cpu().numpy()
@@ -4807,6 +4891,19 @@ def main():
             bound_by=main_variant["bound_by"], library_ms=None,
             variants=variants, wide_k=wide[name],
             cmf_k300=wide["cmf_k300"]))
+    # K1 on the row lists: A side, int8 mask; it replaces no TPU kernel (the
+    # f32 K1's form for sparse systems)
+    head = next(v for v in k1_rows if v["side"] == "A" and v["W"] == "int8")
+    kernels.append(dict(
+        name="masked_gram_matvec_rows", route="cuda",
+        source=SOURCES["masked_gram_matvec_rows"],
+        cuda_kernels=CUDA_KERNELS["masked_gram_matvec_rows"], replaces=None,
+        launches=launches["masked_gram_matvec_rows"],
+        launches_by_phase={ph: c["masked_gram_matvec_rows"]
+                           for ph, c in paths.items()},
+        max_abs_err=max(v["max_abs_err"] for v in k1_rows),
+        ms=head["ms"], plain_ms=head["plain_ms"], bound_ms=head["bound_ms"],
+        bound_by=head["bound_by"], library_ms=None, variants=k1_rows))
     # K3 at the main path's shapes: one implicit iteration's launches (every
     # bucket of both sides, bf16), summed
     main = [r for r in k3

@@ -25,7 +25,7 @@ from pathlib import Path
 _PKG = Path(__file__).resolve().parents[1]
 SOURCES = tuple(_PKG / "csrc" / name for name in
                 ("masked_matmul.cu", "sparse_cg.cu", "k1_probes.cu",
-                 "cd_solve.cu"))
+                 "cd_solve.cu", "masked_rows.cu"))
 HEADERS = (_PKG / "csrc" / "masked_gram.cuh",)
 BUILD_DIR = _PKG.parent / "build"
 NVCC_FLAGS = ("-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -183,6 +183,10 @@ def lib() -> ctypes.CDLL:
     so.cmf_cd_solve.restype = I
     so.cmf_cd_plan.argtypes = [I, I, I, I, ctypes.POINTER(I)]
     so.cmf_cd_plan.restype = I
+    so.cmf_rowlist_build.argtypes = [P, I, I, I, I] + [P] * 5 + [I, I, P]
+    so.cmf_rowlist_build.restype = I
+    so.cmf_gram_rows.argtypes = [P] * 9 + [I] * 5 + [P]
+    so.cmf_gram_rows.restype = I
     return so
 
 

@@ -36,12 +36,23 @@ the card's SM count and the kernel's resident blocks a SM), each chunk
 writes partial [R, K] sums to scratch, and a second kernel adds them in
 chunk order: no atomics, so two calls on the same inputs give the same
 bits.
+
+K1 with f32 operands also has a form for sparse systems,
+:func:`masked_gram_matvec_rows` (csrc/masked_rows.cu): the same product
+walked over each row's observed entries, from the row lists of W that
+:func:`row_lists` builds on the device once a fit.  The dense f32 K1 does
+4 R S K operations whatever W holds; the lists cost a gather of one Be row
+an entry.  :func:`takes_rows` is the rule that chooses between them: W's
+density under ROWS_MAX_DENSITY, where the two kernels cost the same on the
+card.
 """
 
 from __future__ import annotations
 
 import ctypes
+import warnings
 from functools import lru_cache
+from typing import NamedTuple, Optional
 
 import torch
 
@@ -66,6 +77,20 @@ RHS_WIDE_CONFIGS = {3: 3, 4: 2}
 RHS_WIDE_TILES = 5
 # split_chunk: the fewest waves of resident blocks it aims the grid at
 WAVES = 4
+
+# the row-list K1 (masked_gram_matvec_rows): entries a chunk (a warp's work;
+# a longer row is split into chunks whose partial sums are added in order).
+# At ML10M's shape (int8 mask; NVIDIA H100 80GB HBM3, 700 W) a call read
+# 0.236 / 0.295 ms (A / B side) at 2048, 0.238 / 0.299 at 1024, 0.250 /
+# 0.323 at 512, 0.254 / 0.347 at 256, 0.235 / 0.311 at 4096
+ROW_CHUNK = 2048
+# its density rule (takes_rows): W's observed entries / (R S) under this.
+# At ML10M's A and B sides (K = 64, int8 mask; NVIDIA H100 80GB HBM3, 700
+# W) the row lists read 21.5 and 24.3 ms x the density, the dense f32 K1
+# 4.73 and 4.64 ms at any density: they cost the same at 22.1% and 19.1%
+# (scripts/time_k1_rows_torch.py, 512 entries a chunk: ML10M's mask with
+# cells added uniformly to 10, 15 and 20%; 256 a chunk: 21.4% and 18.7%)
+ROWS_MAX_DENSITY = 0.18
 
 _OPERAND_DTYPES = (torch.bfloat16, torch.float32)
 # W's dtype -> the kernels' W-type code
@@ -405,3 +430,190 @@ def rhs_launch(X, W, mb, Be, plan, kernels=None):
 
 
 masked_rhs.launches = 0
+
+
+class RowList(NamedTuple):
+    """The row lists of a W [R, S] for :func:`masked_gram_matvec_rows`:
+    row r's entries are ``ids[offsets[r]:offsets[r + 1]]`` (column ids in
+    column order, int32) with ``weights`` at the same places (f32, or None
+    for an int8 mask); ``ids`` has ``entries`` slots, the first
+    ``offsets[R]`` used.  The chunk table splits each row into chunks of
+    ROW_CHUNK entries: ``chunk_offsets`` [R + 1] a row's first chunk,
+    ``chunk_rows`` [slots] a chunk's row (R past the last)."""
+
+    offsets: torch.Tensor
+    ids: torch.Tensor
+    weights: Optional[torch.Tensor]
+    chunk_offsets: torch.Tensor
+    chunk_rows: torch.Tensor
+
+
+def takes_rows(entries, R, S, K):
+    """The density rule: whether K1 with f32 operands on a W [R, S] of
+    ``entries`` observed entries takes the row lists
+    (:func:`masked_gram_matvec_rows`) rather than the dense kernel.  Up to
+    TILED_MAX_K only, as the row-list kernel; the lists' offsets are
+    int32."""
+    return (K <= TILED_MAX_K and entries < 2 ** 31 - 1
+            and entries < ROWS_MAX_DENSITY * R * S)
+
+
+def _chunk_slots(entries, R):
+    """Chunk slots enough for any W of at most ``entries`` nonzero entries
+    over R rows: a row of n entries takes ceil(n / ROW_CHUNK) chunks, fewer
+    than n / ROW_CHUNK + 1."""
+    return entries // ROW_CHUNK + R + 1
+
+
+def _row_lists_ref(W, entries):
+    """Plain torch twin of :func:`row_lists`."""
+    R = W.shape[0]
+    dev = W.device
+    counts = torch.empty(R, dtype=torch.int64, device=dev)
+    ids, wts = [], []
+    for sl in row_chunks(*W.shape):
+        nz = W[sl] != 0
+        counts[sl] = nz.sum(dim=1)
+        ids.append(nz.nonzero()[:, 1])
+        if W.dtype == torch.float32:
+            wts.append(W[sl][nz])
+    n = int(counts.sum())
+    if n > entries:
+        raise ValueError(f"row_lists: W has {n} nonzero entries, more than "
+                         f"entries={entries}")
+    offsets = torch.zeros(R + 1, dtype=torch.int64, device=dev)
+    offsets[1:] = torch.cumsum(counts, 0)
+    ids_all = torch.zeros(entries, dtype=torch.int32, device=dev)
+    ids_all[:n] = torch.cat(ids).to(torch.int32)
+    weights = None
+    if W.dtype == torch.float32:
+        weights = torch.zeros(entries, dtype=torch.float32, device=dev)
+        weights[:n] = torch.cat(wts)
+    nch = -(-counts // ROW_CHUNK)
+    chunk_offsets = torch.zeros(R + 1, dtype=torch.int64, device=dev)
+    chunk_offsets[1:] = torch.cumsum(nch, 0)
+    chunk_rows = torch.full((_chunk_slots(entries, R),), R, dtype=torch.int32,
+                            device=dev)
+    used = int(chunk_offsets[-1])
+    chunk_rows[:used] = torch.repeat_interleave(
+        torch.arange(R, dtype=torch.int32, device=dev), nch)
+    return RowList(offsets.to(torch.int32), ids_all, weights,
+                   chunk_offsets.to(torch.int32), chunk_rows)
+
+
+def row_lists(W, entries):
+    """The row lists of W's nonzero entries (:class:`RowList`), W [R, S] an
+    int8 0/1 mask or f32 weights.  ``entries`` bounds W's nonzero entries
+    (the fit's entry count, which the host knows): the lists are sized from
+    it, so that building them on a card waits for nothing there.  A
+    duplicated (row, column) pair is one entry of the dense form, so it is
+    one entry here.  On a card a count pass, a scan and a fill
+    (csrc/masked_rows.cu); on the CPU the twin."""
+    if W.dtype not in (torch.int8, torch.float32) or W.dim() != 2:
+        raise ValueError("row_lists: W must be a 2-d int8 mask or float32 "
+                         f"weights, got {W.dtype}{tuple(W.shape)}")
+    R, S = W.shape
+    if S % TILE or not W.is_contiguous():
+        raise ValueError(f"row_lists: W must be contiguous with S={S} a "
+                         f"multiple of {TILE}")
+    if not 0 <= entries < 2 ** 31 - 1:
+        raise ValueError(f"row_lists: entries={entries} out of int32 range")
+    entries = max(int(entries), 1)
+    if W.device.type == "cpu":
+        return _row_lists_ref(W, entries)
+    dev = W.device
+    i32 = dict(dtype=torch.int32, device=dev)
+    slots = _chunk_slots(entries, R)
+    lists = RowList(
+        torch.empty(R + 1, **i32), torch.empty(entries, **i32),
+        (torch.empty(entries, dtype=torch.float32, device=dev)
+         if W.dtype == torch.float32 else None),
+        torch.empty(R + 1, **i32), torch.full((slots,), R, **i32))
+    with torch.cuda.device(dev):
+        stream = _stream_for((W,), dev)
+        err = _cuda.lib().cmf_rowlist_build(
+            W.data_ptr(), R, S, W_TYPES[W.dtype], ROW_CHUNK,
+            lists.offsets.data_ptr(), lists.chunk_offsets.data_ptr(),
+            lists.ids.data_ptr(),
+            0 if lists.weights is None else lists.weights.data_ptr(),
+            lists.chunk_rows.data_ptr(), slots, entries, stream)
+    _cuda.check(err, "row_lists")
+    return lists
+
+
+def masked_gram_matvec_rows_ref(Q, Be, rows):
+    """Plain torch twin of :func:`masked_gram_matvec_rows`: each entry's dot
+    Q[r] . Be[s] (sampled on the lists' pattern), times its weight, and the
+    Be rows summed by row with those coefficients, in entry order (a
+    weighted embedding bag a row).  Two calls a product, whatever the
+    entries: no [entries, K] temporaries, few parallel regions."""
+    R, K = Q.shape
+    off = rows.offsets.long()
+    n = int(off[-1])
+    if n == 0:
+        return torch.zeros(R, K, dtype=torch.float32, device=Q.device)
+    ids = rows.ids[:n].long()
+    with warnings.catch_warnings():  # sparse CSR's "beta state" notice
+        warnings.simplefilter("ignore", UserWarning)
+        pattern = torch.sparse_csr_tensor(
+            off, ids, torch.ones(n, dtype=torch.float32, device=Q.device),
+            size=(R, Be.shape[0]), check_invariants=False)
+    d = torch.sparse.sampled_addmm(pattern, Q, Be.T, beta=0.0).values()
+    if rows.weights is not None:
+        d = d * rows.weights[:n]
+    return torch.nn.functional.embedding_bag(ids, Be, off[:-1], mode="sum",
+                                             per_sample_weights=d)
+
+
+def masked_gram_matvec_rows(Q, Be, rows):
+    """K1 with f32 operands from W's row lists: out[r] = sum over row r's
+    entries s of w_rs (Q[r] . Be[s]) Be[s], which is
+    :func:`masked_gram_matvec` (Q, Be, W) for the W that ``rows`` (a
+    :class:`RowList` of :func:`row_lists`) was built from.  Q:[R,K]
+    Be:[S,K] float32 -> [R,K] float32.  On a card K <= TILED_MAX_K
+    (:func:`takes_rows` keeps wider systems on the dense kernel)."""
+    R = Q.shape[0]
+    if Q.dtype != torch.float32 or Be.dtype != torch.float32:
+        raise ValueError("masked_gram_matvec_rows: Q and Be must be float32, "
+                         f"got {Q.dtype} and {Be.dtype}")
+    K = Q.shape[1]
+    if Be.dim() != 2 or Be.shape[1] != K or K % TILE or K <= 0:
+        raise ValueError("masked_gram_matvec_rows: Q and Be need one width, "
+                         f"a positive multiple of {TILE}, got "
+                         f"{tuple(Q.shape)} and {tuple(Be.shape)}")
+    if tuple(rows.offsets.shape) != (R + 1,):
+        raise ValueError("masked_gram_matvec_rows: the lists hold "
+                         f"{rows.offsets.shape[0] - 1} rows, Q has {R}")
+    tensors = (Q, Be, *(t for t in rows if t is not None))
+    devices = {t.device for t in tensors}
+    if len(devices) != 1:
+        raise ValueError("masked_gram_matvec_rows: tensors on several "
+                         f"devices {devices}")
+    if not all(t.is_contiguous() for t in tensors):
+        raise ValueError("masked_gram_matvec_rows: tensors must be "
+                         "contiguous")
+    device = devices.pop()
+    if device.type == "cpu":
+        return masked_gram_matvec_rows_ref(Q, Be, rows)
+    _kernel_device("masked_gram_matvec_rows", device, K)
+    if K > TILED_MAX_K:
+        raise ValueError(f"masked_gram_matvec_rows: K={K} past "
+                         f"{TILED_MAX_K} takes the dense kernel")
+    slots = rows.chunk_rows.shape[0]
+    with torch.cuda.device(device):
+        stream = _stream_for((Q, Be), device)
+        out = torch.empty(R, K, dtype=torch.float32, device=device)
+        part = torch.empty(slots, K, dtype=torch.float32, device=device)
+        err = _cuda.lib().cmf_gram_rows(
+            Q.data_ptr(), Be.data_ptr(), rows.offsets.data_ptr(),
+            rows.ids.data_ptr(),
+            0 if rows.weights is None else rows.weights.data_ptr(),
+            rows.chunk_offsets.data_ptr(), rows.chunk_rows.data_ptr(),
+            out.data_ptr(), part.data_ptr(), R, K, slots, ROW_CHUNK,
+            rows.ids.shape[0], stream)
+    _cuda.check(err, "masked_gram_matvec_rows")
+    masked_gram_matvec_rows.launches += 1
+    return out
+
+
+masked_gram_matvec_rows.launches = 0

@@ -47,7 +47,9 @@ import numpy as np
 import torch
 
 from ..config import should_handle_interrupt
-from ..ops.masked_matmul import TILE, masked_gram_matvec, masked_rhs, row_chunks
+from ..ops.masked_matmul import (TILE, masked_gram_matvec,
+                                 masked_gram_matvec_rows, masked_rhs,
+                                 row_chunks, row_lists, takes_rows)
 from ..parallel.mesh import (any_rank, gather_rows, padded_share, reduce_sum,
                              world_rank)
 from ..utils import profiling
@@ -235,19 +237,50 @@ def _cg(P, rhs, matvec, n_steps, dyn_stop=False, mesh=None):
     return a
 
 
+class _RowLists:
+    """The row lists of an explicit fit's W and WT for K1 with f32 operands
+    (ops/masked_matmul.py: row_lists, masked_gram_matvec_rows), where the
+    density rule (takes_rows) chooses them: W's ``entries`` (the fit's
+    rating count, which bounds the dense form's entries) over the padded
+    dense form.  Built at the first f32 half-step, after the bias start
+    (whose f32 temporaries set the fit's peak memory), and freed with the
+    fit."""
+
+    def __init__(self, W, WT, entries, m_pad, n_pad, Kp):
+        self.W, self.WT, self.entries = W, WT, int(entries)
+        self.use = takes_rows(self.entries, m_pad, n_pad, Kp)
+        self.lists = None
+
+    def of(self, W):
+        """W's (or WT's) lists, or None where the dense kernel runs."""
+        if not self.use:
+            return None
+        if self.lists is None:
+            self.lists = {id(t): row_lists(t, self.entries)
+                          for t in (self.W, self.WT)}
+        return self.lists[id(W)]
+
+
 def _half_step(P, X, W, Be, mb, lam_row, live, *, n_steps, compute_dtype,
-               dyn_stop=False, G0=None, R0=None, mesh=None):
+               dyn_stop=False, G0=None, R0=None, mesh=None, lists=None):
     """One side's update: solve (Be^T diag(W_r) Be + G0 + lam_r) a_r =
     rhs_r + R0_r for all rows r at once by fused-kernel CG.  G0/R0 carry the
     collective model's side-info and implicit-features terms.  P, X, W,
-    lam_row, live and R0 are this rank's rows under ``mesh``, Be whole."""
+    lam_row, live and R0 are this rank's rows under ``mesh``, Be whole.
+    With f32 operands K1 walks W's row lists where ``lists`` (a _RowLists)
+    takes them."""
     Bek = Be.to(compute_dtype)
     rhs = masked_rhs(X, W, mb, Bek)
     if R0 is not None:
         rhs = rhs + R0
+    rows = (lists.of(W) if lists is not None
+            and compute_dtype == torch.float32 else None)
 
     def matvec(v):
-        mv = masked_gram_matvec(v.to(compute_dtype), Bek, W)
+        if rows is None:
+            mv = masked_gram_matvec(v.to(compute_dtype), Bek, W)
+        else:
+            mv = masked_gram_matvec_rows(v, Bek, rows)
         if G0 is not None:
             mv = mv + v @ G0.T
         return mv + v * lam_row
@@ -331,12 +364,14 @@ def _side_terms(n_rows, Kp, k, parts):
 
 def _iteration(A, B, X, W, XT, WT, lam_row_A, lam_row_B, live_A, live_B, mu,
                *, k, user_bias, item_bias, n_steps, compute, rows, na0=False,
-               dyn_stop=False, G0B=None, R0B=None, G0A=None, R0A=None):
+               dyn_stop=False, G0B=None, R0B=None, G0A=None, R0A=None,
+               lists=None):
     """One full ALS iteration: B half-step then A half-step (the reference's
     in-iteration order, upstream cmfrec src/collective.c:8614 "Updating B"
     before :8802 "Updating A").  G0*/R0* are a collective fit's side terms
     of each half-step.  A and B are whole; X, W, the lambdas, the live
-    masks and R0* hold this rank's rows (``rows``, a _Rows)."""
+    masks and R0* hold this rank's rows (``rows``, a _Rows); ``lists`` the
+    f32 K1's row lists of W and WT (a _RowLists)."""
     cdt = torch.bfloat16 if compute == "bf16" else torch.float32
     # bias-column trick (upstream cmfrec src/common.c:561-565): the opposing
     # side's bias coordinate is a column of ones (or zeros without a bias),
@@ -354,7 +389,7 @@ def _iteration(A, B, X, W, XT, WT, lam_row_A, lam_row_B, live_A, live_B, mu,
     else:
         B = _half_step(B[rows.b.sl], XT, WT, Ae, mbB, lam_row_B, live_B,
                        n_steps=n_steps, compute_dtype=cdt, dyn_stop=dyn_stop,
-                       G0=G0B, R0=R0B, mesh=rows.mesh)
+                       G0=G0B, R0=R0B, mesh=rows.mesh, lists=lists)
     B = rows.gather(B)
     Be = B.clone()
     Be[:, k] = 1.0 if user_bias else 0.0
@@ -368,7 +403,7 @@ def _iteration(A, B, X, W, XT, WT, lam_row_A, lam_row_B, live_A, live_B, mu,
     else:
         A = _half_step(A[rows.a.sl], X, W, Be, mbA, lam_row_A, live_A,
                        n_steps=n_steps, compute_dtype=cdt, dyn_stop=dyn_stop,
-                       G0=G0A, R0=R0A, mesh=rows.mesh)
+                       G0=G0A, R0=R0A, mesh=rows.mesh, lists=lists)
     return rows.gather(A), B
 
 
@@ -632,13 +667,14 @@ def fit_explicit_dense_masked(
 
     mu = float(np.float32(glob_mean))
     args = (X, W, XT, WT, lam_row_A, lam_row_B, live_A, live_B, mu)
+    lists = _RowLists(W, WT, len(rows), rws.a.pad, rws.b.pad, Kp)
     st = {"A": A, "B": B}
 
     def step(**kw):
         st["A"], st["B"] = _iteration(st["A"], st["B"], *args, k=k,
                                       user_bias=user_bias,
                                       item_bias=item_bias, na0=na_as_zero,
-                                      rows=rws, **kw)
+                                      rows=rws, lists=lists, **kw)
 
     def _state():
         # checkpoint layout == return layout (1:1 with init=)
@@ -688,7 +724,7 @@ def _rows_of(S, s: _Split):
 def _collective_iteration(A, B, X, W, XT, WT, Ud, Id, lam_row_A, lam_row_B,
                           live_A, live_B, mu, lamC, lamD, w_user, w_item,
                           lam_ai, lam_bi, w_imp, *, k, user_bias, item_bias,
-                          n_steps, compute, dyn_stop, rows):
+                          n_steps, compute, dyn_stop, rows, lists=None):
     """One collective iteration in the reference's order: C, D, Bi, Ai, then
     B, then A (upstream cmfrec src/collective.c:8345,8396,8479,8520,8614,
     8802).  C/D/Bi/Ai are solved from the pre-update A/B.  Returns A, B, C,
@@ -724,7 +760,7 @@ def _collective_iteration(A, B, X, W, XT, WT, Ud, Id, lam_row_A, lam_row_B,
                       live_B, mu, k=k, user_bias=user_bias,
                       item_bias=item_bias, n_steps=n_steps, compute=compute,
                       dyn_stop=dyn_stop, G0B=G0B, R0B=R0B, G0A=G0A, R0A=R0A,
-                      rows=rows)
+                      rows=rows, lists=lists)
     return A, B, C, D, Ai, Bi
 
 
@@ -800,12 +836,13 @@ def fit_collective_dense_masked(
     args = (X, W, XT, WT, Ud, Id, lam_row_A, lam_row_B, live_A, live_B,
             f32(glob_mean), f32(lam6[4]), f32(lam6[5]), f32(w_user),
             f32(w_item), lam_ai, lam_bi, f32(w_implicit))
+    lists = _RowLists(W, WT, len(rows), rws.a.pad, rws.b.pad, Kp)
     st = {"A": A, "B": B, "C": None, "D": None, "Ai": None, "Bi": None}
 
     def step(**kw):
         out = _collective_iteration(st["A"], st["B"], *args, k=k,
                                     user_bias=user_bias, item_bias=item_bias,
-                                    rows=rws, **kw)
+                                    rows=rws, lists=lists, **kw)
         st.update(zip(("A", "B", "C", "D", "Ai", "Bi"), out))
 
     bulk, polish = _schedule(exact, k + 1, max_cg_steps, finalize_steps,

@@ -22,8 +22,9 @@ calls), under it ``cmfrec.engine.layout`` (the bucketed layout),
 one ``cmfrec.engine.iter`` an iteration, and ``cmfrec.finish`` (the
 model's copies of the factors to the host and its prediction caches).
 The counters: ``h2d_bytes``, ``host_syncs``, ``d2h_bytes`` and
-``launches.k1`` / ``k2`` / ``k3`` / ``cd`` (the ops' own ``launches``
-over the fit)."""
+``launches.k1`` / ``k1_rows`` / ``k2`` / ``k3`` / ``cd`` (the ops' own
+``launches`` over the fit; ``k1_rows`` is K1 on row lists,
+masked_gram_matvec_rows)."""
 
 from __future__ import annotations
 
@@ -154,14 +155,15 @@ class Span:
         return self.host_s if dev is None else max(self.host_s, dev)
 
 
-LAUNCHES = ("k1", "k2", "k3", "cd")
+LAUNCHES = ("k1", "k1_rows", "k2", "k3", "cd")
 
 
 def _launch_counts() -> dict:
     """The ops' own launch counters (each op's ``launches``), by kernel."""
     from ..ops import coord_descent, masked_matmul, sparse_cg
 
-    ops = (masked_matmul.masked_gram_matvec, masked_matmul.masked_rhs,
+    ops = (masked_matmul.masked_gram_matvec,
+           masked_matmul.masked_gram_matvec_rows, masked_matmul.masked_rhs,
            sparse_cg.bucket_cg, coord_descent.solve_cd)
     return {k: getattr(op, "launches", 0) for k, op in zip(LAUNCHES, ops)}
 

@@ -234,14 +234,14 @@ def topn(pkg, mesh):
 # --------------------------------------------------------------------- #
 
 
-def _dense_data():
+def _dense_data(density=0.5):
     """tests/test_multidevice.py:194-200 (rng 1234), on a half-point grid
     (exact in the engine's bf16 X)."""
     rng = np.random.default_rng(1234)
     m, n, k = 96, 64, 4
     A0 = rng.normal(size=(m, k))
     B0 = rng.normal(size=(n, k))
-    mask = rng.uniform(size=(m, n)) < 0.5
+    mask = rng.uniform(size=(m, n)) < density
     ro, co = np.nonzero(mask)
     vals = np.round(2 * ((A0 @ B0.T)[ro, co] + 3.0
                          + 0.05 * rng.normal(size=ro.size))) / 2
@@ -249,8 +249,8 @@ def _dense_data():
     return ro, co, vals, m, n, k, init
 
 
-def _dense(pkg, mesh, **kw):
-    ro, co, vals, m, n, k, init = _dense_data()
+def _dense(pkg, mesh, density=0.5, **kw):
+    ro, co, vals, m, n, k, init = _dense_data(density)
     common = dict(weights=None, k=k, lam6=np.full(6, 0.5), max_cg_steps=3,
                   finalize_chol=True, finalize_steps=16, user_bias=True,
                   item_bias=True, glob_mean=float(vals.mean()),
@@ -287,6 +287,12 @@ def dense_plain(pkg, mesh):
 def dense_exact(pkg, mesh):
     """Exact mode: the all-frozen exit taken over every rank (:215)."""
     return _dense(pkg, mesh, niter=4, exact=True)
+
+
+def dense_rows(pkg, mesh):
+    """dense_plain's fit on 8% of the cells, where the f32 polish's K1
+    walks each rank's row lists of W and WT (masked_matmul.takes_rows)."""
+    return _dense(pkg, mesh, density=0.08, niter=2)
 
 
 def _patched_init(driver_mod, name, init):
@@ -639,7 +645,7 @@ LAYOUT = ["layout_pair", "layout_rows", "layout_aligned", "layout_dense",
 CASES = {fn.__name__: fn for fn in (
     halfstep, explicit_cholesky, explicit_cg, explicit_cd, explicit_world3,
     implicit, collective_explicit, collective_implicit, topn, dense_plain,
-    dense_exact, models, omf_models, lbfgs, offsets_lbfgs, offsets_als,
+    dense_exact, dense_rows, models, omf_models, lbfgs, offsets_lbfgs, offsets_als,
     layout_pair, layout_rows, layout_aligned, layout_dense, layout_uploads)}
 
 

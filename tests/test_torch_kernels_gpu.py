@@ -210,6 +210,115 @@ def test_misaligned_operand_raises(cuda):
         mm.masked_gram_matvec(Qm, Be, W)
 
 
+def _power_law_mask(dev, R, S, nnz, seed):
+    """A 0/1 [R, S] int8 mask with ML10M's skew, scaled down: rows drawn on
+    a power law of exponent 0.55, columns 0.8 (benchmark/traffic/ml10m.json),
+    so the first columns hold most rows; row 7 and column 9 full."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+
+    def draw(n, exponent):
+        p = 1.0 / torch.arange(1, n + 1, device=dev,
+                               dtype=torch.float64) ** exponent
+        cdf = torch.cumsum(p / p.sum(), 0)
+        u = torch.rand(nnz, device=dev, dtype=torch.float64, generator=g)
+        return torch.searchsorted(cdf, u).clamp_(max=n - 1)
+
+    W = torch.zeros(R, S, dtype=torch.int8, device=dev)
+    W[draw(R, 0.55), draw(S, 0.8)] = 1
+    W[7] = 1
+    W[:, 9] = 1
+    return W
+
+
+@pytest.mark.parametrize("side", ["W", "WT"])
+@pytest.mark.parametrize("wdt", [torch.int8, torch.float32])
+@pytest.mark.parametrize("K", [64, 128, 192, 256])
+def test_k1_rows_matches_dense_k1_and_twin(cuda, K, wdt, side):
+    """The row-list K1 (csrc/masked_rows.cu) on a power-law mask (~0.3%;
+    a full row and column of three ROW_CHUNKs, the last ragged, on each
+    side) against the dense f32 K1 and its twin: the same f32 products
+    summed in another order, REL_TOL; the lists built on the card equal
+    the CPU's; two calls give the same bits."""
+    R, S = 2 * mm.ROW_CHUNK + 512, 2 * mm.ROW_CHUNK + 256
+    W = _power_law_mask(cuda, R, S, 60000, seed=K)
+    if wdt == torch.float32:
+        g = torch.Generator(device=cuda).manual_seed(1)
+        W = W * (0.5 + 1.5 * torch.rand(R, S, device=cuda, generator=g))
+    if side == "WT":
+        W = W.t().contiguous()
+    R, S = W.shape
+    entries = int((W != 0).sum())
+    lists = mm.row_lists(W, entries + 100)
+    cpu = mm.row_lists(W.cpu(), entries + 100)
+    for got, want in zip(lists, cpu):
+        if want is not None:
+            assert torch.equal(got.cpu()[:entries], want[:entries])
+    assert (lists.chunk_offsets[1:] - lists.chunk_offsets[:-1]).max() >= 3
+    g = torch.Generator(device=cuda).manual_seed(2)
+    Q = torch.randn(R, K, device=cuda, generator=g)
+    Be = torch.randn(S, K, device=cuda, generator=g)
+    before = mm.masked_gram_matvec_rows.launches
+    out = mm.masked_gram_matvec_rows(Q, Be, lists)
+    again = mm.masked_gram_matvec_rows(Q, Be, lists)
+    torch.cuda.synchronize()
+    assert mm.masked_gram_matvec_rows.launches == before + 2
+    assert torch.equal(out, again)
+    assert _rel(out, mm.masked_gram_matvec(Q, Be, W)) <= REL_TOL[torch.float32]
+    assert _rel(out, mm.masked_gram_matvec_rows_ref(Q, Be, lists)) <= \
+        REL_TOL[torch.float32]
+    empty = (W != 0).sum(dim=1) == 0
+    assert (out[empty] == 0).all()
+
+
+def test_k1_rows_raises(cuda):
+    R, S, K = 64, 128, 64
+    Q, Be, W, _, _ = _inputs(cuda, R, S, K, torch.float32, torch.int8)
+    lists = mm.row_lists(W, int(W.sum()))
+    with pytest.raises(ValueError, match="several devices"):
+        mm.masked_gram_matvec_rows(Q.cpu(), Be, lists)
+    with pytest.raises(ValueError, match="several devices"):
+        mm.masked_gram_matvec_rows(Q, Be, mm.row_lists(W.cpu(),
+                                                        int(W.sum())))
+    buf = torch.zeros(R * K + 1, dtype=torch.float32, device=cuda)
+    Qm = buf[1:].view(R, K)
+    Qm.copy_(Q)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        mm.masked_gram_matvec_rows(Qm, Be, lists)
+    wide = torch.zeros(R, 320, device=cuda)
+    with pytest.raises(ValueError, match="K=320 past 256"):
+        mm.masked_gram_matvec_rows(wide, torch.zeros(S, 320, device=cuda),
+                                   lists)
+    Wb = torch.zeros(R * S + 1, dtype=torch.int8, device=cuda)[1:].view(R, S)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        mm.row_lists(Wb, 10)
+
+
+@pytest.mark.parametrize("use_cg", [True, False])
+def test_fit_on_row_lists_card_matches_cpu(cuda, use_cg):
+    """A sparse explicit fit (~2.5% of the cells), whose f32 K1 takes the
+    row lists on the card and on the CPU, card against CPU from one init:
+    5e-4, as test_fit_on_card_matches_cpu."""
+    rng = np.random.default_rng(5)
+    m, n, k = 600, 400, 6
+    pairs = np.unique(rng.integers(0, m * n, 6000))
+    rows, cols = pairs // n, pairs % n
+    vals = np.round(2 * (3 + rng.normal(size=rows.size))) / 2
+    init = dict(A=0.3 * rng.normal(size=(m, k)), B=0.3 * rng.normal(size=(n, k)))
+    kw = dict(k=k, lambda_=0.5, niter=4, use_cg=use_cg, scale_lam=True,
+              init={key: v.astype(np.float32) for key, v in init.items()})
+    before = mm.masked_gram_matvec_rows.launches
+    on_card = drivers.fit_explicit_als(rows, cols, vals, m, n, device=cuda,
+                                       **kw)
+    launched = mm.masked_gram_matvec_rows.launches - before
+    assert launched == 2 * 17 if use_cg else launched > 0
+    on_cpu = drivers.fit_explicit_als(rows, cols, vals, m, n, device="cpu",
+                                      **kw)
+    for key in ("A", "B", "biasA", "biasB"):
+        np.testing.assert_allclose(on_card[key].cpu().numpy(),
+                                   on_cpu[key].numpy(), rtol=0, atol=5e-4,
+                                   err_msg=key)
+
+
 PROBE_TOL = {"k1": 1e-3, "dots": 1e-3, "dot1": 1e-4, "w": 1e-5}
 
 

@@ -25,14 +25,15 @@ from .mesh_cases import (
     problem,
 )
 
-NAMES = ["dense_plain", "dense_exact", "lbfgs", "offsets_lbfgs",
-         "offsets_als"]
+NAMES = ["dense_plain", "dense_exact", "dense_rows", "lbfgs",
+         "offsets_lbfgs", "offsets_als"]
 # cases with an L-BFGS fit: its objective and gradient sum the ranks' parts
 LBFGS = ("lbfgs", "offsets_lbfgs")
 # (rtol, atol) against cmfrec_tpu, by case and key (None: every key)
 JAX_TOL = {
     "dense_plain": {"pred": (1e-3, 1e-3)},
     "dense_exact": {None: (0.0, 5e-4), "pred": None},
+    "dense_rows": {"pred": (1e-3, 1e-3)},
     "lbfgs": {None: (1e-6, 1e-8)},
     "offsets_lbfgs": {None: (1e-6, 1e-8)},
     "offsets_als": {None: (1e-4, 1e-5)},
