@@ -343,7 +343,16 @@ def _shared_na0_solve(Fk, Mask, lam_diag, op_dtype):
     The reference hard-codes this closed form even in CG fits (upstream
     cmfrec src/collective.c:8479,8520)."""
     G = Fk.T @ Fk + torch.diag(lam_diag)
-    return _chol_rows(G, _mask_matmul(Mask, Fk, op_dtype))
+    return _chol_rows(G, _xones_matmul(Mask, Fk, op_dtype))
+
+
+def _xones_matmul(Mask, F, op_dtype):
+    """An implicit-features product Mask @ F (Xones is the fit's mask),
+    counted: one ``impfeat.products``, and the bytes of the mask as held
+    (R x S of the dense int8 form) as ``impfeat.mask_bytes``."""
+    profiling.count("impfeat.products")
+    profiling.count("impfeat.mask_bytes", Mask.numel() * Mask.element_size())
+    return _mask_matmul(Mask, F, op_dtype)
 
 
 def _side_terms(n_rows, Kp, k, parts):
@@ -724,13 +733,16 @@ def _rows_of(S, s: _Split):
 def _collective_iteration(A, B, X, W, XT, WT, Ud, Id, lam_row_A, lam_row_B,
                           live_A, live_B, mu, lamC, lamD, w_user, w_item,
                           lam_ai, lam_bi, w_imp, *, k, user_bias, item_bias,
-                          n_steps, compute, dyn_stop, rows, lists=None):
+                          n_steps, compute, dyn_stop, rows, lists=None,
+                          it=None):
     """One collective iteration in the reference's order: C, D, Bi, Ai, then
     B, then A (upstream cmfrec src/collective.c:8345,8396,8479,8520,8614,
     8802).  C/D/Bi/Ai are solved from the pre-update A/B.  Returns A, B, C,
     D, Ai, Bi (None where the fit has no such part), all whole: Ud and Id
     are whole, C and D solved alike on every rank; Ai and Bi are solved on
-    each rank's rows of the masks and gathered."""
+    each rank's rows of the masks and gathered.  The Xones work is the span
+    ``cmfrec.engine.impfeat`` (attrs ``it``, the iteration, and
+    ``compute``)."""
     Kp = A.shape[1]
     # the implicit-features products take bf16-rounded factors in the bf16
     # iterations on a card, as on the TPU; the CPU multiplies f32 factors,
@@ -744,16 +756,19 @@ def _collective_iteration(A, B, X, W, XT, WT, Ud, Id, lam_row_A, lam_row_B,
     Ai = Bi = None
     if lam_ai is not None:
         # Xones ~ A Bi^T and Xones^T ~ B Ai^T, both from the pre-update A/B
-        Bi = rows.gather(_shared_na0_solve(A[:, :k], WT, lam_bi, mdt))
-        Ai = rows.gather(_shared_na0_solve(B[:, :k], W, lam_ai, mdt))
+        with profiling.span("cmfrec.engine.impfeat", it=it, compute=compute):
+            Bi = rows.gather(_shared_na0_solve(A[:, :k], WT, lam_bi, mdt))
+            Ai = rows.gather(_shared_na0_solve(B[:, :k], W, lam_ai, mdt))
+            rhs_B = _xones_matmul(WT, Ai, mdt)
+            rhs_A = _xones_matmul(W, Bi, mdt)
     parts_B, parts_A = [], []
     if D is not None:
         parts_B.append((w_item, D, _rows_of(Id, rows.b) @ D))
     if C is not None:
         parts_A.append((w_user, C, _rows_of(Ud, rows.a) @ C))
     if Ai is not None:
-        parts_B.append((w_imp, Ai, _mask_matmul(WT, Ai, mdt)))
-        parts_A.append((w_imp, Bi, _mask_matmul(W, Bi, mdt)))
+        parts_B.append((w_imp, Ai, rhs_B))
+        parts_A.append((w_imp, Bi, rhs_A))
     G0B, R0B = _side_terms(rows.b.share, Kp, k, parts_B)
     G0A, R0A = _side_terms(rows.a.share, Kp, k, parts_A)
     A, B = _iteration(A, B, X, W, XT, WT, lam_row_A, lam_row_B, live_A,
@@ -837,12 +852,14 @@ def fit_collective_dense_masked(
             f32(glob_mean), f32(lam6[4]), f32(lam6[5]), f32(w_user),
             f32(w_item), lam_ai, lam_bi, f32(w_implicit))
     lists = _RowLists(W, WT, len(rows), rws.a.pad, rws.b.pad, Kp)
-    st = {"A": A, "B": B, "C": None, "D": None, "Ai": None, "Bi": None}
+    st = {"A": A, "B": B, "C": None, "D": None, "Ai": None, "Bi": None,
+          "it": 0}
 
     def step(**kw):
+        st["it"] += 1
         out = _collective_iteration(st["A"], st["B"], *args, k=k,
                                     user_bias=user_bias, item_bias=item_bias,
-                                    rows=rws, lists=lists, **kw)
+                                    rows=rws, lists=lists, it=st["it"], **kw)
         st.update(zip(("A", "B", "C", "D", "Ai", "Bi"), out))
 
     bulk, polish = _schedule(exact, k + 1, max_cg_steps, finalize_steps,

@@ -19,12 +19,15 @@ called on its own), ``cmfrec.ingest`` (the model's input to COO triplets),
 ``cmfrec.driver`` (a fit driver), ``cmfrec.engine`` (an engine the driver
 calls), under it ``cmfrec.engine.layout`` (the bucketed layout),
 ``cmfrec.engine.setup`` (the dense form), ``cmfrec.engine.bias_init`` and
-one ``cmfrec.engine.iter`` an iteration, and ``cmfrec.finish`` (the
-model's copies of the factors to the host and its prediction caches).
-The counters: ``h2d_bytes``, ``host_syncs``, ``d2h_bytes`` and
-``launches.k1`` / ``k1_rows`` / ``k2`` / ``k3`` / ``cd`` (the ops' own
-``launches`` over the fit; ``k1_rows`` is K1 on row lists,
-masked_gram_matvec_rows)."""
+one ``cmfrec.engine.iter`` an iteration (in a collective dense fit with
+implicit features, ``cmfrec.engine.impfeat`` inside it: the Xones
+half-steps), and ``cmfrec.finish`` (the model's copies of the factors to
+the host and its prediction caches).  The counters: ``h2d_bytes``,
+``host_syncs``, ``d2h_bytes``, ``launches.k1`` / ``k1_rows`` / ``k2`` /
+``k3`` / ``cd`` (the ops' own ``launches`` over the fit; ``k1_rows`` is
+K1 on row lists, masked_gram_matvec_rows), and those a fit adds by
+:func:`count` where it runs (``impfeat.products``, ``impfeat.mask_bytes``:
+the Xones products and the mask bytes they read)."""
 
 from __future__ import annotations
 
@@ -276,6 +279,13 @@ def synced(nbytes: int = 0) -> None:
         return
     _open.counters["host_syncs"] += 1
     _open.counters["d2h_bytes"] += nbytes
+
+
+def count(name: str, n: int = 1) -> None:
+    """Add ``n`` to the open record's counter ``name`` (made at 0)."""
+    if _open is None:
+        return
+    _open.counters[name] = _open.counters.get(name, 0) + n
 
 
 def to_host(t):
